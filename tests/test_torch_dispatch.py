@@ -63,8 +63,8 @@ def test_ops_outside_the_slice_raise(op):
 
 
 @pytest.mark.parametrize("p,item", [
-    (PRESETS["p24_4096"], "Q1.4"),
-    (PRESETS["dilithium_256"], "Q1.4"),
+    (make_params(4096, 998244353), "Q1.4b"),  # 30-bit: above the K3 window
+    (make_params(32768, 65537), "Q1.4b"),     # 17-bit, n above the K3 window
     (PRESETS["goldilocks_4096"], "Q1.6"),
     (make_params(16384, 4611686018427322369), "Q1.7"),  # 2^62 - 2^16 + 1
     (make_params(4096, 576460752308273153), "Q1.5"),    # not a trinomial
@@ -80,7 +80,7 @@ def test_import_leaves_out_jax_and_tpu_ntt():
     code = (
         "import sys, chip_smoke, tpu_ntt_torch, tpu_ntt_torch.benchlib, "
         "tpu_ntt_torch.convert, tpu_ntt_torch.kernels._build, "
-        "tpu_ntt_torch.kernels.sol64\n"
+        "tpu_ntt_torch.kernels.sol64, tpu_ntt_torch.kernels.mxu\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_ntt')]\n"
         "print(bad)\n"
     )

@@ -48,11 +48,11 @@ def test_plain_matches_jax_pallas_kernel_interpret():
     mp.groups_per_step = 1  # keep interpret-mode cost down
     a, b = operands(256, batch=4, seed=1)
     want = from_pairs(mp.nwc_poly_mult(int64_to_pairs(a), int64_to_pairs(b), interpret=True))
-    assert torch.equal(SolinasPlan64(p).nwc_poly_mult(a, b), want)
+    assert torch.equal(SolinasPlan64(p, "cpu").nwc_poly_mult(a, b), want)
 
 
 def test_plain_matches_jax_merged_and_golden_at_p60_4096():
-    plan = SolinasPlan64(P60_4096)
+    plan = SolinasPlan64(P60_4096, "cpu")
     a, b = operands(4096, batch=2, seed=2)
     got = plan.nwc_poly_mult(a, b)
     jplan = jntt.NttPlan(jparams.P60_4096)
@@ -82,14 +82,14 @@ def test_covers_q_matches_jax_on_every_trinomial():
 def test_kernel_coverage(n, q, covered):
     assert (kernels.covers(n, q) is SolinasPlan64) == covered
     p = make_params(n, q)
-    assert isinstance(kernels.plan_for(p), SolinasPlan64) == covered
+    assert isinstance(kernels.plan_for(p, "cpu"), SolinasPlan64) == covered
     if not covered:
         with pytest.raises(ValueError):
-            SolinasPlan64(p)
+            SolinasPlan64(p, "cpu")
 
 
 def test_cpu_tensor_runs_plain_without_a_launch():
-    plan = SolinasPlan64(make_params(256, Q60))
+    plan = SolinasPlan64(make_params(256, Q60), "cpu")
     a, b = operands(256, batch=2, seed=3)
     before = SolinasPlan64.launches
     assert torch.equal(plan.nwc_poly_mult(a, b), plan.nwc_poly_mult_plain(a, b))
@@ -98,7 +98,7 @@ def test_cpu_tensor_runs_plain_without_a_launch():
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "width", "strided", "mismatch", "device"])
 def test_wrapper_rejects_what_the_kernel_cannot_take(bad):
-    plan = SolinasPlan64(make_params(256, Q60))
+    plan = SolinasPlan64(make_params(256, Q60), "cpu")
     a, b = operands(256, batch=2, seed=4)
     if bad == "dtype":
         a = a.to(torch.int32)

@@ -36,7 +36,7 @@ def params_pair(n: int):
 def plans(n: int, red: str = "shoup"):
     jp, tp = params_pair(n)
     return (jntt.NttPlan(jp, jparams.Reduction(red)),
-            tntt.NttPlan(tp, tparams.Reduction(red)))
+            tntt.NttPlan(tp, tparams.Reduction(red), device="cpu"))
 
 
 def operands(n: int, seed: int, q: int = Q60):

@@ -1,10 +1,14 @@
 """tpu_ntt_torch: the PyTorch + CUDA port of tpu_ntt.
 
-Batched negacyclic polynomial multiplication mod (x^n + 1, q) on an NVIDIA
-Hopper card.  This slice serves the headline product: trinomial 60-bit
-moduli (P60_4096: q = 2^60 - 2^14 + 1) at 256 <= n <= 8192, through a
-hand-written CUDA kernel on CUDA tensors and its plain PyTorch version on
-CPU tensors.  Elements are (B, n) ``torch.int64`` residues in [0, q).
+Batched polynomial arithmetic mod (x^n + 1, q) on an NVIDIA Hopper card,
+through hand-written CUDA kernels on CUDA tensors and their plain PyTorch
+versions on CPU tensors.  This much is ported:
+
+* the 24-bit family (q < 2^24 at 256 <= n <= 16384: P24_4096, P24_1024,
+  DILITHIUM_256, FALCON_512, FALCON_1024), every dispatch op, on (B, n)
+  ``torch.int32`` residues in [0, q);
+* the headline 60-bit product (trinomial q such as P60_4096's
+  2^60 - 2^14 + 1 at 256 <= n <= 8192), on ``torch.int64`` residues.
 
     from tpu_ntt_torch import P60_4096, best_nwc_poly_mult
     c = best_nwc_poly_mult(P60_4096)(a, b)
@@ -12,12 +16,25 @@ CPU tensors.  Elements are (B, n) ``torch.int64`` residues in [0, q).
 The package imports ``torch`` and never ``jax`` or ``tpu_ntt``.
 """
 
-from .dispatch import OPS, best, best_nwc_poly_mult, impl_name, takes_pairs
+from .dispatch import (
+    OPS, best, best_cyclic_poly_mult, best_ntt_fwd, best_ntt_inv, best_nwc_dot,
+    best_nwc_dot_cached, best_nwc_matvec, best_nwc_matvec_spectra,
+    best_nwc_ntt_fwd, best_nwc_ntt_inv, best_nwc_poly_mult,
+    best_nwc_poly_mult_cached, best_nwc_spectrum, impl_name, takes_pairs)
+from .modmath import Ring32, Ring64, make_ring
 from .ntt import NttPlan, nwc_poly_mult, nwc_poly_mult_merged
-from .params import PRESETS, P60_4096, NttParams, Reduction, make_params
+from .params import (
+    DILITHIUM_256, FALCON_512, FALCON_1024, P24_1024, P24_4096, P60_4096,
+    PRESETS, NttParams, Reduction, make_params)
 
 __all__ = [
-    "OPS", "best", "best_nwc_poly_mult", "impl_name", "takes_pairs",
+    "OPS", "best", "best_cyclic_poly_mult", "best_ntt_fwd", "best_ntt_inv",
+    "best_nwc_dot", "best_nwc_dot_cached", "best_nwc_matvec",
+    "best_nwc_matvec_spectra", "best_nwc_ntt_fwd", "best_nwc_ntt_inv",
+    "best_nwc_poly_mult", "best_nwc_poly_mult_cached", "best_nwc_spectrum",
+    "impl_name", "takes_pairs",
+    "Ring32", "Ring64", "make_ring",
     "NttPlan", "nwc_poly_mult", "nwc_poly_mult_merged",
-    "PRESETS", "P60_4096", "NttParams", "Reduction", "make_params",
+    "DILITHIUM_256", "FALCON_512", "FALCON_1024", "P24_1024", "P24_4096",
+    "P60_4096", "PRESETS", "NttParams", "Reduction", "make_params",
 ]

@@ -4,9 +4,11 @@
 events, chaining each iteration's output into the next so that no launch can
 be skipped, and takes the slope between two iteration counts so that the
 fixed cost of a run cancels: the method of
-``tpu_ntt.benchlib.device_seconds_per_iter``.  PyTorch runs eagerly, so no
-compiler can hoist work on ``rest`` out of the loop.  A tensor that is not on
-a CUDA device is refused: a time from the CPU is not a device time.
+``tpu_ntt.benchlib.device_seconds_per_iter``.  ``device_seconds_per_call``
+times ``fn(*args)`` the same way for a function whose output cannot feed
+its input (a dot, a matvec); PyTorch runs eagerly, so every call launches
+and no compiler can hoist work out of the loop.  A tensor that is not on a
+CUDA device is refused: a time from the CPU is not a device time.
 """
 
 from __future__ import annotations
@@ -29,6 +31,32 @@ def device_seconds_per_iter(
     fn must map x to a tensor of the same shape (chainable).  The high
     iteration count doubles until the two runs differ by ``min_delta_s``;
     each count keeps the best of ``repeats`` runs."""
+    def loop(k: int) -> None:
+        y = x
+        for _ in range(k):
+            y = fn(y, *rest)
+
+    return _slope(loop, x, iters, repeats, min_delta_s)
+
+
+def device_seconds_per_call(
+    fn: Callable,
+    *args: torch.Tensor,
+    iters: tuple[int, int] = (4, 20),
+    repeats: int = 3,
+    min_delta_s: float = 0.05,
+) -> float:
+    """Seconds per ``fn(*args)`` call, measured on the device as above,
+    with the same inputs in every call."""
+    def loop(k: int) -> None:
+        for _ in range(k):
+            fn(*args)
+
+    return _slope(loop, args[0], iters, repeats, min_delta_s)
+
+
+def _slope(loop: Callable[[int], None], x: torch.Tensor, iters: tuple[int, int],
+           repeats: int, min_delta_s: float) -> float:
     if x.device.type != "cuda":
         raise ValueError(f"device timing needs a CUDA tensor, got {x.device}")
     lo, hi = iters
@@ -36,10 +64,8 @@ def device_seconds_per_iter(
     def run(k: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        y = x
         start.record()
-        for _ in range(k):
-            y = fn(y, *rest)
+        loop(k)
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / 1e3

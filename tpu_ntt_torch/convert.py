@@ -2,14 +2,26 @@
 
 ``tpu_ntt`` holds a 64-bit residue as a (hi, lo) pair of uint32 arrays
 (``tpu_ntt.dispatch`` splits a (B, n) uint64 array that way); the port holds
-one (B, n) ``torch.int64`` tensor.  These functions take numpy arrays only,
-so they import no JAX: a test hands them what the JAX package returned.
+one (B, n) ``torch.int64`` tensor.  Below 2^31 both hold one word: uint32
+there, ``torch.int32`` here.  These functions take numpy arrays only, so
+they import no JAX: a test hands them what the JAX package returned.
+
+State a user keeps crosses too: the 24-bit kernel's cached spectra
+(``tpu_ntt.kernels.mxu.MxuPlan.nwc_spectrum``, times 2^32 mod q in four-step
+layout, and the ``nwc_matvec_spectra`` blocks tiled over an MXU group)
+become the port's (the same domain, bit-reversed order; see
+``kernels/mxu.py``), so a public matrix transformed once by the JAX package
+gives the same products in the port.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .reference import bit_reverse_permutation
+
+LANES = 128  # the TPU kernel's lane width, which sets its four-step layout
 
 
 def pairs_to_int64(hi, lo, device=None) -> torch.Tensor:
@@ -47,3 +59,41 @@ def tables_from_jax(plan, device=None) -> dict:
     for name in ("stage_tw", "stage_tw_inv", "merged_tw", "merged_tw_inv"):
         out[name] = [_table(t, device) for t in getattr(plan, name)]
     return out
+
+
+def uint32_to_int32(x, device=None) -> torch.Tensor:
+    """A uint32 numpy array -> the int32 tensor with the same bits (a
+    residue below 2^31 keeps its value)."""
+    x = np.ascontiguousarray(x, dtype=np.uint32)
+    return torch.from_numpy(x.view(np.int32)).to(device)
+
+
+def int32_to_uint32(x: torch.Tensor) -> np.ndarray:
+    """int32 tensor -> the uint32 numpy array with the same bits."""
+    return x.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def fourstep_to_bitrev_perm(n: int) -> np.ndarray:
+    """perm with port_spectrum = jax_spectrum[..., perm]: tpu_ntt's four-step
+    order (position k1*128 + k2 holds X[k2*n1 + k1], n1 = n/128) to the
+    port's bit-reversed order (position j holds X[bitrev(j)])."""
+    n1 = n // LANES
+    fourstep_to_natural = np.arange(n).reshape(n1, LANES).T.reshape(-1)
+    return fourstep_to_natural[bit_reverse_permutation(n)]
+
+
+def spectra_from_jax(spectra, device=None) -> torch.Tensor:
+    """(..., n) uint32 spectra of ``tpu_ntt.kernels.mxu.MxuPlan.nwc_spectrum``
+    -> the port's ``nwc_spectrum`` of the same operands, int32."""
+    x = np.asarray(spectra, dtype=np.uint32)
+    return uint32_to_int32(x[..., fourstep_to_bitrev_perm(x.shape[-1])], device)
+
+
+def matvec_spectra_from_jax(blocks, n: int, device=None) -> torch.Tensor:
+    """(k, l, 128, 128) uint32 blocks of ``MxuPlan.nwc_matvec_spectra`` ->
+    the port's (k, l, n) ``nwc_matvec_spectra``.  Each block tiles one
+    spectrum over the 128/n1 polynomials of an MXU group; the first copy,
+    rows [0, n1), is the spectrum in four-step layout."""
+    x = np.asarray(blocks, dtype=np.uint32)
+    k, l = x.shape[:2]
+    return spectra_from_jax(x[:, :, : n // LANES, :].reshape(k, l, n), device)

@@ -1,16 +1,25 @@
 """Implementation dispatch: which path runs an operation on a parameter set.
 
-The same surface as ``tpu_ntt.dispatch`` (``OPS``, ``best``,
-``best_nwc_poly_mult``, ``impl_name``, ``takes_pairs``)::
+The same surface as ``tpu_ntt.dispatch`` (``OPS``, ``best``, the ``best_*``
+helpers, ``impl_name``, ``takes_pairs``)::
 
     mult = tpu_ntt_torch.dispatch.best_nwc_poly_mult(params)
-    out = mult(a, b)        # (B, n) torch.int64 residues in, same out
+    out = mult(a, b)        # (B, n) residues in, same out
 
-The port serves the ``"nwc"`` product for the moduli and sizes its kernels
-cover (``kernels.covers``): trinomial q = 2^a - 2^b + 1 of 31..62 bits at
-256 <= n <= 8192, on the CUDA kernel for a CUDA tensor and on the plain
-version for a CPU tensor.  Every other op and every other (n, q) raises
-``NotImplementedError`` naming its ROADMAP.md item; nothing falls back.
+The port serves the moduli and sizes its kernels cover (``kernels.covers``),
+on the CUDA kernel for a CUDA tensor and on the plain version for a CPU
+tensor:
+
+* q < 2^24 at 256 <= n <= 16384, n % 128 == 0 (``kernels.mxu.MxuPlan``):
+  all twelve ops, on (B, n) ``torch.int32`` residues.  Spectra come in that
+  backend's bit-reversed layout (``MxuPlan.bitrev_to_natural_perm``), and
+  fwd/inv, nwc_fwd/nwc_inv, spectrum/cached/dot_cached and
+  matvec_spectra/matvec pair within it, as tpu_ntt/dispatch.py:51-56 says.
+* trinomial q = 2^a - 2^b + 1 of 31..62 bits at 256 <= n <= 8192
+  (``kernels.sol64.SolinasPlan64``): ``"nwc"`` on (B, n) ``torch.int64``.
+
+Every other op and every other (n, q) raises ``NotImplementedError`` naming
+its ROADMAP.md item; nothing falls back.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import functools
 import torch
 
 from . import kernels
+from .kernels import sol64
 from .params import GOLDILOCKS_4096, NttParams
 
 #: operations the dispatch layer routes (the same tuple as tpu_ntt.dispatch)
@@ -38,15 +48,32 @@ OPS = (
     "matvec",     # A @ s: (l, B, n) against matvec_spectra output
 )
 
+#: the plan method that serves each op
+METHODS = {
+    "nwc": "nwc_poly_mult",
+    "cyclic": "cyclic_poly_mult",
+    "fwd": "ntt_fwd",
+    "inv": "ntt_inv",
+    "nwc_fwd": "nwc_ntt_fwd",
+    "nwc_inv": "nwc_ntt_inv",
+    "spectrum": "nwc_spectrum",
+    "cached": "nwc_poly_mult_cached",
+    "dot": "nwc_dot",
+    "dot_cached": "nwc_dot_cached",
+    "matvec_spectra": "nwc_matvec_spectra",
+    "matvec": "nwc_matvec_cached",
+}
+
 
 def _uncovered(p: NttParams) -> str:
     if p.q == GOLDILOCKS_4096.q:
         item = "Q1.6 (Goldilocks, kernel K2)"
     elif p.width <= 30:
-        item = "Q1.4 (Ring32 and the 24-bit kernel K3)"
+        item = ("Q1.4b (the merged Ring32 route: 24 < width <= 30, and "
+                "q < 2^24 outside 256 <= n <= 16384)")
     elif p.width > 62:
         item = "Q1.10 (RNS for moduli above 62 bits)"
-    elif p.n > kernels.MAX_N:
+    elif p.n > sol64.MAX_N:
         item = "Q1.7 (large n)"
     else:
         item = "Q1.5 (generic q < 2^62 on kernel K1)"
@@ -58,13 +85,13 @@ def _require(p: NttParams, op: str):
     """The plan class serving (p, op), or a raise."""
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
-    if op != "nwc":
-        raise NotImplementedError(
-            f"op {op!r} is not ported yet: ROADMAP.md Q1.5 (the other entry "
-            "points on kernel K1)")
     cls = kernels.covers(p.n, p.q)
     if cls is None:
         raise NotImplementedError(_uncovered(p))
+    if cls is kernels.SolinasPlan64 and op != "nwc":
+        raise NotImplementedError(
+            f"op {op!r} is not ported yet for {p.width}-bit moduli: ROADMAP.md "
+            "Q1.5 (the other entry points on kernel K1)")
     return cls
 
 
@@ -73,29 +100,83 @@ def _plan(p: NttParams, device: torch.device):
     return kernels.plan_for(p, device)
 
 
-def _nwc(p: NttParams, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _plan(p, a.device).nwc_poly_mult(a, b)
+def _run(p: NttParams, method: str, x: torch.Tensor, *rest) -> torch.Tensor:
+    return getattr(_plan(p, x.device), method)(x, *rest)
 
 
 def takes_pairs(p: NttParams) -> bool:
     """Always False where the port serves p: a residue of any q < 2^63 fits
-    one int64, so the port never splits it into (hi, lo) uint32 words as the
-    JAX package does (``convert.py`` bridges the two).  Goldilocks (q > 2^63)
-    is ROADMAP work and decides its own element format."""
+    one int64 (one int32 below 2^31), so the port never splits it into
+    (hi, lo) uint32 words as the JAX package does (``convert.py`` bridges
+    the two).  Goldilocks (q > 2^63) is ROADMAP work and decides its own
+    element format."""
     _require(p, "nwc")
     return False
 
 
 def best(p: NttParams, op: str):
-    """The implementation of ``op`` for this parameter set: a callable on
-    (B, n) int64 tensors that runs on their device."""
+    """The implementation of ``op`` for this parameter set: a callable that
+    runs on the device of its first tensor."""
     _require(p, op)
-    return functools.partial(_nwc, p)
+    return functools.partial(_run, p, METHODS[op])
 
 
 def best_nwc_poly_mult(p: NttParams):
     """The negacyclic poly-mult for this parameter set."""
     return best(p, "nwc")
+
+
+def best_cyclic_poly_mult(p: NttParams):
+    return best(p, "cyclic")
+
+
+def best_ntt_fwd(p: NttParams):
+    return best(p, "fwd")
+
+
+def best_ntt_inv(p: NttParams):
+    return best(p, "inv")
+
+
+def best_nwc_ntt_fwd(p: NttParams):
+    return best(p, "nwc_fwd")
+
+
+def best_nwc_ntt_inv(p: NttParams):
+    return best(p, "nwc_inv")
+
+
+def best_nwc_spectrum(p: NttParams):
+    return best(p, "spectrum")
+
+
+def best_nwc_poly_mult_cached(p: NttParams):
+    return best(p, "cached")
+
+
+def best_nwc_dot(p: NttParams):
+    """The fused inner product INTT(sum_k NTT(a_k) . NTT(b_k)) for (K, B, n)
+    operand stacks: one inverse transform per output."""
+    return best(p, "dot")
+
+
+def best_nwc_dot_cached(p: NttParams):
+    """The inner product against a (K, B, n) stack of cached spectra, each
+    from ``best_nwc_spectrum``: K forwards and one inverse."""
+    return best(p, "dot_cached")
+
+
+def best_nwc_matvec_spectra(p: NttParams):
+    """Spectra of a fixed (k, l, n) polynomial matrix for ``best_nwc_matvec``
+    (transform A once at key setup)."""
+    return best(p, "matvec_spectra")
+
+
+def best_nwc_matvec(p: NttParams):
+    """A @ s over the polynomial ring: s is (l, B, n), the second argument
+    ``best_nwc_matvec_spectra``'s output for the same params; returns
+    (k, B, n) with out[i] = sum_j A[i, j] * s[j], in l + k transforms."""
+    return best(p, "matvec")
 
 
 def impl_name(p: NttParams, op: str = "nwc") -> str:

@@ -130,14 +130,13 @@ class SolinasPlan64:
             return False
         return _fold_bounds_hold(ab[0], ab[1], q, _lane_bound(n))
 
-    def __init__(self, p: NttParams, device="cpu"):
+    def __init__(self, p: NttParams, device=None):
+        """Tables on ``device``: by default the current CUDA device."""
         if not MIN_N <= p.n <= MAX_N or not self.covers_q(p.q, p.n):
             raise ValueError(
                 f"SolinasPlan64 covers trinomial q at {MIN_N} <= n <= {MAX_N}; "
                 f"got n={p.n}, q={p.q}")
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = ntt.resolve_device(device)
         self.p = p
         self.device = device
         self.plan = ntt.NttPlan(p, Reduction.SHOUP, device)

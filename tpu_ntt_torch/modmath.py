@@ -1,21 +1,28 @@
-"""Exact 64-bit modular arithmetic on ``torch.int64`` tensors.
+"""Exact modular arithmetic on ``torch.int64`` and ``torch.int32`` tensors.
 
-A residue is one int64 element in [0, q), which is exact for every q < 2^62
-this module serves.  PyTorch has no uint64 arithmetic on the CPU, and int64
-``*`` wraps past 2^63 while ``>>`` is arithmetic, so a wide product is built
-here from 32-bit words held in int64 tensors: a ``Words`` pair ``(hi, lo)``
-has both words in [0, 2^32), and every partial product is taken on 16-bit
-halves so that no intermediate reaches 2^63.  Shift-outs are masked with
-``& _M32``.
+For q < 2^62 above 30 bits a residue is one int64 element in [0, q).
+PyTorch has no uint64 arithmetic on the CPU, and int64 ``*`` wraps past 2^63
+while ``>>`` is arithmetic, so a wide product is built here from 32-bit words
+held in int64 tensors: a ``Words`` pair ``(hi, lo)`` has both words in
+[0, 2^32), and every partial product is taken on 16-bit halves so that no
+intermediate reaches 2^63.  Shift-outs are masked with ``& _M32``.
 
-``Ring64`` binds an ``NttParams`` to the element interface the transforms use
-(``add``, ``sub``, ``mul``, ``mul_tw``, ``select``, ``encode_tw``), with the
-same results as ``tpu_ntt.modmath.Ring64`` under SHOUP, MONTGOMERY and
-BARRETT.  The Shoup companion ``floor(w * 2^64 / q)`` can reach 2^64, so it is
-stored as the int64 with the same bit pattern; the CUDA kernel reads it as
-``uint64_t``.
+For q < 2^30 a residue is one int32 element in [0, q), the counterpart of
+the JAX package's one-``uint32``-word format.  int32 ``*`` wraps and torch
+has no uint32 multiply, so the single-word primitives (``add_mod32`` ...
+``mont_mul32``) widen to int64, where the product of a residue below 2^31
+and a word below 2^32 is exact, and narrow the canonical result to int32.
 
-``Ring32`` and ``GoldilocksRing`` are not ported yet.
+``Ring64`` and ``Ring32`` bind an ``NttParams`` to the element interface the
+transforms use (``add``, ``sub``, ``mul``, ``mul_tw``, ``select``,
+``encode_tw``), with the same results as ``tpu_ntt.modmath.Ring64`` and
+``Ring32`` under SHOUP, MONTGOMERY and BARRETT; ``make_ring`` picks one as
+``tpu_ntt.modmath.make_ring`` does.  A Shoup companion ``floor(w * 2^word /
+q)`` can pass the signed range of its word, so it is stored as the int64
+(int32) with the same bit pattern; the CUDA kernels read it as ``uint64_t``
+(``uint32_t``).
+
+``GoldilocksRing`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -169,6 +176,69 @@ def barrett_mul64(a: torch.Tensor, b, q: int, k: int, mu: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# Single-word modular products (q < 2^30; int32 residues, int64 inside)
+# --------------------------------------------------------------------------
+
+
+def _wide(x):
+    """A residue tensor (or a Python int) as int64, for exact products."""
+    return x.to(torch.int64) if isinstance(x, torch.Tensor) else x
+
+
+def _word(x):
+    """A word stored as the int32 with its bits -> its value in [0, 2^32)."""
+    return _wide(x) & _M32
+
+
+def _narrow(r: torch.Tensor, q: int) -> torch.Tensor:
+    """One conditional subtract, then the canonical residue as int32."""
+    return torch.where(r >= q, r - q, r).to(torch.int32)
+
+
+def add_mod32(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
+    """(a + b) mod q for a, b in [0, q), q < 2^30: the sum fits an int32."""
+    s = a + b
+    return torch.where(s >= q, s - q, s)
+
+
+def sub_mod32(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
+    """(a - b) mod q for a, b in [0, q)."""
+    return torch.where(a >= b, a - b, a + q - b)
+
+
+def barrett_mul32(a, b, q: int, k: int, mu: int) -> torch.Tensor:
+    """(a * b) mod q via Barrett with k = bitlen(q) <= 30, mu = floor(2^2k / q).
+
+    q1 = p >> (k-1) < 2^(k+1); q2 = (q1 * mu) >> (k+1), where q1 * mu <
+    2^(2k+2) <= 2^62; r = p - q2*q < 3q, so two conditional subtracts."""
+    p = _wide(a) * _wide(b)
+    q2 = ((p >> (k - 1)) * mu) >> (k + 1)
+    r = p - q2 * q
+    r = torch.where(r >= 2 * q, r - 2 * q, r)
+    return _narrow(r, q)
+
+
+def shoup_mul32(a, w, w_shoup, q: int) -> torch.Tensor:
+    """(a * w) mod q with w constant and w' = floor(w * 2^32 / q).
+
+    r = a*w - floor(a*w' / 2^32)*q lies in [0, 2q) for any a < 2^32
+    (Shoup); a*w' < 2^63 for a residue a < 2^31, so int64 holds it."""
+    a = _wide(a)
+    r = a * _wide(w) - ((a * _word(w_shoup)) >> 32) * q
+    return _narrow(r, q)
+
+
+def mont_mul32(a, b, q: int, q_prime: int) -> torch.Tensor:
+    """REDC(a * b) = a*b*2^-32 mod q for a, b in [0, q), q < 2^30.
+
+    T = a*b; m = (T mod 2^32) * q' mod 2^32; t = (T + m*q) >> 32 < 2q,
+    with T + m*q < 2^63."""
+    t = _wide(a) * _wide(b)
+    m = mullo32(t & _M32, q_prime)
+    return _narrow((t + m * q) >> 32, q)
+
+
+# --------------------------------------------------------------------------
 # Host encode
 # --------------------------------------------------------------------------
 
@@ -177,6 +247,12 @@ def encode64(values: Sequence[int], device=None) -> torch.Tensor:
     """Python ints below 2^64 -> int64 tensor with the same bit patterns
     (``torch.tensor`` itself overflows at 2^63)."""
     arr = np.asarray([int(v) for v in values], dtype=np.uint64).view(np.int64)
+    return torch.from_numpy(arr).to(device)
+
+
+def encode32(values: Sequence[int], device=None) -> torch.Tensor:
+    """Python ints below 2^32 -> int32 tensor with the same bit patterns."""
+    arr = np.asarray([int(v) for v in values], dtype=np.uint32).view(np.int32)
     return torch.from_numpy(arr).to(device)
 
 
@@ -241,3 +317,71 @@ class Ring64:
         if self.reduction is Reduction.MONTGOMERY:
             values = [(int(v) << 64) % self.q for v in values]
         return encode64(values, device)
+
+
+class Ring32:
+    """Z_q with q < 2^30; elements are int32 tensors of residues in [0, q)."""
+
+    def __init__(self, p: NttParams, reduction: Reduction = Reduction.SHOUP):
+        if p.width > 30:
+            raise ValueError("Ring32 requires q < 2^30; use Ring64")
+        self.p = p
+        self.q = p.q
+        self.reduction = reduction
+
+    def add(self, a, b):
+        return add_mod32(a, b, self.q)
+
+    def sub(self, a, b):
+        return sub_mod32(a, b, self.q)
+
+    def _barrett(self, a, b):
+        return barrett_mul32(a, b, self.q, self.p.barrett_k, self.p.barrett_mu)
+
+    def mul(self, a, b):
+        """Variable * variable product in the standard domain: a double
+        REDC under MONTGOMERY, Barrett otherwise (SHOUP included)."""
+        if self.reduction is Reduction.MONTGOMERY:
+            qp = self.p.mont_q_prime
+            return mont_mul32(mont_mul32(a, b, self.q, qp), self.p.mont_r2_mod_q,
+                              self.q, qp)
+        return self._barrett(a, b)
+
+    def mul_tw(self, a, tw):
+        """Product with a twiddle table made by ``encode_tw``."""
+        if self.reduction is Reduction.SHOUP:
+            return shoup_mul32(a, tw[0], tw[1], self.q)
+        if self.reduction is Reduction.MONTGOMERY:
+            return mont_mul32(a, tw, self.q, self.p.mont_q_prime)
+        return self._barrett(a, tw)
+
+    def select(self, pred, t, f):
+        return torch.where(pred, t, f)
+
+    def encode_tw(self, values: Sequence[int], device=None):
+        """Twiddle encoding: Shoup stores the (w, floor(w * 2^32 / q)) pair;
+        Montgomery stores w * 2^32 mod q so that one REDC gives a*w."""
+        if self.reduction is Reduction.SHOUP:
+            return (encode32(values, device),
+                    encode32([(int(v) << 32) // self.q for v in values], device))
+        if self.reduction is Reduction.MONTGOMERY:
+            values = [self.p.to_mont(int(v)) for v in values]
+        return encode32(values, device)
+
+
+GOLDILOCKS_Q = (1 << 64) - (1 << 32) + 1
+
+
+def make_ring(p: NttParams, reduction: Reduction | None = None):
+    """The ring for a parameter set, as ``tpu_ntt.modmath.make_ring`` picks
+    it: width <= 30 -> Ring32, else Ring64; SHOUP unless asked otherwise."""
+    if p.q == GOLDILOCKS_Q:
+        raise NotImplementedError(
+            "GoldilocksRing is not ported yet: ROADMAP.md Q1.6")
+    if p.width <= 30:
+        return Ring32(p, reduction or Reduction.SHOUP)
+    if p.width > 62:
+        raise ValueError(
+            f"{p.width}-bit modulus exceeds the 62-bit ring; RNS is not "
+            "ported yet (ROADMAP.md Q1.10)")
+    return Ring64(p, reduction or Reduction.SHOUP)

@@ -1,9 +1,11 @@
 """Batched NTT / INTT / negacyclic polynomial multiplication in plain PyTorch.
 
-The same functions as ``tpu_ntt.ntt`` on (..., n) ``torch.int64`` tensors of
-residues in [0, q), natural order, over the port's ``Ring64``.  Every result
-is bit-identical to the JAX package's (tests/test_torch_ntt.py).  This is
-the plain version each kernel of ``kernels/`` is held against.
+The same functions as ``tpu_ntt.ntt`` on (..., n) tensors of residues in
+[0, q), natural order, over the ring ``modmath.make_ring`` picks: int32
+elements for q < 2^30 (``Ring32``), int64 above (``Ring64``).  Every result
+is bit-identical to the JAX package's (tests/test_torch_ntt.py,
+tests/test_torch_kernels_mxu.py).  These are the plain versions the kernels
+of ``kernels/`` are held against.
 
 Algorithm:
   forward : bit-reverse, then log2(n) constant-geometry CT stages
@@ -13,8 +15,13 @@ Algorithm:
   merged  : the psi powers folded into a Cooley-Tukey forward (natural in,
             bit-reversed out) and a Gentleman-Sande inverse (bit-reversed
             in, natural out), so a product needs no permutation and no twist.
+  bitrev  : the cyclic transform on the same two networks, natural in and
+            bit-reversed out (the output of ``tpu_ntt.ntt.ntt_fwd_nogather``)
+            and back.  The stage with m groups takes omega^(brv_s(g) n/2m) =
+            psi^(brv_n(g)) for group g: the first m entries of the merged
+            table, where the negacyclic stage takes the next m.
 
-The no-gather cyclic forms and the ring inverse/division are not ported yet.
+The ring inverse/division and the no-gather DIF network are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,8 +29,18 @@ from __future__ import annotations
 import torch
 
 from . import reference, tables
-from .modmath import Ring64
+from .modmath import make_ring
 from .params import NttParams, Reduction
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None, or "cuda" without an index,
+    is the current CUDA device, resolved now.  The port's plans live on the
+    card unless the caller asks for the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _tw_view(tw, shape):
@@ -41,13 +58,14 @@ def _tw_slice(tw, lo: int, hi: int):
 
 class NttPlan:
     """Precomputed tables for one (params, reduction) configuration, held as
-    tensors on ``device`` and encoded for the ring's reduction backend."""
+    tensors on ``device`` (by default the current CUDA device) and encoded
+    for the ring's reduction backend."""
 
     def __init__(self, p: NttParams, reduction: Reduction | None = None,
-                 device="cpu"):
+                 device=None):
         self.p = p
-        self.ring = Ring64(p, reduction or Reduction.SHOUP)
-        self.device = torch.device(device)
+        self.ring = make_ring(p, reduction)
+        self.device = resolve_device(device)
         n, q = p.n, p.q
         self.n = n
         self.log_n = p.log_n
@@ -71,11 +89,23 @@ class NttPlan:
         # Merged-psi tables: psi powers in bit-reversed index order.  The
         # stage with m butterfly groups reads entries [m, 2m), so one flat
         # table serves every stage (the CUDA kernel indexes it as m + group).
-        self.merged_flat = enc([psi_pows[j] for j in perm])
-        self.merged_inv_flat = enc([psi_inv_pows[j] for j in perm])
+        brv = [psi_pows[j] for j in perm]
+        brv_inv = [psi_inv_pows[j] for j in perm]
+        self.merged_flat = enc(brv)
+        self.merged_inv_flat = enc(brv_inv)
         self.merged_tw = [_tw_slice(self.merged_flat, 1 << s, 2 << s)
                           for s in range(self.log_n)]
         self.merged_tw_inv = [_tw_slice(self.merged_inv_flat, 1 << s, 2 << s)
+                              for s in range(self.log_n)]
+        # Cyclic tables in the same flat layout: entry m + g is brv[g]
+        # (entry 0 is unused), so the kernels index both kinds alike.
+        self.cyclic_flat = enc([1] + [v for s in range(self.log_n)
+                                      for v in brv[:1 << s]])
+        self.cyclic_inv_flat = enc([1] + [v for s in range(self.log_n)
+                                          for v in brv_inv[:1 << s]])
+        self.cyclic_tw = [_tw_slice(self.cyclic_flat, 1 << s, 2 << s)
+                          for s in range(self.log_n)]
+        self.cyclic_tw_inv = [_tw_slice(self.cyclic_inv_flat, 1 << s, 2 << s)
                               for s in range(self.log_n)]
 
 
@@ -146,30 +176,53 @@ def _stage_view(x: torch.Tensor, groups: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (groups, 2, x.shape[-1] // (2 * groups)))
 
 
-def nwc_fwd_merged(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
-    """Negacyclic forward transform: NTT(psi-twisted x) in bit-reversed
-    order, computed with merged twiddles (CT butterflies, NO -> BO)."""
+def _ct_forward(plan: NttPlan, x: torch.Tensor, stage_tw) -> torch.Tensor:
+    """Cooley-Tukey stages, natural in, bit-reversed out; stage s has
+    m = 2^s groups and takes stage_tw[s][g] for group g."""
     ring = plan.ring
     for s in range(plan.log_n):
         m = 1 << s  # butterfly groups this stage
         g = _stage_view(x, m)
         u = g[..., 0, :]
-        v = ring.mul_tw(g[..., 1, :], _tw_view(plan.merged_tw[s], (m, 1)))
+        v = ring.mul_tw(g[..., 1, :], _tw_view(stage_tw[s], (m, 1)))
         x = torch.stack([ring.add(u, v), ring.sub(u, v)], dim=-2).reshape(x.shape)
     return x
 
 
-def nwc_inv_merged(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
-    """Inverse of nwc_fwd_merged (GS butterflies, BO -> NO), including the
-    n^-1 scale and the psi^-1 untwist (both folded into the twiddles)."""
+def _gs_inverse(plan: NttPlan, x: torch.Tensor, stage_tw) -> torch.Tensor:
+    """Gentleman-Sande stages undoing ``_ct_forward``, then the n^-1 scale."""
     ring = plan.ring
     for s in range(plan.log_n - 1, -1, -1):
         h = 1 << s
         g = _stage_view(x, h)
         u, v = g[..., 0, :], g[..., 1, :]
-        lo = ring.mul_tw(ring.sub(u, v), _tw_view(plan.merged_tw_inv[s], (h, 1)))
+        lo = ring.mul_tw(ring.sub(u, v), _tw_view(stage_tw[s], (h, 1)))
         x = torch.stack([ring.add(u, v), lo], dim=-2).reshape(x.shape)
     return ring.mul_tw(x, plan.n_inv_tw)
+
+
+def nwc_fwd_merged(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
+    """Negacyclic forward transform: NTT(psi-twisted x) in bit-reversed
+    order, computed with merged twiddles (CT butterflies, NO -> BO)."""
+    return _ct_forward(plan, x, plan.merged_tw)
+
+
+def nwc_inv_merged(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
+    """Inverse of nwc_fwd_merged (GS butterflies, BO -> NO), including the
+    n^-1 scale and the psi^-1 untwist (both folded into the twiddles)."""
+    return _gs_inverse(plan, x, plan.merged_tw_inv)
+
+
+def ntt_fwd_bitrev(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
+    """Cyclic forward NTT, natural in, bit-reversed out (position j holds
+    X[bitrev(j)]): the integers of ``tpu_ntt.ntt.ntt_fwd_nogather``."""
+    return _ct_forward(plan, x, plan.cyclic_tw)
+
+
+def ntt_inv_bitrev(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
+    """Cyclic inverse NTT of a bit-reversed spectrum, natural out, n^-1
+    applied: the integers of ``tpu_ntt.ntt.ntt_inv_nogather``."""
+    return _gs_inverse(plan, x, plan.cyclic_tw_inv)
 
 
 def nwc_poly_mult_merged(plan: NttPlan, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
