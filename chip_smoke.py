@@ -37,9 +37,10 @@ The line before the last lists each kernel with its launches on the main
 path, its largest difference from its plain version, its time, its plain
 version's time and its bound: the larger of its bytes over 3.35 TB/s and its
 32-bit multiplies over the card's IMAD rate (132 SMs x 64 a clock x the top
-SM clock).  The last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA device, or without the package beside it, the script exits non-zero
-and prints no result.  pytest cannot run on a machine without JAX
+SM clock), counting no multiply for a product by q where q's form makes it
+shifts and adds.  The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the package beside it, the script exits
+non-zero and prints no result.  pytest cannot run on a machine without JAX
 (tests/conftest.py imports it), so this script is the check of the port on
 the card.
 """
@@ -60,10 +61,33 @@ DOT_TERMS, DOT_BATCH = 4, 512
 MATVEC_BATCH = 8192  # bench.py's batch for the dilithium_256 matvec row
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 IMAD_PER_SM_CLOCK = 64  # 32-bit integer multiplies a clock, compute capability 9.0
-# 32-bit multiplies in one modular product: Shoup-32 a*w, hi(a*w'), t*q;
-# Montgomery-32 two wide products (two words each) and m = lo*q'; the 64-bit
-# forms build each wide product from four 32 x 32 products.
-MULS = {"shoup32": 3, "mont32": 5, "shoup64": 16, "mont64": 20}
+# 32-bit multiplies (IMADs) in one modular product, before its product by q:
+# Shoup-32 a*w and hi(a*w'); Montgomery-32 the wide a*b (two words) and
+# m = lo*q'.  The 64-bit forms build a wide product from four 32 x 32 ones:
+# Shoup-64 lo64(a*w) (4) and hi64(a*w') (8); Montgomery-64 a*b (8) and
+# lo64(m) (4).
+MULS = {"shoup32": 2, "mont32": 3, "shoup64": 12, "mont64": 12}
+# The product by q: Shoup's lo(t*q), REDC's hi(m*q).
+MULS_BY_Q = {"shoup32": 1, "mont32": 1, "shoup64": 4, "mont64": 8}
+
+
+def naf_weight(q: int) -> int:
+    """Nonzero digits of q in signed binary (non-adjacent form)."""
+    weight = 0
+    while q:
+        if q & 1:
+            q -= 2 - (q & 3)  # the digit +1 or -1 that leaves q even
+            weight += 1
+        q >>= 1
+    return weight
+
+
+def muls(form: str, q: int) -> int:
+    """The 32-bit multiplies one modular product of ``form`` needs at q.  A
+    product by a q of at most three signed binary digits, such as
+    2^23 - 2^13 + 1 or 2^60 - 2^14 + 1, is shifts and adds: no multiply."""
+    return MULS[form] + (MULS_BY_Q[form] if naf_weight(q) > 3 else 0)
+
 
 SOURCES = {"nwc64": "tpu_ntt_torch/kernels/csrc/nwc64.cu",
            "nwc32": "tpu_ntt_torch/kernels/csrc/nwc32.cu"}
@@ -313,13 +337,14 @@ def main() -> int:
     n, t24 = P24_4096.n, P24_4096.log_n * P24_4096.n // 2  # butterflies a row
     t60 = P60_4096.log_n * P60_4096.n // 2
     tdil = DILITHIUM_256.log_n * 256 // 2
-    shoup, mont = MULS["shoup32"], MULS["mont32"]
+    shoup, mont = muls("shoup32", P24_4096.q), muls("mont32", P24_4096.q)
+    shoup_dil, mont_dil = muls("shoup32", DILITHIUM_256.q), muls("mont32", DILITHIUM_256.q)
+    shoup64, mont64 = muls("shoup64", P60_4096.q), muls("mont64", P60_4096.q)
     # name: (kernel, plain, inputs, plain iters, bytes, 32-bit multiplies)
     timed = {
         "nwc64": (mult60, plan60.nwc_poly_mult_plain, (a60, b60), (2, 6),
                   3 * BATCH * n * 8,
-                  BATCH * (3 * t60 * MULS["shoup64"]
-                           + n * (MULS["mont64"] + MULS["shoup64"]))),
+                  BATCH * (3 * t60 * shoup64 + n * (mont64 + shoup64))),
         "nwc32_product": (best24["nwc"], p24.nwc_poly_mult_plain, (a, b), (1, 3),
                           3 * BATCH * n * 4, BATCH * (3 * t24 * shoup + n * (mont + shoup))),
         "nwc32_forward": (best24["nwc_fwd"], p24.nwc_ntt_fwd_plain, (a,), (1, 3),
@@ -336,20 +361,21 @@ def main() -> int:
         # the whole op: the forward of s and the accumulate-and-inverse
         "nwc32_matvec": (matvec_fn, pdil.nwc_matvec_cached_plain, (s_dil, spec_dil),
                          (1, 3), (4 + 4) * MATVEC_BATCH * 256 * 4 + 16 * 256 * 4,
-                         MATVEC_BATCH * (4 * tdil * shoup + 4 * (4 * 256 * mont
-                                                                 + (tdil + 256) * shoup))),
+                         MATVEC_BATCH * (4 * tdil * shoup_dil
+                                         + 4 * (4 * 256 * mont_dil
+                                                + (tdil + 256) * shoup_dil))),
     }
     rows = []
-    for name, (kernel, plain, inputs, plain_iters, nbytes, muls) in timed.items():
+    for name, (kernel, plain, inputs, plain_iters, nbytes, imads) in timed.items():
         times = {"kernel": [], "plain": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             fn = kernel if which == "kernel" else plain
             iters = (4, 20) if which == "kernel" else plain_iters
             times[which].append(device_seconds_per_call(fn, *inputs, iters=iters))
         t_kernel, t_plain = min(times["kernel"]), min(times["plain"])
-        t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, muls / imad_per_s
+        t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, imads / imad_per_s
         print(f"timing {name} (s/call): kernel {times['kernel']} plain {times['plain']}; "
-              f"bound: {nbytes} bytes {t_bytes:.4e} s, {muls} IMADs {t_ops:.4e} s")
+              f"bound: {nbytes} bytes {t_bytes:.4e} s, {imads} IMADs {t_ops:.4e} s")
         source = SOURCES["nwc64" if name == "nwc64" else "nwc32"]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],

@@ -1,13 +1,12 @@
 """Device-side timing on a CUDA card.
 
-``device_seconds_per_iter`` times ``x <- fn(x, *rest)`` between two CUDA
-events, chaining each iteration's output into the next so that no launch can
-be skipped, and takes the slope between two iteration counts so that the
-fixed cost of a run cancels: the method of
-``tpu_ntt.benchlib.device_seconds_per_iter``.  ``device_seconds_per_call``
-times ``fn(*args)`` the same way for a function whose output cannot feed
-its input (a dot, a matvec); PyTorch runs eagerly, so every call launches
-and no compiler can hoist work out of the loop.  A tensor that is not on a
+``device_seconds_per_call`` times ``fn(*args)`` between two CUDA events, the
+same inputs in every call, and takes the slope between two call counts so
+that the fixed cost of a run cancels: the method of
+``tpu_ntt.benchlib.device_seconds_per_iter`` without its chaining.  The JAX
+version feeds each output into the next call so that XLA cannot hoist or
+drop a call; PyTorch runs eagerly, so every call launches, and the port's
+kernels do the same work whatever the values.  A tensor that is not on a
 CUDA device is refused: a time from the CPU is not a device time.
 """
 
@@ -18,27 +17,6 @@ from typing import Callable
 import torch
 
 
-def device_seconds_per_iter(
-    fn: Callable,
-    x: torch.Tensor,
-    *rest,
-    iters: tuple[int, int] = (4, 20),
-    repeats: int = 3,
-    min_delta_s: float = 0.05,
-) -> float:
-    """Seconds per ``x <- fn(x, *rest)`` iteration, measured on the device.
-
-    fn must map x to a tensor of the same shape (chainable).  The high
-    iteration count doubles until the two runs differ by ``min_delta_s``;
-    each count keeps the best of ``repeats`` runs."""
-    def loop(k: int) -> None:
-        y = x
-        for _ in range(k):
-            y = fn(y, *rest)
-
-    return _slope(loop, x, iters, repeats, min_delta_s)
-
-
 def device_seconds_per_call(
     fn: Callable,
     *args: torch.Tensor,
@@ -46,17 +24,11 @@ def device_seconds_per_call(
     repeats: int = 3,
     min_delta_s: float = 0.05,
 ) -> float:
-    """Seconds per ``fn(*args)`` call, measured on the device as above,
-    with the same inputs in every call."""
-    def loop(k: int) -> None:
-        for _ in range(k):
-            fn(*args)
+    """Seconds per ``fn(*args)`` call, measured on the device of args[0].
 
-    return _slope(loop, args[0], iters, repeats, min_delta_s)
-
-
-def _slope(loop: Callable[[int], None], x: torch.Tensor, iters: tuple[int, int],
-           repeats: int, min_delta_s: float) -> float:
+    The high call count doubles until the two runs differ by
+    ``min_delta_s``; each count keeps the best of ``repeats`` runs."""
+    x = args[0]
     if x.device.type != "cuda":
         raise ValueError(f"device timing needs a CUDA tensor, got {x.device}")
     lo, hi = iters
@@ -65,7 +37,8 @@ def _slope(loop: Callable[[int], None], x: torch.Tensor, iters: tuple[int, int],
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        loop(k)
+        for _ in range(k):
+            fn(*args)
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / 1e3

@@ -46,17 +46,18 @@
 //   and runs one inverse per output row.
 //
 // What bounds it on this card.  Per transform of one row, n/2 log2 n
-// butterflies, each one Shoup multiply of three 32-bit multiplies; at
-// P24_4096, B = 2048, the product's 3 transforms and slot pass need 5.2e8
-// IMADs, 0.031 ms at 132 SMs x 64 IMADs a clock x 1.98 GHz, against 101 MB
-// of operands and result, 0.030 ms at 3.35 TB/s.  The design keeps every
-// intermediate in shared memory, so device memory moves nothing twice.  What
-// holds it back is neither: a butterfly is about 30 instructions (index
-// arithmetic, shared loads and stores, twiddle loads, conditional
-// subtracts) between 12 barriers a transform, and on an H100 SXM at 700 W
-// the product takes about 8x its bound (PERF.md).  Several stages per
-// barrier in registers, lazy reduction and several rows per block are the
-// later work.
+// butterflies, each one Shoup multiply: a*w and hi(a*w'), two 32-bit
+// multiplies, since the product by q = 8380417 = 2^23 - 2^13 + 1 is shifts
+// and adds.  At P24_4096, B = 2048, the product's 3 transforms and slot pass
+// need 3.4e8 IMADs, 0.021 ms at 132 SMs x 64 IMADs a clock x 1.98 GHz,
+// against 101 MB of operands and result, 0.030 ms at 3.35 TB/s: device
+// memory bounds it.  The design keeps every intermediate in shared memory,
+// so device memory moves nothing twice.  What holds it back is neither: a
+// butterfly is about 30 instructions (index arithmetic, shared loads and
+// stores, twiddle loads, conditional subtracts) between 12 barriers a
+// transform, and on an H100 SXM at 700 W the product takes about 8x its
+// bound (PERF.md).  Several stages per barrier in registers, lazy reduction
+// and several rows per block are the later work.
 
 #include <cstdint>
 
@@ -141,7 +142,10 @@ __device__ void inverse(uint32_t* x, int log_n, Table itw, uint32_t q) {
 }
 
 // The product of a row of a with a row of b: b is coefficients, or with
-// kCached a spectrum that is used as it is.
+// kCached a spectrum that is used as it is.  dot_kernel at one term computes
+// the same; this body skips its accumulator row, zeroing pass and separate
+// scale pass, and is 3.5 % faster for the product, 4.7 % for the cached one
+// (P24_4096, B = 2048, H100 SXM at 700 W; PERF.md).
 template <bool kCached>
 __global__ void product_kernel(const uint32_t* __restrict__ a,
                                const uint32_t* __restrict__ b,

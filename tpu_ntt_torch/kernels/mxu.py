@@ -97,7 +97,7 @@ class MxuPlan:
             raise ValueError(
                 f"MxuPlan requires width <= 24, q < 2^24 (got {p.width}-bit q)")
         if not self.covers(p.n, p.q):
-            raise ValueError(f"n={p.n} must be in [256, 16384] and divide 128")
+            raise ValueError(f"n={p.n} must be a multiple of 128 in [256, 16384]")
         self.p = p
         self.device = ntt.resolve_device(device)
         self.plan = ntt.NttPlan(p, Reduction.SHOUP, self.device)

@@ -26,6 +26,8 @@ The ring inverse/division and the no-gather DIF network are not ported yet.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import reference, tables
@@ -97,16 +99,33 @@ class NttPlan:
                           for s in range(self.log_n)]
         self.merged_tw_inv = [_tw_slice(self.merged_inv_flat, 1 << s, 2 << s)
                               for s in range(self.log_n)]
-        # Cyclic tables in the same flat layout: entry m + g is brv[g]
-        # (entry 0 is unused), so the kernels index both kinds alike.
-        self.cyclic_flat = enc([1] + [v for s in range(self.log_n)
-                                      for v in brv[:1 << s]])
-        self.cyclic_inv_flat = enc([1] + [v for s in range(self.log_n)
-                                          for v in brv_inv[:1 << s]])
-        self.cyclic_tw = [_tw_slice(self.cyclic_flat, 1 << s, 2 << s)
-                          for s in range(self.log_n)]
-        self.cyclic_tw_inv = [_tw_slice(self.cyclic_inv_flat, 1 << s, 2 << s)
-                              for s in range(self.log_n)]
+
+    # Cyclic tables in the merged tables' flat layout: entry m + g is the
+    # merged table's entry g (entry 0 is unused), so the kernels index both
+    # kinds alike.  Only the bitrev transforms and the 24-bit kernels take
+    # them, so they are built on first use.
+
+    def _cyclic_table(self, pows: list[int]):
+        brv = [pows[j] for j in reference.bit_reverse_permutation(self.n)]
+        return self.ring.encode_tw(
+            [1] + [v for s in range(self.log_n) for v in brv[:1 << s]], self.device)
+
+    @functools.cached_property
+    def cyclic_flat(self):
+        return self._cyclic_table(tables.psi_powers(self.p))
+
+    @functools.cached_property
+    def cyclic_inv_flat(self):
+        return self._cyclic_table(tables.psi_inv_powers(self.p))
+
+    @functools.cached_property
+    def cyclic_tw(self):
+        return [_tw_slice(self.cyclic_flat, 1 << s, 2 << s) for s in range(self.log_n)]
+
+    @functools.cached_property
+    def cyclic_tw_inv(self):
+        return [_tw_slice(self.cyclic_inv_flat, 1 << s, 2 << s)
+                for s in range(self.log_n)]
 
 
 # ---------------------------------------------------------------------------
