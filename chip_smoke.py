@@ -5,41 +5,48 @@ Run it from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 chip_smoke.py [--seed N]
 
-It drives the port's two paths: the 60-bit product (P60_4096,
-``kernels/csrc/nwc64.cu``) and the 24-bit family on every op (P24_4096 and
-the ML-DSA-44-shaped DILITHIUM_256 4 x 4 matvec, ``kernels/csrc/nwc32.cu``).
-Phases, each of which raises on failure:
+It drives the port's two kernel families on every op: the 60-bit family
+(``kernels/csrc/nwc64.cu``: P60_4096, a trinomial q on ``SolinasPlan64``,
+and the generic prime 576460752308273153 at n = 4096 on ``MxuPlan64``) and
+the 24-bit family (``kernels/csrc/nwc32.cu``: P24_4096 and the
+ML-DSA-44-shaped DILITHIUM_256 4 x 4 matvec).  Phases, each of which raises
+on failure:
 
 1. device: the card's name and power limit (nvidia-smi), its SM count and
    top SM clock;
 2. build: nvcc builds both CUDA sources from csrc/, in parallel; ptxas's
    registers and spills;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
-   bit for bit on the card, with boundary rows of 0, 1 and q - 1: nwc64 at
-   B = 2048 for n = 4096, 256 and 8192; every K3a entry at P24_4096,
-   B = 2048; the product at FALCON_1024 and at n = 16384 (q = 16580609),
-   B = 2048; the dot and the cached dot at P24_4096, K = 4, B = 512; the
-   matvec spectra and the 4 x 4 matvec at DILITHIUM_256, B = 8192;
+   bit for bit on the card, with boundary rows of 0, 1 and q - 1: every op
+   at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
+   B = 256), the product, forward and inverse at n = 256 and 8192, the dot
+   at n = 8192 (three rows of shared memory), every op at the generic q;
+   every K3a entry at P24_4096, B = 2048; the product at FALCON_1024 and at
+   n = 16384 (q = 16580609), B = 2048; the dot and the cached dot at
+   P24_4096, K = 4, B = 512; the matvec spectra and the 4 x 4 matvec at
+   DILITHIUM_256, B = 8192;
 4. oracle: c(x) == a(x) * b(x) mod q at x = psi^(2k+1), a root of x^n + 1,
    by Python-int Horner evaluation, and one row against the golden model,
-   at P60_4096 and at P24_4096; inv(fwd(x)) == x, cyclic and negacyclic;
-5. main path: ``dispatch.best_nwc_poly_mult(P60_4096)``, then
-   ``dispatch.best(P24_4096, op)`` for each of the twelve ops, then
-   ``dispatch.best_nwc_matvec(DILITHIUM_256)``, each run with the launch
-   counts set to 0 just before it and read just after: each goes through
-   its kernel and returns what its plain version returns;
+   at P60_4096, the generic q and P24_4096; inv(fwd(x)) == x, cyclic and
+   negacyclic, at P60_4096 and P24_4096; one P60_4096 dot row equal to the
+   sum of its golden products;
+5. main path: ``dispatch.best(p, op)`` for each of the twelve ops at
+   P60_4096, at the generic q and at P24_4096, then
+   ``dispatch.best_nwc_matvec`` at P60_4096 (4 x 4, B = 256) and at
+   DILITHIUM_256, each run with the launch counts set to 0 just before it
+   and read just after: each goes through its kernel, stays in [0, q) and
+   returns what its plain version returns;
 6. timing: each kernel function, through the main path, and its plain
    version by CUDA events, in turns plain, kernel, kernel, plain; the plain
    versions with few iterations.  Products, forward transforms and matvecs
-   per second for the three headline rows.
+   per second for the headline rows.
 
 The line before the last lists each kernel with its launches on the main
 path, its largest difference from its plain version, its time, its plain
-version's time and its bound: the larger of its bytes over 3.35 TB/s and its
-32-bit multiplies over the card's IMAD rate (132 SMs x 64 a clock x the top
-SM clock), counting no multiply for a product by q where q's form makes it
-shifts and adds.  The last line is ``{"ok": true, "device": {...}}``.
-Without a CUDA device, or without the package beside it, the script exits
+version's time and its bound (``tpu_ntt_torch/bounds.py``): the larger of
+its bytes over 3.35 TB/s and its 32-bit multiplies over the card's IMAD rate
+(its SMs x 64 a clock x its top SM clock).  The last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.  pytest cannot run on a machine without JAX
 (tests/conftest.py imports it), so this script is the check of the port on
 the card.
@@ -57,43 +64,21 @@ import time
 import numpy as np
 
 BATCH = 2048  # bench.py's full batch for the p60_4096 and p24_4096 rows
-DOT_TERMS, DOT_BATCH = 4, 512
+DOT_BATCH = 512  # the dot runs K = bounds.DOT_TERMS = 4 terms
+DOT_BATCH_8192 = 256
 MATVEC_BATCH = 8192  # bench.py's batch for the dilithium_256 matvec row
-MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
-IMAD_PER_SM_CLOCK = 64  # 32-bit integer multiplies a clock, compute capability 9.0
-# 32-bit multiplies (IMADs) in one modular product, before its product by q:
-# Shoup-32 a*w and hi(a*w'); Montgomery-32 the wide a*b (two words) and
-# m = lo*q'.  The 64-bit forms build a wide product from four 32 x 32 ones:
-# Shoup-64 lo64(a*w) (4) and hi64(a*w') (8); Montgomery-64 a*b (8) and
-# lo64(m) (4).
-MULS = {"shoup32": 2, "mont32": 3, "shoup64": 12, "mont64": 12}
-# The product by q: Shoup's lo(t*q), REDC's hi(m*q).
-MULS_BY_Q = {"shoup32": 1, "mont32": 1, "shoup64": 4, "mont64": 8}
-
-
-def naf_weight(q: int) -> int:
-    """Nonzero digits of q in signed binary (non-adjacent form)."""
-    weight = 0
-    while q:
-        if q & 1:
-            q -= 2 - (q & 3)  # the digit +1 or -1 that leaves q even
-            weight += 1
-        q >>= 1
-    return weight
-
-
-def muls(form: str, q: int) -> int:
-    """The 32-bit multiplies one modular product of ``form`` needs at q.  A
-    product by a q of at most three signed binary digits, such as
-    2^23 - 2^13 + 1 or 2^60 - 2^14 + 1, is shifts and adds: no multiply."""
-    return MULS[form] + (MULS_BY_Q[form] if naf_weight(q) > 3 else 0)
-
-
+MATVEC_BATCH_60 = 256  # bench.py:153, the p60_4096 matvec row
+Q_GENERIC = 576460752308273153  # bench.py:35: a 60-bit prime, not a trinomial
 SOURCES = {"nwc64": "tpu_ntt_torch/kernels/csrc/nwc64.cu",
            "nwc32": "tpu_ntt_torch/kernels/csrc/nwc32.cu"}
 #: the TPU kernel body each function replaces
 REPLACES = {
-    "nwc64": "tpu_ntt/kernels/mxu64.py:1442",  # MxuPlan64._nwc_kernel (SolinasPlan64)
+    "nwc64_product": "tpu_ntt/kernels/mxu64.py:1442",  # _nwc_kernel (+ _cyclic_kernel :1474), K1a
+    "nwc64_cached": "tpu_ntt/kernels/mxu64.py:1691",  # _nwc_cached_kernel, K1a
+    "nwc64_forward": "tpu_ntt/kernels/mxu64.py:1715",  # _nwc_fwd_kernel (+ :1544, :1675), K1a
+    "nwc64_inverse": "tpu_ntt/kernels/mxu64.py:1733",  # _nwc_inv_kernel (+ _inv_kernel :1559), K1a
+    "nwc64_dot": "tpu_ntt/kernels/mxu64.py:1599",  # _make_dot_kernel, K1b
+    "nwc64_matvec": "tpu_ntt/kernels/mxu64.py:1639",  # _make_matvec_kernel, K1c
     "nwc32_product": "tpu_ntt/kernels/mxu.py:480",  # _nwc_kernel, K3a
     "nwc32_cached": "tpu_ntt/kernels/mxu.py:596",  # _nwc_cached_kernel, K3a
     "nwc32_forward": "tpu_ntt/kernels/mxu.py:615",  # _nwc_fwd_kernel (+ :584), K3a
@@ -101,13 +86,13 @@ REPLACES = {
     "nwc32_dot": "tpu_ntt/kernels/mxu.py:506",  # _make_dot_kernel, K3b
     "nwc32_matvec": "tpu_ntt/kernels/mxu.py:544",  # _make_matvec_kernel, K3c
 }
-#: which kernel each dispatch op of the 24-bit path launches
-OP_KERNEL = {
-    "nwc": "nwc32_product", "cyclic": "nwc32_product", "fwd": "nwc32_forward",
-    "inv": "nwc32_inverse", "nwc_fwd": "nwc32_forward", "nwc_inv": "nwc32_inverse",
-    "spectrum": "nwc32_forward", "cached": "nwc32_cached", "dot": "nwc32_dot",
-    "dot_cached": "nwc32_dot", "matvec_spectra": "nwc32_forward",
-    "matvec": "nwc32_matvec",
+#: which entry points of its family's source each dispatch op launches
+OP_ENTRIES = {
+    "nwc": ["product"], "cyclic": ["product"], "fwd": ["forward"],
+    "inv": ["inverse"], "nwc_fwd": ["forward"], "nwc_inv": ["inverse"],
+    "spectrum": ["forward"], "cached": ["cached"], "dot": ["dot"],
+    "dot_cached": ["dot"], "matvec_spectra": ["forward"],
+    "matvec": ["forward", "matvec"],
 }
 
 
@@ -153,6 +138,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -162,8 +148,10 @@ def main() -> int:
 
     from tpu_ntt_torch import dispatch, reference
     from tpu_ntt_torch.benchlib import device_seconds_per_call
+    from tpu_ntt_torch.bounds import DOT_TERMS, IMAD_PER_SM_CLOCK, seconds, work
     from tpu_ntt_torch.kernels import _build
-    from tpu_ntt_torch.kernels.mxu import KERNELS, MxuPlan
+    from tpu_ntt_torch.kernels.mxu import MxuPlan
+    from tpu_ntt_torch.kernels.mxu64 import MxuPlan64
     from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
     from tpu_ntt_torch.params import (DILITHIUM_256, FALCON_1024, P24_4096,
                                       P60_4096, make_params)
@@ -200,197 +188,255 @@ def main() -> int:
         err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
         errs[name] = max(errs.get(name, 0), err)
         ok = torch.equal(got, want)
-        print(f"kernel vs plain: {name} {label} equal={ok} max_abs_err={err}")
+        print(f"kernel vs plain: {name} {label} shape {tuple(got.shape)} equal={ok} "
+              f"max_abs_err={err}")
         if not ok:
             raise AssertionError(f"{name} differs from its plain version at {label}")
 
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in arrays]
 
-    q60 = P60_4096.q
-    for p in (P60_4096, make_params(256, q60), make_params(8192, q60)):
-        a_np, b_np = operands(q60, p.n, BATCH, rng)
-        a, b = on_card(a_np, b_np)
-        plan = SolinasPlan64(p, device)
-        got = plan.nwc_poly_mult(a, b)
-        compare("nwc64", f"n={p.n} B={BATCH}", got, plan.nwc_poly_mult_plain(a, b))
-        if p is P60_4096:
-            plan60, a60, b60, c60, a60_np, b60_np = plan, a, b, got, a_np, b_np
+    def check_op(plan, op: str, label: str, inputs):
+        """One op of a plan, kernel against plain; returns the kernel's."""
+        method = dispatch.METHODS[op]
+        got = getattr(plan, method)(*inputs)
+        kernel = f"{plan.lib_name}_{OP_ENTRIES[op][-1]}"
+        compare(kernel, f"{op} {label}", got, getattr(plan, method + "_plain")(*inputs))
+        return got
 
+    def op_inputs(plan, a, b, a3, b3, s, mat):
+        """Inputs of every op: (B, n) a and b, (K, B, n) a3 and b3, and the
+        (l, B, n) s of the matvec against the (k, l, n) matrix mat; the
+        spectra come from the kernels (each checked against its plain)."""
+        return {
+            "nwc": (a, b), "cyclic": (a, b), "fwd": (a,), "inv": (a,),
+            "nwc_fwd": (a,), "nwc_inv": (a,), "spectrum": (b,),
+            "cached": (a, plan.nwc_spectrum(b)), "dot": (a3, b3),
+            "dot_cached": (a3, plan.nwc_spectrum(b3.reshape(-1, plan.p.n))
+                           .reshape(b3.shape)),
+            "matvec_spectra": (mat,), "matvec": (s, plan.nwc_matvec_spectra(mat)),
+        }
+
+    def family_operands(p, dtype, batch, dot_batch, mv_batch):
+        a, b = on_card(*operands(p.q, p.n, batch, rng, dtype))
+        a3, b3 = (t.reshape(DOT_TERMS, dot_batch, p.n) for t in on_card(
+            *operands(p.q, p.n, DOT_TERMS * dot_batch, rng, dtype)))
+        s_np, m_np = operands(p.q, p.n, 4 * mv_batch, rng, dtype)
+        s, mat = on_card(s_np.reshape(4, mv_batch, p.n), m_np[:16].reshape(4, 4, p.n))
+        return a, b, a3, b3, s, mat
+
+    # the 60-bit family: every op at P60_4096 (SolinasPlan64) and at the
+    # generic q (MxuPlan64), the product, forward, inverse and dot at the
+    # ends of its n window
+    p_gen = make_params(4096, Q_GENERIC, name="q576460752308273153_4096")
+    plan60, plan_gen = SolinasPlan64(P60_4096, device), MxuPlan64(p_gen, device)
+    inputs60 = op_inputs(plan60, *family_operands(
+        P60_4096, np.int64, BATCH, DOT_BATCH, MATVEC_BATCH_60))
+    inputs_gen = op_inputs(plan_gen, *family_operands(
+        p_gen, np.int64, BATCH, DOT_BATCH, MATVEC_BATCH_60))
+    out60, out_gen = {}, {}
+    for plan, inputs, outs, label in (
+            (plan60, inputs60, out60, "P60_4096"),
+            (plan_gen, inputs_gen, out_gen, f"q={Q_GENERIC} n=4096")):
+        for op, x in inputs.items():
+            outs[op] = check_op(plan, op, label, x)
+    for n in (256, 8192):
+        p = make_params(n, P60_4096.q)
+        plan = SolinasPlan64(p, device)
+        x, y = on_card(*operands(p.q, n, BATCH, rng))
+        for op in ("nwc", "nwc_fwd", "nwc_inv"):
+            check_op(plan, op, f"n={n} B={BATCH}", (x, y) if op == "nwc" else (x,))
+        if n == 8192:
+            x3, y3 = (t.reshape(DOT_TERMS, DOT_BATCH_8192, n) for t in on_card(
+                *operands(p.q, n, DOT_TERMS * DOT_BATCH_8192, rng)))
+            check_op(plan, "dot", f"n=8192 K={DOT_TERMS} B={DOT_BATCH_8192}", (x3, y3))
+
+    # the 24-bit family
     p24 = MxuPlan(P24_4096, device)
     q24, n24 = P24_4096.q, P24_4096.n
     a_np, b_np = operands(q24, n24, BATCH, rng, np.int32)
     a, b = on_card(a_np, b_np)
     spec_b = p24.nwc_spectrum(b)
     label = f"P24_4096 B={BATCH}"
-    for name, op, method, inputs in (
-            ("nwc32_product", "nwc", "nwc_poly_mult", (a, b)),
-            ("nwc32_product", "cyclic", "cyclic_poly_mult", (a, b)),
-            ("nwc32_forward", "fwd", "ntt_fwd", (a,)),
-            ("nwc32_inverse", "inv", "ntt_inv", (a,)),
-            ("nwc32_forward", "nwc_fwd", "nwc_ntt_fwd", (a,)),
-            ("nwc32_inverse", "nwc_inv", "nwc_ntt_inv", (a,)),
-            ("nwc32_forward", "spectrum", "nwc_spectrum", (b,)),
-            ("nwc32_cached", "cached", "nwc_poly_mult_cached", (a, spec_b))):
-        got = getattr(p24, method)(*inputs)
-        compare(name, f"{op} {label}", got, getattr(p24, method + "_plain")(*inputs))
+    for op, inputs in (("nwc", (a, b)), ("cyclic", (a, b)), ("fwd", (a,)),
+                       ("inv", (a,)), ("nwc_fwd", (a,)), ("nwc_inv", (a,)),
+                       ("spectrum", (b,)), ("cached", (a, spec_b))):
+        got = check_op(p24, op, label, inputs)
         if op == "nwc":
             c24 = got
     for p in (FALCON_1024, make_params(16384, 16580609)):
         plan = MxuPlan(p, device)
         x, y = on_card(*operands(p.q, p.n, BATCH, rng, np.int32))
-        compare("nwc32_product", f"nwc {p.name} B={BATCH}", plan.nwc_poly_mult(x, y),
-                plan.nwc_poly_mult_plain(x, y))
+        check_op(plan, "nwc", f"{p.name} B={BATCH}", (x, y))
     a3, b3 = (t.reshape(DOT_TERMS, DOT_BATCH, n24) for t in on_card(
         *operands(q24, n24, DOT_TERMS * DOT_BATCH, rng, np.int32)))
     spec3 = p24.nwc_spectrum(b3.reshape(-1, n24)).reshape(b3.shape)
     label = f"K={DOT_TERMS} B={DOT_BATCH}"
-    compare("nwc32_dot", f"dot {label}", p24.nwc_dot(a3, b3), p24.nwc_dot_plain(a3, b3))
-    compare("nwc32_dot", f"dot_cached {label}", p24.nwc_dot_cached(a3, spec3),
-            p24.nwc_dot_cached_plain(a3, spec3))
+    check_op(p24, "dot", label, (a3, b3))
+    check_op(p24, "dot_cached", label, (a3, spec3))
     pdil = MxuPlan(DILITHIUM_256, device)
     s_np, mat_np = operands(DILITHIUM_256.q, 256, 4 * MATVEC_BATCH, rng, np.int32)
     s_dil, mat_dil = on_card(s_np.reshape(4, MATVEC_BATCH, 256),
                              mat_np[:16].reshape(4, 4, 256))
-    spec_dil = pdil.nwc_matvec_spectra(mat_dil)
-    compare("nwc32_forward", "matvec_spectra DILITHIUM_256 4x4", spec_dil,
-            pdil.nwc_matvec_spectra_plain(mat_dil))
-    mv_dil = pdil.nwc_matvec_cached(s_dil, spec_dil)
-    compare("nwc32_matvec", f"matvec DILITHIUM_256 4x4 B={MATVEC_BATCH}", mv_dil,
-            pdil.nwc_matvec_cached_plain(s_dil, spec_dil))
+    spec_dil = check_op(pdil, "matvec_spectra", "DILITHIUM_256 4x4", (mat_dil,))
+    mv_dil = check_op(pdil, "matvec", f"DILITHIUM_256 4x4 B={MATVEC_BATCH}",
+                      (s_dil, spec_dil))
 
     # 4. independent oracle: evaluation at roots of x^n + 1, and the golden
-    for name, p, av, bv, cv in (
-            ("P60_4096", P60_4096, a60_np, b60_np, c60),
-            ("P24_4096", P24_4096, a_np.astype(np.int64), b_np.astype(np.int64), c24)):
-        c_rows = cv[:8].cpu().tolist()
-        check_evaluations(name, p, av[2:6].tolist(), bv[2:6].tolist(), c_rows[2:6], rng)
-        if reference.nwc_poly_mult(av[4].tolist(), bv[4].tolist(), p) != c_rows[4]:
+    for name, p, (av, bv), cv in (
+            ("P60_4096", P60_4096, inputs60["nwc"], out60["nwc"]),
+            (p_gen.name, p_gen, inputs_gen["nwc"], out_gen["nwc"]),
+            ("P24_4096", P24_4096, (a, b), c24)):
+        a_rows, b_rows = av[:8].long().cpu().tolist(), bv[:8].long().cpu().tolist()
+        c_rows = cv[:8].long().cpu().tolist()
+        check_evaluations(name, p, a_rows[2:6], b_rows[2:6], c_rows[2:6], rng)
+        if reference.nwc_poly_mult(a_rows[4], b_rows[4], p) != c_rows[4]:
             raise AssertionError(f"{name}: row 4 differs from reference.nwc_poly_mult")
         print(f"oracle: {name} c(x) == a(x) b(x) at x = psi^(2k+1), rows 2-5, 3 k "
               "each; row 4 equals reference.nwc_poly_mult")
-    for fwd, inv in (("nwc_ntt_fwd", "nwc_ntt_inv"), ("ntt_fwd", "ntt_inv")):
-        if not torch.equal(getattr(p24, inv)(getattr(p24, fwd)(a)), a):
-            raise AssertionError(f"{inv}({fwd}(x)) != x at P24_4096")
-    print(f"oracle: nwc_ntt_inv(nwc_ntt_fwd(x)) == x and ntt_inv(ntt_fwd(x)) == x, "
-          f"P24_4096 B={BATCH}")
+    for name, plan, x in (("P60_4096", plan60, inputs60["nwc"][0]),
+                          ("P24_4096", p24, a)):
+        for fwd, inv in (("nwc_ntt_fwd", "nwc_ntt_inv"), ("ntt_fwd", "ntt_inv")):
+            if not torch.equal(getattr(plan, inv)(getattr(plan, fwd)(x)), x):
+                raise AssertionError(f"{inv}({fwd}(x)) != x at {name}")
+        print(f"oracle: nwc_ntt_inv(nwc_ntt_fwd(x)) == x and ntt_inv(ntt_fwd(x)) == x, "
+              f"{name} B={BATCH}")
+    a3_60, b3_60 = inputs60["dot"]
+    row = 5
+    want = [0] * P60_4096.n
+    for k in range(DOT_TERMS):
+        prod = reference.nwc_poly_mult(a3_60[k, row].cpu().tolist(),
+                                       b3_60[k, row].cpu().tolist(), P60_4096)
+        want = [(u + v) % P60_4096.q for u, v in zip(want, prod)]
+    if out60["dot"][row].cpu().tolist() != want:
+        raise AssertionError("P60_4096 dot row 5 differs from its golden products")
+    print(f"oracle: P60_4096 dot row {row} equals the sum of {DOT_TERMS} "
+          "reference.nwc_poly_mult products")
 
     # 5. main paths, through the entry points a user calls
-    name = dispatch.impl_name(P60_4096)
-    mult60 = dispatch.best_nwc_poly_mult(P60_4096)
-    SolinasPlan64.launches = 0
-    c = mult60(a60, b60)
-    torch.cuda.synchronize()
-    launches = {"nwc64": SolinasPlan64.launches}
-    if name != SolinasPlan64.name or launches["nwc64"] < 1:
-        raise AssertionError(f"main path ran {name!r} with {launches['nwc64']} launches")
-    if c.shape != (BATCH, P60_4096.n) or not torch.equal(c, c60):
-        raise AssertionError("main path result differs from the checked product")
-    print(f"main path: best_nwc_poly_mult(P60_4096) via {name}, {launches['nwc64']} "
-          "launch(es), equal to the checked product")
+    counts = (MxuPlan.launches, MxuPlan64.launches)
+    launches: dict[str, int] = {}
 
-    def drive(label, p, fn, inputs, plain, expect):
+    def drive(label, p, fn, inputs, plain, expect, want=None):
         """Run fn with the counts at 0, read them, check against plain."""
-        for k in KERNELS:
-            MxuPlan.launches[k] = 0
+        for c in counts:
+            for k in c:
+                c[k] = 0
         out = fn(*inputs)
         torch.cuda.synchronize()
-        counts = dict(MxuPlan.launches)
-        if any(counts[k] < 1 for k in expect):
-            raise AssertionError(f"main path {label} did not launch {expect}: {counts}")
+        seen = {k: v for c in counts for k, v in c.items()}
+        if any(seen[k] < 1 for k in expect):
+            raise AssertionError(f"main path {label} did not launch {expect}: {seen}")
         if not torch.equal(out, plain(*inputs)):
             raise AssertionError(f"main path {label} differs from its plain version")
+        if want is not None and not torch.equal(out, want):
+            raise AssertionError(f"main path {label} differs from the checked result")
         if not bool(((out >= 0) & (out < p.q)).all()):
             raise AssertionError(f"main path {label} leaves [0, q)")
-        for k in KERNELS:
-            launches[k] = launches.get(k, 0) + counts[k]
+        for k, v in seen.items():
+            launches[k] = launches.get(k, 0) + v
         print(f"main path: {label} via {dispatch.impl_name(p)}, launches "
-              f"{ {k: v for k, v in counts.items() if v} }, shape {tuple(out.shape)}")
+              f"{ {k: v for k, v in seen.items() if v} }, shape {tuple(out.shape)}")
         return out
 
     mat24 = a3[:, :4].permute(1, 0, 2).contiguous()  # a 4 x 4 matrix of rows
-    spec_mat24 = p24.nwc_matvec_spectra(mat24)
-    main_inputs = {
+    inputs24 = {
         "nwc": (a, b), "cyclic": (a, b), "fwd": (a,), "inv": (a,), "nwc_fwd": (a,),
         "nwc_inv": (a,), "spectrum": (b,), "cached": (a, spec_b), "dot": (a3, b3),
         "dot_cached": (a3, spec3), "matvec_spectra": (mat24,),
-        "matvec": (b3, spec_mat24),
+        "matvec": (b3, p24.nwc_matvec_spectra(mat24)),
     }
-    best24 = {}
-    for op in dispatch.OPS:
-        if dispatch.impl_name(P24_4096, op) != MxuPlan.name:
-            raise AssertionError(f"{op} at P24_4096 is not served by {MxuPlan.name}")
-        best24[op] = dispatch.best(P24_4096, op)
-        drive(f"best(P24_4096, {op!r})", P24_4096, best24[op], main_inputs[op],
-              getattr(p24, dispatch.METHODS[op] + "_plain"), [OP_KERNEL[op]])
+    best = {}
+    for p, plan, inputs, checked in ((P60_4096, plan60, inputs60, out60),
+                                     (p_gen, plan_gen, inputs_gen, out_gen),
+                                     (P24_4096, p24, inputs24, {})):
+        for op in dispatch.OPS:
+            if dispatch.impl_name(p, op) != plan.name:
+                raise AssertionError(f"{op} at {p.name} is not served by {plan.name}")
+            best[p.name, op] = dispatch.best(p, op)
+            drive(f"best({p.name}, {op!r})", p, best[p.name, op], inputs[op],
+                  getattr(plan, dispatch.METHODS[op] + "_plain"),
+                  [f"{plan.lib_name}_{e}" for e in OP_ENTRIES[op]], checked.get(op))
+    drive(f"best_nwc_matvec(P60_4096) 4x4 B={MATVEC_BATCH_60}", P60_4096,
+          dispatch.best_nwc_matvec(P60_4096), inputs60["matvec"],
+          plan60.nwc_matvec_cached_plain, ["nwc64_forward", "nwc64_matvec"],
+          out60["matvec"])
     spectra_fn = dispatch.best_nwc_matvec_spectra(DILITHIUM_256)
     matvec_fn = dispatch.best_nwc_matvec(DILITHIUM_256)
     drive("best_nwc_matvec_spectra(DILITHIUM_256)", DILITHIUM_256, spectra_fn,
-          (mat_dil,), pdil.nwc_matvec_spectra_plain, ["nwc32_forward"])
-    out = drive(f"best_nwc_matvec(DILITHIUM_256) 4x4 B={MATVEC_BATCH}", DILITHIUM_256,
-                matvec_fn, (s_dil, spec_dil), pdil.nwc_matvec_cached_plain,
-                ["nwc32_forward", "nwc32_matvec"])
-    if not torch.equal(out, mv_dil):
-        raise AssertionError("the DILITHIUM_256 matvec differs from the checked one")
+          (mat_dil,), pdil.nwc_matvec_spectra_plain, ["nwc32_forward"], spec_dil)
+    drive(f"best_nwc_matvec(DILITHIUM_256) 4x4 B={MATVEC_BATCH}", DILITHIUM_256,
+          matvec_fn, (s_dil, spec_dil), pdil.nwc_matvec_cached_plain,
+          ["nwc32_forward", "nwc32_matvec"], mv_dil)
 
     # 6. timing, in turns: plain, kernel (through the main path), kernel, plain
-    n, t24 = P24_4096.n, P24_4096.log_n * P24_4096.n // 2  # butterflies a row
-    t60 = P60_4096.log_n * P60_4096.n // 2
-    tdil = DILITHIUM_256.log_n * 256 // 2
-    shoup, mont = muls("shoup32", P24_4096.q), muls("mont32", P24_4096.q)
-    shoup_dil, mont_dil = muls("shoup32", DILITHIUM_256.q), muls("mont32", DILITHIUM_256.q)
-    shoup64, mont64 = muls("shoup64", P60_4096.q), muls("mont64", P60_4096.q)
-    # name: (kernel, plain, inputs, plain iters, bytes, 32-bit multiplies)
+    # name: (p, op timed, plan, inputs by op, output rows)
     timed = {
-        "nwc64": (mult60, plan60.nwc_poly_mult_plain, (a60, b60), (2, 6),
-                  3 * BATCH * n * 8,
-                  BATCH * (3 * t60 * shoup64 + n * (mont64 + shoup64))),
-        "nwc32_product": (best24["nwc"], p24.nwc_poly_mult_plain, (a, b), (1, 3),
-                          3 * BATCH * n * 4, BATCH * (3 * t24 * shoup + n * (mont + shoup))),
-        "nwc32_forward": (best24["nwc_fwd"], p24.nwc_ntt_fwd_plain, (a,), (1, 3),
-                          2 * BATCH * n * 4, BATCH * t24 * shoup),
-        "nwc32_inverse": (best24["nwc_inv"], p24.nwc_ntt_inv_plain, (a,), (1, 3),
-                          2 * BATCH * n * 4, BATCH * (t24 + n) * shoup),
-        "nwc32_cached": (best24["cached"], p24.nwc_poly_mult_cached_plain, (a, spec_b),
-                         (1, 3), 3 * BATCH * n * 4,
-                         BATCH * (2 * t24 * shoup + n * (mont + shoup))),
-        "nwc32_dot": (best24["dot"], p24.nwc_dot_plain, (a3, b3), (1, 3),
-                      (2 * DOT_TERMS + 1) * DOT_BATCH * n * 4,
-                      DOT_BATCH * (2 * DOT_TERMS * t24 * shoup + DOT_TERMS * n * mont
-                                   + (t24 + n) * shoup)),
-        # the whole op: the forward of s and the accumulate-and-inverse
-        "nwc32_matvec": (matvec_fn, pdil.nwc_matvec_cached_plain, (s_dil, spec_dil),
-                         (1, 3), (4 + 4) * MATVEC_BATCH * 256 * 4 + 16 * 256 * 4,
-                         MATVEC_BATCH * (4 * tdil * shoup_dil
-                                         + 4 * (4 * 256 * mont_dil
-                                                + (tdil + 256) * shoup_dil))),
+        "nwc64_product": (P60_4096, "nwc", plan60, inputs60, BATCH),
+        "nwc64_forward": (P60_4096, "nwc_fwd", plan60, inputs60, BATCH),
+        "nwc64_inverse": (P60_4096, "nwc_inv", plan60, inputs60, BATCH),
+        "nwc64_cached": (P60_4096, "cached", plan60, inputs60, BATCH),
+        "nwc64_dot": (P60_4096, "dot", plan60, inputs60, DOT_BATCH),
+        "nwc64_matvec": (P60_4096, "matvec", plan60, inputs60, MATVEC_BATCH_60),
+        "nwc32_product": (P24_4096, "nwc", p24, inputs24, BATCH),
+        "nwc32_forward": (P24_4096, "nwc_fwd", p24, inputs24, BATCH),
+        "nwc32_inverse": (P24_4096, "nwc_inv", p24, inputs24, BATCH),
+        "nwc32_cached": (P24_4096, "cached", p24, inputs24, BATCH),
+        "nwc32_dot": (P24_4096, "dot", p24, inputs24, DOT_BATCH),
+        "nwc32_matvec": (DILITHIUM_256, "matvec", pdil, {"matvec": (s_dil, spec_dil)},
+                         MATVEC_BATCH),
+        # not a kernel function of its own: the product at the generic q
+        "generic-q product": (p_gen, "nwc", plan_gen, inputs_gen, BATCH),
     }
-    rows = []
-    for name, (kernel, plain, inputs, plain_iters, nbytes, imads) in timed.items():
+
+    def time_turns(kernel_fn, plain_fn, inputs, plain_iters, repeats):
         times = {"kernel": [], "plain": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            fn = kernel if which == "kernel" else plain
-            iters = (4, 20) if which == "kernel" else plain_iters
-            times[which].append(device_seconds_per_call(fn, *inputs, iters=iters))
+            if which == "kernel":
+                t = device_seconds_per_call(kernel_fn, *inputs, iters=(4, 20))
+            else:
+                t = device_seconds_per_call(plain_fn, *inputs, iters=plain_iters,
+                                            repeats=repeats)
+            times[which].append(t)
+        return times
+
+    rows, ms = [], {}
+    for name, (p, op, plan, inputs, out_rows) in timed.items():
+        fn = matvec_fn if p is DILITHIUM_256 else best[p.name, op]
+        plain = getattr(plan, dispatch.METHODS[op] + "_plain")
+        wide = p.width > 30  # the 60-bit plain versions take ~0.2 s a call
+        times = time_turns(fn, plain, inputs[op], (1, 2) if wide else (1, 3),
+                           1 if wide else 3)
         t_kernel, t_plain = min(times["kernel"]), min(times["plain"])
-        t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, imads / imad_per_s
-        print(f"timing {name} (s/call): kernel {times['kernel']} plain {times['plain']}; "
-              f"bound: {nbytes} bytes {t_bytes:.4e} s, {imads} IMADs {t_ops:.4e} s")
-        source = SOURCES["nwc64" if name == "nwc64" else "nwc32"]
+        kernel = name if name in REPLACES else "nwc64_product"
+        nbytes, imads = work(kernel, p, out_rows)
+        t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
+        ms[name] = t_kernel * 1e3
+        print(f"timing {name} ({op} at {p.name}, s/call): kernel {times['kernel']} "
+              f"plain {times['plain']}; bound: {nbytes} bytes {t_bytes:.4e} s, "
+              f"{imads} IMADs {t_ops:.4e} s")
+        if name not in REPLACES:
+            continue
         rows.append({
-            "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
+            "name": name, "route": "cuda", "source": SOURCES[name.split("_")[0]],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,  # no PyTorch call computes an NTT product mod q
         })
-    per_s = {r["name"]: 1e3 / r["ms"] for r in rows}
-    print(f"nwc_poly_mult_p60_4096_per_sec: {BATCH * per_s['nwc64']:.1f}; "
+    per_s = {name: 1e3 / t for name, t in ms.items()}
+    print(f"nwc_poly_mult_p60_4096_per_sec: {BATCH * per_s['nwc64_product']:.1f}; "
+          f"fwd_ntt_p60_4096_per_sec: {BATCH * per_s['nwc64_forward']:.1f}; "
+          f"p60_4096_matvec_4x4_per_sec: {MATVEC_BATCH_60 * per_s['nwc64_matvec']:.1f}; "
+          f"nwc_poly_mult_q576460752308273153_4096_per_sec: "
+          f"{BATCH * per_s['generic-q product']:.1f}; "
           f"nwc_poly_mult_p24_4096_per_sec: {BATCH * per_s['nwc32_product']:.1f}; "
           f"fwd_ntt_p24_4096_per_sec: {BATCH * per_s['nwc32_forward']:.1f}; "
           f"dilithium_256_matvec_4x4_per_sec: {MATVEC_BATCH * per_s['nwc32_matvec']:.1f}; "
-          f"B={BATCH} (matvec B={MATVEC_BATCH}); card {card}")
+          f"B={BATCH} (p60 matvec B={MATVEC_BATCH_60}, dilithium matvec "
+          f"B={MATVEC_BATCH}); card {card}")
+    print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

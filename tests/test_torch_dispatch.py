@@ -4,7 +4,8 @@
 equal ``tpu_ntt.ntt.nwc_poly_mult_merged`` (bit-identical to the JAX
 dispatch's Pallas kernel by that package's contract) and the golden model,
 on operands from ``numpy.random.default_rng`` with boundary rows of 0, 1 and
-q - 1.  Every op and every (n, q) outside the slice raises
+q - 1.  Every op at P60_4096 is served by ``cuda-sol64``, a generic 60-bit
+q by ``cuda-mxu64``, and every (n, q) outside the ported windows raises
 NotImplementedError naming its ROADMAP item.  Importing the port leaves JAX
 out.  Tolerance: none — exact integer equality.
 """
@@ -23,6 +24,7 @@ import tpu_ntt.params as jparams
 import tpu_ntt.reference as jref
 from tpu_ntt_torch import dispatch
 from tpu_ntt_torch.convert import int64_to_pairs, pairs_to_int64
+from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
 from tpu_ntt_torch.params import P60_4096, PRESETS, make_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,10 +58,11 @@ def test_surface_matches_jax_dispatch():
 
 @pytest.mark.parametrize("op", dispatch.OPS[1:])
 def test_ops_outside_the_slice_raise(op):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Q1.5"):
-        dispatch.best(P60_4096, op)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dispatch.impl_name(P60_4096, op)
+    """Once outside the first slice, each op at P60_4096 is now served by
+    the Solinas plan, through a method the plan has."""
+    assert dispatch.impl_name(P60_4096, op) == SolinasPlan64.name
+    assert callable(getattr(SolinasPlan64, dispatch.METHODS[op]))
+    assert callable(dispatch.best(P60_4096, op))
 
 
 @pytest.mark.parametrize("p,item", [
@@ -67,10 +70,15 @@ def test_ops_outside_the_slice_raise(op):
     (make_params(32768, 65537), "Q1.4b"),     # 17-bit, n above the K3 window
     (PRESETS["goldilocks_4096"], "Q1.6"),
     (make_params(16384, 4611686018427322369), "Q1.7"),  # 2^62 - 2^16 + 1
-    (make_params(4096, 576460752308273153), "Q1.5"),    # not a trinomial
-    (make_params(128, Q60), "Q1.5"),
+    (make_params(4096, 576460752308273153), None),      # not a trinomial: served
+    (make_params(128, Q60), "Q1.4c"),                   # n < 256
 ])
 def test_params_outside_the_slice_raise(p, item):
+    if item is None:
+        assert dispatch.impl_name(p) == "cuda-mxu64"
+        assert dispatch.takes_pairs(p) is False
+        assert callable(dispatch.best_nwc_poly_mult(p))
+        return
     for call in (dispatch.best_nwc_poly_mult, dispatch.impl_name, dispatch.takes_pairs):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             call(p)
@@ -80,7 +88,8 @@ def test_import_leaves_out_jax_and_tpu_ntt():
     code = (
         "import sys, chip_smoke, tpu_ntt_torch, tpu_ntt_torch.benchlib, "
         "tpu_ntt_torch.convert, tpu_ntt_torch.kernels._build, "
-        "tpu_ntt_torch.kernels.sol64, tpu_ntt_torch.kernels.mxu\n"
+        "tpu_ntt_torch.kernels.sol64, tpu_ntt_torch.kernels.mxu, "
+        "tpu_ntt_torch.kernels.mxu64\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_ntt')]\n"
         "print(bad)\n"
     )

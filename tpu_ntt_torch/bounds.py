@@ -1,0 +1,176 @@
+"""The least time a kernel could take on the card: its roofline bound.
+
+A bound is the larger of two times: the bytes the function must move (each
+input read once, each output written once) over the memory rate, and the
+32-bit integer multiplies (IMADs) it needs over the card's IMAD rate.  A
+modular product is priced by its form (``MULS``), plus its product by q
+unless q has at most three signed binary digits, when that product is shifts
+and adds.  ``work`` counts a call of each ported kernel function;
+``chip_smoke.py`` divides it by the rates of the card it runs on.
+
+Run as a script, it prints the bounds of the TPU kernels not ported yet, at
+the shapes bench.py gives them, worked out from the code (not measured) at
+the H100 SXM's data-sheet rates::
+
+    python3 -m tpu_ntt_torch.bounds
+"""
+
+from __future__ import annotations
+
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
+IMAD_PER_SM_CLOCK = 64  # 32-bit integer multiplies a clock, compute capability 9.0
+H100_SMS, H100_TOP_SM_HZ = 132, 1.98e9  # H100 SXM data sheet, for the script only
+# 32-bit multiplies in one modular product, before its product by q:
+# Shoup-32 a*w and hi(a*w'); Montgomery-32 the wide a*b (two words) and
+# m = lo*q'.  The 64-bit forms build a wide product from four 32 x 32 ones:
+# Shoup-64 lo64(a*w) (4) and hi64(a*w') (8); Montgomery-64 a*b (8) and
+# lo64(m) (4).  Goldilocks: the full 128-bit a*b (8); 2^64 = 2^32 - 1 mod q
+# makes the reduction shifts and adds.
+MULS = {"shoup32": 2, "mont32": 3, "shoup64": 12, "mont64": 12, "gl64": 8}
+# The product by q: Shoup's lo(t*q), REDC's hi(m*q).
+MULS_BY_Q = {"shoup32": 1, "mont32": 1, "shoup64": 4, "mont64": 8, "gl64": 0}
+
+DOT_TERMS = 4  # K of the dot and k = l of the matvec that chip_smoke.py runs
+
+
+def naf_weight(q: int) -> int:
+    """Nonzero digits of q in signed binary (non-adjacent form)."""
+    weight = 0
+    while q:
+        if q & 1:
+            q -= 2 - (q & 3)  # the digit +1 or -1 that leaves q even
+            weight += 1
+        q >>= 1
+    return weight
+
+
+def muls(form: str, q: int) -> int:
+    """The 32-bit multiplies one modular product of ``form`` needs at q.  A
+    product by a q of at most three signed binary digits, such as
+    2^23 - 2^13 + 1 or 2^60 - 2^14 + 1, is shifts and adds: no multiply."""
+    return MULS[form] + (MULS_BY_Q[form] if naf_weight(q) > 3 else 0)
+
+
+def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
+             terms: int = DOT_TERMS, forms=None) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of one call of a fused NTT kernel entry
+    (``product``, ``cached``, ``forward``, ``inverse``, ``dot``,
+    ``matvec``) on ``batch`` output rows of n ``word``-byte residues: each
+    transform needs (n/2) log2 n twiddle products, each slot product one
+    Montgomery product, each scale one Shoup product.  ``terms`` is the K of
+    the dot and both k and l of the matvec, whose count is the whole op: the
+    forward of s and the accumulate-and-inverse.  ``forms`` overrides the
+    (twiddle, slot) product forms, which default to Shoup and Montgomery of
+    the word size."""
+    bits = "64" if word == 8 else "32"
+    shoup, mont = (muls(f, q) for f in (forms or ("shoup" + bits, "mont" + bits)))
+    t = log_n * n // 2
+    rows = batch * n * word
+    if entry == "product":
+        return 3 * rows, batch * (3 * t * shoup + n * (mont + shoup))
+    if entry == "cached":
+        return 3 * rows, batch * (2 * t * shoup + n * (mont + shoup))
+    if entry == "forward":
+        return 2 * rows, batch * t * shoup
+    if entry == "inverse":
+        return 2 * rows, batch * (t + n) * shoup
+    if entry == "dot":
+        return ((2 * terms + 1) * rows,
+                batch * (2 * terms * t * shoup + terms * n * mont + (t + n) * shoup))
+    assert entry == "matvec", entry
+    return ((terms + terms) * rows + terms * terms * n * word,
+            batch * (terms * t * shoup + terms * (terms * n * mont + (t + n) * shoup)))
+
+
+def work(kernel: str, p, batch: int, terms: int = DOT_TERMS) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of one call of ``kernel`` (``nwc32_*`` or
+    ``nwc64_*``) at the parameters p, ``batch`` output rows."""
+    word = 8 if p.width > 30 else 4
+    return ntt_work(kernel.split("_", 1)[1], p.n, p.log_n, p.q, word, batch, terms)
+
+
+def seconds(nbytes: int, imads: int, imad_per_s: float) -> tuple[float, float]:
+    """(bytes time, operations time) at the memory rate and ``imad_per_s``."""
+    return nbytes / MEM_BYTES_PER_S, imads / imad_per_s
+
+
+# ----------------------------------------------------------------------
+# The TPU kernels not ported yet, at bench.py's shapes
+# ----------------------------------------------------------------------
+
+KYBER_Q, KYBER_N, KYBER_LAYERS = 3329, 256, 7  # FIPS 203: seven layers, degree-2 leaves
+KYBER_BATCH = 2048 * 8  # bench.py's bench_kyber(batch * 8)
+KYBER_K = 3  # ML-KEM-768, FIPS 203's recommended set
+GL_Q = (1 << 64) - (1 << 32) + 1
+P60_32768_Q = 576460752308273153  # bench.py:35
+POSEIDON_BATCH = 2048 * 64  # bench.py's bench_poseidon(batch * 64)
+POSEIDON_WIDTH, POSEIDON_RF, POSEIDON_RP = 12, 8, 22  # tpu_ntt/poseidon.py:15-17
+SPONGE_LEN = 8  # elements a row: two rate-4 absorptions
+
+
+def _kyber(entry: str, batch: int, k: int) -> tuple[int, int]:
+    """One ML-KEM kernel call: 7 layers of n/2 Shoup butterflies a
+    transform, five Montgomery products per degree-2 leaf pair, n Shoup
+    scales in each inverse; int32 residues."""
+    n, shoup, mont = KYBER_N, muls("shoup32", KYBER_Q), muls("mont32", KYBER_Q)
+    t = KYBER_LAYERS * n // 2
+    base = n // 2 * 5 * mont
+    inv = (t + n) * shoup
+    rows = batch * n * 4
+    if entry == "ntt":
+        return 2 * rows, batch * t * shoup
+    if entry == "product":
+        return 3 * rows, batch * (2 * t * shoup + base + inv)
+    if entry == "dot":
+        return (2 * k + 1) * rows, batch * (2 * k * t * shoup + k * base + inv)
+    assert entry == "matvec"
+    return (2 * k * rows + k * k * n * 4,
+            batch * (k * t * shoup + k * (k * base + inv)))
+
+
+def _poseidon(batch: int, perms: int, words_in: int, words_out: int) -> tuple[int, int]:
+    """``perms`` Poseidon2-GL permutations a row: x^7 is four products, each
+    full round has one S-box a lane, each partial round one S-box and the
+    internal layer's ``width`` diagonal products; the external layer is adds."""
+    w = POSEIDON_WIDTH
+    products = POSEIDON_RF * 4 * w + POSEIDON_RP * (4 + w)
+    return batch * (words_in + words_out) * 8, batch * perms * products * muls("gl64", GL_Q)
+
+
+def unported() -> list[tuple[str, str, int, int]]:
+    """(id, what is counted, bytes, 32-bit multiplies) of each TPU kernel
+    still to port, at bench.py's shapes."""
+    gl_bytes, gl_imads = ntt_work("product", 4096, 12, GL_Q, 8, 2048,
+                                  forms=("gl64", "gl64"))
+    b, k = KYBER_BATCH, KYBER_K
+    return [
+        ("K1a, n >= 32768", "p60_32768 nwc, B = 256 (bench.py:145)",
+         *ntt_work("product", 32768, 15, P60_32768_Q, 8, 256)),
+        ("K2", "goldilocks_4096 nwc, B = 2048 (bench.py:147)", gl_bytes, gl_imads),
+        ("K4a", f"ML-KEM forward NTT, B = {b}", *_kyber("ntt", b, k)),
+        ("K4b", f"ML-KEM product, B = {b} (bench.py:372-379)", *_kyber("product", b, k)),
+        ("K4c", f"ML-KEM dot, K = {k}, B = {b}", *_kyber("dot", b, k)),
+        ("K4d", f"ML-KEM {k} x {k} matvec, B = {b}", *_kyber("matvec", b, k)),
+        ("K5a", f"Poseidon2-GL permutation, width {POSEIDON_WIDTH}, "
+         f"B = {POSEIDON_BATCH}",
+         *_poseidon(POSEIDON_BATCH, 1, POSEIDON_WIDTH, POSEIDON_WIDTH)),
+        ("K5b", f"rate-4 sponge over rows of {SPONGE_LEN}, B = {POSEIDON_BATCH}",
+         *_poseidon(POSEIDON_BATCH, -(-SPONGE_LEN // 4), SPONGE_LEN, 4)),
+    ]
+
+
+def main() -> None:
+    imad_per_s = H100_SMS * IMAD_PER_SM_CLOCK * H100_TOP_SM_HZ
+    print(f"worked out from the code, not measured: {MEM_BYTES_PER_S:.3e} B/s, "
+          f"{imad_per_s:.4e} IMAD/s (H100 SXM data sheet)")
+    for ident, what, nbytes, imads in unported():
+        t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{ident}: {what}: {nbytes} bytes {t_bytes * 1e3:.4f} ms, {imads} IMADs "
+              f"{t_ops * 1e3:.4f} ms; bound {max(t_bytes, t_ops) * 1e3:.4f} ms ({by})")
+    print("K6: the all-to-all needs more than one card; its library call, "
+          "torch.distributed.all_to_all_single, cannot be timed on one H100")
+
+
+if __name__ == "__main__":
+    main()

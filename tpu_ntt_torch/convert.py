@@ -6,12 +6,13 @@ one (B, n) ``torch.int64`` tensor.  Below 2^31 both hold one word: uint32
 there, ``torch.int32`` here.  These functions take numpy arrays only, so
 they import no JAX: a test hands them what the JAX package returned.
 
-State a user keeps crosses too: the 24-bit kernel's cached spectra
-(``tpu_ntt.kernels.mxu.MxuPlan.nwc_spectrum``, times 2^32 mod q in four-step
-layout, and the ``nwc_matvec_spectra`` blocks tiled over an MXU group)
-become the port's (the same domain, bit-reversed order; see
-``kernels/mxu.py``), so a public matrix transformed once by the JAX package
-gives the same products in the port.
+State a user keeps crosses too: the kernels' cached spectra (24-bit
+``tpu_ntt.kernels.mxu.MxuPlan.nwc_spectrum``, times 2^32 mod q; 60-bit
+``MxuPlan64``/``SolinasPlan64.nwc_spectrum``, (hi, lo) pairs times 2^64 mod
+q; both in four-step layout) and their ``nwc_matvec_spectra`` blocks tiled
+over an MXU group become the port's (the same domain, bit-reversed order;
+see ``kernels/_plan.py``), so a key or public matrix transformed once by the
+JAX package gives the same products in the port.
 """
 
 from __future__ import annotations
@@ -97,3 +98,24 @@ def matvec_spectra_from_jax(blocks, n: int, device=None) -> torch.Tensor:
     x = np.asarray(blocks, dtype=np.uint32)
     k, l = x.shape[:2]
     return spectra_from_jax(x[:, :, : n // LANES, :].reshape(k, l, n), device)
+
+
+def spectra64_from_jax(hi, lo, device=None) -> torch.Tensor:
+    """(..., n) (hi, lo) uint32 spectra of ``tpu_ntt.kernels.mxu64``
+    ``MxuPlan64.nwc_spectrum`` or ``SolinasPlan64.nwc_spectrum`` (the same
+    Montgomery-64 domain) -> the port's ``nwc_spectrum`` of the same
+    operands, int64."""
+    x = pairs_to_int64(hi, lo)
+    return x[..., fourstep_to_bitrev_perm(x.shape[-1])].contiguous().to(device)
+
+
+def matvec_spectra64_from_jax(blocks, n: int, device=None) -> torch.Tensor:
+    """The (hi, lo) pair of (k, l, rows, 128) uint32 blocks of
+    ``MxuPlan64.nwc_matvec_spectra`` -> the port's (k, l, n)
+    ``nwc_matvec_spectra``.  As in ``matvec_spectra_from_jax``, rows
+    [0, n/128) of each block hold the spectrum in four-step layout."""
+    hi, lo = (np.asarray(w, dtype=np.uint32) for w in blocks)
+    k, l = hi.shape[:2]
+    rows = n // LANES
+    return spectra64_from_jax(hi[:, :, :rows].reshape(k, l, n),
+                              lo[:, :, :rows].reshape(k, l, n), device)

@@ -7,19 +7,21 @@ helpers, ``impl_name``, ``takes_pairs``)::
     out = mult(a, b)        # (B, n) residues in, same out
 
 The port serves the moduli and sizes its kernels cover (``kernels.covers``),
-on the CUDA kernel for a CUDA tensor and on the plain version for a CPU
-tensor:
+all twelve ops, on the CUDA kernel for a CUDA tensor and on the plain
+version for a CPU tensor:
 
-* q < 2^24 at 256 <= n <= 16384, n % 128 == 0 (``kernels.mxu.MxuPlan``):
-  all twelve ops, on (B, n) ``torch.int32`` residues.  Spectra come in that
-  backend's bit-reversed layout (``MxuPlan.bitrev_to_natural_perm``), and
-  fwd/inv, nwc_fwd/nwc_inv, spectrum/cached/dot_cached and
-  matvec_spectra/matvec pair within it, as tpu_ntt/dispatch.py:51-56 says.
-* trinomial q = 2^a - 2^b + 1 of 31..62 bits at 256 <= n <= 8192
-  (``kernels.sol64.SolinasPlan64``): ``"nwc"`` on (B, n) ``torch.int64``.
+* q < 2^24 at 256 <= n <= 16384, n % 128 == 0 (``kernels.mxu.MxuPlan``),
+  on (B, n) ``torch.int32`` residues;
+* 30 < width <= 62 at 256 <= n <= 8192 on (B, n) ``torch.int64`` residues:
+  a trinomial q = 2^a - 2^b + 1 that the JAX policy sends to its Solinas
+  kernel on ``kernels.sol64.SolinasPlan64`` (P60_4096), every other q on
+  ``kernels.mxu64.MxuPlan64``.
 
-Every other op and every other (n, q) raises ``NotImplementedError`` naming
-its ROADMAP.md item; nothing falls back.
+Spectra come in the serving backend's bit-reversed layout
+(``bitrev_to_natural_perm``), and fwd/inv, nwc_fwd/nwc_inv,
+spectrum/cached/dot_cached and matvec_spectra/matvec pair within it, as
+tpu_ntt/dispatch.py:51-56 says.  Every other (n, q) raises
+``NotImplementedError`` naming its ROADMAP.md item; nothing falls back.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import functools
 import torch
 
 from . import kernels
-from .kernels import sol64
+from .kernels import mxu64
 from .params import GOLDILOCKS_4096, NttParams
 
 #: operations the dispatch layer routes (the same tuple as tpu_ntt.dispatch)
@@ -73,10 +75,11 @@ def _uncovered(p: NttParams) -> str:
                 "q < 2^24 outside 256 <= n <= 16384)")
     elif p.width > 62:
         item = "Q1.10 (RNS for moduli above 62 bits)"
-    elif p.n > sol64.MAX_N:
+    elif p.n > mxu64.MAX_N:
         item = "Q1.7 (large n)"
     else:
-        item = "Q1.5 (generic q < 2^62 on kernel K1)"
+        item = ("Q1.4c (the merged Ring64 route: 30 < width <= 62 at "
+                "n < 256)")
     return (f"no ported path covers {p.name or 'params'} (n={p.n}, q={p.q}) "
             f"yet: ROADMAP.md {item}")
 
@@ -88,10 +91,6 @@ def _require(p: NttParams, op: str):
     cls = kernels.covers(p.n, p.q)
     if cls is None:
         raise NotImplementedError(_uncovered(p))
-    if cls is kernels.SolinasPlan64 and op != "nwc":
-        raise NotImplementedError(
-            f"op {op!r} is not ported yet for {p.width}-bit moduli: ROADMAP.md "
-            "Q1.5 (the other entry points on kernel K1)")
     return cls
 
 

@@ -1,30 +1,37 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
 
 ``mxu`` holds the 24-bit family's kernels (every op, q < 2^24 at
-256 <= n <= 16384); ``sol64`` the fused 60-bit negacyclic product for
-trinomial moduli.  The generic 62-bit and Goldilocks kernels of
-``tpu_ntt.kernels`` are not ported yet (ROADMAP.md Queue 2), so ``plan_for``
-returns ``None`` for their cases.
+256 <= n <= 16384, ``csrc/nwc32.cu``); ``mxu64`` the 60-bit family's (every
+op, 30 < width <= 62 at 256 <= n <= 8192, ``csrc/nwc64.cu``), with
+``sol64.SolinasPlan64`` its subclass for the trinomial moduli the JAX policy
+sends to its Solinas kernel.  Goldilocks and n above 8192 at 30 < width <= 62
+are not ported yet (ROADMAP.md Q1.6, Q1.7), so ``plan_for`` returns ``None``
+for them.
 """
 
 from __future__ import annotations
 
+from ..modmath import GOLDILOCKS_Q
 from ..params import NttParams
-from . import sol64
 from .mxu import MxuPlan
+from .mxu64 import MxuPlan64
 from .sol64 import SolinasPlan64
 
 
 def covers(n: int, q: int):
     """The plan class ``plan_for`` would build for (n, q), or ``None``:
     a cheap predicate with no table construction, in the order of
-    ``tpu_ntt.kernels.covers``."""
+    ``tpu_ntt.kernels.covers`` (tpu_ntt/kernels/__init__.py:63-79)."""
     if n & (n - 1):
         return None
     if MxuPlan.covers(n, q):
         return MxuPlan
-    if sol64.MIN_N <= n <= sol64.MAX_N and SolinasPlan64.covers_q(q, n):
+    if q == GOLDILOCKS_Q:
+        return None
+    if SolinasPlan64.covers(n, q):
         return SolinasPlan64
+    if MxuPlan64.covers(n, q):
+        return MxuPlan64
     return None
 
 

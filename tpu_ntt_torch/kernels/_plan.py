@@ -1,0 +1,395 @@
+"""The twelve ops of a fused NTT kernel family, shared by its word sizes.
+
+``KernelPlan`` is what ``mxu.MxuPlan`` (int32 residues, q < 2^24,
+``csrc/nwc32.cu``) and ``mxu64.MxuPlan64`` (int64 residues, 30 < width <= 62,
+``csrc/nwc64.cu``) have in common; they differ only in the dtype, the word
+(32 or 64 bits, which sets the Montgomery and Shoup scales), the CUDA
+library and the (n, q) window.  Each source has the same six C entry points,
+with the same meanings and argument order: ``<lib>_product``, ``_cached``,
+``_forward``, ``_inverse``, ``_dot`` and ``_matvec``.
+
+Each op launches its kernel for a CUDA tensor and runs its plain version,
+the ``*_plain`` method beside it, for a CPU tensor; any other device raises.
+Nothing falls back.  ``launches`` counts the launches of each kernel in this
+process, over all plans of the family; a caller that must show a run went
+through a kernel sets its count to 0 first.
+
+Spectra (the layout contract of tpu_ntt/dispatch.py:51-56):
+
+* ``ntt_fwd`` and ``nwc_ntt_fwd`` return the plain spectrum in bit-reversed
+  order: position j holds X[bitrev(j)], where X is the natural-order
+  spectrum tpu_ntt's plan returns after ``fourstep_to_natural``.
+  ``bitrev_to_natural_perm`` is the map; ``ntt_inv``/``nwc_ntt_inv`` take
+  that order back.
+* ``nwc_spectrum`` (and each block of ``nwc_matvec_spectra``) is the
+  negacyclic spectrum times 2^word mod q, in the same bit-reversed order:
+  the domain of tpu_ntt's cached spectra (2^32 for ``MxuPlan``, the
+  Montgomery-64 domain of ``MxuPlan64`` and ``SolinasPlan64``), so
+  ``convert`` only permutes them.  ``nwc_poly_mult_cached``,
+  ``nwc_dot_cached`` and ``nwc_matvec_cached`` take it.
+* ``nwc_matvec_spectra`` returns (k, l, n), not tpu_ntt's (k, l, rows, 128)
+  blocks tiled over the polynomials of an MXU group: the tiling is the
+  TPU's (``convert`` undoes it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import ntt, reference
+from ..params import NttParams, Reduction
+from . import _build
+
+MAX_TERMS = 8  # K of the dot, k and l of the matvec (mxu.py:777, mxu64.py:2240)
+
+
+@functools.lru_cache(maxsize=None)
+def load(lib_name: str, word_bits: int) -> ctypes.CDLL:
+    """Build if needed and load ``csrc/<lib_name>.cu``, its six entry points
+    typed with ``word_bits``-bit moduli and scales."""
+    lib = _build.load(lib_name)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    word = ctypes.c_uint32 if word_bits == 32 else ctypes.c_uint64
+    argtypes = {
+        "product": [ptr] * 7 + [i32] * 2 + [word] * 4 + [ptr],
+        "cached": [ptr] * 7 + [i32] * 2 + [word] * 4 + [ptr],
+        "forward": [ptr] * 4 + [i32] * 2 + [word] * 3 + [ptr],
+        "inverse": [ptr] * 4 + [i32] * 2 + [word] * 3 + [ptr],
+        "dot": [ptr] * 7 + [i32] * 3 + [word] * 4 + [i32, ptr],
+        "matvec": [ptr] * 5 + [i32] * 4 + [word] * 4 + [ptr],
+    }
+    for suffix, types in argtypes.items():
+        fn = getattr(lib, f"{lib_name}_{suffix}")
+        fn.argtypes = types
+        fn.restype = i32
+    error_string = getattr(lib, f"{lib_name}_error_string")
+    error_string.argtypes = [i32]
+    error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class KernelPlan:
+    """Every op of one kernel family for one parameter set on one device.
+
+    A subclass sets ``name``, ``lib_name``, ``dtype``, ``word_bits`` and its
+    own ``launches`` dict (keyed ``<lib_name>_<entry point>``), and defines
+    ``covers(n, q)`` and ``_refusal(p)``."""
+
+    name: str
+    lib_name: str
+    dtype: torch.dtype
+    word_bits: int
+    launches: dict
+
+    @staticmethod
+    def covers(n: int, q: int) -> bool:
+        raise NotImplementedError
+
+    def _refusal(self, p: NttParams) -> str:
+        raise NotImplementedError
+
+    def __init__(self, p: NttParams, device=None):
+        """Tables on ``device``: by default the current CUDA device."""
+        if not self.covers(p.n, p.q):
+            raise ValueError(self._refusal(p))
+        self.p = p
+        self.device = ntt.resolve_device(device)
+        self.plan = ntt.NttPlan(p, Reduction.SHOUP, self.device)
+        self.ring = self.plan.ring
+        word = 1 << self.word_bits
+        q, r = p.q, word % p.q
+        self._q_prime = (-pow(q, -1, word)) % word
+        # the spectrum domain (times 2^word) and the way back, for the plain
+        # versions; the kernels' scales: a REDC of two fresh spectra leaves
+        # 2^-word, of a fresh one with a cached one nothing
+        self._r_tw = self.ring.encode_tw([r], self.device)
+        self._r_inv_tw = self.ring.encode_tw([pow(r, -1, q)], self.device)
+        self._scale_fresh = self._shoup_pair(p.n_inv * r % q)
+        self._scale_cached = self._shoup_pair(p.n_inv)
+        self._scale_spectrum = self._shoup_pair(r)
+        self._scale_one = self._shoup_pair(1)
+        self._perm = torch.tensor(reference.bit_reverse_permutation(p.n),
+                                  dtype=torch.int64)
+
+    def _shoup_pair(self, w: int) -> tuple[int, int]:
+        """A kernel scale: w and its Shoup companion floor(w * 2^word / q),
+        Python ints for the C call."""
+        return w, (w << self.word_bits) // self.p.q
+
+    # ------------------------------------------------------------------
+    # Layout map
+    # ------------------------------------------------------------------
+
+    def bitrev_to_natural_perm(self) -> np.ndarray:
+        """perm such that natural_spectrum = spectrum[..., perm] (an
+        involution, so it also maps natural order to the port's)."""
+        return self._perm.numpy().copy()
+
+    def bitrev_to_natural(self, x: torch.Tensor) -> torch.Tensor:
+        return x[..., self._perm.to(x.device)]
+
+    natural_to_bitrev = bitrev_to_natural
+
+    # ------------------------------------------------------------------
+    # Products
+    # ------------------------------------------------------------------
+
+    def nwc_poly_mult(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """a * b mod (x^n + 1, q) for (B, n) residues, natural order."""
+        self._check_like(a, b)
+        if self._runs_plain(a):
+            return self.nwc_poly_mult_plain(a, b)
+        return self._product("product", a, b, self.plan.merged_flat,
+                             self.plan.merged_inv_flat, self._scale_fresh)
+
+    def nwc_poly_mult_plain(self, a, b):
+        return ntt.nwc_poly_mult_merged(self.plan, a, b)
+
+    def cyclic_poly_mult(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """INTT(NTT(a) . NTT(b)): a * b mod (x^n - 1, q)."""
+        self._check_like(a, b)
+        if self._runs_plain(a):
+            return self.cyclic_poly_mult_plain(a, b)
+        return self._product("product", a, b, self.plan.cyclic_flat,
+                             self.plan.cyclic_inv_flat, self._scale_fresh)
+
+    def cyclic_poly_mult_plain(self, a, b):
+        fa = ntt.ntt_fwd_bitrev(self.plan, a)
+        fb = ntt.ntt_fwd_bitrev(self.plan, b)
+        return ntt.ntt_inv_bitrev(self.plan, self.ring.mul(fa, fb))
+
+    def nwc_poly_mult_cached(self, a: torch.Tensor,
+                             spectrum: torch.Tensor) -> torch.Tensor:
+        """The product of a with the operand whose ``nwc_spectrum`` is given:
+        one forward transform instead of two."""
+        self._check_like(a, spectrum)
+        if self._runs_plain(a):
+            return self.nwc_poly_mult_cached_plain(a, spectrum)
+        return self._product("cached", a, spectrum, self.plan.merged_flat,
+                             self.plan.merged_inv_flat, self._scale_cached)
+
+    def nwc_poly_mult_cached_plain(self, a, spectrum):
+        c = self.ring.mul(ntt.nwc_fwd_merged(self.plan, a), spectrum)
+        return ntt.nwc_inv_merged(self.plan, self.ring.mul_tw(c, self._r_inv_tw))
+
+    # ------------------------------------------------------------------
+    # Transforms
+    # ------------------------------------------------------------------
+
+    def ntt_fwd(self, x: torch.Tensor) -> torch.Tensor:
+        """Cyclic forward NTT, bit-reversed spectrum out."""
+        self._check(x, "x", 2)
+        if self._runs_plain(x):
+            return self.ntt_fwd_plain(x)
+        return self._forward(x, self.plan.cyclic_flat, self._scale_one)
+
+    def ntt_fwd_plain(self, x):
+        return ntt.ntt_fwd_bitrev(self.plan, x)
+
+    def ntt_inv(self, x: torch.Tensor) -> torch.Tensor:
+        """Cyclic inverse NTT of ``ntt_fwd``'s layout, natural order out."""
+        self._check(x, "x", 2)
+        if self._runs_plain(x):
+            return self.ntt_inv_plain(x)
+        return self._inverse(x, self.plan.cyclic_inv_flat)
+
+    def ntt_inv_plain(self, x):
+        return ntt.ntt_inv_bitrev(self.plan, x)
+
+    def nwc_ntt_fwd(self, x: torch.Tensor) -> torch.Tensor:
+        """Negacyclic forward (psi-twist + NTT), bit-reversed spectrum out."""
+        self._check(x, "x", 2)
+        if self._runs_plain(x):
+            return self.nwc_ntt_fwd_plain(x)
+        return self._forward(x, self.plan.merged_flat, self._scale_one)
+
+    def nwc_ntt_fwd_plain(self, x):
+        return ntt.nwc_fwd_merged(self.plan, x)
+
+    def nwc_ntt_inv(self, x: torch.Tensor) -> torch.Tensor:
+        """Negacyclic inverse (untwist and n^-1 folded in) of ``nwc_ntt_fwd``'s
+        layout, natural-order coefficients out."""
+        self._check(x, "x", 2)
+        if self._runs_plain(x):
+            return self.nwc_ntt_inv_plain(x)
+        return self._inverse(x, self.plan.merged_inv_flat)
+
+    def nwc_ntt_inv_plain(self, x):
+        return ntt.nwc_inv_merged(self.plan, x)
+
+    def nwc_spectrum(self, x: torch.Tensor) -> torch.Tensor:
+        """The cacheable operand spectrum: the negacyclic spectrum times
+        2^word mod q, bit-reversed order."""
+        self._check(x, "x", 2)
+        if self._runs_plain(x):
+            return self.nwc_spectrum_plain(x)
+        return self._forward(x, self.plan.merged_flat, self._scale_spectrum)
+
+    def nwc_spectrum_plain(self, x):
+        return self.ring.mul_tw(ntt.nwc_fwd_merged(self.plan, x), self._r_tw)
+
+    # ------------------------------------------------------------------
+    # Dot and matvec
+    # ------------------------------------------------------------------
+
+    def nwc_dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """sum_k a_k * b_k mod (x^n + 1, q) for (K, B, n) stacks, K <= 8: one
+        inverse transform per output row."""
+        return self._dot(a, b, cached=False)
+
+    def nwc_dot_cached(self, a: torch.Tensor, spectra: torch.Tensor) -> torch.Tensor:
+        """The dot against a (K, B, n) stack of ``nwc_spectrum`` outputs:
+        K forwards and one inverse per output row."""
+        return self._dot(a, spectra, cached=True)
+
+    def nwc_dot_plain(self, a, b):
+        c = self._spectral_sum(ntt.nwc_fwd_merged(self.plan, a),
+                               ntt.nwc_fwd_merged(self.plan, b))
+        return ntt.nwc_inv_merged(self.plan, c)
+
+    def nwc_dot_cached_plain(self, a, spectra):
+        c = self._spectral_sum(ntt.nwc_fwd_merged(self.plan, a), spectra)
+        return ntt.nwc_inv_merged(self.plan, self.ring.mul_tw(c, self._r_inv_tw))
+
+    def nwc_matvec_spectra(self, A: torch.Tensor) -> torch.Tensor:
+        """Cached spectra of a fixed (k, l, n) polynomial matrix for
+        ``nwc_matvec_cached``: ``nwc_spectrum`` of each entry, (k, l, n)."""
+        self._check(A, "A", 3)
+        if self._runs_plain(A):
+            return self.nwc_matvec_spectra_plain(A)
+        return self._forward(A, self.plan.merged_flat, self._scale_spectrum)
+
+    def nwc_matvec_spectra_plain(self, A):
+        return self.nwc_spectrum_plain(A)
+
+    def nwc_matvec_cached(self, s: torch.Tensor, spectra: torch.Tensor) -> torch.Tensor:
+        """A @ s over Z_q[x]/(x^n + 1): s is (l, B, n), spectra the (k, l, n)
+        ``nwc_matvec_spectra`` of A; returns (k, B, n), out[i] = sum_j
+        A[i, j] * s[j].  l + k transforms for k * l products: the l forwards
+        of s go to a scratch tensor, then one accumulate-and-inverse kernel
+        runs per (row of the batch, row of A)."""
+        self._check(s, "s", 3)
+        self._check(spectra, "spectra", 3)
+        k, l = spectra.shape[0], spectra.shape[1]
+        if s.shape[0] != l:
+            raise ValueError(f"s has {s.shape[0]} rows, A has l={l} columns")
+        if not (1 <= l <= MAX_TERMS and 1 <= k <= MAX_TERMS):
+            raise ValueError(f"nwc_matvec supports 1 <= k, l <= 8, got k={k}, l={l}")
+        if self._runs_plain(s):
+            return self.nwc_matvec_cached_plain(s, spectra)
+        batch = s.shape[1]
+        out = s.new_empty((k, batch, self.p.n))
+        if batch == 0:
+            return out
+        fs = self._forward(s, self.plan.merged_flat, self._scale_one)
+        return self._launch(
+            "matvec", out, fs, spectra, out, *self.plan.merged_inv_flat,
+            k, l, batch, self.p.log_n, self.p.q, self._q_prime,
+            *self._scale_cached)
+
+    def nwc_matvec_cached_plain(self, s, spectra):
+        fs = ntt.nwc_fwd_merged(self.plan, s)
+        outs = []
+        for i in range(spectra.shape[0]):
+            c = self._spectral_sum(fs, spectra[i].unsqueeze(1))
+            outs.append(ntt.nwc_inv_merged(self.plan,
+                                           self.ring.mul_tw(c, self._r_inv_tw)))
+        return torch.stack(outs)
+
+    # ------------------------------------------------------------------
+    # Checks and launches
+    # ------------------------------------------------------------------
+
+    def _spectral_sum(self, fx, spectra):
+        """sum_k of the slotwise products fx[k] * spectra[k], kept canonical
+        after each add."""
+        c = self.ring.mul(fx, spectra)
+        acc = c[0]
+        for k in range(1, c.shape[0]):
+            acc = self.ring.add(acc, c[k])
+        return acc
+
+    def _dot(self, a, b, cached: bool):
+        self._check_like(a, b, 3)
+        if not 1 <= a.shape[0] <= MAX_TERMS:
+            raise ValueError(f"nwc_dot supports 1 <= K <= 8 pairs, got {a.shape[0]}")
+        if self._runs_plain(a):
+            return (self.nwc_dot_cached_plain if cached else self.nwc_dot_plain)(a, b)
+        terms, batch = a.shape[0], a.shape[1]
+        out = a.new_empty((batch, self.p.n))
+        if batch == 0:
+            return out
+        scale = self._scale_cached if cached else self._scale_fresh
+        return self._launch(
+            "dot", out, a, b, out, *self.plan.merged_flat,
+            *self.plan.merged_inv_flat, terms, batch, self.p.log_n, self.p.q,
+            self._q_prime, *scale, int(cached))
+
+    def _check(self, t: torch.Tensor, name: str, dims: int) -> None:
+        if t.dtype != self.dtype:
+            raise TypeError(f"{name} must be {self.dtype} residues, got {t.dtype}")
+        if t.dim() != dims or t.shape[-1] != self.p.n:
+            raise ValueError(f"{name} must have {dims} dimensions, the last "
+                             f"{self.p.n}; got {tuple(t.shape)}")
+        if t.device != self.device:
+            raise ValueError(f"{name} is on {t.device}, the plan on {self.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    def _check_like(self, a: torch.Tensor, b: torch.Tensor, dims: int = 2) -> None:
+        self._check(a, "a", dims)
+        self._check(b, "b", dims)
+        if a.shape != b.shape:
+            raise ValueError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+
+    @staticmethod
+    def _runs_plain(x: torch.Tensor) -> bool:
+        """True for a CPU tensor (run the plain version), False for a CUDA
+        tensor (launch the kernel); any other device raises."""
+        if x.device.type == "cpu":
+            return True
+        if x.device.type != "cuda":
+            raise ValueError(f"no kernel for device {x.device}")
+        return False
+
+    def _product(self, entry, a, b, tw, itw, scale):
+        out = torch.empty_like(a)
+        if a.shape[0] == 0:
+            return out
+        return self._launch(entry, out, a, b, out, *tw, *itw, a.shape[0],
+                            self.p.log_n, self.p.q, self._q_prime, *scale)
+
+    def _forward(self, x, tw, scale):
+        out = torch.empty_like(x)
+        rows = x.numel() // self.p.n
+        if rows == 0:
+            return out
+        return self._launch("forward", out, x, out, *tw, rows,
+                            self.p.log_n, self.p.q, *scale)
+
+    def _inverse(self, x, itw):
+        out = torch.empty_like(x)
+        if x.shape[0] == 0:
+            return out
+        return self._launch("inverse", out, x, out, *itw, x.shape[0],
+                            self.p.log_n, self.p.q, *self._scale_cached)
+
+    def _launch(self, entry: str, out: torch.Tensor, *args) -> torch.Tensor:
+        """Launch the kernel ``entry`` on the current stream of out's device,
+        tensors passed by address, and count it; raise if the launch was
+        refused."""
+        lib = load(self.lib_name, self.word_bits)
+        kernel = f"{self.lib_name}_{entry}"
+        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        with torch.cuda.device(out.device):
+            err = getattr(lib, kernel)(
+                *args, torch.cuda.current_stream(out.device).cuda_stream)
+        if err:
+            message = getattr(lib, f"{self.lib_name}_error_string")(err).decode()
+            raise RuntimeError(f"{kernel} launch failed: {message}")
+        self.launches[kernel] += 1
+        return out

@@ -1,43 +1,71 @@
-// nwc64.cu: fused negacyclic product for 60-bit NTT primes, hand-written for
-// Hopper (sm_90a).
+// nwc64.cu: the double-word NTT kernels of the 60-bit family, hand-written
+// for Hopper (sm_90a).
 //
-// Replaces tpu_ntt/kernels/mxu64.py MxuPlan64._nwc_kernel (:1442), as
-// specialised by SolinasPlan64 (tpu_ntt/kernels/sol64.py) and launched by
-// MxuPlan64._call (mxu64.py:1981).  For (B, n) rows of uint64 residues in
-// [0, q), natural order, it writes c = a * b mod (x^n + 1, q) in [0, q),
-// natural order: the function of tpu_ntt_torch.ntt.nwc_poly_mult_merged, bit
-// for bit.  256 <= n <= 8192, q odd and below 2^62.
+// Replaces the dense bodies of kernel K1 of tpu_ntt/kernels/mxu64.py
+// (MxuPlan64: any q of 31 to 62 bits, and its subclass SolinasPlan64 of
+// tpu_ntt/kernels/sol64.py for trinomial q), all three of its pallas_calls:
+//   nwc64_product  _nwc_kernel (:1442) through MxuPlan64._call (:1981): the
+//                  negacyclic product and, with cyclic tables, _cyclic_kernel
+//                  (:1474, cyclic_poly_mult)
+//   nwc64_cached   _nwc_cached_kernel (:1691), the same launcher
+//   nwc64_forward  _nwc_fwd_kernel (:1715: nwc_ntt_fwd), _fwd_kernel (:1544:
+//                  ntt_fwd, with cyclic tables) and _nwc_spec_kernel (:1675:
+//                  nwc_spectrum, by its scale)
+//   nwc64_inverse  _nwc_inv_kernel (:1733: nwc_ntt_inv) and _inv_kernel
+//                  (:1559: ntt_inv)
+//   nwc64_dot      _make_dot_kernel (:1599) through MxuPlan64._dot_call
+//                  (:2238), fresh or cached
+//   nwc64_matvec   _make_matvec_kernel (:1639) through nwc_matvec_cached
+//                  (:2305), after nwc64_forward has transformed s
+// Residues are uint64 in [0, q), (B, n) rows, natural order; a spectrum is in
+// bit-reversed order.  Each function computes what tpu_ntt_torch.kernels
+// MxuPlan64's plain version of it computes, bit for bit: the TPU kernel's
+// function, not its algorithm.  The TPU's eight balanced int8 digits,
+// carry-save lanes, REDC96, Solinas fold and four-step layout exist only
+// because Mosaic has no 64-bit integers (mxu64.py:1-35); none of them is
+// carried over.  Correct for any odd q < 2^62 and 256 <= n <= 8192.
 //
-// Design, correct first and simple:
-// * One thread block per row.  Both operand rows live in dynamic shared
-//   memory (2 * n * 8 bytes: 64 KiB at n = 4096, 128 KiB at n = 8192), so
-//   device memory sees each operand and the result once.
-// * The merged-psi Cooley-Tukey forward runs in place on both rows (natural
-//   in, bit-reversed out), then the slotwise product, then the merged
-//   Gentleman-Sande inverse (bit-reversed in, natural out), with a
-//   __syncthreads between stages.
-// * Twiddles come from flat length-n tables in device memory: the stage with
-//   m butterfly groups reads entry m + g for group g, each beside its Shoup
-//   companion w' = floor(w * 2^64 / q).  Constant multiplies are Shoup with
-//   __umul64hi.
-// * The variable x variable product is Montgomery-64 (one REDC).  Its 2^-64
-//   is cancelled in the same pass by a Shoup multiply with n^-1 * 2^64 mod q,
-//   which also applies the inverse's n^-1 scale.  Montgomery is chosen over
-//   the Solinas shift-add fold of sol64.py: it serves every odd q < 2^62 in
-//   three wide multiplies, and the fold exists on the TPU only because Mosaic
-//   has no 64-bit multiply.
-// * Every value stays canonical in [0, q); q < 2^62 leaves room for a + b.
+// Design, correct first and simple (the design of nwc32.cu on 64-bit words):
+// * One thread block per row (per output row for the dot and the matvec).
+//   The rows a block works on live in dynamic shared memory, 8n bytes each:
+//   the product holds two (128 KiB at n = 8192), the dot three (192 KiB at
+//   n = 8192, under the 227 KB a block may have), so device memory sees each
+//   operand and each result once.  n / 8 threads (at most 1024) run four
+//   butterflies each up to n = 8192.
+// * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
+//   Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
+//   between stages.  The stage with m groups reads entry m + g of a flat
+//   length-n table for group g, beside its Shoup companion
+//   w' = floor(w * 2^64 / q); a constant multiply is Shoup with __umul64hi.
+//   The cyclic ops take the tables with omega powers (ntt.py, "bitrev").
+// * The slot product is Montgomery-64 (one REDC): a*b*2^-64.  Its 2^-64 and
+//   the inverse's n^-1 are cancelled by one Shoup multiply with the scale the
+//   wrapper passes (n^-1 * 2^64 mod q for two fresh spectra; n^-1 against a
+//   cached spectrum, which holds its 2^64 already).  Montgomery serves every
+//   odd q < 2^62 in three wide multiplies; the TPU's Solinas fold exists only
+//   because Mosaic has no 64-bit multiply.
+// * Every value stays canonical in [0, q), also through the dot's and the
+//   matvec's accumulation (one conditional subtract after each add: two
+//   residues below q < 2^62 sum below 2^63).
+// * The matvec keeps the l + k transforms of mxu64.py:1639 without holding A
+//   in shared memory (k * l * n * 8 bytes, 512 KiB at 4 x 4, n = 4096): the
+//   wrapper transforms the l * B rows of s with nwc64_forward into a scratch
+//   tensor, and nwc64_matvec accumulates sum_j REDC(S_j * A_ij) from device
+//   memory (A stays in L2) and runs one inverse per output row.
 //
-// What bounds it on this card: 64-bit integer multiplies.  Hopper has no
-// 64-bit multiplier; a 64 x 64 low product takes about three 32-bit IMADs and
-// __umul64hi several more.  At B = 2048, n = 4096 the product does 3
-// transforms x 12 stages x 2048 butterflies per row, each with one Shoup
-// multiply of three wide multiplies: 1.5e8 Shoup multiplies, 4.5e8 wide
-// multiplies, against 192 MiB of operand and result traffic that takes about
-// 0.06 ms at 3.35 TB/s.  The
-// design keeps every intermediate in shared memory so that the multiplies
-// are the only cost left; making them cheaper (lazy butterflies, several rows
-// per block, int8 tensor-core transforms) is later work.
+// What bounds it on this card.  Not the 64-bit multiplies it was first
+// thought to be: Hopper builds a 64 x 64 product from 32-bit IMADs, about
+// twelve for a Shoup-64 or Montgomery-64 product, and at P60_4096, B = 2048
+// the product's 3 transforms and slot pass need 2.0e9 of them, 0.12 ms at
+// 132 SMs x 64 IMADs a clock x 1.98 GHz, against 201 MB of operands and
+// result, 0.06 ms at 3.35 TB/s.  The product takes about four times that
+// bound, and the 24-bit kernel, with a sixth of the multiplies a butterfly,
+// takes more than half its time (PERF.md): what holds both back is
+// instruction issue and latency between barriers (index arithmetic, shared
+// loads and stores, twiddle loads and conditional subtracts around each
+// product) and the __syncthreads of every stage.  Several stages per barrier
+// in registers, lazy reduction and several rows per block at small n are the
+// later work.
 
 #include <cstdint>
 
@@ -71,104 +99,333 @@ __device__ __forceinline__ uint64_t mont_mul(uint64_t a, uint64_t b, uint64_t q,
   return t >= q ? t - q : t;
 }
 
-__global__ void nwc64_kernel(const uint64_t* __restrict__ a,
-                             const uint64_t* __restrict__ b,
-                             uint64_t* __restrict__ out,
-                             const uint64_t* __restrict__ tw,
-                             const uint64_t* __restrict__ tw_shoup,
-                             const uint64_t* __restrict__ itw,
-                             const uint64_t* __restrict__ itw_shoup,
-                             int log_n, uint64_t q, uint64_t q_prime,
-                             uint64_t scale, uint64_t scale_shoup) {
-  extern __shared__ uint64_t smem[];
+struct Table {
+  const uint64_t* w;
+  const uint64_t* w_shoup;
+};
+
+// Cooley-Tukey forward, in place, on `rows` rows of n values spaced n apart:
+// stage s has m = 2^s groups of 2t values, t = n >> (s + 1); butterfly j
+// pairs u = 2t * (j / t) + j % t with u + t.
+__device__ void forward(uint64_t* x, int rows, int log_n, Table tw, uint64_t q) {
   const int n = 1 << log_n;
-  const int half = n >> 1;
-  uint64_t* x = smem;
-  uint64_t* y = smem + n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = a[row + i];
-    y[i] = b[row + i];
-  }
-  __syncthreads();
-
-  // Forward, Cooley-Tukey: stage s has m = 2^s groups of 2t values,
-  // t = n >> (s + 1); butterfly j pairs u = 2t * (j / t) + j % t with u + t.
   for (int s = 0; s < log_n; ++s) {
     const int lt = log_n - 1 - s;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
+    for (int j = threadIdx.x; j < n / 2; j += blockDim.x) {
       const int g = j >> lt;
       const int u = (g << (lt + 1)) | (j & ((1 << lt) - 1));
       const int v = u + (1 << lt);
-      const uint64_t w = __ldg(tw + (1 << s) + g);
-      const uint64_t ws = __ldg(tw_shoup + (1 << s) + g);
-      const uint64_t xu = x[u], xv = shoup_mul(x[v], w, ws, q);
-      x[u] = add_mod(xu, xv, q);
-      x[v] = sub_mod(xu, xv, q);
-      const uint64_t yu = y[u], yv = shoup_mul(y[v], w, ws, q);
-      y[u] = add_mod(yu, yv, q);
-      y[v] = sub_mod(yu, yv, q);
+      const uint64_t w = __ldg(tw.w + (1 << s) + g);
+      const uint64_t ws = __ldg(tw.w_shoup + (1 << s) + g);
+      for (int r = 0; r < rows; ++r) {
+        uint64_t* y = x + r * n;
+        const uint64_t yu = y[u], yv = shoup_mul(y[v], w, ws, q);
+        y[u] = add_mod(yu, yv, q);
+        y[v] = sub_mod(yu, yv, q);
+      }
     }
     __syncthreads();
   }
+}
 
-  // Slotwise product: REDC gives x*y*2^-64; scale = n^-1 * 2^64 mod q.
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = shoup_mul(mont_mul(x[i], y[i], q, q_prime), scale, scale_shoup, q);
-  }
-  __syncthreads();
-
-  // Inverse, Gentleman-Sande: the forward's stages in reverse order.
+// Gentleman-Sande inverse of one row, in place: the forward's stages in
+// reverse order.  No n^-1: the caller's scale carries it.
+__device__ void inverse(uint64_t* x, int log_n, Table itw, uint64_t q) {
+  const int n = 1 << log_n;
   for (int s = log_n - 1; s >= 0; --s) {
     const int lt = log_n - 1 - s;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
+    for (int j = threadIdx.x; j < n / 2; j += blockDim.x) {
       const int g = j >> lt;
       const int u = (g << (lt + 1)) | (j & ((1 << lt) - 1));
       const int v = u + (1 << lt);
-      const uint64_t w = __ldg(itw + (1 << s) + g);
-      const uint64_t ws = __ldg(itw_shoup + (1 << s) + g);
+      const uint64_t w = __ldg(itw.w + (1 << s) + g);
+      const uint64_t ws = __ldg(itw.w_shoup + (1 << s) + g);
       const uint64_t xu = x[u], xv = x[v];
       x[u] = add_mod(xu, xv, q);
       x[v] = shoup_mul(sub_mod(xu, xv, q), w, ws, q);
     }
     __syncthreads();
   }
+}
 
+// The product of a row of a with a row of b: b is coefficients, or with
+// kCached a spectrum that is used as it is.  Its own body rather than
+// dot_kernel at one term, which would add an accumulator row, a zeroing pass
+// and a separate scale pass (3.5 % slower on the 24-bit side; PERF.md).
+template <bool kCached>
+__global__ void product_kernel(const uint64_t* __restrict__ a,
+                               const uint64_t* __restrict__ b,
+                               uint64_t* __restrict__ out, Table tw, Table itw,
+                               int log_n, uint64_t q, uint64_t q_prime,
+                               uint64_t scale, uint64_t scale_shoup) {
+  extern __shared__ uint64_t smem[];
+  const int n = 1 << log_n;
+  uint64_t* x = smem;
+  uint64_t* y = smem + n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = a[row + i];
+    y[i] = b[row + i];
+  }
+  __syncthreads();
+  forward(x, kCached ? 1 : 2, log_n, tw, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = shoup_mul(mont_mul(x[i], y[i], q, q_prime), scale, scale_shoup, q);
+  }
+  __syncthreads();
+  inverse(x, log_n, itw, q);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     out[row + i] = x[i];
   }
 }
 
-}  // namespace
+// The forward of one row, times `scale` unless it is 1.
+__global__ void forward_kernel(const uint64_t* __restrict__ in,
+                               uint64_t* __restrict__ out, Table tw, int log_n,
+                               uint64_t q, uint64_t scale, uint64_t scale_shoup) {
+  extern __shared__ uint64_t x[];
+  const int n = 1 << log_n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = in[row + i];
+  }
+  __syncthreads();
+  forward(x, 1, log_n, tw, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = scale == 1 ? x[i] : shoup_mul(x[i], scale, scale_shoup, q);
+  }
+}
 
-// Launches the kernel on `stream`, which must belong to the current device,
-// and returns the CUDA error code (0 on success).  A launch the device
-// refuses (too much shared memory, a bad shape) never runs, so the caller
-// must check the code.
-extern "C" int nwc64_launch(const void* a, const void* b, void* out,
-                            const void* tw, const void* tw_shoup,
-                            const void* itw, const void* itw_shoup,
-                            int batch, int log_n, uint64_t q, uint64_t q_prime,
-                            uint64_t scale, uint64_t scale_shoup,
-                            void* stream) {
-  if (batch < 1 || log_n < 8 || log_n > 13) {
+// The inverse of one row, then times `scale` (n^-1).
+__global__ void inverse_kernel(const uint64_t* __restrict__ in,
+                               uint64_t* __restrict__ out, Table itw, int log_n,
+                               uint64_t q, uint64_t scale, uint64_t scale_shoup) {
+  extern __shared__ uint64_t x[];
+  const int n = 1 << log_n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = in[row + i];
+  }
+  __syncthreads();
+  inverse(x, log_n, itw, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = shoup_mul(x[i], scale, scale_shoup, q);
+  }
+}
+
+// out[r] = INTT(sum_k NTT(a[k, r]) . NTT(b[k, r])) for (terms, batch, n)
+// stacks a and b; with `cached`, b holds spectra.  The sum stays in shared
+// memory, one inverse per output row.
+__global__ void dot_kernel(const uint64_t* __restrict__ a,
+                           const uint64_t* __restrict__ b,
+                           uint64_t* __restrict__ out, Table tw, Table itw,
+                           int terms, int batch, int log_n, uint64_t q,
+                           uint64_t q_prime, uint64_t scale,
+                           uint64_t scale_shoup, int cached) {
+  extern __shared__ uint64_t smem[];
+  const int n = 1 << log_n;
+  uint64_t* acc = smem;
+  uint64_t* x = smem + n;
+  uint64_t* y = smem + 2 * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    acc[i] = 0;
+  }
+  for (int k = 0; k < terms; ++k) {
+    const size_t row = (static_cast<size_t>(k) * batch + blockIdx.x) * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      x[i] = a[row + i];
+      y[i] = b[row + i];
+    }
+    __syncthreads();
+    forward(x, cached ? 1 : 2, log_n, tw, q);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      acc[i] = add_mod(acc[i], mont_mul(x[i], y[i], q, q_prime), q);
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    acc[i] = shoup_mul(acc[i], scale, scale_shoup, q);
+  }
+  __syncthreads();
+  inverse(acc, log_n, itw, q);
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = acc[i];
+  }
+}
+
+// out[i, r] = INTT(sum_j S[j, r] . A[i, j]) for block (r, i): S is the
+// (cols, batch, n) stack of plain spectra of s, A the (rows, cols, n) cached
+// spectra (times 2^64), so each REDC gives the plain product.
+__global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
+                              const uint64_t* __restrict__ mat,
+                              uint64_t* __restrict__ out, Table itw, int cols,
+                              int batch, int log_n, uint64_t q, uint64_t q_prime,
+                              uint64_t scale, uint64_t scale_shoup) {
+  extern __shared__ uint64_t x[];
+  const int n = 1 << log_n;
+  const size_t r = blockIdx.x, i = blockIdx.y;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    uint64_t acc = 0;
+    for (int j = 0; j < cols; ++j) {
+      const uint64_t s = spectra[(j * batch + r) * n + e];
+      const uint64_t m = __ldg(mat + (i * cols + j) * n + e);
+      acc = add_mod(acc, mont_mul(s, m, q, q_prime), q);
+    }
+    x[e] = shoup_mul(acc, scale, scale_shoup, q);
+  }
+  __syncthreads();
+  inverse(x, log_n, itw, q);
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    out[(i * batch + r) * n + e] = x[e];
+  }
+}
+
+int threads_for(int log_n) {
+  const int eighth = 1 << (log_n - 3);
+  return eighth < 1024 ? eighth : 1024;
+}
+
+bool bad_shape(int batch, int log_n) {
+  return batch < 1 || log_n < 8 || log_n > 13;
+}
+
+// Lifts the kernel's dynamic shared memory cap to `words` uint64 values.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int words) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              words * static_cast<int>(sizeof(uint64_t)));
+}
+
+Table table(const void* w, const void* w_shoup) {
+  return Table{static_cast<const uint64_t*>(w),
+               static_cast<const uint64_t*>(w_shoup)};
+}
+
+template <bool kCached>
+int launch_product(const void* a, const void* b, void* out, const void* tw,
+                   const void* tw_shoup, const void* itw, const void* itw_shoup,
+                   int batch, int log_n, uint64_t q, uint64_t q_prime,
+                   uint64_t scale, uint64_t scale_shoup, void* stream) {
+  if (bad_shape(batch, log_n)) {
     return cudaErrorInvalidValue;
   }
   const int n = 1 << log_n;
-  const int smem = 2 * n * static_cast<int>(sizeof(uint64_t));
-  cudaError_t err = cudaFuncSetAttribute(
-      nwc64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_smem(product_kernel<kCached>, 2 * n);
   if (err != cudaSuccess) {
     return err;
   }
-  const int threads = n / 8 < 1024 ? n / 8 : 1024;  // 4 butterflies a thread
-  nwc64_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  product_kernel<kCached><<<batch, threads_for(log_n), 2 * n * sizeof(uint64_t),
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b),
-      static_cast<uint64_t*>(out), static_cast<const uint64_t*>(tw),
-      static_cast<const uint64_t*>(tw_shoup), static_cast<const uint64_t*>(itw),
-      static_cast<const uint64_t*>(itw_shoup), log_n, q, q_prime, scale,
-      scale_shoup);
+      static_cast<uint64_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
+      log_n, q, q_prime, scale, scale_shoup);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Every entry point launches on `stream`, which must belong to the current
+// device, and returns the CUDA error code (0 on success).  A launch the
+// device refuses (too much shared memory, a bad shape) never runs, so the
+// caller must check the code.
+
+extern "C" int nwc64_product(const void* a, const void* b, void* out,
+                             const void* tw, const void* tw_shoup,
+                             const void* itw, const void* itw_shoup, int batch,
+                             int log_n, uint64_t q, uint64_t q_prime,
+                             uint64_t scale, uint64_t scale_shoup, void* stream) {
+  return launch_product<false>(a, b, out, tw, tw_shoup, itw, itw_shoup, batch,
+                               log_n, q, q_prime, scale, scale_shoup, stream);
+}
+
+extern "C" int nwc64_cached(const void* a, const void* spectrum, void* out,
+                            const void* tw, const void* tw_shoup,
+                            const void* itw, const void* itw_shoup, int batch,
+                            int log_n, uint64_t q, uint64_t q_prime,
+                            uint64_t scale, uint64_t scale_shoup, void* stream) {
+  return launch_product<true>(a, spectrum, out, tw, tw_shoup, itw, itw_shoup,
+                              batch, log_n, q, q_prime, scale, scale_shoup,
+                              stream);
+}
+
+extern "C" int nwc64_forward(const void* in, void* out, const void* tw,
+                             const void* tw_shoup, int batch, int log_n,
+                             uint64_t q, uint64_t scale, uint64_t scale_shoup,
+                             void* stream) {
+  if (bad_shape(batch, log_n)) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(forward_kernel, n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  forward_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+      table(tw, tw_shoup), log_n, q, scale, scale_shoup);
+  return cudaGetLastError();
+}
+
+extern "C" int nwc64_inverse(const void* in, void* out, const void* itw,
+                             const void* itw_shoup, int batch, int log_n,
+                             uint64_t q, uint64_t scale, uint64_t scale_shoup,
+                             void* stream) {
+  if (bad_shape(batch, log_n)) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(inverse_kernel, n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  inverse_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+      table(itw, itw_shoup), log_n, q, scale, scale_shoup);
+  return cudaGetLastError();
+}
+
+extern "C" int nwc64_dot(const void* a, const void* b, void* out,
+                         const void* tw, const void* tw_shoup, const void* itw,
+                         const void* itw_shoup, int terms, int batch, int log_n,
+                         uint64_t q, uint64_t q_prime, uint64_t scale,
+                         uint64_t scale_shoup, int cached, void* stream) {
+  if (bad_shape(batch, log_n) || terms < 1 || terms > 8) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(dot_kernel, 3 * n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  dot_kernel<<<batch, threads_for(log_n), 3 * n * sizeof(uint64_t),
+               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b),
+      static_cast<uint64_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
+      terms, batch, log_n, q, q_prime, scale, scale_shoup, cached);
+  return cudaGetLastError();
+}
+
+extern "C" int nwc64_matvec(const void* spectra, const void* mat, void* out,
+                            const void* itw, const void* itw_shoup, int rows,
+                            int cols, int batch, int log_n, uint64_t q,
+                            uint64_t q_prime, uint64_t scale,
+                            uint64_t scale_shoup, void* stream) {
+  if (bad_shape(batch, log_n) || rows < 1 || rows > 8 || cols < 1 || cols > 8) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(matvec_kernel, n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  matvec_kernel<<<dim3(batch, rows), threads_for(log_n), n * sizeof(uint64_t),
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(spectra), static_cast<const uint64_t*>(mat),
+      static_cast<uint64_t*>(out), table(itw, itw_shoup), cols, batch, log_n, q,
+      q_prime, scale, scale_shoup);
   return cudaGetLastError();
 }
 

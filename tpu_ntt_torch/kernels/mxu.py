@@ -8,79 +8,33 @@ spectra, and the k x l matrix-vector product against cached spectra.
 Residues are (B, n) ``torch.int32`` in [0, q), natural order; an int64
 tensor raises ``TypeError``.
 
-Each method launches its hand-written kernel of ``csrc/nwc32.cu`` for a CUDA
-tensor and runs its plain version, the ``*_plain`` method beside it, for a
-CPU tensor; any other device raises.  Nothing falls back.  ``launches``
-counts the launches of each kernel in this process, over all plans.
-
-Spectra (the layout contract of tpu_ntt/dispatch.py:51-56):
-
-* ``ntt_fwd`` and ``nwc_ntt_fwd`` return the plain spectrum in bit-reversed
-  order: position j holds X[bitrev(j)], where X is the natural-order
-  spectrum tpu_ntt's ``MxuPlan`` returns after ``fourstep_to_natural``.
-  ``bitrev_to_natural_perm`` is the map; ``ntt_inv``/``nwc_ntt_inv`` take
-  that order back.
-* ``nwc_spectrum`` (and each block of ``nwc_matvec_spectra``) is the
-  negacyclic spectrum times 2^32 mod q, in the same bit-reversed order: the
-  domain of tpu_ntt's cached spectra, so ``convert.spectra_from_jax`` only
-  permutes them.  ``nwc_poly_mult_cached``, ``nwc_dot_cached`` and
-  ``nwc_matvec_cached`` take it.
-* ``nwc_matvec_spectra`` returns (k, l, n), not tpu_ntt's (k, l, rows, 128)
-  blocks tiled over the polynomials of an MXU group: the tiling is the
-  TPU's (``convert.matvec_spectra_from_jax`` undoes it).
+The ops, their plain versions, the launch counts and the spectrum layout
+(bit-reversed; cached spectra times 2^32 mod q, tpu_ntt's domain) are
+``_plan.KernelPlan``'s; the kernels are those of ``csrc/nwc32.cu``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
-import numpy as np
 import torch
 
-from .. import ntt, reference
-from ..params import NttParams, Reduction
-from . import _build
+from ..params import NttParams
+from ._plan import KernelPlan
 
 MIN_N, MAX_N = 256, 16384  # the JAX window; the dot's 3 rows of n int32 fit 227 KB
 MAX_WIDTH = 24
-MAX_TERMS = 8  # K of the dot, k and l of the matvec (mxu.py:777, :861)
 
 #: the C entry points of csrc/nwc32.cu, each with its own launch count
 KERNELS = ("nwc32_product", "nwc32_cached", "nwc32_forward", "nwc32_inverse",
            "nwc32_dot", "nwc32_matvec")
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("nwc32")
-    ptr, u32, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
-    argtypes = {
-        "nwc32_product": [ptr] * 7 + [i32] * 2 + [u32] * 4 + [ptr],
-        "nwc32_cached": [ptr] * 7 + [i32] * 2 + [u32] * 4 + [ptr],
-        "nwc32_forward": [ptr] * 4 + [i32] * 2 + [u32] * 3 + [ptr],
-        "nwc32_inverse": [ptr] * 4 + [i32] * 2 + [u32] * 3 + [ptr],
-        "nwc32_dot": [ptr] * 7 + [i32] * 3 + [u32] * 4 + [i32, ptr],
-        "nwc32_matvec": [ptr] * 5 + [i32] * 4 + [u32] * 4 + [ptr],
-    }
-    for name, types in argtypes.items():
-        fn = getattr(lib, name)
-        fn.argtypes = types
-        fn.restype = i32
-    lib.nwc32_error_string.argtypes = [i32]
-    lib.nwc32_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _shoup_pair(w: int, q: int) -> tuple[int, int]:
-    """A kernel scale: w and its Shoup companion floor(w * 2^32 / q)."""
-    return w, (w << 32) // q
-
-
-class MxuPlan:
+class MxuPlan(KernelPlan):
     """Every K3 op for one parameter set with q < 2^24 on one device."""
 
     name = "cuda-mxu"
+    lib_name = "nwc32"
+    dtype = torch.int32
+    word_bits = 32
     #: launches of each kernel in this process, over all plans; a caller that
     #: must show a run went through a kernel zeroes its count first
     launches = dict.fromkeys(KERNELS, 0)
@@ -91,299 +45,7 @@ class MxuPlan:
         == 0 (tpu_ntt/kernels/__init__.py:69-72)."""
         return q.bit_length() <= MAX_WIDTH and not n % 128 and MIN_N <= n <= MAX_N
 
-    def __init__(self, p: NttParams, device=None):
-        """Tables on ``device``: by default the current CUDA device."""
+    def _refusal(self, p: NttParams) -> str:
         if p.width > MAX_WIDTH:
-            raise ValueError(
-                f"MxuPlan requires width <= 24, q < 2^24 (got {p.width}-bit q)")
-        if not self.covers(p.n, p.q):
-            raise ValueError(f"n={p.n} must be a multiple of 128 in [256, 16384]")
-        self.p = p
-        self.device = ntt.resolve_device(device)
-        self.plan = ntt.NttPlan(p, Reduction.SHOUP, self.device)
-        self.ring = self.plan.ring
-        q, r = p.q, (1 << 32) % p.q
-        self._q_prime = p.mont_q_prime
-        # the spectrum domain (times 2^32) and the way back, for the plain
-        # versions; the kernels' scales: a REDC of two fresh spectra leaves
-        # 2^-32, of a fresh one with a cached one nothing
-        self._r_tw = self.ring.encode_tw([r], self.device)
-        self._r_inv_tw = self.ring.encode_tw([pow(r, -1, q)], self.device)
-        self._scale_fresh = _shoup_pair(p.n_inv * r % q, q)
-        self._scale_cached = _shoup_pair(p.n_inv, q)
-        self._scale_spectrum = _shoup_pair(r, q)
-        self._scale_one = _shoup_pair(1, q)
-        self._perm = torch.tensor(reference.bit_reverse_permutation(p.n),
-                                  dtype=torch.int64)
-
-    # ------------------------------------------------------------------
-    # Layout map
-    # ------------------------------------------------------------------
-
-    def bitrev_to_natural_perm(self) -> np.ndarray:
-        """perm such that natural_spectrum = spectrum[..., perm] (an
-        involution, so it also maps natural order to the port's)."""
-        return self._perm.numpy().copy()
-
-    def bitrev_to_natural(self, x: torch.Tensor) -> torch.Tensor:
-        return x[..., self._perm.to(x.device)]
-
-    natural_to_bitrev = bitrev_to_natural
-
-    # ------------------------------------------------------------------
-    # Products
-    # ------------------------------------------------------------------
-
-    def nwc_poly_mult(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """a * b mod (x^n + 1, q) for (B, n) int32 residues, natural order."""
-        self._check_like(a, b)
-        if self._runs_plain(a):
-            return self.nwc_poly_mult_plain(a, b)
-        return self._product("nwc32_product", a, b, self.plan.merged_flat,
-                             self.plan.merged_inv_flat, self._scale_fresh)
-
-    def nwc_poly_mult_plain(self, a, b):
-        return ntt.nwc_poly_mult_merged(self.plan, a, b)
-
-    def cyclic_poly_mult(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """INTT(NTT(a) . NTT(b)): a * b mod (x^n - 1, q)."""
-        self._check_like(a, b)
-        if self._runs_plain(a):
-            return self.cyclic_poly_mult_plain(a, b)
-        return self._product("nwc32_product", a, b, self.plan.cyclic_flat,
-                             self.plan.cyclic_inv_flat, self._scale_fresh)
-
-    def cyclic_poly_mult_plain(self, a, b):
-        fa = ntt.ntt_fwd_bitrev(self.plan, a)
-        fb = ntt.ntt_fwd_bitrev(self.plan, b)
-        return ntt.ntt_inv_bitrev(self.plan, self.ring.mul(fa, fb))
-
-    def nwc_poly_mult_cached(self, a: torch.Tensor,
-                             spectrum: torch.Tensor) -> torch.Tensor:
-        """The product of a with the operand whose ``nwc_spectrum`` is given:
-        one forward transform instead of two."""
-        self._check_like(a, spectrum)
-        if self._runs_plain(a):
-            return self.nwc_poly_mult_cached_plain(a, spectrum)
-        return self._product("nwc32_cached", a, spectrum, self.plan.merged_flat,
-                             self.plan.merged_inv_flat, self._scale_cached)
-
-    def nwc_poly_mult_cached_plain(self, a, spectrum):
-        c = self.ring.mul(ntt.nwc_fwd_merged(self.plan, a), spectrum)
-        return ntt.nwc_inv_merged(self.plan, self.ring.mul_tw(c, self._r_inv_tw))
-
-    # ------------------------------------------------------------------
-    # Transforms
-    # ------------------------------------------------------------------
-
-    def ntt_fwd(self, x: torch.Tensor) -> torch.Tensor:
-        """Cyclic forward NTT, bit-reversed spectrum out."""
-        self._check(x, "x", 2)
-        if self._runs_plain(x):
-            return self.ntt_fwd_plain(x)
-        return self._forward(x, self.plan.cyclic_flat, self._scale_one)
-
-    def ntt_fwd_plain(self, x):
-        return ntt.ntt_fwd_bitrev(self.plan, x)
-
-    def ntt_inv(self, x: torch.Tensor) -> torch.Tensor:
-        """Cyclic inverse NTT of ``ntt_fwd``'s layout, natural order out."""
-        self._check(x, "x", 2)
-        if self._runs_plain(x):
-            return self.ntt_inv_plain(x)
-        return self._inverse(x, self.plan.cyclic_inv_flat)
-
-    def ntt_inv_plain(self, x):
-        return ntt.ntt_inv_bitrev(self.plan, x)
-
-    def nwc_ntt_fwd(self, x: torch.Tensor) -> torch.Tensor:
-        """Negacyclic forward (psi-twist + NTT), bit-reversed spectrum out."""
-        self._check(x, "x", 2)
-        if self._runs_plain(x):
-            return self.nwc_ntt_fwd_plain(x)
-        return self._forward(x, self.plan.merged_flat, self._scale_one)
-
-    def nwc_ntt_fwd_plain(self, x):
-        return ntt.nwc_fwd_merged(self.plan, x)
-
-    def nwc_ntt_inv(self, x: torch.Tensor) -> torch.Tensor:
-        """Negacyclic inverse (untwist and n^-1 folded in) of ``nwc_ntt_fwd``'s
-        layout, natural-order coefficients out."""
-        self._check(x, "x", 2)
-        if self._runs_plain(x):
-            return self.nwc_ntt_inv_plain(x)
-        return self._inverse(x, self.plan.merged_inv_flat)
-
-    def nwc_ntt_inv_plain(self, x):
-        return ntt.nwc_inv_merged(self.plan, x)
-
-    def nwc_spectrum(self, x: torch.Tensor) -> torch.Tensor:
-        """The cacheable operand spectrum: the negacyclic spectrum times
-        2^32 mod q, bit-reversed order."""
-        self._check(x, "x", 2)
-        if self._runs_plain(x):
-            return self.nwc_spectrum_plain(x)
-        return self._forward(x, self.plan.merged_flat, self._scale_spectrum)
-
-    def nwc_spectrum_plain(self, x):
-        return self.ring.mul_tw(ntt.nwc_fwd_merged(self.plan, x), self._r_tw)
-
-    # ------------------------------------------------------------------
-    # Dot and matvec
-    # ------------------------------------------------------------------
-
-    def nwc_dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """sum_k a_k * b_k mod (x^n + 1, q) for (K, B, n) stacks, K <= 8: one
-        inverse transform per output row."""
-        return self._dot(a, b, cached=False)
-
-    def nwc_dot_cached(self, a: torch.Tensor, spectra: torch.Tensor) -> torch.Tensor:
-        """The dot against a (K, B, n) stack of ``nwc_spectrum`` outputs:
-        K forwards and one inverse per output row."""
-        return self._dot(a, spectra, cached=True)
-
-    def nwc_dot_plain(self, a, b):
-        c = self._spectral_sum(ntt.nwc_fwd_merged(self.plan, a),
-                               ntt.nwc_fwd_merged(self.plan, b))
-        return ntt.nwc_inv_merged(self.plan, c)
-
-    def nwc_dot_cached_plain(self, a, spectra):
-        c = self._spectral_sum(ntt.nwc_fwd_merged(self.plan, a), spectra)
-        return ntt.nwc_inv_merged(self.plan, self.ring.mul_tw(c, self._r_inv_tw))
-
-    def nwc_matvec_spectra(self, A: torch.Tensor) -> torch.Tensor:
-        """Cached spectra of a fixed (k, l, n) polynomial matrix for
-        ``nwc_matvec_cached``: ``nwc_spectrum`` of each entry, (k, l, n)."""
-        self._check(A, "A", 3)
-        if self._runs_plain(A):
-            return self.nwc_matvec_spectra_plain(A)
-        return self._forward(A, self.plan.merged_flat, self._scale_spectrum)
-
-    def nwc_matvec_spectra_plain(self, A):
-        return self.nwc_spectrum_plain(A)
-
-    def nwc_matvec_cached(self, s: torch.Tensor, spectra: torch.Tensor) -> torch.Tensor:
-        """A @ s over Z_q[x]/(x^n + 1): s is (l, B, n), spectra the (k, l, n)
-        ``nwc_matvec_spectra`` of A; returns (k, B, n), out[i] = sum_j
-        A[i, j] * s[j].  l + k transforms for k * l products: the l forwards
-        of s go to a scratch tensor, then one accumulate-and-inverse kernel
-        runs per (row of the batch, row of A)."""
-        self._check(s, "s", 3)
-        self._check(spectra, "spectra", 3)
-        k, l = spectra.shape[0], spectra.shape[1]
-        if s.shape[0] != l:
-            raise ValueError(f"s has {s.shape[0]} rows, A has l={l} columns")
-        if not (1 <= l <= MAX_TERMS and 1 <= k <= MAX_TERMS):
-            raise ValueError(f"nwc_matvec supports 1 <= k, l <= 8, got k={k}, l={l}")
-        if self._runs_plain(s):
-            return self.nwc_matvec_cached_plain(s, spectra)
-        batch = s.shape[1]
-        out = s.new_empty((k, batch, self.p.n))
-        if batch == 0:
-            return out
-        fs = self._forward(s, self.plan.merged_flat, self._scale_one)
-        return self._launch(
-            "nwc32_matvec", out, fs, spectra, out, *self.plan.merged_inv_flat,
-            k, l, batch, self.p.log_n, self.p.q, self._q_prime,
-            *self._scale_cached)
-
-    def nwc_matvec_cached_plain(self, s, spectra):
-        fs = ntt.nwc_fwd_merged(self.plan, s)
-        outs = []
-        for i in range(spectra.shape[0]):
-            c = self._spectral_sum(fs, spectra[i].unsqueeze(1))
-            outs.append(ntt.nwc_inv_merged(self.plan,
-                                           self.ring.mul_tw(c, self._r_inv_tw)))
-        return torch.stack(outs)
-
-    # ------------------------------------------------------------------
-    # Checks and launches
-    # ------------------------------------------------------------------
-
-    def _spectral_sum(self, fx, spectra):
-        """sum_k of the slotwise products fx[k] * spectra[k], kept canonical
-        after each add."""
-        c = self.ring.mul(fx, spectra)
-        acc = c[0]
-        for k in range(1, c.shape[0]):
-            acc = self.ring.add(acc, c[k])
-        return acc
-
-    def _dot(self, a, b, cached: bool):
-        self._check_like(a, b, 3)
-        if not 1 <= a.shape[0] <= MAX_TERMS:
-            raise ValueError(f"nwc_dot supports 1 <= K <= 8 pairs, got {a.shape[0]}")
-        if self._runs_plain(a):
-            return (self.nwc_dot_cached_plain if cached else self.nwc_dot_plain)(a, b)
-        terms, batch = a.shape[0], a.shape[1]
-        out = a.new_empty((batch, self.p.n))
-        if batch == 0:
-            return out
-        scale = self._scale_cached if cached else self._scale_fresh
-        return self._launch(
-            "nwc32_dot", out, a, b, out, *self.plan.merged_flat,
-            *self.plan.merged_inv_flat, terms, batch, self.p.log_n, self.p.q,
-            self._q_prime, *scale, int(cached))
-
-    def _check(self, t: torch.Tensor, name: str, dims: int) -> None:
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be torch.int32 residues, got {t.dtype}")
-        if t.dim() != dims or t.shape[-1] != self.p.n:
-            raise ValueError(f"{name} must have {dims} dimensions, the last "
-                             f"{self.p.n}; got {tuple(t.shape)}")
-        if t.device != self.device:
-            raise ValueError(f"{name} is on {t.device}, the plan on {self.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-    def _check_like(self, a: torch.Tensor, b: torch.Tensor, dims: int = 2) -> None:
-        self._check(a, "a", dims)
-        self._check(b, "b", dims)
-        if a.shape != b.shape:
-            raise ValueError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
-
-    @staticmethod
-    def _runs_plain(x: torch.Tensor) -> bool:
-        """True for a CPU tensor (run the plain version), False for a CUDA
-        tensor (launch the kernel); any other device raises."""
-        if x.device.type == "cpu":
-            return True
-        if x.device.type != "cuda":
-            raise ValueError(f"no kernel for device {x.device}")
-        return False
-
-    def _product(self, kernel, a, b, tw, itw, scale):
-        out = torch.empty_like(a)
-        if a.shape[0] == 0:
-            return out
-        return self._launch(kernel, out, a, b, out, *tw, *itw, a.shape[0],
-                            self.p.log_n, self.p.q, self._q_prime, *scale)
-
-    def _forward(self, x, tw, scale):
-        out = torch.empty_like(x)
-        rows = x.numel() // self.p.n
-        if rows == 0:
-            return out
-        return self._launch("nwc32_forward", out, x, out, *tw, rows,
-                            self.p.log_n, self.p.q, *scale)
-
-    def _inverse(self, x, itw):
-        out = torch.empty_like(x)
-        if x.shape[0] == 0:
-            return out
-        return self._launch("nwc32_inverse", out, x, out, *itw, x.shape[0],
-                            self.p.log_n, self.p.q, *self._scale_cached)
-
-    def _launch(self, kernel: str, out: torch.Tensor, *args) -> torch.Tensor:
-        """Launch ``kernel`` on the current stream of out's device, tensors
-        passed by address, and count it; raise if the launch was refused."""
-        lib = _lib()
-        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        with torch.cuda.device(out.device):
-            err = getattr(lib, kernel)(
-                *args, torch.cuda.current_stream(out.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f"{kernel} launch failed: {lib.nwc32_error_string(err).decode()}")
-        MxuPlan.launches[kernel] += 1
-        return out
+            return f"MxuPlan requires width <= 24, q < 2^24 (got {p.width}-bit q)"
+        return f"n={p.n} must be a multiple of 128 in [256, 16384]"

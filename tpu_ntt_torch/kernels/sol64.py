@@ -1,12 +1,13 @@
-"""Fused negacyclic product for Solinas trinomial moduli q = 2^a - 2^b + 1.
+"""Every K1 op for Solinas trinomial moduli q = 2^a - 2^b + 1.
 
-The counterpart of ``tpu_ntt.kernels.sol64.SolinasPlan64``: the headline
-60-bit modulus 2^60 - 2^14 + 1 at 256 <= n <= 8192.  On a CUDA tensor
-``nwc_poly_mult`` launches the hand-written kernel ``csrc/nwc64.cu``; on a
-CPU tensor it runs the plain version, ``ntt.nwc_poly_mult_merged`` over the
-same plan, whose integers it matches bit for bit.  Any other device raises.
+The counterpart of ``tpu_ntt.kernels.sol64.SolinasPlan64`` and, as there, a
+subclass of ``MxuPlan64``: the headline 60-bit modulus 2^60 - 2^14 + 1 at
+256 <= n <= 8192, all twelve ops inherited.  On a CUDA tensor each op
+launches its hand-written kernel of ``csrc/nwc64.cu``; on a CPU tensor it
+runs its plain version over the same plan, whose integers it matches bit for
+bit.  Any other device raises.  ``launches`` is ``MxuPlan64``'s dict.
 
-The CUDA kernel needs only an odd q < 2^62.  ``covers_q`` nevertheless
+The CUDA kernels need only an odd q < 2^62.  ``covers_q`` nevertheless
 accepts exactly the moduli the JAX plan accepts, by re-running the bound
 checks of its shift-add fold (``tpu_ntt.kernels.sol64._FoldPlan``), so that
 dispatch routes the same (n, q) cases here as the JAX policy routes there.
@@ -14,18 +15,11 @@ dispatch routes the same (n, q) cases here as the JAX policy routes there.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
-import torch
-
-from .. import ntt
-from ..params import NttParams, Reduction
-from . import _build
+from ..params import NttParams
+from .mxu64 import MAX_N, MIN_N, MxuPlan64
 
 _BIAS1 = 1 << 27  # the TPU fold's step-1 lane bias
 _BIAS2 = 1 << 24  # the TPU fold's step-3 lane bias
-MIN_N, MAX_N = 256, 8192  # the kernel's shared-memory rows: 2 n 8 bytes
 
 
 def solinas_exponents(q: int) -> tuple[int, int] | None:
@@ -102,24 +96,10 @@ def _fold_bounds_hold(a: int, b: int, q: int, lane_max: int) -> bool:
         q < (1 << 61) - (1 << 40) and lazy_max >= 1 << 61))
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("nwc64")
-    ptr, u64, i32 = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int
-    lib.nwc64_launch.argtypes = [ptr] * 7 + [i32, i32] + [u64] * 4 + [ptr]
-    lib.nwc64_launch.restype = i32
-    lib.nwc64_error_string.argtypes = [i32]
-    lib.nwc64_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-class SolinasPlan64:
-    """Negacyclic product for one trinomial parameter set on one device."""
+class SolinasPlan64(MxuPlan64):
+    """Every K1 op for one trinomial parameter set on one device."""
 
     name = "cuda-sol64"
-    #: launches of the CUDA kernel in this process, over all plans; a caller
-    #: that must show a run went through the kernel zeroes it first
-    launches = 0
 
     @staticmethod
     def covers_q(q: int, n: int) -> bool:
@@ -130,68 +110,11 @@ class SolinasPlan64:
             return False
         return _fold_bounds_hold(ab[0], ab[1], q, _lane_bound(n))
 
-    def __init__(self, p: NttParams, device=None):
-        """Tables on ``device``: by default the current CUDA device."""
-        if not MIN_N <= p.n <= MAX_N or not self.covers_q(p.q, p.n):
-            raise ValueError(
-                f"SolinasPlan64 covers trinomial q at {MIN_N} <= n <= {MAX_N}; "
+    @classmethod
+    def covers(cls, n: int, q: int) -> bool:
+        """``MxuPlan64``'s window, trinomial q whose fold bounds verify."""
+        return MxuPlan64.covers(n, q) and cls.covers_q(q, n)
+
+    def _refusal(self, p: NttParams) -> str:
+        return (f"SolinasPlan64 covers trinomial q at {MIN_N} <= n <= {MAX_N}; "
                 f"got n={p.n}, q={p.q}")
-        device = ntt.resolve_device(device)
-        self.p = p
-        self.device = device
-        self.plan = ntt.NttPlan(p, Reduction.SHOUP, device)
-        q = p.q
-        self._q_prime = (-pow(q, -1, 1 << 64)) % (1 << 64)
-        # undoes the pointwise REDC's 2^-64 and applies the inverse's n^-1
-        scale = p.n_inv * (1 << 64) % q
-        self._scale = (scale, (scale << 64) // q)
-
-    def nwc_poly_mult_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """The plain PyTorch version of the kernel, on any device."""
-        return ntt.nwc_poly_mult_merged(self.plan, a, b)
-
-    def nwc_poly_mult(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """a * b mod (x^n + 1, q) for (B, n) int64 residues in [0, q),
-        natural order.  The kernel on CUDA, the plain version on the CPU."""
-        self._check(a, b)
-        if a.device.type == "cpu":
-            return self.nwc_poly_mult_plain(a, b)
-        if a.device.type != "cuda":
-            raise ValueError(f"no kernel for device {a.device}")
-        return self._launch(a, b)
-
-    def _check(self, a: torch.Tensor, b: torch.Tensor) -> None:
-        for name, t in (("a", a), ("b", b)):
-            if t.dtype != torch.int64:
-                raise TypeError(f"{name} must be torch.int64, got {t.dtype}")
-            if t.dim() != 2 or t.shape[1] != self.p.n:
-                raise ValueError(
-                    f"{name} must have shape (B, {self.p.n}), got {tuple(t.shape)}")
-            if t.device != self.device:
-                raise ValueError(
-                    f"{name} is on {t.device}, the plan on {self.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-        if a.shape != b.shape:
-            raise ValueError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
-
-    def _launch(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        out = torch.empty_like(a)
-        if a.shape[0] == 0:
-            return out
-        lib = _lib()
-        tw, tw_s = self.plan.merged_flat
-        itw, itw_s = self.plan.merged_inv_flat
-        # the shared-memory attribute and the launch apply to the current
-        # device; the context restores the caller's afterwards
-        with torch.cuda.device(a.device):
-            err = lib.nwc64_launch(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                tw_s.data_ptr(), itw.data_ptr(), itw_s.data_ptr(), a.shape[0],
-                self.p.log_n, self.p.q, self._q_prime, *self._scale,
-                torch.cuda.current_stream(a.device).cuda_stream)
-        if err:
-            raise RuntimeError(
-                f"nwc64 launch failed: {lib.nwc64_error_string(err).decode()}")
-        SolinasPlan64.launches += 1
-        return out
