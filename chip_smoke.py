@@ -5,17 +5,18 @@ Run it from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 chip_smoke.py [--seed N]
 
-It drives the port's two kernel families on every op: the 60-bit family
+It drives the port's three kernel families on every op: the 60-bit family
 (``kernels/csrc/nwc64.cu``: P60_4096, a trinomial q on ``SolinasPlan64``,
-and the generic prime 576460752308273153 at n = 4096 on ``MxuPlan64``) and
-the 24-bit family (``kernels/csrc/nwc32.cu``: P24_4096 and the
-ML-DSA-44-shaped DILITHIUM_256 4 x 4 matvec).  Phases, each of which raises
-on failure:
+and the generic prime 576460752308273153 at n = 4096 on ``MxuPlan64``), the
+24-bit family (``kernels/csrc/nwc32.cu``: P24_4096 and the
+ML-DSA-44-shaped DILITHIUM_256 4 x 4 matvec) and ML-KEM
+(``kernels/csrc/kyber.cu``: every ``tpu_ntt_torch.kyber`` entry point at
+ML-KEM-768's shapes, B = 16384).  Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi), its SM count and
    top SM clock;
-2. build: nvcc builds both CUDA sources from csrc/, in parallel; ptxas's
-   registers and spills;
+2. build: nvcc builds the three CUDA sources from csrc/, in parallel;
+   ptxas's registers and spills;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
@@ -24,26 +25,39 @@ on failure:
    every K3a entry at P24_4096, B = 2048; the product at FALCON_1024 and at
    n = 16384 (q = 16580609), B = 2048; the dot and the cached dot at
    P24_4096, K = 4, B = 512; the matvec spectra and the 4 x 4 matvec at
-   DILITHIUM_256, B = 8192;
+   DILITHIUM_256, B = 8192; every ``kyber_*`` function at B = 16384 (the
+   dot at K = 3, fresh and cached; the matvec 3 x 3 from ``matvec_spectra``
+   and from ``ntt_domain_blocks``), and the 2 x 2 and 4 x 4 matvecs of
+   ML-KEM-512 and -1024 at B = 2048;
 4. oracle: c(x) == a(x) * b(x) mod q at x = psi^(2k+1), a root of x^n + 1,
    by Python-int Horner evaluation, and one row against the golden model,
    at P60_4096, the generic q and P24_4096; inv(fwd(x)) == x, cyclic and
    negacyclic, at P60_4096 and P24_4096; one P60_4096 dot row equal to the
-   sum of its golden products;
+   sum of its golden products; ML-KEM rows equal to the FIPS-203 goldens
+   (``reference.kyber_ntt``, ``kyber_intt``, ``kyber_poly_mult``, a 3 x 3
+   matvec row as a sum of golden products), one product row equal to
+   ``reference.schoolbook_negacyclic``, and intt(ntt(x)) == x at B = 16384;
 5. main path: ``dispatch.best(p, op)`` for each of the twelve ops at
    P60_4096, at the generic q and at P24_4096, then
    ``dispatch.best_nwc_matvec`` at P60_4096 (4 x 4, B = 256) and at
-   DILITHIUM_256, each run with the launch counts set to 0 just before it
-   and read just after: each goes through its kernel, stays in [0, q) and
+   DILITHIUM_256, then the eleven ``tpu_ntt_torch.kyber`` entry points at
+   B = 16384, each run with the launch counts set to 0 just before it and
+   read just after: each goes through its kernel (``basemul`` and
+   ``ntt_domain_blocks``, elementwise, through none), stays in [0, q) and
    returns what its plain version returns;
-6. timing: each kernel function, through the main path, and its plain
-   version by CUDA events, in turns plain, kernel, kernel, plain; the plain
-   versions with few iterations.  Products, forward transforms and matvecs
-   per second for the headline rows.
+6. timing: each kernel function, through the main path, in turns plain,
+   kernel, kernel, plain: its device time by the replay of its calls
+   captured in a CUDA graph (``benchlib.graph_seconds_per_call``, the
+   line's ``ms``), its time per call back to back by CUDA events, host
+   time included, and the host's time to enqueue a call; the plain version
+   by CUDA events, with few iterations.  Products, forward transforms and
+   matvecs per second for the headline rows, and ML-KEM products, forward
+   NTTs and 3 x 3 matvecs per second at B = 16384, from the back-to-back
+   times: what a caller of the entry point gets.
 
 The line before the last lists each kernel with its launches on the main
-path, its largest difference from its plain version, its time, its plain
-version's time and its bound (``tpu_ntt_torch/bounds.py``): the larger of
+path, its largest difference from its plain version, its device time, its
+plain version's time and its bound (``tpu_ntt_torch/bounds.py``): the larger of
 its bytes over 3.35 TB/s and its 32-bit multiplies over the card's IMAD rate
 (its SMs x 64 a clock x its top SM clock).  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the package beside it, the script exits
@@ -69,8 +83,10 @@ DOT_BATCH_8192 = 256
 MATVEC_BATCH = 8192  # bench.py's batch for the dilithium_256 matvec row
 MATVEC_BATCH_60 = 256  # bench.py:153, the p60_4096 matvec row
 Q_GENERIC = 576460752308273153  # bench.py:35: a 60-bit prime, not a trinomial
+KYBER_SMALL_BATCH = 2048  # the ML-KEM-512 and -1024 matvecs, checked only
 SOURCES = {"nwc64": "tpu_ntt_torch/kernels/csrc/nwc64.cu",
-           "nwc32": "tpu_ntt_torch/kernels/csrc/nwc32.cu"}
+           "nwc32": "tpu_ntt_torch/kernels/csrc/nwc32.cu",
+           "kyber": "tpu_ntt_torch/kernels/csrc/kyber.cu"}
 #: the TPU kernel body each function replaces
 REPLACES = {
     "nwc64_product": "tpu_ntt/kernels/mxu64.py:1442",  # _nwc_kernel (+ _cyclic_kernel :1474), K1a
@@ -85,6 +101,12 @@ REPLACES = {
     "nwc32_inverse": "tpu_ntt/kernels/mxu.py:627",  # _nwc_inv_kernel, K3a
     "nwc32_dot": "tpu_ntt/kernels/mxu.py:506",  # _make_dot_kernel, K3b
     "nwc32_matvec": "tpu_ntt/kernels/mxu.py:544",  # _make_matvec_kernel, K3c
+    "kyber_forward": "tpu_ntt/kernels/kyber.py:388",  # _transform_kernel (+ :291), K4a
+    "kyber_inverse": "tpu_ntt/kernels/kyber.py:388",  # _transform_kernel (intt), K4a
+    "kyber_product": "tpu_ntt/kernels/kyber.py:277",  # _poly_mult_kernel_v2, K4b
+    "kyber_cached": "tpu_ntt/kernels/kyber.py:301",  # _cached_kernel_v2, K4b
+    "kyber_dot": "tpu_ntt/kernels/kyber.py:311",  # _make_dot_kernel_v2, K4c
+    "kyber_matvec": "tpu_ntt/kernels/kyber.py:336",  # _make_matvec_kernel_v2, K4d
 }
 #: which entry points of its family's source each dispatch op launches
 OP_ENTRIES = {
@@ -146,10 +168,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
 
-    from tpu_ntt_torch import dispatch, reference
-    from tpu_ntt_torch.benchlib import device_seconds_per_call
-    from tpu_ntt_torch.bounds import DOT_TERMS, IMAD_PER_SM_CLOCK, seconds, work
+    from tpu_ntt_torch import dispatch, kyber, reference
+    from tpu_ntt_torch.benchlib import (device_seconds_per_call, graph_seconds_per_call,
+                                        host_seconds_per_call)
+    from tpu_ntt_torch.bounds import (DOT_TERMS, IMAD_PER_SM_CLOCK, KYBER_BATCH,
+                                      KYBER_K, seconds, work)
     from tpu_ntt_torch.kernels import _build
+    from tpu_ntt_torch.kernels.kyber import KyberPlan
     from tpu_ntt_torch.kernels.mxu import MxuPlan
     from tpu_ntt_torch.kernels.mxu64 import MxuPlan64
     from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
@@ -282,6 +307,49 @@ def main() -> int:
     mv_dil = check_op(pdil, "matvec", f"DILITHIUM_256 4x4 B={MATVEC_BATCH}",
                       (s_dil, spec_dil))
 
+    # ML-KEM: every kyber.cu function at ML-KEM-768's shapes, B = 16384
+    kp, kq, kb_ = KyberPlan(device), kyber.Q, KYBER_BATCH
+
+    def check_kyber(method: str, entry: str, label: str, inputs):
+        got = getattr(kp, method)(*inputs)
+        compare(f"kyber_{entry}", f"{method} {label}", got,
+                getattr(kp, method + "_plain")(*inputs))
+        return got
+
+    def kyber_stack(terms: int, batch: int):
+        return [t.reshape(terms, batch, kyber.N) for t in on_card(
+            *operands(kq, kyber.N, terms * batch, rng, np.int32))]
+
+    ka, kb = on_card(*operands(kq, kyber.N, kb_, rng, np.int32))
+    ka3, kb3 = kyber_stack(KYBER_K, kb_)
+    kA, kA_hat = kyber_stack(KYBER_K, KYBER_K)  # A, and a matrix sampled as NTT-domain
+    label = f"B={kb_}"
+    kout = {
+        "ntt": check_kyber("ntt", "forward", label, (ka,)),
+        "intt": check_kyber("intt", "inverse", label, (ka,)),
+        "spectrum": check_kyber("spectrum", "forward", label, (kb,)),
+        "poly_mult": check_kyber("poly_mult", "product", label, (ka, kb)),
+    }
+    kspec = kout["spectrum"]
+    kout["poly_mult_cached"] = check_kyber("poly_mult_cached", "cached", label,
+                                           (ka, kspec))
+    kspec3 = kp.spectrum(kb3.reshape(-1, kyber.N)).reshape(kb3.shape)
+    label = f"K={KYBER_K} B={kb_}"
+    kout["dot"] = check_kyber("dot", "dot", label, (ka3, kb3))
+    kout["dot_cached"] = check_kyber("dot_cached", "dot", label, (ka3, kspec3))
+    kout["matvec_spectra"] = check_kyber("matvec_spectra", "forward",
+                                         f"{KYBER_K}x{KYBER_K}", (kA,))
+    kblocks = kp.ntt_domain_blocks(kA_hat)
+    label = f"{KYBER_K}x{KYBER_K} B={kb_}"
+    kout["matvec"] = check_kyber("matvec", "matvec", label,
+                                 (ka3, kout["matvec_spectra"]))
+    check_kyber("matvec", "matvec", f"{label} from ntt_domain_blocks", (ka3, kblocks))
+    for k in (2, 4):  # ML-KEM-512 and ML-KEM-1024
+        s_k, b_k = kyber_stack(k, KYBER_SMALL_BATCH)
+        A_k = b_k[:, :k].contiguous()
+        check_kyber("matvec", "matvec", f"{k}x{k} B={KYBER_SMALL_BATCH}",
+                    (s_k, kp.matvec_spectra(A_k)))
+
     # 4. independent oracle: evaluation at roots of x^n + 1, and the golden
     for name, p, (av, bv), cv in (
             ("P60_4096", P60_4096, inputs60["nwc"], out60["nwc"]),
@@ -312,30 +380,59 @@ def main() -> int:
         raise AssertionError("P60_4096 dot row 5 differs from its golden products")
     print(f"oracle: P60_4096 dot row {row} equals the sum of {DOT_TERMS} "
           "reference.nwc_poly_mult products")
+    ka_rows, kb_rows = ka[:6].tolist(), kb[:6].tolist()
+    for name, got, want in (
+            ("ntt", kout["ntt"], reference.kyber_ntt),
+            ("intt", kout["intt"], reference.kyber_intt),
+            ("poly_mult", kout["poly_mult"],
+             lambda x, r: reference.kyber_poly_mult(x, kb_rows[r]))):
+        for r in range(6):
+            args = (ka_rows[r], r) if name == "poly_mult" else (ka_rows[r],)
+            if got[r].tolist() != want(*args):
+                raise AssertionError(f"ML-KEM {name} row {r} differs from the golden")
+    if kout["poly_mult"][4].tolist() != reference.schoolbook_negacyclic(
+            ka_rows[4], kb_rows[4], kq):
+        raise AssertionError("ML-KEM poly_mult row 4 differs from the schoolbook product")
+    row, want = 5, []
+    for i in range(KYBER_K):
+        acc = [0] * kyber.N
+        for j in range(KYBER_K):
+            prod = reference.kyber_poly_mult(kA[i, j].tolist(), ka3[j, row].tolist())
+            acc = [(u + v) % kq for u, v in zip(acc, prod)]
+        want.append(acc)
+    if kout["matvec"][:, row].tolist() != want:
+        raise AssertionError("ML-KEM 3x3 matvec row 5 differs from its golden products")
+    if not torch.equal(kp.intt(kout["ntt"]), ka):
+        raise AssertionError("ML-KEM intt(ntt(x)) != x")
+    print("oracle: ML-KEM rows 0-5 of ntt, intt and poly_mult equal reference.kyber_ntt, "
+          "kyber_intt and kyber_poly_mult; poly_mult row 4 equals "
+          "reference.schoolbook_negacyclic; 3x3 matvec row 5 equals the sums of its "
+          f"golden products; intt(ntt(x)) == x at B={kb_}")
 
     # 5. main paths, through the entry points a user calls
-    counts = (MxuPlan.launches, MxuPlan64.launches)
+    counts = (MxuPlan.launches, MxuPlan64.launches, KyberPlan.launches)
     launches: dict[str, int] = {}
 
-    def drive(label, p, fn, inputs, plain, expect, want=None):
-        """Run fn with the counts at 0, read them, check against plain."""
+    def drive(label, q, via, fn, inputs, plain, expect, want=None):
+        """Run fn with the counts at 0, read them, check against plain; with
+        no kernel to expect, no kernel may launch."""
         for c in counts:
             for k in c:
                 c[k] = 0
         out = fn(*inputs)
         torch.cuda.synchronize()
         seen = {k: v for c in counts for k, v in c.items()}
-        if any(seen[k] < 1 for k in expect):
+        if any(seen[k] < 1 for k in expect) or (not expect and any(seen.values())):
             raise AssertionError(f"main path {label} did not launch {expect}: {seen}")
         if not torch.equal(out, plain(*inputs)):
             raise AssertionError(f"main path {label} differs from its plain version")
         if want is not None and not torch.equal(out, want):
             raise AssertionError(f"main path {label} differs from the checked result")
-        if not bool(((out >= 0) & (out < p.q)).all()):
+        if not bool(((out >= 0) & (out < q)).all()):
             raise AssertionError(f"main path {label} leaves [0, q)")
         for k, v in seen.items():
             launches[k] = launches.get(k, 0) + v
-        print(f"main path: {label} via {dispatch.impl_name(p)}, launches "
+        print(f"main path: {label} via {via}, launches "
               f"{ {k: v for k, v in seen.items() if v} }, shape {tuple(out.shape)}")
         return out
 
@@ -354,67 +451,108 @@ def main() -> int:
             if dispatch.impl_name(p, op) != plan.name:
                 raise AssertionError(f"{op} at {p.name} is not served by {plan.name}")
             best[p.name, op] = dispatch.best(p, op)
-            drive(f"best({p.name}, {op!r})", p, best[p.name, op], inputs[op],
+            drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op], inputs[op],
                   getattr(plan, dispatch.METHODS[op] + "_plain"),
                   [f"{plan.lib_name}_{e}" for e in OP_ENTRIES[op]], checked.get(op))
-    drive(f"best_nwc_matvec(P60_4096) 4x4 B={MATVEC_BATCH_60}", P60_4096,
-          dispatch.best_nwc_matvec(P60_4096), inputs60["matvec"],
+    drive(f"best_nwc_matvec(P60_4096) 4x4 B={MATVEC_BATCH_60}", P60_4096.q,
+          plan60.name, dispatch.best_nwc_matvec(P60_4096), inputs60["matvec"],
           plan60.nwc_matvec_cached_plain, ["nwc64_forward", "nwc64_matvec"],
           out60["matvec"])
     spectra_fn = dispatch.best_nwc_matvec_spectra(DILITHIUM_256)
     matvec_fn = dispatch.best_nwc_matvec(DILITHIUM_256)
-    drive("best_nwc_matvec_spectra(DILITHIUM_256)", DILITHIUM_256, spectra_fn,
+    drive("best_nwc_matvec_spectra(DILITHIUM_256)", DILITHIUM_256.q, pdil.name, spectra_fn,
           (mat_dil,), pdil.nwc_matvec_spectra_plain, ["nwc32_forward"], spec_dil)
-    drive(f"best_nwc_matvec(DILITHIUM_256) 4x4 B={MATVEC_BATCH}", DILITHIUM_256,
-          matvec_fn, (s_dil, spec_dil), pdil.nwc_matvec_cached_plain,
+    drive(f"best_nwc_matvec(DILITHIUM_256) 4x4 B={MATVEC_BATCH}", DILITHIUM_256.q,
+          pdil.name, matvec_fn, (s_dil, spec_dil), pdil.nwc_matvec_cached_plain,
           ["nwc32_forward", "nwc32_matvec"], mv_dil)
+    kntt_b = kp.ntt(kb)
+    kyber_main = {  # entry point: (inputs, plain version, kernels it launches)
+        "ntt": ((ka,), kp.ntt_plain, ["kyber_forward"]),
+        "intt": ((ka,), kp.intt_plain, ["kyber_inverse"]),
+        "basemul": ((kout["ntt"], kntt_b), kp.basemul_plain, []),
+        "poly_mult": ((ka, kb), kp.poly_mult_plain, ["kyber_product"]),
+        "spectrum": ((kb,), kp.spectrum_plain, ["kyber_forward"]),
+        "poly_mult_cached": ((ka, kspec), kp.poly_mult_cached_plain, ["kyber_cached"]),
+        "dot": ((ka3, kb3), kp.dot_plain, ["kyber_dot"]),
+        "dot_cached": ((ka3, kspec3), kp.dot_cached_plain, ["kyber_dot"]),
+        "matvec_spectra": ((kA,), kp.matvec_spectra_plain, ["kyber_forward"]),
+        # A's blocks from its plain spectra are those from its coefficients
+        "ntt_domain_blocks": ((kp.ntt(kA.reshape(-1, kyber.N)).reshape(kA.shape),),
+                              lambda _: kp.matvec_spectra_plain(kA), []),
+        "matvec": ((ka3, kout["matvec_spectra"]), kp.matvec_plain, ["kyber_matvec"]),
+    }
+    for name, (inputs, plain, expect) in kyber_main.items():
+        drive(f"kyber.{name} B={kb_}", kq, kyber.impl_name(), getattr(kyber, name),
+              inputs, plain, expect, kout.get(name))
 
     # 6. timing, in turns: plain, kernel (through the main path), kernel, plain
-    # name: (p, op timed, plan, inputs by op, output rows)
+    def nwc_timed(p, op, plan, inputs, out_rows, fn=None):
+        """(what is timed, kernel fn, plain fn, inputs, output rows, p, terms)
+        of a dispatch op."""
+        return (f"{op} at {p.name}", fn or best[p.name, op],
+                getattr(plan, dispatch.METHODS[op] + "_plain"), inputs[op],
+                out_rows, p, DOT_TERMS)
+
+    def kyber_timed(entry):
+        inputs, plain, _ = kyber_main[entry]
+        return (f"kyber.{entry} B={kb_}", getattr(kyber, entry), plain, inputs,
+                kb_, None, KYBER_K)
+
     timed = {
-        "nwc64_product": (P60_4096, "nwc", plan60, inputs60, BATCH),
-        "nwc64_forward": (P60_4096, "nwc_fwd", plan60, inputs60, BATCH),
-        "nwc64_inverse": (P60_4096, "nwc_inv", plan60, inputs60, BATCH),
-        "nwc64_cached": (P60_4096, "cached", plan60, inputs60, BATCH),
-        "nwc64_dot": (P60_4096, "dot", plan60, inputs60, DOT_BATCH),
-        "nwc64_matvec": (P60_4096, "matvec", plan60, inputs60, MATVEC_BATCH_60),
-        "nwc32_product": (P24_4096, "nwc", p24, inputs24, BATCH),
-        "nwc32_forward": (P24_4096, "nwc_fwd", p24, inputs24, BATCH),
-        "nwc32_inverse": (P24_4096, "nwc_inv", p24, inputs24, BATCH),
-        "nwc32_cached": (P24_4096, "cached", p24, inputs24, BATCH),
-        "nwc32_dot": (P24_4096, "dot", p24, inputs24, DOT_BATCH),
-        "nwc32_matvec": (DILITHIUM_256, "matvec", pdil, {"matvec": (s_dil, spec_dil)},
-                         MATVEC_BATCH),
+        "nwc64_product": nwc_timed(P60_4096, "nwc", plan60, inputs60, BATCH),
+        "nwc64_forward": nwc_timed(P60_4096, "nwc_fwd", plan60, inputs60, BATCH),
+        "nwc64_inverse": nwc_timed(P60_4096, "nwc_inv", plan60, inputs60, BATCH),
+        "nwc64_cached": nwc_timed(P60_4096, "cached", plan60, inputs60, BATCH),
+        "nwc64_dot": nwc_timed(P60_4096, "dot", plan60, inputs60, DOT_BATCH),
+        "nwc64_matvec": nwc_timed(P60_4096, "matvec", plan60, inputs60, MATVEC_BATCH_60),
+        "nwc32_product": nwc_timed(P24_4096, "nwc", p24, inputs24, BATCH),
+        "nwc32_forward": nwc_timed(P24_4096, "nwc_fwd", p24, inputs24, BATCH),
+        "nwc32_inverse": nwc_timed(P24_4096, "nwc_inv", p24, inputs24, BATCH),
+        "nwc32_cached": nwc_timed(P24_4096, "cached", p24, inputs24, BATCH),
+        "nwc32_dot": nwc_timed(P24_4096, "dot", p24, inputs24, DOT_BATCH),
+        "nwc32_matvec": nwc_timed(DILITHIUM_256, "matvec", pdil,
+                                  {"matvec": (s_dil, spec_dil)}, MATVEC_BATCH,
+                                  matvec_fn),
+        "kyber_forward": kyber_timed("ntt"),
+        "kyber_inverse": kyber_timed("intt"),
+        "kyber_product": kyber_timed("poly_mult"),
+        "kyber_cached": kyber_timed("poly_mult_cached"),
+        "kyber_dot": kyber_timed("dot"),
+        "kyber_matvec": kyber_timed("matvec"),
         # not a kernel function of its own: the product at the generic q
-        "generic-q product": (p_gen, "nwc", plan_gen, inputs_gen, BATCH),
+        "generic-q product": nwc_timed(p_gen, "nwc", plan_gen, inputs_gen, BATCH),
     }
 
     def time_turns(kernel_fn, plain_fn, inputs, plain_iters, repeats):
-        times = {"kernel": [], "plain": []}
+        """Turns plain, kernel, kernel, plain; a kernel turn takes the
+        device time of the calls by graph replay and the time per call of
+        back-to-back calls by events, host time included."""
+        times = {"graph": [], "events": [], "plain": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             if which == "kernel":
-                t = device_seconds_per_call(kernel_fn, *inputs, iters=(4, 20))
+                times["graph"].append(graph_seconds_per_call(kernel_fn, *inputs))
+                times["events"].append(device_seconds_per_call(kernel_fn, *inputs,
+                                                               iters=(4, 20)))
             else:
-                t = device_seconds_per_call(plain_fn, *inputs, iters=plain_iters,
-                                            repeats=repeats)
-            times[which].append(t)
+                times["plain"].append(device_seconds_per_call(
+                    plain_fn, *inputs, iters=plain_iters, repeats=repeats))
         return times
 
-    rows, ms = [], {}
-    for name, (p, op, plan, inputs, out_rows) in timed.items():
-        fn = matvec_fn if p is DILITHIUM_256 else best[p.name, op]
-        plain = getattr(plan, dispatch.METHODS[op] + "_plain")
-        wide = p.width > 30  # the 60-bit plain versions take ~0.2 s a call
-        times = time_turns(fn, plain, inputs[op], (1, 2) if wide else (1, 3),
+    rows, per_call = [], {}
+    for name, (what, fn, plain, inputs, out_rows, p, terms) in timed.items():
+        wide = p is not None and p.width > 30  # 60-bit plain versions: ~0.2 s a call
+        times = time_turns(fn, plain, inputs, (1, 2) if wide else (1, 3),
                            1 if wide else 3)
-        t_kernel, t_plain = min(times["kernel"]), min(times["plain"])
+        t_kernel, t_plain = min(times["graph"]), min(times["plain"])
+        t_host = host_seconds_per_call(fn, *inputs)
         kernel = name if name in REPLACES else "nwc64_product"
-        nbytes, imads = work(kernel, p, out_rows)
+        nbytes, imads = work(kernel, p, out_rows, terms)
         t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
-        ms[name] = t_kernel * 1e3
-        print(f"timing {name} ({op} at {p.name}, s/call): kernel {times['kernel']} "
-              f"plain {times['plain']}; bound: {nbytes} bytes {t_bytes:.4e} s, "
-              f"{imads} IMADs {t_ops:.4e} s")
+        per_call[name] = min(times["events"])
+        print(f"timing {name} ({what}, s/call): kernel by graph replay "
+              f"{times['graph']}, by events {times['events']}, host enqueue "
+              f"{t_host:.4e}; plain {times['plain']}; bound: {nbytes} bytes "
+              f"{t_bytes:.4e} s, {imads} IMADs {t_ops:.4e} s")
         if name not in REPLACES:
             continue
         rows.append({
@@ -423,9 +561,9 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,  # no PyTorch call computes an NTT product mod q
+            "library_ms": None,  # no PyTorch call computes an NTT or its product mod q
         })
-    per_s = {name: 1e3 / t for name, t in ms.items()}
+    per_s = {name: 1 / t for name, t in per_call.items()}  # back to back, host included
     print(f"nwc_poly_mult_p60_4096_per_sec: {BATCH * per_s['nwc64_product']:.1f}; "
           f"fwd_ntt_p60_4096_per_sec: {BATCH * per_s['nwc64_forward']:.1f}; "
           f"p60_4096_matvec_4x4_per_sec: {MATVEC_BATCH_60 * per_s['nwc64_matvec']:.1f}; "
@@ -435,7 +573,10 @@ def main() -> int:
           f"fwd_ntt_p24_4096_per_sec: {BATCH * per_s['nwc32_forward']:.1f}; "
           f"dilithium_256_matvec_4x4_per_sec: {MATVEC_BATCH * per_s['nwc32_matvec']:.1f}; "
           f"B={BATCH} (p60 matvec B={MATVEC_BATCH_60}, dilithium matvec "
-          f"B={MATVEC_BATCH}); card {card}")
+          f"B={MATVEC_BATCH}); mlkem_3329_poly_mult_per_sec: "
+          f"{kb_ * per_s['kyber_product']:.1f}; mlkem_3329_ntt_per_sec: "
+          f"{kb_ * per_s['kyber_forward']:.1f}; mlkem_768_matvec_3x3_per_sec: "
+          f"{kb_ * per_s['kyber_matvec']:.1f}; B={kb_}; card {card}")
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -89,7 +89,8 @@ def test_import_leaves_out_jax_and_tpu_ntt():
         "import sys, chip_smoke, tpu_ntt_torch, tpu_ntt_torch.benchlib, "
         "tpu_ntt_torch.convert, tpu_ntt_torch.kernels._build, "
         "tpu_ntt_torch.kernels.sol64, tpu_ntt_torch.kernels.mxu, "
-        "tpu_ntt_torch.kernels.mxu64\n"
+        "tpu_ntt_torch.kernels.mxu64, tpu_ntt_torch.kyber, "
+        "tpu_ntt_torch.kernels.kyber\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_ntt')]\n"
         "print(bad)\n"
     )

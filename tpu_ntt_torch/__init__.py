@@ -7,15 +7,21 @@ versions on CPU tensors.  This much is ported:
 * the 24-bit family (q < 2^24 at 256 <= n <= 16384: P24_4096, P24_1024,
   DILITHIUM_256, FALCON_512, FALCON_1024), every dispatch op, on (B, n)
   ``torch.int32`` residues in [0, q);
-* the headline 60-bit product (trinomial q such as P60_4096's
-  2^60 - 2^14 + 1 at 256 <= n <= 8192), on ``torch.int64`` residues.
+* the 60-bit family (any q of 31 to 62 bits at 256 <= n <= 8192:
+  P60_4096's trinomial 2^60 - 2^14 + 1 and generic primes alike), every
+  dispatch op, on (B, n) ``torch.int64`` residues;
+* ML-KEM (FIPS 203, q = 3329, n = 256), every entry point of
+  ``tpu_ntt.kyber``, in ``tpu_ntt_torch.kyber`` on (B, 256) ``torch.int32``
+  residues.
 
-    from tpu_ntt_torch import P60_4096, best_nwc_poly_mult
+    from tpu_ntt_torch import P60_4096, best_nwc_poly_mult, kyber
     c = best_nwc_poly_mult(P60_4096)(a, b)
+    d = kyber.poly_mult(x, y)
 
 The package imports ``torch`` and never ``jax`` or ``tpu_ntt``.
 """
 
+from . import kyber
 from .dispatch import (
     OPS, best, best_cyclic_poly_mult, best_ntt_fwd, best_ntt_inv, best_nwc_dot,
     best_nwc_dot_cached, best_nwc_matvec, best_nwc_matvec_spectra,
@@ -32,7 +38,7 @@ __all__ = [
     "best_nwc_dot", "best_nwc_dot_cached", "best_nwc_matvec",
     "best_nwc_matvec_spectra", "best_nwc_ntt_fwd", "best_nwc_ntt_inv",
     "best_nwc_poly_mult", "best_nwc_poly_mult_cached", "best_nwc_spectrum",
-    "impl_name", "takes_pairs",
+    "impl_name", "takes_pairs", "kyber",
     "Ring32", "Ring64", "make_ring",
     "NttPlan", "nwc_poly_mult", "nwc_poly_mult_merged",
     "DILITHIUM_256", "FALCON_512", "FALCON_1024", "P24_1024", "P24_4096",

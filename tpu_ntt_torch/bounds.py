@@ -5,8 +5,10 @@ input read once, each output written once) over the memory rate, and the
 32-bit integer multiplies (IMADs) it needs over the card's IMAD rate.  A
 modular product is priced by its form (``MULS``), plus its product by q
 unless q has at most three signed binary digits, when that product is shifts
-and adds.  ``work`` counts a call of each ported kernel function;
-``chip_smoke.py`` divides it by the rates of the card it runs on.
+and adds.  ``work`` counts a call of each ported kernel function (the
+``nwc32_*`` and ``nwc64_*`` NTT families through ``ntt_work``, the ML-KEM
+``kyber_*`` functions through ``kyber_work``); ``chip_smoke.py`` divides it
+by the rates of the card it runs on.
 
 Run as a script, it prints the bounds of the TPU kernels not ported yet, at
 the shapes bench.py gives them, worked out from the code (not measured) at
@@ -82,11 +84,50 @@ def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
             batch * (terms * t * shoup + terms * (terms * n * mont + (t + n) * shoup)))
 
 
+KYBER_Q, KYBER_N, KYBER_STAGES = 3329, 256, 7  # FIPS 203: seven layers, degree-2 leaves
+KYBER_BATCH = 2048 * 8  # bench.py's bench_kyber(batch * 8)
+KYBER_K = 3  # ML-KEM-768, FIPS 203's recommended set
+
+
+def kyber_work(entry: str, batch: int, terms: int = KYBER_K) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of one call of a ``csrc/kyber.cu`` entry
+    (``forward`` at scale 1, as ``ntt`` calls it, ``inverse``, ``product``,
+    ``cached``, ``dot`` fresh, ``matvec``) on ``batch`` output rows of 256
+    int32 residues: 7 stages of 128 Shoup butterflies a transform, five
+    Montgomery products a slot of the base case, 256 Shoup scales before
+    each inverse.  ``terms`` is the K of the dot and both k and l of the
+    matvec, whose count is the whole op: the forwards of s, the base cases
+    against A's k * l spectra and the k inverses."""
+    n, shoup, mont = KYBER_N, muls("shoup32", KYBER_Q), muls("mont32", KYBER_Q)
+    t = KYBER_STAGES * n // 2
+    base = n // 2 * 5 * mont
+    inv = (t + n) * shoup
+    rows = batch * n * 4
+    if entry == "forward":
+        return 2 * rows, batch * t * shoup
+    if entry == "inverse":
+        return 2 * rows, batch * inv
+    if entry == "product":
+        return 3 * rows, batch * (2 * t * shoup + base + inv)
+    if entry == "cached":
+        return 3 * rows, batch * (t * shoup + base + inv)
+    if entry == "dot":
+        return ((2 * terms + 1) * rows,
+                batch * (2 * terms * t * shoup + terms * base + inv))
+    assert entry == "matvec", entry
+    return (2 * terms * rows + terms * terms * n * 4,
+            batch * (terms * t * shoup + terms * (terms * base + inv)))
+
+
 def work(kernel: str, p, batch: int, terms: int = DOT_TERMS) -> tuple[int, int]:
-    """(bytes, 32-bit multiplies) of one call of ``kernel`` (``nwc32_*`` or
-    ``nwc64_*``) at the parameters p, ``batch`` output rows."""
+    """(bytes, 32-bit multiplies) of one call of ``kernel`` at the
+    parameters p (``nwc32_*`` or ``nwc64_*``; p is not read for the fixed
+    ring of ``kyber_*``), ``batch`` output rows."""
+    family, entry = kernel.split("_", 1)
+    if family == "kyber":
+        return kyber_work(entry, batch, terms)
     word = 8 if p.width > 30 else 4
-    return ntt_work(kernel.split("_", 1)[1], p.n, p.log_n, p.q, word, batch, terms)
+    return ntt_work(entry, p.n, p.log_n, p.q, word, batch, terms)
 
 
 def seconds(nbytes: int, imads: int, imad_per_s: float) -> tuple[float, float]:
@@ -98,34 +139,11 @@ def seconds(nbytes: int, imads: int, imad_per_s: float) -> tuple[float, float]:
 # The TPU kernels not ported yet, at bench.py's shapes
 # ----------------------------------------------------------------------
 
-KYBER_Q, KYBER_N, KYBER_LAYERS = 3329, 256, 7  # FIPS 203: seven layers, degree-2 leaves
-KYBER_BATCH = 2048 * 8  # bench.py's bench_kyber(batch * 8)
-KYBER_K = 3  # ML-KEM-768, FIPS 203's recommended set
 GL_Q = (1 << 64) - (1 << 32) + 1
 P60_32768_Q = 576460752308273153  # bench.py:35
 POSEIDON_BATCH = 2048 * 64  # bench.py's bench_poseidon(batch * 64)
 POSEIDON_WIDTH, POSEIDON_RF, POSEIDON_RP = 12, 8, 22  # tpu_ntt/poseidon.py:15-17
 SPONGE_LEN = 8  # elements a row: two rate-4 absorptions
-
-
-def _kyber(entry: str, batch: int, k: int) -> tuple[int, int]:
-    """One ML-KEM kernel call: 7 layers of n/2 Shoup butterflies a
-    transform, five Montgomery products per degree-2 leaf pair, n Shoup
-    scales in each inverse; int32 residues."""
-    n, shoup, mont = KYBER_N, muls("shoup32", KYBER_Q), muls("mont32", KYBER_Q)
-    t = KYBER_LAYERS * n // 2
-    base = n // 2 * 5 * mont
-    inv = (t + n) * shoup
-    rows = batch * n * 4
-    if entry == "ntt":
-        return 2 * rows, batch * t * shoup
-    if entry == "product":
-        return 3 * rows, batch * (2 * t * shoup + base + inv)
-    if entry == "dot":
-        return (2 * k + 1) * rows, batch * (2 * k * t * shoup + k * base + inv)
-    assert entry == "matvec"
-    return (2 * k * rows + k * k * n * 4,
-            batch * (k * t * shoup + k * (k * base + inv)))
 
 
 def _poseidon(batch: int, perms: int, words_in: int, words_out: int) -> tuple[int, int]:
@@ -142,15 +160,10 @@ def unported() -> list[tuple[str, str, int, int]]:
     still to port, at bench.py's shapes."""
     gl_bytes, gl_imads = ntt_work("product", 4096, 12, GL_Q, 8, 2048,
                                   forms=("gl64", "gl64"))
-    b, k = KYBER_BATCH, KYBER_K
     return [
         ("K1a, n >= 32768", "p60_32768 nwc, B = 256 (bench.py:145)",
          *ntt_work("product", 32768, 15, P60_32768_Q, 8, 256)),
         ("K2", "goldilocks_4096 nwc, B = 2048 (bench.py:147)", gl_bytes, gl_imads),
-        ("K4a", f"ML-KEM forward NTT, B = {b}", *_kyber("ntt", b, k)),
-        ("K4b", f"ML-KEM product, B = {b} (bench.py:372-379)", *_kyber("product", b, k)),
-        ("K4c", f"ML-KEM dot, K = {k}, B = {b}", *_kyber("dot", b, k)),
-        ("K4d", f"ML-KEM {k} x {k} matvec, B = {b}", *_kyber("matvec", b, k)),
         ("K5a", f"Poseidon2-GL permutation, width {POSEIDON_WIDTH}, "
          f"B = {POSEIDON_BATCH}",
          *_poseidon(POSEIDON_BATCH, 1, POSEIDON_WIDTH, POSEIDON_WIDTH)),

@@ -12,7 +12,9 @@ State a user keeps crosses too: the kernels' cached spectra (24-bit
 q; both in four-step layout) and their ``nwc_matvec_spectra`` blocks tiled
 over an MXU group become the port's (the same domain, bit-reversed order;
 see ``kernels/_plan.py``), so a key or public matrix transformed once by the
-JAX package gives the same products in the port.
+JAX package gives the same products in the port.  The same holds for
+ML-KEM's cacheable spectra and matvec blocks (``kyber_spectra_from_jax``,
+``kyber_blocks_from_jax``).
 """
 
 from __future__ import annotations
@@ -119,3 +121,28 @@ def matvec_spectra64_from_jax(blocks, n: int, device=None) -> torch.Tensor:
     rows = n // LANES
     return spectra64_from_jax(hi[:, :, :rows].reshape(k, l, n),
                               lo[:, :, :rows].reshape(k, l, n), device)
+
+
+def kyber_spectra_from_jax(spectra, device=None) -> torch.Tensor:
+    """(..., 256) uint32 rows of ``tpu_ntt.kyber.spectrum`` -> the port's
+    ``kyber.spectrum`` of the same operands, int32.
+
+    JAX's rows come from its default parity-matrix kernel
+    (``tpu_ntt.kernels.kyber.KyberPlan`` with ``parity_matrices``): lane i
+    holds slot i's even value e_hat[i] and lane 128 + i its odd value
+    o_hat[i], [e_hat (128) | o_hat (128)].  The port's rows are in FIPS-203
+    serialization order, e_hat[i] at 2i and o_hat[i] at 2i + 1.  Both are
+    times 2^32 mod q, so this only permutes."""
+    x = np.asarray(spectra, dtype=np.uint32)
+    lanes = np.arange(2 * LANES).reshape(2, LANES).T.reshape(-1)  # 2i -> i, 2i+1 -> 128+i
+    return uint32_to_int32(x[..., lanes], device)
+
+
+def kyber_blocks_from_jax(blocks, device=None) -> torch.Tensor:
+    """(k, l, 128, 256) uint32 blocks of ``tpu_ntt.kyber.matvec_spectra`` or
+    ``ntt_domain_blocks`` -> the port's (k, l, 256) matvec spectra, int32.
+    Each JAX block repeats one [e_hat | o_hat] spectrum row over the 128
+    batch rows of an MXU group; its first row, in FIPS order, is the port's
+    entry."""
+    x = np.asarray(blocks, dtype=np.uint32)
+    return kyber_spectra_from_jax(x[:, :, 0, :], device)

@@ -4,15 +4,18 @@
 256 <= n <= 16384, ``csrc/nwc32.cu``); ``mxu64`` the 60-bit family's (every
 op, 30 < width <= 62 at 256 <= n <= 8192, ``csrc/nwc64.cu``), with
 ``sol64.SolinasPlan64`` its subclass for the trinomial moduli the JAX policy
-sends to its Solinas kernel.  Goldilocks and n above 8192 at 30 < width <= 62
-are not ported yet (ROADMAP.md Q1.6, Q1.7), so ``plan_for`` returns ``None``
-for them.
+sends to its Solinas kernel; ``kyber.KyberPlan`` the ML-KEM ring's (every op
+of ``tpu_ntt.kernels.kyber.KyberPlan``, ``csrc/kyber.cu``), whose ring is
+fixed, so ``plan_for`` does not serve it: ``tpu_ntt_torch.kyber`` calls it.
+Goldilocks and n above 8192 at 30 < width <= 62 are not ported yet
+(ROADMAP.md Q1.6, Q1.7), so ``plan_for`` returns ``None`` for them.
 """
 
 from __future__ import annotations
 
 from ..modmath import GOLDILOCKS_Q
 from ..params import NttParams
+from .kyber import KyberPlan
 from .mxu import MxuPlan
 from .mxu64 import MxuPlan64
 from .sol64 import SolinasPlan64

@@ -30,6 +30,9 @@ Spectra (the layout contract of tpu_ntt/dispatch.py:51-56):
 * ``nwc_matvec_spectra`` returns (k, l, n), not tpu_ntt's (k, l, rows, 128)
   blocks tiled over the polynomials of an MXU group: the tiling is the
   TPU's (``convert`` undoes it).
+
+``bind``, ``launch``, ``check`` and ``runs_plain`` serve ``kyber.KyberPlan``
+too, whose fixed ring has other ops than these twelve.
 """
 
 from __future__ import annotations
@@ -47,29 +50,78 @@ from . import _build
 MAX_TERMS = 8  # K of the dot, k and l of the matvec (mxu.py:777, mxu64.py:2240)
 
 
+def bind(lib_name: str, argtypes: dict) -> ctypes.CDLL:
+    """Build if needed and load ``csrc/<lib_name>.cu``; type each entry
+    point ``<lib_name>_<suffix>`` with ``argtypes[suffix]``, returning its
+    CUDA error code."""
+    lib = _build.load(lib_name)
+    for suffix, types in argtypes.items():
+        fn = getattr(lib, f"{lib_name}_{suffix}")
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+    error_string = getattr(lib, f"{lib_name}_error_string")
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load(lib_name: str, word_bits: int) -> ctypes.CDLL:
-    """Build if needed and load ``csrc/<lib_name>.cu``, its six entry points
-    typed with ``word_bits``-bit moduli and scales."""
-    lib = _build.load(lib_name)
+    """``bind`` the six entry points of an NTT family's source, typed with
+    ``word_bits``-bit moduli and scales."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     word = ctypes.c_uint32 if word_bits == 32 else ctypes.c_uint64
-    argtypes = {
+    return bind(lib_name, {
         "product": [ptr] * 7 + [i32] * 2 + [word] * 4 + [ptr],
         "cached": [ptr] * 7 + [i32] * 2 + [word] * 4 + [ptr],
         "forward": [ptr] * 4 + [i32] * 2 + [word] * 3 + [ptr],
         "inverse": [ptr] * 4 + [i32] * 2 + [word] * 3 + [ptr],
         "dot": [ptr] * 7 + [i32] * 3 + [word] * 4 + [i32, ptr],
         "matvec": [ptr] * 5 + [i32] * 4 + [word] * 4 + [ptr],
-    }
-    for suffix, types in argtypes.items():
-        fn = getattr(lib, f"{lib_name}_{suffix}")
-        fn.argtypes = types
-        fn.restype = i32
-    error_string = getattr(lib, f"{lib_name}_error_string")
-    error_string.argtypes = [i32]
-    error_string.restype = ctypes.c_char_p
-    return lib
+    })
+
+
+def launch(lib_name: str, lib: ctypes.CDLL, entry: str, launches: dict,
+           out: torch.Tensor, *args) -> torch.Tensor:
+    """Launch the kernel ``<lib_name>_<entry>`` of ``lib`` on the current
+    stream of out's device, tensors passed by address, and count it in
+    ``launches``; raise if the launch was refused."""
+    kernel = f"{lib_name}_{entry}"
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(out.device):
+        err = getattr(lib, kernel)(
+            *args, torch.cuda.current_stream(out.device).cuda_stream)
+    if err:
+        message = getattr(lib, f"{lib_name}_error_string")(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: {message}")
+    launches[kernel] += 1
+    return out
+
+
+def check(t: torch.Tensor, name: str, dims: int, dtype: torch.dtype, n: int,
+          device: torch.device) -> None:
+    """Raise unless t is a contiguous ``dtype`` tensor on ``device`` with
+    ``dims`` dimensions, the last n: TypeError for the dtype, ValueError
+    for the rest."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} residues, got {t.dtype}")
+    if t.dim() != dims or t.shape[-1] != n:
+        raise ValueError(f"{name} must have {dims} dimensions, the last "
+                         f"{n}; got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the plan on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def runs_plain(x: torch.Tensor) -> bool:
+    """True for a CPU tensor (run the plain version), False for a CUDA
+    tensor (launch the kernel); any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return False
 
 
 class KernelPlan:
@@ -330,15 +382,7 @@ class KernelPlan:
             self._q_prime, *scale, int(cached))
 
     def _check(self, t: torch.Tensor, name: str, dims: int) -> None:
-        if t.dtype != self.dtype:
-            raise TypeError(f"{name} must be {self.dtype} residues, got {t.dtype}")
-        if t.dim() != dims or t.shape[-1] != self.p.n:
-            raise ValueError(f"{name} must have {dims} dimensions, the last "
-                             f"{self.p.n}; got {tuple(t.shape)}")
-        if t.device != self.device:
-            raise ValueError(f"{name} is on {t.device}, the plan on {self.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        check(t, name, dims, self.dtype, self.p.n, self.device)
 
     def _check_like(self, a: torch.Tensor, b: torch.Tensor, dims: int = 2) -> None:
         self._check(a, "a", dims)
@@ -346,15 +390,7 @@ class KernelPlan:
         if a.shape != b.shape:
             raise ValueError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
 
-    @staticmethod
-    def _runs_plain(x: torch.Tensor) -> bool:
-        """True for a CPU tensor (run the plain version), False for a CUDA
-        tensor (launch the kernel); any other device raises."""
-        if x.device.type == "cpu":
-            return True
-        if x.device.type != "cuda":
-            raise ValueError(f"no kernel for device {x.device}")
-        return False
+    _runs_plain = staticmethod(runs_plain)
 
     def _product(self, entry, a, b, tw, itw, scale):
         out = torch.empty_like(a)
@@ -379,17 +415,5 @@ class KernelPlan:
                             self.p.log_n, self.p.q, *self._scale_cached)
 
     def _launch(self, entry: str, out: torch.Tensor, *args) -> torch.Tensor:
-        """Launch the kernel ``entry`` on the current stream of out's device,
-        tensors passed by address, and count it; raise if the launch was
-        refused."""
-        lib = load(self.lib_name, self.word_bits)
-        kernel = f"{self.lib_name}_{entry}"
-        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        with torch.cuda.device(out.device):
-            err = getattr(lib, kernel)(
-                *args, torch.cuda.current_stream(out.device).cuda_stream)
-        if err:
-            message = getattr(lib, f"{self.lib_name}_error_string")(err).decode()
-            raise RuntimeError(f"{kernel} launch failed: {message}")
-        self.launches[kernel] += 1
-        return out
+        return launch(self.lib_name, load(self.lib_name, self.word_bits), entry,
+                      self.launches, out, *args)
