@@ -5,17 +5,20 @@ Run it from the root of a checkout on a machine with an NVIDIA GPU:
 
     python3 chip_smoke.py [--seed N]
 
-It drives the port's three kernel families on every op: the 60-bit family
+It drives the port's kernel families on every op: the 60-bit family
 (``kernels/csrc/nwc64.cu``: P60_4096, a trinomial q on ``SolinasPlan64``,
 and the generic prime 576460752308273153 at n = 4096 on ``MxuPlan64``), the
 24-bit family (``kernels/csrc/nwc32.cu``: P24_4096 and the
-ML-DSA-44-shaped DILITHIUM_256 4 x 4 matvec) and ML-KEM
+ML-DSA-44-shaped DILITHIUM_256 4 x 4 matvec), ML-KEM
 (``kernels/csrc/kyber.cu``: every ``tpu_ntt_torch.kyber`` entry point at
-ML-KEM-768's shapes, B = 16384).  Phases, each of which raises on failure:
+ML-KEM-768's shapes, B = 16384), the Goldilocks field
+(``kernels/csrc/gl64.cu``: every op at goldilocks_4096) and Poseidon2-GL
+(``kernels/csrc/poseidon.cu``), and the STARK commitment built on the last
+two.  Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi), its SM count and
    top SM clock;
-2. build: nvcc builds the three CUDA sources from csrc/, in parallel;
+2. build: nvcc builds the five CUDA sources from csrc/, in parallel;
    ptxas's registers and spills;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: every op
@@ -28,23 +31,39 @@ ML-KEM-768's shapes, B = 16384).  Phases, each of which raises on failure:
    DILITHIUM_256, B = 8192; every ``kyber_*`` function at B = 16384 (the
    dot at K = 3, fresh and cached; the matvec 3 x 3 from ``matvec_spectra``
    and from ``ntt_domain_blocks``), and the 2 x 2 and 4 x 4 matvecs of
-   ML-KEM-512 and -1024 at B = 2048;
+   ML-KEM-512 and -1024 at B = 2048; every ``gl64_*`` function at
+   goldilocks_4096, B = 2048, with rows of 0, 1, q - 1, 2^63 and 2^63 - 1
+   (the dot at K = 4, B = 512, the matvec 4 x 4 at B = 256), the product,
+   forward and inverse at n = 256 and 8192 and the dot at n = 8192;
+   ``poseidon_permute`` at widths 8 and 12 on B = 131072 columns (bench.py's
+   batch) and ``poseidon_sponge`` at both widths over (131072, 8) rows and
+   rows of 0, 1 and 5, with columns and rows against ``PoseidonRef``;
 4. oracle: c(x) == a(x) * b(x) mod q at x = psi^(2k+1), a root of x^n + 1,
    by Python-int Horner evaluation, and one row against the golden model,
-   at P60_4096, the generic q and P24_4096; inv(fwd(x)) == x, cyclic and
-   negacyclic, at P60_4096 and P24_4096; one P60_4096 dot row equal to the
+   at P60_4096, the generic q, P24_4096 and goldilocks_4096; inv(fwd(x))
+   == x, cyclic and negacyclic, at P60_4096, P24_4096 and goldilocks_4096; one P60_4096 dot row equal to the
    sum of its golden products; ML-KEM rows equal to the FIPS-203 goldens
    (``reference.kyber_ntt``, ``kyber_intt``, ``kyber_poly_mult``, a 3 x 3
    matvec row as a sum of golden products), one product row equal to
    ``reference.schoolbook_negacyclic``, and intt(ntt(x)) == x at B = 16384;
 5. main path: ``dispatch.best(p, op)`` for each of the twelve ops at
-   P60_4096, at the generic q and at P24_4096, then
+   P60_4096, at the generic q, at P24_4096 and at goldilocks_4096, then
    ``dispatch.best_nwc_matvec`` at P60_4096 (4 x 4, B = 256) and at
    DILITHIUM_256, then the eleven ``tpu_ntt_torch.kyber`` entry points at
    B = 16384, each run with the launch counts set to 0 just before it and
    read just after: each goes through its kernel (``basemul`` and
    ``ntt_domain_blocks``, elementwise, through none), stays in [0, q) and
-   returns what its plain version returns;
+   returns what its plain version returns; then the STARK commitment:
+   ``stark.LdePlan(1024, q, 8, order="kernel").extend`` of 135 columns
+   (Plonky2's recursion width, the degree cut to 2^10 so that N = 8192
+   stays in the flat kernels' window), ``reorder`` to the bitrev plan,
+   ``Poseidon2GL.hash_rows`` of the 8192 rows of 135 into leaves,
+   ``merkle_levels``, ``FriProver(final_size=32, num_queries=28).prove`` of
+   column 0 and ``fri_verify`` on the host, with the counts zeroed before
+   it: ``gl64_forward``, ``poseidon_sponge`` and ``poseidon_permute`` each
+   launch, the proof verifies, the LDE equals the plain bitrev LDE and a
+   big-int Horner evaluation at six points, the leaves and the root equal
+   their plain versions, and the time of each stage is printed;
 6. timing: each kernel function, through the main path, in turns plain,
    kernel, kernel, plain: its device time by the replay of its calls
    captured in a CUDA graph (``benchlib.graph_seconds_per_call``, the
@@ -52,8 +71,12 @@ ML-KEM-768's shapes, B = 16384).  Phases, each of which raises on failure:
    time included, and the host's time to enqueue a call; the plain version
    by CUDA events, with few iterations.  Products, forward transforms and
    matvecs per second for the headline rows, and ML-KEM products, forward
-   NTTs and 3 x 3 matvecs per second at B = 16384, from the back-to-back
-   times: what a caller of the entry point gets.
+   NTTs and 3 x 3 matvecs per second at B = 16384, Goldilocks products and
+   transforms, permutations at widths 8 and 12 and STARK leaf rows per
+   second, from the back-to-back times: what a caller of the entry point
+   gets.  The Poseidon kernels are timed through their wrappers
+   (``kernels.poseidon.permute`` at width 8, B = 131072, and ``sponge`` on
+   the STARK leaves), the plain sponge of the leaves once a turn.
 
 The line before the last lists each kernel with its launches on the main
 path, its largest difference from its plain version, its device time, its
@@ -70,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import functools
 import json
 import subprocess
 import sys
@@ -83,10 +107,15 @@ DOT_BATCH_8192 = 256
 MATVEC_BATCH = 8192  # bench.py's batch for the dilithium_256 matvec row
 MATVEC_BATCH_60 = 256  # bench.py:153, the p60_4096 matvec row
 Q_GENERIC = 576460752308273153  # bench.py:35: a 60-bit prime, not a trinomial
+GOLDILOCKS_Q = (1 << 64) - (1 << 32) + 1
 KYBER_SMALL_BATCH = 2048  # the ML-KEM-512 and -1024 matvecs, checked only
+GL_LDE_N, GL_BLOWUP, GL_COLS = 1024, 8, 135  # Plonky2's recursion config, degree cut to 2^10
+GL_FINAL, GL_QUERIES = 32, 28  # FRI: final codeword, Plonky2's 28 query rounds
 SOURCES = {"nwc64": "tpu_ntt_torch/kernels/csrc/nwc64.cu",
            "nwc32": "tpu_ntt_torch/kernels/csrc/nwc32.cu",
-           "kyber": "tpu_ntt_torch/kernels/csrc/kyber.cu"}
+           "kyber": "tpu_ntt_torch/kernels/csrc/kyber.cu",
+           "gl64": "tpu_ntt_torch/kernels/csrc/gl64.cu",
+           "poseidon": "tpu_ntt_torch/kernels/csrc/poseidon.cu"}
 #: the TPU kernel body each function replaces
 REPLACES = {
     "nwc64_product": "tpu_ntt/kernels/mxu64.py:1442",  # _nwc_kernel (+ _cyclic_kernel :1474), K1a
@@ -107,6 +136,15 @@ REPLACES = {
     "kyber_cached": "tpu_ntt/kernels/kyber.py:301",  # _cached_kernel_v2, K4b
     "kyber_dot": "tpu_ntt/kernels/kyber.py:311",  # _make_dot_kernel_v2, K4c
     "kyber_matvec": "tpu_ntt/kernels/kyber.py:336",  # _make_matvec_kernel_v2, K4d
+    # K2: GoldilocksPlan64 (tpu_ntt/kernels/gl64.py:59) runs K1's bodies
+    "gl64_product": "tpu_ntt/kernels/mxu64.py:1442",  # _nwc_kernel (+ :1474), K2
+    "gl64_cached": "tpu_ntt/kernels/mxu64.py:1691",  # _nwc_cached_kernel, K2
+    "gl64_forward": "tpu_ntt/kernels/mxu64.py:1715",  # _nwc_fwd_kernel (+ :1544, :1675), K2
+    "gl64_inverse": "tpu_ntt/kernels/mxu64.py:1733",  # _nwc_inv_kernel (+ :1559), K2
+    "gl64_dot": "tpu_ntt/kernels/mxu64.py:1599",  # _make_dot_kernel, K2
+    "gl64_matvec": "tpu_ntt/kernels/mxu64.py:1639",  # _make_matvec_kernel, K2
+    "poseidon_permute": "tpu_ntt/kernels/poseidon.py:193",  # _compiled, K5a
+    "poseidon_sponge": "tpu_ntt/kernels/poseidon.py:218",  # _compiled_sponge, K5b
 }
 #: which entry points of its family's source each dispatch op launches
 OP_ENTRIES = {
@@ -131,6 +169,39 @@ def operands(q: int, n: int, rows: int, rng: np.random.Generator, dtype=np.int64
     b[:4] = edge[::-1]
     b[4:8] = edge
     return a.astype(dtype), b.astype(dtype)
+
+
+def gl_operands(n: int, rows: int, rng: np.random.Generator):
+    """Random (rows, n) Goldilocks residues as int64 bit patterns, with
+    boundary rows as in ``operands`` plus rows >= 2^63: a's rows 0-5 are all
+    0, 1, q - 1, 2^63, 2^63 - 1 and those five cycled; b holds them in
+    reverse order at 0-5 and again at 6-11."""
+    q = GOLDILOCKS_Q
+    a = rng.integers(0, q, size=(rows, n), dtype=np.uint64)
+    b = rng.integers(0, q, size=(rows, n), dtype=np.uint64)
+    ends = [0, 1, q - 1, 1 << 63, (1 << 63) - 1]
+    edge = np.array([[v] * n for v in ends] + [np.resize(ends, n).tolist()],
+                    dtype=np.uint64)
+    k = min(len(edge), rows)
+    a[:k] = edge[:k]
+    b[:k] = edge[::-1][:k]
+    b[k:2 * k] = edge[:min(k, rows - k)]
+    return a.view(np.int64), b.view(np.int64)
+
+
+def ints(t) -> list:
+    """A tensor of residues -> nested lists of Python ints, a Goldilocks
+    bit pattern >= 2^63 unwrapped."""
+    x = np.ascontiguousarray(t.cpu().numpy())
+    return (x.view(np.uint64) if x.dtype == np.int64 else x).tolist()
+
+
+def canonical(t, q: int):
+    """Whether every residue of t lies in [0, q); a Goldilocks residue is a
+    64-bit pattern, in range as an int64 if >= 0 or below q - 2^64."""
+    if q < 1 << 63:
+        return bool(((t >= 0) & (t < q)).all())
+    return bool(((t >= 0) | (t < q - (1 << 64))).all())
 
 
 def horner(coeffs, x: int, q: int) -> int:
@@ -168,18 +239,22 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
 
-    from tpu_ntt_torch import dispatch, kyber, reference
+    from tpu_ntt_torch import dispatch, kyber, reference, stark
+    from tpu_ntt_torch import poseidon as gl_poseidon
     from tpu_ntt_torch.benchlib import (device_seconds_per_call, graph_seconds_per_call,
                                         host_seconds_per_call)
     from tpu_ntt_torch.bounds import (DOT_TERMS, IMAD_PER_SM_CLOCK, KYBER_BATCH,
-                                      KYBER_K, seconds, work)
+                                      KYBER_K, POSEIDON_BATCH, poseidon_work, seconds,
+                                      work)
     from tpu_ntt_torch.kernels import _build
+    from tpu_ntt_torch.kernels import poseidon as kposeidon
+    from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64
     from tpu_ntt_torch.kernels.kyber import KyberPlan
     from tpu_ntt_torch.kernels.mxu import MxuPlan
     from tpu_ntt_torch.kernels.mxu64 import MxuPlan64
     from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
-    from tpu_ntt_torch.params import (DILITHIUM_256, FALCON_1024, P24_4096,
-                                      P60_4096, make_params)
+    from tpu_ntt_torch.params import (DILITHIUM_256, FALCON_1024, GOLDILOCKS_4096,
+                                      P24_4096, P60_4096, make_params)
 
     # 1. device
     device = torch.device("cuda", 0)
@@ -243,10 +318,15 @@ def main() -> int:
         }
 
     def family_operands(p, dtype, batch, dot_batch, mv_batch):
-        a, b = on_card(*operands(p.q, p.n, batch, rng, dtype))
+        def gen(rows):
+            if p.q == GOLDILOCKS_Q:
+                return gl_operands(p.n, rows, rng)
+            return operands(p.q, p.n, rows, rng, dtype)
+
+        a, b = on_card(*gen(batch))
         a3, b3 = (t.reshape(DOT_TERMS, dot_batch, p.n) for t in on_card(
-            *operands(p.q, p.n, DOT_TERMS * dot_batch, rng, dtype)))
-        s_np, m_np = operands(p.q, p.n, 4 * mv_batch, rng, dtype)
+            *gen(DOT_TERMS * dot_batch)))
+        s_np, m_np = gen(4 * mv_batch)
         s, mat = on_card(s_np.reshape(4, mv_batch, p.n), m_np[:16].reshape(4, 4, p.n))
         return a, b, a3, b3, s, mat
 
@@ -350,20 +430,70 @@ def main() -> int:
         check_kyber("matvec", "matvec", f"{k}x{k} B={KYBER_SMALL_BATCH}",
                     (s_k, kp.matvec_spectra(A_k)))
 
+    # K2: every gl64 function at goldilocks_4096 (bench.py:147) with rows of
+    # 0, 1, q - 1, 2^63 and 2^63 - 1, B = 2048 (the dot at K = 4, B = 512, the
+    # matvec 4 x 4 at B = 256); the product, forward and inverse at n = 256
+    # and 8192, the dot at n = 8192
+    plan_gl = GoldilocksPlan64(GOLDILOCKS_4096, device)
+    inputs_gl = op_inputs(plan_gl, *family_operands(
+        GOLDILOCKS_4096, np.int64, BATCH, DOT_BATCH, MATVEC_BATCH_60))
+    out_gl = {op: check_op(plan_gl, op, f"goldilocks_4096 B={BATCH}", x)
+              for op, x in inputs_gl.items()}
+    for n in (256, 8192):
+        p = make_params(n, GOLDILOCKS_Q)
+        plan = GoldilocksPlan64(p, device)
+        x, y = on_card(*gl_operands(n, BATCH, rng))
+        for op in ("nwc", "nwc_fwd", "nwc_inv"):
+            check_op(plan, op, f"goldilocks n={n} B={BATCH}", (x, y) if op == "nwc" else (x,))
+        if n == 8192:
+            x3, y3 = (t.reshape(DOT_TERMS, DOT_BATCH_8192, n) for t in on_card(
+                *gl_operands(n, DOT_TERMS * DOT_BATCH_8192, rng)))
+            check_op(plan, "dot", f"goldilocks n=8192 K={DOT_TERMS} B={DOT_BATCH_8192}",
+                     (x3, y3))
+
+    # K5a and K5b: the permutation at widths 8 and 12 on B = 131072 columns
+    # (bench.py:159), the sponge over (131072, 8) and rows of 0, 1 and 5; the
+    # STARK leaves' sponge, (8192, 135), is checked on the main path below
+    hashers = {w: gl_poseidon.Poseidon2GL(w) for w in (8, 12)}
+    gl_states = {}
+    for w, h in hashers.items():
+        x = on_card(np.ascontiguousarray(gl_operands(w, POSEIDON_BATCH, rng)[0].T))[0]
+        gl_states[w] = x
+        got = torch.stack(h.permute(list(x)))
+        compare("poseidon_permute", f"width {w} B={POSEIDON_BATCH}", got,
+                torch.stack(h.permute_plain(list(x))))
+        cols = ints(x[:, :6].T)
+        if ints(got[:, :6].T) != [h.ref.permute(c) for c in cols]:
+            raise AssertionError(f"poseidon_permute width {w} differs from PoseidonRef")
+    rows8 = on_card(gl_operands(8, POSEIDON_BATCH, rng)[0])[0]
+    for w, h in hashers.items():
+        for label, rows in ((f"rows of 8, B={POSEIDON_BATCH}", rows8),
+                            *((f"rows of {L}, B=4096", rows8[:4096, :L].contiguous())
+                              for L in (0, 1, 5))):
+            got = torch.stack(h.hash_rows(rows))
+            compare("poseidon_sponge", f"width {w} {label}", got,
+                    torch.stack(h.hash_rows_plain(rows)))
+            if ints(got[:, :3].T) != [h.ref.hash_elements(r) for r in ints(rows[:3])]:
+                raise AssertionError(f"poseidon_sponge width {w} {label} differs "
+                                     "from PoseidonRef")
+    print("oracle: poseidon_permute columns 0-5 and poseidon_sponge rows 0-2 equal "
+          "PoseidonRef at widths 8 and 12")
+
     # 4. independent oracle: evaluation at roots of x^n + 1, and the golden
     for name, p, (av, bv), cv in (
             ("P60_4096", P60_4096, inputs60["nwc"], out60["nwc"]),
             (p_gen.name, p_gen, inputs_gen["nwc"], out_gen["nwc"]),
-            ("P24_4096", P24_4096, (a, b), c24)):
-        a_rows, b_rows = av[:8].long().cpu().tolist(), bv[:8].long().cpu().tolist()
-        c_rows = cv[:8].long().cpu().tolist()
+            ("P24_4096", P24_4096, (a, b), c24),
+            ("goldilocks_4096", GOLDILOCKS_4096, inputs_gl["nwc"], out_gl["nwc"])):
+        a_rows, b_rows, c_rows = ints(av[:8]), ints(bv[:8]), ints(cv[:8])
         check_evaluations(name, p, a_rows[2:6], b_rows[2:6], c_rows[2:6], rng)
         if reference.nwc_poly_mult(a_rows[4], b_rows[4], p) != c_rows[4]:
             raise AssertionError(f"{name}: row 4 differs from reference.nwc_poly_mult")
         print(f"oracle: {name} c(x) == a(x) b(x) at x = psi^(2k+1), rows 2-5, 3 k "
               "each; row 4 equals reference.nwc_poly_mult")
     for name, plan, x in (("P60_4096", plan60, inputs60["nwc"][0]),
-                          ("P24_4096", p24, a)):
+                          ("P24_4096", p24, a),
+                          ("goldilocks_4096", plan_gl, inputs_gl["nwc"][0])):
         for fwd, inv in (("nwc_ntt_fwd", "nwc_ntt_inv"), ("ntt_fwd", "ntt_inv")):
             if not torch.equal(getattr(plan, inv)(getattr(plan, fwd)(x)), x):
                 raise AssertionError(f"{inv}({fwd}(x)) != x at {name}")
@@ -410,25 +540,32 @@ def main() -> int:
           f"golden products; intt(ntt(x)) == x at B={kb_}")
 
     # 5. main paths, through the entry points a user calls
-    counts = (MxuPlan.launches, MxuPlan64.launches, KyberPlan.launches)
+    counts = (MxuPlan.launches, MxuPlan64.launches, KyberPlan.launches,
+              GoldilocksPlan64.launches, kposeidon.launches)
+
+    def zero_counts():
+        for c in counts:
+            for k in c:
+                c[k] = 0
+
+    def read_counts():
+        return {k: v for c in counts for k, v in c.items()}
     launches: dict[str, int] = {}
 
     def drive(label, q, via, fn, inputs, plain, expect, want=None):
         """Run fn with the counts at 0, read them, check against plain; with
         no kernel to expect, no kernel may launch."""
-        for c in counts:
-            for k in c:
-                c[k] = 0
+        zero_counts()
         out = fn(*inputs)
         torch.cuda.synchronize()
-        seen = {k: v for c in counts for k, v in c.items()}
+        seen = read_counts()
         if any(seen[k] < 1 for k in expect) or (not expect and any(seen.values())):
             raise AssertionError(f"main path {label} did not launch {expect}: {seen}")
         if not torch.equal(out, plain(*inputs)):
             raise AssertionError(f"main path {label} differs from its plain version")
         if want is not None and not torch.equal(out, want):
             raise AssertionError(f"main path {label} differs from the checked result")
-        if not bool(((out >= 0) & (out < q)).all()):
+        if not canonical(out, q):
             raise AssertionError(f"main path {label} leaves [0, q)")
         for k, v in seen.items():
             launches[k] = launches.get(k, 0) + v
@@ -446,7 +583,8 @@ def main() -> int:
     best = {}
     for p, plan, inputs, checked in ((P60_4096, plan60, inputs60, out60),
                                      (p_gen, plan_gen, inputs_gen, out_gen),
-                                     (P24_4096, p24, inputs24, {})):
+                                     (P24_4096, p24, inputs24, {}),
+                                     (GOLDILOCKS_4096, plan_gl, inputs_gl, out_gl)):
         for op in dispatch.OPS:
             if dispatch.impl_name(p, op) != plan.name:
                 raise AssertionError(f"{op} at {p.name} is not served by {plan.name}")
@@ -485,43 +623,143 @@ def main() -> int:
         drive(f"kyber.{name} B={kb_}", kq, kyber.impl_name(), getattr(kyber, name),
               inputs, plain, expect, kout.get(name))
 
+    # the STARK commitment (kernels K2, K5b, K5a): Plonky2's recursion
+    # config, 135 columns at rate 1/8 with 28 queries, degree cut to 2^10 so
+    # that N = 8192 stays in the flat kernels' window; extend on the kernel
+    # order, reorder to bitrev, hash the rows into leaves, build the tree,
+    # FRI-prove column 0, verify on the host
+    stage = {}
+    t0 = time.perf_counter()
+    pk = stark.LdePlan(GL_LDE_N, GOLDILOCKS_Q, GL_BLOWUP, order="kernel", device=device)
+    pb = stark.LdePlan(GL_LDE_N, GOLDILOCKS_Q, GL_BLOWUP, order="bitrev", device=device)
+    commit_hasher = gl_poseidon.Poseidon2GL()
+    prover = stark.FriProver(pb, final_size=GL_FINAL, num_queries=GL_QUERIES,
+                             hasher=commit_hasher)
+    coeffs = on_card(gl_operands(GL_LDE_N, GL_COLS, rng)[0])[0]
+    torch.cuda.synchronize()
+    stage["plans and tables"] = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    evals = pk.reorder(pk.extend(coeffs), pb)
+    torch.cuda.synchronize()
+    stage["extend + reorder"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lde_rows = evals.T.contiguous()
+    leaves = commit_hasher.hash_rows(lde_rows)
+    torch.cuda.synchronize()
+    stage["leaf sponges"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    levels = gl_poseidon.merkle_levels(commit_hasher, leaves)
+    root = gl_poseidon.digest_ints(levels[-1])
+    stage["Merkle tree"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = prover.prove(evals[0])
+    stage["FRI prove"] = time.perf_counter() - t0
+    seen = read_counts()
+    t0 = time.perf_counter()
+    verified = stark.fri_verify(pb, proof, final_size=GL_FINAL, num_queries=GL_QUERIES)
+    stage["FRI verify (host, big-int)"] = time.perf_counter() - t0
+    stark_kernels = ("gl64_forward", "poseidon_sponge", "poseidon_permute")
+    if any(seen[k] < 1 for k in stark_kernels):
+        raise AssertionError(f"the STARK commitment did not launch {stark_kernels}: {seen}")
+    if not verified:
+        raise AssertionError("fri_verify rejected the proof of the STARK commitment")
+    if not torch.equal(evals, pb.extend(coeffs)):
+        raise AssertionError("the kernel-order LDE, reordered, differs from the plain "
+                             "bitrev LDE")
+    if not canonical(evals, GOLDILOCKS_Q):
+        raise AssertionError("the LDE leaves [0, q)")
+    compare("poseidon_sponge", f"STARK leaves, {GL_LDE_N * GL_BLOWUP} rows of {GL_COLS}",
+            torch.stack(leaves), torch.stack(commit_hasher.hash_rows_plain(lde_rows)))
+    plain_level = list(leaves)
+    while plain_level[0].shape[0] > 1:
+        plain_level = commit_hasher.permute_plain(
+            [d[0::2] for d in plain_level] + [d[1::2] for d in plain_level])[:4]
+    if gl_poseidon.digest_ints(plain_level) != root:
+        raise AssertionError("the Merkle root differs from the plain version's")
+    idx = pb.spectrum_indices()
+    coeff_rows = ints(coeffs)
+    for col, slot in zip(rng.integers(0, GL_COLS, 6).tolist(),
+                         rng.integers(0, GL_LDE_N * GL_BLOWUP, 6).tolist()):
+        x = pb.shift * pow(pb.p.omega, int(idx[slot]), GOLDILOCKS_Q) % GOLDILOCKS_Q
+        if horner(coeff_rows[col], x, GOLDILOCKS_Q) != ints(evals[col, slot:slot + 1])[0]:
+            raise AssertionError(f"LDE column {col} slot {slot} differs from Horner")
+    ref = commit_hasher.ref
+    for i in (0, 4097):
+        if ref.hash_elements(ints(lde_rows[i])) != gl_poseidon.digest_ints(
+                [d[i:i + 1] for d in leaves]):
+            raise AssertionError(f"leaf {i} differs from PoseidonRef.hash_elements")
+        if not gl_poseidon.merkle_verify(ref, root, i, ints(torch.stack(
+                [d[i] for d in leaves])), gl_poseidon.merkle_open(levels, i)):
+            raise AssertionError(f"the Merkle path of leaf {i} does not verify")
+    for k, v in seen.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"main path: STARK commitment, {GL_COLS} columns, n={GL_LDE_N}, blowup "
+          f"{GL_BLOWUP} (N={GL_LDE_N * GL_BLOWUP}), FRI to {GL_FINAL} with {GL_QUERIES} "
+          f"queries: fri_verify True, {len(proof['roots'])} layers; LDE equals the plain "
+          "bitrev LDE and Horner at 6 points, leaves and root equal the plain versions, "
+          "Merkle paths of leaves 0 and 4097 verify; launches "
+          f"{ {k: v for k, v in seen.items() if v} }")
+    print("main path: STARK stage times (s, host clock, synchronized): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stage.items()))
+
     # 6. timing, in turns: plain, kernel (through the main path), kernel, plain
-    def nwc_timed(p, op, plan, inputs, out_rows, fn=None):
-        """(what is timed, kernel fn, plain fn, inputs, output rows, p, terms)
-        of a dispatch op."""
+    # each entry: (what is timed, kernel fn, plain fn, inputs, (bytes,
+    # 32-bit multiplies) of a call, plain iteration counts, plain repeats)
+    SLOW, ONE = ((1, 2), 1), ((0, 1), 1)  # plain versions of 0.2 s, and of seconds
+
+    def nwc_timed(kernel, p, op, plan, inputs, out_rows, fn=None):
+        plain_iters = SLOW if p.width > 30 else ((1, 3), 3)
         return (f"{op} at {p.name}", fn or best[p.name, op],
                 getattr(plan, dispatch.METHODS[op] + "_plain"), inputs[op],
-                out_rows, p, DOT_TERMS)
+                work(kernel, p, out_rows, DOT_TERMS), *plain_iters)
 
-    def kyber_timed(entry):
+    def kyber_timed(kernel, entry):
         inputs, plain, _ = kyber_main[entry]
         return (f"kyber.{entry} B={kb_}", getattr(kyber, entry), plain, inputs,
-                kb_, None, KYBER_K)
+                work(kernel, None, kb_, KYBER_K), (1, 3), 3)
+
+    def permute_timed(w):
+        h = hashers[w]
+        return (f"Poseidon2GL({w}).permute B={POSEIDON_BATCH}",
+                functools.partial(kposeidon.permute, h),
+                lambda x: torch.stack(h.permute_plain(list(x))), (gl_states[w],),
+                poseidon_work("permute", w, POSEIDON_BATCH), *SLOW)
+
+    def sponge_timed(rows, plain_iters):
+        return (f"Poseidon2GL(8).hash_rows {tuple(rows.shape)}",
+                functools.partial(kposeidon.sponge, commit_hasher),
+                lambda r: torch.stack(commit_hasher.hash_rows_plain(r)), (rows,),
+                poseidon_work("sponge", 8, *rows.shape), *plain_iters)
 
     timed = {
-        "nwc64_product": nwc_timed(P60_4096, "nwc", plan60, inputs60, BATCH),
-        "nwc64_forward": nwc_timed(P60_4096, "nwc_fwd", plan60, inputs60, BATCH),
-        "nwc64_inverse": nwc_timed(P60_4096, "nwc_inv", plan60, inputs60, BATCH),
-        "nwc64_cached": nwc_timed(P60_4096, "cached", plan60, inputs60, BATCH),
-        "nwc64_dot": nwc_timed(P60_4096, "dot", plan60, inputs60, DOT_BATCH),
-        "nwc64_matvec": nwc_timed(P60_4096, "matvec", plan60, inputs60, MATVEC_BATCH_60),
-        "nwc32_product": nwc_timed(P24_4096, "nwc", p24, inputs24, BATCH),
-        "nwc32_forward": nwc_timed(P24_4096, "nwc_fwd", p24, inputs24, BATCH),
-        "nwc32_inverse": nwc_timed(P24_4096, "nwc_inv", p24, inputs24, BATCH),
-        "nwc32_cached": nwc_timed(P24_4096, "cached", p24, inputs24, BATCH),
-        "nwc32_dot": nwc_timed(P24_4096, "dot", p24, inputs24, DOT_BATCH),
-        "nwc32_matvec": nwc_timed(DILITHIUM_256, "matvec", pdil,
-                                  {"matvec": (s_dil, spec_dil)}, MATVEC_BATCH,
-                                  matvec_fn),
-        "kyber_forward": kyber_timed("ntt"),
-        "kyber_inverse": kyber_timed("intt"),
-        "kyber_product": kyber_timed("poly_mult"),
-        "kyber_cached": kyber_timed("poly_mult_cached"),
-        "kyber_dot": kyber_timed("dot"),
-        "kyber_matvec": kyber_timed("matvec"),
-        # not a kernel function of its own: the product at the generic q
-        "generic-q product": nwc_timed(p_gen, "nwc", plan_gen, inputs_gen, BATCH),
+        name: nwc_timed(name, p, op, plan, inputs, out_rows)
+        for family, p, plan, inputs in (("nwc64", P60_4096, plan60, inputs60),
+                                        ("nwc32", P24_4096, p24, inputs24),
+                                        ("gl64", GOLDILOCKS_4096, plan_gl, inputs_gl))
+        for name, op, out_rows in ((f"{family}_product", "nwc", BATCH),
+                                   (f"{family}_forward", "nwc_fwd", BATCH),
+                                   (f"{family}_inverse", "nwc_inv", BATCH),
+                                   (f"{family}_cached", "cached", BATCH),
+                                   (f"{family}_dot", "dot", DOT_BATCH),
+                                   (f"{family}_matvec", "matvec", MATVEC_BATCH_60))
     }
+    timed["nwc32_matvec"] = nwc_timed("nwc32_matvec", DILITHIUM_256, "matvec", pdil,
+                                      {"matvec": (s_dil, spec_dil)}, MATVEC_BATCH,
+                                      matvec_fn)
+    for kernel, entry in (("kyber_forward", "ntt"), ("kyber_inverse", "intt"),
+                          ("kyber_product", "poly_mult"),
+                          ("kyber_cached", "poly_mult_cached"), ("kyber_dot", "dot"),
+                          ("kyber_matvec", "matvec")):
+        timed[kernel] = kyber_timed(kernel, entry)
+    timed["poseidon_permute"] = permute_timed(8)  # the Merkle trees' width
+    timed["poseidon_sponge"] = sponge_timed(lde_rows, ONE)  # the STARK leaves
+    # not kernel functions of their own: the product at the generic q, the
+    # permutation at width 12 and the sponge over bench.py's rows of 8
+    timed["generic-q product"] = nwc_timed("nwc64_product", p_gen, "nwc", plan_gen,
+                                           inputs_gen, BATCH)
+    timed["width-12 permute"] = permute_timed(12)
+    timed["rows-of-8 sponge"] = sponge_timed(rows8, SLOW)
 
     def time_turns(kernel_fn, plain_fn, inputs, plain_iters, repeats):
         """Turns plain, kernel, kernel, plain; a kernel turn takes the
@@ -539,14 +777,11 @@ def main() -> int:
         return times
 
     rows, per_call = [], {}
-    for name, (what, fn, plain, inputs, out_rows, p, terms) in timed.items():
-        wide = p is not None and p.width > 30  # 60-bit plain versions: ~0.2 s a call
-        times = time_turns(fn, plain, inputs, (1, 2) if wide else (1, 3),
-                           1 if wide else 3)
+    for name, (what, fn, plain, inputs, (nbytes, imads), plain_iters,
+               repeats) in timed.items():
+        times = time_turns(fn, plain, inputs, plain_iters, repeats)
         t_kernel, t_plain = min(times["graph"]), min(times["plain"])
         t_host = host_seconds_per_call(fn, *inputs)
-        kernel = name if name in REPLACES else "nwc64_product"
-        nbytes, imads = work(kernel, p, out_rows, terms)
         t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
         per_call[name] = min(times["events"])
         print(f"timing {name} ({what}, s/call): kernel by graph replay "
@@ -561,7 +796,8 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t_kernel * 1e3, "plain_ms": t_plain * 1e3,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,  # no PyTorch call computes an NTT or its product mod q
+            # no PyTorch call computes an NTT, its product mod q or a hash
+            "library_ms": None,
         })
     per_s = {name: 1 / t for name, t in per_call.items()}  # back to back, host included
     print(f"nwc_poly_mult_p60_4096_per_sec: {BATCH * per_s['nwc64_product']:.1f}; "
@@ -576,7 +812,14 @@ def main() -> int:
           f"B={MATVEC_BATCH}); mlkem_3329_poly_mult_per_sec: "
           f"{kb_ * per_s['kyber_product']:.1f}; mlkem_3329_ntt_per_sec: "
           f"{kb_ * per_s['kyber_forward']:.1f}; mlkem_768_matvec_3x3_per_sec: "
-          f"{kb_ * per_s['kyber_matvec']:.1f}; B={kb_}; card {card}")
+          f"{kb_ * per_s['kyber_matvec']:.1f}; B={kb_}; "
+          f"nwc_poly_mult_goldilocks_4096_per_sec: {BATCH * per_s['gl64_product']:.1f}; "
+          f"fwd_ntt_goldilocks_4096_per_sec: {BATCH * per_s['gl64_forward']:.1f}; "
+          f"B={BATCH}; poseidon2_w8_perm_per_sec: "
+          f"{POSEIDON_BATCH * per_s['poseidon_permute']:.1f}; poseidon2_w12_perm_per_sec: "
+          f"{POSEIDON_BATCH * per_s['width-12 permute']:.1f}; B={POSEIDON_BATCH}; "
+          f"stark_leaf_rows_of_{GL_COLS}_per_sec: "
+          f"{lde_rows.shape[0] * per_s['poseidon_sponge']:.1f}; card {card}")
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -25,6 +25,7 @@ import tpu_ntt.reference as jref
 from tpu_ntt_torch import dispatch
 from tpu_ntt_torch.convert import int64_to_pairs, pairs_to_int64
 from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
+from tpu_ntt_torch.modmath import GOLDILOCKS_Q
 from tpu_ntt_torch.params import P60_4096, PRESETS, make_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,14 +69,18 @@ def test_ops_outside_the_slice_raise(op):
 @pytest.mark.parametrize("p,item", [
     (make_params(4096, 998244353), "Q1.4b"),  # 30-bit: above the K3 window
     (make_params(32768, 65537), "Q1.4b"),     # 17-bit, n above the K3 window
-    (PRESETS["goldilocks_4096"], "Q1.6"),
+    (make_params(16384, GOLDILOCKS_Q), "Q1.7"),        # Goldilocks above 8192
     (make_params(16384, 4611686018427322369), "Q1.7"),  # 2^62 - 2^16 + 1
     (make_params(4096, 576460752308273153), None),      # not a trinomial: served
     (make_params(128, Q60), "Q1.4c"),                   # n < 256
+    (PRESETS["goldilocks_4096"], None),                 # served by cuda-gl64
+    (make_params(128, GOLDILOCKS_Q), "Q1.4c"),          # Goldilocks at n < 256
 ])
 def test_params_outside_the_slice_raise(p, item):
     if item is None:
-        assert dispatch.impl_name(p) == "cuda-mxu64"
+        want = "cuda-gl64" if p.q == GOLDILOCKS_Q else "cuda-mxu64"
+        assert dispatch.impl_name(p) == want
+        assert all(dispatch.impl_name(p, op) == want for op in dispatch.OPS)
         assert dispatch.takes_pairs(p) is False
         assert callable(dispatch.best_nwc_poly_mult(p))
         return
@@ -90,7 +95,9 @@ def test_import_leaves_out_jax_and_tpu_ntt():
         "tpu_ntt_torch.convert, tpu_ntt_torch.kernels._build, "
         "tpu_ntt_torch.kernels.sol64, tpu_ntt_torch.kernels.mxu, "
         "tpu_ntt_torch.kernels.mxu64, tpu_ntt_torch.kyber, "
-        "tpu_ntt_torch.kernels.kyber\n"
+        "tpu_ntt_torch.kernels.kyber, tpu_ntt_torch.kernels.gl64, "
+        "tpu_ntt_torch.kernels.poseidon, tpu_ntt_torch.poseidon, "
+        "tpu_ntt_torch.stark, tpu_ntt_torch.bounds\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_ntt')]\n"
         "print(bad)\n"
     )

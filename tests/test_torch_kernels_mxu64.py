@@ -30,6 +30,7 @@ from tpu_ntt.kernels.mxu64 import MxuPlan64 as JaxMxuPlan64
 from tpu_ntt.kernels.sol64 import SolinasPlan64 as JaxSolinasPlan64
 from tpu_ntt_torch import bounds, kernels
 from tpu_ntt_torch.convert import int64_to_pairs, pairs_to_int64, spectra64_from_jax
+from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64
 from tpu_ntt_torch.kernels.mxu import MxuPlan
 from tpu_ntt_torch.kernels.mxu64 import KERNELS, MxuPlan64
 from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
@@ -121,14 +122,16 @@ def test_62_bit_q_matches_jax_interpret():
 
 def test_covers_matches_jax_on_a_grid():
     """The port serves JAX's K1 classes up to n = 8192, nothing else of
-    30 < width <= 62, and no Goldilocks; no tables are built."""
+    30 < width <= 62, and Goldilocks (K2) on its own plan, up to n = 8192
+    as well; no tables are built."""
     port_of = {JaxMxuPlan: MxuPlan, JaxMxuPlan64: MxuPlan64,
-               JaxSolinasPlan64: SolinasPlan64, JaxGoldilocksPlan64: None, None: None}
+               JaxSolinasPlan64: SolinasPlan64, JaxGoldilocksPlan64: GoldilocksPlan64,
+               None: None}
     for q in (8380417, 998244353, 2147483649 + 2 ** 20, Q_GENERIC, P60_4096.q, Q62,
               4611686018427322369, jparams.GOLDILOCKS_4096.q):
         for n in (128, 256, 1024, 4096, 8192, 16384, 32768):
             want = port_of[jkernels.covers(n, q)]
-            if want in (MxuPlan64, SolinasPlan64) and n > 8192:
+            if want in (MxuPlan64, SolinasPlan64, GoldilocksPlan64) and n > 8192:
                 want = None  # ROADMAP.md Q1.7
             assert kernels.covers(n, q) is want, (n, q)
             assert MxuPlan64.covers(n, q) == (want in (MxuPlan64, SolinasPlan64)), (n, q)

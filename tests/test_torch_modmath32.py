@@ -93,8 +93,10 @@ def test_make_ring_matches_jax_choice():
         assert tring.reduction.value == jring.reduction.value, q
     with pytest.raises(ValueError):
         tmod.Ring32(tparams.P60_4096)
-    with pytest.raises(NotImplementedError, match="Q1.6"):
-        tmod.make_ring(tparams.GOLDILOCKS_4096)
+    gl = tmod.make_ring(tparams.GOLDILOCKS_4096)  # ported: Q1.6
+    jgl = jmod.make_ring(jparams.GOLDILOCKS_4096)
+    assert type(gl).__name__ == type(jgl).__name__ == "GoldilocksRing"
+    assert gl.reduction.value == jgl.reduction.value
 
 
 def test_uint32_bridge_round_trip():

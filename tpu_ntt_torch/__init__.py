@@ -12,35 +12,44 @@ versions on CPU tensors.  This much is ported:
   dispatch op, on (B, n) ``torch.int64`` residues;
 * ML-KEM (FIPS 203, q = 3329, n = 256), every entry point of
   ``tpu_ntt.kyber``, in ``tpu_ntt_torch.kyber`` on (B, 256) ``torch.int32``
-  residues.
+  residues;
+* the Goldilocks field q = 2^64 - 2^32 + 1 at 256 <= n <= 8192
+  (GOLDILOCKS_4096), every dispatch op, on (B, n) ``torch.int64`` tensors
+  holding the residues' 64-bit patterns (``modmath``'s docstring);
+* the STARK commitment path over it: Poseidon2-GL permutations, sponges and
+  Merkle trees (``tpu_ntt_torch.poseidon``), the coset LDE and FRI prover
+  and verifier (``tpu_ntt_torch.stark``).
 
     from tpu_ntt_torch import P60_4096, best_nwc_poly_mult, kyber
     c = best_nwc_poly_mult(P60_4096)(a, b)
     d = kyber.poly_mult(x, y)
+    plan = stark.LdePlan(1024, GOLDILOCKS_4096.q, 8, order="kernel")
+    evals = plan.extend(coeffs)
 
 The package imports ``torch`` and never ``jax`` or ``tpu_ntt``.
 """
 
-from . import kyber
+from . import kyber, poseidon, stark
 from .dispatch import (
     OPS, best, best_cyclic_poly_mult, best_ntt_fwd, best_ntt_inv, best_nwc_dot,
     best_nwc_dot_cached, best_nwc_matvec, best_nwc_matvec_spectra,
     best_nwc_ntt_fwd, best_nwc_ntt_inv, best_nwc_poly_mult,
     best_nwc_poly_mult_cached, best_nwc_spectrum, impl_name, takes_pairs)
-from .modmath import Ring32, Ring64, make_ring
+from .modmath import GoldilocksRing, Ring32, Ring64, make_ring
 from .ntt import NttPlan, nwc_poly_mult, nwc_poly_mult_merged
 from .params import (
-    DILITHIUM_256, FALCON_512, FALCON_1024, P24_1024, P24_4096, P60_4096,
-    PRESETS, NttParams, Reduction, make_params)
+    DILITHIUM_256, FALCON_512, FALCON_1024, GOLDILOCKS_4096, P24_1024, P24_4096,
+    P60_4096, PRESETS, NttParams, Reduction, make_params)
 
 __all__ = [
     "OPS", "best", "best_cyclic_poly_mult", "best_ntt_fwd", "best_ntt_inv",
     "best_nwc_dot", "best_nwc_dot_cached", "best_nwc_matvec",
     "best_nwc_matvec_spectra", "best_nwc_ntt_fwd", "best_nwc_ntt_inv",
     "best_nwc_poly_mult", "best_nwc_poly_mult_cached", "best_nwc_spectrum",
-    "impl_name", "takes_pairs", "kyber",
-    "Ring32", "Ring64", "make_ring",
+    "impl_name", "takes_pairs", "kyber", "poseidon", "stark",
+    "GoldilocksRing", "Ring32", "Ring64", "make_ring",
     "NttPlan", "nwc_poly_mult", "nwc_poly_mult_merged",
-    "DILITHIUM_256", "FALCON_512", "FALCON_1024", "P24_1024", "P24_4096",
+    "DILITHIUM_256", "FALCON_512", "FALCON_1024", "GOLDILOCKS_4096", "P24_1024",
+    "P24_4096",
     "P60_4096", "PRESETS", "NttParams", "Reduction", "make_params",
 ]

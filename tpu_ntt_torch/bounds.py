@@ -6,9 +6,10 @@ input read once, each output written once) over the memory rate, and the
 modular product is priced by its form (``MULS``), plus its product by q
 unless q has at most three signed binary digits, when that product is shifts
 and adds.  ``work`` counts a call of each ported kernel function (the
-``nwc32_*`` and ``nwc64_*`` NTT families through ``ntt_work``, the ML-KEM
-``kyber_*`` functions through ``kyber_work``); ``chip_smoke.py`` divides it
-by the rates of the card it runs on.
+``nwc32_*``, ``nwc64_*`` and ``gl64_*`` NTT families through ``ntt_work``,
+the ML-KEM ``kyber_*`` functions through ``kyber_work``), and
+``poseidon_work`` a call of ``poseidon_permute`` or ``poseidon_sponge``;
+``chip_smoke.py`` divides them by the rates of the card it runs on.
 
 Run as a script, it prints the bounds of the TPU kernels not ported yet, at
 the shapes bench.py gives them, worked out from the code (not measured) at
@@ -121,13 +122,46 @@ def kyber_work(entry: str, batch: int, terms: int = KYBER_K) -> tuple[int, int]:
 
 def work(kernel: str, p, batch: int, terms: int = DOT_TERMS) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) of one call of ``kernel`` at the
-    parameters p (``nwc32_*`` or ``nwc64_*``; p is not read for the fixed
-    ring of ``kyber_*``), ``batch`` output rows."""
+    parameters p (``nwc32_*``, ``nwc64_*`` or ``gl64_*``; p is not read for
+    the fixed ring of ``kyber_*``), ``batch`` output rows.  Every Goldilocks
+    product, twiddle, slot or scale, is one ``gl64`` product: its twiddles
+    are plain and its forward has no scale (the spectra are plain)."""
     family, entry = kernel.split("_", 1)
     if family == "kyber":
         return kyber_work(entry, batch, terms)
     word = 8 if p.width > 30 else 4
-    return ntt_work(entry, p.n, p.log_n, p.q, word, batch, terms)
+    forms = ("gl64", "gl64") if family == "gl64" else None
+    return ntt_work(entry, p.n, p.log_n, p.q, word, batch, terms, forms)
+
+
+# ----------------------------------------------------------------------
+# Poseidon2-GL, kernels K5a and K5b
+# ----------------------------------------------------------------------
+
+GL_Q = (1 << 64) - (1 << 32) + 1
+POSEIDON_RF, POSEIDON_RP = 8, 22  # tpu_ntt/poseidon.py's defaults
+POSEIDON_BATCH = 2048 * 64  # bench.py's bench_poseidon(batch * 64), the Merkle level
+
+
+def poseidon_products(width: int, rf: int = POSEIDON_RF, rp: int = POSEIDON_RP) -> int:
+    """Goldilocks products in one permutation: x^7 is four, each full
+    round has one S-box a lane, each partial round one S-box and the
+    internal layer's ``width`` diagonal products; the external layer is
+    adds."""
+    return rf * 4 * width + rp * (4 + width)
+
+
+def poseidon_work(entry: str, width: int, batch: int, length: int = 0) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of one call of ``poseidon_permute`` (a
+    (width, batch) state in and out) or ``poseidon_sponge`` (``batch`` rows
+    of ``length`` elements in, a 4-lane digest out, max(ceil(length / 4),
+    1) permutations a row), at 8 IMADs a Goldilocks product."""
+    imads = poseidon_products(width) * muls("gl64", GL_Q)
+    if entry == "permute":
+        return 2 * width * batch * 8, batch * imads
+    assert entry == "sponge", entry
+    perms = max(-(-length // 4), 1)
+    return batch * (length + 4) * 8, batch * perms * imads
 
 
 def seconds(nbytes: int, imads: int, imad_per_s: float) -> tuple[float, float]:
@@ -139,36 +173,15 @@ def seconds(nbytes: int, imads: int, imad_per_s: float) -> tuple[float, float]:
 # The TPU kernels not ported yet, at bench.py's shapes
 # ----------------------------------------------------------------------
 
-GL_Q = (1 << 64) - (1 << 32) + 1
 P60_32768_Q = 576460752308273153  # bench.py:35
-POSEIDON_BATCH = 2048 * 64  # bench.py's bench_poseidon(batch * 64)
-POSEIDON_WIDTH, POSEIDON_RF, POSEIDON_RP = 12, 8, 22  # tpu_ntt/poseidon.py:15-17
-SPONGE_LEN = 8  # elements a row: two rate-4 absorptions
-
-
-def _poseidon(batch: int, perms: int, words_in: int, words_out: int) -> tuple[int, int]:
-    """``perms`` Poseidon2-GL permutations a row: x^7 is four products, each
-    full round has one S-box a lane, each partial round one S-box and the
-    internal layer's ``width`` diagonal products; the external layer is adds."""
-    w = POSEIDON_WIDTH
-    products = POSEIDON_RF * 4 * w + POSEIDON_RP * (4 + w)
-    return batch * (words_in + words_out) * 8, batch * perms * products * muls("gl64", GL_Q)
 
 
 def unported() -> list[tuple[str, str, int, int]]:
     """(id, what is counted, bytes, 32-bit multiplies) of each TPU kernel
-    still to port, at bench.py's shapes."""
-    gl_bytes, gl_imads = ntt_work("product", 4096, 12, GL_Q, 8, 2048,
-                                  forms=("gl64", "gl64"))
+    still to port that one card can run, at bench.py's shapes."""
     return [
         ("K1a, n >= 32768", "p60_32768 nwc, B = 256 (bench.py:145)",
          *ntt_work("product", 32768, 15, P60_32768_Q, 8, 256)),
-        ("K2", "goldilocks_4096 nwc, B = 2048 (bench.py:147)", gl_bytes, gl_imads),
-        ("K5a", f"Poseidon2-GL permutation, width {POSEIDON_WIDTH}, "
-         f"B = {POSEIDON_BATCH}",
-         *_poseidon(POSEIDON_BATCH, 1, POSEIDON_WIDTH, POSEIDON_WIDTH)),
-        ("K5b", f"rate-4 sponge over rows of {SPONGE_LEN}, B = {POSEIDON_BATCH}",
-         *_poseidon(POSEIDON_BATCH, -(-SPONGE_LEN // 4), SPONGE_LEN, 4)),
     ]
 
 

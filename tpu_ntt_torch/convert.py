@@ -9,10 +9,14 @@ they import no JAX: a test hands them what the JAX package returned.
 State a user keeps crosses too: the kernels' cached spectra (24-bit
 ``tpu_ntt.kernels.mxu.MxuPlan.nwc_spectrum``, times 2^32 mod q; 60-bit
 ``MxuPlan64``/``SolinasPlan64.nwc_spectrum``, (hi, lo) pairs times 2^64 mod
-q; both in four-step layout) and their ``nwc_matvec_spectra`` blocks tiled
-over an MXU group become the port's (the same domain, bit-reversed order;
-see ``kernels/_plan.py``), so a key or public matrix transformed once by the
-JAX package gives the same products in the port.  The same holds for
+q; Goldilocks ``GoldilocksPlan64.nwc_spectrum``, (hi, lo) pairs in the plain
+domain; all in four-step layout) and their ``nwc_matvec_spectra`` blocks
+tiled over an MXU group become the port's (the same domain, bit-reversed
+order; see ``kernels/_plan.py``), so a key or public matrix transformed once
+by the JAX package gives the same products in the port.  A Goldilocks
+residue >= 2^63 becomes the wrapped int64 with its bits (``pairs_to_int64``)
+and goes back unchanged (``int64_to_pairs``): these two are the port's
+counterparts of ``tpu_ntt.poseidon``'s ``to_pairs`` and ``from_pairs``.  The same holds for
 ML-KEM's cacheable spectra and matvec blocks (``kyber_spectra_from_jax``,
 ``kyber_blocks_from_jax``).
 """
@@ -105,8 +109,10 @@ def matvec_spectra_from_jax(blocks, n: int, device=None) -> torch.Tensor:
 def spectra64_from_jax(hi, lo, device=None) -> torch.Tensor:
     """(..., n) (hi, lo) uint32 spectra of ``tpu_ntt.kernels.mxu64``
     ``MxuPlan64.nwc_spectrum`` or ``SolinasPlan64.nwc_spectrum`` (the same
-    Montgomery-64 domain) -> the port's ``nwc_spectrum`` of the same
-    operands, int64."""
+    Montgomery-64 domain), or of ``tpu_ntt.kernels.gl64``
+    ``GoldilocksPlan64.nwc_spectrum`` (the plain domain, the same four-step
+    layout) -> the port's ``nwc_spectrum`` of the same operands, int64: a
+    permutation only."""
     x = pairs_to_int64(hi, lo)
     return x[..., fourstep_to_bitrev_perm(x.shape[-1])].contiguous().to(device)
 

@@ -15,7 +15,10 @@ version for a CPU tensor:
 * 30 < width <= 62 at 256 <= n <= 8192 on (B, n) ``torch.int64`` residues:
   a trinomial q = 2^a - 2^b + 1 that the JAX policy sends to its Solinas
   kernel on ``kernels.sol64.SolinasPlan64`` (P60_4096), every other q on
-  ``kernels.mxu64.MxuPlan64``.
+  ``kernels.mxu64.MxuPlan64``;
+* the Goldilocks prime 2^64 - 2^32 + 1 at 256 <= n <= 8192 on
+  ``kernels.gl64.GoldilocksPlan64`` (GOLDILOCKS_4096), on (B, n)
+  ``torch.int64`` tensors holding the residues' 64-bit patterns.
 
 Spectra come in the serving backend's bit-reversed layout
 (``bitrev_to_natural_perm``), and fwd/inv, nwc_fwd/nwc_inv,
@@ -32,7 +35,8 @@ import torch
 
 from . import kernels
 from .kernels import mxu64
-from .params import GOLDILOCKS_4096, NttParams
+from .modmath import GOLDILOCKS_Q
+from .params import NttParams
 
 #: operations the dispatch layer routes (the same tuple as tpu_ntt.dispatch)
 OPS = (
@@ -68,18 +72,16 @@ METHODS = {
 
 
 def _uncovered(p: NttParams) -> str:
-    if p.q == GOLDILOCKS_4096.q:
-        item = "Q1.6 (Goldilocks, kernel K2)"
-    elif p.width <= 30:
+    if p.width <= 30:
         item = ("Q1.4b (the merged Ring32 route: 24 < width <= 30, and "
                 "q < 2^24 outside 256 <= n <= 16384)")
-    elif p.width > 62:
+    elif p.width > 62 and p.q != GOLDILOCKS_Q:
         item = "Q1.10 (RNS for moduli above 62 bits)"
     elif p.n > mxu64.MAX_N:
         item = "Q1.7 (large n)"
     else:
-        item = ("Q1.4c (the merged Ring64 route: 30 < width <= 62 at "
-                "n < 256)")
+        item = ("Q1.4c (the merged Ring64 route: 30 < width <= 62 and "
+                "Goldilocks at n < 256)")
     return (f"no ported path covers {p.name or 'params'} (n={p.n}, q={p.q}) "
             f"yet: ROADMAP.md {item}")
 
@@ -105,10 +107,11 @@ def _run(p: NttParams, method: str, x: torch.Tensor, *rest) -> torch.Tensor:
 
 def takes_pairs(p: NttParams) -> bool:
     """Always False where the port serves p: a residue of any q < 2^63 fits
-    one int64 (one int32 below 2^31), so the port never splits it into
-    (hi, lo) uint32 words as the JAX package does (``convert.py`` bridges
-    the two).  Goldilocks (q > 2^63) is ROADMAP work and decides its own
-    element format."""
+    one int64 (one int32 below 2^31), and a Goldilocks residue (q > 2^63)
+    is one int64 holding its 64-bit pattern, so the port never splits a
+    residue into (hi, lo) uint32 words as the JAX package does
+    (``convert.py`` bridges the two).  Pairs would double the bytes the
+    kernels move and give them nothing: the card multiplies 64-bit words."""
     _require(p, "nwc")
     return False
 

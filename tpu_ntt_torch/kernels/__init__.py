@@ -4,17 +4,22 @@
 256 <= n <= 16384, ``csrc/nwc32.cu``); ``mxu64`` the 60-bit family's (every
 op, 30 < width <= 62 at 256 <= n <= 8192, ``csrc/nwc64.cu``), with
 ``sol64.SolinasPlan64`` its subclass for the trinomial moduli the JAX policy
-sends to its Solinas kernel; ``kyber.KyberPlan`` the ML-KEM ring's (every op
-of ``tpu_ntt.kernels.kyber.KyberPlan``, ``csrc/kyber.cu``), whose ring is
-fixed, so ``plan_for`` does not serve it: ``tpu_ntt_torch.kyber`` calls it.
-Goldilocks and n above 8192 at 30 < width <= 62 are not ported yet
-(ROADMAP.md Q1.6, Q1.7), so ``plan_for`` returns ``None`` for them.
+sends to its Solinas kernel; ``gl64.GoldilocksPlan64`` the Goldilocks
+prime's (every op at 256 <= n <= 8192, ``csrc/gl64.cu``, on wrapped int64
+residues); ``kyber.KyberPlan`` the ML-KEM ring's (every op of
+``tpu_ntt.kernels.kyber.KyberPlan``, ``csrc/kyber.cu``), whose ring is
+fixed, so ``plan_for`` does not serve it: ``tpu_ntt_torch.kyber`` calls it;
+``poseidon`` the Poseidon2-GL permutation and sponge (``csrc/poseidon.cu``),
+which ``tpu_ntt_torch.poseidon.Poseidon2GL`` calls.  n above 8192 at
+width > 30 is not ported yet (ROADMAP.md Q1.7), so ``plan_for`` returns
+``None`` there.
 """
 
 from __future__ import annotations
 
 from ..modmath import GOLDILOCKS_Q
 from ..params import NttParams
+from .gl64 import GoldilocksPlan64
 from .kyber import KyberPlan
 from .mxu import MxuPlan
 from .mxu64 import MxuPlan64
@@ -30,7 +35,7 @@ def covers(n: int, q: int):
     if MxuPlan.covers(n, q):
         return MxuPlan
     if q == GOLDILOCKS_Q:
-        return None
+        return GoldilocksPlan64 if GoldilocksPlan64.covers(n, q) else None
     if SolinasPlan64.covers(n, q):
         return SolinasPlan64
     if MxuPlan64.covers(n, q):

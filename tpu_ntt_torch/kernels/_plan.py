@@ -1,12 +1,16 @@
 """The twelve ops of a fused NTT kernel family, shared by its word sizes.
 
 ``KernelPlan`` is what ``mxu.MxuPlan`` (int32 residues, q < 2^24,
-``csrc/nwc32.cu``) and ``mxu64.MxuPlan64`` (int64 residues, 30 < width <= 62,
-``csrc/nwc64.cu``) have in common; they differ only in the dtype, the word
-(32 or 64 bits, which sets the Montgomery and Shoup scales), the CUDA
-library and the (n, q) window.  Each source has the same six C entry points,
-with the same meanings and argument order: ``<lib>_product``, ``_cached``,
-``_forward``, ``_inverse``, ``_dot`` and ``_matvec``.
+``csrc/nwc32.cu``), ``mxu64.MxuPlan64`` (int64 residues, 30 < width <= 62,
+``csrc/nwc64.cu``) and ``gl64.GoldilocksPlan64`` (wrapped int64 residues of
+q = 2^64 - 2^32 + 1, ``csrc/gl64.cu``) have in common; they differ in the
+dtype, the word (32 or 64 bits, which sets the Montgomery and Shoup scales),
+the spectrum domain, the CUDA library and the (n, q) window.  Each source
+has the same six C entry points, with the same meanings and argument order:
+``<lib>_product``, ``_cached``, ``_forward``, ``_inverse``, ``_dot`` and
+``_matvec``.  The Shoup families pass each twiddle table as (w, w') and
+each scale as (w, w') with q and q' = -q^-1 mod 2^word; the Goldilocks
+family, whose q is fixed and has no Shoup form, passes w alone.
 
 Each op launches its kernel for a CUDA tensor and runs its plain version,
 the ``*_plain`` method beside it, for a CPU tensor; any other device raises.
@@ -22,11 +26,13 @@ Spectra (the layout contract of tpu_ntt/dispatch.py:51-56):
   ``bitrev_to_natural_perm`` is the map; ``ntt_inv``/``nwc_ntt_inv`` take
   that order back.
 * ``nwc_spectrum`` (and each block of ``nwc_matvec_spectra``) is the
-  negacyclic spectrum times 2^word mod q, in the same bit-reversed order:
-  the domain of tpu_ntt's cached spectra (2^32 for ``MxuPlan``, the
-  Montgomery-64 domain of ``MxuPlan64`` and ``SolinasPlan64``), so
-  ``convert`` only permutes them.  ``nwc_poly_mult_cached``,
-  ``nwc_dot_cached`` and ``nwc_matvec_cached`` take it.
+  negacyclic spectrum times the family's domain factor mod q, in the same
+  bit-reversed order: the domain of tpu_ntt's cached spectra (2^32 for
+  ``MxuPlan``, the Montgomery-64 domain 2^64 of ``MxuPlan64`` and
+  ``SolinasPlan64``, the plain domain, factor 1, of ``GoldilocksPlan64``:
+  tpu_ntt/kernels/gl64.py:75-77), so ``convert`` only permutes them.
+  ``nwc_poly_mult_cached``, ``nwc_dot_cached`` and ``nwc_matvec_cached``
+  take it.
 * ``nwc_matvec_spectra`` returns (k, l, n), not tpu_ntt's (k, l, rows, 128)
   blocks tiled over the polynomials of an MXU group: the tiling is the
   TPU's (``convert`` undoes it).
@@ -129,7 +135,9 @@ class KernelPlan:
 
     A subclass sets ``name``, ``lib_name``, ``dtype``, ``word_bits`` and its
     own ``launches`` dict (keyed ``<lib_name>_<entry point>``), and defines
-    ``covers(n, q)`` and ``_refusal(p)``."""
+    ``covers(n, q)`` and ``_refusal(p)``; the Goldilocks plan also replaces
+    the hooks that shape the C arguments (``_domain_factor``,
+    ``_scale_args``, ``_q_args``, ``_lib``)."""
 
     name: str
     lib_name: str
@@ -153,24 +161,37 @@ class KernelPlan:
         self.plan = ntt.NttPlan(p, Reduction.SHOUP, self.device)
         self.ring = self.plan.ring
         word = 1 << self.word_bits
-        q, r = p.q, word % p.q
+        q, r = p.q, self._domain_factor()
         self._q_prime = (-pow(q, -1, word)) % word
-        # the spectrum domain (times 2^word) and the way back, for the plain
+        # the spectrum domain (times r) and the way back, for the plain
         # versions; the kernels' scales: a REDC of two fresh spectra leaves
-        # 2^-word, of a fresh one with a cached one nothing
+        # r^-1, of a fresh one with a cached one nothing
         self._r_tw = self.ring.encode_tw([r], self.device)
         self._r_inv_tw = self.ring.encode_tw([pow(r, -1, q)], self.device)
-        self._scale_fresh = self._shoup_pair(p.n_inv * r % q)
-        self._scale_cached = self._shoup_pair(p.n_inv)
-        self._scale_spectrum = self._shoup_pair(r)
-        self._scale_one = self._shoup_pair(1)
+        self._scale_fresh = self._scale_args(p.n_inv * r % q)
+        self._scale_cached = self._scale_args(p.n_inv)
+        self._scale_spectrum = self._scale_args(r)
+        self._scale_one = self._scale_args(1)
         self._perm = torch.tensor(reference.bit_reverse_permutation(p.n),
                                   dtype=torch.int64)
 
-    def _shoup_pair(self, w: int) -> tuple[int, int]:
+    def _domain_factor(self) -> int:
+        """The factor of a cached spectrum: 2^word mod q, the Montgomery
+        domain of the word."""
+        return (1 << self.word_bits) % self.p.q
+
+    def _scale_args(self, w: int) -> tuple[int, ...]:
         """A kernel scale: w and its Shoup companion floor(w * 2^word / q),
         Python ints for the C call."""
         return w, (w << self.word_bits) // self.p.q
+
+    def _q_args(self, with_prime: bool) -> tuple[int, ...]:
+        """The modulus arguments of a C call: q, and q' = -q^-1 mod 2^word
+        for the entry points with a Montgomery slot product."""
+        return (self.p.q, self._q_prime) if with_prime else (self.p.q,)
+
+    def _lib(self) -> ctypes.CDLL:
+        return load(self.lib_name, self.word_bits)
 
     # ------------------------------------------------------------------
     # Layout map
@@ -339,9 +360,8 @@ class KernelPlan:
             return out
         fs = self._forward(s, self.plan.merged_flat, self._scale_one)
         return self._launch(
-            "matvec", out, fs, spectra, out, *self.plan.merged_inv_flat,
-            k, l, batch, self.p.log_n, self.p.q, self._q_prime,
-            *self._scale_cached)
+            "matvec", out, fs, spectra, out, *_table(self.plan.merged_inv_flat),
+            k, l, batch, self.p.log_n, *self._q_args(True), *self._scale_cached)
 
     def nwc_matvec_cached_plain(self, s, spectra):
         fs = ntt.nwc_fwd_merged(self.plan, s)
@@ -377,9 +397,9 @@ class KernelPlan:
             return out
         scale = self._scale_cached if cached else self._scale_fresh
         return self._launch(
-            "dot", out, a, b, out, *self.plan.merged_flat,
-            *self.plan.merged_inv_flat, terms, batch, self.p.log_n, self.p.q,
-            self._q_prime, *scale, int(cached))
+            "dot", out, a, b, out, *_table(self.plan.merged_flat),
+            *_table(self.plan.merged_inv_flat), terms, batch, self.p.log_n,
+            *self._q_args(True), *scale, int(cached))
 
     def _check(self, t: torch.Tensor, name: str, dims: int) -> None:
         check(t, name, dims, self.dtype, self.p.n, self.device)
@@ -396,24 +416,28 @@ class KernelPlan:
         out = torch.empty_like(a)
         if a.shape[0] == 0:
             return out
-        return self._launch(entry, out, a, b, out, *tw, *itw, a.shape[0],
-                            self.p.log_n, self.p.q, self._q_prime, *scale)
+        return self._launch(entry, out, a, b, out, *_table(tw), *_table(itw),
+                            a.shape[0], self.p.log_n, *self._q_args(True), *scale)
 
     def _forward(self, x, tw, scale):
         out = torch.empty_like(x)
         rows = x.numel() // self.p.n
         if rows == 0:
             return out
-        return self._launch("forward", out, x, out, *tw, rows,
-                            self.p.log_n, self.p.q, *scale)
+        return self._launch("forward", out, x, out, *_table(tw), rows,
+                            self.p.log_n, *self._q_args(False), *scale)
 
     def _inverse(self, x, itw):
         out = torch.empty_like(x)
         if x.shape[0] == 0:
             return out
-        return self._launch("inverse", out, x, out, *itw, x.shape[0],
-                            self.p.log_n, self.p.q, *self._scale_cached)
+        return self._launch("inverse", out, x, out, *_table(itw), x.shape[0],
+                            self.p.log_n, *self._q_args(False), *self._scale_cached)
 
     def _launch(self, entry: str, out: torch.Tensor, *args) -> torch.Tensor:
-        return launch(self.lib_name, load(self.lib_name, self.word_bits), entry,
-                      self.launches, out, *args)
+        return launch(self.lib_name, self._lib(), entry, self.launches, out, *args)
+
+
+def _table(tw) -> tuple:
+    """A twiddle table as C arguments: a Shoup (w, w') pair, or w alone."""
+    return tw if isinstance(tw, tuple) else (tw,)

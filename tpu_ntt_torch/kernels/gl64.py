@@ -1,0 +1,86 @@
+"""Kernel K2 on the card: every op of ``tpu_ntt.kernels.gl64.GoldilocksPlan64``.
+
+``GoldilocksPlan64`` serves q = 2^64 - 2^32 + 1 at 256 <= n <= 8192, n a
+power of two: the twelve ops of ``_plan.KernelPlan`` on (B, n) ``torch.int64``
+tensors that hold the 64-bit patterns of residues in [0, q), natural order
+(a residue >= 2^63 is a negative int64; ``modmath``'s docstring states the
+format).  On a CUDA tensor each op launches its kernel of ``csrc/gl64.cu``;
+on a CPU tensor it runs its plain version (``ntt.py`` over
+``modmath.GoldilocksRing``), whose integers it matches bit for bit.
+
+A cached spectrum is in the plain domain, bit-reversed: tpu_ntt's gl64
+spectra are plain too (``_domain_scales`` returns ones, gl64.py:75-77), so
+``convert.spectra64_from_jax`` only permutes them.  Twiddles and scales are
+plain values with no Shoup companion (Shoup needs q < 2^63), so the C entry
+points take one pointer a table and one word a scale, and no q.
+
+n = 16384 and 32768 (the JAX plan's upper window) need more than a block's
+227 KB for two rows: ROADMAP.md Q1.7, with the 60-bit family.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..modmath import GOLDILOCKS_Q
+from ..params import NttParams
+from . import _plan
+from .mxu64 import MAX_N, MIN_N
+
+#: the C entry points of csrc/gl64.cu, each with its own launch count
+KERNELS = ("gl64_product", "gl64_cached", "gl64_forward", "gl64_inverse",
+           "gl64_dot", "gl64_matvec")
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed and load ``csrc/gl64.cu``, its six entry points typed
+    as declared there."""
+    ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+    return _plan.bind("gl64", {
+        "product": [ptr] * 5 + [i32] * 2 + [u64, ptr],
+        "cached": [ptr] * 5 + [i32] * 2 + [u64, ptr],
+        "forward": [ptr] * 3 + [i32] * 2 + [u64, ptr],
+        "inverse": [ptr] * 3 + [i32] * 2 + [u64, ptr],
+        "dot": [ptr] * 5 + [i32] * 3 + [u64, i32, ptr],
+        "matvec": [ptr] * 4 + [i32] * 4 + [u64, ptr],
+    })
+
+
+class GoldilocksPlan64(_plan.KernelPlan):
+    """Every K2 op for the Goldilocks prime at one n on one device."""
+
+    name = "cuda-gl64"
+    lib_name = "gl64"
+    dtype = torch.int64
+    word_bits = 64
+    #: launches of each kernel in this process, over all plans of this
+    #: class; a caller that must show a run went through a kernel zeroes
+    #: its count first
+    launches = dict.fromkeys(KERNELS, 0)
+
+    @staticmethod
+    def covers(n: int, q: int) -> bool:
+        """q = 2^64 - 2^32 + 1 at 256 <= n <= 8192, n a power of two: the
+        JAX plan's window (tpu_ntt/kernels/__init__.py:73-74) up to the n
+        one block's shared memory holds."""
+        return q == GOLDILOCKS_Q and MIN_N <= n <= MAX_N and not n & (n - 1)
+
+    def _refusal(self, p: NttParams) -> str:
+        return (f"GoldilocksPlan64 covers q = 2^64 - 2^32 + 1 at "
+                f"{MIN_N} <= n <= {MAX_N}; got n={p.n}, q={p.q}")
+
+    def _domain_factor(self) -> int:
+        return 1  # plain spectra: the phi-fold divides by nothing
+
+    def _scale_args(self, w: int) -> tuple[int, ...]:
+        return (w,)
+
+    def _q_args(self, with_prime: bool) -> tuple[int, ...]:
+        return ()  # the kernels know q
+
+    def _lib(self) -> ctypes.CDLL:
+        return load()

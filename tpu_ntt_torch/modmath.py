@@ -22,7 +22,19 @@ q)`` can pass the signed range of its word, so it is stored as the int64
 (int32) with the same bit pattern; the CUDA kernels read it as ``uint64_t``
 (``uint32_t``).
 
-``GoldilocksRing`` is not ported yet.
+The Goldilocks prime q = 2^64 - 2^32 + 1 (``GoldilocksRing``) is above
+2^63, so its residues do not fit the signed range of an int64.  Its element
+format: a residue is one ``torch.int64`` holding the residue's 64-bit
+pattern, so a residue >= 2^63 reads as a negative int64 (the form
+``encode64``, ``split64`` and ``convert.pairs_to_int64`` already give).
+Tensors stay (B, n), natural order, canonical values in [0, q); the CUDA
+kernels read the same bytes as ``uint64_t`` with no conversion.  Pairs of
+32-bit words, JAX's format, would double the bytes and give the kernels
+nothing.  No Goldilocks value is compared, added or multiplied as a signed
+int64: the ring's arithmetic runs on ``split64`` words (``ge64``,
+``sub64``, ``mul64_full``) and reduces a 128-bit product by the phi-fold
+(2^96 = -1 and 2^64 = 2^32 - 1 mod q: shifts and adds, no multiply), and
+``join64`` builds the wrapped pattern without a signed overflow.
 """
 
 from __future__ import annotations
@@ -53,8 +65,11 @@ def split64(x) -> Words:
 
 
 def join64(w: Words) -> torch.Tensor:
-    """(hi, lo) -> int64, for values below 2^63 (hi < 2^31)."""
-    return (w[0] << 32) | w[1]
+    """(hi, lo) -> the int64 with that 64-bit pattern, for any hi < 2^32: a
+    value >= 2^63 comes out wrapped (negative).  hi is first made the signed
+    word with its bits, so the product by 2^32 cannot overflow."""
+    hi = (w[0] ^ 0x80000000) - 0x80000000
+    return hi * (1 << 32) + w[1]
 
 
 def mul32(a, b) -> Words:
@@ -369,19 +384,117 @@ class Ring32:
         return encode32(values, device)
 
 
+# --------------------------------------------------------------------------
+# The Goldilocks field, q = 2^64 - 2^32 + 1 (wrapped int64 residues)
+# --------------------------------------------------------------------------
+
 GOLDILOCKS_Q = (1 << 64) - (1 << 32) + 1
+_GL_EPS = _M32  # 2^64 mod q = 2^32 - 1
+_GL_Q_WORDS = (_M32, 1)  # q as (hi, lo)
+
+
+def _add_words(a: Words, b: Words) -> Tuple[Words, torch.Tensor]:
+    """a + b mod 2^64 and its carry out (0 or 1)."""
+    lo = a[1] + b[1]
+    hi = a[0] + b[0] + (lo >> 32)
+    return (hi & _M32, lo & _M32), hi >> 32
+
+
+def _add_small(a: Words, s) -> Words:
+    """a + s mod 2^64 for 0 <= s < 2^32."""
+    lo = a[1] + s
+    return (a[0] + (lo >> 32)) & _M32, lo & _M32
+
+
+def _sub_small(a: Words, s) -> Words:
+    """a - s mod 2^64 for 0 <= s < 2^32 (>> is arithmetic: -1 on a borrow)."""
+    lo = a[1] - s
+    return (a[0] + (lo >> 32)) & _M32, lo & _M32
+
+
+def _gl_canonical(t: Words) -> torch.Tensor:
+    """[0, 2^64) -> [0, q) with one conditional subtract (2^64 - q < q)."""
+    return join64(select64(ge64(t, _GL_Q_WORDS), sub64(t, _GL_Q_WORDS), t))
+
+
+def goldilocks_reduce128(w3, w2, w1, w0) -> torch.Tensor:
+    """A 128-bit value, four 32-bit words with w0 the lowest, mod q.
+
+    The phi-fold of ``tpu_ntt.modmath.goldilocks_reduce128``: with
+    2^96 = -1 and 2^64 = 2^32 - 1 (mod q), w3*2^96 + w2*2^64 + c is
+    c - w3 + w2*(2^32 - 1).  A borrow of c - w3 wrapped by 2^64 is undone by
+    subtracting 2^32 - 1 (2^64 - (2^32 - 1) = q); w2*(2^32 - 1) is
+    (w2 << 32) - w2; a carry out of the sum adds 2^32 - 1 back and cannot
+    carry again.  One conditional subtract ends it: shifts and adds only."""
+    lo = w0 - w3
+    hi = w1 + (lo >> 32)
+    borrow = (hi >> 32) & 1
+    t0 = _sub_small((hi & _M32, lo & _M32), borrow * _GL_EPS)
+    t1 = (w2 - (w2 != 0).to(w2.dtype), (-w2) & _M32)  # w2 * (2^32 - 1)
+    t, carry = _add_words(t0, t1)
+    return _gl_canonical(_add_small(t, carry * _GL_EPS))
+
+
+def goldilocks_mul(a: torch.Tensor, b) -> torch.Tensor:
+    """(a * b) mod q for wrapped-int64 residues (b a tensor or Python int)."""
+    return goldilocks_reduce128(*mul64_full(split64(a), split64(b)))
+
+
+def goldilocks_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod q: the sum of two residues can pass 2^64, whose carry is
+    taken as q + (2^32 - 1), so subtracting q mod 2^64 leaves the residue."""
+    s, carry = _add_words(split64(a), split64(b))
+    over = (carry == 1) | ge64(s, _GL_Q_WORDS)
+    return join64(select64(over, sub64(s, _GL_Q_WORDS), s))
+
+
+def goldilocks_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod q: a - b mod 2^64, plus q (mod 2^64) where b > a."""
+    wa, wb = split64(a), split64(b)
+    d = sub64(wa, wb)
+    return join64(select64(ge64(wa, wb), d, _add_words(d, _GL_Q_WORDS)[0]))
+
+
+class GoldilocksRing:
+    """Z_q for q = 2^64 - 2^32 + 1, the counterpart of
+    ``tpu_ntt.modmath.GoldilocksRing``: elements are int64 tensors holding
+    the 64-bit patterns of residues in [0, q) (see the module docstring).
+
+    Every product is ``goldilocks_mul`` (the phi-fold); twiddles are plain
+    values, with no Shoup companion, since Shoup's bound needs q < 2^63
+    (tpu_ntt/kernels/gl64.py:35-37).  ``reduction`` is SIMPLE, as in JAX:
+    the ring has one reduction and no choice."""
+
+    def __init__(self, p: NttParams, reduction: Reduction | None = None):
+        if p.q != GOLDILOCKS_Q:
+            raise ValueError("GoldilocksRing requires q = 2^64 - 2^32 + 1")
+        self.p = p
+        self.q = p.q
+        self.reduction = Reduction.SIMPLE
+
+    add = staticmethod(goldilocks_add)
+    sub = staticmethod(goldilocks_sub)
+    mul = staticmethod(goldilocks_mul)
+    mul_tw = staticmethod(goldilocks_mul)
+
+    def select(self, pred, t, f):
+        return torch.where(pred, t, f)
+
+    def encode_tw(self, values: Sequence[int], device=None):
+        """Plain values, wrapped into int64."""
+        return encode64(values, device)
 
 
 def make_ring(p: NttParams, reduction: Reduction | None = None):
     """The ring for a parameter set, as ``tpu_ntt.modmath.make_ring`` picks
-    it: width <= 30 -> Ring32, else Ring64; SHOUP unless asked otherwise."""
+    it: the Goldilocks prime -> GoldilocksRing, width <= 30 -> Ring32, else
+    Ring64; SHOUP unless asked otherwise."""
     if p.q == GOLDILOCKS_Q:
-        raise NotImplementedError(
-            "GoldilocksRing is not ported yet: ROADMAP.md Q1.6")
+        return GoldilocksRing(p)
     if p.width <= 30:
         return Ring32(p, reduction or Reduction.SHOUP)
     if p.width > 62:
         raise ValueError(
-            f"{p.width}-bit modulus exceeds the 62-bit ring; RNS is not "
-            "ported yet (ROADMAP.md Q1.10)")
+            f"{p.width}-bit modulus exceeds the 62-bit ring and is not the "
+            "Goldilocks prime; RNS is not ported yet (ROADMAP.md Q1.10)")
     return Ring64(p, reduction or Reduction.SHOUP)
