@@ -14,7 +14,9 @@ ML-DSA-44-shaped DILITHIUM_256 4 x 4 matvec), ML-KEM
 ML-KEM-768's shapes, B = 16384), the Goldilocks field
 (``kernels/csrc/gl64.cu``: every op at goldilocks_4096) and Poseidon2-GL
 (``kernels/csrc/poseidon.cu``), and the STARK commitment built on the last
-two.  Phases, each of which raises on failure:
+two, and the 60-bit family above n = 8192 through the four-step
+(``kernels/fourstep64.py``: bench.py's p60_32768 at B = 256, every op, and
+p60_1048576 at B = 4).  Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi), its SM count and
    top SM clock;
@@ -38,6 +40,15 @@ two.  Phases, each of which raises on failure:
    ``poseidon_permute`` at widths 8 and 12 on B = 131072 columns (bench.py's
    batch) and ``poseidon_sponge`` at both widths over (131072, 8) rows and
    rows of 0, 1 and 5, with columns and rows against ``PoseidonRef``;
+   the four-step's row kernels (``nwc64_cyclic_scaled``,
+   ``nwc64_forward_scaled``, also times 2^64, ``nwc64_inverse_scaled``,
+   ``nwc64_cached_scaled``) and its column passes (``nwc64_forward``,
+   ``nwc64_inverse`` at 256 and 1024 points) at the shapes p60_32768 B = 256
+   and p60_1048576 B = 4 give them, after the mid tables are built (their
+   time printed), ``nwc64_dot_scaled`` (fresh and cached) and
+   ``nwc64_matvec_scaled`` at p60_32768's K = 4 and 4 x 4, B = 64, and the
+   product at n = 16384 (128 x 128), 1024 (32 x 32) and 2048 (64 x 32)
+   against its plain chain;
 4. oracle: c(x) == a(x) * b(x) mod q at x = psi^(2k+1), a root of x^n + 1,
    by Python-int Horner evaluation, and one row against the golden model,
    at P60_4096, the generic q, P24_4096 and goldilocks_4096; inv(fwd(x))
@@ -46,6 +57,8 @@ two.  Phases, each of which raises on failure:
    (``reference.kyber_ntt``, ``kyber_intt``, ``kyber_poly_mult``, a 3 x 3
    matvec row as a sum of golden products), one product row equal to
    ``reference.schoolbook_negacyclic``, and intt(ntt(x)) == x at B = 16384;
+   the psi^(2k+1) evaluations of the four-step product at p60_32768 (rows
+   2-5) and p60_1048576 (rows 2-3), and its round trips;
 5. main path: ``dispatch.best(p, op)`` for each of the twelve ops at
    P60_4096, at the generic q, at P24_4096 and at goldilocks_4096, then
    ``dispatch.best_nwc_matvec`` at P60_4096 (4 x 4, B = 256) and at
@@ -63,7 +76,12 @@ two.  Phases, each of which raises on failure:
    it: ``gl64_forward``, ``poseidon_sponge`` and ``poseidon_permute`` each
    launch, the proof verifies, the LDE equals the plain bitrev LDE and a
    big-int Horner evaluation at six points, the leaves and the root equal
-   their plain versions, and the time of each stage is printed;
+   their plain versions, and the time of each stage is printed; then
+   ``dispatch.best`` for the twelve ops at p60_32768 (B = 256, the dot at
+   K = 4, B = 64, the matvec 4 x 4 at B = 64) and for ``nwc``, ``nwc_fwd``
+   then ``nwc_inv`` of its output, ``spectrum`` then ``cached`` at
+   p60_1048576 (B = 4): each launches its four-step kernels and equals its
+   plain chain;
 6. timing: each kernel function, through the main path, in turns plain,
    kernel, kernel, plain: its device time by the replay of its calls
    captured in a CUDA graph (``benchlib.graph_seconds_per_call``, the
@@ -76,7 +94,12 @@ two.  Phases, each of which raises on failure:
    second, from the back-to-back times: what a caller of the entry point
    gets.  The Poseidon kernels are timed through their wrappers
    (``kernels.poseidon.permute`` at width 8, B = 131072, and ``sponge`` on
-   the STARK leaves), the plain sponge of the leaves once a turn.
+   the STARK leaves), the plain sponge of the leaves once a turn.  The
+   four-step's row kernels at p60_32768, and its chains (nwc, nwc_fwd,
+   nwc_inv, cached, dot, dot_cached, matvec at p60_32768; nwc and cached
+   at p60_1048576) against their plain chains, with the product chain's
+   parts by graph replay: column forward, row kernel, column inverse, the
+   transposes.
 
 The line before the last lists each kernel with its launches on the main
 path, its largest difference from its plain version, its device time, its
@@ -111,6 +134,7 @@ GOLDILOCKS_Q = (1 << 64) - (1 << 32) + 1
 KYBER_SMALL_BATCH = 2048  # the ML-KEM-512 and -1024 matvecs, checked only
 GL_LDE_N, GL_BLOWUP, GL_COLS = 1024, 8, 135  # Plonky2's recursion config, degree cut to 2^10
 GL_FINAL, GL_QUERIES = 32, 28  # FRI: final codeword, Plonky2's 28 query rounds
+FOURSTEP_DOT_BATCH = 64  # the dot at K = 4 and the 4 x 4 matvec at p60_32768
 SOURCES = {"nwc64": "tpu_ntt_torch/kernels/csrc/nwc64.cu",
            "nwc32": "tpu_ntt_torch/kernels/csrc/nwc32.cu",
            "kyber": "tpu_ntt_torch/kernels/csrc/kyber.cu",
@@ -124,6 +148,15 @@ REPLACES = {
     "nwc64_inverse": "tpu_ntt/kernels/mxu64.py:1733",  # _nwc_inv_kernel (+ _inv_kernel :1559), K1a
     "nwc64_dot": "tpu_ntt/kernels/mxu64.py:1599",  # _make_dot_kernel, K1b
     "nwc64_matvec": "tpu_ntt/kernels/mxu64.py:1639",  # _make_matvec_kernel, K1c
+    # K1a's large-n bodies: the four-step's row pass (with the column pass,
+    # the split bodies' function, :1217-1409 and :1877-1949)
+    "nwc64_cyclic_scaled": "tpu_ntt/kernels/mxu64.py:1501",  # _cyclic_scaled_kernel
+    "nwc64_forward_scaled": "tpu_ntt/kernels/mxu64.py:1877",  # _make_nwc_fwd_split_kernel
+    "nwc64_inverse_scaled": "tpu_ntt/kernels/mxu64.py:1897",  # _make_nwc_inv_split_kernel
+    "nwc64_cached_scaled": "tpu_ntt/kernels/mxu64.py:1918",  # _make_nwc_cached_split_kernel
+    # the dot's and the matvec's bodies at n = 16384 and 32768, K1b and K1c
+    "nwc64_dot_scaled": "tpu_ntt/kernels/mxu64.py:1599",  # _make_dot_kernel via _dot_call
+    "nwc64_matvec_scaled": "tpu_ntt/kernels/mxu64.py:1639",  # _make_matvec_kernel
     "nwc32_product": "tpu_ntt/kernels/mxu.py:480",  # _nwc_kernel, K3a
     "nwc32_cached": "tpu_ntt/kernels/mxu.py:596",  # _nwc_cached_kernel, K3a
     "nwc32_forward": "tpu_ntt/kernels/mxu.py:615",  # _nwc_fwd_kernel (+ :584), K3a
@@ -154,6 +187,17 @@ OP_ENTRIES = {
     "dot_cached": ["dot"], "matvec_spectra": ["forward"],
     "matvec": ["forward", "matvec"],
 }
+#: the same for the four-step (kernels/fourstep64.py), all nwc64 entries
+_FWD, _INV = ["forward", "forward_scaled"], ["inverse_scaled", "inverse"]
+FOURSTEP_ENTRIES = {
+    "nwc": ["forward", "cyclic_scaled", "inverse"],
+    "cyclic": ["forward", "cyclic_scaled", "inverse"], "fwd": _FWD, "inv": _INV,
+    "nwc_fwd": _FWD, "nwc_inv": _INV, "spectrum": _FWD,
+    "cached": ["forward", "cached_scaled", "inverse"],
+    "dot": ["forward", "dot_scaled", "inverse"],
+    "dot_cached": ["forward", "dot_scaled", "inverse"], "matvec_spectra": _FWD,
+    "matvec": _FWD + ["matvec_scaled", "inverse"],
+}
 
 
 def operands(q: int, n: int, rows: int, rng: np.random.Generator, dtype=np.int64):
@@ -165,9 +209,9 @@ def operands(q: int, n: int, rows: int, rng: np.random.Generator, dtype=np.int64
     edge = np.stack([np.zeros(n, np.int64), np.ones(n, np.int64),
                      np.full(n, q - 1, np.int64),
                      np.resize(np.array([0, 1, q - 1], np.int64), n)])
-    a[:4] = edge
-    b[:4] = edge[::-1]
-    b[4:8] = edge
+    a[:4] = edge[:rows]
+    b[:4] = edge[::-1][:rows]
+    b[4:8] = edge[:max(rows - 4, 0)]
     return a.astype(dtype), b.astype(dtype)
 
 
@@ -244,15 +288,18 @@ def main() -> int:
     from tpu_ntt_torch.benchlib import (device_seconds_per_call, graph_seconds_per_call,
                                         host_seconds_per_call)
     from tpu_ntt_torch.bounds import (DOT_TERMS, IMAD_PER_SM_CLOCK, KYBER_BATCH,
-                                      KYBER_K, POSEIDON_BATCH, poseidon_work, seconds,
-                                      work)
+                                      KYBER_K, LARGE_ROWS, POSEIDON_BATCH,
+                                      fourstep_work, poseidon_work, seconds, work)
     from tpu_ntt_torch.kernels import _build
     from tpu_ntt_torch.kernels import poseidon as kposeidon
+    from tpu_ntt_torch.kernels.fourstep64 import FourStepPlan64
     from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64
     from tpu_ntt_torch.kernels.kyber import KyberPlan
     from tpu_ntt_torch.kernels.mxu import MxuPlan
     from tpu_ntt_torch.kernels.mxu64 import MxuPlan64
     from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
+    from tpu_ntt_torch.sharded import (KernelFourStep, column_fwd,
+                                       fourstep_nwc_poly_mult_kernel)
     from tpu_ntt_torch.params import (DILITHIUM_256, FALCON_1024, GOLDILOCKS_4096,
                                       P24_4096, P60_4096, make_params)
 
@@ -292,6 +339,7 @@ def main() -> int:
               f"max_abs_err={err}")
         if not ok:
             raise AssertionError(f"{name} differs from its plain version at {label}")
+        return got
 
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in arrays]
@@ -355,6 +403,85 @@ def main() -> int:
             x3, y3 = (t.reshape(DOT_TERMS, DOT_BATCH_8192, n) for t in on_card(
                 *operands(p.q, n, DOT_TERMS * DOT_BATCH_8192, rng)))
             check_op(plan, "dot", f"n=8192 K={DOT_TERMS} B={DOT_BATCH_8192}", (x3, y3))
+
+    # K1a's large-n bodies: the four-step at bench.py's p60_32768, B = 256,
+    # and p60_1048576, B = 4 (bounds.LARGE_ROWS); its row kernels and column
+    # passes against their plain versions at the shapes its product gives
+    # them, after the plan and the mid tables are built; the product at
+    # n = 16384 (128 x 128 points) against its plain chain
+    large = {}
+    for name, n, q, batch in LARGE_ROWS:
+        p = make_params(n, q, name=name)
+        t0 = time.perf_counter()
+        plan = FourStepPlan64(p, device)
+        fs = plan.fs
+        mids = (fs.kmid_nwc, fs.kmid_inv_nwc, fs.kmid, fs.kmid_inv)
+        torch.cuda.synchronize()
+        print(f"tables: {name} FourStepPlan64 ({fs.n1} x {fs.n2}) and its {len(mids)} "
+              f"mid tables in {time.perf_counter() - t0:.3f} s (host clock)")
+        a_l, b_l = on_card(*operands(q, n, batch, rng))
+        cols = fs.to_cols(a_l, b_l)
+        label = f"{name} columns ({cols.shape[0]} rows of {fs.n1})"
+        m = compare("nwc64_forward", label, fs.col_k.nwc_ntt_fwd(cols),
+                    fs.col_k.nwc_ntt_fwd_plain(cols))
+        ma, mb = (fs.as_rows(t) for t in fs.from_cols(m).chunk(2))
+        rk, pre, post = fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
+        label = f"{name} rows ({ma.shape[0]} of {fs.n2}, period {fs.n1})"
+        c_rows = compare("nwc64_cyclic_scaled", label,
+                         rk.cyclic_poly_mult_scaled(ma, mb, pre, post),
+                         rk.cyclic_poly_mult_scaled_plain(ma, mb, pre, post))
+        for cacheable in (False, True):
+            compare("nwc64_forward_scaled", label + (" times 2^64" if cacheable else ""),
+                    rk.ntt_fwd_scaled(ma, pre, cacheable),
+                    rk.ntt_fwd_scaled_plain(ma, pre, cacheable))
+        compare("nwc64_inverse_scaled", label, rk.ntt_inv_scaled(ma, post),
+                rk.ntt_inv_scaled_plain(ma, post))
+        spec_rows = rk.ntt_fwd_scaled(mb, pre, True)  # the row half of nwc_spectrum(b)
+        compare("nwc64_cached_scaled", label,
+                rk.cyclic_poly_mult_cached_scaled(ma, spec_rows, pre, post),
+                rk.cyclic_poly_mult_cached_scaled_plain(ma, spec_rows, pre, post))
+        c_cols = fs.to_cols(c_rows)
+        c_l = fs.from_cols(compare(
+            "nwc64_inverse", f"{name} columns ({c_cols.shape[0]} rows of {fs.n1})",
+            fs.col_k.nwc_ntt_inv(c_cols), fs.col_k.nwc_ntt_inv_plain(c_cols)))
+        large[name] = {"p": p, "plan": plan, "a": a_l, "b": b_l, "c": c_l, "cols": cols,
+                       "ma": ma, "mb": mb, "c_cols": c_cols, "spec_rows": spec_rows}
+    # the dot's and the matvec's row kernels at p60_32768, K = 4 and 4 x 4,
+    # B = FOURSTEP_DOT_BATCH, as the main path below calls them
+    run = large["p60_32768"]
+    p, plan = run["p"], run["plan"]
+    fs, n, batch = plan.fs, p.n, FOURSTEP_DOT_BATCH
+    rk, pre, post = fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
+    a3_l, b3_l = (t.reshape(DOT_TERMS, batch, n) for t in on_card(
+        *operands(p.q, n, DOT_TERMS * batch, rng)))
+    mat_l = a3_l.reshape(-1, n)[:16].reshape(4, 4, n)  # a 4 x 4 matrix of rows
+    rows_d = batch * fs.n1
+    m3 = column_fwd(fs, True, False, a3_l.reshape(-1, n), b3_l.reshape(-1, n))
+    ma3, mb3 = m3.reshape(2, DOT_TERMS, rows_d, fs.n2)
+    spec3 = rk.ntt_fwd_scaled(mb3.reshape(-1, fs.n2), pre, True).reshape(mb3.shape)
+    label = f"p60_32768 rows (K={DOT_TERMS}, {rows_d} of {fs.n2}, period {fs.n1})"
+    compare("nwc64_dot_scaled", label, rk.dot_scaled(ma3, mb3, pre, post),
+            rk.dot_scaled_plain(ma3, mb3, pre, post))
+    compare("nwc64_dot_scaled", label + " cached", rk.dot_scaled(ma3, spec3, pre, post, True),
+            rk.dot_scaled_plain(ma3, spec3, pre, post, True))
+    s_rows = rk.ntt_fwd_scaled(ma3.reshape(-1, fs.n2), pre).reshape(ma3.shape)
+    mat_rows = plan.nwc_matvec_spectra(mat_l).reshape(4, 4, fs.n1, fs.n2)
+    compare("nwc64_matvec_scaled", f"p60_32768 rows (4x4, {rows_d} of {fs.n2})",
+            rk.matvec_scaled(s_rows, mat_rows, post),
+            rk.matvec_scaled_plain(s_rows, mat_rows, post))
+    run.update(ma3=ma3, mb3=mb3, spec3=spec3, s_rows=s_rows, mat_rows=mat_rows,
+               a3=a3_l, b3=b3_l, mat=mat_l)
+    p16 = make_params(16384, Q_GENERIC)
+    plan16 = FourStepPlan64(p16, device)
+    x, y = on_card(*operands(Q_GENERIC, 16384, 64, rng))
+    compare("four-step chain", "nwc n=16384 (128 x 128) B=64", plan16.nwc_poly_mult(x, y),
+            plan16.nwc_poly_mult_plain(x, y))
+    for n1, n2 in ((32, 32), (64, 32)):  # the least sub-sizes the kernels take
+        fs = KernelFourStep(make_params(n1 * n2, Q_GENERIC), n1, n2, device)
+        x, y = on_card(*operands(Q_GENERIC, n1 * n2, 64, rng))
+        compare("four-step chain", f"nwc {n1} x {n2} B=64",
+                fourstep_nwc_poly_mult_kernel(fs, x, y),
+                fourstep_nwc_poly_mult_kernel(fs, x, y, plain=True))
 
     # the 24-bit family
     p24 = MxuPlan(P24_4096, device)
@@ -539,6 +666,23 @@ def main() -> int:
           "reference.schoolbook_negacyclic; 3x3 matvec row 5 equals the sums of its "
           f"golden products; intt(ntt(x)) == x at B={kb_}")
 
+    for name, rows in (("p60_32768", slice(2, 6)), ("p60_1048576", slice(2, 4))):
+        run = large[name]
+        p, plan, a_l, b_l = run["p"], run["plan"], run["a"], run["b"]
+        check_evaluations(name, p, ints(a_l[rows]), ints(b_l[rows]), ints(run["c"][rows]),
+                          rng)
+        if not torch.equal(plan.nwc_poly_mult(a_l, b_l), run["c"]):
+            raise AssertionError(f"{name}: the product differs from its parts' product")
+        pairs = [("nwc_ntt_fwd", "nwc_ntt_inv")]
+        if name == "p60_32768":
+            pairs.append(("ntt_fwd", "ntt_inv"))
+        for fwd, inv in pairs:
+            if not torch.equal(getattr(plan, inv)(getattr(plan, fwd)(a_l)), a_l):
+                raise AssertionError(f"{inv}({fwd}(x)) != x at {name}")
+        print(f"oracle: {name} four-step c(x) == a(x) b(x) at x = psi^(2k+1), rows "
+              f"{rows.start}-{rows.stop - 1}, 3 k each; "
+              + " and ".join(f"{inv}({fwd}(x)) == x" for fwd, inv in pairs))
+
     # 5. main paths, through the entry points a user calls
     counts = (MxuPlan.launches, MxuPlan64.launches, KyberPlan.launches,
               GoldilocksPlan64.launches, kposeidon.launches)
@@ -703,6 +847,42 @@ def main() -> int:
     print("main path: STARK stage times (s, host clock, synchronized): "
           + ", ".join(f"{k} {v:.4f}" for k, v in stage.items()))
 
+    # the four-step: every op at p60_32768 through dispatch; at p60_1048576
+    # the product, the forward then the inverse of its output, the spectrum
+    # then the cached product against it
+    run = large["p60_32768"]
+    p, plan, a_l, b_l = run["p"], run["plan"], run["a"], run["b"]
+    a3_l, b3_l, mat_l, n = run["a3"], run["b3"], run["mat"], p.n
+    spec_l = plan.nwc_spectrum(b_l)
+    inputs_large = {
+        "nwc": (a_l, b_l), "cyclic": (a_l, b_l), "fwd": (a_l,), "inv": (a_l,),
+        "nwc_fwd": (a_l,), "nwc_inv": (a_l,), "spectrum": (b_l,), "cached": (a_l, spec_l),
+        "dot": (a3_l, b3_l),
+        "dot_cached": (a3_l, plan.nwc_spectrum(b3_l.reshape(-1, n)).reshape(b3_l.shape)),
+        "matvec_spectra": (mat_l,), "matvec": (b3_l, plan.nwc_matvec_spectra(mat_l)),
+    }
+    for op in dispatch.OPS:
+        if dispatch.impl_name(p, op) != plan.name:
+            raise AssertionError(f"{op} at {p.name} is not served by {plan.name}")
+        best[p.name, op] = dispatch.best(p, op)
+        drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op],
+              inputs_large[op], getattr(plan, dispatch.METHODS[op] + "_plain"),
+              [f"nwc64_{e}" for e in FOURSTEP_ENTRIES[op]],
+              run["c"] if op == "nwc" else None)
+    run = large["p60_1048576"]
+    p, plan, a_m, b_m = run["p"], run["plan"], run["a"], run["b"]
+
+    def drive_m(op, inputs, want=None):
+        best[p.name, op] = dispatch.best(p, op)
+        return drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op],
+                     inputs, getattr(plan, dispatch.METHODS[op] + "_plain"),
+                     [f"nwc64_{e}" for e in FOURSTEP_ENTRIES[op]], want)
+    drive_m("nwc", (a_m, b_m), run["c"])
+    drive_m("nwc_inv", (drive_m("nwc_fwd", (a_m,)),), a_m)
+    spec_m = drive_m("spectrum", (b_m,))
+    drive_m("cached", (a_m, spec_m), run["c"])
+    inputs_m = {"nwc": (a_m, b_m), "nwc_fwd": (a_m,), "cached": (a_m, spec_m)}
+
     # 6. timing, in turns: plain, kernel (through the main path), kernel, plain
     # each entry: (what is timed, kernel fn, plain fn, inputs, (bytes,
     # 32-bit multiplies) of a call, plain iteration counts, plain repeats)
@@ -758,6 +938,62 @@ def main() -> int:
     # permutation at width 12 and the sponge over bench.py's rows of 8
     timed["generic-q product"] = nwc_timed("nwc64_product", p_gen, "nwc", plan_gen,
                                            inputs_gen, BATCH)
+    # the four-step's row kernels at p60_32768, B = 256, as its product
+    # calls them, then its chains, not kernel functions of their own
+    run = large["p60_32768"]
+    fs = run["plan"].fs
+    rk, ma, mb = fs.row_k, run["ma"], run["mb"]
+    rows_l, period = ma.shape[0], fs.n1
+    pre, post = fs.kmid_nwc, fs.kmid_inv_nwc
+    timed["nwc64_cyclic_scaled"] = (
+        f"p60_32768 row pass, {rows_l} rows of {fs.n2}",
+        lambda x, y: rk.cyclic_poly_mult_scaled(x, y, pre, post),
+        lambda x, y: rk.cyclic_poly_mult_scaled_plain(x, y, pre, post), (ma, mb),
+        work("nwc64_cyclic_scaled", fs.row_params, rows_l, period=period), *SLOW)
+    timed["nwc64_forward_scaled"] = (
+        f"p60_32768 row forward, {rows_l} rows", lambda x: rk.ntt_fwd_scaled(x, pre),
+        lambda x: rk.ntt_fwd_scaled_plain(x, pre), (ma,),
+        work("nwc64_forward_scaled", fs.row_params, rows_l, period=period), *SLOW)
+    timed["nwc64_inverse_scaled"] = (
+        f"p60_32768 row inverse, {rows_l} rows", lambda x: rk.ntt_inv_scaled(x, post),
+        lambda x: rk.ntt_inv_scaled_plain(x, post), (ma,),
+        work("nwc64_inverse_scaled", fs.row_params, rows_l, period=period), *SLOW)
+    spec_rows = run["spec_rows"]
+    timed["nwc64_cached_scaled"] = (
+        f"p60_32768 row pass against a cached spectrum, {rows_l} rows",
+        lambda x, y: rk.cyclic_poly_mult_cached_scaled(x, y, pre, post),
+        lambda x, y: rk.cyclic_poly_mult_cached_scaled_plain(x, y, pre, post),
+        (ma, spec_rows),
+        work("nwc64_cached_scaled", fs.row_params, rows_l, period=period), *SLOW)
+    rows_d = run["ma3"].shape[1]
+    timed["nwc64_dot_scaled"] = (
+        f"p60_32768 dot row pass, K={DOT_TERMS}, {rows_d} rows",
+        lambda x, y: rk.dot_scaled(x, y, pre, post),
+        lambda x, y: rk.dot_scaled_plain(x, y, pre, post), (run["ma3"], run["mb3"]),
+        work("nwc64_dot_scaled", fs.row_params, rows_d, period=period), *SLOW)
+    timed["nwc64_matvec_scaled"] = (
+        f"p60_32768 4x4 matvec row pass, {rows_d} rows",
+        lambda x, y: rk.matvec_scaled(x, y, post),
+        lambda x, y: rk.matvec_scaled_plain(x, y, post), (run["s_rows"], run["mat_rows"]),
+        work("nwc64_matvec_scaled", fs.row_params, rows_d, period=period), *SLOW)
+    chain_bytes = {}
+    for name, op, inputs in (("p60_32768", "nwc", inputs_large),
+                             ("p60_32768", "nwc_fwd", inputs_large),
+                             ("p60_32768", "nwc_inv", inputs_large),
+                             ("p60_32768", "cached", inputs_large),
+                             ("p60_32768", "dot", inputs_large),
+                             ("p60_32768", "dot_cached", inputs_large),
+                             ("p60_32768", "matvec", inputs_large),
+                             ("p60_1048576", "nwc", inputs_m),
+                             ("p60_1048576", "cached", inputs_m)):
+        p, plan = large[name]["p"], large[name]["plan"]
+        rows = inputs[op][0].shape[-2]  # B: output rows, or columns of s
+        nbytes, built, imads = fourstep_work(op, p.n, p.q, rows)
+        chain_bytes[f"{name} {op} chain"] = built
+        timed[f"{name} {op} chain"] = (
+            f"four-step {op} at {name}, B={rows}", best[name, op],
+            getattr(plan, dispatch.METHODS[op] + "_plain"), inputs[op],
+            (nbytes, imads), *SLOW)
     timed["width-12 permute"] = permute_timed(12)
     timed["rows-of-8 sponge"] = sponge_timed(rows8, SLOW)
 
@@ -800,6 +1036,35 @@ def main() -> int:
             "library_ms": None,
         })
     per_s = {name: 1 / t for name, t in per_call.items()}  # back to back, host included
+    # the chains' parts, device time by graph replay: where a four-step
+    # product's time goes
+    for name in ("p60_32768", "p60_1048576"):
+        run = large[name]
+        plan, fs = run["plan"], run["plan"].fs
+        col_k, rk, pre, post = fs.col_k, fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
+        parts = {
+            "column forward (a and b)": (col_k.nwc_ntt_fwd, (run["cols"],)),
+            "row nwc64_cyclic_scaled": (
+                lambda x, y: rk.cyclic_poly_mult_scaled(x, y, pre, post),
+                (run["ma"], run["mb"])),
+            "column inverse": (col_k.nwc_ntt_inv, (run["c_cols"],)),
+            "the five transposes": (
+                lambda x, y, z: (fs.from_cols(fs.to_cols(x, y)), fs.from_cols(fs.to_cols(z))),
+                (run["a"], run["b"], run["c"])),
+        }
+        total = 0.0
+        for part, (fn, inputs) in parts.items():
+            t = graph_seconds_per_call(fn, *inputs)
+            total += t
+            print(f"timing parts: {name} nwc chain, {part}: {t * 1e3:.4f} ms by graph replay, "
+                  f"host enqueue {host_seconds_per_call(fn, *inputs):.4e} s")
+        print(f"timing parts: {name} nwc chain, sum of its four parts {total * 1e3:.4f} ms; "
+              f"bytes as built {chain_bytes[f'{name} nwc chain']}")
+    print(f"nwc_poly_mult_p60_32768_per_sec: "
+          f"{large['p60_32768']['a'].shape[0] * per_s['p60_32768 nwc chain']:.1f} (B=256); "
+          f"nwc_poly_mult_p60_1048576_per_sec: "
+          f"{large['p60_1048576']['a'].shape[0] * per_s['p60_1048576 nwc chain']:.1f} (B=4); "
+          f"card {card}")
     print(f"nwc_poly_mult_p60_4096_per_sec: {BATCH * per_s['nwc64_product']:.1f}; "
           f"fwd_ntt_p60_4096_per_sec: {BATCH * per_s['nwc64_forward']:.1f}; "
           f"p60_4096_matvec_4x4_per_sec: {MATVEC_BATCH_60 * per_s['nwc64_matvec']:.1f}; "

@@ -5,9 +5,11 @@ equal ``tpu_ntt.ntt.nwc_poly_mult_merged`` (bit-identical to the JAX
 dispatch's Pallas kernel by that package's contract) and the golden model,
 on operands from ``numpy.random.default_rng`` with boundary rows of 0, 1 and
 q - 1.  Every op at P60_4096 is served by ``cuda-sol64``, a generic 60-bit
-q by ``cuda-mxu64``, and every (n, q) outside the ported windows raises
-NotImplementedError naming its ROADMAP item.  Importing the port leaves JAX
-out.  Tolerance: none — exact integer equality.
+q by ``cuda-mxu64``, 30 < width <= 62 above n = 8192 by ``cuda-fourstep-64``,
+every (n, q) outside the ported windows raises NotImplementedError naming
+its ROADMAP item, and a modulus above 62 bits that is not Goldilocks raises
+the ValueError JAX raises.  Importing the port leaves JAX out.  Tolerance:
+none — exact integer equality.
 """
 
 import os
@@ -23,6 +25,7 @@ import tpu_ntt.ntt as jntt
 import tpu_ntt.params as jparams
 import tpu_ntt.reference as jref
 from tpu_ntt_torch import dispatch
+from tpu_ntt_torch import modmath as tt_modmath
 from tpu_ntt_torch.convert import int64_to_pairs, pairs_to_int64
 from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
 from tpu_ntt_torch.modmath import GOLDILOCKS_Q
@@ -30,6 +33,8 @@ from tpu_ntt_torch.params import P60_4096, PRESETS, make_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 Q60 = P60_4096.q
+Q_2ADIC22 = 576460752475389953  # 2^22 * 137438953511 + 1, a 60-bit prime
+Q63 = 9223372036854497281  # a 63-bit prime = 1 mod 8192, not Goldilocks
 
 
 def test_best_nwc_poly_mult_matches_jax_and_golden_at_p60_4096():
@@ -70,15 +75,17 @@ def test_ops_outside_the_slice_raise(op):
     (make_params(4096, 998244353), "Q1.4b"),  # 30-bit: above the K3 window
     (make_params(32768, 65537), "Q1.4b"),     # 17-bit, n above the K3 window
     (make_params(16384, GOLDILOCKS_Q), "Q1.7"),        # Goldilocks above 8192
-    (make_params(16384, 4611686018427322369), "Q1.7"),  # 2^62 - 2^16 + 1
+    (make_params(16384, 4611686018427322369), None),    # 2^62 - 2^16 + 1: four-step
     (make_params(4096, 576460752308273153), None),      # not a trinomial: served
     (make_params(128, Q60), "Q1.4c"),                   # n < 256
     (PRESETS["goldilocks_4096"], None),                 # served by cuda-gl64
     (make_params(128, GOLDILOCKS_Q), "Q1.4c"),          # Goldilocks at n < 256
+    (make_params(1 << 21, Q_2ADIC22), "Q1.8"),          # n above 2^20
 ])
 def test_params_outside_the_slice_raise(p, item):
     if item is None:
-        want = "cuda-gl64" if p.q == GOLDILOCKS_Q else "cuda-mxu64"
+        want = ("cuda-gl64" if p.q == GOLDILOCKS_Q else
+                "cuda-fourstep-64" if p.n > 8192 else "cuda-mxu64")
         assert dispatch.impl_name(p) == want
         assert all(dispatch.impl_name(p, op) == want for op in dispatch.OPS)
         assert dispatch.takes_pairs(p) is False
@@ -89,6 +96,20 @@ def test_params_outside_the_slice_raise(p, item):
             call(p)
 
 
+def test_wide_non_goldilocks_modulus_raises_value_error_as_jax_does():
+    """A 63-bit q that is not Goldilocks: JAX's ``best`` raises ValueError
+    (its ``make_ring``), and so do the port's dispatch and ``make_ring``;
+    no NTT path will ever serve it (RNS channels do)."""
+    jp = jparams.make_params(4096, Q63)
+    with pytest.raises(ValueError) as jax_err:
+        jdispatch.best(jp, "nwc")
+    p = make_params(4096, Q63)
+    for call in (lambda: dispatch.best(p, "nwc"), lambda: dispatch.impl_name(p),
+                 lambda: dispatch.takes_pairs(p), lambda: tt_modmath.make_ring(p)):
+        with pytest.raises(type(jax_err.value), match="RNS"):
+            call()
+
+
 def test_import_leaves_out_jax_and_tpu_ntt():
     code = (
         "import sys, chip_smoke, tpu_ntt_torch, tpu_ntt_torch.benchlib, "
@@ -97,7 +118,8 @@ def test_import_leaves_out_jax_and_tpu_ntt():
         "tpu_ntt_torch.kernels.mxu64, tpu_ntt_torch.kyber, "
         "tpu_ntt_torch.kernels.kyber, tpu_ntt_torch.kernels.gl64, "
         "tpu_ntt_torch.kernels.poseidon, tpu_ntt_torch.poseidon, "
-        "tpu_ntt_torch.stark, tpu_ntt_torch.bounds\n"
+        "tpu_ntt_torch.stark, tpu_ntt_torch.bounds, tpu_ntt_torch.sharded, "
+        "tpu_ntt_torch.kernels.fourstep64\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_ntt')]\n"
         "print(bad)\n"
     )

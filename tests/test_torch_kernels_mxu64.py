@@ -30,6 +30,7 @@ from tpu_ntt.kernels.mxu64 import MxuPlan64 as JaxMxuPlan64
 from tpu_ntt.kernels.sol64 import SolinasPlan64 as JaxSolinasPlan64
 from tpu_ntt_torch import bounds, kernels
 from tpu_ntt_torch.convert import int64_to_pairs, pairs_to_int64, spectra64_from_jax
+from tpu_ntt_torch.kernels.fourstep64 import FourStepPlan64
 from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64
 from tpu_ntt_torch.kernels.mxu import MxuPlan
 from tpu_ntt_torch.kernels.mxu64 import KERNELS, MxuPlan64
@@ -121,9 +122,10 @@ def test_62_bit_q_matches_jax_interpret():
 
 
 def test_covers_matches_jax_on_a_grid():
-    """The port serves JAX's K1 classes up to n = 8192, nothing else of
-    30 < width <= 62, and Goldilocks (K2) on its own plan, up to n = 8192
-    as well; no tables are built."""
+    """The port serves JAX's K1 classes up to n = 8192, above that the
+    four-step where q = 1 mod 2n, nothing else of 30 < width <= 62, and
+    Goldilocks (K2) on its own plan, up to n = 8192 as well; no tables
+    are built."""
     port_of = {JaxMxuPlan: MxuPlan, JaxMxuPlan64: MxuPlan64,
                JaxSolinasPlan64: SolinasPlan64, JaxGoldilocksPlan64: GoldilocksPlan64,
                None: None}
@@ -131,7 +133,9 @@ def test_covers_matches_jax_on_a_grid():
               4611686018427322369, jparams.GOLDILOCKS_4096.q):
         for n in (128, 256, 1024, 4096, 8192, 16384, 32768):
             want = port_of[jkernels.covers(n, q)]
-            if want in (MxuPlan64, SolinasPlan64, GoldilocksPlan64) and n > 8192:
+            if want in (MxuPlan64, SolinasPlan64) and n > 8192:
+                want = FourStepPlan64 if (q - 1) % (2 * n) == 0 else None
+            elif want is GoldilocksPlan64 and n > 8192:
                 want = None  # ROADMAP.md Q1.7
             assert kernels.covers(n, q) is want, (n, q)
             assert MxuPlan64.covers(n, q) == (want in (MxuPlan64, SolinasPlan64)), (n, q)
@@ -218,5 +222,17 @@ def test_cuda_kernels_match_plain(cuda_device, n):
     spectra = tm.nwc_matvec_spectra(b3[:, :2].contiguous())
     assert torch.equal(tm.nwc_matvec_cached(a3, spectra),
                        tm.nwc_matvec_cached_plain(a3, spectra))
+    tw = tuple(t.reshape(2, n) for t in tm.ring.encode_tw(range(1, 2 * n + 1), cuda_device))
+    row_spec = tm.ntt_fwd_scaled(b, tw, True)
+    mat = row_spec.reshape(2, 2, 2, n)  # (k, l, period, n) cached rows
+    for method, args in (("cyclic_poly_mult_scaled", (a, b, tw, tw)),
+                         ("ntt_fwd_scaled", (a, tw)), ("ntt_inv_scaled", (a, tw)),
+                         ("cyclic_poly_mult_cached_scaled", (a, row_spec, tw, tw)),
+                         ("dot_scaled", (a3, b3, tw, tw)),
+                         ("dot_scaled", (a3, row_spec.reshape(2, 4, n), tw, tw, True)),
+                         ("matvec_scaled", (tm.ntt_fwd_scaled(a, tw).reshape(2, 4, n),
+                                            mat, tw))):
+        assert torch.equal(getattr(tm, method)(*args),
+                           getattr(tm, method + "_plain")(*args)), method
     torch.cuda.synchronize()
     assert all(MxuPlan64.launches[k] > before[k] for k in KERNELS), MxuPlan64.launches

@@ -7,18 +7,23 @@ modular product is priced by its form (``MULS``), plus its product by q
 unless q has at most three signed binary digits, when that product is shifts
 and adds.  ``work`` counts a call of each ported kernel function (the
 ``nwc32_*``, ``nwc64_*`` and ``gl64_*`` NTT families through ``ntt_work``,
-the ML-KEM ``kyber_*`` functions through ``kyber_work``), and
-``poseidon_work`` a call of ``poseidon_permute`` or ``poseidon_sponge``;
-``chip_smoke.py`` divides them by the rates of the card it runs on.
+the four-step's row kernels ``nwc64_*_scaled`` with their scale tables,
+the ML-KEM ``kyber_*`` functions through ``kyber_work``), ``fourstep_work``
+a large-n op through the whole four-step, and ``poseidon_work`` a call of
+``poseidon_permute`` or ``poseidon_sponge``; ``chip_smoke.py`` divides them
+by the rates of the card it runs on.
 
-Run as a script, it prints the bounds of the TPU kernels not ported yet, at
-the shapes bench.py gives them, worked out from the code (not measured) at
-the H100 SXM's data-sheet rates::
+Run as a script, it prints the four-step chains' bounds at the shapes of
+bench.py's large-n rows and the bounds of the TPU kernel calls still to
+port, worked out from the code (not measured) at the H100 SXM's data-sheet
+rates::
 
     python3 -m tpu_ntt_torch.bounds
 """
 
 from __future__ import annotations
+
+from .sharded import default_split
 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA's data sheet
 IMAD_PER_SM_CLOCK = 64  # 32-bit integer multiplies a clock, compute capability 9.0
@@ -55,20 +60,43 @@ def muls(form: str, q: int) -> int:
 
 
 def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
-             terms: int = DOT_TERMS, forms=None) -> tuple[int, int]:
+             terms: int = DOT_TERMS, forms=None, period: int = 1) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) of one call of a fused NTT kernel entry
     (``product``, ``cached``, ``forward``, ``inverse``, ``dot``,
-    ``matvec``) on ``batch`` output rows of n ``word``-byte residues: each
-    transform needs (n/2) log2 n twiddle products, each slot product one
-    Montgomery product, each scale one Shoup product.  ``terms`` is the K of
-    the dot and both k and l of the matvec, whose count is the whole op: the
-    forward of s and the accumulate-and-inverse.  ``forms`` overrides the
-    (twiddle, slot) product forms, which default to Shoup and Montgomery of
-    the word size."""
+    ``matvec``, and the four-step's row kernels ``cyclic_scaled``,
+    ``cached_scaled``, ``forward_scaled`` at scale 1, ``inverse_scaled``,
+    ``dot_scaled`` fresh or, as ``dot_cached_scaled``, cached, and
+    ``matvec_scaled``) on ``batch`` output rows of n ``word``-byte residues:
+    each transform needs (n/2) log2 n twiddle products, each slot product
+    one Montgomery product, each scale one Shoup product.  ``terms`` is the
+    K of the dot and both k and l of the matvec, whose count is the whole
+    op: the forward of s and the accumulate-and-inverse (``matvec_scaled``:
+    the accumulate-and-inverse alone, ``batch`` rows of s).  ``period`` is
+    the rows of a row kernel's scale tables (and of the matvec's matrix),
+    each table (w, w'), read once.  ``forms`` overrides the (twiddle,
+    slot) product forms, which default to Shoup and Montgomery of the word
+    size."""
     bits = "64" if word == 8 else "32"
     shoup, mont = (muls(f, q) for f in (forms or ("shoup" + bits, "mont" + bits)))
     t = log_n * n // 2
     rows = batch * n * word
+    table = 2 * period * n * word
+    if entry == "cyclic_scaled":
+        return 3 * rows + 2 * table, batch * (3 * t * shoup + n * (mont + 4 * shoup))
+    if entry == "cached_scaled":
+        return 3 * rows + 2 * table, batch * (2 * t * shoup + n * (mont + 3 * shoup))
+    if entry in ("dot_scaled", "dot_cached_scaled"):
+        fresh = 2 if entry == "dot_scaled" else 1  # operands transformed and scaled
+        return ((2 * terms + 1) * rows + 2 * table,
+                batch * (terms * (fresh * (t + n) * shoup + n * mont)
+                         + (t + 2 * n) * shoup))
+    if entry == "matvec_scaled":
+        return (2 * terms * rows + terms * terms * period * n * word + table,
+                batch * terms * (terms * n * mont + (t + 2 * n) * shoup))
+    if entry == "forward_scaled":
+        return 2 * rows + table, batch * (t + n) * shoup
+    if entry == "inverse_scaled":
+        return 2 * rows + table, batch * (t + 2 * n) * shoup
     if entry == "product":
         return 3 * rows, batch * (3 * t * shoup + n * (mont + shoup))
     if entry == "cached":
@@ -120,18 +148,77 @@ def kyber_work(entry: str, batch: int, terms: int = KYBER_K) -> tuple[int, int]:
             batch * (terms * t * shoup + terms * (terms * base + inv)))
 
 
-def work(kernel: str, p, batch: int, terms: int = DOT_TERMS) -> tuple[int, int]:
+def work(kernel: str, p, batch: int, terms: int = DOT_TERMS,
+         period: int = 1) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) of one call of ``kernel`` at the
     parameters p (``nwc32_*``, ``nwc64_*`` or ``gl64_*``; p is not read for
-    the fixed ring of ``kyber_*``), ``batch`` output rows.  Every Goldilocks
-    product, twiddle, slot or scale, is one ``gl64`` product: its twiddles
-    are plain and its forward has no scale (the spectra are plain)."""
+    the fixed ring of ``kyber_*``), ``batch`` output rows; ``period`` rows
+    of scale tables for ``nwc64_*_scaled``.  Every Goldilocks product,
+    twiddle, slot or scale, is one ``gl64`` product: its twiddles are plain
+    and its forward has no scale (the spectra are plain)."""
     family, entry = kernel.split("_", 1)
     if family == "kyber":
         return kyber_work(entry, batch, terms)
     word = 8 if p.width > 30 else 4
     forms = ("gl64", "gl64") if family == "gl64" else None
-    return ntt_work(entry, p.n, p.log_n, p.q, word, batch, terms, forms)
+    return ntt_work(entry, p.n, p.log_n, p.q, word, batch, terms, forms, period)
+
+
+def fourstep_work(op: str, n: int, q: int, batch: int,
+                  terms: int = DOT_TERMS) -> tuple[int, int, int]:
+    """(bytes, bytes as built, 32-bit multiplies) of one large-n op through
+    the four-step (``kernels.fourstep64``) on ``batch`` rows of n int64
+    residues (``batch`` output rows of the dot, ``batch`` columns of s of
+    the terms x terms matvec): ``nwc`` (column forward of a and b,
+    ``cyclic_scaled``, column inverse), ``cached`` (column forward of a,
+    ``cached_scaled``, column inverse), ``dot`` and ``dot_cached`` (column
+    forward of each fresh operand, ``dot_scaled``, column inverse),
+    ``matvec`` (column forward of s, ``forward_scaled``, ``matvec_scaled``,
+    column inverse), ``nwc_fwd`` (column forward, ``forward_scaled``) or
+    ``nwc_inv`` (``inverse_scaled``, column inverse).  Bytes: each input
+    read once and the output written once, with the mid tables (and the
+    matvec's spectra of A); as built, what the kernels and the torch
+    transposes around the column pass move (each transpose reads and
+    writes its tensor once)."""
+    n1, n2 = default_split(n)
+    l1, l2 = n1.bit_length() - 1, n2.bit_length() - 1
+    data = batch * n * 8
+    tables = 4 * n * 8  # two mid tables, each (w, w'), for every op but the halves
+
+    def col(entry, polys):
+        return ntt_work(entry, n1, l1, q, 8, polys * n2)
+
+    def row(entry, rows, k=terms):
+        return ntt_work(entry, n2, l2, q, 8, rows * n1, k, period=n1)
+
+    if op == "nwc":
+        kernels = [col("forward", 2 * batch), row("cyclic_scaled", batch),
+                   col("inverse", batch)]
+        io, moved = 3 * data, 12 * data
+    elif op == "cached":
+        kernels = [col("forward", batch), row("cached_scaled", batch),
+                   col("inverse", batch)]
+        io, moved = 3 * data, 8 * data
+    elif op in ("dot", "dot_cached"):
+        fresh = 2 if op == "dot" else 1
+        entry = "dot_scaled" if op == "dot" else "dot_cached_scaled"
+        kernels = [col("forward", fresh * terms * batch), row(entry, batch),
+                   col("inverse", batch)]
+        io, moved = (2 * terms + 1) * data, (4 * fresh * terms + 4) * data
+    elif op == "matvec":
+        kernels = [col("forward", terms * batch), row("forward_scaled", terms * batch),
+                   row("matvec_scaled", batch), col("inverse", terms * batch)]
+        io = 2 * terms * data + terms * terms * n * 8
+        moved = 8 * terms * data
+    elif op == "nwc_fwd":
+        kernels = [col("forward", batch), row("forward_scaled", batch)]
+        tables, io, moved = 2 * n * 8, 2 * data, 4 * data
+    else:
+        assert op == "nwc_inv", op
+        kernels = [row("inverse_scaled", batch), col("inverse", batch)]
+        tables, io, moved = 2 * n * 8, 2 * data, 4 * data
+    built = sum(b for b, _ in kernels) + moved
+    return io + tables, built, sum(m for _, m in kernels)
 
 
 # ----------------------------------------------------------------------
@@ -170,7 +257,7 @@ def seconds(nbytes: int, imads: int, imad_per_s: float) -> tuple[float, float]:
 
 
 # ----------------------------------------------------------------------
-# The TPU kernels not ported yet, at bench.py's shapes
+# What is still to port on one card, and bench.py's large-n rows
 # ----------------------------------------------------------------------
 
 P60_32768_Q = 576460752308273153  # bench.py:35
@@ -178,24 +265,42 @@ P60_32768_Q = 576460752308273153  # bench.py:35
 
 def unported() -> list[tuple[str, str, int, int]]:
     """(id, what is counted, bytes, 32-bit multiplies) of each TPU kernel
-    still to port that one card can run, at bench.py's shapes."""
+    call still to port that one card can run: K1a's bodies through
+    ``GoldilocksPlan64`` above n = 8192 (K2 there), priced as one fused
+    product at p60_32768's shape."""
     return [
-        ("K1a, n >= 32768", "p60_32768 nwc, B = 256 (bench.py:145)",
-         *ntt_work("product", 32768, 15, P60_32768_Q, 8, 256)),
+        ("K2, n > 8192", "goldilocks nwc at n = 32768, B = 256",
+         *ntt_work("product", 32768, 15, GL_Q, 8, 256, forms=("gl64", "gl64"))),
     ]
+
+
+LARGE_ROWS = (  # (name, n, q, batch): bench.py:34-40, :145, :150
+    ("p60_32768", 32768, P60_32768_Q, 256),
+    ("p60_1048576", 1 << 20, 576460752364240897, 4),
+)
 
 
 def main() -> None:
     imad_per_s = H100_SMS * IMAD_PER_SM_CLOCK * H100_TOP_SM_HZ
     print(f"worked out from the code, not measured: {MEM_BYTES_PER_S:.3e} B/s, "
           f"{imad_per_s:.4e} IMAD/s (H100 SXM data sheet)")
+    for name, n, q, batch in LARGE_ROWS:
+        for op in ("nwc", "nwc_fwd", "nwc_inv", "cached"):
+            nbytes, built, imads = fourstep_work(op, n, q, batch)
+            t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            print(f"{name} {op}, B = {batch}: {nbytes} bytes {t_bytes * 1e3:.4f} ms "
+                  f"({built} as built, {built / MEM_BYTES_PER_S * 1e3:.4f} ms), "
+                  f"{imads} IMADs {t_ops * 1e3:.4f} ms; bound "
+                  f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({by})")
     for ident, what, nbytes, imads in unported():
         t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{ident}: {what}: {nbytes} bytes {t_bytes * 1e3:.4f} ms, {imads} IMADs "
-              f"{t_ops * 1e3:.4f} ms; bound {max(t_bytes, t_ops) * 1e3:.4f} ms ({by})")
-    print("K6: the all-to-all needs more than one card; its library call, "
-          "torch.distributed.all_to_all_single, cannot be timed on one H100")
+        print(f"still to port, {ident}: {what}: {nbytes} bytes {t_bytes * 1e3:.4f} ms, "
+              f"{imads} IMADs {t_ops * 1e3:.4f} ms; bound "
+              f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({by})")
+    print("still to port, K6: the all-to-all needs more than one card; its library "
+          "call, torch.distributed.all_to_all_single, cannot be timed on one H100")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,16 @@ and goes back unchanged (``int64_to_pairs``): these two are the port's
 counterparts of ``tpu_ntt.poseidon``'s ``to_pairs`` and ``from_pairs``.  The same holds for
 ML-KEM's cacheable spectra and matvec blocks (``kyber_spectra_from_jax``,
 ``kyber_blocks_from_jax``).
+
+Above n = 8192 (``kernels.fourstep64.FourStepPlan64``) JAX has two more
+layouts, and the port's spectra stay bit-reversed, so
+``large_spectra64_from_jax`` takes the JAX layout's map:
+``kernel_fourstep_to_natural_perm`` for its kernel four-step at
+n >= 65536 (spectrum, cached, dot_cached, matvec_spectra/matvec, fwd/inv),
+``split_to_natural_perm`` for its flat plan at n <= 2^19 (every op at 16384
+and 32768, nwc_fwd/nwc_inv above).  The four-step's spectra are in the
+plain domain (its row ``ntt_fwd``), the flat plan's cached ones in the
+Montgomery-64 domain, as the port's cached spectra are at every n.
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .modmath import shoup_mul64
 from .reference import bit_reverse_permutation
+from .sharded import default_split
 
 LANES = 128  # the TPU kernel's lane width, which sets its four-step layout
 
@@ -152,3 +164,52 @@ def kyber_blocks_from_jax(blocks, device=None) -> torch.Tensor:
     entry."""
     x = np.asarray(blocks, dtype=np.uint32)
     return kyber_spectra_from_jax(x[:, :, 0, :], device)
+
+
+def _lanes_to_natural(m: int) -> np.ndarray:
+    """tpu_ntt's flat four-step order at m points: natural = x[..., perm]
+    (``MxuPlan64.fourstep_to_natural_perm``, mxu64.py:2440)."""
+    return np.arange(m).reshape(max(m // LANES, 1), min(m, LANES)).T.reshape(-1)
+
+
+def kernel_fourstep_to_natural_perm(n: int) -> np.ndarray:
+    """perm with natural = jax_spectrum[..., perm] for the spectra of
+    tpu_ntt's kernel four-step at n (``sharded.KernelFourStep`` at
+    ``default_split(n)``): position [j1, j2] holds X[pos2[j2] * n1 +
+    pos1[j1]], pos the sub-kernels' four-step order
+    (``KernelFourStep.spectrum_indices``, tpu_ntt/sharded.py:410-417)."""
+    n1, n2 = default_split(n)
+    pos1, pos2 = (np.argsort(_lanes_to_natural(m)) for m in (n1, n2))
+    return np.argsort((pos2[None, :] * n1 + pos1[:, None]).reshape(-1))
+
+
+def split_to_natural_perm(n: int) -> np.ndarray:
+    """perm with natural = jax_spectrum[..., perm] for the spectra of
+    tpu_ntt's flat ``MxuPlan64`` at 256 <= n <= 2^19
+    (``nwc_fourstep_to_natural_perm``, mxu64.py:1864-1875): the four-step
+    order, its n/128 rows permuted by pi_d under the split-radix left
+    transform of depth d = log2(n) - 14 from n = 32768 on (mxu64.py:1852)."""
+    n1 = n // LANES
+    depth = max(n.bit_length() - 1 - 14, 0)
+    r = np.arange(n1)
+    pi = (r % LANES) << depth
+    for k in range(depth):
+        pi += ((r >> (7 + k)) & 1) << (depth - 1 - k)
+    j = np.arange(n)
+    return np.argsort(pi)[j % n1] * LANES + j // n1
+
+
+def large_spectra64_from_jax(hi, lo, to_natural, q: int | None = None,
+                             device=None) -> torch.Tensor:
+    """(..., n) (hi, lo) uint32 spectra in a JAX layout whose map is
+    ``to_natural`` (natural = x[..., to_natural]) -> the same spectra in
+    the port's bit-reversed order, int64.  Given q, a plain-domain spectrum
+    (JAX's four-step ``spectrum``) is also taken to the port's cached domain,
+    times 2^64 mod q; without, the values pass unchanged (JAX's transforms,
+    and its flat cached spectra, already times 2^64)."""
+    x = pairs_to_int64(hi, lo)
+    x = x[..., np.asarray(to_natural)[bit_reverse_permutation(x.shape[-1])]]
+    if q is not None:
+        r = (1 << 64) % q
+        x = shoup_mul64(x, r, (r << 64) // q, q)
+    return x.contiguous().to(device)

@@ -16,6 +16,10 @@ version for a CPU tensor:
   a trinomial q = 2^a - 2^b + 1 that the JAX policy sends to its Solinas
   kernel on ``kernels.sol64.SolinasPlan64`` (P60_4096), every other q on
   ``kernels.mxu64.MxuPlan64``;
+* 30 < width <= 62 at 8192 < n <= 2^20, q = 1 mod 2n, on
+  ``kernels.fourstep64.FourStepPlan64`` (``cuda-fourstep-64``): the
+  four-step of ``sharded.KernelFourStep`` on the same kernels, every op,
+  where JAX runs its flat split-radix plan or its kernel four-step;
 * the Goldilocks prime 2^64 - 2^32 + 1 at 256 <= n <= 8192 on
   ``kernels.gl64.GoldilocksPlan64`` (GOLDILOCKS_4096), on (B, n)
   ``torch.int64`` tensors holding the residues' 64-bit patterns.
@@ -23,7 +27,9 @@ version for a CPU tensor:
 Spectra come in the serving backend's bit-reversed layout
 (``bitrev_to_natural_perm``), and fwd/inv, nwc_fwd/nwc_inv,
 spectrum/cached/dot_cached and matvec_spectra/matvec pair within it, as
-tpu_ntt/dispatch.py:51-56 says.  Every other (n, q) raises
+tpu_ntt/dispatch.py:51-56 says.  A modulus above 62 bits other than
+Goldilocks raises ``ValueError``, as JAX's ``best`` does (its ``make_ring``):
+no NTT path serves it, RNS channels do.  Every other (n, q) raises
 ``NotImplementedError`` naming its ROADMAP.md item; nothing falls back.
 """
 
@@ -35,6 +41,7 @@ import torch
 
 from . import kernels
 from .kernels import mxu64
+from .kernels.fourstep64 import MAX_FOURSTEP_N
 from .modmath import GOLDILOCKS_Q
 from .params import NttParams
 
@@ -75,10 +82,10 @@ def _uncovered(p: NttParams) -> str:
     if p.width <= 30:
         item = ("Q1.4b (the merged Ring32 route: 24 < width <= 30, and "
                 "q < 2^24 outside 256 <= n <= 16384)")
-    elif p.width > 62 and p.q != GOLDILOCKS_Q:
-        item = "Q1.10 (RNS for moduli above 62 bits)"
-    elif p.n > mxu64.MAX_N:
-        item = "Q1.7 (large n)"
+    elif p.q == GOLDILOCKS_Q and p.n > mxu64.MAX_N:
+        item = "Q1.7 (large n, Goldilocks)"
+    elif p.n > MAX_FOURSTEP_N:
+        item = "Q1.8 (device tables: n above 2^20)"
     else:
         item = ("Q1.4c (the merged Ring64 route: 30 < width <= 62 and "
                 "Goldilocks at n < 256)")
@@ -90,6 +97,11 @@ def _require(p: NttParams, op: str):
     """The plan class serving (p, op), or a raise."""
     if op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {op!r}")
+    if p.width > 62 and p.q != GOLDILOCKS_Q:  # JAX's best raises the same type
+        raise ValueError(
+            f"{p.width}-bit modulus q={p.q} exceeds the 62-bit ring and is not the "
+            "Goldilocks prime: no NTT path serves it, RNS channels do (not ported "
+            "yet, ROADMAP.md Q1.10)")
     cls = kernels.covers(p.n, p.q)
     if cls is None:
         raise NotImplementedError(_uncovered(p))

@@ -10,8 +10,11 @@ residues); ``kyber.KyberPlan`` the ML-KEM ring's (every op of
 ``tpu_ntt.kernels.kyber.KyberPlan``, ``csrc/kyber.cu``), whose ring is
 fixed, so ``plan_for`` does not serve it: ``tpu_ntt_torch.kyber`` calls it;
 ``poseidon`` the Poseidon2-GL permutation and sponge (``csrc/poseidon.cu``),
-which ``tpu_ntt_torch.poseidon.Poseidon2GL`` calls.  n above 8192 at
-width > 30 is not ported yet (ROADMAP.md Q1.7), so ``plan_for`` returns
+which ``tpu_ntt_torch.poseidon.Poseidon2GL`` calls; ``fourstep64
+.FourStepPlan64`` the 60-bit family above n = 8192 (every op at
+8192 < n <= 2^20 through ``sharded.KernelFourStep`` on ``csrc/nwc64.cu``,
+whose row pass is K1a's large-n body).  The Goldilocks prime above
+n = 8192 is not ported yet (ROADMAP.md Q1.7), so ``plan_for`` returns
 ``None`` there.
 """
 
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 from ..modmath import GOLDILOCKS_Q
 from ..params import NttParams
+from .fourstep64 import FourStepPlan64
 from .gl64 import GoldilocksPlan64
 from .kyber import KyberPlan
 from .mxu import MxuPlan
@@ -40,6 +44,8 @@ def covers(n: int, q: int):
         return SolinasPlan64
     if MxuPlan64.covers(n, q):
         return MxuPlan64
+    if FourStepPlan64.covers(n, q):
+        return FourStepPlan64
     return None
 
 

@@ -17,13 +17,33 @@
 //                  (:2238), fresh or cached
 //   nwc64_matvec   _make_matvec_kernel (:1639) through nwc_matvec_cached
 //                  (:2305), after nwc64_forward has transformed s
+// and, as the row pass of the four-step that serves 8192 < n <= 2^20
+// (tpu_ntt_torch/sharded.py, where nwc64_forward and nwc64_inverse run the
+// column pass), K1a's large-n bodies:
+//   nwc64_cyclic_scaled   _cyclic_scaled_kernel (:1501): post . INTT(NTT(pre
+//                  . a) o NTT(pre . b)), row r scaled by table row r % period;
+//                  with the column pass it computes what the split-radix
+//                  products _nwc_kernel_split{,2,3,4,5} (:1409, :1378,
+//                  :1217, :1348, :1318) compute
+//   nwc64_forward_scaled, nwc64_inverse_scaled  its two halves (entry scale
+//                  then the cyclic forward; the cyclic inverse then the exit
+//                  scale): with the column pass, the standalone split
+//                  kernels _make_nwc_{fwd,inv,spec}_split_kernel (:1877,
+//                  :1897, :1949)
+//   nwc64_cached_scaled  the scaled product against the rows of a cached
+//                  spectrum: _make_nwc_cached_split_kernel (:1918)
+//   nwc64_dot_scaled, nwc64_matvec_scaled  the row passes of the dot and
+//                  the matvec, whose TPU bodies (_make_dot_kernel :1599,
+//                  _make_matvec_kernel :1639) run the same column / mid /
+//                  row decomposition inside one kernel at these n
 // Residues are uint64 in [0, q), (B, n) rows, natural order; a spectrum is in
 // bit-reversed order.  Each function computes what tpu_ntt_torch.kernels
 // MxuPlan64's plain version of it computes, bit for bit: the TPU kernel's
 // function, not its algorithm.  The TPU's eight balanced int8 digits,
 // carry-save lanes, REDC96, Solinas fold and four-step layout exist only
 // because Mosaic has no 64-bit integers (mxu64.py:1-35); none of them is
-// carried over.  Correct for any odd q < 2^62 and 256 <= n <= 8192.
+// carried over.  Correct for any odd q < 2^62 and 32 <= n <= 8192 (the
+// public window is 256 <= n <= 8192; below it, the four-step's sub-sizes).
 //
 // Design, correct first and simple (the design of nwc32.cu on 64-bit words):
 // * One thread block per row (per output row for the dot and the matvec).
@@ -31,7 +51,7 @@
 //   the product holds two (128 KiB at n = 8192), the dot three (192 KiB at
 //   n = 8192, under the 227 KB a block may have), so device memory sees each
 //   operand and each result once.  n / 8 threads (at most 1024) run four
-//   butterflies each up to n = 8192.
+//   butterflies each up to n = 8192 (below n = 256, a warp, or n / 2).
 // * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
 //   Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
 //   between stages.  The stage with m groups reads entry m + g of a flat
@@ -52,6 +72,14 @@
 //   wrapper transforms the l * B rows of s with nwc64_forward into a scratch
 //   tensor, and nwc64_matvec accumulates sum_j REDC(S_j * A_ij) from device
 //   memory (A stays in L2) and runs one inverse per output row.
+// * The four-step's row pass (the *_scaled functions) is product_kernel,
+//   forward_kernel, inverse_kernel, dot_kernel and matvec_kernel with one
+//   Shoup multiply more, by a table row, at entry and/or exit (never on a
+//   cached spectrum, which the row forward has already scaled).  Row r of
+//   a launch reads row r % period of the (period, n) tables (w, w'): a
+//   batch of B polynomials of n1 rows each passes period = n1, every row
+//   of a polynomial in one launch.  The entry product leaves [0, q) before the transform, the exit
+//   product canonical words, as strict Shoup does for q < 2^62.
 //
 // What bounds it on this card.  Not the 64-bit multiplies it was first
 // thought to be: Hopper builds a 64 x 64 product from 32-bit IMADs, about
@@ -281,13 +309,176 @@ __global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
   }
 }
 
+// The four-step's row pass: product_kernel with cyclic tables between an
+// entry scale pre[r % period] and an exit scale post[r % period].  With
+// kCached, b holds the rows of a cached spectrum (times 2^64), used as they
+// are: the row pass of the product against a cached spectrum.
+template <bool kCached>
+__global__ void cyclic_scaled_kernel(const uint64_t* __restrict__ a,
+                                     const uint64_t* __restrict__ b,
+                                     uint64_t* __restrict__ out, Table tw,
+                                     Table itw, Table pre, Table post,
+                                     int period, int log_n, uint64_t q,
+                                     uint64_t q_prime, uint64_t scale,
+                                     uint64_t scale_shoup) {
+  extern __shared__ uint64_t smem[];
+  const int n = 1 << log_n;
+  uint64_t* x = smem;
+  uint64_t* y = smem + n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const uint64_t w = __ldg(pre.w + srow + i);
+    const uint64_t ws = __ldg(pre.w_shoup + srow + i);
+    x[i] = shoup_mul(a[row + i], w, ws, q);
+    y[i] = kCached ? b[row + i] : shoup_mul(b[row + i], w, ws, q);
+  }
+  __syncthreads();
+  forward(x, kCached ? 1 : 2, log_n, tw, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = shoup_mul(mont_mul(x[i], y[i], q, q_prime), scale, scale_shoup, q);
+  }
+  __syncthreads();
+  inverse(x, log_n, itw, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = shoup_mul(x[i], __ldg(post.w + srow + i),
+                             __ldg(post.w_shoup + srow + i), q);
+  }
+}
+
+// Its first half: times pre[r % period], the forward, times `scale` unless
+// it is 1.
+__global__ void forward_scaled_kernel(const uint64_t* __restrict__ in,
+                                      uint64_t* __restrict__ out, Table tw,
+                                      Table pre, int period, int log_n,
+                                      uint64_t q, uint64_t scale,
+                                      uint64_t scale_shoup) {
+  extern __shared__ uint64_t x[];
+  const int n = 1 << log_n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = shoup_mul(in[row + i], __ldg(pre.w + srow + i),
+                     __ldg(pre.w_shoup + srow + i), q);
+  }
+  __syncthreads();
+  forward(x, 1, log_n, tw, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = scale == 1 ? x[i] : shoup_mul(x[i], scale, scale_shoup, q);
+  }
+}
+
+// Its second half: the inverse, times `scale` (n^-1), times post[r % period].
+__global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
+                                      uint64_t* __restrict__ out, Table itw,
+                                      Table post, int period, int log_n,
+                                      uint64_t q, uint64_t scale,
+                                      uint64_t scale_shoup) {
+  extern __shared__ uint64_t x[];
+  const int n = 1 << log_n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = in[row + i];
+  }
+  __syncthreads();
+  inverse(x, log_n, itw, q);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = shoup_mul(shoup_mul(x[i], scale, scale_shoup, q),
+                             __ldg(post.w + srow + i),
+                             __ldg(post.w_shoup + srow + i), q);
+  }
+}
+
+// The four-step's row pass of the dot: dot_kernel with the entry scale
+// pre[r % period] on every fresh operand and the exit scale post[r % period]
+// after the one inverse.  a and b are (terms, batch, n) stacks of the column
+// pass's rows; with `cached`, b holds cached spectrum rows, used as they are.
+__global__ void dot_scaled_kernel(const uint64_t* __restrict__ a,
+                                  const uint64_t* __restrict__ b,
+                                  uint64_t* __restrict__ out, Table tw,
+                                  Table itw, Table pre, Table post, int period,
+                                  int terms, int batch, int log_n, uint64_t q,
+                                  uint64_t q_prime, uint64_t scale,
+                                  uint64_t scale_shoup, int cached) {
+  extern __shared__ uint64_t smem[];
+  const int n = 1 << log_n;
+  uint64_t* acc = smem;
+  uint64_t* x = smem + n;
+  uint64_t* y = smem + 2 * n;
+  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    acc[i] = 0;
+  }
+  for (int k = 0; k < terms; ++k) {
+    const size_t row = (static_cast<size_t>(k) * batch + blockIdx.x) * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const uint64_t w = __ldg(pre.w + srow + i);
+      const uint64_t ws = __ldg(pre.w_shoup + srow + i);
+      x[i] = shoup_mul(a[row + i], w, ws, q);
+      y[i] = cached ? b[row + i] : shoup_mul(b[row + i], w, ws, q);
+    }
+    __syncthreads();
+    forward(x, cached ? 1 : 2, log_n, tw, q);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      acc[i] = add_mod(acc[i], mont_mul(x[i], y[i], q, q_prime), q);
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    acc[i] = shoup_mul(acc[i], scale, scale_shoup, q);
+  }
+  __syncthreads();
+  inverse(acc, log_n, itw, q);
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = shoup_mul(acc[i], __ldg(post.w + srow + i),
+                             __ldg(post.w_shoup + srow + i), q);
+  }
+}
+
+// The four-step's row pass of the matvec: matvec_kernel on the rows of the
+// spectra of s (their row forward done by forward_scaled_kernel) against A's
+// cached spectra, (rows, cols, period, n), row r reading A's row r % period;
+// the exit scale post[r % period] after the inverse.
+__global__ void matvec_scaled_kernel(const uint64_t* __restrict__ spectra,
+                                     const uint64_t* __restrict__ mat,
+                                     uint64_t* __restrict__ out, Table itw,
+                                     Table post, int period, int cols,
+                                     int batch, int log_n, uint64_t q,
+                                     uint64_t q_prime, uint64_t scale,
+                                     uint64_t scale_shoup) {
+  extern __shared__ uint64_t x[];
+  const int n = 1 << log_n;
+  const size_t r = blockIdx.x, i = blockIdx.y, p = blockIdx.x % period;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    uint64_t acc = 0;
+    for (int j = 0; j < cols; ++j) {
+      const uint64_t s = spectra[(j * batch + r) * n + e];
+      const uint64_t m = __ldg(mat + ((i * cols + j) * period + p) * n + e);
+      acc = add_mod(acc, mont_mul(s, m, q, q_prime), q);
+    }
+    x[e] = shoup_mul(acc, scale, scale_shoup, q);
+  }
+  __syncthreads();
+  inverse(x, log_n, itw, q);
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    out[(i * batch + r) * n + e] = shoup_mul(x[e], __ldg(post.w + p * n + e),
+                                             __ldg(post.w_shoup + p * n + e), q);
+  }
+}
+
+// n / 8 threads from n = 256 on (four butterflies each), at most 1024;
+// below, a warp, or one thread a butterfly where n / 2 is less.
 int threads_for(int log_n) {
-  const int eighth = 1 << (log_n - 3);
+  const int n = 1 << log_n;
+  const int least = n / 2 < 32 ? n / 2 : 32;
+  const int eighth = n / 8 > least ? n / 8 : least;
   return eighth < 1024 ? eighth : 1024;
 }
 
 bool bad_shape(int batch, int log_n) {
-  return batch < 1 || log_n < 8 || log_n > 13;
+  return batch < 1 || log_n < 5 || log_n > 13;
 }
 
 // Lifts the kernel's dynamic shared memory cap to `words` uint64 values.
@@ -320,6 +511,32 @@ int launch_product(const void* a, const void* b, void* out, const void* tw,
       static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b),
       static_cast<uint64_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
       log_n, q, q_prime, scale, scale_shoup);
+  return cudaGetLastError();
+}
+
+template <bool kCached>
+int launch_cyclic_scaled(const void* a, const void* b, void* out,
+                         const void* tw, const void* tw_shoup, const void* itw,
+                         const void* itw_shoup, const void* pre,
+                         const void* pre_shoup, const void* post,
+                         const void* post_shoup, int period, int batch,
+                         int log_n, uint64_t q, uint64_t q_prime,
+                         uint64_t scale, uint64_t scale_shoup, void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(cyclic_scaled_kernel<kCached>, 2 * n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  cyclic_scaled_kernel<kCached><<<batch, threads_for(log_n),
+                                  2 * n * sizeof(uint64_t),
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b),
+      static_cast<uint64_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
+      table(pre, pre_shoup), table(post, post_shoup), period, log_n, q, q_prime,
+      scale, scale_shoup);
   return cudaGetLastError();
 }
 
@@ -426,6 +643,137 @@ extern "C" int nwc64_matvec(const void* spectra, const void* mat, void* out,
       static_cast<const uint64_t*>(spectra), static_cast<const uint64_t*>(mat),
       static_cast<uint64_t*>(out), table(itw, itw_shoup), cols, batch, log_n, q,
       q_prime, scale, scale_shoup);
+  return cudaGetLastError();
+}
+
+// The row pass of the four-step: `period` rows of scales pre and post, each
+// n values beside their Shoup companions; batch must be a multiple of it.
+extern "C" int nwc64_cyclic_scaled(const void* a, const void* b, void* out,
+                                   const void* tw, const void* tw_shoup,
+                                   const void* itw, const void* itw_shoup,
+                                   const void* pre, const void* pre_shoup,
+                                   const void* post, const void* post_shoup,
+                                   int period, int batch, int log_n, uint64_t q,
+                                   uint64_t q_prime, uint64_t scale,
+                                   uint64_t scale_shoup, void* stream) {
+  return launch_cyclic_scaled<false>(a, b, out, tw, tw_shoup, itw, itw_shoup,
+                                     pre, pre_shoup, post, post_shoup, period,
+                                     batch, log_n, q, q_prime, scale,
+                                     scale_shoup, stream);
+}
+
+// The same against the rows of a cached spectrum.
+extern "C" int nwc64_cached_scaled(const void* a, const void* spectrum,
+                                   void* out, const void* tw,
+                                   const void* tw_shoup, const void* itw,
+                                   const void* itw_shoup, const void* pre,
+                                   const void* pre_shoup, const void* post,
+                                   const void* post_shoup, int period,
+                                   int batch, int log_n, uint64_t q,
+                                   uint64_t q_prime, uint64_t scale,
+                                   uint64_t scale_shoup, void* stream) {
+  return launch_cyclic_scaled<true>(a, spectrum, out, tw, tw_shoup, itw,
+                                    itw_shoup, pre, pre_shoup, post, post_shoup,
+                                    period, batch, log_n, q, q_prime, scale,
+                                    scale_shoup, stream);
+}
+
+extern "C" int nwc64_forward_scaled(const void* in, void* out, const void* tw,
+                                    const void* tw_shoup, const void* pre,
+                                    const void* pre_shoup, int period,
+                                    int batch, int log_n, uint64_t q,
+                                    uint64_t scale, uint64_t scale_shoup,
+                                    void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(forward_scaled_kernel, n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  forward_scaled_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+      table(tw, tw_shoup), table(pre, pre_shoup), period, log_n, q, scale,
+      scale_shoup);
+  return cudaGetLastError();
+}
+
+extern "C" int nwc64_inverse_scaled(const void* in, void* out, const void* itw,
+                                    const void* itw_shoup, const void* post,
+                                    const void* post_shoup, int period,
+                                    int batch, int log_n, uint64_t q,
+                                    uint64_t scale, uint64_t scale_shoup,
+                                    void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(inverse_scaled_kernel, n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  inverse_scaled_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+      table(itw, itw_shoup), table(post, post_shoup), period, log_n, q, scale,
+      scale_shoup);
+  return cudaGetLastError();
+}
+
+// The dot's row pass: (terms, batch, n) stacks a and b (b cached spectra
+// with `cached`), one output row per row of the batch.
+extern "C" int nwc64_dot_scaled(const void* a, const void* b, void* out,
+                                const void* tw, const void* tw_shoup,
+                                const void* itw, const void* itw_shoup,
+                                const void* pre, const void* pre_shoup,
+                                const void* post, const void* post_shoup,
+                                int period, int terms, int batch, int log_n,
+                                uint64_t q, uint64_t q_prime, uint64_t scale,
+                                uint64_t scale_shoup, int cached, void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period || terms < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(dot_scaled_kernel, 3 * n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  dot_scaled_kernel<<<batch, threads_for(log_n), 3 * n * sizeof(uint64_t),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b),
+      static_cast<uint64_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
+      table(pre, pre_shoup), table(post, post_shoup), period, terms, batch,
+      log_n, q, q_prime, scale, scale_shoup, cached);
+  return cudaGetLastError();
+}
+
+// The matvec's row pass: the (cols, batch, n) row spectra of s against the
+// (rows, cols, period, n) cached spectra of A; (rows, batch, n) out.
+extern "C" int nwc64_matvec_scaled(const void* spectra, const void* mat,
+                                   void* out, const void* itw,
+                                   const void* itw_shoup, const void* post,
+                                   const void* post_shoup, int period,
+                                   int rows, int cols, int batch, int log_n,
+                                   uint64_t q, uint64_t q_prime, uint64_t scale,
+                                   uint64_t scale_shoup, void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period || rows < 1 ||
+      rows > 65535 || cols < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(matvec_scaled_kernel, n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  matvec_scaled_kernel<<<dim3(batch, rows), threads_for(log_n),
+                         n * sizeof(uint64_t),
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(spectra), static_cast<const uint64_t*>(mat),
+      static_cast<uint64_t*>(out), table(itw, itw_shoup),
+      table(post, post_shoup), period, cols, batch, log_n, q, q_prime, scale,
+      scale_shoup);
   return cudaGetLastError();
 }
 

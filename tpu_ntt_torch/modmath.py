@@ -496,5 +496,6 @@ def make_ring(p: NttParams, reduction: Reduction | None = None):
     if p.width > 62:
         raise ValueError(
             f"{p.width}-bit modulus exceeds the 62-bit ring and is not the "
-            "Goldilocks prime; RNS is not ported yet (ROADMAP.md Q1.10)")
+            "Goldilocks prime: split it into RNS channels (not ported yet, "
+            "ROADMAP.md Q1.10)")
     return Ring64(p, reduction or Reduction.SHOUP)
