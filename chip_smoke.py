@@ -14,9 +14,12 @@ ML-DSA-44-shaped DILITHIUM_256 4 x 4 matvec), ML-KEM
 ML-KEM-768's shapes, B = 16384), the Goldilocks field
 (``kernels/csrc/gl64.cu``: every op at goldilocks_4096) and Poseidon2-GL
 (``kernels/csrc/poseidon.cu``), and the STARK commitment built on the last
-two, and the 60-bit family above n = 8192 through the four-step
+two, at degree 2^10 (the flat kernel order) and at Plonky2's degree 2^17,
+N = 2^20, and both 64-bit families above n = 8192 through the four-step
 (``kernels/fourstep64.py``: bench.py's p60_32768 at B = 256, every op, and
-p60_1048576 at B = 4).  Phases, each of which raises on failure:
+p60_1048576 at B = 4; goldilocks_32768 and Goldilocks at 2^20 at the same
+batches, on gl64.cu's row kernels).  Phases, each of which raises on
+failure:
 
 1. device: the card's name and power limit (nvidia-smi), its SM count and
    top SM clock;
@@ -46,9 +49,11 @@ p60_1048576 at B = 4).  Phases, each of which raises on failure:
    ``nwc64_inverse`` at 256 and 1024 points) at the shapes p60_32768 B = 256
    and p60_1048576 B = 4 give them, after the mid tables are built (their
    time printed), ``nwc64_dot_scaled`` (fresh and cached) and
-   ``nwc64_matvec_scaled`` at p60_32768's K = 4 and 4 x 4, B = 64, and the
-   product at n = 16384 (128 x 128), 1024 (32 x 32) and 2048 (64 x 32)
-   against its plain chain;
+   ``nwc64_matvec_scaled`` at p60_32768's K = 4 and 4 x 4, B = 64; the same
+   six ``gl64_*_scaled`` row kernels and gl64's column passes at
+   goldilocks_32768 B = 256 and goldilocks_1048576 B = 4 (the dot and the
+   matvec at B = 64 and 4); and the product at n = 16384 (128 x 128), 1024
+   (32 x 32) and 2048 (64 x 32) against its plain chain at both q;
 4. oracle: c(x) == a(x) * b(x) mod q at x = psi^(2k+1), a root of x^n + 1,
    by Python-int Horner evaluation, and one row against the golden model,
    at P60_4096, the generic q, P24_4096 and goldilocks_4096; inv(fwd(x))
@@ -57,8 +62,8 @@ p60_1048576 at B = 4).  Phases, each of which raises on failure:
    (``reference.kyber_ntt``, ``kyber_intt``, ``kyber_poly_mult``, a 3 x 3
    matvec row as a sum of golden products), one product row equal to
    ``reference.schoolbook_negacyclic``, and intt(ntt(x)) == x at B = 16384;
-   the psi^(2k+1) evaluations of the four-step product at p60_32768 (rows
-   2-5) and p60_1048576 (rows 2-3), and its round trips;
+   the psi^(2k+1) evaluations of the four-step product at p60_32768 and
+   goldilocks_32768 (rows 2-5) and at 2^20 (rows 2-3), and its round trips;
 5. main path: ``dispatch.best(p, op)`` for each of the twelve ops at
    P60_4096, at the generic q, at P24_4096 and at goldilocks_4096, then
    ``dispatch.best_nwc_matvec`` at P60_4096 (4 x 4, B = 256) and at
@@ -68,8 +73,8 @@ p60_1048576 at B = 4).  Phases, each of which raises on failure:
    ``ntt_domain_blocks``, elementwise, through none), stays in [0, q) and
    returns what its plain version returns; then the STARK commitment:
    ``stark.LdePlan(1024, q, 8, order="kernel").extend`` of 135 columns
-   (Plonky2's recursion width, the degree cut to 2^10 so that N = 8192
-   stays in the flat kernels' window), ``reorder`` to the bitrev plan,
+   (Plonky2's recursion width at degree 2^10, N = 8192: the check of the
+   flat kernels' order), ``reorder`` to the bitrev plan,
    ``Poseidon2GL.hash_rows`` of the 8192 rows of 135 into leaves,
    ``merkle_levels``, ``FriProver(final_size=32, num_queries=28).prove`` of
    column 0 and ``fri_verify`` on the host, with the counts zeroed before
@@ -77,11 +82,20 @@ p60_1048576 at B = 4).  Phases, each of which raises on failure:
    launch, the proof verifies, the LDE equals the plain bitrev LDE and a
    big-int Horner evaluation at six points, the leaves and the root equal
    their plain versions, and the time of each stage is printed; then
-   ``dispatch.best`` for the twelve ops at p60_32768 (B = 256, the dot at
-   K = 4, B = 64, the matvec 4 x 4 at B = 64) and for ``nwc``, ``nwc_fwd``
-   then ``nwc_inv`` of its output, ``spectrum`` then ``cached`` at
-   p60_1048576 (B = 4): each launches its four-step kernels and equals its
-   plain chain;
+   ``dispatch.best`` for the twelve ops at p60_32768 and goldilocks_32768
+   (B = 256, the dot at K = 4, B = 64, the matvec 4 x 4 at B = 64) and for
+   ``nwc``, ``nwc_fwd`` then ``nwc_inv`` of its output, ``spectrum`` then
+   ``cached`` at p60_1048576 and goldilocks_1048576 (B = 4): each launches
+   its four-step kernels and equals its plain chain; then the commitment at
+   Plonky2's ``standard_recursion_config`` uncut (bounds.STARK_*: degree
+   2^17, 135 columns, blowup 8, N = 2^20, 28 queries), the same stages with
+   the counts zeroed before them: ``gl64_forward``, ``gl64_forward_scaled``,
+   ``poseidon_sponge`` and ``poseidon_permute`` each launch, ``fri_verify``
+   accepts, the LDE equals its plain chain (``LdePlan.extend_plain``, 15
+   columns at a time to bound memory) and big-int Horner at 8 points, the
+   leaves of a fixed 8192-row slice equal the plain sponge (which takes
+   9.5 s for 8192 rows, so not all 2^20), the root equals the plain tree's,
+   two leaves equal ``PoseidonRef`` and their Merkle paths verify;
 6. timing: each kernel function, through the main path, in turns plain,
    kernel, kernel, plain: its device time by the replay of its calls
    captured in a CUDA graph (``benchlib.graph_seconds_per_call``, the
@@ -95,11 +109,13 @@ p60_1048576 at B = 4).  Phases, each of which raises on failure:
    gets.  The Poseidon kernels are timed through their wrappers
    (``kernels.poseidon.permute`` at width 8, B = 131072, and ``sponge`` on
    the STARK leaves), the plain sponge of the leaves once a turn.  The
-   four-step's row kernels at p60_32768, and its chains (nwc, nwc_fwd,
-   nwc_inv, cached, dot, dot_cached, matvec at p60_32768; nwc and cached
-   at p60_1048576) against their plain chains, with the product chain's
-   parts by graph replay: column forward, row kernel, column inverse, the
-   transposes.
+   four-step's row kernels at p60_32768 and goldilocks_32768, and its
+   chains (nwc, nwc_fwd, nwc_inv, cached, dot, dot_cached, matvec at both;
+   nwc and cached at both 2^20 rows) against their plain chains, with the
+   product chain's parts by graph replay: column forward, row kernel,
+   column inverse, the transposes; the degree-2^17 commitment's LDE (and
+   its parts: the torch coset scale and pad, the four-step) and its leaf
+   sponge by graph replay against their bounds.
 
 The line before the last lists each kernel with its launches on the main
 path, its largest difference from its plain version, its device time, its
@@ -132,9 +148,14 @@ MATVEC_BATCH_60 = 256  # bench.py:153, the p60_4096 matvec row
 Q_GENERIC = 576460752308273153  # bench.py:35: a 60-bit prime, not a trinomial
 GOLDILOCKS_Q = (1 << 64) - (1 << 32) + 1
 KYBER_SMALL_BATCH = 2048  # the ML-KEM-512 and -1024 matvecs, checked only
-GL_LDE_N, GL_BLOWUP, GL_COLS = 1024, 8, 135  # Plonky2's recursion config, degree cut to 2^10
-GL_FINAL, GL_QUERIES = 32, 28  # FRI: final codeword, Plonky2's 28 query rounds
-FOURSTEP_DOT_BATCH = 64  # the dot at K = 4 and the 4 x 4 matvec at p60_32768
+# the STARK commitment at Plonky2's recursion config (bounds.STARK_*: 135
+# wires, blowup 8, 28 queries) at degree 2^10, N = 8192, the flat kernel
+# order's check, beside the one at Plonky2's degree 2^17 (bounds.STARK_DEGREE)
+GL_LDE_N = 1024
+GL_FINAL = 32  # FRI's final codeword
+LEAF_SLICE = 8192  # rows of the 2^20 leaves held against the plain sponge (9.5 s)
+LDE_CHECK_COLS = 15  # columns of the 2^20 LDE held against its plain chain at a time
+FOURSTEP_DOT_BATCH = 64  # the dot at K = 4 and the 4 x 4 matvec at n = 32768
 SOURCES = {"nwc64": "tpu_ntt_torch/kernels/csrc/nwc64.cu",
            "nwc32": "tpu_ntt_torch/kernels/csrc/nwc32.cu",
            "kyber": "tpu_ntt_torch/kernels/csrc/kyber.cu",
@@ -176,6 +197,15 @@ REPLACES = {
     "gl64_inverse": "tpu_ntt/kernels/mxu64.py:1733",  # _nwc_inv_kernel (+ :1559), K2
     "gl64_dot": "tpu_ntt/kernels/mxu64.py:1599",  # _make_dot_kernel, K2
     "gl64_matvec": "tpu_ntt/kernels/mxu64.py:1639",  # _make_matvec_kernel, K2
+    # K2 above n = 8192: K1a's large-n bodies, K1b and K1c through
+    # GoldilocksPlan64 (flat at 16384 and 32768, sub-plans of the kernel
+    # four-step above), the four-step's row pass at the Goldilocks q
+    "gl64_cyclic_scaled": "tpu_ntt/kernels/mxu64.py:1501",  # _cyclic_scaled_kernel
+    "gl64_forward_scaled": "tpu_ntt/kernels/mxu64.py:1877",  # _make_nwc_fwd_split_kernel
+    "gl64_inverse_scaled": "tpu_ntt/kernels/mxu64.py:1897",  # _make_nwc_inv_split_kernel
+    "gl64_cached_scaled": "tpu_ntt/kernels/mxu64.py:1918",  # _make_nwc_cached_split_kernel
+    "gl64_dot_scaled": "tpu_ntt/kernels/mxu64.py:1599",  # _make_dot_kernel via _dot_call
+    "gl64_matvec_scaled": "tpu_ntt/kernels/mxu64.py:1639",  # _make_matvec_kernel
     "poseidon_permute": "tpu_ntt/kernels/poseidon.py:193",  # _compiled, K5a
     "poseidon_sponge": "tpu_ntt/kernels/poseidon.py:218",  # _compiled_sponge, K5b
 }
@@ -187,7 +217,8 @@ OP_ENTRIES = {
     "dot_cached": ["dot"], "matvec_spectra": ["forward"],
     "matvec": ["forward", "matvec"],
 }
-#: the same for the four-step (kernels/fourstep64.py), all nwc64 entries
+#: the same for the four-step (kernels/fourstep64.py): entries of its
+#: sub-plans' source, nwc64.cu or gl64.cu
 _FWD, _INV = ["forward", "forward_scaled"], ["inverse_scaled", "inverse"]
 FOURSTEP_ENTRIES = {
     "nwc": ["forward", "cyclic_scaled", "inverse"],
@@ -288,8 +319,10 @@ def main() -> int:
     from tpu_ntt_torch.benchlib import (device_seconds_per_call, graph_seconds_per_call,
                                         host_seconds_per_call)
     from tpu_ntt_torch.bounds import (DOT_TERMS, IMAD_PER_SM_CLOCK, KYBER_BATCH,
-                                      KYBER_K, LARGE_ROWS, POSEIDON_BATCH,
-                                      fourstep_work, poseidon_work, seconds, work)
+                                      KYBER_K, LARGE_ROWS, POSEIDON_BATCH, STARK_BLOWUP,
+                                      STARK_COLS, STARK_DEGREE, STARK_QUERIES,
+                                      fourstep_work, lde_work, poseidon_work, seconds,
+                                      work)
     from tpu_ntt_torch.kernels import _build
     from tpu_ntt_torch.kernels import poseidon as kposeidon
     from tpu_ntt_torch.kernels.fourstep64 import FourStepPlan64
@@ -404,84 +437,96 @@ def main() -> int:
                 *operands(p.q, n, DOT_TERMS * DOT_BATCH_8192, rng)))
             check_op(plan, "dot", f"n=8192 K={DOT_TERMS} B={DOT_BATCH_8192}", (x3, y3))
 
-    # K1a's large-n bodies: the four-step at bench.py's p60_32768, B = 256,
-    # and p60_1048576, B = 4 (bounds.LARGE_ROWS); its row kernels and column
-    # passes against their plain versions at the shapes its product gives
-    # them, after the plan and the mid tables are built; the product at
-    # n = 16384 (128 x 128 points) against its plain chain
+    # K1a's large-n bodies, and K2's: the four-step at bench.py's p60_32768,
+    # B = 256, p60_1048576, B = 4, and the Goldilocks rows of the same shapes
+    # (bounds.LARGE_ROWS); its row kernels and column passes against their
+    # plain versions at the shapes its product gives them, after the plan
+    # and the mid tables are built; then the dot's and the matvec's row
+    # kernels at K = 4 and 4 x 4; the product at n = 16384 (128 x 128
+    # points) and at the least sub-sizes against its plain chain
     large = {}
     for name, n, q, batch in LARGE_ROWS:
         p = make_params(n, q, name=name)
         t0 = time.perf_counter()
         plan = FourStepPlan64(p, device)
         fs = plan.fs
+        lib = fs.row_k.lib_name
         mids = (fs.kmid_nwc, fs.kmid_inv_nwc, fs.kmid, fs.kmid_inv)
         torch.cuda.synchronize()
         print(f"tables: {name} FourStepPlan64 ({fs.n1} x {fs.n2}) and its {len(mids)} "
               f"mid tables in {time.perf_counter() - t0:.3f} s (host clock)")
-        a_l, b_l = on_card(*operands(q, n, batch, rng))
+
+        def gen(rows, n=n, q=q):
+            if q == GOLDILOCKS_Q:
+                return gl_operands(n, rows, rng)
+            return operands(q, n, rows, rng)
+
+        a_l, b_l = on_card(*gen(batch))
         cols = fs.to_cols(a_l, b_l)
         label = f"{name} columns ({cols.shape[0]} rows of {fs.n1})"
-        m = compare("nwc64_forward", label, fs.col_k.nwc_ntt_fwd(cols),
+        m = compare(f"{lib}_forward", label, fs.col_k.nwc_ntt_fwd(cols),
                     fs.col_k.nwc_ntt_fwd_plain(cols))
         ma, mb = (fs.as_rows(t) for t in fs.from_cols(m).chunk(2))
         rk, pre, post = fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
         label = f"{name} rows ({ma.shape[0]} of {fs.n2}, period {fs.n1})"
-        c_rows = compare("nwc64_cyclic_scaled", label,
+        c_rows = compare(f"{lib}_cyclic_scaled", label,
                          rk.cyclic_poly_mult_scaled(ma, mb, pre, post),
                          rk.cyclic_poly_mult_scaled_plain(ma, mb, pre, post))
         for cacheable in (False, True):
-            compare("nwc64_forward_scaled", label + (" times 2^64" if cacheable else ""),
+            compare(f"{lib}_forward_scaled", label + (" cacheable" if cacheable else ""),
                     rk.ntt_fwd_scaled(ma, pre, cacheable),
                     rk.ntt_fwd_scaled_plain(ma, pre, cacheable))
-        compare("nwc64_inverse_scaled", label, rk.ntt_inv_scaled(ma, post),
+        compare(f"{lib}_inverse_scaled", label, rk.ntt_inv_scaled(ma, post),
                 rk.ntt_inv_scaled_plain(ma, post))
         spec_rows = rk.ntt_fwd_scaled(mb, pre, True)  # the row half of nwc_spectrum(b)
-        compare("nwc64_cached_scaled", label,
+        compare(f"{lib}_cached_scaled", label,
                 rk.cyclic_poly_mult_cached_scaled(ma, spec_rows, pre, post),
                 rk.cyclic_poly_mult_cached_scaled_plain(ma, spec_rows, pre, post))
         c_cols = fs.to_cols(c_rows)
         c_l = fs.from_cols(compare(
-            "nwc64_inverse", f"{name} columns ({c_cols.shape[0]} rows of {fs.n1})",
+            f"{lib}_inverse", f"{name} columns ({c_cols.shape[0]} rows of {fs.n1})",
             fs.col_k.nwc_ntt_inv(c_cols), fs.col_k.nwc_ntt_inv_plain(c_cols)))
-        large[name] = {"p": p, "plan": plan, "a": a_l, "b": b_l, "c": c_l, "cols": cols,
-                       "ma": ma, "mb": mb, "c_cols": c_cols, "spec_rows": spec_rows}
-    # the dot's and the matvec's row kernels at p60_32768, K = 4 and 4 x 4,
-    # B = FOURSTEP_DOT_BATCH, as the main path below calls them
-    run = large["p60_32768"]
-    p, plan = run["p"], run["plan"]
-    fs, n, batch = plan.fs, p.n, FOURSTEP_DOT_BATCH
-    rk, pre, post = fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
-    a3_l, b3_l = (t.reshape(DOT_TERMS, batch, n) for t in on_card(
-        *operands(p.q, n, DOT_TERMS * batch, rng)))
-    mat_l = a3_l.reshape(-1, n)[:16].reshape(4, 4, n)  # a 4 x 4 matrix of rows
-    rows_d = batch * fs.n1
-    m3 = column_fwd(fs, True, False, a3_l.reshape(-1, n), b3_l.reshape(-1, n))
-    ma3, mb3 = m3.reshape(2, DOT_TERMS, rows_d, fs.n2)
-    spec3 = rk.ntt_fwd_scaled(mb3.reshape(-1, fs.n2), pre, True).reshape(mb3.shape)
-    label = f"p60_32768 rows (K={DOT_TERMS}, {rows_d} of {fs.n2}, period {fs.n1})"
-    compare("nwc64_dot_scaled", label, rk.dot_scaled(ma3, mb3, pre, post),
-            rk.dot_scaled_plain(ma3, mb3, pre, post))
-    compare("nwc64_dot_scaled", label + " cached", rk.dot_scaled(ma3, spec3, pre, post, True),
-            rk.dot_scaled_plain(ma3, spec3, pre, post, True))
-    s_rows = rk.ntt_fwd_scaled(ma3.reshape(-1, fs.n2), pre).reshape(ma3.shape)
-    mat_rows = plan.nwc_matvec_spectra(mat_l).reshape(4, 4, fs.n1, fs.n2)
-    compare("nwc64_matvec_scaled", f"p60_32768 rows (4x4, {rows_d} of {fs.n2})",
-            rk.matvec_scaled(s_rows, mat_rows, post),
-            rk.matvec_scaled_plain(s_rows, mat_rows, post))
-    run.update(ma3=ma3, mb3=mb3, spec3=spec3, s_rows=s_rows, mat_rows=mat_rows,
-               a3=a3_l, b3=b3_l, mat=mat_l)
-    p16 = make_params(16384, Q_GENERIC)
-    plan16 = FourStepPlan64(p16, device)
-    x, y = on_card(*operands(Q_GENERIC, 16384, 64, rng))
-    compare("four-step chain", "nwc n=16384 (128 x 128) B=64", plan16.nwc_poly_mult(x, y),
-            plan16.nwc_poly_mult_plain(x, y))
-    for n1, n2 in ((32, 32), (64, 32)):  # the least sub-sizes the kernels take
-        fs = KernelFourStep(make_params(n1 * n2, Q_GENERIC), n1, n2, device)
-        x, y = on_card(*operands(Q_GENERIC, n1 * n2, 64, rng))
-        compare("four-step chain", f"nwc {n1} x {n2} B=64",
-                fourstep_nwc_poly_mult_kernel(fs, x, y),
-                fourstep_nwc_poly_mult_kernel(fs, x, y, plain=True))
+        large[name] = {"p": p, "plan": plan, "lib": lib, "a": a_l, "b": b_l, "c": c_l,
+                       "cols": cols, "ma": ma, "mb": mb, "c_cols": c_cols,
+                       "spec_rows": spec_rows}
+        if name == "p60_1048576":
+            continue
+        # the dot's and the matvec's row kernels at K = 4 and 4 x 4, B =
+        # FOURSTEP_DOT_BATCH (4 at 2^20), as the main path below calls them
+        run, batch = large[name], min(FOURSTEP_DOT_BATCH, batch)
+        a3_l, b3_l = (t.reshape(DOT_TERMS, batch, n) for t in on_card(
+            *gen(DOT_TERMS * batch)))
+        mat_l = a3_l.reshape(-1, n)[:16].reshape(4, 4, n)  # a 4 x 4 matrix of rows
+        rows_d = batch * fs.n1
+        m3 = column_fwd(fs, True, False, a3_l.reshape(-1, n), b3_l.reshape(-1, n))
+        ma3, mb3 = m3.reshape(2, DOT_TERMS, rows_d, fs.n2)
+        spec3 = rk.ntt_fwd_scaled(mb3.reshape(-1, fs.n2), pre, True).reshape(mb3.shape)
+        label = f"{name} rows (K={DOT_TERMS}, {rows_d} of {fs.n2}, period {fs.n1})"
+        compare(f"{lib}_dot_scaled", label, rk.dot_scaled(ma3, mb3, pre, post),
+                rk.dot_scaled_plain(ma3, mb3, pre, post))
+        compare(f"{lib}_dot_scaled", label + " cached",
+                rk.dot_scaled(ma3, spec3, pre, post, True),
+                rk.dot_scaled_plain(ma3, spec3, pre, post, True))
+        s_rows = rk.ntt_fwd_scaled(ma3.reshape(-1, fs.n2), pre).reshape(ma3.shape)
+        mat_rows = plan.nwc_matvec_spectra(mat_l).reshape(4, 4, fs.n1, fs.n2)
+        compare(f"{lib}_matvec_scaled", f"{name} rows (4x4, {rows_d} of {fs.n2})",
+                rk.matvec_scaled(s_rows, mat_rows, post),
+                rk.matvec_scaled_plain(s_rows, mat_rows, post))
+        run.update(ma3=ma3, mb3=mb3, spec3=spec3, s_rows=s_rows, mat_rows=mat_rows,
+                   a3=a3_l, b3=b3_l, mat=mat_l)
+    for q, gen in ((Q_GENERIC, lambda n: operands(Q_GENERIC, n, 64, rng)),
+                   (GOLDILOCKS_Q, lambda n: gl_operands(n, 64, rng))):
+        p16 = make_params(16384, q)
+        plan16 = FourStepPlan64(p16, device)
+        x, y = on_card(*gen(16384))
+        compare("four-step chain", f"nwc n=16384 (128 x 128) q={q} B=64",
+                plan16.nwc_poly_mult(x, y), plan16.nwc_poly_mult_plain(x, y))
+        for n1, n2 in ((32, 32), (64, 32)):  # the least sub-sizes the kernels take
+            fs = KernelFourStep(make_params(n1 * n2, q), n1, n2, device)
+            x, y = on_card(*gen(n1 * n2))
+            compare("four-step chain", f"nwc {n1} x {n2} q={q} B=64",
+                    fourstep_nwc_poly_mult_kernel(fs, x, y),
+                    fourstep_nwc_poly_mult_kernel(fs, x, y, plain=True))
 
     # the 24-bit family
     p24 = MxuPlan(P24_4096, device)
@@ -666,7 +711,9 @@ def main() -> int:
           "reference.schoolbook_negacyclic; 3x3 matvec row 5 equals the sums of its "
           f"golden products; intt(ntt(x)) == x at B={kb_}")
 
-    for name, rows in (("p60_32768", slice(2, 6)), ("p60_1048576", slice(2, 4))):
+    for name, rows in (("p60_32768", slice(2, 6)), ("p60_1048576", slice(2, 4)),
+                       ("goldilocks_32768", slice(2, 6)),
+                       ("goldilocks_1048576", slice(2, 4))):
         run = large[name]
         p, plan, a_l, b_l = run["p"], run["plan"], run["a"], run["b"]
         check_evaluations(name, p, ints(a_l[rows]), ints(b_l[rows]), ints(run["c"][rows]),
@@ -674,7 +721,7 @@ def main() -> int:
         if not torch.equal(plan.nwc_poly_mult(a_l, b_l), run["c"]):
             raise AssertionError(f"{name}: the product differs from its parts' product")
         pairs = [("nwc_ntt_fwd", "nwc_ntt_inv")]
-        if name == "p60_32768":
+        if p.n == 32768:
             pairs.append(("ntt_fwd", "ntt_inv"))
         for fwd, inv in pairs:
             if not torch.equal(getattr(plan, inv)(getattr(plan, fwd)(a_l)), a_l):
@@ -767,121 +814,168 @@ def main() -> int:
         drive(f"kyber.{name} B={kb_}", kq, kyber.impl_name(), getattr(kyber, name),
               inputs, plain, expect, kout.get(name))
 
-    # the STARK commitment (kernels K2, K5b, K5a): Plonky2's recursion
-    # config, 135 columns at rate 1/8 with 28 queries, degree cut to 2^10 so
-    # that N = 8192 stays in the flat kernels' window; extend on the kernel
-    # order, reorder to bitrev, hash the rows into leaves, build the tree,
-    # FRI-prove column 0, verify on the host
-    stage = {}
-    t0 = time.perf_counter()
-    pk = stark.LdePlan(GL_LDE_N, GOLDILOCKS_Q, GL_BLOWUP, order="kernel", device=device)
-    pb = stark.LdePlan(GL_LDE_N, GOLDILOCKS_Q, GL_BLOWUP, order="bitrev", device=device)
+    # the STARK commitment (kernels K2, K5b, K5a) at Plonky2's
+    # CircuitConfig::standard_recursion_config (plonky2/src/plonk/
+    # circuit_data.rs: 135 wires, rate_bits = 3, 28 query rounds): extend on
+    # the kernel order, reorder to bitrev, hash the rows into leaves, build
+    # the tree, FRI-prove column 0, verify on the host; first at degree 2^10
+    # (N = 8192, the flat kernels' order), after the four-step below at
+    # Plonky2's degree 2^17 (N = 2^20) uncut
     commit_hasher = gl_poseidon.Poseidon2GL()
-    prover = stark.FriProver(pb, final_size=GL_FINAL, num_queries=GL_QUERIES,
-                             hasher=commit_hasher)
-    coeffs = on_card(gl_operands(GL_LDE_N, GL_COLS, rng)[0])[0]
-    torch.cuda.synchronize()
-    stage["plans and tables"] = time.perf_counter() - t0
-    zero_counts()
-    t0 = time.perf_counter()
-    evals = pk.reorder(pk.extend(coeffs), pb)
-    torch.cuda.synchronize()
-    stage["extend + reorder"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    lde_rows = evals.T.contiguous()
-    leaves = commit_hasher.hash_rows(lde_rows)
-    torch.cuda.synchronize()
-    stage["leaf sponges"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    levels = gl_poseidon.merkle_levels(commit_hasher, leaves)
-    root = gl_poseidon.digest_ints(levels[-1])
-    stage["Merkle tree"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    proof = prover.prove(evals[0])
-    stage["FRI prove"] = time.perf_counter() - t0
-    seen = read_counts()
-    t0 = time.perf_counter()
-    verified = stark.fri_verify(pb, proof, final_size=GL_FINAL, num_queries=GL_QUERIES)
-    stage["FRI verify (host, big-int)"] = time.perf_counter() - t0
-    stark_kernels = ("gl64_forward", "poseidon_sponge", "poseidon_permute")
-    if any(seen[k] < 1 for k in stark_kernels):
-        raise AssertionError(f"the STARK commitment did not launch {stark_kernels}: {seen}")
-    if not verified:
-        raise AssertionError("fri_verify rejected the proof of the STARK commitment")
-    if not torch.equal(evals, pb.extend(coeffs)):
-        raise AssertionError("the kernel-order LDE, reordered, differs from the plain "
-                             "bitrev LDE")
-    if not canonical(evals, GOLDILOCKS_Q):
-        raise AssertionError("the LDE leaves [0, q)")
-    compare("poseidon_sponge", f"STARK leaves, {GL_LDE_N * GL_BLOWUP} rows of {GL_COLS}",
-            torch.stack(leaves), torch.stack(commit_hasher.hash_rows_plain(lde_rows)))
-    plain_level = list(leaves)
-    while plain_level[0].shape[0] > 1:
-        plain_level = commit_hasher.permute_plain(
-            [d[0::2] for d in plain_level] + [d[1::2] for d in plain_level])[:4]
-    if gl_poseidon.digest_ints(plain_level) != root:
-        raise AssertionError("the Merkle root differs from the plain version's")
-    idx = pb.spectrum_indices()
-    coeff_rows = ints(coeffs)
-    for col, slot in zip(rng.integers(0, GL_COLS, 6).tolist(),
-                         rng.integers(0, GL_LDE_N * GL_BLOWUP, 6).tolist()):
-        x = pb.shift * pow(pb.p.omega, int(idx[slot]), GOLDILOCKS_Q) % GOLDILOCKS_Q
-        if horner(coeff_rows[col], x, GOLDILOCKS_Q) != ints(evals[col, slot:slot + 1])[0]:
-            raise AssertionError(f"LDE column {col} slot {slot} differs from Horner")
     ref = commit_hasher.ref
-    for i in (0, 4097):
-        if ref.hash_elements(ints(lde_rows[i])) != gl_poseidon.digest_ints(
-                [d[i:i + 1] for d in leaves]):
-            raise AssertionError(f"leaf {i} differs from PoseidonRef.hash_elements")
-        if not gl_poseidon.merkle_verify(ref, root, i, ints(torch.stack(
-                [d[i] for d in leaves])), gl_poseidon.merkle_open(levels, i)):
-            raise AssertionError(f"the Merkle path of leaf {i} does not verify")
-    for k, v in seen.items():
-        launches[k] = launches.get(k, 0) + v
-    print(f"main path: STARK commitment, {GL_COLS} columns, n={GL_LDE_N}, blowup "
-          f"{GL_BLOWUP} (N={GL_LDE_N * GL_BLOWUP}), FRI to {GL_FINAL} with {GL_QUERIES} "
-          f"queries: fri_verify True, {len(proof['roots'])} layers; LDE equals the plain "
-          "bitrev LDE and Horner at 6 points, leaves and root equal the plain versions, "
-          "Merkle paths of leaves 0 and 4097 verify; launches "
-          f"{ {k: v for k, v in seen.items() if v} }")
-    print("main path: STARK stage times (s, host clock, synchronized): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in stage.items()))
 
-    # the four-step: every op at p60_32768 through dispatch; at p60_1048576
-    # the product, the forward then the inverse of its output, the spectrum
-    # then the cached product against it
-    run = large["p60_32768"]
-    p, plan, a_l, b_l = run["p"], run["plan"], run["a"], run["b"]
-    a3_l, b3_l, mat_l, n = run["a3"], run["b3"], run["mat"], p.n
-    spec_l = plan.nwc_spectrum(b_l)
-    inputs_large = {
-        "nwc": (a_l, b_l), "cyclic": (a_l, b_l), "fwd": (a_l,), "inv": (a_l,),
-        "nwc_fwd": (a_l,), "nwc_inv": (a_l,), "spectrum": (b_l,), "cached": (a_l, spec_l),
-        "dot": (a3_l, b3_l),
-        "dot_cached": (a3_l, plan.nwc_spectrum(b3_l.reshape(-1, n)).reshape(b3_l.shape)),
-        "matvec_spectra": (mat_l,), "matvec": (b3_l, plan.nwc_matvec_spectra(mat_l)),
-    }
-    for op in dispatch.OPS:
-        if dispatch.impl_name(p, op) != plan.name:
-            raise AssertionError(f"{op} at {p.name} is not served by {plan.name}")
-        best[p.name, op] = dispatch.best(p, op)
-        drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op],
-              inputs_large[op], getattr(plan, dispatch.METHODS[op] + "_plain"),
-              [f"nwc64_{e}" for e in FOURSTEP_ENTRIES[op]],
-              run["c"] if op == "nwc" else None)
-    run = large["p60_1048576"]
-    p, plan, a_m, b_m = run["p"], run["plan"], run["a"], run["b"]
+    def commitment(degree, expect):
+        """The commitment of STARK_COLS random columns of ``degree``
+        coefficients, its stages timed on the host clock and the counts
+        zeroed before them and read after; then each stage held to its
+        plain version: the LDE to ``LdePlan.extend_plain`` LDE_CHECK_COLS
+        columns at a time (and, up to N = 8192, to the plain bitrev plan of
+        N points), the leaves of a fixed LEAF_SLICE-row slice to the plain
+        sponge (9.5 s for 8192 rows, so not all 2^20), the root to the plain
+        tree's; big-int Horner at 8 coset points, two leaves against
+        ``PoseidonRef`` and their Merkle paths."""
+        big, stage = degree * STARK_BLOWUP, {}
+        t0 = time.perf_counter()
+        pk, pb = (stark.LdePlan(degree, GOLDILOCKS_Q, STARK_BLOWUP, order=order,
+                                device=device) for order in ("kernel", "bitrev"))
+        prover = stark.FriProver(pb, final_size=GL_FINAL, num_queries=STARK_QUERIES,
+                                 hasher=commit_hasher)
+        coeffs = on_card(gl_operands(degree, STARK_COLS, rng)[0])[0]
+        torch.cuda.synchronize()
+        stage["plans and tables"] = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        evals = pk.reorder(pk.extend(coeffs), pb)  # a first extend builds its mid table
+        torch.cuda.synchronize()
+        stage["extend + reorder"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows = evals.T.contiguous()
+        leaves = commit_hasher.hash_rows(rows)
+        torch.cuda.synchronize()
+        stage["leaf sponges"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        levels = gl_poseidon.merkle_levels(commit_hasher, leaves)
+        root = gl_poseidon.digest_ints(levels[-1])
+        stage["Merkle tree"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proof = prover.prove(evals[0])
+        stage["FRI prove"] = time.perf_counter() - t0
+        seen = read_counts()
+        t0 = time.perf_counter()
+        verified = stark.fri_verify(pb, proof, final_size=GL_FINAL,
+                                    num_queries=STARK_QUERIES)
+        stage["FRI verify (host, big-int)"] = time.perf_counter() - t0
+        label = f"the degree-{degree} STARK commitment"
+        if any(seen[k] < 1 for k in expect):
+            raise AssertionError(f"{label} did not launch {expect}: {seen}")
+        if not verified:
+            raise AssertionError(f"fri_verify rejected the proof of {label}")
+        if not canonical(evals, GOLDILOCKS_Q):
+            raise AssertionError(f"the LDE of {label} leaves [0, q)")
+        t_plain = 0.0
+        for c0 in range(0, STARK_COLS, LDE_CHECK_COLS):  # bounded memory for the plain chain
+            part = slice(c0, c0 + LDE_CHECK_COLS)
+            t0 = time.perf_counter()
+            want = pk.reorder(pk.extend_plain(coeffs[part]), pb)
+            torch.cuda.synchronize()
+            t_plain += time.perf_counter() - t0
+            if not torch.equal(evals[part], want):
+                raise AssertionError(f"the LDE of {label}, columns {c0}-"
+                                     f"{c0 + LDE_CHECK_COLS - 1}, differs from its plain chain")
+        if big <= 8192 and not torch.equal(evals, pb.extend(coeffs)):
+            raise AssertionError(f"the LDE of {label} differs from the plain bitrev LDE")
+        idx = pb.spectrum_indices()
+        for col, slot in zip(rng.integers(0, STARK_COLS, 8).tolist(),
+                             rng.integers(0, big, 8).tolist()):
+            x = pb.shift * pow(pb.p.omega, int(idx[slot]), GOLDILOCKS_Q) % GOLDILOCKS_Q
+            if horner(ints(coeffs[col]), x, GOLDILOCKS_Q) != ints(evals[col, slot:slot + 1])[0]:
+                raise AssertionError(f"{label}: LDE column {col} slot {slot} differs from "
+                                     "Horner")
+        start = (big - LEAF_SLICE) // 2
+        leaf_slice = slice(start, start + LEAF_SLICE)
+        compare("poseidon_sponge", f"STARK leaves, rows {start}-{start + LEAF_SLICE - 1} of "
+                f"{big} rows of {STARK_COLS}", torch.stack(leaves)[:, leaf_slice],
+                torch.stack(commit_hasher.hash_rows_plain(rows[leaf_slice])))
+        plain_level = list(leaves)
+        while plain_level[0].shape[0] > 1:
+            plain_level = commit_hasher.permute_plain(
+                [d[0::2] for d in plain_level] + [d[1::2] for d in plain_level])[:4]
+        if gl_poseidon.digest_ints(plain_level) != root:
+            raise AssertionError(f"the Merkle root of {label} differs from the plain version's")
+        leaf_ids = (0, big // 2 + 1)
+        for i in leaf_ids:
+            if ref.hash_elements(ints(rows[i])) != gl_poseidon.digest_ints(
+                    [d[i:i + 1] for d in leaves]):
+                raise AssertionError(f"{label}: leaf {i} differs from PoseidonRef")
+            if not gl_poseidon.merkle_verify(ref, root, i, ints(torch.stack(
+                    [d[i] for d in leaves])), gl_poseidon.merkle_open(levels, i)):
+                raise AssertionError(f"{label}: the Merkle path of leaf {i} does not verify")
+        for k, v in seen.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"main path: STARK commitment, {STARK_COLS} columns, degree {degree}, blowup "
+              f"{STARK_BLOWUP} (N={big}, kernel order on "
+              f"{dispatch.impl_name(pk.p, 'nwc_fwd')}), FRI to {GL_FINAL} with "
+              f"{STARK_QUERIES} queries: fri_verify True, "
+              f"{len(proof['roots'])} layers; the LDE equals its plain chain "
+              f"({t_plain:.3f} s in all, {LDE_CHECK_COLS} columns at a time)"
+              + (" and the plain bitrev LDE" if big <= 8192 else "")
+              + f" and Horner at 8 points; leaves {start}-{start + LEAF_SLICE - 1} equal "
+              f"the plain sponge, the root the plain tree's; leaves {leaf_ids} equal "
+              f"PoseidonRef and their paths verify; launches "
+              f"{ {k: v for k, v in seen.items() if v} }")
+        print(f"main path: degree-{degree} STARK stage times (s, host clock, synchronized): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stage.items()))
+        return {"pk": pk, "coeffs": coeffs, "rows": rows, "plain_s": t_plain}
 
-    def drive_m(op, inputs, want=None):
+    small_commit = commitment(GL_LDE_N, ("gl64_forward", "poseidon_sponge",
+                                         "poseidon_permute"))
+    lde_rows = small_commit["rows"]
+
+    # the four-step: every op at p60_32768 and goldilocks_32768 through
+    # dispatch; at p60_1048576 and goldilocks_1048576 the product, the
+    # forward then the inverse of its output, the spectrum then the cached
+    # product against it
+    inputs_large = {}
+    for name in ("p60_32768", "goldilocks_32768"):
+        run = large[name]
+        p, plan, lib, a_l, b_l = run["p"], run["plan"], run["lib"], run["a"], run["b"]
+        a3_l, b3_l, mat_l, n = run["a3"], run["b3"], run["mat"], p.n
+        spec_l = plan.nwc_spectrum(b_l)
+        inputs_large[name] = inputs = {
+            "nwc": (a_l, b_l), "cyclic": (a_l, b_l), "fwd": (a_l,), "inv": (a_l,),
+            "nwc_fwd": (a_l,), "nwc_inv": (a_l,), "spectrum": (b_l,),
+            "cached": (a_l, spec_l), "dot": (a3_l, b3_l),
+            "dot_cached": (a3_l, plan.nwc_spectrum(b3_l.reshape(-1, n)).reshape(b3_l.shape)),
+            "matvec_spectra": (mat_l,), "matvec": (b3_l, plan.nwc_matvec_spectra(mat_l)),
+        }
+        for op in dispatch.OPS:
+            if dispatch.impl_name(p, op) != plan.name:
+                raise AssertionError(f"{op} at {p.name} is not served by {plan.name}")
+            best[p.name, op] = dispatch.best(p, op)
+            drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op],
+                  inputs[op], getattr(plan, dispatch.METHODS[op] + "_plain"),
+                  [f"{lib}_{e}" for e in FOURSTEP_ENTRIES[op]],
+                  run["c"] if op == "nwc" else None)
+
+    def drive_m(run, op, inputs, want=None):
+        p, plan = run["p"], run["plan"]
         best[p.name, op] = dispatch.best(p, op)
         return drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op],
                      inputs, getattr(plan, dispatch.METHODS[op] + "_plain"),
-                     [f"nwc64_{e}" for e in FOURSTEP_ENTRIES[op]], want)
-    drive_m("nwc", (a_m, b_m), run["c"])
-    drive_m("nwc_inv", (drive_m("nwc_fwd", (a_m,)),), a_m)
-    spec_m = drive_m("spectrum", (b_m,))
-    drive_m("cached", (a_m, spec_m), run["c"])
-    inputs_m = {"nwc": (a_m, b_m), "nwc_fwd": (a_m,), "cached": (a_m, spec_m)}
+                     [f"{run['lib']}_{e}" for e in FOURSTEP_ENTRIES[op]], want)
+    for name in ("p60_1048576", "goldilocks_1048576"):
+        run = large[name]
+        a_m, b_m = run["a"], run["b"]
+        drive_m(run, "nwc", (a_m, b_m), run["c"])
+        drive_m(run, "nwc_inv", (drive_m(run, "nwc_fwd", (a_m,)),), a_m)
+        spec_m = drive_m(run, "spectrum", (b_m,))
+        drive_m(run, "cached", (a_m, spec_m), run["c"])
+        inputs_large[name] = {"nwc": (a_m, b_m), "nwc_fwd": (a_m,), "cached": (a_m, spec_m)}
+
+    big_commit = commitment(STARK_DEGREE, ("gl64_forward", "gl64_forward_scaled",
+                                          "poseidon_sponge", "poseidon_permute"))
+    pk2, coeffs2, rows2 = big_commit["pk"], big_commit["coeffs"], big_commit["rows"]
+    big_n, t_plain_lde = STARK_DEGREE * STARK_BLOWUP, big_commit["plain_s"]
 
     # 6. timing, in turns: plain, kernel (through the main path), kernel, plain
     # each entry: (what is timed, kernel fn, plain fn, inputs, (bytes,
@@ -938,55 +1032,60 @@ def main() -> int:
     # permutation at width 12 and the sponge over bench.py's rows of 8
     timed["generic-q product"] = nwc_timed("nwc64_product", p_gen, "nwc", plan_gen,
                                            inputs_gen, BATCH)
-    # the four-step's row kernels at p60_32768, B = 256, as its product
-    # calls them, then its chains, not kernel functions of their own
-    run = large["p60_32768"]
-    fs = run["plan"].fs
-    rk, ma, mb = fs.row_k, run["ma"], run["mb"]
-    rows_l, period = ma.shape[0], fs.n1
-    pre, post = fs.kmid_nwc, fs.kmid_inv_nwc
-    timed["nwc64_cyclic_scaled"] = (
-        f"p60_32768 row pass, {rows_l} rows of {fs.n2}",
-        lambda x, y: rk.cyclic_poly_mult_scaled(x, y, pre, post),
-        lambda x, y: rk.cyclic_poly_mult_scaled_plain(x, y, pre, post), (ma, mb),
-        work("nwc64_cyclic_scaled", fs.row_params, rows_l, period=period), *SLOW)
-    timed["nwc64_forward_scaled"] = (
-        f"p60_32768 row forward, {rows_l} rows", lambda x: rk.ntt_fwd_scaled(x, pre),
-        lambda x: rk.ntt_fwd_scaled_plain(x, pre), (ma,),
-        work("nwc64_forward_scaled", fs.row_params, rows_l, period=period), *SLOW)
-    timed["nwc64_inverse_scaled"] = (
-        f"p60_32768 row inverse, {rows_l} rows", lambda x: rk.ntt_inv_scaled(x, post),
-        lambda x: rk.ntt_inv_scaled_plain(x, post), (ma,),
-        work("nwc64_inverse_scaled", fs.row_params, rows_l, period=period), *SLOW)
-    spec_rows = run["spec_rows"]
-    timed["nwc64_cached_scaled"] = (
-        f"p60_32768 row pass against a cached spectrum, {rows_l} rows",
-        lambda x, y: rk.cyclic_poly_mult_cached_scaled(x, y, pre, post),
-        lambda x, y: rk.cyclic_poly_mult_cached_scaled_plain(x, y, pre, post),
-        (ma, spec_rows),
-        work("nwc64_cached_scaled", fs.row_params, rows_l, period=period), *SLOW)
-    rows_d = run["ma3"].shape[1]
-    timed["nwc64_dot_scaled"] = (
-        f"p60_32768 dot row pass, K={DOT_TERMS}, {rows_d} rows",
-        lambda x, y: rk.dot_scaled(x, y, pre, post),
-        lambda x, y: rk.dot_scaled_plain(x, y, pre, post), (run["ma3"], run["mb3"]),
-        work("nwc64_dot_scaled", fs.row_params, rows_d, period=period), *SLOW)
-    timed["nwc64_matvec_scaled"] = (
-        f"p60_32768 4x4 matvec row pass, {rows_d} rows",
-        lambda x, y: rk.matvec_scaled(x, y, post),
-        lambda x, y: rk.matvec_scaled_plain(x, y, post), (run["s_rows"], run["mat_rows"]),
-        work("nwc64_matvec_scaled", fs.row_params, rows_d, period=period), *SLOW)
+    # the four-step's row kernels at p60_32768 and goldilocks_32768, B = 256,
+    # as its product calls them, then its chains, not kernel functions of
+    # their own
+
+    def row_timed(name):
+        run = large[name]
+        fs, lib = run["plan"].fs, run["lib"]
+        rk, ma, mb = fs.row_k, run["ma"], run["mb"]
+        rows_l, rows_d, period = ma.shape[0], run["ma3"].shape[1], fs.n1
+        pre, post = fs.kmid_nwc, fs.kmid_inv_nwc
+
+        def entry(kernel, what, fn, plain, inputs, rows):
+            return (f"{name} {what}", fn, plain, inputs,
+                    work(f"{lib}_{kernel}", fs.row_params, rows, period=period), *SLOW)
+        return {
+            f"{lib}_cyclic_scaled": entry(
+                "cyclic_scaled", f"row pass, {rows_l} rows of {fs.n2}",
+                lambda x, y: rk.cyclic_poly_mult_scaled(x, y, pre, post),
+                lambda x, y: rk.cyclic_poly_mult_scaled_plain(x, y, pre, post), (ma, mb),
+                rows_l),
+            f"{lib}_forward_scaled": entry(
+                "forward_scaled", f"row forward, {rows_l} rows",
+                lambda x: rk.ntt_fwd_scaled(x, pre), lambda x: rk.ntt_fwd_scaled_plain(x, pre),
+                (ma,), rows_l),
+            f"{lib}_inverse_scaled": entry(
+                "inverse_scaled", f"row inverse, {rows_l} rows",
+                lambda x: rk.ntt_inv_scaled(x, post),
+                lambda x: rk.ntt_inv_scaled_plain(x, post), (ma,), rows_l),
+            f"{lib}_cached_scaled": entry(
+                "cached_scaled", f"row pass against a cached spectrum, {rows_l} rows",
+                lambda x, y: rk.cyclic_poly_mult_cached_scaled(x, y, pre, post),
+                lambda x, y: rk.cyclic_poly_mult_cached_scaled_plain(x, y, pre, post),
+                (ma, run["spec_rows"]), rows_l),
+            f"{lib}_dot_scaled": entry(
+                "dot_scaled", f"dot row pass, K={DOT_TERMS}, {rows_d} rows",
+                lambda x, y: rk.dot_scaled(x, y, pre, post),
+                lambda x, y: rk.dot_scaled_plain(x, y, pre, post),
+                (run["ma3"], run["mb3"]), rows_d),
+            f"{lib}_matvec_scaled": entry(
+                "matvec_scaled", f"4x4 matvec row pass, {rows_d} rows",
+                lambda x, y: rk.matvec_scaled(x, y, post),
+                lambda x, y: rk.matvec_scaled_plain(x, y, post),
+                (run["s_rows"], run["mat_rows"]), rows_d),
+        }
+    for name in ("p60_32768", "goldilocks_32768"):
+        timed.update(row_timed(name))
     chain_bytes = {}
-    for name, op, inputs in (("p60_32768", "nwc", inputs_large),
-                             ("p60_32768", "nwc_fwd", inputs_large),
-                             ("p60_32768", "nwc_inv", inputs_large),
-                             ("p60_32768", "cached", inputs_large),
-                             ("p60_32768", "dot", inputs_large),
-                             ("p60_32768", "dot_cached", inputs_large),
-                             ("p60_32768", "matvec", inputs_large),
-                             ("p60_1048576", "nwc", inputs_m),
-                             ("p60_1048576", "cached", inputs_m)):
-        p, plan = large[name]["p"], large[name]["plan"]
+    chains = [(name, op) for name in ("p60_32768", "goldilocks_32768")
+              for op in ("nwc", "nwc_fwd", "nwc_inv", "cached", "dot", "dot_cached",
+                         "matvec")]
+    chains += [(name, op) for name in ("p60_1048576", "goldilocks_1048576")
+               for op in ("nwc", "cached")]
+    for name, op in chains:
+        p, plan, inputs = large[name]["p"], large[name]["plan"], inputs_large[name]
         rows = inputs[op][0].shape[-2]  # B: output rows, or columns of s
         nbytes, built, imads = fourstep_work(op, p.n, p.q, rows)
         chain_bytes[f"{name} {op} chain"] = built
@@ -1038,13 +1137,13 @@ def main() -> int:
     per_s = {name: 1 / t for name, t in per_call.items()}  # back to back, host included
     # the chains' parts, device time by graph replay: where a four-step
     # product's time goes
-    for name in ("p60_32768", "p60_1048576"):
+    for name, *_ in LARGE_ROWS:
         run = large[name]
         plan, fs = run["plan"], run["plan"].fs
         col_k, rk, pre, post = fs.col_k, fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
         parts = {
             "column forward (a and b)": (col_k.nwc_ntt_fwd, (run["cols"],)),
-            "row nwc64_cyclic_scaled": (
+            f"row {run['lib']}_cyclic_scaled": (
                 lambda x, y: rk.cyclic_poly_mult_scaled(x, y, pre, post),
                 (run["ma"], run["mb"])),
             "column inverse": (col_k.nwc_ntt_inv, (run["c_cols"],)),
@@ -1060,11 +1159,48 @@ def main() -> int:
                   f"host enqueue {host_seconds_per_call(fn, *inputs):.4e} s")
         print(f"timing parts: {name} nwc chain, sum of its four parts {total * 1e3:.4f} ms; "
               f"bytes as built {chain_bytes[f'{name} nwc chain']}")
+    # the degree-2^17 commitment's two device stages by graph replay (few
+    # calls: each holds gigabytes), against their bounds
+    stark2 = {
+        "LdePlan.extend (kernel order, the four-step)": (
+            pk2.extend, (coeffs2,), lde_work(STARK_DEGREE, STARK_BLOWUP, STARK_COLS)),
+        "leaf sponge (poseidon_sponge)": (
+            functools.partial(kposeidon.sponge, commit_hasher), (rows2,),
+            poseidon_work("sponge", 8, big_n, STARK_COLS)),
+    }
+    for what, (fn, inputs, (nbytes, imads)) in stark2.items():
+        t = graph_seconds_per_call(fn, *inputs, calls=(1, 3))
+        t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
+        per_s[what] = 1 / t
+        print(f"timing STARK degree {STARK_DEGREE}, {STARK_COLS} columns, N={big_n}: {what}: "
+              f"{t * 1e3:.4f} ms by graph replay; bound: {nbytes} bytes {t_bytes * 1e3:.4f} "
+              f"ms, {imads} IMADs {t_ops * 1e3:.4f} ms; share of bound "
+              f"{max(t_bytes, t_ops) / t * 100:.1f} %")
+    # the LDE's two parts: the coset scale and the zero pad (torch ops, as
+    # JAX's are XLA), then the four-step's negacyclic forward of N points
+    padded2 = pk2.scale_and_pad(coeffs2)
+    lde_parts = {
+        "coset scale and pad (torch)": (pk2.scale_and_pad, coeffs2),
+        "four-step nwc_fwd (gl64_forward, gl64_forward_scaled, two transposes)": (
+            dispatch.best(pk2.p, "nwc_fwd"), padded2),
+    }
+    for part, (fn, x) in lde_parts.items():
+        t = graph_seconds_per_call(fn, x, calls=(1, 3))
+        print(f"timing parts: STARK LDE at N={big_n}, {STARK_COLS} columns, {part}: "
+              f"{t * 1e3:.4f} ms by graph replay")
+    del padded2
+    print(f"timing STARK degree {STARK_DEGREE}: the LDE's plain chain took {t_plain_lde:.3f} s "
+          f"for all {STARK_COLS} columns ({LDE_CHECK_COLS} at a time, host clock, synchronized)")
     print(f"nwc_poly_mult_p60_32768_per_sec: "
           f"{large['p60_32768']['a'].shape[0] * per_s['p60_32768 nwc chain']:.1f} (B=256); "
           f"nwc_poly_mult_p60_1048576_per_sec: "
           f"{large['p60_1048576']['a'].shape[0] * per_s['p60_1048576 nwc chain']:.1f} (B=4); "
-          f"card {card}")
+          f"nwc_poly_mult_goldilocks_32768_per_sec: "
+          f"{large['goldilocks_32768']['a'].shape[0] * per_s['goldilocks_32768 nwc chain']:.1f}"
+          f" (B=256); nwc_poly_mult_goldilocks_1048576_per_sec: "
+          f"{large['goldilocks_1048576']['a'].shape[0] * per_s['goldilocks_1048576 nwc chain']:.1f}"
+          f" (B=4); stark_leaf_rows_of_{STARK_COLS}_at_2^20_per_sec (device): "
+          f"{big_n * per_s['leaf sponge (poseidon_sponge)']:.1f}; card {card}")
     print(f"nwc_poly_mult_p60_4096_per_sec: {BATCH * per_s['nwc64_product']:.1f}; "
           f"fwd_ntt_p60_4096_per_sec: {BATCH * per_s['nwc64_forward']:.1f}; "
           f"p60_4096_matvec_4x4_per_sec: {MATVEC_BATCH_60 * per_s['nwc64_matvec']:.1f}; "
@@ -1083,7 +1219,7 @@ def main() -> int:
           f"B={BATCH}; poseidon2_w8_perm_per_sec: "
           f"{POSEIDON_BATCH * per_s['poseidon_permute']:.1f}; poseidon2_w12_perm_per_sec: "
           f"{POSEIDON_BATCH * per_s['width-12 permute']:.1f}; B={POSEIDON_BATCH}; "
-          f"stark_leaf_rows_of_{GL_COLS}_per_sec: "
+          f"stark_leaf_rows_of_{STARK_COLS}_per_sec: "
           f"{lde_rows.shape[0] * per_s['poseidon_sponge']:.1f}; card {card}")
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
 

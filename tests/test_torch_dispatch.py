@@ -5,7 +5,8 @@ equal ``tpu_ntt.ntt.nwc_poly_mult_merged`` (bit-identical to the JAX
 dispatch's Pallas kernel by that package's contract) and the golden model,
 on operands from ``numpy.random.default_rng`` with boundary rows of 0, 1 and
 q - 1.  Every op at P60_4096 is served by ``cuda-sol64``, a generic 60-bit
-q by ``cuda-mxu64``, 30 < width <= 62 above n = 8192 by ``cuda-fourstep-64``,
+q by ``cuda-mxu64``, 30 < width <= 62 and Goldilocks above n = 8192 by
+``cuda-fourstep-64``,
 every (n, q) outside the ported windows raises NotImplementedError naming
 its ROADMAP item, and a modulus above 62 bits that is not Goldilocks raises
 the ValueError JAX raises.  Importing the port leaves JAX out.  Tolerance:
@@ -74,7 +75,7 @@ def test_ops_outside_the_slice_raise(op):
 @pytest.mark.parametrize("p,item", [
     (make_params(4096, 998244353), "Q1.4b"),  # 30-bit: above the K3 window
     (make_params(32768, 65537), "Q1.4b"),     # 17-bit, n above the K3 window
-    (make_params(16384, GOLDILOCKS_Q), "Q1.7"),        # Goldilocks above 8192
+    (make_params(16384, GOLDILOCKS_Q), None),          # Goldilocks above 8192: four-step
     (make_params(16384, 4611686018427322369), None),    # 2^62 - 2^16 + 1: four-step
     (make_params(4096, 576460752308273153), None),      # not a trinomial: served
     (make_params(128, Q60), "Q1.4c"),                   # n < 256
@@ -84,8 +85,8 @@ def test_ops_outside_the_slice_raise(op):
 ])
 def test_params_outside_the_slice_raise(p, item):
     if item is None:
-        want = ("cuda-gl64" if p.q == GOLDILOCKS_Q else
-                "cuda-fourstep-64" if p.n > 8192 else "cuda-mxu64")
+        want = ("cuda-fourstep-64" if p.n > 8192 else
+                "cuda-gl64" if p.q == GOLDILOCKS_Q else "cuda-mxu64")
         assert dispatch.impl_name(p) == want
         assert all(dispatch.impl_name(p, op) == want for op in dispatch.OPS)
         assert dispatch.takes_pairs(p) is False

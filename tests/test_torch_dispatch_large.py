@@ -185,7 +185,7 @@ def test_plan_checks_and_empty_batches():
 
 
 @pytest.mark.parametrize("p,item", [
-    (make_params(16384, GOLDILOCKS_Q), "Q1.7"),
+    (make_params(1 << 21, GOLDILOCKS_Q), "Q1.8"),
     (make_params(1 << 21, 576460752475389953), "Q1.8"),
     (make_params(16384, 998244353), "Q1.4b"),
 ])

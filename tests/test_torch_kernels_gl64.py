@@ -33,6 +33,7 @@ from tpu_ntt_torch.convert import (int64_to_pairs, matvec_spectra64_from_jax,
                                    pairs_to_int64, spectra64_from_jax)
 from tpu_ntt_torch.kernels import _build, _plan
 from tpu_ntt_torch.kernels import gl64 as kgl64
+from tpu_ntt_torch.kernels.fourstep64 import FourStepPlan64
 from tpu_ntt_torch.kernels.gl64 import KERNELS, GoldilocksPlan64
 from tpu_ntt_torch.kernels.mxu64 import MxuPlan64
 from tpu_ntt_torch.modmath import GOLDILOCKS_Q as Q
@@ -152,11 +153,16 @@ def test_cyclic_product_matches_the_golden():
 
 
 def test_covers_matches_jax_up_to_8192():
-    """The port serves JAX's Goldilocks window up to n = 8192 (Q1.7 above);
-    the 60-bit plans never take the Goldilocks prime; no tables are built."""
+    """The port serves JAX's Goldilocks window on its flat plan up to
+    n = 8192 and on the four-step above (where JAX runs its flat plan to
+    32768, its kernel four-step from 65536); the 60-bit plans never take
+    the Goldilocks prime; no tables are built."""
     for n in (128, 256, 1024, 4096, 8192, 16384, 32768, 65536):
         jcls = jkernels.covers(n, Q)
         want = GoldilocksPlan64 if jcls is JaxGoldilocksPlan64 and n <= 8192 else None
+        if n > 8192:
+            assert jcls is (JaxGoldilocksPlan64 if n <= 32768 else None), n
+            want = FourStepPlan64
         assert kernels.covers(n, Q) is want, n
         assert GoldilocksPlan64.covers(n, Q) == (want is GoldilocksPlan64), n
         assert not MxuPlan64.covers(n, Q)
@@ -269,4 +275,4 @@ def test_cuda_kernels_match_plain():
         assert torch.equal(tm.nwc_matvec_cached(a3, spectra),
                            tm.nwc_matvec_cached_plain(a3, spectra))
     torch.cuda.synchronize()
-    assert all(GoldilocksPlan64.launches[k] > before[k] for k in KERNELS)
+    assert all(GoldilocksPlan64.launches[k] > before[k] for k in KERNELS[:6])

@@ -124,8 +124,8 @@ def test_62_bit_q_matches_jax_interpret():
 def test_covers_matches_jax_on_a_grid():
     """The port serves JAX's K1 classes up to n = 8192, above that the
     four-step where q = 1 mod 2n, nothing else of 30 < width <= 62, and
-    Goldilocks (K2) on its own plan, up to n = 8192 as well; no tables
-    are built."""
+    Goldilocks (K2) on its own plan up to n = 8192 and on the four-step
+    above, as well; no tables are built."""
     port_of = {JaxMxuPlan: MxuPlan, JaxMxuPlan64: MxuPlan64,
                JaxSolinasPlan64: SolinasPlan64, JaxGoldilocksPlan64: GoldilocksPlan64,
                None: None}
@@ -136,7 +136,7 @@ def test_covers_matches_jax_on_a_grid():
             if want in (MxuPlan64, SolinasPlan64) and n > 8192:
                 want = FourStepPlan64 if (q - 1) % (2 * n) == 0 else None
             elif want is GoldilocksPlan64 and n > 8192:
-                want = None  # ROADMAP.md Q1.7
+                want = FourStepPlan64  # K2's large-n bodies
             assert kernels.covers(n, q) is want, (n, q)
             assert MxuPlan64.covers(n, q) == (want in (MxuPlan64, SolinasPlan64)), (n, q)
 

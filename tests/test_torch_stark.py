@@ -114,7 +114,7 @@ def test_plan_guards():
     with pytest.raises(ValueError, match="unit"):
         stark.LdePlan(64, Q, 4, shift=Q, device="cpu")
     with pytest.raises(ValueError, match="kernel plan"):
-        stark.LdePlan(4096, Q, 4, order="kernel", device="cpu")  # N = 16384: Q1.7
+        stark.LdePlan(1 << 19, Q, 4, order="kernel", device="cpu")  # N = 2^21: Q1.8
     pb = stark.LdePlan(32, Q, 4, order="bitrev", device="cpu")
     with pytest.raises(ValueError):
         stark.FriProver(stark.LdePlan(32, Q, 4, order="natural", device="cpu"))

@@ -8,17 +8,19 @@ versions on CPU tensors.  This much is ported:
   DILITHIUM_256, FALCON_512, FALCON_1024), every dispatch op, on (B, n)
   ``torch.int32`` residues in [0, q);
 * the 60-bit family (any q of 31 to 62 bits at 256 <= n <= 8192:
-  P60_4096's trinomial 2^60 - 2^14 + 1 and generic primes alike), every
-  dispatch op, on (B, n) ``torch.int64`` residues;
+  P60_4096's trinomial 2^60 - 2^14 + 1 and generic primes alike; above,
+  up to 2^20 where q = 1 mod 2n, on the four-step), every dispatch op, on
+  (B, n) ``torch.int64`` residues;
 * ML-KEM (FIPS 203, q = 3329, n = 256), every entry point of
   ``tpu_ntt.kyber``, in ``tpu_ntt_torch.kyber`` on (B, 256) ``torch.int32``
   residues;
-* the Goldilocks field q = 2^64 - 2^32 + 1 at 256 <= n <= 8192
-  (GOLDILOCKS_4096), every dispatch op, on (B, n) ``torch.int64`` tensors
-  holding the residues' 64-bit patterns (``modmath``'s docstring);
+* the Goldilocks field q = 2^64 - 2^32 + 1 at 256 <= n <= 2^20
+  (GOLDILOCKS_4096; the four-step above 8192), every dispatch op, on
+  (B, n) ``torch.int64`` tensors holding the residues' 64-bit patterns
+  (``modmath``'s docstring);
 * the STARK commitment path over it: Poseidon2-GL permutations, sponges and
   Merkle trees (``tpu_ntt_torch.poseidon``), the coset LDE and FRI prover
-  and verifier (``tpu_ntt_torch.stark``).
+  and verifier (``tpu_ntt_torch.stark``), on the kernels up to N = 2^20.
 
     from tpu_ntt_torch import P60_4096, best_nwc_poly_mult, kyber
     c = best_nwc_poly_mult(P60_4096)(a, b)

@@ -14,9 +14,10 @@ a large-n op through the whole four-step, and ``poseidon_work`` a call of
 by the rates of the card it runs on.
 
 Run as a script, it prints the four-step chains' bounds at the shapes of
-bench.py's large-n rows and the bounds of the TPU kernel calls still to
-port, worked out from the code (not measured) at the H100 SXM's data-sheet
-rates::
+bench.py's large-n rows (and the Goldilocks rows beside them), those of the
+STARK commitment's LDE and leaf sponge at Plonky2's degree 2^17 (``lde_work``,
+``poseidon_work``) and those of the TPU kernel calls still to port, worked
+out from the code (not measured) at the H100 SXM's data-sheet rates::
 
     python3 -m tpu_ntt_torch.bounds
 """
@@ -38,6 +39,7 @@ MULS = {"shoup32": 2, "mont32": 3, "shoup64": 12, "mont64": 12, "gl64": 8}
 # The product by q: Shoup's lo(t*q), REDC's hi(m*q).
 MULS_BY_Q = {"shoup32": 1, "mont32": 1, "shoup64": 4, "mont64": 8, "gl64": 0}
 
+GL_Q = (1 << 64) - (1 << 32) + 1
 DOT_TERMS = 4  # K of the dot and k = l of the matvec that chip_smoke.py runs
 
 
@@ -59,6 +61,12 @@ def muls(form: str, q: int) -> int:
     return MULS[form] + (MULS_BY_Q[form] if naf_weight(q) > 3 else 0)
 
 
+def table_words(form: str) -> int:
+    """Words a table entry holds: w and its Shoup companion, or the plain
+    w of Goldilocks (Shoup needs q < 2^63)."""
+    return 1 if form == "gl64" else 2
+
+
 def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
              terms: int = DOT_TERMS, forms=None, period: int = 1) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) of one call of a fused NTT kernel entry
@@ -73,14 +81,15 @@ def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
     op: the forward of s and the accumulate-and-inverse (``matvec_scaled``:
     the accumulate-and-inverse alone, ``batch`` rows of s).  ``period`` is
     the rows of a row kernel's scale tables (and of the matvec's matrix),
-    each table (w, w'), read once.  ``forms`` overrides the (twiddle,
-    slot) product forms, which default to Shoup and Montgomery of the word
-    size."""
+    each table (w, w') (w alone for Goldilocks), read once.  ``forms``
+    overrides the (twiddle, slot) product forms, which default to Shoup and
+    Montgomery of the word size."""
     bits = "64" if word == 8 else "32"
-    shoup, mont = (muls(f, q) for f in (forms or ("shoup" + bits, "mont" + bits)))
+    forms = forms or ("shoup" + bits, "mont" + bits)
+    shoup, mont = (muls(f, q) for f in forms)
     t = log_n * n // 2
     rows = batch * n * word
-    table = 2 * period * n * word
+    table = table_words(forms[0]) * period * n * word
     if entry == "cyclic_scaled":
         return 3 * rows + 2 * table, batch * (3 * t * shoup + n * (mont + 4 * shoup))
     if entry == "cached_scaled":
@@ -153,7 +162,8 @@ def work(kernel: str, p, batch: int, terms: int = DOT_TERMS,
     """(bytes, 32-bit multiplies) of one call of ``kernel`` at the
     parameters p (``nwc32_*``, ``nwc64_*`` or ``gl64_*``; p is not read for
     the fixed ring of ``kyber_*``), ``batch`` output rows; ``period`` rows
-    of scale tables for ``nwc64_*_scaled``.  Every Goldilocks product,
+    of scale tables for ``nwc64_*_scaled`` and ``gl64_*_scaled``.  Every
+    Goldilocks product,
     twiddle, slot or scale, is one ``gl64`` product: its twiddles are plain
     and its forward has no scale (the spectra are plain)."""
     family, entry = kernel.split("_", 1)
@@ -167,8 +177,9 @@ def work(kernel: str, p, batch: int, terms: int = DOT_TERMS,
 def fourstep_work(op: str, n: int, q: int, batch: int,
                   terms: int = DOT_TERMS) -> tuple[int, int, int]:
     """(bytes, bytes as built, 32-bit multiplies) of one large-n op through
-    the four-step (``kernels.fourstep64``) on ``batch`` rows of n int64
-    residues (``batch`` output rows of the dot, ``batch`` columns of s of
+    the four-step (``kernels.fourstep64``; the Goldilocks q prices its
+    products as ``gl64`` and its tables as plain words) on ``batch`` rows
+    of n int64 residues (``batch`` output rows of the dot, ``batch`` columns of s of
     the terms x terms matvec): ``nwc`` (column forward of a and b,
     ``cyclic_scaled``, column inverse), ``cached`` (column forward of a,
     ``cached_scaled``, column inverse), ``dot`` and ``dot_cached`` (column
@@ -183,13 +194,15 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
     n1, n2 = default_split(n)
     l1, l2 = n1.bit_length() - 1, n2.bit_length() - 1
     data = batch * n * 8
-    tables = 4 * n * 8  # two mid tables, each (w, w'), for every op but the halves
+    forms = ("gl64", "gl64") if q == GL_Q else None
+    mid = table_words(forms[0] if forms else "shoup64") * n * 8
+    tables = 2 * mid  # two mid tables, for every op but the halves
 
     def col(entry, polys):
-        return ntt_work(entry, n1, l1, q, 8, polys * n2)
+        return ntt_work(entry, n1, l1, q, 8, polys * n2, forms=forms)
 
     def row(entry, rows, k=terms):
-        return ntt_work(entry, n2, l2, q, 8, rows * n1, k, period=n1)
+        return ntt_work(entry, n2, l2, q, 8, rows * n1, k, forms, period=n1)
 
     if op == "nwc":
         kernels = [col("forward", 2 * batch), row("cyclic_scaled", batch),
@@ -212,11 +225,11 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
         moved = 8 * terms * data
     elif op == "nwc_fwd":
         kernels = [col("forward", batch), row("forward_scaled", batch)]
-        tables, io, moved = 2 * n * 8, 2 * data, 4 * data
+        tables, io, moved = mid, 2 * data, 4 * data
     else:
         assert op == "nwc_inv", op
         kernels = [row("inverse_scaled", batch), col("inverse", batch)]
-        tables, io, moved = 2 * n * 8, 2 * data, 4 * data
+        tables, io, moved = mid, 2 * data, 4 * data
     built = sum(b for b, _ in kernels) + moved
     return io + tables, built, sum(m for _, m in kernels)
 
@@ -225,7 +238,6 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
 # Poseidon2-GL, kernels K5a and K5b
 # ----------------------------------------------------------------------
 
-GL_Q = (1 << 64) - (1 << 32) + 1
 POSEIDON_RF, POSEIDON_RP = 8, 22  # tpu_ntt/poseidon.py's defaults
 POSEIDON_BATCH = 2048 * 64  # bench.py's bench_poseidon(batch * 64), the Merkle level
 
@@ -265,19 +277,37 @@ P60_32768_Q = 576460752308273153  # bench.py:35
 
 def unported() -> list[tuple[str, str, int, int]]:
     """(id, what is counted, bytes, 32-bit multiplies) of each TPU kernel
-    call still to port that one card can run: K1a's bodies through
-    ``GoldilocksPlan64`` above n = 8192 (K2 there), priced as one fused
-    product at p60_32768's shape."""
-    return [
-        ("K2, n > 8192", "goldilocks nwc at n = 32768, B = 256",
-         *ntt_work("product", 32768, 15, GL_Q, 8, 256, forms=("gl64", "gl64"))),
-    ]
+    call still to port that one card can run: none (K2 above n = 8192
+    runs on the four-step since it gained gl64.cu's row passes; K6, the
+    all-to-all, needs more than one card)."""
+    return []
 
 
-LARGE_ROWS = (  # (name, n, q, batch): bench.py:34-40, :145, :150
+LARGE_ROWS = (  # (name, n, q, batch): bench.py:34-40, :145, :150; BENCH_NOTES' Goldilocks A/B
     ("p60_32768", 32768, P60_32768_Q, 256),
     ("p60_1048576", 1 << 20, 576460752364240897, 4),
+    ("goldilocks_32768", 32768, GL_Q, 256),
+    ("goldilocks_1048576", 1 << 20, GL_Q, 4),
 )
+
+# Plonky2's CircuitConfig::standard_recursion_config (plonky2/src/plonk/
+# circuit_data.rs): 135 wires, rate_bits = 3 (blowup 8), 28 query rounds;
+# degree 2^17, so the LDE domain is N = 2^20
+STARK_DEGREE, STARK_BLOWUP, STARK_COLS, STARK_QUERIES = 1 << 17, 8, 135, 28
+
+
+def lde_work(n: int, blowup: int, cols: int) -> tuple[int, int]:
+    """(bytes, 32-bit multiplies) of ``stark.LdePlan(order="kernel").extend``
+    of ``cols`` degree-< n columns to N = blowup * n points: the
+    coefficients and the scale table read once and the evaluations written
+    once (with the mid table); n scale products a column, then the
+    four-step's negacyclic forward (column forward, ``forward_scaled``),
+    every product ``gl64``."""
+    big = n * blowup
+    nbytes, _, imads = fourstep_work("nwc_fwd", big, GL_Q, cols)
+    nbytes += cols * n * 8 + n * 8  # the data is n wide in, N wide out
+    nbytes -= cols * big * 8
+    return nbytes, imads + cols * n * muls("gl64", GL_Q)
 
 
 def main() -> None:
@@ -293,6 +323,16 @@ def main() -> None:
                   f"({built} as built, {built / MEM_BYTES_PER_S * 1e3:.4f} ms), "
                   f"{imads} IMADs {t_ops * 1e3:.4f} ms; bound "
                   f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({by})")
+    n, blowup, cols = STARK_DEGREE, STARK_BLOWUP, STARK_COLS
+    for what, (nbytes, imads) in (
+            (f"STARK LDE, {cols} columns of degree {n} to N = {n * blowup}",
+             lde_work(n, blowup, cols)),
+            (f"STARK leaf sponge, {n * blowup} rows of {cols}",
+             poseidon_work("sponge", 8, n * blowup, cols))):
+        t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{what}: {nbytes} bytes {t_bytes * 1e3:.4f} ms, {imads} IMADs "
+              f"{t_ops * 1e3:.4f} ms; bound {max(t_bytes, t_ops) * 1e3:.4f} ms ({by})")
     for ident, what, nbytes, imads in unported():
         t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
         by = "bytes" if t_bytes >= t_ops else "operations"

@@ -28,7 +28,11 @@ n >= 65536 (spectrum, cached, dot_cached, matvec_spectra/matvec, fwd/inv),
 ``split_to_natural_perm`` for its flat plan at n <= 2^19 (every op at 16384
 and 32768, nwc_fwd/nwc_inv above).  The four-step's spectra are in the
 plain domain (its row ``ntt_fwd``), the flat plan's cached ones in the
-Montgomery-64 domain, as the port's cached spectra are at every n.
+Montgomery-64 domain, as the port's cached spectra are at every n.  The
+Goldilocks prime takes the same two maps (JAX's ``GoldilocksPlan64`` at
+16384 and 32768 inherits the split layout of ``MxuPlan64``, and its kernel
+four-step serves every op from 65536 on) with ``q=None``: both packages'
+Goldilocks spectra, cached ones too, are plain, so only the order changes.
 """
 
 from __future__ import annotations

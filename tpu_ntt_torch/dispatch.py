@@ -16,13 +16,14 @@ version for a CPU tensor:
   a trinomial q = 2^a - 2^b + 1 that the JAX policy sends to its Solinas
   kernel on ``kernels.sol64.SolinasPlan64`` (P60_4096), every other q on
   ``kernels.mxu64.MxuPlan64``;
-* 30 < width <= 62 at 8192 < n <= 2^20, q = 1 mod 2n, on
-  ``kernels.fourstep64.FourStepPlan64`` (``cuda-fourstep-64``): the
-  four-step of ``sharded.KernelFourStep`` on the same kernels, every op,
-  where JAX runs its flat split-radix plan or its kernel four-step;
 * the Goldilocks prime 2^64 - 2^32 + 1 at 256 <= n <= 8192 on
   ``kernels.gl64.GoldilocksPlan64`` (GOLDILOCKS_4096), on (B, n)
-  ``torch.int64`` tensors holding the residues' 64-bit patterns.
+  ``torch.int64`` tensors holding the residues' 64-bit patterns;
+* 30 < width <= 62 (q = 1 mod 2n) and the Goldilocks prime at
+  8192 < n <= 2^20 on ``kernels.fourstep64.FourStepPlan64``
+  (``cuda-fourstep-64``): the four-step of ``sharded.KernelFourStep`` on
+  the same kernels, every op, where JAX runs its flat split-radix plans or
+  its kernel four-step.
 
 Spectra come in the serving backend's bit-reversed layout
 (``bitrev_to_natural_perm``), and fwd/inv, nwc_fwd/nwc_inv,
@@ -40,7 +41,6 @@ import functools
 import torch
 
 from . import kernels
-from .kernels import mxu64
 from .kernels.fourstep64 import MAX_FOURSTEP_N
 from .modmath import GOLDILOCKS_Q
 from .params import NttParams
@@ -82,8 +82,6 @@ def _uncovered(p: NttParams) -> str:
     if p.width <= 30:
         item = ("Q1.4b (the merged Ring32 route: 24 < width <= 30, and "
                 "q < 2^24 outside 256 <= n <= 16384)")
-    elif p.q == GOLDILOCKS_Q and p.n > mxu64.MAX_N:
-        item = "Q1.7 (large n, Goldilocks)"
     elif p.n > MAX_FOURSTEP_N:
         item = "Q1.8 (device tables: n above 2^20)"
     else:

@@ -11,11 +11,10 @@ residues); ``kyber.KyberPlan`` the ML-KEM ring's (every op of
 fixed, so ``plan_for`` does not serve it: ``tpu_ntt_torch.kyber`` calls it;
 ``poseidon`` the Poseidon2-GL permutation and sponge (``csrc/poseidon.cu``),
 which ``tpu_ntt_torch.poseidon.Poseidon2GL`` calls; ``fourstep64
-.FourStepPlan64`` the 60-bit family above n = 8192 (every op at
-8192 < n <= 2^20 through ``sharded.KernelFourStep`` on ``csrc/nwc64.cu``,
-whose row pass is K1a's large-n body).  The Goldilocks prime above
-n = 8192 is not ported yet (ROADMAP.md Q1.7), so ``plan_for`` returns
-``None`` there.
+.FourStepPlan64`` both 64-bit families above n = 8192 (every op at
+8192 < n <= 2^20 through ``sharded.KernelFourStep``, on ``csrc/nwc64.cu``
+at 30 < width <= 62 and on ``csrc/gl64.cu`` at the Goldilocks prime, whose
+row passes are K1a's large-n bodies).
 """
 
 from __future__ import annotations
@@ -39,7 +38,9 @@ def covers(n: int, q: int):
     if MxuPlan.covers(n, q):
         return MxuPlan
     if q == GOLDILOCKS_Q:
-        return GoldilocksPlan64 if GoldilocksPlan64.covers(n, q) else None
+        if GoldilocksPlan64.covers(n, q):
+            return GoldilocksPlan64
+        return FourStepPlan64 if FourStepPlan64.covers(n, q) else None
     if SolinasPlan64.covers(n, q):
         return SolinasPlan64
     if MxuPlan64.covers(n, q):

@@ -37,6 +37,10 @@ Spectra (the layout contract of tpu_ntt/dispatch.py:51-56):
   blocks tiled over the polynomials of an MXU group: the tiling is the
   TPU's (``convert`` undoes it).
 
+``ScaledKernelPlan`` adds the four-step's row pass (``sharded``), six more
+C entry points of the same source, ``<lib>_*_scaled``: ``MxuPlan64`` and
+``GoldilocksPlan64`` are such plans, their tables (w, w') or (w,).
+
 ``bind``, ``launch``, ``check`` and ``runs_plain`` serve ``kyber.KyberPlan``
 too, whose fixed ring has other ops than these twelve.
 """
@@ -192,6 +196,11 @@ class KernelPlan:
 
     def _lib(self) -> ctypes.CDLL:
         return load(self.lib_name, self.word_bits)
+
+    def _ring_tw(self, table: tuple):
+        """A scale table as the ring's ``mul_tw`` takes it: a Shoup family's
+        (w, w') pair as it is."""
+        return table
 
     # ------------------------------------------------------------------
     # Layout map
@@ -436,6 +445,189 @@ class KernelPlan:
 
     def _launch(self, entry: str, out: torch.Tensor, *args) -> torch.Tensor:
         return launch(self.lib_name, self._lib(), entry, self.launches, out, *args)
+
+
+class ScaledKernelPlan(KernelPlan):
+    """A ``KernelPlan`` with the four-step's row pass (``sharded``): K1a's
+    ``_cyclic_scaled_kernel`` and its halves, the row passes of the cached
+    product, the dot and the matvec, each a kernel beside its plain
+    version.  Row r of a launch is scaled at entry and/or exit by row
+    r % P of (P, n) tables given in the family's scale form; the C entry
+    points ``<lib>_cyclic_scaled``, ``_cached_scaled``, ``_forward_scaled``,
+    ``_inverse_scaled``, ``_dot_scaled`` and ``_matvec_scaled`` take the
+    same arguments as the six flat ones plus the tables and P."""
+
+    def cyclic_poly_mult_scaled(self, a: torch.Tensor, b: torch.Tensor,
+                                pre: tuple, post: tuple) -> torch.Tensor:
+        """post . INTT(NTT(pre . a) o NTT(pre . b)) on (B, n) rows, cyclic:
+        ``pre`` and ``post`` are (P, n) scale tables on the plan's device
+        (Shoup pairs (w, w'), or (w,) for Goldilocks), and row r takes
+        their row r % P.  B must be a multiple of P, so a launch holds
+        whole polynomials of the four-step's P rows."""
+        self._check_like(a, b)
+        period = self._check_scales(a, pre, post)
+        if self._runs_plain(a):
+            return self.cyclic_poly_mult_scaled_plain(a, b, pre, post)
+        out = torch.empty_like(a)
+        if a.shape[0] == 0:
+            return out
+        return self._launch(
+            "cyclic_scaled", out, a, b, out, *_table(self.plan.cyclic_flat),
+            *_table(self.plan.cyclic_inv_flat), *pre, *post, period, a.shape[0],
+            self.p.log_n, *self._q_args(True), *self._scale_fresh)
+
+    def cyclic_poly_mult_scaled_plain(self, a, b, pre, post):
+        c = ntt.cyclic_poly_mult(self.plan, self._rows_times(a, pre),
+                                 self._rows_times(b, pre))
+        return self._rows_times(c, post)
+
+    def cyclic_poly_mult_cached_scaled(self, a: torch.Tensor, spectrum: torch.Tensor,
+                                       pre: tuple, post: tuple) -> torch.Tensor:
+        """post . INTT(NTT(pre . a) o S) on (B, n) rows, where S holds the
+        rows of a cached spectrum (``ntt_fwd_scaled`` with ``cacheable``),
+        used as they are: one forward a row instead of two."""
+        self._check_like(a, spectrum)
+        period = self._check_scales(a, pre, post)
+        if self._runs_plain(a):
+            return self.cyclic_poly_mult_cached_scaled_plain(a, spectrum, pre, post)
+        out = torch.empty_like(a)
+        if a.shape[0] == 0:
+            return out
+        return self._launch(
+            "cached_scaled", out, a, spectrum, out, *_table(self.plan.cyclic_flat),
+            *_table(self.plan.cyclic_inv_flat), *pre, *post, period, a.shape[0],
+            self.p.log_n, *self._q_args(True), *self._scale_cached)
+
+    def cyclic_poly_mult_cached_scaled_plain(self, a, spectrum, pre, post):
+        c = self.ring.mul(ntt.ntt_fwd_bitrev(self.plan, self._rows_times(a, pre)), spectrum)
+        return self._unscaled_inverse(c, post)
+
+    def dot_scaled(self, a: torch.Tensor, b: torch.Tensor, pre: tuple, post: tuple,
+                   cached: bool = False) -> torch.Tensor:
+        """post . INTT(sum_k NTT(pre . a_k) o NTT(pre . b_k)) for (K, B, n)
+        stacks of rows, (B, n) out; with ``cached``, b holds the rows of
+        cached spectra, used as they are."""
+        self._check_like(a, b, 3)
+        if a.shape[0] < 1:
+            raise ValueError("the dot needs K >= 1 terms")
+        period = self._check_scales(a, pre, post)
+        if self._runs_plain(a):
+            return self.dot_scaled_plain(a, b, pre, post, cached)
+        terms, batch = a.shape[0], a.shape[1]
+        out = a.new_empty((batch, self.p.n))
+        if batch == 0:
+            return out
+        scale = self._scale_cached if cached else self._scale_fresh
+        return self._launch(
+            "dot_scaled", out, a, b, out, *_table(self.plan.cyclic_flat),
+            *_table(self.plan.cyclic_inv_flat), *pre, *post, period, terms, batch,
+            self.p.log_n, *self._q_args(True), *scale, int(cached))
+
+    def dot_scaled_plain(self, a, b, pre, post, cached=False):
+        fa = ntt.ntt_fwd_bitrev(self.plan, self._rows_times(a, pre))
+        fb = b if cached else ntt.ntt_fwd_bitrev(self.plan, self._rows_times(b, pre))
+        c = self._spectral_sum(fa, fb)
+        if cached:
+            return self._unscaled_inverse(c, post)
+        return self._rows_times(ntt.ntt_inv_bitrev(self.plan, c), post)
+
+    def matvec_scaled(self, spectra: torch.Tensor, mat: torch.Tensor,
+                      post: tuple) -> torch.Tensor:
+        """out[i] = post . INTT(sum_j S_j o A_ij): ``spectra`` the (l, B, n)
+        rows of the plain spectra of s (``ntt_fwd_scaled``), ``mat`` the
+        (k, l, P, n) rows of A's cached spectra, row r of S meeting A's row
+        r % P; (k, B, n) out."""
+        self._check(spectra, "spectra", 3)
+        self._check(mat, "mat", 4)
+        k, l = mat.shape[0], mat.shape[1]
+        period = self._check_scales(spectra, post)
+        if spectra.shape[0] != l or mat.shape[2] != period:
+            raise ValueError(f"spectra {tuple(spectra.shape)} and mat {tuple(mat.shape)} "
+                             f"do not match at period {period}")
+        if not 1 <= k <= 65535 or l < 1:
+            raise ValueError(f"the matvec needs 1 <= k <= 65535 and l >= 1, got {k}, {l}")
+        if self._runs_plain(spectra):
+            return self.matvec_scaled_plain(spectra, mat, post)
+        batch = spectra.shape[1]
+        out = spectra.new_empty((k, batch, self.p.n))
+        if batch == 0:
+            return out
+        return self._launch(
+            "matvec_scaled", out, spectra, mat, out, *_table(self.plan.cyclic_inv_flat),
+            *post, period, k, l, batch, self.p.log_n, *self._q_args(True),
+            *self._scale_cached)
+
+    def matvec_scaled_plain(self, spectra, mat, post):
+        l, batch, n = spectra.shape
+        period = mat.shape[2]
+        fs = spectra.reshape(l, batch // period, period, n)
+        return torch.stack([
+            self._unscaled_inverse(self._spectral_sum(fs, mat[i].unsqueeze(1)),
+                                   post).reshape(batch, n)
+            for i in range(mat.shape[0])])
+
+    def ntt_fwd_scaled(self, x: torch.Tensor, pre: tuple,
+                       cacheable: bool = False) -> torch.Tensor:
+        """NTT(pre . x), bit-reversed out, as ``cyclic_poly_mult_scaled``
+        scales its rows; with ``cacheable``, times the domain factor (the
+        domain of a cached spectrum: 2^64 mod q, or 1 for Goldilocks)."""
+        self._check(x, "x", 2)
+        period = self._check_scales(x, pre)
+        if self._runs_plain(x):
+            return self.ntt_fwd_scaled_plain(x, pre, cacheable)
+        out = torch.empty_like(x)
+        if x.shape[0] == 0:
+            return out
+        scale = self._scale_spectrum if cacheable else self._scale_one
+        return self._launch(
+            "forward_scaled", out, x, out, *_table(self.plan.cyclic_flat), *pre, period,
+            x.shape[0], self.p.log_n, *self._q_args(False), *scale)
+
+    def ntt_fwd_scaled_plain(self, x, pre, cacheable=False):
+        y = ntt.ntt_fwd_bitrev(self.plan, self._rows_times(x, pre))
+        return self.ring.mul_tw(y, self._r_tw) if cacheable else y
+
+    def ntt_inv_scaled(self, x: torch.Tensor, post: tuple) -> torch.Tensor:
+        """post . INTT(x) for a bit-reversed spectrum x, natural out."""
+        self._check(x, "x", 2)
+        period = self._check_scales(x, post)
+        if self._runs_plain(x):
+            return self.ntt_inv_scaled_plain(x, post)
+        out = torch.empty_like(x)
+        if x.shape[0] == 0:
+            return out
+        return self._launch(
+            "inverse_scaled", out, x, out, *_table(self.plan.cyclic_inv_flat), *post,
+            period, x.shape[0], self.p.log_n, *self._q_args(False),
+            *self._scale_cached)
+
+    def ntt_inv_scaled_plain(self, x, post):
+        return self._rows_times(ntt.ntt_inv_bitrev(self.plan, x), post)
+
+    def _check_scales(self, x: torch.Tensor, *tables) -> int:
+        """Check (P, n) scale tables against the (..., B, n) rows x; return P."""
+        period = tables[0][0].shape[0]
+        for table in tables:
+            for t in table:
+                self._check(t, "a scale table", 2)
+                if t.shape[0] != period:
+                    raise ValueError("the scale tables differ in rows")
+        if period < 1 or x.shape[-2] % period:
+            raise ValueError(f"{x.shape[-2]} rows are not whole periods of {period}")
+        return period
+
+    def _rows_times(self, x, table):
+        """Row r of the (..., B, n) x times row r % P of the (P, n) table."""
+        period = table[0].shape[0]
+        rows = x.numel() // (period * self.p.n)
+        y = self.ring.mul_tw(x.reshape(rows, period, self.p.n), self._ring_tw(table))
+        return y.reshape(x.shape)
+
+    def _unscaled_inverse(self, c, post):
+        """post . INTT(c / r): the inverse after products against a cached
+        spectrum (times the domain factor r)."""
+        c = self.ring.mul_tw(c, self._r_inv_tw)
+        return self._rows_times(ntt.ntt_inv_bitrev(self.plan, c), post)
 
 
 def _table(tw) -> tuple:

@@ -16,6 +16,23 @@
 //   gl64_dot      _make_dot_kernel (:1599) through _dot_call (:2238)
 //   gl64_matvec   _make_matvec_kernel (:1639) through nwc_matvec_cached
 //                 (:2305), after gl64_forward has transformed s
+// and, as the row pass of the four-step that serves 8192 < n <= 2^20
+// (tpu_ntt_torch/sharded.py, where gl64_forward and gl64_inverse run the
+// column pass; JAX runs GoldilocksPlan64's split bodies at 16384 and 32768
+// and its kernel four-step with XLA mids above), K1a's large-n bodies at
+// the Goldilocks q, the counterparts of nwc64.cu's nwc64_*_scaled:
+//   gl64_cyclic_scaled   _cyclic_scaled_kernel (:1501): post . INTT(NTT(pre
+//                 . a) o NTT(pre . b)), row r scaled by table row r % period;
+//                 with the column pass, the split-radix products
+//                 _nwc_kernel_split{,2,3,4,5} (:1409, :1378, :1217, :1348,
+//                 :1318)
+//   gl64_forward_scaled, gl64_inverse_scaled  its halves: with the column
+//                 pass, _make_nwc_{fwd,inv,spec}_split_kernel (:1877,
+//                 :1897, :1949)
+//   gl64_cached_scaled   against the rows of a cached spectrum:
+//                 _make_nwc_cached_split_kernel (:1918)
+//   gl64_dot_scaled, gl64_matvec_scaled  the row passes of the dot (K1b,
+//                 :1599) and the matvec (K1c, :1639)
 // Residues are uint64 in [0, q), (B, n) rows, natural order (the port's
 // torch.int64 tensors hold the same bytes: a residue >= 2^63 is a negative
 // int64 there and an ordinary uint64_t here); a spectrum is in bit-reversed
@@ -23,7 +40,8 @@
 // GoldilocksPlan64's plain version of it computes, bit for bit.  The TPU's
 // nine balanced int8 digits, carry-save lanes and lazy window exist only
 // because Mosaic has no 64-bit integers (gl64.py:1-40); none is carried
-// over.  256 <= n <= 8192.
+// over.  32 <= n <= 8192 (the public window is 256 <= n <= 8192; below
+// it, the four-step's sub-sizes).
 //
 // Design: nwc64.cu's, in a file of its own.  The network code is a copy of
 // nwc64.cu's rather than a header shared by both, so nwc64.cu is not
@@ -32,7 +50,8 @@
 // * One thread block per row (per output row for the dot and the matvec),
 //   the rows in dynamic shared memory, 8n bytes each: two for the product,
 //   three for the dot (192 KiB at n = 8192, under the 227 KB a block may
-//   have).  n / 8 threads (at most 1024), four butterflies each.
+//   have).  n / 8 threads (at most 1024), four butterflies each, from
+//   n = 256 on; below, a warp, or n / 2 (the four-step's sub-sizes).
 // * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
 //   Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
 //   between stages; the stage with m groups reads entry m + g of a flat
@@ -48,6 +67,14 @@
 //   cannot): gl_add takes the carry as 2^64 = q + (2^32 - 1).
 // * Every value stays canonical in [0, q), also through the dot's and the
 //   matvec's accumulation.
+// * The four-step's row pass (the *_scaled functions) is product_kernel,
+//   forward_kernel, inverse_kernel, dot_kernel and matvec_kernel with one
+//   gl_mul more, by a table row, at entry and/or exit (never on a cached
+//   spectrum, which the row forward has already scaled).  Row r of a
+//   launch reads row r % period of a (period, n) table of plain values (no
+//   Shoup companion, as for the twiddles): a batch of B polynomials of n1
+//   rows each passes period = n1.  The spectra stay plain, so `cacheable`
+//   changes nothing here, where nwc64.cu multiplies by 2^64 mod q.
 //
 // What bounds it on this card: the multiplies, as in nwc64.cu.  Hopper
 // builds a 64 x 64 -> 128 product from about eight 32-bit IMADs (the
@@ -282,13 +309,170 @@ __global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
   }
 }
 
+// The four-step's row pass: product_kernel with cyclic tables between an
+// entry scale pre[r % period] and an exit scale post[r % period].  With
+// kCached, b holds the rows of a cached spectrum, used as they are.
+template <bool kCached>
+__global__ void cyclic_scaled_kernel(const uint64_t* __restrict__ a,
+                                     const uint64_t* __restrict__ b,
+                                     uint64_t* __restrict__ out,
+                                     const uint64_t* __restrict__ tw,
+                                     const uint64_t* __restrict__ itw,
+                                     const uint64_t* __restrict__ pre,
+                                     const uint64_t* __restrict__ post,
+                                     int period, int log_n, uint64_t scale) {
+  extern __shared__ uint64_t smem[];
+  const int n = 1 << log_n;
+  uint64_t* x = smem;
+  uint64_t* y = smem + n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const uint64_t w = __ldg(pre + srow + i);
+    x[i] = gl_mul(a[row + i], w);
+    y[i] = kCached ? b[row + i] : gl_mul(b[row + i], w);
+  }
+  __syncthreads();
+  forward(x, kCached ? 1 : 2, log_n, tw);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = gl_mul(gl_mul(x[i], y[i]), scale);
+  }
+  __syncthreads();
+  inverse(x, log_n, itw);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = gl_mul(x[i], __ldg(post + srow + i));
+  }
+}
+
+// Its first half: times pre[r % period], the forward, times `scale` unless
+// it is 1.
+__global__ void forward_scaled_kernel(const uint64_t* __restrict__ in,
+                                      uint64_t* __restrict__ out,
+                                      const uint64_t* __restrict__ tw,
+                                      const uint64_t* __restrict__ pre,
+                                      int period, int log_n, uint64_t scale) {
+  extern __shared__ uint64_t x[];
+  const int n = 1 << log_n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = gl_mul(in[row + i], __ldg(pre + srow + i));
+  }
+  __syncthreads();
+  forward(x, 1, log_n, tw);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = scale == 1 ? x[i] : gl_mul(x[i], scale);
+  }
+}
+
+// Its second half: the inverse, times `scale` (n^-1), times post[r % period].
+__global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
+                                      uint64_t* __restrict__ out,
+                                      const uint64_t* __restrict__ itw,
+                                      const uint64_t* __restrict__ post,
+                                      int period, int log_n, uint64_t scale) {
+  extern __shared__ uint64_t x[];
+  const int n = 1 << log_n;
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x[i] = in[row + i];
+  }
+  __syncthreads();
+  inverse(x, log_n, itw);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = gl_mul(gl_mul(x[i], scale), __ldg(post + srow + i));
+  }
+}
+
+// The four-step's row pass of the dot: dot_kernel with the entry scale
+// pre[r % period] on every fresh operand and the exit scale post[r % period]
+// after the one inverse.  a and b are (terms, batch, n) stacks of the column
+// pass's rows; with `cached`, b holds cached spectrum rows, used as they are.
+__global__ void dot_scaled_kernel(const uint64_t* __restrict__ a,
+                                  const uint64_t* __restrict__ b,
+                                  uint64_t* __restrict__ out,
+                                  const uint64_t* __restrict__ tw,
+                                  const uint64_t* __restrict__ itw,
+                                  const uint64_t* __restrict__ pre,
+                                  const uint64_t* __restrict__ post,
+                                  int period, int terms, int batch, int log_n,
+                                  uint64_t scale, int cached) {
+  extern __shared__ uint64_t smem[];
+  const int n = 1 << log_n;
+  uint64_t* acc = smem;
+  uint64_t* x = smem + n;
+  uint64_t* y = smem + 2 * n;
+  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    acc[i] = 0;
+  }
+  for (int k = 0; k < terms; ++k) {
+    const size_t row = (static_cast<size_t>(k) * batch + blockIdx.x) * n;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const uint64_t w = __ldg(pre + srow + i);
+      x[i] = gl_mul(a[row + i], w);
+      y[i] = cached ? b[row + i] : gl_mul(b[row + i], w);
+    }
+    __syncthreads();
+    forward(x, cached ? 1 : 2, log_n, tw);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      acc[i] = gl_add(acc[i], gl_mul(x[i], y[i]));
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    acc[i] = gl_mul(acc[i], scale);
+  }
+  __syncthreads();
+  inverse(acc, log_n, itw);
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    out[row + i] = gl_mul(acc[i], __ldg(post + srow + i));
+  }
+}
+
+// The four-step's row pass of the matvec: matvec_kernel on the rows of the
+// spectra of s (their row forward done by forward_scaled_kernel) against A's
+// cached spectra, (rows, cols, period, n), row r reading A's row r % period;
+// the exit scale post[r % period] after the inverse.
+__global__ void matvec_scaled_kernel(const uint64_t* __restrict__ spectra,
+                                     const uint64_t* __restrict__ mat,
+                                     uint64_t* __restrict__ out,
+                                     const uint64_t* __restrict__ itw,
+                                     const uint64_t* __restrict__ post,
+                                     int period, int cols, int batch,
+                                     int log_n, uint64_t scale) {
+  extern __shared__ uint64_t x[];
+  const int n = 1 << log_n;
+  const size_t r = blockIdx.x, i = blockIdx.y, p = blockIdx.x % period;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    uint64_t acc = 0;
+    for (int j = 0; j < cols; ++j) {
+      const uint64_t s = spectra[(static_cast<size_t>(j) * batch + r) * n + e];
+      const uint64_t m = __ldg(mat + ((i * cols + j) * period + p) * n + e);
+      acc = gl_add(acc, gl_mul(s, m));
+    }
+    x[e] = gl_mul(acc, scale);
+  }
+  __syncthreads();
+  inverse(x, log_n, itw);
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    out[(i * batch + r) * n + e] = gl_mul(x[e], __ldg(post + p * n + e));
+  }
+}
+
+// n / 8 threads from n = 256 on (four butterflies each), at most 1024;
+// below, a warp, or one thread a butterfly where n / 2 is less.
 int threads_for(int log_n) {
-  const int eighth = 1 << (log_n - 3);
+  const int n = 1 << log_n;
+  const int least = n / 2 < 32 ? n / 2 : 32;
+  const int eighth = n / 8 > least ? n / 8 : least;
   return eighth < 1024 ? eighth : 1024;
 }
 
 bool bad_shape(int batch, int log_n) {
-  return batch < 1 || log_n < 8 || log_n > 13;
+  return batch < 1 || log_n < 5 || log_n > 13;
 }
 
 // Lifts the kernel's dynamic shared memory cap to `words` uint64 values.
@@ -316,6 +500,27 @@ int launch_product(const void* a, const void* b, void* out, const void* tw,
                             static_cast<cudaStream_t>(stream)>>>(
       words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw),
       log_n, scale);
+  return cudaGetLastError();
+}
+
+template <bool kCached>
+int launch_cyclic_scaled(const void* a, const void* b, void* out,
+                         const void* tw, const void* itw, const void* pre,
+                         const void* post, int period, int batch, int log_n,
+                         uint64_t scale, void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(cyclic_scaled_kernel<kCached>, 2 * n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  cyclic_scaled_kernel<kCached><<<batch, threads_for(log_n),
+                                  2 * n * sizeof(uint64_t),
+                                  static_cast<cudaStream_t>(stream)>>>(
+      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw),
+      words(pre), words(post), period, log_n, scale);
   return cudaGetLastError();
 }
 
@@ -404,6 +609,108 @@ extern "C" int gl64_matvec(const void* spectra, const void* mat, void* out,
                   static_cast<cudaStream_t>(stream)>>>(
       words(spectra), words(mat), static_cast<uint64_t*>(out), words(itw), cols,
       batch, log_n, scale);
+  return cudaGetLastError();
+}
+
+// The row pass of the four-step: `period` rows of plain scales pre and
+// post, n values each; batch must be a multiple of it.
+extern "C" int gl64_cyclic_scaled(const void* a, const void* b, void* out,
+                                  const void* tw, const void* itw,
+                                  const void* pre, const void* post, int period,
+                                  int batch, int log_n, uint64_t scale,
+                                  void* stream) {
+  return launch_cyclic_scaled<false>(a, b, out, tw, itw, pre, post, period,
+                                     batch, log_n, scale, stream);
+}
+
+// The same against the rows of a cached spectrum.
+extern "C" int gl64_cached_scaled(const void* a, const void* spectrum,
+                                  void* out, const void* tw, const void* itw,
+                                  const void* pre, const void* post, int period,
+                                  int batch, int log_n, uint64_t scale,
+                                  void* stream) {
+  return launch_cyclic_scaled<true>(a, spectrum, out, tw, itw, pre, post,
+                                    period, batch, log_n, scale, stream);
+}
+
+extern "C" int gl64_forward_scaled(const void* in, void* out, const void* tw,
+                                   const void* pre, int period, int batch,
+                                   int log_n, uint64_t scale, void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(forward_scaled_kernel, n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  forward_scaled_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
+                          static_cast<cudaStream_t>(stream)>>>(
+      words(in), static_cast<uint64_t*>(out), words(tw), words(pre), period,
+      log_n, scale);
+  return cudaGetLastError();
+}
+
+extern "C" int gl64_inverse_scaled(const void* in, void* out, const void* itw,
+                                   const void* post, int period, int batch,
+                                   int log_n, uint64_t scale, void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(inverse_scaled_kernel, n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  inverse_scaled_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
+                          static_cast<cudaStream_t>(stream)>>>(
+      words(in), static_cast<uint64_t*>(out), words(itw), words(post), period,
+      log_n, scale);
+  return cudaGetLastError();
+}
+
+// The dot's row pass: (terms, batch, n) stacks a and b (b cached spectra
+// with `cached`), one output row per row of the batch.
+extern "C" int gl64_dot_scaled(const void* a, const void* b, void* out,
+                               const void* tw, const void* itw, const void* pre,
+                               const void* post, int period, int terms,
+                               int batch, int log_n, uint64_t scale, int cached,
+                               void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period || terms < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(dot_scaled_kernel, 3 * n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  dot_scaled_kernel<<<batch, threads_for(log_n), 3 * n * sizeof(uint64_t),
+                      static_cast<cudaStream_t>(stream)>>>(
+      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw),
+      words(pre), words(post), period, terms, batch, log_n, scale, cached);
+  return cudaGetLastError();
+}
+
+// The matvec's row pass: the (cols, batch, n) row spectra of s against the
+// (rows, cols, period, n) cached spectra of A; (rows, batch, n) out.
+extern "C" int gl64_matvec_scaled(const void* spectra, const void* mat,
+                                  void* out, const void* itw, const void* post,
+                                  int period, int rows, int cols, int batch,
+                                  int log_n, uint64_t scale, void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period || rows < 1 ||
+      rows > 65535 || cols < 1) {
+    return cudaErrorInvalidValue;
+  }
+  const int n = 1 << log_n;
+  cudaError_t err = allow_smem(matvec_scaled_kernel, n);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  matvec_scaled_kernel<<<dim3(batch, rows), threads_for(log_n),
+                         n * sizeof(uint64_t),
+                         static_cast<cudaStream_t>(stream)>>>(
+      words(spectra), words(mat), static_cast<uint64_t*>(out), words(itw),
+      words(post), period, cols, batch, log_n, scale);
   return cudaGetLastError();
 }
 

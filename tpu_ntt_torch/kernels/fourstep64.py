@@ -1,14 +1,19 @@
-"""The 60-bit family above n = 8192: every op through the four-step.
+"""The 64-bit families above n = 8192: every op through the four-step.
 
 ``FourStepPlan64`` serves the twelve ``dispatch.METHODS`` at 30 < width <= 62
-and 8192 < n <= 2^20 on (B, n) ``torch.int64`` residues, natural order:
-the sizes where JAX runs its flat split-radix kernels (``nwc``, ``nwc_fwd``,
-``nwc_inv`` at 2^16 to 2^19, and every op at 16384 and 32768) or its
-kernel-locals four-step (``tpu_ntt.dispatch._fourstep_backend``).  The port
-runs one path for all of them, ``sharded.KernelFourStep`` at
-``default_split(n)``: the column pass on ``nwc64_forward``/``nwc64_inverse``
-and the row pass on ``nwc64_cyclic_scaled`` and its halves
-(``csrc/nwc64.cu``).
+and at the Goldilocks prime q = 2^64 - 2^32 + 1, 8192 < n <= 2^20, on (B, n)
+``torch.int64`` residues (Goldilocks ones as 64-bit patterns), natural
+order: the sizes where JAX runs its flat split-radix kernels (``nwc``,
+``nwc_fwd``, ``nwc_inv`` at 2^16 to 2^19 for q < 2^62, every op at 16384
+and 32768 for both families) or its kernel-locals four-step
+(``tpu_ntt.dispatch._fourstep_backend``, whose sub-plans are
+``GoldilocksPlan64`` at the Goldilocks q).  The port runs one path for all
+of them, ``sharded.KernelFourStep`` at ``default_split(n)``: the column pass
+on the sub-plan's ``forward``/``inverse`` and the row pass on its
+``cyclic_scaled`` and halves (``csrc/nwc64.cu``'s ``nwc64_*`` through
+``SubPlan64``, ``csrc/gl64.cu``'s ``gl64_*`` through
+``GoldilocksSubPlan64``).  The entry points below name the nwc64 ones; the
+gl64 ones are the same with the prefix ``gl64_``.
 
 * ``nwc`` and ``cyclic``: column forward, the scaled row product, column
   inverse (three launches).
@@ -26,12 +31,16 @@ and the row pass on ``nwc64_cyclic_scaled`` and its halves
 
 Spectra are in the flat plans' bit-reversed order (``bitrev_to_natural_perm``;
 the four-step emits it, see ``sharded``), and a cached spectrum (``nwc_spectrum``)
-is times 2^64 mod q, as ``MxuPlan64``'s, so the slot product against it is
-one Montgomery reduction.  JAX's spectra at these sizes are in other layouts
-and, at n >= 65536, in the plain domain: ``convert.large_spectra64_from_jax``.
+is in the family's domain: times 2^64 mod q at 30 < width <= 62, as
+``MxuPlan64``'s, so the slot product against it is one Montgomery
+reduction; plain for Goldilocks, as ``GoldilocksPlan64``'s.  Each family's
+row plan scales its own spectra, so the two never meet.  JAX's spectra at
+these sizes are in other layouts and, at n >= 65536, in the plain domain:
+``convert.large_spectra64_from_jax``.
 
 The ``*_plain`` version of each op runs the same chain on the sub-plans'
-plain versions, on any device.  Launches count in ``MxuPlan64.launches``.
+plain versions, on any device.  Launches count in the sub-plan family's
+dict (``launches``: ``MxuPlan64.launches`` or ``GoldilocksPlan64.launches``).
 """
 
 from __future__ import annotations
@@ -47,37 +56,42 @@ from ..sharded import (KernelFourStep, _run, column_fwd, column_inv, default_spl
                        fourstep_fwd_kernel, fourstep_inv_kernel,
                        fourstep_nwc_poly_mult_kernel)
 from ._plan import check
-from .mxu64 import MAX_N, MAX_WIDTH, MIN_WIDTH, MxuPlan64, SubPlan64
+from .mxu64 import MAX_N, MxuPlan64
 
 MAX_FOURSTEP_N = 1 << 20  # bench.py's largest row; larger n waits for device tables
 
 
 class FourStepPlan64:
-    """Every K1 op at 30 < width <= 62, 8192 < n <= 2^20, on one device."""
+    """Every K1 op at 30 < width <= 62 and every K2 op at the Goldilocks q,
+    8192 < n <= 2^20, on one device."""
 
     name = "cuda-fourstep-64"
     dtype = torch.int64
+    #: the 60-bit family's launch counts; a Goldilocks plan counts in
+    #: ``GoldilocksPlan64.launches`` (its instance's ``launches``)
     launches = MxuPlan64.launches
 
     @staticmethod
     def covers(n: int, q: int) -> bool:
-        """n a power of two in (8192, 2^20], q of 31 to 62 bits with
-        q = 1 mod 2n, and both ``default_split`` factors in the sub-plans'
-        window."""
-        return (MIN_WIDTH <= q.bit_length() <= MAX_WIDTH
-                and MAX_N < n <= MAX_FOURSTEP_N and not n & (n - 1)
+        """n a power of two in (8192, 2^20], q of 31 to 62 bits or the
+        Goldilocks prime, q = 1 mod 2n, and both ``default_split`` factors
+        in the sub-plans' window (``KernelFourStep.sub_plan``)."""
+        sub = KernelFourStep.sub_plan(q)
+        return (MAX_N < n <= MAX_FOURSTEP_N and not n & (n - 1)
                 and (q - 1) % (2 * n) == 0
-                and all(SubPlan64.covers(m, q) for m in default_split(n)))
+                and all(sub.covers(m, q) for m in default_split(n)))
 
     def __init__(self, p: NttParams, device=None):
         """Sub-plans on ``device`` (by default the current CUDA device); the
         mid tables are built by the first op that needs them."""
         if not self.covers(p.n, p.q):
-            raise ValueError(f"FourStepPlan64 covers 30 < width <= 62 at {MAX_N} < n "
-                             f"<= {MAX_FOURSTEP_N}; got n={p.n}, a {p.width}-bit q={p.q}")
+            raise ValueError(f"FourStepPlan64 covers 30 < width <= 62 and q = 2^64 - "
+                             f"2^32 + 1 at {MAX_N} < n <= {MAX_FOURSTEP_N}; got "
+                             f"n={p.n}, a {p.width}-bit q={p.q}")
         self.p = p
         self.device = ntt.resolve_device(device)
         self.fs = KernelFourStep(p, *default_split(p.n), self.device)
+        self.launches = type(self.fs.row_k).launches
 
     # ------------------------------------------------------------------
     # Layout map

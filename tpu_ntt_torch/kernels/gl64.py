@@ -15,7 +15,14 @@ plain values with no Shoup companion (Shoup needs q < 2^63), so the C entry
 points take one pointer a table and one word a scale, and no q.
 
 n = 16384 and 32768 (the JAX plan's upper window) need more than a block's
-227 KB for two rows: ROADMAP.md Q1.7, with the 60-bit family.
+227 KB for two rows, so from there on the four-step of
+``fourstep64.FourStepPlan64`` serves Goldilocks, as it serves the 60-bit
+family, on the sub-transforms of ``GoldilocksSubPlan64``: this class's
+kernels at 32 <= n <= 8192 and its row passes (``_plan.ScaledKernelPlan``:
+``gl64_cyclic_scaled``, ``gl64_cached_scaled``, ``gl64_forward_scaled``,
+``gl64_inverse_scaled``, ``gl64_dot_scaled``, ``gl64_matvec_scaled``), whose
+scale tables are 1-tuples (w,) of plain values; the entry and exit scales
+are one phi-fold product each.
 """
 
 from __future__ import annotations
@@ -28,17 +35,19 @@ import torch
 from ..modmath import GOLDILOCKS_Q
 from ..params import NttParams
 from . import _plan
-from .mxu64 import MAX_N, MIN_N
+from .mxu64 import MAX_N, MIN_N, SUB_MIN_N
 
 #: the C entry points of csrc/gl64.cu, each with its own launch count
 KERNELS = ("gl64_product", "gl64_cached", "gl64_forward", "gl64_inverse",
-           "gl64_dot", "gl64_matvec")
+           "gl64_dot", "gl64_matvec", "gl64_cyclic_scaled", "gl64_forward_scaled",
+           "gl64_inverse_scaled", "gl64_cached_scaled", "gl64_dot_scaled",
+           "gl64_matvec_scaled")
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build if needed and load ``csrc/gl64.cu``, its six entry points typed
-    as declared there."""
+    """Build if needed and load ``csrc/gl64.cu``, its twelve entry points
+    typed as declared there."""
     ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
     return _plan.bind("gl64", {
         "product": [ptr] * 5 + [i32] * 2 + [u64, ptr],
@@ -47,10 +56,16 @@ def load() -> ctypes.CDLL:
         "inverse": [ptr] * 3 + [i32] * 2 + [u64, ptr],
         "dot": [ptr] * 5 + [i32] * 3 + [u64, i32, ptr],
         "matvec": [ptr] * 4 + [i32] * 4 + [u64, ptr],
+        "cyclic_scaled": [ptr] * 7 + [i32] * 3 + [u64, ptr],
+        "cached_scaled": [ptr] * 7 + [i32] * 3 + [u64, ptr],
+        "forward_scaled": [ptr] * 4 + [i32] * 3 + [u64, ptr],
+        "inverse_scaled": [ptr] * 4 + [i32] * 3 + [u64, ptr],
+        "dot_scaled": [ptr] * 7 + [i32] * 4 + [u64, i32, ptr],
+        "matvec_scaled": [ptr] * 5 + [i32] * 5 + [u64, ptr],
     })
 
 
-class GoldilocksPlan64(_plan.KernelPlan):
+class GoldilocksPlan64(_plan.ScaledKernelPlan):
     """Every K2 op for the Goldilocks prime at one n on one device."""
 
     name = "cuda-gl64"
@@ -58,8 +73,8 @@ class GoldilocksPlan64(_plan.KernelPlan):
     dtype = torch.int64
     word_bits = 64
     #: launches of each kernel in this process, over all plans of this
-    #: class; a caller that must show a run went through a kernel zeroes
-    #: its count first
+    #: class and its subclass; a caller that must show a run went through
+    #: a kernel zeroes its count first
     launches = dict.fromkeys(KERNELS, 0)
 
     @staticmethod
@@ -70,7 +85,7 @@ class GoldilocksPlan64(_plan.KernelPlan):
         return q == GOLDILOCKS_Q and MIN_N <= n <= MAX_N and not n & (n - 1)
 
     def _refusal(self, p: NttParams) -> str:
-        return (f"GoldilocksPlan64 covers q = 2^64 - 2^32 + 1 at "
+        return (f"{type(self).__name__} covers q = 2^64 - 2^32 + 1 at "
                 f"{MIN_N} <= n <= {MAX_N}; got n={p.n}, q={p.q}")
 
     def _domain_factor(self) -> int:
@@ -84,3 +99,24 @@ class GoldilocksPlan64(_plan.KernelPlan):
 
     def _lib(self) -> ctypes.CDLL:
         return load()
+
+    def _ring_tw(self, table: tuple):
+        return table[0]  # GoldilocksRing.mul_tw takes the plain values
+
+
+class GoldilocksSubPlan64(GoldilocksPlan64):
+    """``GoldilocksPlan64`` at the sub-sizes of the four-step
+    (``sharded.KernelFourStep``), 32 <= n <= 8192: the column and row
+    transforms of n up to 2^20.  ``kernels.covers`` never returns it, so the
+    flat window stays 256 <= n <= 8192; its launches count in
+    ``GoldilocksPlan64.launches``."""
+
+    name = "cuda-gl64-sub"
+
+    @staticmethod
+    def covers(n: int, q: int) -> bool:
+        return q == GOLDILOCKS_Q and SUB_MIN_N <= n <= MAX_N and not n & (n - 1)
+
+    def _refusal(self, p: NttParams) -> str:
+        return (f"GoldilocksSubPlan64 covers q = 2^64 - 2^32 + 1 at {SUB_MIN_N} "
+                f"<= n <= {MAX_N}; got n={p.n}, q={p.q}")

@@ -19,15 +19,20 @@ pass, a cyclic transform of length n2 along each row; the cyclic spectrum
 drops the psi factors.  The inverse runs the mirror: row inverse, the
 inverse mid table, column inverse, n^-1 = n1^-1 * n2^-1 inside the two.
 
-On the card (``KernelFourStep``): the column pass is ``SubPlan64``'s
-``nwc_ntt_fwd``/``ntt_fwd`` (``csrc/nwc64.cu``'s ``nwc64_forward``) on the
-columns, which torch transposes into rows and back around it, as JAX moves
-the axis in XLA around its kernel (tpu_ntt/sharded.py:419-442).  The mid
-table rides the row kernel as its entry scale: ``ntt_fwd_scaled``,
-``ntt_inv_scaled`` and, for a product, ``cyclic_poly_mult_scaled`` with
-pre = the forward mid and post = the inverse mid (K1a's
-``_cyclic_scaled_kernel``, tpu_ntt/sharded.py:527-562), so no pass of its
-own runs between the two.
+On the card (``KernelFourStep``): the column pass is the sub-plan's
+``nwc_ntt_fwd``/``ntt_fwd`` (``SubPlan64`` on ``csrc/nwc64.cu``'s
+``nwc64_forward`` at 30 < width <= 62, ``GoldilocksSubPlan64`` on
+``csrc/gl64.cu``'s ``gl64_forward`` at the Goldilocks q) on the columns,
+which torch transposes into rows and back around it, as JAX moves the axis
+in XLA around its kernel (tpu_ntt/sharded.py:419-442).  The mid table rides
+the row kernel as its entry scale: ``ntt_fwd_scaled``, ``ntt_inv_scaled``
+and, for a product, ``cyclic_poly_mult_scaled`` with pre = the forward mid
+and post = the inverse mid (K1a's ``_cyclic_scaled_kernel``,
+tpu_ntt/sharded.py:527-562), so no pass of its own runs between the two.
+That holds for both families: JAX folds the mids into its row kernel only
+below q = 2^62 and multiplies them in XLA for Goldilocks (``row_scales`` is
+``None`` there, tpu_ntt/sharded.py:444-460, :557-560); the port's Goldilocks
+row kernels take them as plain tables, one phi-fold product each.
 
 Layout.  The column pass emits k1 bit-reversed (the sub-plan's order), so
 row j1 of the mid tables takes k1 = bitrev(j1); the row pass emits k2
@@ -38,9 +43,10 @@ bit-reversed order, so one layout map serves every n of the family.
 permuted by that map, sharded.py:380-383; ``convert`` maps its layouts.)
 
 Tables: the sub-plans are of n1 and n2 points; the four mid tables are
-(n1, n2) Shoup pairs built on first use, each row a geometric sequence in
-Python ints (about a second each at n = 2^20).  No plan of n points is
-built: its tables take tens of seconds at 2^20.
+(n1, n2) tables in the ring's twiddle form (Shoup pairs (w, w'), or (w,)
+of plain values for Goldilocks) built on first use, each row a geometric
+sequence in Python ints (about a second each at n = 2^20).  No plan of n
+points is built: its tables take tens of seconds at 2^20.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ import numpy as np
 import torch
 
 from . import ntt, reference
-from .modmath import make_ring
+from .modmath import GOLDILOCKS_Q, make_ring
 from .params import NttParams, Reduction
 
 
@@ -67,7 +73,7 @@ def default_split(n: int) -> tuple[int, int]:
 class FourStepPlan:
     """The constants of the four-step at one parameter set and split: the
     sub-parameters, the bit-reversal of the column index and the mid
-    tables, built on first use as Shoup pairs on ``device``."""
+    tables, built on first use in the ring's twiddle form on ``device``."""
 
     def __init__(self, p: NttParams, n1: int, n2: int, device=None):
         if n1 * n2 != p.n:
@@ -84,7 +90,8 @@ class FourStepPlan:
 
     def _mid(self, root: int, fold: int) -> tuple:
         """The (n1, n2) table (root^k1 * fold)^i2 with k1 = bitrev(j1) at
-        row j1, as a Shoup pair: one geometric row a column position."""
+        row j1, one geometric row a column position: a Shoup pair (w, w'),
+        or for Goldilocks, whose ring encodes plain values, (w,)."""
         q, vals = self.p.q, []
         for j1 in range(self.n1):
             rho = pow(root, self.brv1[j1], q) * fold % q
@@ -92,8 +99,10 @@ class FourStepPlan:
             for _ in range(self.n2):
                 vals.append(cur)
                 cur = cur * rho % q
-        return tuple(t.reshape(self.n1, self.n2)
-                     for t in self.ring.encode_tw(vals, self.device))
+        tw = self.ring.encode_tw(vals, self.device)
+        if isinstance(tw, torch.Tensor):
+            tw = (tw,)
+        return tuple(t.reshape(self.n1, self.n2) for t in tw)
 
     @functools.cached_property
     def kmid(self):
@@ -123,26 +132,33 @@ class FourStepPlan:
 
 
 class KernelFourStep(FourStepPlan):
-    """The four-step on the card: ``SubPlan64`` kernels for the column and
-    row passes, 32 <= n1, n2 <= 8192 at 30 < width <= 62 (q < 2^62: the
-    strict Shoup folds of the row kernel)."""
+    """The four-step on the card: sub-plan kernels for the column and row
+    passes, 32 <= n1, n2 <= 8192: ``SubPlan64`` at 30 < width <= 62 (q <
+    2^62: the strict Shoup folds of the row kernel), ``GoldilocksSubPlan64``
+    at q = 2^64 - 2^32 + 1 (plain tables, phi-fold products)."""
 
     @staticmethod
-    def supported(p: NttParams, n1: int, n2: int) -> bool:
-        """Both sub-transforms have a kernel (no table is built)."""
-        from .kernels.mxu64 import SubPlan64  # kernels imports this module
+    def sub_plan(q: int):
+        """The sub-plan class of the four-step at q."""
+        from .kernels.gl64 import GoldilocksSubPlan64  # kernels imports this module
+        from .kernels.mxu64 import SubPlan64
 
-        return SubPlan64.covers(n1, p.q) and SubPlan64.covers(n2, p.q)
+        return GoldilocksSubPlan64 if q == GOLDILOCKS_Q else SubPlan64
+
+    @classmethod
+    def supported(cls, p: NttParams, n1: int, n2: int) -> bool:
+        """Both sub-transforms have a kernel (no table is built)."""
+        sub = cls.sub_plan(p.q)
+        return sub.covers(n1, p.q) and sub.covers(n2, p.q)
 
     def __init__(self, p: NttParams, n1: int, n2: int, device=None):
         if not self.supported(p, n1, n2):
             raise ValueError(f"no kernel covers the sub-transforms n1={n1}, "
                              f"n2={n2} at width {p.width}")
-        from .kernels.mxu64 import SubPlan64
-
         super().__init__(p, n1, n2, device)
-        self.col_k = SubPlan64(self.col_params, self.device)
-        self.row_k = SubPlan64(self.row_params, self.device)
+        sub = self.sub_plan(p.q)
+        self.col_k = sub(self.col_params, self.device)
+        self.row_k = sub(self.row_params, self.device)
 
     def to_cols(self, *xs: torch.Tensor) -> torch.Tensor:
         """(R, n) natural rows -> (len(xs) * R * n2, n1): each column of each
@@ -189,8 +205,9 @@ def fourstep_fwd_kernel(fs: KernelFourStep, x: torch.Tensor, nwc: bool = False,
                         cacheable: bool = False, plain: bool = False) -> torch.Tensor:
     """Forward four-step of (R, n) natural rows, bit-reversed spectra out:
     cyclic, or with ``nwc`` negacyclic (the outer twist in the column pass
-    and the mid table); ``cacheable`` multiplies by 2^64 mod q in the row
-    kernel (the cached-spectrum domain)."""
+    and the mid table); ``cacheable`` multiplies by the row plan's domain
+    factor in the row kernel (the cached-spectrum domain: 2^64 mod q, or 1
+    for Goldilocks)."""
     pre = fs.kmid_nwc if nwc else fs.kmid
     y = _run(fs.row_k, "ntt_fwd_scaled", plain, column_fwd(fs, nwc, plain, x), pre, cacheable)
     return y.reshape(x.shape)

@@ -7,13 +7,20 @@ coefficient rows to blowup * n evaluations over the coset shift * H_N:
 
 in three orders, as in JAX: ``bitrev`` and ``natural`` run the plain
 ``ntt.NttPlan`` (``big``) and give JAX's integers slot for slot;
-``kernel`` runs the kernel plan's negacyclic forward (``gl64_forward`` of
-``kernels/csrc/gl64.cu`` for Goldilocks on a CUDA tensor), whose evaluation
+``kernel`` runs the kernel plan's negacyclic forward, whose evaluation
 points are the coset psi * H_N, so the shift folds into the scale table as
-(shift * psi^-1)^i (tpu_ntt/stark.py:64-73).  The kernel order's slots are
-the port's own layout (``bitrev_to_natural_perm``, bit-reversed), not the
-TPU's four-step one, so its raw slots differ from JAX's and agree with it
-only through ``spectrum_indices``; ``reorder`` moves between orders.
+(shift * psi^-1)^i (tpu_ntt/stark.py:64-73).  For Goldilocks on a CUDA
+tensor that is ``gl64_forward`` of ``kernels/csrc/gl64.cu`` up to
+N = 8192, and above, up to N = 2^20 (Plonky2's degree 2^17 at blowup 8),
+the four-step of ``kernels.fourstep64.FourStepPlan64`` (``gl64_forward``
+down the columns, ``gl64_forward_scaled`` along the rows), whose
+``nwc_ntt_fwd`` is the same evaluation over psi * H_N.  The kernel order's
+slots are the port's own layout (``bitrev_to_natural_perm``, bit-reversed
+at every N), not the TPU's four-step one, so its raw slots differ from
+JAX's and agree with it only through ``spectrum_indices``; ``reorder``
+moves between orders.  The kernel order never builds ``big`` (about 40 s
+of host tables at N = 2^20): ``reorder`` reads only layouts, and the N
+unscale powers of ``interpolate`` are built on its first call.
 
 FRI: ``fri_fold`` folds a bit-reversed codeword over the squared domain in
 plain torch over the plan's ring (JAX does it in XLA, with no kernel);
@@ -86,15 +93,30 @@ class LdePlan:
 
     def extend(self, x: torch.Tensor) -> torch.Tensor:
         """Coefficients (..., n) -> coset evaluations (..., N)."""
-        scaled = self.ring.mul_tw(x, self.scale_tw)
-        padded = torch.cat(
-            [scaled, scaled.new_zeros(scaled.shape[:-1] + (self.N - self.n,))], dim=-1)
+        padded = self.scale_and_pad(x)
         if self.order == "kernel":
             flat = padded.reshape(-1, self.N)
             return self._kernel.nwc_ntt_fwd(flat).reshape(padded.shape)
         if self.order == "bitrev":
             return ntt.ntt_fwd_bitrev(self.big, padded)
         return ntt.ntt_fwd(self.big, padded)
+
+    def extend_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain version of ``extend`` in the kernel order: the same
+        scale and pad, then the kernel plan's plain forward, on any
+        device (what chip_smoke.py holds the kernels to)."""
+        if self.order != "kernel":
+            raise ValueError("extend_plain is the kernel order's plain chain")
+        padded = self.scale_and_pad(x)
+        flat = padded.reshape(-1, self.N)
+        return self._kernel.nwc_ntt_fwd_plain(flat).reshape(padded.shape)
+
+    def scale_and_pad(self, x: torch.Tensor) -> torch.Tensor:
+        """What ``extend`` runs before its transform, in torch ops (JAX's are
+        XLA): x times the coset scale table, zero-padded from n to N."""
+        scaled = self.ring.mul_tw(x, self.scale_tw)
+        return torch.cat(
+            [scaled, scaled.new_zeros(scaled.shape[:-1] + (self.N - self.n,))], dim=-1)
 
     def interpolate(self, evals: torch.Tensor) -> torch.Tensor:
         """Coset evaluations (..., N) in this plan's order -> the N
@@ -193,14 +215,13 @@ def fri_fold_tables(lde: LdePlan, final_size: int):
     tables = []
     for g, w, size in domains[:-1]:
         m = size // 2
-        bits = m.bit_length() - 1
         inv_w = pow(w, -1, q)
         nat, acc = [], half * pow(g, -1, q) % q
         for _ in range(m):
             nat.append(acc)
             acc = acc * inv_w % q
         tables.append(lde.ring.encode_tw(
-            [nat[_bitrev_index(i, bits)] for i in range(m)], lde.device))
+            [nat[j] for j in reference.bit_reverse_permutation(m)], lde.device))
     return tables, domains
 
 
