@@ -24,7 +24,9 @@ failure:
 1. device: the card's name and power limit (nvidia-smi), its SM count and
    top SM clock;
 2. build: nvcc builds the five CUDA sources from csrc/, in parallel;
-   ptxas's registers and spills;
+   ptxas's registers and spills (poseidon.cu's kernels must spill
+   nothing); the SASS length of each poseidon.cu kernel and the
+   instructions one width-8 permutation issues (cuobjdump);
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
@@ -42,7 +44,11 @@ failure:
    forward and inverse at n = 256 and 8192 and the dot at n = 8192;
    ``poseidon_permute`` at widths 8 and 12 on B = 131072 columns (bench.py's
    batch) and ``poseidon_sponge`` at both widths over (131072, 8) rows and
-   rows of 0, 1 and 5, with columns and rows against ``PoseidonRef``;
+   rows of 0, 1 and 5, with columns and rows against ``PoseidonRef``, and
+   both again at rf = 6, rp = 11 (rows of 9); ``poseidon_field_probe``, the
+   kernels' arithmetic core on any 64-bit words (every pair of 0, 1, 2,
+   2^32 - 1, 2^32, q - 1, q, q + 1, 2^63 - 1, 2^63, 2^64 - 2^32, 2^64 - 1,
+   65536 random triples and 16384 near 2^64), against Python integers;
    the four-step's row kernels (``nwc64_cyclic_scaled``,
    ``nwc64_forward_scaled``, also times 2^64, ``nwc64_inverse_scaled``,
    ``nwc64_cached_scaled``) and its column passes (``nwc64_forward``,
@@ -134,6 +140,8 @@ import argparse
 import concurrent.futures
 import functools
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -295,6 +303,40 @@ def check_evaluations(name: str, p, a_rows, b_rows, c_rows, rng) -> None:
                 raise AssertionError(f"{name}: c(x) != a(x) b(x) at row {row}, k={k}")
 
 
+def sass_listing(lib) -> dict:
+    """Each kernel of a built library in ``cuobjdump -sass``: its name with
+    its template arguments -> [(address, instruction)]."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    kernels, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : .*\d([a-z]+_kernel)(?:I((?:Li\d+E)+)E)?", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            name = f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
+            kernels[name] = []
+        elif name and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)):
+            kernels[name].append((int(m.group(1), 16), m.group(2).strip()))
+    return kernels
+
+
+def issued_per_thread(listing, trips) -> int | None:
+    """Instructions a thread issues after its block barrier in a kernel whose
+    rounds are loops: the straight code once and the body of the i-th loop
+    (a backward branch, in address order) ``trips[i]`` times; None where the
+    loops are not as many as ``trips``."""
+    start = next(i for i, (_, ins) in enumerate(listing) if ins.startswith("BAR.SYNC"))
+    end = max(i for i, (_, ins) in enumerate(listing) if "EXIT" in ins)
+    code = listing[start:end + 1]
+    loops = [(int(m.group(1), 16), at) for at, ins in code
+             if (m := re.search(r"\bBRA (0x[0-9a-f]+)", ins)) and int(m.group(1), 16) < at]
+    if len(loops) != len(trips):
+        return None
+    bodies = [sum(lo <= at <= hi for at, _ in code) for lo, hi in loops]
+    return len(code) + sum((t - 1) * n for t, n in zip(trips, bodies))
+
+
 def nvidia_smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -358,6 +400,20 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    ptxas: {line.strip()}")
+
+    # poseidon.cu's kernels spill nothing; the unrolled width-8 permutation's
+    # length in SASS (one permutation, its loads and stores)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        libs["poseidon"].with_suffix(".log").read_text())
+    if not spills or any(int(st) or int(ld) for st, ld in spills):
+        raise AssertionError(f"poseidon.cu spills registers: {spills}")
+    print(f"build: poseidon.cu's {len(spills)} kernels spill nothing")
+    listing = sass_listing(libs["poseidon"])
+    for kernel, code in listing.items():
+        print(f"  sass: poseidon.cu {kernel}: {len(code)} instructions")
+    per_perm = issued_per_thread(listing["permute_kernel<8>"], (4, 22, 4))
+    print(f"  sass: one width-8 permutation at rf = 8, rp = 22 (its loads and stores "
+          f"with it): {per_perm or 'loops not recognised, not'} counted instructions")
 
     # 3. kernel vs plain version, bit for bit
     rng = np.random.default_rng(args.seed)
@@ -650,6 +706,43 @@ def main() -> int:
                                      "from PoseidonRef")
     print("oracle: poseidon_permute columns 0-5 and poseidon_sponge rows 0-2 equal "
           "PoseidonRef at widths 8 and 12")
+    # a schedule other than (rf, rp) = (8, 22): the rounds' loops take any
+    rows9 = on_card(gl_operands(9, 4096, rng)[0])[0]  # two staged chunks, the last short
+    for w in (8, 12):
+        h = gl_poseidon.Poseidon2GL(w, rf=6, rp=11)
+        x = gl_states[w]
+        got = torch.stack(h.permute(list(x)))
+        compare("poseidon_permute", f"width {w} rf=6 rp=11 B={POSEIDON_BATCH}", got,
+                torch.stack(h.permute_plain(list(x))))
+        sponged = torch.stack(h.hash_rows(rows9))
+        compare("poseidon_sponge", f"width {w} rf=6 rp=11 rows of 9, B=4096", sponged,
+                torch.stack(h.hash_rows_plain(rows9)))
+        if (ints(got[:, :2].T) != [h.ref.permute(c) for c in ints(x[:, :2].T)]
+                or ints(sponged[:, :2].T) != [h.ref.hash_elements(r)
+                                              for r in ints(rows9[:2])]):
+            raise AssertionError(f"width {w} rf=6 rp=11 differs from PoseidonRef")
+    print("oracle: rf=6 rp=11 columns 0-1 and rows 0-1 equal PoseidonRef at widths 8 "
+          "and 12")
+    # the arithmetic core on any 64-bit words (poseidon_field_probe): every
+    # pair of boundary words, 65536 random triples and 16384 near 2^64
+    edges = [0, 1, 2, (1 << 32) - 1, 1 << 32, GOLDILOCKS_Q - 1, GOLDILOCKS_Q,
+             GOLDILOCKS_Q + 1, (1 << 63) - 1, 1 << 63, (1 << 64) - (1 << 32), (1 << 64) - 1]
+    pairs = np.array([(u, v) for u in edges for v in edges], dtype=np.uint64)
+    ops = np.concatenate([np.column_stack([pairs, pairs[::-1, 0]]),
+                          rng.integers(0, 1 << 64, size=(65536, 3), dtype=np.uint64),
+                          rng.integers(GOLDILOCKS_Q - (1 << 33), 1 << 64, size=(16384, 3),
+                                       dtype=np.uint64)])
+    got = kposeidon.field_probe(*on_card(*(ops[:, k].view(np.int64) for k in range(3))))
+    got = got.cpu().numpy().view(np.uint64).astype(object)
+    for k, row in enumerate(kposeidon.field_probe_want(*(ops[:, k].tolist()
+                                                         for k in range(3)))):
+        lazy = k in kposeidon.PROBE_LAZY_ROWS
+        if not ((got[k] % GOLDILOCKS_Q == row) if lazy else (got[k] == row)).all():
+            raise AssertionError(f"poseidon_field_probe row {k} differs from Python "
+                                 "integers mod q")
+    print(f"probe: poseidon_field_probe on {len(ops)} operand triples "
+          f"({len(pairs)} boundary pairs): all {kposeidon.PROBE_ROWS} rows equal Python "
+          f"integers mod q (rows {kposeidon.PROBE_LAZY_ROWS} congruent, lazy)")
 
     # 4. independent oracle: evaluation at roots of x^n + 1, and the golden
     for name, p, (av, bv), cv in (

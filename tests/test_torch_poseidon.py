@@ -204,7 +204,7 @@ def test_load_binds_the_c_signatures_of_poseidon_cu(monkeypatch):
     kposeidon.load.__wrapped__()
     source = (_build.CSRC / "poseidon.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (poseidon_\w+)\(([^)]*)\)', source))
-    assert sorted(decls) == sorted(kposeidon.KERNELS) == sorted(
+    assert sorted(decls) == sorted(kposeidon.KERNELS + (kposeidon.PROBE,)) == sorted(
         f"poseidon_{k}" for k in bound)
     for suffix, types in bound.items():
         params = [p.strip() for p in decls[f"poseidon_{suffix}"].split(",")]
@@ -244,5 +244,23 @@ def test_cuda_kernels_match_plain():
             rows = elements((300, max(length, 1)), seed=46)[:, :length].contiguous().to(dev)
             assert torch.equal(torch.stack(h.hash_rows(rows)),
                                torch.stack(h.hash_rows_plain(rows))), length
+        # a schedule other than the default: the rounds' loops take any rf, rp
+        h = poseidon.Poseidon2GL(width, rf=6, rp=11)
+        assert torch.equal(torch.stack(h.permute(list(x))),
+                           torch.stack(h.permute_plain(list(x))))
+        rows = elements((300, 9), seed=47).to(dev)
+        assert torch.equal(torch.stack(h.hash_rows(rows)), torch.stack(h.hash_rows_plain(rows)))
+    # the arithmetic core on words outside [0, q) too
+    edges = [0, 1, 2, (1 << 32) - 1, 1 << 32, Q - 1, Q, Q + 1, (1 << 63) - 1, 1 << 63,
+             (1 << 64) - (1 << 32), (1 << 64) - 1]
+    pairs = np.array([(u, v) for u in edges for v in edges], dtype=np.uint64)
+    rand = np.random.default_rng(48).integers(0, 1 << 64, size=(4096, 3), dtype=np.uint64,
+                                               endpoint=False)
+    ops = np.concatenate([np.column_stack([pairs, pairs[::-1, 0]]), rand])
+    a, b, c = (torch.from_numpy(ops[:, k].copy().view(np.int64)).to(dev) for k in range(3))
+    got = kposeidon.field_probe(a, b, c).cpu().numpy().view(np.uint64).astype(object)
+    want = kposeidon.field_probe_want(*(ops[:, k].tolist() for k in range(3)))
+    for k, row in enumerate(want):
+        assert ((got[k] % Q == row) if k in kposeidon.PROBE_LAZY_ROWS else (got[k] == row)).all(), k
     torch.cuda.synchronize()
-    assert all(kposeidon.launches[k] > before[k] for k in kposeidon.KERNELS)
+    assert all(kposeidon.launches[k] > before[k] for k in kposeidon.KERNELS + (kposeidon.PROBE,))

@@ -17,7 +17,8 @@ Run as a script, it prints the four-step chains' bounds at the shapes of
 bench.py's large-n rows (and the Goldilocks rows beside them), those of the
 STARK commitment's LDE and leaf sponge at Plonky2's degree 2^17 (``lde_work``,
 ``poseidon_work``) and those of the TPU kernel calls still to port, worked
-out from the code (not measured) at the H100 SXM's data-sheet rates::
+out from the code (not measured) at the H100 SXM's data-sheet rates, K6's
+(the all-to-all) over NVLink on four cards::
 
     python3 -m tpu_ntt_torch.bounds
 """
@@ -283,6 +284,22 @@ def unported() -> list[tuple[str, str, int, int]]:
     return []
 
 
+# Kernel K6, the four-step's all-to-all (tpu_ntt/sharded.py:580
+# _a2a_pallas_leaf; ShardedNtt :691 runs one a transform, so three a
+# product: the forwards of a and b, the inverse), not ported: it needs more
+# than one card.  Its bound on four H100s joined all to all by NVLink.
+NVLINK_BYTES_PER_S = 450e9  # each way, from a card to the others (H100 SXM data sheet)
+A2A_CARDS, A2A_EXCHANGES = 4, 3
+
+
+def a2a_work(n: int, batch: int, cards: int = A2A_CARDS) -> tuple[int, int]:
+    """(bytes one card holds, bytes that leave it) in one tiled all-to-all
+    of ``batch`` rows of n int64 words sharded over ``cards`` cards: each
+    card keeps 1 / cards of its share and sends the rest."""
+    held = batch * n * 8 // cards
+    return held, held - held // cards
+
+
 LARGE_ROWS = (  # (name, n, q, batch): bench.py:34-40, :145, :150; BENCH_NOTES' Goldilocks A/B
     ("p60_32768", 32768, P60_32768_Q, 256),
     ("p60_1048576", 1 << 20, 576460752364240897, 4),
@@ -339,8 +356,14 @@ def main() -> None:
         print(f"still to port, {ident}: {what}: {nbytes} bytes {t_bytes * 1e3:.4f} ms, "
               f"{imads} IMADs {t_ops * 1e3:.4f} ms; bound "
               f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({by})")
-    print("still to port, K6: the all-to-all needs more than one card; its library "
-          "call, torch.distributed.all_to_all_single, cannot be timed on one H100")
+    name, n, _, batch = LARGE_ROWS[1]
+    held, sent = a2a_work(n, batch)
+    t = sent / NVLINK_BYTES_PER_S
+    print(f"still to port, K6: one all-to-all of {name}, B = {batch}, on {A2A_CARDS} "
+          f"H100s (worked out, not measured): {held} bytes a card, {sent} leave it, "
+          f"{t * 1e3:.4f} ms at {NVLINK_BYTES_PER_S:.3e} B/s each way; "
+          f"{A2A_EXCHANGES} a product, {A2A_EXCHANGES * t * 1e3:.4f} ms; its library call, "
+          "torch.distributed.all_to_all_single, not timed: needs four cards")
 
 
 if __name__ == "__main__":
