@@ -18,12 +18,13 @@ two, at degree 2^10 (the flat kernel order) and at Plonky2's degree 2^17,
 N = 2^20, and both 64-bit families above n = 8192 through the four-step
 (``kernels/fourstep64.py``: bench.py's p60_32768 at B = 256, every op, and
 p60_1048576 at B = 4; goldilocks_32768 and Goldilocks at 2^20 at the same
-batches, on gl64.cu's row kernels).  Phases, each of which raises on
-failure:
+batches, on gl64.cu's row kernels), and the mesh (``sharded.ShardedNtt`` on
+logical shards of the card, its stage exchange on ``kernels/csrc/a2a.cu``,
+kernel K6).  Phases, each of which raises on failure:
 
 1. device: the card's name and power limit (nvidia-smi), its SM count and
    top SM clock;
-2. build: nvcc builds the five CUDA sources from csrc/, in parallel;
+2. build: nvcc builds the six CUDA sources from csrc/, in parallel;
    ptxas's registers and spills (poseidon.cu's kernels must spill
    nothing); the SASS length of each poseidon.cu kernel and the
    instructions one width-8 permutation issues (cuobjdump);
@@ -60,6 +61,11 @@ failure:
    goldilocks_32768 B = 256 and goldilocks_1048576 B = 4 (the dot and the
    matvec at B = 64 and 4); and the product at n = 16384 (128 x 128), 1024
    (32 x 32) and 2048 (64 x 32) against its plain chain at both q;
+   ``a2a_exchange`` against ``all_to_all_plain``, both directions, D = 2, 4
+   and 8, int64 and int32 words of every pattern in (3, 40, 24) leaves
+   (blocks of 24 down to 3 words, so 16-, 8- and 4-byte vectors), and
+   p60_1048576's B = 4 column and row leaves at D = 4 with Goldilocks
+   residues >= 2^63;
 4. oracle: c(x) == a(x) * b(x) mod q at x = psi^(2k+1), a root of x^n + 1,
    by Python-int Horner evaluation, and one row against the golden model,
    at P60_4096, the generic q, P24_4096 and goldilocks_4096; inv(fwd(x))
@@ -70,6 +76,9 @@ failure:
    ``reference.schoolbook_negacyclic``, and intt(ntt(x)) == x at B = 16384;
    the psi^(2k+1) evaluations of the four-step product at p60_32768 and
    goldilocks_32768 (rows 2-5) and at 2^20 (rows 2-3), and its round trips;
+   the sharded product at p60_1048576 on 4 logical shards (row 2) and the
+   sharded DILITHIUM_256 product against ``reference.schoolbook_negacyclic``
+   (rows 0-3);
 5. main path: ``dispatch.best(p, op)`` for each of the twelve ops at
    P60_4096, at the generic q, at P24_4096 and at goldilocks_4096, then
    ``dispatch.best_nwc_matvec`` at P60_4096 (4 x 4, B = 256) and at
@@ -92,7 +101,21 @@ failure:
    (B = 256, the dot at K = 4, B = 64, the matvec 4 x 4 at B = 64) and for
    ``nwc``, ``nwc_fwd`` then ``nwc_inv`` of its output, ``spectrum`` then
    ``cached`` at p60_1048576 and goldilocks_1048576 (B = 4): each launches
-   its four-step kernels and equals its plain chain; then the commitment at
+   its four-step kernels and equals its plain chain; then the mesh:
+   ``sharded.ShardedNtt(fused_exchange=True)`` on FourStepPlan64's own
+   ``KernelFourStep`` at p60_1048576 B = 4 over 4 logical shards of the card
+   (1024 x 1024, blocks of 256 rows or columns), its eight ops, each with
+   the counts zeroed before it: D ``a2a_exchange`` launches an exchange call
+   (two a product, one a transform) and its four-step kernels, the result
+   gathered equal to ``FourStepPlan64``'s (spectra in its bit-reversed
+   order and domain) and to the ``fused_exchange=False`` run; ``nwc``,
+   ``spectrum`` and ``cached`` at Goldilocks 2^20 B = 4 on a 2 x 2 batch x
+   coeff mesh; the DILITHIUM_256 product at 16 x 16 on 8 shards through
+   the plain locals and K6 (B = 2048, against the K3 kernel); ``batch_pjit``
+   of ``best_nwc_poly_mult`` at P60_4096 B = 2048 over 4 batch shards,
+   one ``nwc64_product`` a shard, equal to the unsharded call; with two
+   cards or more, the p60 product and forward again with the shards on
+   distinct cards (with one, a line says it did not run); then the commitment at
    Plonky2's ``standard_recursion_config`` uncut (bounds.STARK_*: degree
    2^17, 135 columns, blowup 8, N = 2^20, 28 queries), the same stages with
    the counts zeroed before them: ``gl64_forward``, ``gl64_forward_scaled``,
@@ -121,13 +144,21 @@ failure:
    product chain's parts by graph replay: column forward, row kernel,
    column inverse, the transposes; the degree-2^17 commitment's LDE (and
    its parts: the torch coset scale and pad, the four-step) and its leaf
-   sponge by graph replay against their bounds.
+   sponge by graph replay against their bounds; ``a2a_exchange`` each way
+   at p60_1048576 B = 4, D = 4, against its plain version, its bound on one
+   card (``bounds.a2a_card_work``) and on four over NVLink
+   (``bounds.a2a_work``, worked out), the ``fused_exchange=False`` exchange
+   by graph replay (the kernel line's ``library_ms``: D^2 ``Tensor.copy_``
+   calls, since no one PyTorch call exchanges logical shards), and the
+   sharded product chain with either exchange against the single-device
+   chain, two turns, with the sanity band of twice the single chain.
 
 The line before the last lists each kernel with its launches on the main
 path, its largest difference from its plain version, its device time, its
-plain version's time and its bound (``tpu_ntt_torch/bounds.py``): the larger of
-its bytes over 3.35 TB/s and its 32-bit multiplies over the card's IMAD rate
-(its SMs x 64 a clock x its top SM clock).  The last line is
+plain version's time, its bound (``tpu_ntt_torch/bounds.py``: the larger of
+its bytes over 3.35 TB/s and its 32-bit multiplies over the card's IMAD rate,
+its SMs x 64 a clock x its top SM clock) and the time of the PyTorch call
+beside it (null but for ``a2a_exchange``).  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the package beside it, the script exits
 non-zero and prints no result.  pytest cannot run on a machine without JAX
 (tests/conftest.py imports it), so this script is the check of the port on
@@ -168,7 +199,8 @@ SOURCES = {"nwc64": "tpu_ntt_torch/kernels/csrc/nwc64.cu",
            "nwc32": "tpu_ntt_torch/kernels/csrc/nwc32.cu",
            "kyber": "tpu_ntt_torch/kernels/csrc/kyber.cu",
            "gl64": "tpu_ntt_torch/kernels/csrc/gl64.cu",
-           "poseidon": "tpu_ntt_torch/kernels/csrc/poseidon.cu"}
+           "poseidon": "tpu_ntt_torch/kernels/csrc/poseidon.cu",
+           "a2a": "tpu_ntt_torch/kernels/csrc/a2a.cu"}
 #: the TPU kernel body each function replaces
 REPLACES = {
     "nwc64_product": "tpu_ntt/kernels/mxu64.py:1442",  # _nwc_kernel (+ _cyclic_kernel :1474), K1a
@@ -216,6 +248,7 @@ REPLACES = {
     "gl64_matvec_scaled": "tpu_ntt/kernels/mxu64.py:1639",  # _make_matvec_kernel
     "poseidon_permute": "tpu_ntt/kernels/poseidon.py:193",  # _compiled, K5a
     "poseidon_sponge": "tpu_ntt/kernels/poseidon.py:218",  # _compiled_sponge, K5b
+    "a2a_exchange": "tpu_ntt/sharded.py:580",  # _a2a_pallas_leaf (pallas_call :669), K6
 }
 #: which entry points of its family's source each dispatch op launches
 OP_ENTRIES = {
@@ -360,12 +393,14 @@ def main() -> int:
     from tpu_ntt_torch import poseidon as gl_poseidon
     from tpu_ntt_torch.benchlib import (device_seconds_per_call, graph_seconds_per_call,
                                         host_seconds_per_call)
-    from tpu_ntt_torch.bounds import (DOT_TERMS, IMAD_PER_SM_CLOCK, KYBER_BATCH,
-                                      KYBER_K, LARGE_ROWS, POSEIDON_BATCH, STARK_BLOWUP,
-                                      STARK_COLS, STARK_DEGREE, STARK_QUERIES,
-                                      fourstep_work, lde_work, poseidon_work, seconds,
-                                      work)
-    from tpu_ntt_torch.kernels import _build
+    from tpu_ntt_torch import sharded
+    from tpu_ntt_torch.bounds import (A2A_CARDS, DOT_TERMS, IMAD_PER_SM_CLOCK, KYBER_BATCH,
+                                      KYBER_K, LARGE_ROWS, NVLINK_BYTES_PER_S,
+                                      POSEIDON_BATCH, STARK_BLOWUP, STARK_COLS,
+                                      STARK_DEGREE, STARK_QUERIES, a2a_card_work,
+                                      a2a_work, fourstep_work, lde_work, poseidon_work,
+                                      seconds, work)
+    from tpu_ntt_torch.kernels import _build, a2a
     from tpu_ntt_torch.kernels import poseidon as kposeidon
     from tpu_ntt_torch.kernels.fourstep64 import FourStepPlan64
     from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64
@@ -583,6 +618,29 @@ def main() -> int:
             compare("four-step chain", f"nwc {n1} x {n2} q={q} B=64",
                     fourstep_nwc_poly_mult_kernel(fs, x, y),
                     fourstep_nwc_poly_mult_kernel(fs, x, y, plain=True))
+
+    # K6: a2a_exchange against all_to_all_plain, both directions, D = 2, 4
+    # and 8, int64 and int32 words of every pattern (Goldilocks residues
+    # >= 2^63 among them) in (3, 40, 24) leaves (blocks of 24 down to 3
+    # words: 16-, 8- and 4-byte vectors), then at p60_1048576 B = 4, D = 4
+    # the leaves of the sharded product's exchanges, Goldilocks residues
+    def exchange_check(label, shards):
+        for split in (2, 1):
+            compare("a2a_exchange", f"{label} split_from_end={split}",
+                    torch.stack(a2a.all_to_all(shards, split)),
+                    torch.stack(a2a.all_to_all_plain(shards, split)))
+
+    for peers in (2, 4, 8):
+        bits = rng.integers(0, 1 << 64, size=(peers, 3, 40, 24), dtype=np.uint64)
+        for name, words in (("int64", bits.view(np.int64)),
+                            ("int32", bits.astype(np.uint32).view(np.int32))):
+            exchange_check(f"D={peers} {name} (3, 40, 24)", list(on_card(*words)))
+    fs20 = large["p60_1048576"]["plan"].fs
+    a2a_cols = on_card(*gl_operands(fs20.n1 * A2A_CARDS, LARGE_ROWS[1][3] * fs20.n2 // A2A_CARDS,
+                                    rng)[0].reshape(A2A_CARDS, LARGE_ROWS[1][3], fs20.n1, -1))
+    a2a_rows = [x.reshape(LARGE_ROWS[1][3], fs20.n1 // A2A_CARDS, fs20.n2) for x in a2a_cols]
+    exchange_check(f"p60_1048576 column leaves D={A2A_CARDS}", a2a_cols)
+    exchange_check(f"p60_1048576 row leaves D={A2A_CARDS}", a2a_rows)
 
     # the 24-bit family
     p24 = MxuPlan(P24_4096, device)
@@ -825,7 +883,7 @@ def main() -> int:
 
     # 5. main paths, through the entry points a user calls
     counts = (MxuPlan.launches, MxuPlan64.launches, KyberPlan.launches,
-              GoldilocksPlan64.launches, kposeidon.launches)
+              GoldilocksPlan64.launches, kposeidon.launches, a2a.launches)
 
     def zero_counts():
         for c in counts:
@@ -1065,6 +1123,134 @@ def main() -> int:
         drive_m(run, "cached", (a_m, spec_m), run["c"])
         inputs_large[name] = {"nwc": (a_m, b_m), "nwc_fwd": (a_m,), "cached": (a_m, spec_m)}
 
+    # the mesh (kernel K6 on the path): ShardedNtt on FourStepPlan64's own
+    # KernelFourStep (its 2^20 mid tables built once), the shards logical
+    # shards of this card; each op with the counts zeroed before it: D
+    # a2a_exchange launches an exchange of each group of D peers, the
+    # four-step's kernels, the single-device plan's result, the
+    # fused_exchange=False run's
+    def drive_sharded(label, q, sn, method, inputs, want, exchanges, expect, sn_plain=None):
+        zero_counts()
+        out = getattr(sn, method)(*inputs)
+        torch.cuda.synchronize()
+        seen = read_counts()
+        # each shard is a source once an exchange: D launches a group of peers
+        if (seen["a2a_exchange"] != sn.mesh.size * exchanges
+                or any(seen[k] < 1 for k in expect)):
+            raise AssertionError(f"sharded {label} did not launch {sn.mesh.size} x "
+                                 f"{exchanges} a2a_exchange and {expect}: {seen}")
+        got = out.gather()
+        if not torch.equal(got.reshape(want.shape), want):
+            raise AssertionError(f"sharded {label} differs from the single-device result")
+        if sn_plain is not None and not torch.equal(
+                getattr(sn_plain, method)(*inputs).gather(), got):
+            raise AssertionError(f"sharded {label} differs from its fused_exchange=False run")
+        if not canonical(got, q):
+            raise AssertionError(f"sharded {label} leaves [0, q)")
+        for k, v in seen.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"main path: sharded {label}, launches "
+              f"{ {k: v for k, v in seen.items() if v} }, shape {tuple(got.shape)}"
+              + ("; equals the fused_exchange=False run" if sn_plain else ""))
+        return out
+
+    def sharded_ops(name, mesh, batch_axis=None, ops=None):
+        """The eight ShardedNtt ops (or ``ops``) of large[name]'s rows on
+        ``mesh``, each against FourStepPlan64 and the plain exchange."""
+        run = large[name]
+        p, plan, lib = run["p"], run["plan"], run["lib"]
+        fs, (a_m, b_m) = plan.fs, (run["a"], run["b"])
+        sn = sharded.ShardedNtt(fs, mesh, batch_axis=batch_axis, fused_exchange=True)
+        sn_x = sharded.ShardedNtt(fs, mesh, batch_axis=batch_axis)
+        mat = lambda t, *lead: t.reshape(*lead, -1, fs.n1, fs.n2)  # noqa: E731
+        a_s, b_s = sn.put_natural(mat(a_m)), sn.put_natural(mat(b_m))
+        a3, b3 = torch.stack([a_m, b_m]), torch.stack([b_m, a_m])
+        a3_s, b3_s = (sn.put_natural(mat(t, 2), stacked=True) for t in (a3, b3))
+        spec = plan.nwc_spectrum(b_m)
+        fwd, col, inv = [f"{lib}_forward"], f"{lib}_forward", f"{lib}_inverse"
+        table = {  # op: (method, inputs, want, exchange calls, kernels)
+            "nwc": ("nwc_poly_mult", (a_s, b_s), run["c"], 2,
+                    [col, f"{lib}_cyclic_scaled", inv]),
+            "cyclic": ("cyclic_poly_mult", (a_s, b_s), plan.cyclic_poly_mult(a_m, b_m), 2,
+                       [col, f"{lib}_cyclic_scaled", inv]),
+            "fwd": ("ntt_fwd", (a_s,), plan.ntt_fwd(a_m), 1, fwd + [f"{lib}_forward_scaled"]),
+            "spectrum": ("nwc_spectrum", (b_s,), spec, 1, fwd + [f"{lib}_forward_scaled"]),
+            "cached": ("nwc_poly_mult_cached", (a_s, None), run["c"], 2,
+                       [col, f"{lib}_cached_scaled", inv]),
+            "dot": ("nwc_dot", (a3_s, b3_s), plan.nwc_dot(a3, b3), 2,
+                    [col, f"{lib}_dot_scaled", inv]),
+            "dot_cached": ("nwc_dot_cached", (a3_s, None), None, 2,
+                           [col, f"{lib}_dot_scaled", inv]),
+            "inv": ("ntt_inv", (None,), a_m, 1, [f"{lib}_inverse_scaled", inv]),
+        }
+        outs = {}
+        for op in ops or table:
+            method, inputs, want, exchanges, expect = table[op]
+            if op == "cached":
+                inputs = (a_s, outs["spectrum"])
+            elif op == "dot_cached":
+                spectra = torch.stack([sn.nwc_spectrum(sn.put_natural(mat(t))).gather()
+                                       for t in b3])
+                inputs, want = (a3_s, sharded.shard(mesh, sn.spec_fourstep(stacked=True),
+                                                    spectra)), table["dot"][2]
+            elif op == "inv":
+                inputs = (outs["fwd"],)
+            outs[op] = drive_sharded(f"{name} {method} on {mesh!r}", p.q, sn, method,
+                                     inputs, want, exchanges, expect, sn_x)
+        return sn, outs
+
+    shard_mesh = sharded.make_mesh((A2A_CARDS,), ("coeff",), device)
+    sn20, outs20 = sharded_ops("p60_1048576", shard_mesh)
+    p20 = large["p60_1048576"]["p"]
+    c20 = outs20["nwc"].gather().reshape(-1, p20.n)
+    check_evaluations("sharded p60_1048576", p20, ints(large["p60_1048576"]["a"][2:3]),
+                      ints(large["p60_1048576"]["b"][2:3]), ints(c20[2:3]), rng)
+    print(f"oracle: sharded p60_1048576 on {A2A_CARDS} logical shards c(x) == a(x) b(x) at "
+          "x = psi^(2k+1), row 2, 3 k; ntt_inv(ntt_fwd(x)) == x (above)")
+    sharded_ops("goldilocks_1048576",
+                sharded.make_mesh((2, 2), ("batch", "coeff"), device), "batch",
+                ("nwc", "spectrum", "cached"))
+    # DILITHIUM_256 at 16 x 16 on 8 shards: the plain locals (torch ops)
+    # with K6 between them, against the schoolbook product and the K3 kernel
+    dil_fs = sharded.FourStepPlan(DILITHIUM_256, 16, 16, device)
+    dil_sn = sharded.ShardedNtt(dil_fs, sharded.make_mesh((8,), ("coeff",), device),
+                                fused_exchange=True)
+    a_dil, b_dil = on_card(*operands(DILITHIUM_256.q, 256, BATCH, rng, np.int32))
+    dil_want = dispatch.best(DILITHIUM_256, "nwc")(a_dil, b_dil)
+    dil_out = drive_sharded(
+        f"DILITHIUM_256 16 x 16 nwc_poly_mult B={BATCH}, plain locals on 8 shards",
+        DILITHIUM_256.q, dil_sn, "nwc_poly_mult",
+        tuple(dil_sn.put_natural(t.reshape(-1, 16, 16)) for t in (a_dil, b_dil)),
+        dil_want, 2, [])
+    dil_rows = dil_out.gather().reshape(-1, 256)
+    for r in range(4):
+        if ints(dil_rows[r]) != reference.schoolbook_negacyclic(
+                ints(a_dil[r]), ints(b_dil[r]), DILITHIUM_256.q):
+            raise AssertionError(f"sharded DILITHIUM_256 row {r} differs from the schoolbook")
+    print("oracle: sharded DILITHIUM_256 rows 0-3 equal reference.schoolbook_negacyclic")
+    # batch_pjit: P60_4096 at B = 2048 over 4 batch shards, each through
+    # best_nwc_poly_mult on its shard, no exchange
+    zero_counts()
+    pjit = sharded.batch_pjit(P60_4096, lambda p, x, y: dispatch.best_nwc_poly_mult(p)(x, y),
+                              sharded.make_mesh((4,), ("batch",), device))
+    got = pjit(*inputs60["nwc"]).gather()
+    torch.cuda.synchronize()
+    seen = read_counts()
+    if seen["nwc64_product"] != 4 or seen["a2a_exchange"] or not torch.equal(got, out60["nwc"]):
+        raise AssertionError(f"batch_pjit over 4 shards differs from the unsharded call: {seen}")
+    for k, v in seen.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"main path: batch_pjit(P60_4096, best_nwc_poly_mult) B={BATCH} over 4 batch shards, "
+          f"launches { {k: v for k, v in seen.items() if v} }; equals the unsharded call")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        spread = sharded.make_mesh((A2A_CARDS,), ("coeff",),
+                                   [torch.device("cuda", i % cards) for i in range(A2A_CARDS)])
+        sharded_ops("p60_1048576", spread, ops=("nwc", "fwd"))
+    else:
+        print(f"sharded: torch.cuda.device_count() == {cards}: the p60_1048576 run with its "
+              "shards on distinct cards needs two or more, so it did not run")
+
     big_commit = commitment(STARK_DEGREE, ("gl64_forward", "gl64_forward_scaled",
                                           "poseidon_sponge", "poseidon_permute"))
     pk2, coeffs2, rows2 = big_commit["pk"], big_commit["coeffs"], big_commit["rows"]
@@ -1188,6 +1374,24 @@ def main() -> int:
             (nbytes, imads), *SLOW)
     timed["width-12 permute"] = permute_timed(12)
     timed["rows-of-8 sponge"] = sponge_timed(rows8, SLOW)
+    # K6: one exchange of p60_1048576's B = 4 leaves among 4 logical shards,
+    # each way (the forward's leaves are the column pass's, the inverse's
+    # the row pass's); the bound reads and writes every word once
+    p20_batch = LARGE_ROWS[1][3]
+    a2a_bytes = a2a_card_work(p20.n, p20_batch, A2A_CARDS)[0]
+    for name, split, leaves in (("a2a_exchange", 2, a2a_cols),
+                                ("a2a_exchange inverse", 1, a2a_rows)):
+        timed[name] = (
+            f"one exchange, split_from_end={split}, p60_1048576 B={p20_batch}, "
+            f"{A2A_CARDS} shards of {tuple(leaves[0].shape)}",
+            functools.partial(lambda split, *s: a2a.all_to_all(list(s), split), split),
+            functools.partial(lambda split, *s: a2a.all_to_all_plain(list(s), split), split),
+            tuple(leaves), (a2a_bytes, 0), (4, 20), 3)
+    # the PyTorch call beside K6: the fused_exchange=False exchange, D^2
+    # Tensor.copy_ calls (no one PyTorch call exchanges logical shards), by
+    # graph replay
+    library = {"a2a_exchange": graph_seconds_per_call(
+        lambda *s: a2a.all_to_all_plain(list(s), 2), *a2a_cols)}
 
     def time_turns(kernel_fn, plain_fn, inputs, plain_iters, repeats):
         """Turns plain, kernel, kernel, plain; a kernel turn takes the
@@ -1204,14 +1408,14 @@ def main() -> int:
                     plain_fn, *inputs, iters=plain_iters, repeats=repeats))
         return times
 
-    rows, per_call = [], {}
+    rows, per_call, device_s = [], {}, {}
     for name, (what, fn, plain, inputs, (nbytes, imads), plain_iters,
                repeats) in timed.items():
         times = time_turns(fn, plain, inputs, plain_iters, repeats)
         t_kernel, t_plain = min(times["graph"]), min(times["plain"])
         t_host = host_seconds_per_call(fn, *inputs)
         t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
-        per_call[name] = min(times["events"])
+        per_call[name], device_s[name] = min(times["events"]), t_kernel
         print(f"timing {name} ({what}, s/call): kernel by graph replay "
               f"{times['graph']}, by events {times['events']}, host enqueue "
               f"{t_host:.4e}; plain {times['plain']}; bound: {nbytes} bytes "
@@ -1225,7 +1429,7 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             # no PyTorch call computes an NTT, its product mod q or a hash
-            "library_ms": None,
+            "library_ms": library[name] * 1e3 if name in library else None,
         })
     per_s = {name: 1 / t for name, t in per_call.items()}  # back to back, host included
     # the chains' parts, device time by graph replay: where a four-step
@@ -1252,6 +1456,39 @@ def main() -> int:
                   f"host enqueue {host_seconds_per_call(fn, *inputs):.4e} s")
         print(f"timing parts: {name} nwc chain, sum of its four parts {total * 1e3:.4f} ms; "
               f"bytes as built {chain_bytes[f'{name} nwc chain']}")
+    # the sharded product on 4 logical shards against the single-device
+    # chain, graph replay in two turns; the sanity band: the single chain
+    # plus the bytes of three exchanges, under twice the single chain
+    run20 = large["p60_1048576"]
+    a_s, b_s = (sn20.put_natural(t.reshape(-1, fs20.n1, fs20.n2)) for t in (run20["a"], run20["b"]))
+    sn20_x = sharded.ShardedNtt(fs20, shard_mesh)
+    chains20 = {
+        "single-device chain (FourStepPlan64)": lambda x: best["p60_1048576", "nwc"](x, run20["b"]),
+        "sharded, fused_exchange=True (a2a_exchange)": lambda _: sn20.nwc_poly_mult(a_s, b_s),
+        "sharded, fused_exchange=False (all_to_all_plain)":
+            lambda _: sn20_x.nwc_poly_mult(a_s, b_s),
+    }
+    t20 = {}
+    for _ in range(2):
+        for what, fn in chains20.items():
+            t = graph_seconds_per_call(fn, run20["a"])
+            t20[what] = min(t, t20.get(what, t))
+    single, fused = t20["single-device chain (FourStepPlan64)"], t20[
+        "sharded, fused_exchange=True (a2a_exchange)"]
+    for what, t in t20.items():
+        print(f"timing sharded: p60_1048576 nwc B={p20_batch} on {A2A_CARDS} logical shards, "
+              f"{what}: {t * 1e3:.4f} ms by graph replay ({t / single:.3f} x the single-device "
+              f"chain); card {card}")
+    t_x = (device_s["a2a_exchange"] + device_s["a2a_exchange inverse"]) / 2
+    held, sent = a2a_work(p20.n, p20_batch)
+    print(f"timing sharded: expected about the single chain plus three exchanges' bytes, "
+          f"{(single + 3 * t_x) * 1e3:.4f} ms (an exchange {t_x * 1e3:.4f} ms, the mean of "
+          f"both ways by graph replay); "
+          f"{'within' if fused <= 2 * single else 'OUTSIDE'} the band of twice the single chain; "
+          f"the exchange's bound {seconds(a2a_bytes, 0, 1)[0] * 1e3:.4f} ms on one card "
+          f"({a2a_bytes} bytes at 3.35 TB/s), {sent / NVLINK_BYTES_PER_S * 1e3:.4f} ms on "
+          f"{A2A_CARDS} cards over NVLink ({sent} of {held} bytes a card leave it, worked out, "
+          f"not measured); card {card}")
     # the degree-2^17 commitment's two device stages by graph replay (few
     # calls: each holds gigabytes), against their bounds
     stark2 = {

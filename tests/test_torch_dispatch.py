@@ -120,7 +120,7 @@ def test_import_leaves_out_jax_and_tpu_ntt():
         "tpu_ntt_torch.kernels.kyber, tpu_ntt_torch.kernels.gl64, "
         "tpu_ntt_torch.kernels.poseidon, tpu_ntt_torch.poseidon, "
         "tpu_ntt_torch.stark, tpu_ntt_torch.bounds, tpu_ntt_torch.sharded, "
-        "tpu_ntt_torch.kernels.fourstep64\n"
+        "tpu_ntt_torch.kernels.fourstep64, tpu_ntt_torch.kernels.a2a\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_ntt')]\n"
         "print(bad)\n"
     )

@@ -197,7 +197,7 @@ def test_load_binds_the_c_signatures_of_kyber_cu(monkeypatch):
 
 def test_bounds_count_the_ported_kernels():
     """``work`` prices ``kyber_*`` at B = 16384, ML-KEM-768 (the bounds the
-    kernel table states), and ``unported`` no longer lists K4."""
+    kernel table states)."""
     imad_per_s = bounds.H100_SMS * bounds.IMAD_PER_SM_CLOCK * bounds.H100_TOP_SM_HZ
     want = {"forward": (0.0100, "bytes"), "product": (0.0150, "bytes"),
             "dot": (0.0351, "bytes"), "matvec": (0.0406, "operations")}
@@ -206,15 +206,19 @@ def test_bounds_count_the_ported_kernels():
                                                      bounds.KYBER_BATCH, 3), imad_per_s)
         assert round(max(t_bytes, t_ops) * 1e3, 4) == ms, entry
         assert ("bytes" if t_bytes >= t_ops else "operations") == by, entry
-    assert not [row for row in bounds.unported() if row[0].startswith("K4")]
 
 
 def test_bounds_work_out_the_all_to_all():
-    """K6, still to port: one exchange of p60_1048576, B = 4, over four
-    cards holds 8 MiB a card and sends 6 MiB of it, 14 us at 450 GB/s."""
+    """K6: one exchange of p60_1048576, B = 4, over four cards holds 8 MiB
+    a card and sends 6 MiB of it, 14 us at 450 GB/s; among four logical
+    shards of one card it reads and writes 32 MiB each way, 20 us at
+    3.35 TB/s, 24 MiB of it changing shard."""
     held, sent = bounds.a2a_work(1 << 20, 4)
     assert (held, sent) == (8 << 20, 6 << 20)
     assert round(sent / bounds.NVLINK_BYTES_PER_S * 1e6, 1) == 14.0
+    nbytes, crossing = bounds.a2a_card_work(1 << 20, 4, 4)
+    assert (nbytes, crossing) == (64 << 20, 24 << 20)
+    assert round(nbytes / bounds.MEM_BYTES_PER_S * 1e6, 1) == 20.0
 
 
 def test_timers_refuse_a_cpu_tensor():

@@ -21,6 +21,11 @@ versions on CPU tensors.  This much is ported:
 * the STARK commitment path over it: Poseidon2-GL permutations, sponges and
   Merkle trees (``tpu_ntt_torch.poseidon``), the coset LDE and FRI prover
   and verifier (``tpu_ntt_torch.stark``), on the kernels up to N = 2^20.
+* the mesh: ``tpu_ntt_torch.sharded``'s ``shard_batch``/``batch_pjit``
+  (data parallelism) and ``ShardedNtt``, the four-step sharded over one
+  mesh axis with its stage exchange on ``kernels/csrc/a2a.cu`` (kernel
+  K6); a mesh is an array of torch devices driven by one process, by
+  default D logical shards of one card.
 
     from tpu_ntt_torch import P60_4096, best_nwc_poly_mult, kyber
     c = best_nwc_poly_mult(P60_4096)(a, b)
@@ -31,7 +36,7 @@ versions on CPU tensors.  This much is ported:
 The package imports ``torch`` and never ``jax`` or ``tpu_ntt``.
 """
 
-from . import kyber, poseidon, stark
+from . import kyber, poseidon, sharded, stark
 from .dispatch import (
     OPS, best, best_cyclic_poly_mult, best_ntt_fwd, best_ntt_inv, best_nwc_dot,
     best_nwc_dot_cached, best_nwc_matvec, best_nwc_matvec_spectra,
@@ -48,7 +53,7 @@ __all__ = [
     "best_nwc_dot", "best_nwc_dot_cached", "best_nwc_matvec",
     "best_nwc_matvec_spectra", "best_nwc_ntt_fwd", "best_nwc_ntt_inv",
     "best_nwc_poly_mult", "best_nwc_poly_mult_cached", "best_nwc_spectrum",
-    "impl_name", "takes_pairs", "kyber", "poseidon", "stark",
+    "impl_name", "takes_pairs", "kyber", "poseidon", "sharded", "stark",
     "GoldilocksRing", "Ring32", "Ring64", "make_ring",
     "NttPlan", "nwc_poly_mult", "nwc_poly_mult_merged",
     "DILITHIUM_256", "FALCON_512", "FALCON_1024", "GOLDILOCKS_4096", "P24_1024",

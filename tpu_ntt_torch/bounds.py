@@ -10,15 +10,17 @@ and adds.  ``work`` counts a call of each ported kernel function (the
 the four-step's row kernels ``nwc64_*_scaled`` with their scale tables,
 the ML-KEM ``kyber_*`` functions through ``kyber_work``), ``fourstep_work``
 a large-n op through the whole four-step, and ``poseidon_work`` a call of
-``poseidon_permute`` or ``poseidon_sponge``; ``chip_smoke.py`` divides them
-by the rates of the card it runs on.
+``poseidon_permute`` or ``poseidon_sponge``, ``a2a_card_work`` an exchange
+of ``a2a_exchange`` among logical shards of one card (``a2a_work`` the same
+exchange over NVLink on four cards); ``chip_smoke.py`` divides them by the
+rates of the card it runs on.
 
 Run as a script, it prints the four-step chains' bounds at the shapes of
 bench.py's large-n rows (and the Goldilocks rows beside them), those of the
 STARK commitment's LDE and leaf sponge at Plonky2's degree 2^17 (``lde_work``,
-``poseidon_work``) and those of the TPU kernel calls still to port, worked
-out from the code (not measured) at the H100 SXM's data-sheet rates, K6's
-(the all-to-all) over NVLink on four cards::
+``poseidon_work``) and K6's exchange at p60_1048576 on one card and on four,
+worked out from the code (not measured) at the H100 SXM's data-sheet
+rates::
 
     python3 -m tpu_ntt_torch.bounds
 """
@@ -270,26 +272,28 @@ def seconds(nbytes: int, imads: int, imad_per_s: float) -> tuple[float, float]:
 
 
 # ----------------------------------------------------------------------
-# What is still to port on one card, and bench.py's large-n rows
+# The mesh's exchange, and bench.py's large-n rows
 # ----------------------------------------------------------------------
 
 P60_32768_Q = 576460752308273153  # bench.py:35
 
 
-def unported() -> list[tuple[str, str, int, int]]:
-    """(id, what is counted, bytes, 32-bit multiplies) of each TPU kernel
-    call still to port that one card can run: none (K2 above n = 8192
-    runs on the four-step since it gained gl64.cu's row passes; K6, the
-    all-to-all, needs more than one card)."""
-    return []
-
-
 # Kernel K6, the four-step's all-to-all (tpu_ntt/sharded.py:580
 # _a2a_pallas_leaf; ShardedNtt :691 runs one a transform, so three a
-# product: the forwards of a and b, the inverse), not ported: it needs more
-# than one card.  Its bound on four H100s joined all to all by NVLink.
+# product: the forwards of a and b, the inverse): csrc/a2a.cu's
+# a2a_exchange, D launches an exchange.  Its bound among D logical shards
+# of one card, and on four H100s joined all to all by NVLink.
 NVLINK_BYTES_PER_S = 450e9  # each way, from a card to the others (H100 SXM data sheet)
 A2A_CARDS, A2A_EXCHANGES = 4, 3
+
+
+def a2a_card_work(n: int, batch: int, shards: int, word: int = 8) -> tuple[int, int]:
+    """(bytes, bytes that change shard) of one exchange of ``batch`` rows of
+    n ``word``-byte words among ``shards`` logical shards of one card: every
+    word is read once and written once (the outputs are new tensors), and
+    all but each shard's own block cross to another shard's buffer."""
+    total = batch * n * word
+    return 2 * total, total - total // shards
 
 
 def a2a_work(n: int, batch: int, cards: int = A2A_CARDS) -> tuple[int, int]:
@@ -350,20 +354,17 @@ def main() -> None:
         by = "bytes" if t_bytes >= t_ops else "operations"
         print(f"{what}: {nbytes} bytes {t_bytes * 1e3:.4f} ms, {imads} IMADs "
               f"{t_ops * 1e3:.4f} ms; bound {max(t_bytes, t_ops) * 1e3:.4f} ms ({by})")
-    for ident, what, nbytes, imads in unported():
-        t_bytes, t_ops = seconds(nbytes, imads, imad_per_s)
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"still to port, {ident}: {what}: {nbytes} bytes {t_bytes * 1e3:.4f} ms, "
-              f"{imads} IMADs {t_ops * 1e3:.4f} ms; bound "
-              f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({by})")
     name, n, _, batch = LARGE_ROWS[1]
+    nbytes, crossing = a2a_card_work(n, batch, A2A_CARDS)
+    t_card = nbytes / MEM_BYTES_PER_S
     held, sent = a2a_work(n, batch)
     t = sent / NVLINK_BYTES_PER_S
-    print(f"still to port, K6: one all-to-all of {name}, B = {batch}, on {A2A_CARDS} "
-          f"H100s (worked out, not measured): {held} bytes a card, {sent} leave it, "
-          f"{t * 1e3:.4f} ms at {NVLINK_BYTES_PER_S:.3e} B/s each way; "
-          f"{A2A_EXCHANGES} a product, {A2A_EXCHANGES * t * 1e3:.4f} ms; its library call, "
-          "torch.distributed.all_to_all_single, not timed: needs four cards")
+    print(f"K6, a2a_exchange: one exchange of {name}, B = {batch}, D = {A2A_CARDS}: on one "
+          f"card, {A2A_CARDS} logical shards, {nbytes} bytes read and written ({crossing} "
+          f"change shard), {t_card * 1e3:.4f} ms; on {A2A_CARDS} H100s over NVLink, "
+          f"{held} bytes a card, {sent} leave it, {t * 1e3:.4f} ms at "
+          f"{NVLINK_BYTES_PER_S:.3e} B/s each way; {A2A_EXCHANGES} a product, "
+          f"{A2A_EXCHANGES * t_card * 1e3:.4f} and {A2A_EXCHANGES * t * 1e3:.4f} ms")
 
 
 if __name__ == "__main__":

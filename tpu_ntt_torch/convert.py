@@ -33,6 +33,11 @@ Goldilocks prime takes the same two maps (JAX's ``GoldilocksPlan64`` at
 16384 and 32768 inherits the split layout of ``MxuPlan64``, and its kernel
 four-step serves every op from 65536 on) with ``q=None``: both packages'
 Goldilocks spectra, cached ones too, are plain, so only the order changes.
+
+A sharded JAX array (``tpu_ntt.sharded``'s ``shard_batch`` or
+``ShardedNtt.put_natural`` and its ops' outputs) becomes the port's
+``sharded.ShardedTensor`` through ``shards_from_jax``: the same mesh shape,
+axis names and spec, one shard a mesh position.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch
 
 from .modmath import shoup_mul64
 from .reference import bit_reverse_permutation
-from .sharded import default_split
+from .sharded import ShardedTensor, default_split, make_mesh
 
 LANES = 128  # the TPU kernel's lane width, which sets its four-step layout
 
@@ -217,3 +222,28 @@ def large_spectra64_from_jax(hi, lo, to_natural, q: int | None = None,
         r = (1 << 64) % q
         x = shoup_mul64(x, r, (r << 64) // q, q)
     return x.contiguous().to(device)
+
+
+def shards_from_jax(x, device=None) -> ShardedTensor:
+    """A sharded JAX array of uint32 words, or a (hi, lo) pair of them ->
+    the port's ``ShardedTensor`` of int32 (or int64) shards: each device's
+    ``addressable_shards`` entry in mesh order, through ``uint32_to_int32``
+    (or ``pairs_to_int64``), on a ``sharded.make_mesh`` of the JAX mesh's
+    shape and axis names over ``device`` (by default the current CUDA
+    device), with the array's ``PartitionSpec``."""
+    pair = isinstance(x, tuple)
+    lead = x[0] if pair else x
+    jmesh = lead.sharding.mesh
+    spec = tuple(lead.sharding.spec) + (None,) * (lead.ndim - len(lead.sharding.spec))
+    if any(not (name is None or isinstance(name, str)) for name in spec):
+        raise ValueError(f"spec {spec}: one mesh axis a dimension at most")
+    mesh = make_mesh(jmesh.devices.shape, jmesh.axis_names, device)
+    words = [{s.device: np.array(s.data) for s in a.addressable_shards}
+             for a in (x if pair else (x,))]
+    shards = []
+    for jdev, dev in zip(jmesh.devices.flat, mesh.device_list()):
+        if pair:
+            shards.append(pairs_to_int64(words[0][jdev], words[1][jdev], dev))
+        else:
+            shards.append(uint32_to_int32(words[0][jdev], dev))
+    return ShardedTensor(mesh, spec, shards)

@@ -14,7 +14,9 @@ which ``tpu_ntt_torch.poseidon.Poseidon2GL`` calls; ``fourstep64
 .FourStepPlan64`` both 64-bit families above n = 8192 (every op at
 8192 < n <= 2^20 through ``sharded.KernelFourStep``, on ``csrc/nwc64.cu``
 at 30 < width <= 62 and on ``csrc/gl64.cu`` at the Goldilocks prime, whose
-row passes are K1a's large-n bodies).
+row passes are K1a's large-n bodies); ``a2a`` the four-step's stage
+exchange between the shards of a mesh axis (kernel K6, ``csrc/a2a.cu``),
+which ``sharded.ShardedNtt`` calls.
 """
 
 from __future__ import annotations
