@@ -27,9 +27,18 @@ kernel K6).  Phases, each of which raises on failure:
 2. build: nvcc builds the six CUDA sources from csrc/, in parallel;
    ptxas's registers and spills (poseidon.cu's kernels must spill
    nothing); the SASS length of each poseidon.cu kernel and the
-   instructions one width-8 permutation issues (cuobjdump);
+   instructions one width-8 permutation issues (cuobjdump); the
+   instructions a thread issues after its first barrier at n = 4096 in
+   nwc64.cu's radix-8 kernels and in the first core's loops;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
-   bit for bit on the card, with boundary rows of 0, 1 and q - 1: every op
+   bit for bit on the card, with boundary rows of 0, 1 and q - 1: the
+   radix-8 core (``nwc64_forward``, ``nwc64_inverse`` on rows and
+   ``nwc64_forward_cols``, ``nwc64_inverse_cols`` on every column of
+   (R, n, width) matrices, against the transposes around the plain
+   transform) at every n from 32 to 8192, B = 1, 3 and 2048 rows, widths
+   1, 3, 8, 128 and 1024, at P60_4096's q, the generic q and 2^62 - 2^16 + 1,
+   cyclic and merged tables, the forward at scale 1 and 2^64, the inverse
+   at n^-1 and 1; every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
    B = 256), the product, forward and inverse at n = 256 and 8192, the dot
    at n = 8192 (three rows of shared memory), every op at the generic q;
@@ -52,8 +61,8 @@ kernel K6).  Phases, each of which raises on failure:
    65536 random triples and 16384 near 2^64), against Python integers;
    the four-step's row kernels (``nwc64_cyclic_scaled``,
    ``nwc64_forward_scaled``, also times 2^64, ``nwc64_inverse_scaled``,
-   ``nwc64_cached_scaled``) and its column passes (``nwc64_forward``,
-   ``nwc64_inverse`` at 256 and 1024 points) at the shapes p60_32768 B = 256
+   ``nwc64_cached_scaled``) and its column passes (``nwc64_forward_cols``,
+   ``nwc64_inverse_cols`` at 256 and 1024 points) at the shapes p60_32768 B = 256
    and p60_1048576 B = 4 give them, after the mid tables are built (their
    time printed), ``nwc64_dot_scaled`` (fresh and cached) and
    ``nwc64_matvec_scaled`` at p60_32768's K = 4 and 4 x 4, B = 64; the same
@@ -142,7 +151,10 @@ kernel K6).  Phases, each of which raises on failure:
    chains (nwc, nwc_fwd, nwc_inv, cached, dot, dot_cached, matvec at both;
    nwc and cached at both 2^20 rows) against their plain chains, with the
    product chain's parts by graph replay: column forward, row kernel,
-   column inverse, the transposes; the degree-2^17 commitment's LDE (and
+   column inverse (at the Goldilocks q also the transposes around its
+   column pass; at 30 < width <= 62, beside the chain, the transpose route
+   the column entry points replace); ``nwc64_forward_cols`` and
+   ``nwc64_inverse_cols`` at p60_32768's column pass; the degree-2^17 commitment's LDE (and
    its parts: the torch coset scale and pad, the four-step) and its leaf
    sponge by graph replay against their bounds; ``a2a_exchange`` each way
    at p60_1048576 B = 4, D = 4, against its plain version, its bound on one
@@ -195,6 +207,8 @@ GL_FINAL = 32  # FRI's final codeword
 LEAF_SLICE = 8192  # rows of the 2^20 leaves held against the plain sponge (9.5 s)
 LDE_CHECK_COLS = 15  # columns of the 2^20 LDE held against its plain chain at a time
 FOURSTEP_DOT_BATCH = 64  # the dot at K = 4 and the 4 x 4 matvec at n = 32768
+Q62_MAX = 4611686018427322369  # 2^62 - 2^16 + 1: the largest prime q < 2^62, q = 1 mod 2^14
+COLUMN_WIDTHS = (1, 3, 8, 128, 1024)  # the column entry points' widths checked
 SOURCES = {"nwc64": "tpu_ntt_torch/kernels/csrc/nwc64.cu",
            "nwc32": "tpu_ntt_torch/kernels/csrc/nwc32.cu",
            "kyber": "tpu_ntt_torch/kernels/csrc/kyber.cu",
@@ -218,6 +232,10 @@ REPLACES = {
     # the dot's and the matvec's bodies at n = 16384 and 32768, K1b and K1c
     "nwc64_dot_scaled": "tpu_ntt/kernels/mxu64.py:1599",  # _make_dot_kernel via _dot_call
     "nwc64_matvec_scaled": "tpu_ntt/kernels/mxu64.py:1639",  # _make_matvec_kernel
+    # the four-step's column pass: the same bodies down the columns (JAX
+    # moves the axis in XLA around them, tpu_ntt/sharded.py:419-442)
+    "nwc64_forward_cols": "tpu_ntt/kernels/mxu64.py:1715",  # _nwc_fwd_kernel (+ :1544), K1a
+    "nwc64_inverse_cols": "tpu_ntt/kernels/mxu64.py:1733",  # _nwc_inv_kernel (+ :1559), K1a
     "nwc32_product": "tpu_ntt/kernels/mxu.py:480",  # _nwc_kernel, K3a
     "nwc32_cached": "tpu_ntt/kernels/mxu.py:596",  # _nwc_cached_kernel, K3a
     "nwc32_forward": "tpu_ntt/kernels/mxu.py:615",  # _nwc_fwd_kernel (+ :584), K3a
@@ -270,6 +288,13 @@ FOURSTEP_ENTRIES = {
     "dot_cached": ["forward", "dot_scaled", "inverse"], "matvec_spectra": _FWD,
     "matvec": _FWD + ["matvec_scaled", "inverse"],
 }
+
+
+def fourstep_entries(lib: str, op: str) -> list:
+    """The kernels a four-step op launches: nwc64.cu's column pass is its
+    column entry points (no transposes), gl64.cu's its row ones."""
+    col = {"forward": "forward_cols", "inverse": "inverse_cols"} if lib == "nwc64" else {}
+    return [f"{lib}_{col.get(e, e)}" for e in FOURSTEP_ENTRIES[op]]
 
 
 def operands(q: int, n: int, rows: int, rng: np.random.Generator, dtype=np.int64):
@@ -344,9 +369,9 @@ def sass_listing(lib) -> dict:
                           check=True, timeout=120).stdout
     kernels, name = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : .*\d([a-z]+_kernel)(?:I((?:Li\d+E)+)E)?", line)
+        m = re.search(r"Function : .*?\d+([a-z][a-z_]*_kernel)(?:I((?:L[ib]\d+E)+)E)?", line)
         if m:
-            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
             name = f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
             kernels[name] = []
         elif name and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)):
@@ -354,20 +379,29 @@ def sass_listing(lib) -> dict:
     return kernels
 
 
+def sass_loops(listing) -> list:
+    """The loops of a kernel after its first barrier, in the address order of
+    their backward branches: (first address, branch address, instructions)."""
+    start = next(i for i, (_, ins) in enumerate(listing) if ins.startswith("BAR.SYNC"))
+    code = listing[start:]
+    loops = [(int(m.group(1), 16), at) for at, ins in code
+             if (m := re.search(r"\bBRA (0x[0-9a-f]+)", ins)) and int(m.group(1), 16) < at]
+    return [(lo, hi, sum(lo <= at <= hi for at, _ in code)) for lo, hi in loops]
+
+
 def issued_per_thread(listing, trips) -> int | None:
-    """Instructions a thread issues after its block barrier in a kernel whose
-    rounds are loops: the straight code once and the body of the i-th loop
-    (a backward branch, in address order) ``trips[i]`` times; None where the
-    loops are not as many as ``trips``."""
+    """Instructions a thread issues after its block barrier, up to its last
+    EXIT: each instruction once for every trip of each loop around it (a
+    backward branch; ``trips[i]`` for the i-th in address order, so nested
+    loops multiply); None where the loops are not as many as ``trips``."""
     start = next(i for i, (_, ins) in enumerate(listing) if ins.startswith("BAR.SYNC"))
     end = max(i for i, (_, ins) in enumerate(listing) if "EXIT" in ins)
     code = listing[start:end + 1]
-    loops = [(int(m.group(1), 16), at) for at, ins in code
-             if (m := re.search(r"\bBRA (0x[0-9a-f]+)", ins)) and int(m.group(1), 16) < at]
+    loops = sass_loops(listing)
     if len(loops) != len(trips):
         return None
-    bodies = [sum(lo <= at <= hi for at, _ in code) for lo, hi in loops]
-    return len(code) + sum((t - 1) * n for t, n in zip(trips, bodies))
+    return sum(int(np.prod([t for (lo, hi, _), t in zip(loops, trips) if lo <= at <= hi]))
+               for at, _ in code)
 
 
 def nvidia_smi(query: str) -> str:
@@ -406,9 +440,9 @@ def main() -> int:
     from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64
     from tpu_ntt_torch.kernels.kyber import KyberPlan
     from tpu_ntt_torch.kernels.mxu import MxuPlan
-    from tpu_ntt_torch.kernels.mxu64 import MxuPlan64
+    from tpu_ntt_torch.kernels.mxu64 import MxuPlan64, SubPlan64
     from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
-    from tpu_ntt_torch.sharded import (KernelFourStep, column_fwd,
+    from tpu_ntt_torch.sharded import (KernelFourStep, column_fwd, column_inv,
                                        fourstep_nwc_poly_mult_kernel)
     from tpu_ntt_torch.params import (DILITHIUM_256, FALCON_1024, GOLDILOCKS_4096,
                                       P24_4096, P60_4096, make_params)
@@ -449,6 +483,27 @@ def main() -> int:
     per_perm = issued_per_thread(listing["permute_kernel<8>"], (4, 22, 4))
     print(f"  sass: one width-8 permutation at rf = 8, rp = 22 (its loads and stores "
           f"with it): {per_perm or 'loops not recognised, not'} counted instructions")
+    # nwc64.cu's radix-8 core against the first core at n = 4096, 512 threads
+    # a row: the instructions a thread issues after its first barrier (the
+    # radix kernels are unrolled; the first core's stage loop of 12 trips
+    # around its butterfly loop of 4, then 8 words stored, as
+    # forward_scaled_kernel and inverse_scaled_kernel run those bodies after
+    # their entry loop; nvcc unrolls the forward's store loop by 4, which
+    # leaves 2 trips and a remainder loop of none)
+    nwc_sass = sass_listing(libs["nwc64"])
+    radix = [k for k in nwc_sass if k.startswith("transform_kernel<")]
+    print(f"  sass: nwc64.cu's {len(radix)} radix-8 kernels, "
+          f"{min(len(nwc_sass[k]) for k in radix)} to {max(len(nwc_sass[k]) for k in radix)} "
+          "instructions each")
+    for kernel, trips in (("transform_kernel<12, 0, 0>", ()), ("transform_kernel<12, 1, 0>", ()),
+                          ("transform_kernel<8, 0, 1>", ()), ("transform_kernel<10, 0, 1>", ()),
+                          ("forward_scaled_kernel", (4, 12, 2, 0)),
+                          ("inverse_scaled_kernel", (4, 12, 8))):
+        code = nwc_sass[kernel]
+        issued = issued_per_thread(code, trips)
+        print(f"  sass: nwc64.cu {kernel}: {len(code)} instructions; after its first barrier "
+              f"a thread issues {issued or 'not counted:'} "
+              + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
 
     # 3. kernel vs plain version, bit for bit
     rng = np.random.default_rng(args.seed)
@@ -528,6 +583,73 @@ def main() -> int:
                 *operands(p.q, n, DOT_TERMS * DOT_BATCH_8192, rng)))
             check_op(plan, "dot", f"n=8192 K={DOT_TERMS} B={DOT_BATCH_8192}", (x3, y3))
 
+    # the radix-8 core: nwc64_forward and nwc64_inverse on rows and their
+    # column entry points on every column of (R, n, width) matrices, at every
+    # log n of the sub-plans' window, B in (1, 3, 2048) rows and widths in
+    # COLUMN_WIDTHS, P60_4096's q, the generic q and the largest 62-bit q
+    # (rows and columns of 0, 1 and q - 1 first), cyclic and merged tables,
+    # the forward at scale 1 and at 2^64 (a spectrum), the inverse at n^-1
+    # and at 1: each against its plain version (on columns, the transposes
+    # around it), bit for bit
+    def radix_check(plan, entry, x, flat, plain, scale, width=None):
+        """One launch of the radix-8 core (``entry`` on rows, or its column
+        twin with ``width``) against ``plain`` times its scale."""
+        n, log_n, q = plan.p.n, plan.p.log_n, plan.p.q
+        # the plain transforms hold scale 1 (forward) and n^-1 (inverse)
+        factor = scale[0] if entry == "forward" else scale[0] * n % q
+        want = plan._cols_plain(plain, x, width, None) if width else plain(x)
+        if factor != 1:
+            want = plan.ring.mul_tw(want, plan.ring.encode_tw([factor], device))
+        out = torch.empty_like(x)
+        name, shape = (f"{entry}_cols", (x.numel() // (n * width), log_n, width)) if width \
+            else (entry, (x.shape[0], log_n))
+        plan._launch(name, out, x, out, *plan._transform_table(flat), *shape, q, *scale)
+        torch.cuda.synchronize()
+        name = f"nwc64_{name}"
+        errs[name] = max(errs.get(name, 0), int((out - want).abs().max()))
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name} differs from its plain version at n={n} q={q} "
+                                 f"scale={scale[0]} shape {tuple(x.shape)} width={width}")
+
+    def card_operands(q, n, rows, gen):
+        """(rows, n) residues drawn on the card, rows of 0, 1 and q - 1 first."""
+        x = torch.randint(0, q, (rows, n), generator=gen, device=device, dtype=torch.int64)
+        for k, v in enumerate((0, 1, q - 1)[:rows]):
+            x[k] = v
+        return x
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device).manual_seed(args.seed)
+    for q in (P60_4096.q, Q_GENERIC, Q62_MAX):
+        for log_n in range(5, 14):
+            n = 1 << log_n
+            plan = SubPlan64(make_params(n, q), device)
+            rows = card_operands(q, n, BATCH, gen)
+            mats = {w: card_operands(q, n * w, max(1, min(3, (1 << 22) // (n * w))), gen)
+                    for w in COLUMN_WIDTHS}
+            spectrum = plan._scale_args((1 << 64) % q)
+            checks = 0
+            for entry, flat, plain, scales in (
+                    ("forward", plan.plan.merged_flat, plan.nwc_ntt_fwd_plain,
+                     (plan._scale_one, spectrum)),
+                    ("forward", plan.plan.cyclic_flat, plan.ntt_fwd_plain,
+                     (plan._scale_one, spectrum)),
+                    ("inverse", plan.plan.merged_inv_flat, plan.nwc_ntt_inv_plain,
+                     (plan._scale_cached, plan._scale_one)),
+                    ("inverse", plan.plan.cyclic_inv_flat, plan.ntt_inv_plain,
+                     (plan._scale_cached, plan._scale_one))):
+                for scale in scales:
+                    for batch in (1, 3, BATCH):
+                        radix_check(plan, entry, rows[:batch], flat, plain, scale)
+                        checks += 1
+                    for width, x in mats.items():
+                        radix_check(plan, entry, x, flat, plain, scale, width)
+                        checks += 1
+            print(f"kernel vs plain: nwc64_forward, nwc64_inverse and their column entry points "
+                  f"at n={n} q={q}: {checks} launches equal (rows B = 1, 3, {BATCH}; widths "
+                  f"{COLUMN_WIDTHS}, up to 3 matrices of 2^22 words in all)")
+    print(f"kernel vs plain: the radix-8 core checked in {time.perf_counter() - t0:.1f} s")
+
     # K1a's large-n bodies, and K2's: the four-step at bench.py's p60_32768,
     # B = 256, p60_1048576, B = 4, and the Goldilocks rows of the same shapes
     # (bounds.LARGE_ROWS); its row kernels and column passes against their
@@ -553,11 +675,14 @@ def main() -> int:
             return operands(q, n, rows, rng)
 
         a_l, b_l = on_card(*gen(batch))
-        cols = fs.to_cols(a_l, b_l)
-        label = f"{name} columns ({cols.shape[0]} rows of {fs.n1})"
-        m = compare(f"{lib}_forward", label, fs.col_k.nwc_ntt_fwd(cols),
-                    fs.col_k.nwc_ntt_fwd_plain(cols))
-        ma, mb = (fs.as_rows(t) for t in fs.from_cols(m).chunk(2))
+        # the column pass: on nwc64.cu's column-tile kernels at 30 < width
+        # <= 62 (held to the transposes around the plain transform), between
+        # torch transposes on gl64.cu's row kernel at the Goldilocks q
+        col_entry = f"{lib}_forward_cols" if lib == "nwc64" else f"{lib}_forward"
+        label = f"{name} column pass of a and b ({2 * batch * fs.n2} columns of {fs.n1})"
+        m = compare(col_entry, label, column_fwd(fs, True, False, a_l, b_l),
+                    column_fwd(fs, True, True, a_l, b_l))
+        ma, mb = m.chunk(2)
         rk, pre, post = fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
         label = f"{name} rows ({ma.shape[0]} of {fs.n2}, period {fs.n1})"
         c_rows = compare(f"{lib}_cyclic_scaled", label,
@@ -573,13 +698,11 @@ def main() -> int:
         compare(f"{lib}_cached_scaled", label,
                 rk.cyclic_poly_mult_cached_scaled(ma, spec_rows, pre, post),
                 rk.cyclic_poly_mult_cached_scaled_plain(ma, spec_rows, pre, post))
-        c_cols = fs.to_cols(c_rows)
-        c_l = fs.from_cols(compare(
-            f"{lib}_inverse", f"{name} columns ({c_cols.shape[0]} rows of {fs.n1})",
-            fs.col_k.nwc_ntt_inv(c_cols), fs.col_k.nwc_ntt_inv_plain(c_cols)))
+        c_l = compare(f"{lib}_inverse_cols" if lib == "nwc64" else f"{lib}_inverse",
+                      f"{name} inverse column pass ({batch * fs.n2} columns of {fs.n1})",
+                      column_inv(fs, c_rows, True, False), column_inv(fs, c_rows, True, True))
         large[name] = {"p": p, "plan": plan, "lib": lib, "a": a_l, "b": b_l, "c": c_l,
-                       "cols": cols, "ma": ma, "mb": mb, "c_cols": c_cols,
-                       "spec_rows": spec_rows}
+                       "ma": ma, "mb": mb, "c_rows": c_rows, "spec_rows": spec_rows}
         if name == "p60_1048576":
             continue
         # the dot's and the matvec's row kernels at K = 4 and 4 x 4, B =
@@ -1105,7 +1228,7 @@ def main() -> int:
             best[p.name, op] = dispatch.best(p, op)
             drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op],
                   inputs[op], getattr(plan, dispatch.METHODS[op] + "_plain"),
-                  [f"{lib}_{e}" for e in FOURSTEP_ENTRIES[op]],
+                  fourstep_entries(lib, op),
                   run["c"] if op == "nwc" else None)
 
     def drive_m(run, op, inputs, want=None):
@@ -1113,7 +1236,7 @@ def main() -> int:
         best[p.name, op] = dispatch.best(p, op)
         return drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op],
                      inputs, getattr(plan, dispatch.METHODS[op] + "_plain"),
-                     [f"{run['lib']}_{e}" for e in FOURSTEP_ENTRIES[op]], want)
+                     fourstep_entries(run["lib"], op), want)
     for name in ("p60_1048576", "goldilocks_1048576"):
         run = large[name]
         a_m, b_m = run["a"], run["b"]
@@ -1167,7 +1290,8 @@ def main() -> int:
         a3, b3 = torch.stack([a_m, b_m]), torch.stack([b_m, a_m])
         a3_s, b3_s = (sn.put_natural(mat(t, 2), stacked=True) for t in (a3, b3))
         spec = plan.nwc_spectrum(b_m)
-        fwd, col, inv = [f"{lib}_forward"], f"{lib}_forward", f"{lib}_inverse"
+        col, inv = fourstep_entries(lib, "nwc")[0], fourstep_entries(lib, "nwc")[-1]
+        fwd = [col]
         table = {  # op: (method, inputs, want, exchange calls, kernels)
             "nwc": ("nwc_poly_mult", (a_s, b_s), run["c"], 2,
                     [col, f"{lib}_cyclic_scaled", inv]),
@@ -1357,6 +1481,20 @@ def main() -> int:
         }
     for name in ("p60_32768", "goldilocks_32768"):
         timed.update(row_timed(name))
+    # nwc64.cu's column entry points at p60_32768, B = 256, as its product
+    # calls them: the forward down the (256, 128) matrices of a, the inverse
+    # down those of the row pass's product
+    run = large["p60_32768"]
+    fs32 = run["plan"].fs
+    col32 = fs32.col_k
+    for kernel, method, x in (("nwc64_forward_cols", "nwc_ntt_fwd_cols", run["a"]),
+                              ("nwc64_inverse_cols", "nwc_ntt_inv_cols",
+                               run["c_rows"].reshape(run["a"].shape))):
+        timed[kernel] = (
+            f"p60_32768 column pass, {x.shape[0] * fs32.n2} columns of {fs32.n1}",
+            functools.partial(getattr(col32, method), width=fs32.n2),
+            functools.partial(getattr(col32, method + "_plain"), width=fs32.n2), (x,),
+            work(kernel, fs32.col_params, x.shape[0] * fs32.n2), *SLOW)
     chain_bytes = {}
     chains = [(name, op) for name in ("p60_32768", "goldilocks_32768")
               for op in ("nwc", "nwc_fwd", "nwc_inv", "cached", "dot", "dot_cached",
@@ -1433,29 +1571,45 @@ def main() -> int:
         })
     per_s = {name: 1 / t for name, t in per_call.items()}  # back to back, host included
     # the chains' parts, device time by graph replay: where a four-step
-    # product's time goes
+    # product's time goes; at 30 < width <= 62 the column passes are the
+    # column entry points, beside them (not in the chain) the transpose route
+    # they replace, the flat kernel between torch transposes
     for name, *_ in LARGE_ROWS:
         run = large[name]
         plan, fs = run["plan"], run["plan"].fs
         col_k, rk, pre, post = fs.col_k, fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
         parts = {
-            "column forward (a and b)": (col_k.nwc_ntt_fwd, (run["cols"],)),
+            "column forward (a and b)": (
+                lambda x, y: column_fwd(fs, True, False, x, y), (run["a"], run["b"])),
             f"row {run['lib']}_cyclic_scaled": (
                 lambda x, y: rk.cyclic_poly_mult_scaled(x, y, pre, post),
                 (run["ma"], run["mb"])),
-            "column inverse": (col_k.nwc_ntt_inv, (run["c_cols"],)),
-            "the five transposes": (
-                lambda x, y, z: (fs.from_cols(fs.to_cols(x, y)), fs.from_cols(fs.to_cols(z))),
-                (run["a"], run["b"], run["c"])),
+            "column inverse": (lambda y: column_inv(fs, y, True, False), (run["c_rows"],)),
         }
+        if run["lib"] != "nwc64":
+            parts["of which the five transposes"] = (
+                lambda x, y, z: (fs.from_cols(fs.to_cols(x, y)), fs.from_cols(fs.to_cols(z))),
+                (run["a"], run["b"], run["c"]))
         total = 0.0
         for part, (fn, inputs) in parts.items():
             t = graph_seconds_per_call(fn, *inputs)
-            total += t
+            total += t if not part.startswith("of which") else 0.0
             print(f"timing parts: {name} nwc chain, {part}: {t * 1e3:.4f} ms by graph replay, "
                   f"host enqueue {host_seconds_per_call(fn, *inputs):.4e} s")
-        print(f"timing parts: {name} nwc chain, sum of its four parts {total * 1e3:.4f} ms; "
+        print(f"timing parts: {name} nwc chain, sum of its three parts {total * 1e3:.4f} ms; "
               f"bytes as built {chain_bytes[f'{name} nwc chain']}")
+        if run["lib"] == "nwc64":
+            route = {
+                "column forward (a and b) by the transposes, to_cols, nwc64_forward, from_cols":
+                    (lambda x, y: fs.from_cols(col_k.nwc_ntt_fwd(fs.to_cols(x, y))),
+                     (run["a"], run["b"])),
+                "column inverse by the transposes, to_cols, nwc64_inverse, from_cols":
+                    (lambda y: fs.from_cols(col_k.nwc_ntt_inv(fs.to_cols(y))), (run["c_rows"],)),
+            }
+            for part, (fn, inputs) in route.items():
+                t = graph_seconds_per_call(fn, *inputs)
+                print(f"timing parts: {name}, not on the path: {part}: {t * 1e3:.4f} ms by "
+                      "graph replay")
     # the sharded product on 4 logical shards against the single-device
     # chain, graph replay in two turns; the sanity band: the single chain
     # plus the bytes of three exchanges, under twice the single chain

@@ -235,4 +235,6 @@ def test_cuda_kernels_match_plain(cuda_device, n):
         assert torch.equal(getattr(tm, method)(*args),
                            getattr(tm, method + "_plain")(*args)), method
     torch.cuda.synchronize()
-    assert all(MxuPlan64.launches[k] > before[k] for k in KERNELS), MxuPlan64.launches
+    # the column entry points are SubPlan64's column pass (test_torch_nwc64_radix.py)
+    assert all(MxuPlan64.launches[k] > before[k] for k in KERNELS
+               if not k.endswith("_cols")), MxuPlan64.launches

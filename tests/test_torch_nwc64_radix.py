@@ -1,0 +1,470 @@
+"""The radix-8 core of ``csrc/nwc64.cu`` (``nwc64_forward``, ``nwc64_inverse``
+and their column entry points) modelled on the CPU, and K1a's two ablation
+toggles.
+
+* The lazy butterflies: a Python model of the .cu's Shoup product, CT and
+  GS butterflies and final corrections, with the range asserts the .cu
+  states beside each step, on every pair of 0, 1, q - 1, q, 2q - 1, 4q - 1
+  and random words at P60_4096's q, q = 576460752308273153 and the largest
+  62-bit prime q = 1 mod 2^14 (``Q62_MAX``, where 4q is 2^18 below 2^64).
+* The pass schedule: a numpy model of the kernel (which words each thread
+  holds in each pass, the tile's swizzle, the per-pass twiddle tables of
+  ``mxu64.pass_table``) run at n = 32, 256 and 4096, rows and columns,
+  cyclic and negacyclic tables, scales 1 and not 1, against the plain
+  ``ntt`` transforms and JAX's XLA transforms (``tpu_ntt.ntt``); the shared
+  memory accesses of every pass at every n from 32 to 8192, both layouts,
+  counted for bank conflicts.
+* ``SubPlan64``'s column methods (plain on the CPU: the transpose route)
+  against ``FourStepPlan``'s transposes and JAX's four-step locals
+  (``tpu_ntt.sharded._along`` of its XLA transforms) at 32 x 32 and
+  64 x 32, widths n2 / D for D = 2, 4 and 8.
+* The C signatures ``load`` and ``load_scaled`` bind for the four entry
+  points; a ``cuda``-marked case holds both layouts against plain on a card.
+* JAX's ``MxuPlan64`` with ``prefix_scan = True`` and with
+  ``carry_save = False`` (mxu64.py:785-797) in interpret mode at n = 256:
+  the same integers as the port's ``MxuPlan64``.
+
+Operands come from ``numpy.random.default_rng`` with rows of 0, 1 and
+q - 1.  Tolerance: none — exact integer equality.
+"""
+
+import functools
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import tpu_ntt.ntt as jntt
+import tpu_ntt.params as jparams
+from tpu_ntt import sharded as jsharded
+from tpu_ntt.kernels.mxu64 import MxuPlan64 as JaxMxuPlan64
+from tpu_ntt_torch import ntt, sharded
+from tpu_ntt_torch.convert import int64_to_pairs, pairs_to_int64
+from tpu_ntt_torch.kernels import _build, _plan
+from tpu_ntt_torch.kernels import mxu64 as kmxu64
+from tpu_ntt_torch.kernels.mxu64 import MxuPlan64, SubPlan64
+from tpu_ntt_torch.params import P60_4096, make_params
+
+Q_GENERIC = 576460752308273153  # bench.py:35, 60 bits, not a trinomial
+Q62_MAX = 4611686018427322369  # 2^62 - 2^16 + 1: the largest prime q < 2^62, q = 1 mod 2^14
+QS = (P60_4096.q, Q_GENERIC, Q62_MAX)
+MASK = (1 << 64) - 1
+WORDS = 8  # words a thread holds
+
+
+def operands(q: int, shape, seed: int) -> torch.Tensor:
+    """Residues of the given shape; the first rows are all 0, all 1 and all
+    q - 1."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, q, size=shape, dtype=np.int64)
+    rows = x.reshape(-1, shape[-1])
+    for k, v in enumerate((0, 1, q - 1)[:rows.shape[0]]):
+        rows[k] = v
+    return torch.from_numpy(x)
+
+
+def ints(t: torch.Tensor) -> np.ndarray:
+    """int64 words -> an object array of Python ints (their uint64 values)."""
+    return np.array(t.numpy().view(np.uint64).tolist(), dtype=object)
+
+
+# ---------------------------------------------------------------------------
+# The lazy arithmetic, as the .cu states it (q < 2^62: every lane < 4q < 2^64)
+# ---------------------------------------------------------------------------
+
+
+def shoup_lazy(a, w, ws, q):
+    """a * w - floor(a * ws / 2^64) * q mod 2^64: in [0, 2q) for any
+    a < 2^64, given w < q and ws = floor(w * 2^64 / q)."""
+    assert np.all(a >= 0) and np.all(a <= MASK) and np.all(w < q)
+    r = (a * w - ((a * ws) >> 64) * q) & MASK
+    assert np.all(r < 2 * q) and np.all(r % q == a * w % q)
+    return r
+
+
+def csub(x, m):
+    return np.where(x >= m, x - m, x)
+
+
+def ct(x, y, w, ws, q, canonical=False):
+    """Cooley-Tukey: lanes in [0, 4q) in and out; ``canonical``: x < q in
+    (the forward's first stage), which skips the compare."""
+    assert np.all(x < (q if canonical else 4 * q)) and np.all(y < 4 * q)
+    u = x if canonical else csub(x, 2 * q)
+    assert np.all(u < 2 * q)
+    v = shoup_lazy(y, w, ws, q)
+    x, y = u + v, u + 2 * q - v
+    assert np.all(x < 4 * q) and np.all(y > 0) and np.all(y < 4 * q)
+    return x, y
+
+
+def gs(x, y, w, ws, q):
+    """Gentleman-Sande: lanes in [0, 2q) in and out."""
+    assert np.all(x < 2 * q) and np.all(y < 2 * q)
+    total, diff = x + y, x + 2 * q - y
+    assert np.all(total < 4 * q) and np.all(diff > 0) and np.all(diff < 4 * q)
+    return csub(total, 2 * q), shoup_lazy(diff, w, ws, q)
+
+
+def forward_out(x, scale, scale_shoup, q):
+    """The forward's store: [0, 4q) -> [0, q), the scale folded in."""
+    assert np.all(x < 4 * q)
+    if scale == 1:
+        return csub(csub(x, 2 * q), q)
+    return csub(shoup_lazy(x, scale, scale_shoup, q), q)
+
+
+def inverse_out(x, scale, scale_shoup, q):
+    assert np.all(x < 2 * q)
+    return csub(shoup_lazy(x, scale, scale_shoup, q), q)
+
+
+@pytest.mark.parametrize("q", QS)
+def test_lazy_butterflies_hold_their_ranges(q):
+    rng = np.random.default_rng(q % 1000)
+    words = [0, 1, q - 1, q, 2 * q - 1, 4 * q - 1] + [
+        int(v) for v in rng.integers(0, 4 * q, size=6, dtype=np.uint64)]
+    twiddles = [0, 1, q - 1] + [int(v) for v in rng.integers(0, q, size=3)]
+    x, y = (np.array(v, dtype=object) for v in zip(*[(a, b) for a in words for b in words]))
+    for w in twiddles:
+        ws = (w << 64) // q
+        cx, cy = ct(x, y, w, ws, q)
+        assert np.all(cx % q == (x + w * y) % q) and np.all(cy % q == (x - w * y) % q)
+        low = (x < 2 * q) & (y < 2 * q)
+        gx, gy = gs(x[low], y[low], w, ws, q)
+        assert np.all(gx % q == (x[low] + y[low]) % q)
+        assert np.all(gy % q == (x[low] - y[low]) * w % q)
+        # the store: canonical from any lane the passes leave
+        for scale in (1, w):
+            out = forward_out(cx, scale, (scale << 64) // q, q)
+            assert np.all(out < q) and np.all(out == cx * scale % q)
+        out = inverse_out(gx, w, ws, q)
+        assert np.all(out < q) and np.all(out == gx * w % q)
+    # any 64-bit word into the Shoup product (its asserts: below 2q, the
+    # right residue), and the butterflies' asserts bite
+    shoup_lazy(MASK, q - 1, ((q - 1) << 64) // q, q)
+    zero, one = np.array([0], dtype=object), (1 << 64) // q
+    with pytest.raises(AssertionError):
+        gs(np.array([4 * q - 1], dtype=object), zero, 1, one, q)
+    with pytest.raises(AssertionError):
+        ct(np.array([4 * q], dtype=object), zero, 1, one, q)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's schedule, as the .cu lays it out
+# ---------------------------------------------------------------------------
+
+
+def tile(log_n: int, cols: bool) -> int:
+    """Transforms a block (the .cu's ``tile``)."""
+    n = 1 << log_n
+    if not cols:
+        return 1 if n >= 1024 else 1024 // n
+    return min(max(8, 1024 // n), 8192 // n)
+
+
+def swizzle(a):
+    """Where word a of the tile lives in shared memory."""
+    return a ^ ((a >> 3) & 15)
+
+
+def element(log_n: int, s: int, r: int, t, reg: int):
+    """The element register ``reg`` of thread t holds in pass (s, r)."""
+    T = (1 << log_n) >> (s + r)
+    j = t + (reg >> r) * ((1 << log_n) // WORDS)
+    return (j // T) * (T << r) + (reg % (1 << r)) * T + j % T
+
+
+def tile_word(log_n: int, cols: bool, g, i):
+    a = i * tile(log_n, True) + g if cols else g * (1 << log_n) + i
+    return swizzle(a)
+
+
+def threads(log_n: int, cols: bool):
+    """(g, t) of each thread of a block."""
+    tid = np.arange(tile(log_n, cols) * (1 << log_n) // WORDS)
+    per, g_tile = (1 << log_n) // WORDS, tile(log_n, cols)
+    return (tid % g_tile, tid // g_tile) if cols else (tid // per, tid % per)
+
+
+def run_pass(x, w_tab, ws_tab, offset, s, r, hi, q, inverse, fresh=False):
+    """The stages of pass (s, r) on the registers x, twiddles from the
+    per-pass tables: stage s + d's u-th twiddle of group hi at word
+    2^d + u (word 0 for d = 0) of the group's pairs; ``fresh``: the
+    forward's first pass, its first stage on canonical lanes."""
+    stages = range(r - 1, -1, -1) if inverse else range(r)
+    for d in stages:
+        span = (1 << r) >> (d + 1)
+        w, ws = [], []
+        for u in range(1 << d):
+            word = 0 if d == 0 else (1 << d) + u
+            at = offset + 2 * (((word // 2) << s) + hi) + word % 2
+            w.append(w_tab[at])
+            ws.append(ws_tab[at])
+        for reg in range(WORDS):
+            k = reg % (1 << r)
+            if not k & span:
+                e = k >> (r - d)
+                if inverse:
+                    x[reg], x[reg + span] = gs(x[reg], x[reg + span], w[e], ws[e], q)
+                else:
+                    x[reg], x[reg + span] = ct(x[reg], x[reg + span], w[e], ws[e], q,
+                                               fresh and d == 0)
+
+
+def model(plan: SubPlan64, x: torch.Tensor, flat: tuple, scale: tuple, inverse: bool,
+          width: int | None = None) -> torch.Tensor:
+    """The kernel on (R, n * width) words, block by block: rows (width
+    None) or every column of the (n, width) matrices."""
+    log_n, n, q = plan.p.log_n, plan.p.n, plan.p.q
+    cols, width = width is not None, width or 1
+    schedule = kmxu64.passes(log_n)
+    offsets = np.cumsum([0] + [1 << (r + s) for s, r in schedule])
+    w_tab, ws_tab = (ints(t) for t in kmxu64.pass_table(flat))
+    words, out = ints(x.reshape(-1)), np.zeros(x.numel(), dtype=object)
+    transforms, g_tile = x.numel() // n, tile(log_n, cols)
+    g, t = threads(log_n, cols)
+
+    def at(tg, i):
+        base = (tg // width) * n * width + tg % width if cols else tg * n
+        return base + i * width
+
+    for block in range(-(-transforms // g_tile)):
+        tg = block * g_tile + g
+        live = tg < transforms
+        order = range(len(schedule) - 1, -1, -1) if inverse else range(len(schedule))
+        regs, smem, written = None, {}, None
+        for p in order:
+            s, r = schedule[p]
+            idx = [element(log_n, s, r, t, reg) for reg in range(WORDS)]
+            if regs is None:  # the first pass: from device memory
+                regs = [np.where(live, words[np.where(live, at(tg, i), 0)], 0) for i in idx]
+                regs = [np.array(v, dtype=object) for v in regs]
+            else:  # the exchange: each thread's words, then the barrier
+                for reg, i in enumerate(written):
+                    for a, v in zip(tile_word(log_n, cols, g, i), regs[reg]):
+                        smem[a] = v
+                regs = [np.array([smem[a] for a in tile_word(log_n, cols, g, i)], dtype=object)
+                        for i in idx]
+            hi = 0 if p == 0 else t // ((1 << log_n) >> (s + 3))
+            run_pass(regs, w_tab, ws_tab, offsets[p], s, r, hi, q, inverse,
+                     fresh=p == 0 and not inverse)
+            written = idx
+        for reg, i in enumerate(written):
+            y = (inverse_out if inverse else forward_out)(regs[reg], *scale, q)
+            out[at(tg, i)[live]] = y[live]
+        assert len(smem) <= g_tile * n
+    return torch.from_numpy(np.array(out.tolist(), dtype=np.uint64).view(np.int64)
+                            .reshape(x.shape))
+
+
+def run_jax(fn, x):
+    """A JAX function of (hi, lo) pairs on int64 words, jitted (1-3 s to
+    compile here; eagerly, 7-17 s of op compiles)."""
+    out = jax.jit(fn)(int64_to_pairs(x))
+    return pairs_to_int64(np.asarray(out[0]), np.asarray(out[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def plans(n: int, q: int = P60_4096.q):
+    jp = jparams.P60_4096 if (n, q) == (4096, P60_4096.q) else jparams.make_params(n, q)
+    return SubPlan64(make_params(n, q), "cpu"), jntt.NttPlan(jp, jparams.Reduction.SHOUP)
+
+
+def test_pass_schedule_and_tables_cover_every_stage():
+    """Every stage once, the first pass short, the tables' offsets the
+    .cu's, and every twiddle of every stage in its pass's table once a group."""
+    for log_n in range(5, 14):
+        schedule = kmxu64.passes(log_n)
+        assert [s for s, _ in schedule] == list(np.cumsum([0] + [r for _, r in schedule])[:-1])
+        assert sum(r for _, r in schedule) == log_n
+        assert schedule[0][1] in (1, 2, 3) and all(r == 3 for _, r in schedule[1:])
+        idx = kmxu64.pass_indices(log_n)
+        assert len(idx) == sum(1 << (s + r) for s, r in schedule)
+        used = np.sort(idx[idx > 0])
+        assert np.array_equal(used, np.arange(1, 1 << log_n))  # each stage entry once
+    plan, _ = plans(256)
+    w, ws = kmxu64.pass_table(plan.plan.merged_flat)
+    assert w.is_contiguous() and w.shape == (292,)
+    assert torch.equal(w, plan.plan.merged_flat[0][torch.from_numpy(kmxu64.pass_indices(8))])
+    assert plan._transform_table(plan.plan.merged_flat) is plan._transform_table(
+        plan.plan.merged_flat)
+
+
+def test_shared_memory_accesses_are_conflict_free():
+    """Each half-warp's 8-byte accesses of every pass hit 16 distinct bank
+    pairs (two wavefronts a warp), rows and columns, n = 32 to 8192; no two
+    threads of a block share a word."""
+    for log_n in range(5, 14):
+        for cols in (False, True):
+            g, t = threads(log_n, cols)
+            for s, r in kmxu64.passes(log_n):
+                words = np.stack([tile_word(log_n, cols, g, element(log_n, s, r, t, reg))
+                                  for reg in range(WORDS)])
+                assert len(np.unique(words)) == words.size
+                assert words.max() < tile(log_n, cols) << log_n
+                slots = np.sort(words.reshape(WORDS, -1, 16) % 16, axis=-1)
+                assert np.all(np.diff(slots, axis=-1) > 0), (log_n, cols, s, r)
+
+
+@pytest.mark.parametrize("n", [32, 256, 4096])
+def test_model_matches_plain_and_jax(n):
+    plan, jplan = plans(n)
+    q, r = plan.p.q, (1 << 64) % plan.p.q
+    rows = {32: 37, 256: 5, 4096: 2}[n]  # partial last tiles below 1024
+    x = operands(q, (rows, n), seed=n)
+    for kind, fwd, inv in (("merged", "nwc_ntt_fwd_plain", "nwc_ntt_inv_plain"),
+                           ("cyclic", "ntt_fwd_plain", "ntt_inv_plain")):
+        flat, flat_inv = (getattr(plan.plan, f"{kind}_flat"),
+                          getattr(plan.plan, f"{kind}_inv_flat"))
+        spec = model(plan, x, flat, plan._scale_one, False)
+        assert torch.equal(spec, getattr(plan, fwd)(x)), kind
+        scaled = model(plan, x, flat, plan._scale_args(r), False)
+        assert torch.equal(scaled, plan.ring.mul_tw(spec, plan._r_tw)), kind
+        back = model(plan, x, flat_inv, plan._scale_cached, True)
+        assert torch.equal(back, getattr(plan, inv)(x)), kind
+        assert torch.equal(model(plan, spec, flat_inv, plan._scale_cached, True), x)
+        if kind == "merged":  # JAX's XLA merged transforms
+            assert torch.equal(spec, run_jax(lambda v: jntt.nwc_fwd_merged(jplan, v), x))
+            assert torch.equal(back, run_jax(lambda v: jntt.nwc_inv_merged(jplan, v), x))
+    # columns: widths below, at and above the tile
+    for width in (3, 8, 20):
+        xc = operands(q, (2, n * width), seed=width)
+        assert torch.equal(model(plan, xc, plan.plan.merged_flat, plan._scale_one, False,
+                                 width), plan.nwc_ntt_fwd_cols_plain(xc, width)), width
+        assert torch.equal(model(plan, xc, plan.plan.cyclic_inv_flat, plan._scale_cached,
+                                 True, width), plan.ntt_inv_cols_plain(xc, width)), width
+        if n == 4096:
+            break
+
+
+# ---------------------------------------------------------------------------
+# The column methods, on the CPU the transpose route
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n1,n2", [(32, 32), (64, 32)])
+def test_column_methods_match_transposes_and_jax_locals(n1, n2):
+    q = Q_GENERIC
+    fs = sharded.KernelFourStep(make_params(n1 * n2, q), n1, n2, "cpu")
+    jfs = jsharded.FourStepPlan(jparams.make_params(n1 * n2, q), n1, n2)
+    col = fs.col_k
+    for d in (2, 4, 8):
+        width = n2 // d
+        x = operands(q, (3, n1 * width), seed=d)
+        for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv"):
+            got = getattr(col, method + "_cols")(x, width)
+            assert torch.equal(got, getattr(col, method + "_cols_plain")(x, width))
+            route = fs.from_cols(getattr(col, method + "_plain")(fs.to_cols(x, width=width)),
+                                 width=width)
+            assert torch.equal(got, route), (method, width)
+            out = torch.empty_like(x)
+            assert getattr(col, method + "_cols")(x, width, out) is out
+            assert torch.equal(out, got)
+            if d == 4 and method in ("ntt_fwd", "ntt_inv"):  # JAX's local chain's passes
+                jfn = jntt.ntt_fwd_nogather if method == "ntt_fwd" else jntt.ntt_inv_nogather
+                local = functools.partial(jsharded._along, 2,
+                                          lambda u, f=jfn: f(jfs.col_plan, u))
+                want = run_jax(local, x.reshape(3, n1, width))
+                assert torch.equal(got, want.reshape(x.shape)), (method, width)
+        # the chain's helper: several operands stacked, no transposes
+        y = sharded.columns(fs, "nwc_ntt_fwd", False, x, x.flip(0).contiguous(), width=width)
+        assert torch.equal(y.reshape(2, 3, -1)[1], col.nwc_ntt_fwd_cols(x.flip(0).contiguous(),
+                                                                           width))
+
+
+def test_column_methods_refuse_what_the_kernel_does_not_take():
+    col = SubPlan64(make_params(32, Q_GENERIC), "cpu")
+    x = operands(Q_GENERIC, (2, 32 * 4), seed=1)
+    with pytest.raises(ValueError, match="whole"):
+        col.ntt_fwd_cols(x, 3)
+    with pytest.raises(ValueError, match="whole"):
+        col.ntt_fwd_cols(x, 0)
+    with pytest.raises(TypeError):
+        col.ntt_fwd_cols(x.int(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        col.ntt_fwd_cols(x.t(), 4)
+    with pytest.raises(ValueError, match="holds"):
+        col.ntt_inv_cols(x, 4, torch.empty(3, dtype=torch.int64))
+    # the public plan keeps its rows only; Goldilocks and plain sub-plans transpose
+    assert not hasattr(MxuPlan64, "ntt_fwd_cols")
+    plain = sharded.FourStepPlan(make_params(1024, Q_GENERIC), 32, 32, "cpu")
+    assert not hasattr(plain.col_k, "ntt_fwd_cols")
+
+
+# ---------------------------------------------------------------------------
+# The C signatures, and the card
+# ---------------------------------------------------------------------------
+
+
+C_TYPES = {"int": kmxu64.ctypes.c_int, "uint64_t": kmxu64.ctypes.c_uint64}
+
+
+def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
+    """``load`` types nwc64_forward and nwc64_inverse, ``load_scaled`` the
+    column entry points, with the C argument types of csrc/nwc64.cu."""
+    bound = {}
+    monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
+    _plan.load.__wrapped__("nwc64", 64)
+    monkeypatch.setattr(kmxu64, "load", lambda name, bits: None)
+    monkeypatch.setattr(kmxu64, "bind", lambda name, argtypes: bound.update(argtypes))
+    kmxu64.load_scaled.__wrapped__()
+    source = (_build.CSRC / "nwc64.cu").read_text()
+    decls = dict(re.findall(r'extern "C" int (nwc64_\w+)\(([^)]*)\)', source))
+    for suffix in ("forward", "inverse", "forward_cols", "inverse_cols"):
+        params = [p.strip() for p in decls[f"nwc64_{suffix}"].split(",")]
+        assert len(params) == len(bound[suffix]), suffix
+        for param, ty in zip(params, bound[suffix]):
+            want = (kmxu64.ctypes.c_void_p if "*" in param
+                    else C_TYPES[param.rsplit(" ", 1)[0]])
+            assert ty is want, (suffix, param)
+    assert {"nwc64_forward_cols", "nwc64_inverse_cols"} <= set(MxuPlan64.launches)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card chip_smoke.py runs this check")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.cuda
+def test_cuda_rows_and_columns_match_plain(cuda_device):
+    for n in (32, 256, 4096):
+        plan = SubPlan64(make_params(n, Q62_MAX), cuda_device)
+        x = operands(Q62_MAX, (5, n * 8), seed=n).to(cuda_device)
+        rows = x.reshape(-1, n)
+        for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv", "nwc_spectrum"):
+            assert torch.equal(getattr(plan, method)(rows),
+                               getattr(plan, method + "_plain")(rows)), (n, method)
+        for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv"):
+            for width in (1, 3, 8):
+                xc = x[:3].reshape(-1)[:3 * n * width].reshape(3, n * width)
+                got = getattr(plan, method + "_cols")(xc, width)
+                want = getattr(plan, method + "_cols_plain")(xc, width)
+                assert torch.equal(got, want), (n, method, width)
+
+
+# ---------------------------------------------------------------------------
+# K1a's ablation toggles: the default body's integers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("toggle", ["prefix_scan", "carry_save"])
+def test_k1a_toggle_gives_the_ports_integers(toggle):
+    """JAX's ``MxuPlan64`` with the Sklansky borrow scan on (mxu64.py:797,
+    :699-708) or the u32-word accumulator in place of the carry-save lanes
+    (:791, ``_matmul_mont`` :862-945, ``_redc96`` :736), one product in
+    interpret mode at n = 256: the port's ``MxuPlan64`` gives the same."""
+    value = {"prefix_scan": True, "carry_save": False}[toggle]
+    jax_cls = type(f"JaxMxuPlan64_{toggle}", (JaxMxuPlan64,), {toggle: value})
+    jm = jax_cls(jparams.make_params(256, Q_GENERIC))
+    jm.groups_per_step = 1  # keep interpret-mode cost down
+    a, b = operands(Q_GENERIC, (3, 256), seed=21), operands(Q_GENERIC, (3, 256), seed=22)
+    want = jm.nwc_poly_mult(int64_to_pairs(a), int64_to_pairs(b), interpret=True)
+    got = MxuPlan64(make_params(256, Q_GENERIC), "cpu").nwc_poly_mult(a, b)
+    assert torch.equal(got, pairs_to_int64(np.asarray(want[0]), np.asarray(want[1])))
+    assert torch.equal(got, ntt.nwc_poly_mult_merged(ntt.NttPlan(make_params(256, Q_GENERIC),
+                                                                 device="cpu"), a, b))

@@ -74,10 +74,12 @@ def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
              terms: int = DOT_TERMS, forms=None, period: int = 1) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) of one call of a fused NTT kernel entry
     (``product``, ``cached``, ``forward``, ``inverse``, ``dot``,
-    ``matvec``, and the four-step's row kernels ``cyclic_scaled``,
-    ``cached_scaled``, ``forward_scaled`` at scale 1, ``inverse_scaled``,
-    ``dot_scaled`` fresh or, as ``dot_cached_scaled``, cached, and
-    ``matvec_scaled``) on ``batch`` output rows of n ``word``-byte residues:
+    ``matvec``, the column entry points ``forward_cols`` and
+    ``inverse_cols`` on ``batch`` columns, and the four-step's row kernels
+    ``cyclic_scaled``, ``cached_scaled``, ``forward_scaled`` at scale 1,
+    ``inverse_scaled``, ``dot_scaled`` fresh or, as ``dot_cached_scaled``,
+    cached, and ``matvec_scaled``) on ``batch`` output rows of n
+    ``word``-byte residues:
     each transform needs (n/2) log2 n twiddle products, each slot product
     one Montgomery product, each scale one Shoup product.  ``terms`` is the
     K of the dot and both k and l of the matvec, whose count is the whole
@@ -87,6 +89,7 @@ def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
     each table (w, w') (w alone for Goldilocks), read once.  ``forms``
     overrides the (twiddle, slot) product forms, which default to Shoup and
     Montgomery of the word size."""
+    entry = entry.removesuffix("_cols")  # a column entry point: its row twin's work
     bits = "64" if word == 8 else "32"
     forms = forms or ("shoup" + bits, "mont" + bits)
     shoup, mont = (muls(f, q) for f in forms)
@@ -191,9 +194,9 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
     column inverse), ``nwc_fwd`` (column forward, ``forward_scaled``) or
     ``nwc_inv`` (``inverse_scaled``, column inverse).  Bytes: each input
     read once and the output written once, with the mid tables (and the
-    matvec's spectra of A); as built, what the kernels and the torch
-    transposes around the column pass move (each transpose reads and
-    writes its tensor once)."""
+    matvec's spectra of A); as built, what the kernels move, and at the
+    Goldilocks q the torch transposes around its column pass (each reads
+    and writes its tensor once; the 60-bit column pass has none)."""
     n1, n2 = default_split(n)
     l1, l2 = n1.bit_length() - 1, n2.bit_length() - 1
     data = batch * n * 8
@@ -233,6 +236,8 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
         assert op == "nwc_inv", op
         kernels = [row("inverse_scaled", batch), col("inverse", batch)]
         tables, io, moved = mid, 2 * data, 4 * data
+    if forms is None:  # nwc64.cu's column entry points: no transposes
+        moved = 0
     built = sum(b for b, _ in kernels) + moved
     return io + tables, built, sum(m for _, m in kernels)
 

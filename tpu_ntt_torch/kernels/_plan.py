@@ -202,6 +202,12 @@ class KernelPlan:
         (w, w') pair as it is."""
         return table
 
+    def _transform_table(self, flat):
+        """The table the ``_forward`` and ``_inverse`` entry points take for
+        a flat table (stage s's group g at entry 2^s + g): here the flat
+        table itself."""
+        return flat
+
     # ------------------------------------------------------------------
     # Layout map
     # ------------------------------------------------------------------
@@ -433,15 +439,16 @@ class KernelPlan:
         rows = x.numel() // self.p.n
         if rows == 0:
             return out
-        return self._launch("forward", out, x, out, *_table(tw), rows,
-                            self.p.log_n, *self._q_args(False), *scale)
+        return self._launch("forward", out, x, out, *_table(self._transform_table(tw)),
+                            rows, self.p.log_n, *self._q_args(False), *scale)
 
     def _inverse(self, x, itw):
         out = torch.empty_like(x)
         if x.shape[0] == 0:
             return out
-        return self._launch("inverse", out, x, out, *_table(itw), x.shape[0],
-                            self.p.log_n, *self._q_args(False), *self._scale_cached)
+        return self._launch("inverse", out, x, out, *_table(self._transform_table(itw)),
+                            x.shape[0], self.p.log_n, *self._q_args(False),
+                            *self._scale_cached)
 
     def _launch(self, entry: str, out: torch.Tensor, *args) -> torch.Tensor:
         return launch(self.lib_name, self._lib(), entry, self.launches, out, *args)

@@ -13,13 +13,17 @@
 //                  nwc_spectrum, by its scale)
 //   nwc64_inverse  _nwc_inv_kernel (:1733: nwc_ntt_inv) and _inv_kernel
 //                  (:1559: ntt_inv)
+//   nwc64_forward_cols, nwc64_inverse_cols  the same two on every column of
+//                  (R, n, width) natural rows: the four-step's column pass
+//                  (tpu_ntt_torch/sharded.py), where JAX moves the axis in
+//                  XLA around the same two kernels (tpu_ntt/sharded.py:419-442)
 //   nwc64_dot      _make_dot_kernel (:1599) through MxuPlan64._dot_call
 //                  (:2238), fresh or cached
 //   nwc64_matvec   _make_matvec_kernel (:1639) through nwc_matvec_cached
 //                  (:2305), after nwc64_forward has transformed s
 // and, as the row pass of the four-step that serves 8192 < n <= 2^20
-// (tpu_ntt_torch/sharded.py, where nwc64_forward and nwc64_inverse run the
-// column pass), K1a's large-n bodies:
+// (tpu_ntt_torch/sharded.py, where nwc64_forward_cols and nwc64_inverse_cols
+// run the column pass), K1a's large-n bodies:
 //   nwc64_cyclic_scaled   _cyclic_scaled_kernel (:1501): post . INTT(NTT(pre
 //                  . a) o NTT(pre . b)), row r scaled by table row r % period;
 //                  with the column pass it computes what the split-radix
@@ -45,7 +49,10 @@
 // carried over.  Correct for any odd q < 2^62 and 32 <= n <= 8192 (the
 // public window is 256 <= n <= 8192; below it, the four-step's sub-sizes).
 //
-// Design, correct first and simple (the design of nwc32.cu on 64-bit words):
+// Two cores.  nwc64_forward, nwc64_inverse and their column entry points run
+// the radix-8 core below ("The radix-8 core"); the other ten entry points
+// run the first core, correct first and simple (the design of nwc32.cu on
+// 64-bit words), until they move onto the radix-8 one:
 // * One thread block per row (per output row for the dot and the matvec).
 //   The rows a block works on live in dynamic shared memory, 8n bytes each:
 //   the product holds two (128 KiB at n = 8192), the dot three (192 KiB at
@@ -73,27 +80,25 @@
 //   tensor, and nwc64_matvec accumulates sum_j REDC(S_j * A_ij) from device
 //   memory (A stays in L2) and runs one inverse per output row.
 // * The four-step's row pass (the *_scaled functions) is product_kernel,
-//   forward_kernel, inverse_kernel, dot_kernel and matvec_kernel with one
-//   Shoup multiply more, by a table row, at entry and/or exit (never on a
+//   the first core's forward and inverse, dot_kernel and matvec_kernel with
+//   one Shoup multiply more, by a table row, at entry and/or exit (never on a
 //   cached spectrum, which the row forward has already scaled).  Row r of
 //   a launch reads row r % period of the (period, n) tables (w, w'): a
 //   batch of B polynomials of n1 rows each passes period = n1, every row
 //   of a polynomial in one launch.  The entry product leaves [0, q) before the transform, the exit
 //   product canonical words, as strict Shoup does for q < 2^62.
 //
-// What bounds it on this card.  Not the 64-bit multiplies it was first
-// thought to be: Hopper builds a 64 x 64 product from 32-bit IMADs, about
-// twelve for a Shoup-64 or Montgomery-64 product, and at P60_4096, B = 2048
-// the product's 3 transforms and slot pass need 2.0e9 of them, 0.12 ms at
-// 132 SMs x 64 IMADs a clock x 1.98 GHz, against 201 MB of operands and
-// result, 0.06 ms at 3.35 TB/s.  The product takes about four times that
-// bound, and the 24-bit kernel, with a sixth of the multiplies a butterfly,
-// takes more than half its time (PERF.md): what holds both back is
-// instruction issue and latency between barriers (index arithmetic, shared
-// loads and stores, twiddle loads and conditional subtracts around each
-// product) and the __syncthreads of every stage.  Several stages per barrier
-// in registers, lazy reduction and several rows per block at small n are the
-// later work.
+// What bounds the first core on this card.  Not the 64-bit multiplies it was
+// first thought to be: Hopper builds a 64 x 64 product from 32-bit IMADs,
+// about twelve for a Shoup-64 or Montgomery-64 product, and at P60_4096,
+// B = 2048 the product's 3 transforms and slot pass need 2.0e9 of them,
+// 0.12 ms at 132 SMs x 64 IMADs a clock x 1.98 GHz, against 201 MB of
+// operands and result, 0.06 ms at 3.35 TB/s.  The product takes about four
+// times that bound (PERF.md): what holds it back is instruction issue and
+// latency between barriers (index arithmetic, shared loads and stores,
+// twiddle loads and conditional subtracts around each product) and the
+// __syncthreads of every stage.  The radix-8 core's header says what it
+// does about each.
 
 #include <cstdint>
 
@@ -207,39 +212,376 @@ __global__ void product_kernel(const uint64_t* __restrict__ a,
   }
 }
 
-// The forward of one row, times `scale` unless it is 1.
-__global__ void forward_kernel(const uint64_t* __restrict__ in,
-                               uint64_t* __restrict__ out, Table tw, int log_n,
-                               uint64_t q, uint64_t scale, uint64_t scale_shoup) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = in[row + i];
+// ---------------------------------------------------------------------------
+// The radix-8 core: nwc64_forward, nwc64_inverse, nwc64_forward_cols and
+// nwc64_inverse_cols.  The same integers as the first core's forward and
+// inverse (a canonical result is unique), by another schedule:
+//
+// * Passes in registers.  A thread holds kWords = 8 words and a pass runs
+//   three stages on them with no barrier between them: stage s + d of a
+//   radix-8 group pairs its registers k and k + 2^(2 - d).  log n = 12 takes
+//   four passes and three barriers instead of twelve of each.  The first
+//   pass (in forward order) takes log n mod 3 stages, 3 if that is 0, and
+//   there each thread holds 8 / 2^stages groups; it is the pass at stage 0,
+//   where every group has the same twiddles (hi = 0 below).  Shapes, pass
+//   stages and table offsets are template constants (kLogN): one kernel
+//   for each log n from 5 to 13 and direction and layout, every loop
+//   unrolled, no index arithmetic left to run but the thread's own.
+// * Device memory once.  The forward's first pass loads straight from
+//   device memory (register k of group j is element k * n / 2^stages + j:
+//   a warp's 8-byte loads cover 256 contiguous bytes of a row), and its last
+//   pass stores straight to it, the correction and the scale folded into
+//   its registers (a thread's eight words are adjacent there: four 16-byte
+//   stores on rows).  The inverse runs the passes in reverse order, so it
+//   loads 16-byte vectors and stores 8-byte ones.  Shared memory is only the
+//   exchange between passes: each pass reads and then writes the same eight
+//   words of each thread, so one barrier a pass suffices.
+// * No bank conflicts.  Word a of the tile (g * n + i on rows, i * tile + g
+//   on columns) lives at a ^ ((a >> 3) & 15): bits 3 to 6 flip the low four
+//   (within each 16 words, and one to one: bit 6 is never flipped, so bit
+//   3 is known again, and with it bit 0).  Every pass's 8-byte accesses of
+//   every half-warp then hit 16 distinct bank pairs, the two wavefronts 256
+//   bytes need (tests/test_torch_nwc64_radix.py counts them at every n
+//   from 32 to 8192, both layouts), for two instructions an address; a
+//   first swizzle of six cost more than the conflicts it saved (PERF.md).
+//   Not tried: warp shuffles of
+//   the two 32-bit halves, two shuffles a word where shared memory costs a
+//   store and a load, with the barrier between warps needed all the same.
+// * Lazy butterflies (Harvey).  Forward lanes stay in [0, 4q): the CT
+//   butterfly brings x under 2q with one compare, leaves the Shoup product
+//   in [0, 2q), and returns x + v and x + 2q - v.  Inverse lanes stay in
+//   [0, 2q): the GS butterfly corrects x + y once and leaves the Shoup
+//   product of x + 2q - y in [0, 2q).  One correction to [0, q) at the
+//   store: two compares for the forward at scale 1, else one Shoup product
+//   of the lane as it is (any a < 2^64) and one compare.  q < 2^62 keeps
+//   4q < 2^64, so no lane wraps.  Each invariant stands beside its step.
+// * Twiddles a pass at a time, host-built (mxu64.pass_table): pass (s, R)
+//   holds its stages' twiddles as 2^(R - 1) columns of 16-byte pairs of
+//   twiddles for each of its 2^s groups, w and w' in two tables of the same
+//   layout:
+//   column 0 (stage s, then a pad word), column 1 (stage s + 1's two),
+//   columns 2 and 3 (stage s + 2's four).  A stage loads what it uses, one
+//   16-byte vector per two twiddles, and a warp's loads are 512 contiguous
+//   bytes (consecutive groups, in the last pass) or one broadcast word (one
+//   group, in the first).  Host-built rather than staged in shared memory:
+//   at n = 4096 a block holds one row, so a staged table would be read once
+//   a block all the same and would cost 75 KB of shared memory beside the
+//   row's 32 KB; the per-pass tables (4680 words each of w and w' at
+//   n = 4096, 1.14 n) stay in L2.
+// * Several transforms a block, at least 128 threads.  On rows, a block
+//   takes 1024 / n rows up to n = 1024 (n / 8 threads a row); on columns, a
+//   tile of max(8, 1024 / n) adjacent columns (at least 64 bytes of each
+//   row of the tile) up to n = 1024, then 8192 / n.  A tile holds at most
+//   64 KiB.  A width below the tile is handled: the tile's transforms run on
+//   into the next matrix of the batch.  __launch_bounds__ caps a thread at
+//   64 registers, so 1024 threads of an SM stay resident.
+//
+// What bounds it on this card.  At P60_4096, B = 2048 a forward moves 134 MB
+// (0.040 ms at 3.35 TB/s) and needs 0.6e9 IMADs for its 2048 x 24576 Shoup
+// products (about 0.036 ms): both bounds lie close, and the first core took
+// four times them, bound by issue.  This core issues 2.3 (forward) and 2.7
+// (inverse) times fewer instructions (no index arithmetic left, no shared
+// memory inside a pass, one compare a butterfly instead of three) and takes
+// 2.8 times the bound.
+// What is left, by tools/nwc64_variants.py on the H100 (PERF.md): a quarter
+// of the forward is the Shoup product's 64-bit high half, and a fifth the
+// loads and stores that the SM's other block does not hide (two blocks of
+// 512 threads at 64 registers); the passes alone take 0.81 of the time,
+// the device memory alone 0.50.
+
+constexpr int kWords = 8;  // words a thread holds in every pass
+
+__host__ __device__ constexpr int first_stages(int log_n) {
+  return log_n - 3 * ((log_n - 1) / 3);
+}
+__host__ __device__ constexpr int passes(int log_n) { return (log_n - 1) / 3 + 1; }
+// the first stage of pass p (forward order) and its stages
+__host__ __device__ constexpr int pass_stage(int log_n, int p) {
+  return p == 0 ? 0 : first_stages(log_n) + 3 * (p - 1);
+}
+__host__ __device__ constexpr int pass_stages(int log_n, int p) {
+  return p == 0 ? first_stages(log_n) : 3;
+}
+// pass p's table begins after 2^(stages + stage) words of each earlier pass
+__host__ __device__ constexpr int pass_offset(int log_n, int p) {
+  int off = 0;
+  for (int k = 0; k < p; ++k) {
+    off += 1 << (pass_stages(log_n, k) + pass_stage(log_n, k));
   }
-  __syncthreads();
-  forward(x, 1, log_n, tw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = scale == 1 ? x[i] : shoup_mul(x[i], scale, scale_shoup, q);
+  return off;
+}
+// transforms a block: rows, or columns of the tile
+__host__ __device__ constexpr int tile(int log_n, bool cols) {
+  const int n = 1 << log_n;
+  if (!cols) {
+    return n >= 1024 ? 1 : 1024 / n;
+  }
+  const int least = 1024 / n > 8 ? 1024 / n : 8;
+  return least < 8192 / n ? least : 8192 / n;
+}
+__host__ __device__ constexpr int block_threads(int log_n, bool cols) {
+  return tile(log_n, cols) * ((1 << log_n) / kWords);
+}
+
+// Lazy arithmetic: q < 2^62, every lane a uint64_t below 4q < 2^64.
+
+// a * w mod q up to one q: in [0, 2q) for ANY a < 2^64, given w < q and
+// ws = floor(w * 2^64 / q) (a * ws / 2^64 falls short of a * w / q by less
+// than a / 2^64 + 1 < 2).
+__device__ __forceinline__ uint64_t shoup_lazy(uint64_t a, uint64_t w, uint64_t ws,
+                                               uint64_t q) {
+  return a * w - __umul64hi(a, ws) * q;
+}
+
+__device__ __forceinline__ uint64_t csub(uint64_t x, uint64_t m) {
+  return x >= m ? x - m : x;
+}
+
+// Cooley-Tukey: x, y in [0, 4q) in, and out; with kCanonical, x < q in.
+template <bool kCanonical>
+__device__ __forceinline__ void ct(uint64_t& x, uint64_t& y, uint64_t w, uint64_t ws,
+                                   uint64_t q) {
+  const uint64_t q2 = 2 * q;
+  const uint64_t u = kCanonical ? x : csub(x, q2);  // x < 4q: u in [0, 2q)
+  const uint64_t v = shoup_lazy(y, w, ws, q);  // y < 4q < 2^64: v in [0, 2q)
+  x = u + v;                                   // [0, 4q)
+  y = u + q2 - v;                              // (0, 4q)
+}
+
+// Gentleman-Sande: x, y in [0, 2q) in, and out.
+__device__ __forceinline__ void gs(uint64_t& x, uint64_t& y, uint64_t w, uint64_t ws,
+                                   uint64_t q) {
+  const uint64_t q2 = 2 * q;
+  const uint64_t u = x, v = y;
+  x = csub(u + v, q2);                      // u + v < 4q: [0, 2q)
+  y = shoup_lazy(u + q2 - v, w, ws, q);     // u + 2q - v in (0, 4q): [0, 2q)
+}
+
+// Stage s + d's 2^d twiddles of group hi in pass tables w, ws at stage s:
+// column 0 for d = 0, columns [2^(d - 1), 2^d) after.
+template <int kS, int kD>
+__device__ __forceinline__ void stage_twiddles(const uint64_t* tw, const uint64_t* tws,
+                                               int hi, uint64_t (&w)[4], uint64_t (&ws)[4]) {
+  constexpr int kFirst = kD == 0 ? 0 : (1 << kD) / 2;
+  constexpr int kCount = kD == 0 ? 1 : (1 << kD) / 2;
+  const ulonglong2* pw = reinterpret_cast<const ulonglong2*>(tw);
+  const ulonglong2* ps = reinterpret_cast<const ulonglong2*>(tws);
+#pragma unroll
+  for (int m = 0; m < kCount; ++m) {
+    const ulonglong2 a = __ldg(pw + ((kFirst + m) << kS) + hi);
+    const ulonglong2 b = __ldg(ps + ((kFirst + m) << kS) + hi);
+    w[2 * m] = a.x;
+    w[2 * m + 1] = a.y;
+    ws[2 * m] = b.x;
+    ws[2 * m + 1] = b.y;
   }
 }
 
-// The inverse of one row, then times `scale` (n^-1).
-__global__ void inverse_kernel(const uint64_t* __restrict__ in,
-                               uint64_t* __restrict__ out, Table itw, int log_n,
-                               uint64_t q, uint64_t scale, uint64_t scale_shoup) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = in[row + i];
-  }
-  __syncthreads();
-  inverse(x, log_n, itw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = shoup_mul(x[i], scale, scale_shoup, q);
+// One stage of a pass: register k of each group of 2^kR meets k + span;
+// kFresh: the forward's first stage, on lanes straight from device memory.
+template <int kS, int kR, int kD, bool kInverse, bool kFresh = false>
+__device__ __forceinline__ void stage(uint64_t (&x)[kWords], const uint64_t* tw,
+                                      const uint64_t* tws, int hi, uint64_t q) {
+  constexpr int kGroup = 1 << kR, kSpan = kGroup >> (kD + 1);
+  uint64_t w[4], ws[4];
+  stage_twiddles<kS, kD>(tw, tws, hi, w, ws);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    const int k = r % kGroup;
+    if (!(k & kSpan)) {
+      const int e = k >> (kR - kD);  // the group's twiddle at this stage
+      if constexpr (kInverse) {
+        gs(x[r], x[r + kSpan], w[e], ws[e], q);
+      } else {
+        ct<kFresh>(x[r], x[r + kSpan], w[e], ws[e], q);
+      }
+    }
   }
 }
+
+// Pass (kS, kR): the forward's stages in order, the inverse's reversed.
+template <int kS, int kR, bool kInverse, bool kFresh = false>
+__device__ __forceinline__ void run_pass(uint64_t (&x)[kWords], const uint64_t* tw,
+                                         const uint64_t* tws, int hi, uint64_t q) {
+  if constexpr (kInverse) {
+    if constexpr (kR > 2) stage<kS, kR, 2, true>(x, tw, tws, hi, q);
+    if constexpr (kR > 1) stage<kS, kR, 1, true>(x, tw, tws, hi, q);
+    stage<kS, kR, 0, true>(x, tw, tws, hi, q);
+  } else {
+    stage<kS, kR, 0, false, kFresh>(x, tw, tws, hi, q);
+    if constexpr (kR > 1) stage<kS, kR, 1, false>(x, tw, tws, hi, q);
+    if constexpr (kR > 2) stage<kS, kR, 2, false>(x, tw, tws, hi, q);
+  }
+}
+
+// Element of register r in pass (kS, kR) for thread t of its transform:
+// register c * 2^kR + k holds element k of group j = t + c * n / 8, which
+// is hi * 2^kR * T + k * T + lo with T = n >> (kS + kR), (hi, lo) = j / T,
+// j % T.
+template <int kLogN, int kS, int kR>
+__device__ __forceinline__ int element(int t, int r) {
+  constexpr int kT = (1 << kLogN) >> (kS + kR);
+  const int j = t + (r >> kR) * ((1 << kLogN) / kWords);
+  return (j / kT) * (kT << kR) + (r % (1 << kR)) * kT + j % kT;
+}
+
+// The group of thread t in a pass of three stages at kS (its twiddles' hi).
+template <int kLogN, int kS>
+__device__ __forceinline__ int group(int t) {
+  return t / ((1 << kLogN) >> (kS + 3));
+}
+
+// Word a of the tile in shared memory, swizzled (the core's header).
+template <int kLogN, bool kCols>
+__device__ __forceinline__ int tile_word(int g, int i) {
+  const int a = kCols ? i * tile(kLogN, true) + g : g * (1 << kLogN) + i;
+  return a ^ ((a >> 3) & 15);
+}
+
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void to_shared(const uint64_t (&x)[kWords], uint64_t* smem, int g,
+                                          int t) {
+  constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    smem[tile_word<kLogN, kCols>(g, element<kLogN, kS, kR>(t, r))] = x[r];
+  }
+}
+
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void from_shared(uint64_t (&x)[kWords], const uint64_t* smem, int g,
+                                            int t) {
+  constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    x[r] = smem[tile_word<kLogN, kCols>(g, element<kLogN, kS, kR>(t, r))];
+  }
+}
+
+// Pass kP's words from device memory: row (or column) `at`, `stride`
+// words between elements; on rows in the last pass, four 16-byte vectors.
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void load(uint64_t (&x)[kWords], const uint64_t* in, size_t at,
+                                     size_t stride, int t, bool live) {
+  constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+  if constexpr (!kCols && kS + kR == kLogN && kR == 3) {  // element 8t + r
+    const ulonglong2* v = reinterpret_cast<const ulonglong2*>(in + at + kWords * t);
+#pragma unroll
+    for (int m = 0; m < kWords / 2; ++m) {
+      const ulonglong2 p = live ? v[m] : make_ulonglong2(0, 0);
+      x[2 * m] = p.x;
+      x[2 * m + 1] = p.y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    x[r] = live ? in[at + element<kLogN, kS, kR>(t, r) * stride] : 0;
+  }
+}
+
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void store(const uint64_t (&x)[kWords], uint64_t* out, size_t at,
+                                      size_t stride, int t, bool live) {
+  constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+  if (!live) {
+    return;
+  }
+  if constexpr (!kCols && kS + kR == kLogN && kR == 3) {
+    ulonglong2* v = reinterpret_cast<ulonglong2*>(out + at + kWords * t);
+#pragma unroll
+    for (int m = 0; m < kWords / 2; ++m) {
+      v[m] = make_ulonglong2(x[2 * m], x[2 * m + 1]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    out[at + element<kLogN, kS, kR>(t, r) * stride] = x[r];
+  }
+}
+
+// Passes kP, kP + 1, ... of the forward, each after the exchange with the
+// pass before it.
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void forward_passes(uint64_t (&x)[kWords], uint64_t* smem,
+                                               const uint64_t* tw, const uint64_t* tws, int g,
+                                               int t, uint64_t q) {
+  if constexpr (kP < passes(kLogN)) {
+    constexpr int kS = pass_stage(kLogN, kP), kOff = pass_offset(kLogN, kP);
+    to_shared<kLogN, kCols, kP - 1>(x, smem, g, t);
+    __syncthreads();
+    from_shared<kLogN, kCols, kP>(x, smem, g, t);
+    run_pass<kS, 3, false>(x, tw + kOff, tws + kOff, group<kLogN, kS>(t), q);
+    forward_passes<kLogN, kCols, kP + 1>(x, smem, tw, tws, g, t, q);
+  }
+}
+
+// Passes kP, kP - 1, ... 0 of the inverse.
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void inverse_passes(uint64_t (&x)[kWords], uint64_t* smem,
+                                               const uint64_t* tw, const uint64_t* tws, int g,
+                                               int t, uint64_t q) {
+  if constexpr (kP >= 0) {
+    constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+    constexpr int kOff = pass_offset(kLogN, kP);
+    to_shared<kLogN, kCols, kP + 1>(x, smem, g, t);
+    __syncthreads();
+    from_shared<kLogN, kCols, kP>(x, smem, g, t);
+    run_pass<kS, kR, true>(x, tw + kOff, tws + kOff, kP == 0 ? 0 : group<kLogN, kS>(t), q);
+    inverse_passes<kLogN, kCols, kP - 1>(x, smem, tw, tws, g, t, q);
+  }
+}
+
+// The transforms of `transforms` rows (kCols false: row r at r * n) or
+// columns (column c of matrix m at m * n * width + c, `width` words between
+// its elements) from `in` to `out`, each then times `scale` (the forward
+// skips scale 1).  Tables: the per-pass layout of mxu64.pass_table.
+template <int kLogN, bool kInverse, bool kCols>
+__global__ void __launch_bounds__(block_threads(kLogN, kCols),
+                                  1024 / block_threads(kLogN, kCols))
+    transform_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, Table pt,
+                     long long transforms, int width, uint64_t q, uint64_t scale,
+                     uint64_t scale_shoup) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, kCols);
+  constexpr int kLast = passes(kLogN) - 1;
+  const int tid = threadIdx.x;
+  const int g = kCols ? tid % kTile : tid / kPer;
+  const int t = kCols ? tid / kTile : tid % kPer;
+  const long long tg = static_cast<long long>(blockIdx.x) * kTile + g;
+  const bool live = tg < transforms;
+  const size_t at = !live ? 0
+                    : kCols ? static_cast<size_t>(tg / width) * kN * width + tg % width
+                            : static_cast<size_t>(tg) * kN;
+  const size_t stride = kCols ? width : 1;
+  uint64_t x[kWords];
+  if constexpr (!kInverse) {
+    // lanes in [0, q) from device memory: inside the forward's [0, 4q)
+    load<kLogN, kCols, 0>(x, in, at, stride, t, live);
+    run_pass<0, first_stages(kLogN), false, true>(x, pt.w, pt.w_shoup, 0, q);
+    forward_passes<kLogN, kCols, 1>(x, smem, pt.w, pt.w_shoup, g, t, q);
+    const uint64_t q2 = 2 * q;
+#pragma unroll
+    for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, q)
+      x[r] = scale == 1 ? csub(csub(x[r], q2), q)
+                        : csub(shoup_lazy(x[r], scale, scale_shoup, q), q);
+    }
+    store<kLogN, kCols, kLast>(x, out, at, stride, t, live);
+  } else {
+    // lanes in [0, q) from device memory: inside the inverse's [0, 2q)
+    load<kLogN, kCols, kLast>(x, in, at, stride, t, live);
+    constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
+    run_pass<kS, 3, true>(x, pt.w + kOff, pt.w_shoup + kOff, group<kLogN, kS>(t), q);
+    inverse_passes<kLogN, kCols, kLast - 1>(x, smem, pt.w, pt.w_shoup, g, t, q);
+#pragma unroll
+    for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, q)
+      x[r] = csub(shoup_lazy(x[r], scale, scale_shoup, q), q);
+    }
+    store<kLogN, kCols, 0>(x, out, at, stride, t, live);
+  }
+}
+
 
 // out[r] = INTT(sum_k NTT(a[k, r]) . NTT(b[k, r])) for (terms, batch, n)
 // stacks a and b; with `cached`, b holds spectra.  The sum stays in shared
@@ -540,6 +882,55 @@ int launch_cyclic_scaled(const void* a, const void* b, void* out,
   return cudaGetLastError();
 }
 
+template <int kLogN, bool kInverse, bool kCols>
+int launch_transform(const void* in, void* out, Table pt, long long transforms, int width,
+                     uint64_t q, uint64_t scale, uint64_t scale_shoup, void* stream) {
+  constexpr int kTile = tile(kLogN, kCols);
+  constexpr int kSmem = kTile * (1 << kLogN) * static_cast<int>(sizeof(uint64_t));
+  const long long blocks = (transforms + kTile - 1) / kTile;
+  if (blocks > 0x7fffffff) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = transform_kernel<kLogN, kInverse, kCols>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  kernel<<<static_cast<unsigned>(blocks), block_threads(kLogN, kCols), kSmem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out), pt, transforms, width, q,
+      scale, scale_shoup);
+  return cudaGetLastError();
+}
+
+// The radix-8 core's entry: log n from 5 to 13, every pointer 16-byte
+// aligned (the tables' vectors, and the rows' in the last pass).
+template <bool kInverse, bool kCols>
+int launch_core(const void* in, void* out, const void* tw, const void* tw_shoup, int batch,
+              int log_n, int width, uint64_t q, uint64_t scale, uint64_t scale_shoup,
+              void* stream) {
+  if (bad_shape(batch, log_n) || width < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out) |
+       reinterpret_cast<uintptr_t>(tw) | reinterpret_cast<uintptr_t>(tw_shoup)) % 16) {
+    return cudaErrorMisalignedAddress;
+  }
+  const Table pt = table(tw, tw_shoup);
+  const long long transforms = static_cast<long long>(batch) * width;
+  switch (log_n) {
+#define NWC64_LOG_N(L)                                                                  \
+  case L:                                                                               \
+    return launch_transform<L, kInverse, kCols>(in, out, pt, transforms, width, q,      \
+                                                scale, scale_shoup, stream);
+    NWC64_LOG_N(5) NWC64_LOG_N(6) NWC64_LOG_N(7) NWC64_LOG_N(8) NWC64_LOG_N(9)
+    NWC64_LOG_N(10) NWC64_LOG_N(11) NWC64_LOG_N(12) NWC64_LOG_N(13)
+#undef NWC64_LOG_N
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Every entry point launches on `stream`, which must belong to the current
@@ -566,42 +957,43 @@ extern "C" int nwc64_cached(const void* a, const void* spectrum, void* out,
                               stream);
 }
 
+// The forward and the inverse of (batch, n) rows on the radix-8 core.  The
+// tables are those of mxu64.pass_table: the flat table (w, w') of the first
+// core in the per-pass layout; the forward skips scale 1.
 extern "C" int nwc64_forward(const void* in, void* out, const void* tw,
                              const void* tw_shoup, int batch, int log_n,
                              uint64_t q, uint64_t scale, uint64_t scale_shoup,
                              void* stream) {
-  if (bad_shape(batch, log_n)) {
-    return cudaErrorInvalidValue;
-  }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(forward_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  forward_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
-      table(tw, tw_shoup), log_n, q, scale, scale_shoup);
-  return cudaGetLastError();
+  return launch_core<false, false>(in, out, tw, tw_shoup, batch, log_n, 1, q, scale,
+                                   scale_shoup, stream);
 }
 
 extern "C" int nwc64_inverse(const void* in, void* out, const void* itw,
                              const void* itw_shoup, int batch, int log_n,
                              uint64_t q, uint64_t scale, uint64_t scale_shoup,
                              void* stream) {
-  if (bad_shape(batch, log_n)) {
-    return cudaErrorInvalidValue;
-  }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(inverse_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  inverse_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
-      table(itw, itw_shoup), log_n, q, scale, scale_shoup);
-  return cudaGetLastError();
+  return launch_core<true, false>(in, out, itw, itw_shoup, batch, log_n, 1, q, scale,
+                                  scale_shoup, stream);
+}
+
+// The same on every column of `batch` natural (n, width) matrices, in
+// place of the transposes around a row transform: column c of matrix m is
+// the n words m * n * width + c + i * width; the forward's spectrum comes
+// out down the same column, in bit-reversed order.
+extern "C" int nwc64_forward_cols(const void* in, void* out, const void* tw,
+                                  const void* tw_shoup, int batch, int log_n, int width,
+                                  uint64_t q, uint64_t scale, uint64_t scale_shoup,
+                                  void* stream) {
+  return launch_core<false, true>(in, out, tw, tw_shoup, batch, log_n, width, q, scale,
+                                  scale_shoup, stream);
+}
+
+extern "C" int nwc64_inverse_cols(const void* in, void* out, const void* itw,
+                                  const void* itw_shoup, int batch, int log_n, int width,
+                                  uint64_t q, uint64_t scale, uint64_t scale_shoup,
+                                  void* stream) {
+  return launch_core<true, true>(in, out, itw, itw_shoup, batch, log_n, width, q, scale,
+                                 scale_shoup, stream);
 }
 
 extern "C" int nwc64_dot(const void* a, const void* b, void* out,

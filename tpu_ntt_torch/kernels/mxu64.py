@@ -22,7 +22,15 @@ Above n = 8192 the rows outgrow a block's 227 KB, and the four-step of
 ``cyclic_poly_mult_scaled`` and its halves ``ntt_fwd_scaled`` and
 ``ntt_inv_scaled`` (the port of K1a's ``_cyclic_scaled_kernel``),
 ``cyclic_poly_mult_cached_scaled`` (against a cached spectrum),
-``dot_scaled`` and ``matvec_scaled``, on (P, n) Shoup scale tables (w, w').
+``dot_scaled`` and ``matvec_scaled``, on (P, n) Shoup scale tables (w, w');
+and its column pass, ``SubPlan64``'s ``*_cols`` methods on every column of
+natural (R, n, width) rows, in place of torch transposes around a row
+transform.
+
+``nwc64_forward`` and ``nwc64_inverse`` (and their column entry points) run
+the radix-8 core of ``csrc/nwc64.cu``: passes of three stages in registers
+(``passes``), twiddles in a per-pass layout built here from the flat tables
+(``pass_table``); the other ten kernels read the flat tables.
 """
 
 from __future__ import annotations
@@ -30,10 +38,11 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..params import NttParams
-from ._plan import ScaledKernelPlan, bind, load
+from ._plan import ScaledKernelPlan, _table, bind, check, load
 
 MIN_N, MAX_N = 256, 8192  # the dot's three rows of n int64 fit 227 KB at 8192
 SUB_MIN_N = 32  # the least sub-transform the four-step may ask of the kernels
@@ -43,7 +52,47 @@ MIN_WIDTH, MAX_WIDTH = 31, 62
 KERNELS = ("nwc64_product", "nwc64_cached", "nwc64_forward", "nwc64_inverse",
            "nwc64_dot", "nwc64_matvec", "nwc64_cyclic_scaled",
            "nwc64_forward_scaled", "nwc64_inverse_scaled", "nwc64_cached_scaled",
-           "nwc64_dot_scaled", "nwc64_matvec_scaled")
+           "nwc64_dot_scaled", "nwc64_matvec_scaled", "nwc64_forward_cols",
+           "nwc64_inverse_cols")
+
+
+def passes(log_n: int) -> list[tuple[int, int]]:
+    """The radix-8 core's passes in forward order, (first stage, stages):
+    the first takes log_n mod 3 stages (3 where that is 0), every later one
+    three.  The inverse runs them in reverse order."""
+    first = log_n - 3 * ((log_n - 1) // 3)
+    return [(0, first)] + [(s, 3) for s in range(first, log_n, 3)]
+
+
+@functools.lru_cache(maxsize=None)
+def pass_indices(log_n: int) -> np.ndarray:
+    """The flat-table index of each word of ``pass_table``.  Pass (s, r)
+    holds 2^(r - 1) columns of 2^s pairs, the pair of column c and group
+    hi at words 2 * (c * 2^s + hi) and + 1 after the earlier passes' words:
+    word 2c + h of a group is stage s's twiddle for h = c = 0 (then a pad,
+    entry 0, never read), else stage s + d's u-th twiddle of the group,
+    flat entry 2^(s + d) + hi * 2^d + u, with 2c + h = 2^d + u."""
+    idx = []
+    for s, r in passes(log_n):
+        col, hi, half = np.meshgrid(np.arange(1 << (r - 1)), np.arange(1 << s),
+                                    np.arange(2), indexing="ij")
+        word = 2 * col + half
+        d = np.maximum(np.floor(np.log2(np.maximum(word, 1))).astype(np.int64), 0)
+        u = word - (1 << d)
+        flat = np.where(word == 0, (1 << s) + hi,
+                        np.where(word == 1, 0, (1 << (s + d)) + hi * (1 << d) + u))
+        idx.append(flat.reshape(-1))
+    return np.concatenate(idx)
+
+
+def pass_table(flat: tuple) -> tuple:
+    """The flat twiddle table (w, w') of a transform of n points (stage s's
+    group g at entry 2^s + g) in the radix-8 core's per-pass layout, both
+    halves contiguous tensors on its device: each stage's twiddles of a
+    group in 16-byte pairs, a warp's loads contiguous (csrc/nwc64.cu)."""
+    log_n = flat[0].shape[0].bit_length() - 1
+    idx = torch.from_numpy(pass_indices(log_n)).to(flat[0].device)
+    return tuple(t[idx].contiguous() for t in flat)
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,6 +108,8 @@ def load_scaled() -> ctypes.CDLL:
         "inverse_scaled": [ptr] * 6 + [i32] * 3 + [u64] * 3 + [ptr],
         "dot_scaled": [ptr] * 11 + [i32] * 4 + [u64] * 4 + [i32, ptr],
         "matvec_scaled": [ptr] * 7 + [i32] * 5 + [u64] * 4 + [ptr],
+        "forward_cols": [ptr] * 4 + [i32] * 3 + [u64] * 3 + [ptr],
+        "inverse_cols": [ptr] * 4 + [i32] * 3 + [u64] * 3 + [ptr],
     })
 
 
@@ -89,6 +140,15 @@ class MxuPlan64(ScaledKernelPlan):
     def _lib(self) -> ctypes.CDLL:
         return load_scaled()
 
+    def _transform_table(self, flat: tuple) -> tuple:
+        """The per-pass layout of the flat table (w, w') for nwc64_forward
+        and nwc64_inverse, built once a table."""
+        cache = self.__dict__.setdefault("_pass_tables", {})
+        key = id(flat[0])
+        if key not in cache:
+            cache[key] = (flat, pass_table(flat))  # flat kept: its id stays its own
+        return cache[key][1]
+
 
 class SubPlan64(MxuPlan64):
     """``MxuPlan64`` at the sub-sizes of the four-step
@@ -107,3 +167,75 @@ class SubPlan64(MxuPlan64):
     def _refusal(self, p: NttParams) -> str:
         return (f"SubPlan64 covers 30 < width <= 62 at {SUB_MIN_N} <= n <= "
                 f"{MAX_N}; got n={p.n}, a {p.width}-bit q={p.q}")
+
+    # ------------------------------------------------------------------
+    # The column pass: each transform down every column of (R, n, width)
+    # natural rows, the layout from_cols(transform(to_cols(x))) gives
+    # (sharded.FourStepPlan), read and written once by the column entry
+    # points nwc64_forward_cols and nwc64_inverse_cols; the plain version
+    # of each is that transpose route.  ``out``, if given, is a contiguous
+    # tensor of x's size that receives the result.
+    # ------------------------------------------------------------------
+
+    def ntt_fwd_cols(self, x, width, out=None):
+        """``ntt_fwd`` down every column: bit-reversed down each column."""
+        return self._cols("forward_cols", x, width, out, self.plan.cyclic_flat,
+                          self._scale_one, self.ntt_fwd_plain)
+
+    def ntt_fwd_cols_plain(self, x, width, out=None):
+        return self._cols_plain(self.ntt_fwd_plain, x, width, out)
+
+    def nwc_ntt_fwd_cols(self, x, width, out=None):
+        return self._cols("forward_cols", x, width, out, self.plan.merged_flat,
+                          self._scale_one, self.nwc_ntt_fwd_plain)
+
+    def nwc_ntt_fwd_cols_plain(self, x, width, out=None):
+        return self._cols_plain(self.nwc_ntt_fwd_plain, x, width, out)
+
+    def ntt_inv_cols(self, x, width, out=None):
+        """``ntt_inv`` down every column of bit-reversed columns."""
+        return self._cols("inverse_cols", x, width, out, self.plan.cyclic_inv_flat,
+                          self._scale_cached, self.ntt_inv_plain)
+
+    def ntt_inv_cols_plain(self, x, width, out=None):
+        return self._cols_plain(self.ntt_inv_plain, x, width, out)
+
+    def nwc_ntt_inv_cols(self, x, width, out=None):
+        return self._cols("inverse_cols", x, width, out, self.plan.merged_inv_flat,
+                          self._scale_cached, self.nwc_ntt_inv_plain)
+
+    def nwc_ntt_inv_cols_plain(self, x, width, out=None):
+        return self._cols_plain(self.nwc_ntt_inv_plain, x, width, out)
+
+    def _cols(self, entry, x, width, out, flat, scale, plain):
+        matrices = self._check_cols(x, width, out)
+        if self._runs_plain(x):
+            return self._cols_plain(plain, x, width, out)
+        out = torch.empty_like(x) if out is None else out
+        if matrices == 0:
+            return out
+        return self._launch(entry, out, x, out, *_table(self._transform_table(flat)),
+                            matrices, self.p.log_n, width, *self._q_args(False), *scale)
+
+    def _cols_plain(self, transform, x, width, out):
+        """The transpose route: each column a row, the row transform, back."""
+        n, matrices = self.p.n, x.numel() // (self.p.n * width)
+        cols = x.reshape(matrices, n, width).transpose(1, 2).reshape(-1, n)
+        y = transform(cols).reshape(matrices, width, n).transpose(1, 2)
+        if out is None:
+            return y.reshape(x.shape)
+        out.view(matrices, n, width).copy_(y)
+        return out
+
+    def _check_cols(self, x, width, out) -> int:
+        """Check x (and out) as whole natural (n, width) matrices; return
+        how many."""
+        if width < 1 or x.numel() % (self.p.n * width):
+            raise ValueError(f"{tuple(x.shape)} is not whole ({self.p.n}, {width}) "
+                             "matrices")
+        check(x, "x", x.dim(), self.dtype, x.shape[-1], self.device)
+        if out is not None:
+            check(out, "out", out.dim(), self.dtype, out.shape[-1], self.device)
+            if out.numel() != x.numel():
+                raise ValueError(f"out holds {out.numel()} words, x {x.numel()}")
+        return x.numel() // (self.p.n * width)

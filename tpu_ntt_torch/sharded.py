@@ -22,11 +22,15 @@ drops the psi factors.  The inverse runs the mirror: row inverse, the
 inverse mid table, column inverse, n^-1 = n1^-1 * n2^-1 inside the two.
 
 On the card (``KernelFourStep``): the column pass is the sub-plan's
-``nwc_ntt_fwd``/``ntt_fwd`` (``SubPlan64`` on ``csrc/nwc64.cu``'s
-``nwc64_forward`` at 30 < width <= 62, ``GoldilocksSubPlan64`` on
-``csrc/gl64.cu``'s ``gl64_forward`` at the Goldilocks q) on the columns,
-which torch transposes into rows and back around it, as JAX moves the axis
-in XLA around its kernel (tpu_ntt/sharded.py:419-442).  The mid table rides
+``nwc_ntt_fwd``/``ntt_fwd`` down the columns.  At 30 < width <= 62
+(``SubPlan64``) its column methods run ``csrc/nwc64.cu``'s
+``nwc64_forward_cols`` and ``nwc64_inverse_cols``, which read each tile of
+adjacent columns of the natural rows once and write it once; at the
+Goldilocks q (``GoldilocksSubPlan64``, ``csrc/gl64.cu``'s ``gl64_forward``)
+torch transposes the columns into rows and back around the row kernel, as
+JAX moves the axis in XLA around its kernel (tpu_ntt/sharded.py:419-442).
+Either way the result is ``from_cols(transform(to_cols(x)))``, the column
+methods' plain version.  The mid table rides
 the row kernel as its entry scale: ``ntt_fwd_scaled``, ``ntt_inv_scaled``
 and, for a product, ``cyclic_poly_mult_scaled`` with pre = the forward mid
 and post = the inverse mid (K1a's ``_cyclic_scaled_kernel``,
@@ -278,19 +282,36 @@ def _run(plan, method: str, plain: bool, *args):
     return getattr(plan, method + "_plain" if plain else method)(*args)
 
 
+def columns(fs: FourStepPlan, method: str, plain: bool, *xs: torch.Tensor,
+            width: int | None = None) -> torch.Tensor:
+    """The column transforms ``method`` (``ntt_fwd``, ``nwc_ntt_fwd``,
+    ``ntt_inv`` or ``nwc_ntt_inv`` of ``fs.col_k``) down every column of
+    each of xs, (R, n1 * width) natural rows (by default width = n2; a
+    shard's block is narrower), out stacked as (len(xs) * R, n1 * width)
+    rows in the same layout.  A sub-plan with column methods
+    (``SubPlan64``'s ``*_cols``) writes each operand's columns in place of
+    the transposes; any other takes the transposes around its row method."""
+    width, col = width or fs.n2, fs.col_k
+    if hasattr(col, method + "_cols"):
+        out = xs[0].new_empty((len(xs), xs[0].numel()))
+        for dst, x in zip(out, xs):
+            _run(col, method + "_cols", plain, x, width, dst)
+        return out.reshape(-1, fs.n1 * width)
+    return fs.from_cols(_run(col, method, plain, fs.to_cols(*xs, width=width)), width=width)
+
+
 def column_fwd(fs: FourStepPlan, nwc: bool, plain: bool, *xs: torch.Tensor) -> torch.Tensor:
     """The column pass of (R, n) natural rows, several stacked: the column
-    transforms (negacyclic with ``nwc``) between the transposes, out as the
-    (len(xs) * R * n1, n2) rows the row kernels take."""
-    col = _run(fs.col_k, "nwc_ntt_fwd" if nwc else "ntt_fwd", plain, fs.to_cols(*xs))
-    return fs.as_rows(fs.from_cols(col))
+    transforms (negacyclic with ``nwc``), out as the (len(xs) * R * n1, n2)
+    rows the row kernels take."""
+    return fs.as_rows(columns(fs, "nwc_ntt_fwd" if nwc else "ntt_fwd", plain, *xs))
 
 
 def column_inv(fs: FourStepPlan, y: torch.Tensor, nwc: bool, plain: bool) -> torch.Tensor:
     """The inverse column pass of (R * n1, n2) rows out of a row kernel:
     (R, n) natural rows."""
-    return fs.from_cols(_run(fs.col_k, "nwc_ntt_inv" if nwc else "ntt_inv", plain,
-                             fs.to_cols(y)))
+    return columns(fs, "nwc_ntt_inv" if nwc else "ntt_inv", plain,
+                   y.reshape(-1, fs.n1 * fs.n2))
 
 
 def fourstep_fwd_kernel(fs: FourStepPlan, x: torch.Tensor, nwc: bool = False,
@@ -642,10 +663,11 @@ class ShardedNtt:
 
     def _columns(self, i: int, method: str, *blocks: torch.Tensor) -> torch.Tensor:
         """Column pass ``method`` of shard i's sub-plan on its natural
-        (L, n1, n2 / D) blocks, stacked, between the transposes."""
-        plan, width = self._plan(i), self.fs.n2 // self.d
-        y = getattr(plan.col_k, method)(plan.to_cols(*blocks, width=width))
-        return plan.from_cols(y, width=width).reshape(-1, self.fs.n1, width)
+        (L, n1, n2 / D) blocks, stacked (``columns``)."""
+        width = self.fs.n2 // self.d
+        flat = [b.reshape(-1, self.fs.n1 * width) for b in blocks]
+        return columns(self._plan(i), method, False, *flat,
+                       width=width).reshape(-1, self.fs.n1, width)
 
     def _forward(self, operands: list, nwc: bool) -> list:
         """Column forwards of each shard's operands, stacked, then the
