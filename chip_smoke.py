@@ -29,16 +29,19 @@ kernel K6).  Phases, each of which raises on failure:
    nothing); the SASS length of each poseidon.cu kernel and the
    instructions one width-8 permutation issues (cuobjdump); the
    instructions a thread issues after its first barrier at n = 4096 in
-   nwc64.cu's radix-8 kernels and in the first core's loops;
+   nwc64.cu's and gl64.cu's radix-8 kernels and in their first cores'
+   loops (gl64.cu's radix kernels must spill nothing);
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: the
-   radix-8 core (``nwc64_forward``, ``nwc64_inverse`` on rows and
+   radix-8 cores (``nwc64_forward``, ``nwc64_inverse`` on rows and
    ``nwc64_forward_cols``, ``nwc64_inverse_cols`` on every column of
    (R, n, width) matrices, against the transposes around the plain
-   transform) at every n from 32 to 8192, B = 1, 3 and 2048 rows, widths
-   1, 3, 8, 128 and 1024, at P60_4096's q, the generic q and 2^62 - 2^16 + 1,
-   cyclic and merged tables, the forward at scale 1 and 2^64, the inverse
-   at n^-1 and 1; every op
+   transform, at P60_4096's q, the generic q and 2^62 - 2^16 + 1; the same
+   four ``gl64_*`` at the Goldilocks q, boundary rows 0, 1, q - 1,
+   2^63 - 1, 2^63 and 2^64 - 2^32) at every n from 32 to 8192, B = 1, 3
+   and 2048 rows, widths 1, 3, 8, 128 and 1024, cyclic and merged tables,
+   the forward at scale 1 and 2^64 mod q, the inverse at n^-1 and 1; every
+   op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
    B = 256), the product, forward and inverse at n = 256 and 8192, the dot
    at n = 8192 (three rows of shared memory), every op at the generic q;
@@ -66,7 +69,8 @@ kernel K6).  Phases, each of which raises on failure:
    and p60_1048576 B = 4 give them, after the mid tables are built (their
    time printed), ``nwc64_dot_scaled`` (fresh and cached) and
    ``nwc64_matvec_scaled`` at p60_32768's K = 4 and 4 x 4, B = 64; the same
-   six ``gl64_*_scaled`` row kernels and gl64's column passes at
+   six ``gl64_*_scaled`` row kernels and gl64's column passes
+   (``gl64_forward_cols``, ``gl64_inverse_cols``) at
    goldilocks_32768 B = 256 and goldilocks_1048576 B = 4 (the dot and the
    matvec at B = 64 and 4); and the product at n = 16384 (128 x 128), 1024
    (32 x 32) and 2048 (64 x 32) against its plain chain at both q;
@@ -110,7 +114,8 @@ kernel K6).  Phases, each of which raises on failure:
    (B = 256, the dot at K = 4, B = 64, the matvec 4 x 4 at B = 64) and for
    ``nwc``, ``nwc_fwd`` then ``nwc_inv`` of its output, ``spectrum`` then
    ``cached`` at p60_1048576 and goldilocks_1048576 (B = 4): each launches
-   its four-step kernels and equals its plain chain; then the mesh:
+   its four-step kernels (the column pass on the column entry points,
+   never the row transforms) and equals its plain chain; then the mesh:
    ``sharded.ShardedNtt(fused_exchange=True)`` on FourStepPlan64's own
    ``KernelFourStep`` at p60_1048576 B = 4 over 4 logical shards of the card
    (1024 x 1024, blocks of 256 rows or columns), its eight ops, each with
@@ -127,8 +132,9 @@ kernel K6).  Phases, each of which raises on failure:
    distinct cards (with one, a line says it did not run); then the commitment at
    Plonky2's ``standard_recursion_config`` uncut (bounds.STARK_*: degree
    2^17, 135 columns, blowup 8, N = 2^20, 28 queries), the same stages with
-   the counts zeroed before them: ``gl64_forward``, ``gl64_forward_scaled``,
-   ``poseidon_sponge`` and ``poseidon_permute`` each launch, ``fri_verify``
+   the counts zeroed before them: ``gl64_forward_cols``,
+   ``gl64_forward_scaled``, ``poseidon_sponge`` and ``poseidon_permute``
+   each launch and ``gl64_forward``/``gl64_inverse`` never, ``fri_verify``
    accepts, the LDE equals its plain chain (``LdePlan.extend_plain``, 15
    columns at a time to bound memory) and big-int Horner at 8 points, the
    leaves of a fixed 8192-row slice equal the plain sponge (which takes
@@ -151,11 +157,12 @@ kernel K6).  Phases, each of which raises on failure:
    chains (nwc, nwc_fwd, nwc_inv, cached, dot, dot_cached, matvec at both;
    nwc and cached at both 2^20 rows) against their plain chains, with the
    product chain's parts by graph replay: column forward, row kernel,
-   column inverse (at the Goldilocks q also the transposes around its
-   column pass; at 30 < width <= 62, beside the chain, the transpose route
-   the column entry points replace); ``nwc64_forward_cols`` and
-   ``nwc64_inverse_cols`` at p60_32768's column pass; the degree-2^17 commitment's LDE (and
-   its parts: the torch coset scale and pad, the four-step) and its leaf
+   column inverse (beside the chain, the transpose route the column entry
+   points replace, and the five transposes alone); ``nwc64_forward_cols``,
+   ``nwc64_inverse_cols``, ``gl64_forward_cols`` and ``gl64_inverse_cols``
+   at p60_32768's and goldilocks_32768's column passes; the degree-2^17
+   commitment's LDE (and its parts: the torch coset scale and pad, the
+   four-step) and its leaf
    sponge by graph replay against their bounds; ``a2a_exchange`` each way
    at p60_1048576 B = 4, D = 4, against its plain version, its bound on one
    card (``bounds.a2a_card_work``) and on four over NVLink
@@ -264,6 +271,10 @@ REPLACES = {
     "gl64_cached_scaled": "tpu_ntt/kernels/mxu64.py:1918",  # _make_nwc_cached_split_kernel
     "gl64_dot_scaled": "tpu_ntt/kernels/mxu64.py:1599",  # _make_dot_kernel via _dot_call
     "gl64_matvec_scaled": "tpu_ntt/kernels/mxu64.py:1639",  # _make_matvec_kernel
+    # the four-step's column pass at the Goldilocks q: K2's transforms down
+    # the columns (JAX moves the axis in XLA, tpu_ntt/sharded.py:419-442)
+    "gl64_forward_cols": "tpu_ntt/kernels/mxu64.py:1715",  # _nwc_fwd_kernel (+ :1544), K2
+    "gl64_inverse_cols": "tpu_ntt/kernels/mxu64.py:1733",  # _nwc_inv_kernel (+ :1559), K2
     "poseidon_permute": "tpu_ntt/kernels/poseidon.py:193",  # _compiled, K5a
     "poseidon_sponge": "tpu_ntt/kernels/poseidon.py:218",  # _compiled_sponge, K5b
     "a2a_exchange": "tpu_ntt/sharded.py:580",  # _a2a_pallas_leaf (pallas_call :669), K6
@@ -291,10 +302,15 @@ FOURSTEP_ENTRIES = {
 
 
 def fourstep_entries(lib: str, op: str) -> list:
-    """The kernels a four-step op launches: nwc64.cu's column pass is its
-    column entry points (no transposes), gl64.cu's its row ones."""
-    col = {"forward": "forward_cols", "inverse": "inverse_cols"} if lib == "nwc64" else {}
+    """The kernels a four-step op launches: the column pass is the column
+    entry points of nwc64.cu or gl64.cu (no transposes)."""
+    col = {"forward": "forward_cols", "inverse": "inverse_cols"}
     return [f"{lib}_{col.get(e, e)}" for e in FOURSTEP_ENTRIES[op]]
+
+
+def row_transforms(lib: str) -> list:
+    """The row transforms a four-step's column pass must not launch."""
+    return [f"{lib}_forward", f"{lib}_inverse"]
 
 
 def operands(q: int, n: int, rows: int, rng: np.random.Generator, dtype=np.int64):
@@ -437,7 +453,7 @@ def main() -> int:
     from tpu_ntt_torch.kernels import _build, a2a
     from tpu_ntt_torch.kernels import poseidon as kposeidon
     from tpu_ntt_torch.kernels.fourstep64 import FourStepPlan64
-    from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64
+    from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64, GoldilocksSubPlan64
     from tpu_ntt_torch.kernels.kyber import KyberPlan
     from tpu_ntt_torch.kernels.mxu import MxuPlan
     from tpu_ntt_torch.kernels.mxu64 import MxuPlan64, SubPlan64
@@ -504,6 +520,30 @@ def main() -> int:
         print(f"  sass: nwc64.cu {kernel}: {len(code)} instructions; after its first barrier "
               f"a thread issues {issued or 'not counted:'} "
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
+    # gl64.cu's radix-8 core against its first core, counted the same way
+    # (its loops are nwc64.cu's: the butterfly loop of 4 trips in the stage
+    # loop of 12, then the store loop, unrolled by 4 in the forward; the
+    # inverse's stores two products a word)
+    gl_sass = sass_listing(libs["gl64"])
+    radix = [k for k in gl_sass if k.startswith("transform_kernel<")]
+    print(f"  sass: gl64.cu's {len(radix)} radix-8 kernels, "
+          f"{min(len(gl_sass[k]) for k in radix)} to {max(len(gl_sass[k]) for k in radix)} "
+          "instructions each")
+    for kernel, trips in (("transform_kernel<12, 0, 0>", ()), ("transform_kernel<12, 1, 0>", ()),
+                          ("transform_kernel<8, 0, 1>", ()), ("transform_kernel<10, 1, 1>", ()),
+                          ("forward_scaled_kernel", (4, 12, 2, 0)),
+                          ("inverse_scaled_kernel", (4, 12, 8))):
+        code = gl_sass[kernel]
+        issued = issued_per_thread(code, trips)
+        print(f"  sass: gl64.cu {kernel}: {len(code)} instructions; after its first barrier "
+              f"a thread issues {issued or 'not counted:'} "
+              + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
+    spills = re.findall(r"Function properties for \S*transform_kernel\S*\n[^\n]*?(\d+) bytes "
+                        r"spill stores, (\d+) bytes spill loads",
+                        libs["gl64"].with_suffix(".log").read_text())
+    if len(spills) != 36 or any(int(st) or int(ld) for st, ld in spills):
+        raise AssertionError(f"gl64.cu's radix-8 kernels spill registers: {spills}")
+    print(f"build: gl64.cu's {len(spills)} radix-8 kernels spill nothing")
 
     # 3. kernel vs plain version, bit for bit
     rng = np.random.default_rng(args.seed)
@@ -583,47 +623,59 @@ def main() -> int:
                 *operands(p.q, n, DOT_TERMS * DOT_BATCH_8192, rng)))
             check_op(plan, "dot", f"n=8192 K={DOT_TERMS} B={DOT_BATCH_8192}", (x3, y3))
 
-    # the radix-8 core: nwc64_forward and nwc64_inverse on rows and their
+    # the radix-8 cores: nwc64_forward and nwc64_inverse on rows and their
     # column entry points on every column of (R, n, width) matrices, at every
     # log n of the sub-plans' window, B in (1, 3, 2048) rows and widths in
     # COLUMN_WIDTHS, P60_4096's q, the generic q and the largest 62-bit q
-    # (rows and columns of 0, 1 and q - 1 first), cyclic and merged tables,
-    # the forward at scale 1 and at 2^64 (a spectrum), the inverse at n^-1
-    # and at 1: each against its plain version (on columns, the transposes
-    # around it), bit for bit
-    def radix_check(plan, entry, x, flat, plain, scale, width=None):
-        """One launch of the radix-8 core (``entry`` on rows, or its column
-        twin with ``width``) against ``plain`` times its scale."""
+    # (rows and columns of 0, 1 and q - 1 first); then gl64_forward,
+    # gl64_inverse and their column twins at the Goldilocks q (rows and
+    # columns of 0, 1, q - 1, 2^63 - 1, 2^63 and 2^64 - 2^32 first); cyclic
+    # and merged tables, the forward at scale 1 and at 2^64 mod q (a 60-bit
+    # spectrum's), the inverse at n^-1 and at 1: each against its plain
+    # version (on columns, the transposes around it), bit for bit
+    def radix_check(plan, entry, x, flat, want, scale, width=None):
+        """One launch of a radix-8 core (``entry`` on rows, or its column
+        twin with ``width``) against ``want``, the plain version at scale 1
+        (forward) or n^-1 (inverse), times the scale."""
         n, log_n, q = plan.p.n, plan.p.log_n, plan.p.q
-        # the plain transforms hold scale 1 (forward) and n^-1 (inverse)
         factor = scale[0] if entry == "forward" else scale[0] * n % q
-        want = plan._cols_plain(plain, x, width, None) if width else plain(x)
         if factor != 1:
             want = plan.ring.mul_tw(want, plan.ring.encode_tw([factor], device))
         out = torch.empty_like(x)
         name, shape = (f"{entry}_cols", (x.numel() // (n * width), log_n, width)) if width \
             else (entry, (x.shape[0], log_n))
-        plan._launch(name, out, x, out, *plan._transform_table(flat), *shape, q, *scale)
+        plan._launch(name, out, x, out, *plan._transform_table(flat), *shape,
+                     *plan._q_args(False), *scale)
         torch.cuda.synchronize()
-        name = f"nwc64_{name}"
+        name = f"{plan.lib_name}_{name}"
         errs[name] = max(errs.get(name, 0), int((out - want).abs().max()))
         if not torch.equal(out, want):
             raise AssertionError(f"{name} differs from its plain version at n={n} q={q} "
                                  f"scale={scale[0]} shape {tuple(x.shape)} width={width}")
 
     def card_operands(q, n, rows, gen):
-        """(rows, n) residues drawn on the card, rows of 0, 1 and q - 1 first."""
-        x = torch.randint(0, q, (rows, n), generator=gen, device=device, dtype=torch.int64)
-        for k, v in enumerate((0, 1, q - 1)[:rows]):
-            x[k] = v
+        """(rows, n) residues drawn on the card, boundary rows first: 0, 1
+        and q - 1, and for Goldilocks also 2^63 - 1, 2^63 and 2^64 - 2^32."""
+        if q == GOLDILOCKS_Q:  # 64-bit patterns; the words >= q redrawn below 2^31
+            x = torch.randint(-(1 << 63), (1 << 63) - 1, (rows, n), generator=gen,
+                              device=device, dtype=torch.int64)
+            x = torch.where((x < 0) & (x >= q - (1 << 64)), x & 0x7FFFFFFF, x)
+            ends = [0, 1, q - 1, (1 << 63) - 1, 1 << 63, (1 << 64) - (1 << 32)]
+        else:
+            x = torch.randint(0, q, (rows, n), generator=gen, device=device, dtype=torch.int64)
+            ends = [0, 1, q - 1]
+        for k, v in enumerate(ends[:rows]):
+            x[k] = v - (1 << 64) if v >= 1 << 63 else v
         return x
 
     t0 = time.perf_counter()
     gen = torch.Generator(device).manual_seed(args.seed)
-    for q in (P60_4096.q, Q_GENERIC, Q62_MAX):
+    for q in (P60_4096.q, Q_GENERIC, Q62_MAX, GOLDILOCKS_Q):
+        t_q = time.perf_counter()
+        sub = GoldilocksSubPlan64 if q == GOLDILOCKS_Q else SubPlan64
         for log_n in range(5, 14):
             n = 1 << log_n
-            plan = SubPlan64(make_params(n, q), device)
+            plan = sub(make_params(n, q), device)
             rows = card_operands(q, n, BATCH, gen)
             mats = {w: card_operands(q, n * w, max(1, min(3, (1 << 22) // (n * w))), gen)
                     for w in COLUMN_WIDTHS}
@@ -638,17 +690,18 @@ def main() -> int:
                      (plan._scale_cached, plan._scale_one)),
                     ("inverse", plan.plan.cyclic_inv_flat, plan.ntt_inv_plain,
                      (plan._scale_cached, plan._scale_one))):
+                wants = [(rows[:b], None, plain(rows[:b])) for b in (1, 3, BATCH)] + [
+                    (x, w, plan._cols_plain(plain, x, w, None)) for w, x in mats.items()]
                 for scale in scales:
-                    for batch in (1, 3, BATCH):
-                        radix_check(plan, entry, rows[:batch], flat, plain, scale)
+                    for x, width, want in wants:
+                        radix_check(plan, entry, x, flat, want, scale, width)
                         checks += 1
-                    for width, x in mats.items():
-                        radix_check(plan, entry, x, flat, plain, scale, width)
-                        checks += 1
-            print(f"kernel vs plain: nwc64_forward, nwc64_inverse and their column entry points "
-                  f"at n={n} q={q}: {checks} launches equal (rows B = 1, 3, {BATCH}; widths "
-                  f"{COLUMN_WIDTHS}, up to 3 matrices of 2^22 words in all)")
-    print(f"kernel vs plain: the radix-8 core checked in {time.perf_counter() - t0:.1f} s")
+            print(f"kernel vs plain: {plan.lib_name}_forward, {plan.lib_name}_inverse and their "
+                  f"column entry points at n={n} q={q}: {checks} launches equal (rows B = 1, 3, "
+                  f"{BATCH}; widths {COLUMN_WIDTHS}, up to 3 matrices of 2^22 words in all)")
+        print(f"kernel vs plain: the radix-8 core at q={q} checked in "
+              f"{time.perf_counter() - t_q:.1f} s")
+    print(f"kernel vs plain: the radix-8 cores checked in {time.perf_counter() - t0:.1f} s")
 
     # K1a's large-n bodies, and K2's: the four-step at bench.py's p60_32768,
     # B = 256, p60_1048576, B = 4, and the Goldilocks rows of the same shapes
@@ -675,12 +728,10 @@ def main() -> int:
             return operands(q, n, rows, rng)
 
         a_l, b_l = on_card(*gen(batch))
-        # the column pass: on nwc64.cu's column-tile kernels at 30 < width
-        # <= 62 (held to the transposes around the plain transform), between
-        # torch transposes on gl64.cu's row kernel at the Goldilocks q
-        col_entry = f"{lib}_forward_cols" if lib == "nwc64" else f"{lib}_forward"
+        # the column pass: on the column-tile kernels of nwc64.cu or gl64.cu,
+        # held to the transposes around the plain transform
         label = f"{name} column pass of a and b ({2 * batch * fs.n2} columns of {fs.n1})"
-        m = compare(col_entry, label, column_fwd(fs, True, False, a_l, b_l),
+        m = compare(f"{lib}_forward_cols", label, column_fwd(fs, True, False, a_l, b_l),
                     column_fwd(fs, True, True, a_l, b_l))
         ma, mb = m.chunk(2)
         rk, pre, post = fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
@@ -698,7 +749,7 @@ def main() -> int:
         compare(f"{lib}_cached_scaled", label,
                 rk.cyclic_poly_mult_cached_scaled(ma, spec_rows, pre, post),
                 rk.cyclic_poly_mult_cached_scaled_plain(ma, spec_rows, pre, post))
-        c_l = compare(f"{lib}_inverse_cols" if lib == "nwc64" else f"{lib}_inverse",
+        c_l = compare(f"{lib}_inverse_cols",
                       f"{name} inverse column pass ({batch * fs.n2} columns of {fs.n1})",
                       column_inv(fs, c_rows, True, False), column_inv(fs, c_rows, True, True))
         large[name] = {"p": p, "plan": plan, "lib": lib, "a": a_l, "b": b_l, "c": c_l,
@@ -1017,15 +1068,18 @@ def main() -> int:
         return {k: v for c in counts for k, v in c.items()}
     launches: dict[str, int] = {}
 
-    def drive(label, q, via, fn, inputs, plain, expect, want=None):
+    def drive(label, q, via, fn, inputs, plain, expect, want=None, forbid=()):
         """Run fn with the counts at 0, read them, check against plain; with
-        no kernel to expect, no kernel may launch."""
+        no kernel to expect, no kernel may launch, and none of ``forbid``
+        ever."""
         zero_counts()
         out = fn(*inputs)
         torch.cuda.synchronize()
         seen = read_counts()
         if any(seen[k] < 1 for k in expect) or (not expect and any(seen.values())):
             raise AssertionError(f"main path {label} did not launch {expect}: {seen}")
+        if any(seen[k] for k in forbid):
+            raise AssertionError(f"main path {label} launched one of {forbid}: {seen}")
         if not torch.equal(out, plain(*inputs)):
             raise AssertionError(f"main path {label} differs from its plain version")
         if want is not None and not torch.equal(out, want):
@@ -1098,7 +1152,7 @@ def main() -> int:
     commit_hasher = gl_poseidon.Poseidon2GL()
     ref = commit_hasher.ref
 
-    def commitment(degree, expect):
+    def commitment(degree, expect, forbid=()):
         """The commitment of STARK_COLS random columns of ``degree``
         coefficients, its stages timed on the host clock and the counts
         zeroed before them and read after; then each stage held to its
@@ -1140,8 +1194,9 @@ def main() -> int:
                                     num_queries=STARK_QUERIES)
         stage["FRI verify (host, big-int)"] = time.perf_counter() - t0
         label = f"the degree-{degree} STARK commitment"
-        if any(seen[k] < 1 for k in expect):
-            raise AssertionError(f"{label} did not launch {expect}: {seen}")
+        if any(seen[k] < 1 for k in expect) or any(seen[k] for k in forbid):
+            raise AssertionError(f"{label} did not launch {expect}, or launched one of "
+                                 f"{forbid}: {seen}")
         if not verified:
             raise AssertionError(f"fri_verify rejected the proof of {label}")
         if not canonical(evals, GOLDILOCKS_Q):
@@ -1229,14 +1284,14 @@ def main() -> int:
             drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op],
                   inputs[op], getattr(plan, dispatch.METHODS[op] + "_plain"),
                   fourstep_entries(lib, op),
-                  run["c"] if op == "nwc" else None)
+                  run["c"] if op == "nwc" else None, row_transforms(lib))
 
     def drive_m(run, op, inputs, want=None):
         p, plan = run["p"], run["plan"]
         best[p.name, op] = dispatch.best(p, op)
         return drive(f"best({p.name}, {op!r})", p.q, plan.name, best[p.name, op],
                      inputs, getattr(plan, dispatch.METHODS[op] + "_plain"),
-                     fourstep_entries(run["lib"], op), want)
+                     fourstep_entries(run["lib"], op), want, row_transforms(run["lib"]))
     for name in ("p60_1048576", "goldilocks_1048576"):
         run = large[name]
         a_m, b_m = run["a"], run["b"]
@@ -1252,11 +1307,14 @@ def main() -> int:
     # a2a_exchange launches an exchange of each group of D peers, the
     # four-step's kernels, the single-device plan's result, the
     # fused_exchange=False run's
-    def drive_sharded(label, q, sn, method, inputs, want, exchanges, expect, sn_plain=None):
+    def drive_sharded(label, q, sn, method, inputs, want, exchanges, expect, sn_plain=None,
+                      forbid=()):
         zero_counts()
         out = getattr(sn, method)(*inputs)
         torch.cuda.synchronize()
         seen = read_counts()
+        if any(seen[k] for k in forbid):
+            raise AssertionError(f"sharded {label} launched one of {forbid}: {seen}")
         # each shard is a source once an exchange: D launches a group of peers
         if (seen["a2a_exchange"] != sn.mesh.size * exchanges
                 or any(seen[k] < 1 for k in expect)):
@@ -1320,7 +1378,7 @@ def main() -> int:
             elif op == "inv":
                 inputs = (outs["fwd"],)
             outs[op] = drive_sharded(f"{name} {method} on {mesh!r}", p.q, sn, method,
-                                     inputs, want, exchanges, expect, sn_x)
+                                     inputs, want, exchanges, expect, sn_x, row_transforms(lib))
         return sn, outs
 
     shard_mesh = sharded.make_mesh((A2A_CARDS,), ("coeff",), device)
@@ -1375,8 +1433,9 @@ def main() -> int:
         print(f"sharded: torch.cuda.device_count() == {cards}: the p60_1048576 run with its "
               "shards on distinct cards needs two or more, so it did not run")
 
-    big_commit = commitment(STARK_DEGREE, ("gl64_forward", "gl64_forward_scaled",
-                                          "poseidon_sponge", "poseidon_permute"))
+    big_commit = commitment(STARK_DEGREE, ("gl64_forward_cols", "gl64_forward_scaled",
+                                          "poseidon_sponge", "poseidon_permute"),
+                            row_transforms("gl64"))
     pk2, coeffs2, rows2 = big_commit["pk"], big_commit["coeffs"], big_commit["rows"]
     big_n, t_plain_lde = STARK_DEGREE * STARK_BLOWUP, big_commit["plain_s"]
 
@@ -1481,20 +1540,21 @@ def main() -> int:
         }
     for name in ("p60_32768", "goldilocks_32768"):
         timed.update(row_timed(name))
-    # nwc64.cu's column entry points at p60_32768, B = 256, as its product
-    # calls them: the forward down the (256, 128) matrices of a, the inverse
-    # down those of the row pass's product
-    run = large["p60_32768"]
-    fs32 = run["plan"].fs
-    col32 = fs32.col_k
-    for kernel, method, x in (("nwc64_forward_cols", "nwc_ntt_fwd_cols", run["a"]),
-                              ("nwc64_inverse_cols", "nwc_ntt_inv_cols",
-                               run["c_rows"].reshape(run["a"].shape))):
-        timed[kernel] = (
-            f"p60_32768 column pass, {x.shape[0] * fs32.n2} columns of {fs32.n1}",
-            functools.partial(getattr(col32, method), width=fs32.n2),
-            functools.partial(getattr(col32, method + "_plain"), width=fs32.n2), (x,),
-            work(kernel, fs32.col_params, x.shape[0] * fs32.n2), *SLOW)
+    # the column entry points at p60_32768 and goldilocks_32768, B = 256, as
+    # their products call them: the forward down the (256, 128) matrices of
+    # a, the inverse down those of the row pass's product
+    for name in ("p60_32768", "goldilocks_32768"):
+        run = large[name]
+        fs32, lib = run["plan"].fs, run["lib"]
+        col32 = fs32.col_k
+        for entry, method, x in (("forward_cols", "nwc_ntt_fwd_cols", run["a"]),
+                                 ("inverse_cols", "nwc_ntt_inv_cols",
+                                  run["c_rows"].reshape(run["a"].shape))):
+            timed[f"{lib}_{entry}"] = (
+                f"{name} column pass, {x.shape[0] * fs32.n2} columns of {fs32.n1}",
+                functools.partial(getattr(col32, method), width=fs32.n2),
+                functools.partial(getattr(col32, method + "_plain"), width=fs32.n2), (x,),
+                work(f"{lib}_{entry}", fs32.col_params, x.shape[0] * fs32.n2), *SLOW)
     chain_bytes = {}
     chains = [(name, op) for name in ("p60_32768", "goldilocks_32768")
               for op in ("nwc", "nwc_fwd", "nwc_inv", "cached", "dot", "dot_cached",
@@ -1571,45 +1631,44 @@ def main() -> int:
         })
     per_s = {name: 1 / t for name, t in per_call.items()}  # back to back, host included
     # the chains' parts, device time by graph replay: where a four-step
-    # product's time goes; at 30 < width <= 62 the column passes are the
-    # column entry points, beside them (not in the chain) the transpose route
-    # they replace, the flat kernel between torch transposes
+    # product's time goes; the column passes are the column entry points,
+    # beside them (not in the chain) the transpose route they replace, the
+    # flat radix kernel between torch transposes
     for name, *_ in LARGE_ROWS:
         run = large[name]
-        plan, fs = run["plan"], run["plan"].fs
+        plan, fs, lib = run["plan"], run["plan"].fs, run["lib"]
         col_k, rk, pre, post = fs.col_k, fs.row_k, fs.kmid_nwc, fs.kmid_inv_nwc
         parts = {
-            "column forward (a and b)": (
+            f"column forward (a and b) on {lib}_forward_cols": (
                 lambda x, y: column_fwd(fs, True, False, x, y), (run["a"], run["b"])),
-            f"row {run['lib']}_cyclic_scaled": (
+            f"row {lib}_cyclic_scaled": (
                 lambda x, y: rk.cyclic_poly_mult_scaled(x, y, pre, post),
                 (run["ma"], run["mb"])),
-            "column inverse": (lambda y: column_inv(fs, y, True, False), (run["c_rows"],)),
+            f"column inverse on {lib}_inverse_cols": (
+                lambda y: column_inv(fs, y, True, False), (run["c_rows"],)),
         }
-        if run["lib"] != "nwc64":
-            parts["of which the five transposes"] = (
-                lambda x, y, z: (fs.from_cols(fs.to_cols(x, y)), fs.from_cols(fs.to_cols(z))),
-                (run["a"], run["b"], run["c"]))
         total = 0.0
         for part, (fn, inputs) in parts.items():
             t = graph_seconds_per_call(fn, *inputs)
-            total += t if not part.startswith("of which") else 0.0
+            total += t
             print(f"timing parts: {name} nwc chain, {part}: {t * 1e3:.4f} ms by graph replay, "
                   f"host enqueue {host_seconds_per_call(fn, *inputs):.4e} s")
         print(f"timing parts: {name} nwc chain, sum of its three parts {total * 1e3:.4f} ms; "
               f"bytes as built {chain_bytes[f'{name} nwc chain']}")
-        if run["lib"] == "nwc64":
-            route = {
-                "column forward (a and b) by the transposes, to_cols, nwc64_forward, from_cols":
-                    (lambda x, y: fs.from_cols(col_k.nwc_ntt_fwd(fs.to_cols(x, y))),
-                     (run["a"], run["b"])),
-                "column inverse by the transposes, to_cols, nwc64_inverse, from_cols":
-                    (lambda y: fs.from_cols(col_k.nwc_ntt_inv(fs.to_cols(y))), (run["c_rows"],)),
-            }
-            for part, (fn, inputs) in route.items():
-                t = graph_seconds_per_call(fn, *inputs)
-                print(f"timing parts: {name}, not on the path: {part}: {t * 1e3:.4f} ms by "
-                      "graph replay")
+        route = {
+            f"column forward (a and b) by the transposes, to_cols, {lib}_forward, from_cols":
+                (lambda x, y: fs.from_cols(col_k.nwc_ntt_fwd(fs.to_cols(x, y))),
+                 (run["a"], run["b"])),
+            f"column inverse by the transposes, to_cols, {lib}_inverse, from_cols":
+                (lambda y: fs.from_cols(col_k.nwc_ntt_inv(fs.to_cols(y))), (run["c_rows"],)),
+            "of which the five transposes alone":
+                (lambda x, y, z: (fs.from_cols(fs.to_cols(x, y)), fs.from_cols(fs.to_cols(z))),
+                 (run["a"], run["b"], run["c"])),
+        }
+        for part, (fn, inputs) in route.items():
+            t = graph_seconds_per_call(fn, *inputs)
+            print(f"timing parts: {name}, not on the path: {part}: {t * 1e3:.4f} ms by "
+                  "graph replay")
     # the sharded product on 4 logical shards against the single-device
     # chain, graph replay in two turns; the sanity band: the single chain
     # plus the bytes of three exchanges, under twice the single chain
@@ -1665,7 +1724,7 @@ def main() -> int:
     padded2 = pk2.scale_and_pad(coeffs2)
     lde_parts = {
         "coset scale and pad (torch)": (pk2.scale_and_pad, coeffs2),
-        "four-step nwc_fwd (gl64_forward, gl64_forward_scaled, two transposes)": (
+        "four-step nwc_fwd (gl64_forward_cols, gl64_forward_scaled)": (
             dispatch.best(pk2.p, "nwc_fwd"), padded2),
     }
     for part, (fn, x) in lde_parts.items():

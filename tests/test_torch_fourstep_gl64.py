@@ -255,7 +255,8 @@ def test_row_pass_wrappers_hand_gl64_cu_its_c_signatures(monkeypatch):
     plan.ntt_inv_scaled(a, tw)
     plan.dot_scaled(a[None], a[None], tw, tw)
     plan.matvec_scaled(a[None], a[:2].reshape(1, 1, 2, 128), tw)
-    assert sorted(calls) == sorted(KERNELS[6:])
+    # the column entry points are the column pass (test_torch_gl64_radix.py)
+    assert sorted(calls) == sorted(k for k in KERNELS[6:] if not k.endswith("_cols"))
     for name, args in calls.items():
         params = [q.strip() for q in decls[name].split(",")]
         assert params[-1] == "void* stream", name

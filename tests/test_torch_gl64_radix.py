@@ -1,0 +1,561 @@
+"""The radix-8 core of ``csrc/gl64.cu`` (``gl64_forward``, ``gl64_inverse``
+and their column entry points) modelled on the CPU, and K2's two ablation
+toggles.
+
+* The lazy arithmetic: each ``GL_PTX_*`` carry chain read out of gl64.cu
+  and run on a model of the 32-bit PTX instructions (numpy object arrays,
+  so one call runs a whole warp's lanes), with the C++ around the chains
+  (``mul_lazy``, ``canonical``, ``add_reduced``, ``sub_reduced``,
+  ``add_any``, ``sub_any``, the CT and GS butterflies, the store) in the
+  .cu's order.  Each step asserts the range the .cu states beside it and
+  its value mod q, on every pair of the boundary words 0, 1, q - 1,
+  2^63 - 1, 2^63, 2^64 - 2^32, the non-canonical q, q + 1, 2^64 - 2,
+  2^64 - 1 and random words of [0, 2^64); the chains gl64.cu shares with
+  poseidon.cu are checked to be the same text.
+* The pass schedule: a numpy model of the kernel (which words each thread
+  holds in each pass, the tile's swizzle, the per-pass table of
+  ``mxu64.pass_table`` on the plain Goldilocks twiddles) on those chains,
+  at n = 32, 256 and 4096, rows and columns, cyclic and negacyclic tables,
+  scales 1 and 2^64 mod q (forward), n^-1 and 1 (inverse), against the
+  plain ``ntt`` transforms and JAX's jitted XLA transforms.  The schedule
+  helpers (``element``, ``tile_word``, ``threads``) are
+  tests/test_torch_nwc64_radix.py's: gl64.cu's schedule is nwc64.cu's.
+* ``GoldilocksSubPlan64``'s column methods (``_plan.ColumnPassPlan``;
+  plain on the CPU: the transpose route) against ``FourStepPlan``'s
+  transposes and JAX's four-step locals (``tpu_ntt.sharded._along`` of its
+  XLA transforms) at 32 x 32 and 64 x 32, widths n2 / D for D = 2, 4, 8;
+  the four-step's launch path runs them and never the transposes.
+* The C signatures ``load`` binds for the four entry points; a
+  ``cuda``-marked case holds both layouts against plain on a card.
+* JAX's ``GoldilocksPlan64`` with ``split_left`` and ``const_mul_special``
+  off (tpu_ntt/kernels/gl64.py:211, :216) in interpret mode at n = 32768
+  against the port's four-step: ``slow``, about 25 s (a 12 s plan build).
+
+Tolerance: none — exact integer equality.
+"""
+
+import functools
+import re
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import tpu_ntt.ntt as jntt
+import tpu_ntt.params as jparams
+from test_torch_nwc64_radix import WORDS, element, run_jax, threads, tile, tile_word
+from tpu_ntt import sharded as jsharded
+from tpu_ntt.kernels.gl64 import GoldilocksPlan64 as JaxGoldilocksPlan64
+from tpu_ntt_torch import sharded
+from tpu_ntt_torch.convert import int64_to_pairs, pairs_to_int64
+from tpu_ntt_torch.kernels import _build, _plan
+from tpu_ntt_torch.kernels import gl64 as kgl64
+from tpu_ntt_torch.kernels import mxu64 as kmxu64
+from tpu_ntt_torch.kernels.fourstep64 import FourStepPlan64
+from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64, GoldilocksSubPlan64
+from tpu_ntt_torch.params import make_params
+
+Q = (1 << 64) - (1 << 32) + 1
+EPS = (1 << 32) - 1  # 2^64 mod q
+M32, M64 = (1 << 32) - 1, (1 << 64) - 1
+EDGES = [0, 1, Q - 1, (1 << 63) - 1, 1 << 63, (1 << 64) - (1 << 32), Q, Q + 1, M64 - 1, M64]
+
+
+def operands(shape, seed: int) -> torch.Tensor:
+    """Goldilocks residues as int64 bit patterns; the first rows are all 0,
+    1, q - 1, 2^63 - 1, 2^63 and 2^64 - 2^32."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, Q, size=shape, dtype=np.uint64)
+    rows = x.reshape(-1, shape[-1])
+    for k, v in enumerate(EDGES[:6][:rows.shape[0]]):
+        rows[k] = v
+    return torch.from_numpy(x.view(np.int64))
+
+
+def ints(t: torch.Tensor) -> np.ndarray:
+    """int64 words -> an object array of Python ints (their uint64 values)."""
+    return np.array(t.numpy().view(np.uint64).tolist(), dtype=object)
+
+
+def words(values) -> np.ndarray:
+    return np.array(values, dtype=object)
+
+
+def select(cond, a, b) -> np.ndarray:
+    """np.where on object words (a 0-d operand would become an int64)."""
+    return words(np.where(cond, words(a), words(b)))
+
+
+# ---------------------------------------------------------------------------
+# The PTX carry chains of gl64.cu, on a model of the 32-bit instructions
+# ---------------------------------------------------------------------------
+
+
+def ptx_chains(source: str) -> dict:
+    """name -> [(opcode, destination operand, source operands)] of each
+    ``#define GL_PTX_<name>`` string of csrc/<source>; a source operand is
+    ("%", k) or ("#", immediate)."""
+    chains, name, text = {}, None, []
+    for line in (_build.CSRC / source).read_text().splitlines():
+        m = re.match(r"#define GL_PTX_(\w+)", line)
+        if m:
+            name, text = m.group(1), []
+        if name is None:
+            continue
+        text += re.findall(r'"((?:[^"\\]|\\.)*)"', line)
+        if not line.rstrip().endswith("\\"):
+            body = "".join(text).replace("\\n", " ").replace("\\t", " ")
+            chains[name] = [_parse(ins) for ins in body.split(";") if ins.strip()]
+            name = None
+    return chains
+
+
+def _parse(ins: str):
+    op, args = ins.split(None, 1)
+    args = [a.strip() for a in args.split(",")]
+    srcs = [("%", int(a[1:])) if a.startswith("%") else ("#", int(a, 0)) for a in args[1:]]
+    return op, int(args[0][1:]), srcs
+
+
+CHAINS = ptx_chains("gl64.cu")
+
+
+def run(chain: str, regs: list) -> list:
+    """Execute GL_PTX_<chain> on the operands ``regs`` (32-bit words or
+    object arrays of them, %k = regs[k]) as PTX does: .cc writes the carry
+    flag (for sub, the borrow), addc/subc/madc read it, the destination
+    keeps 32 bits."""
+    regs, cf = [words(r) for r in regs], None
+    for op, d, srcs in CHAINS[chain]:
+        v = [regs[k] if kind == "%" else k for kind, k in srcs]
+        assert all(np.all((x >= 0) & (x <= M32)) for x in v), (chain, op)
+        assert op.endswith(".u32"), op
+        base = op.split(".")[0]
+        carry_in = base in ("addc", "subc", "madc")
+        assert not carry_in or cf is not None, f"{chain}: {op} reads no carry"
+        c = cf if carry_in else 0
+        if base in ("add", "addc"):
+            s = v[0] + v[1] + c
+        elif base in ("sub", "subc"):
+            s = v[0] - v[1] - c
+        elif base in ("mul", "mad", "madc"):
+            prod = v[0] * v[1]
+            part = prod >> 32 if ".hi" in op else prod & M32
+            s = part + (v[2] if base != "mul" else 0) + c
+        else:
+            raise AssertionError(f"{chain}: no model of {op}")
+        regs[d] = words(s & M32)
+        if ".cc" in op:
+            cf = select(s < 0, 1, 0) if base in ("sub", "subc") else words(s >> 32)
+    return regs
+
+
+def split(x):
+    return [x & M32, x >> 32]
+
+
+def join(t0, t1):
+    return t0 | t1 << 32
+
+
+# -- gl64.cu's radix-core arithmetic, in its order --------------------------
+
+
+def mul_lazy(a, b):
+    """A word congruent to a * b for any words: the WIDE chain's four words
+    (exact: a * b < 2^128), the fold with k in {-1, 0, 1}, then t + k eps,
+    which must not wrap."""
+    a, b = words(a), words(b)
+    r = run("WIDE", [0] * 7 + split(a) + split(b) + [0, 0, 0])[:4]
+    assert np.all(r[0] | r[1] << 32 | r[2] << 64 | r[3] << 96 == a * b)
+    t0, t1, k = run("FOLD128", [0, 0, 0, *r, EPS])[:3]
+    signed = select(k == M32, -1, k)
+    assert np.all((signed >= -1) & (signed <= 1))
+    t = join(t0, t1)
+    fixed = t + signed * EPS
+    assert np.all((fixed >= 0) & (fixed <= M64)), "t + k eps wrapped"
+    t0, t1 = run("ADD64", [t0, t1, (0 - k) & M32, select(k >> 31 == 1, M32, 0)])[:2]
+    out = join(t0, t1)
+    assert np.all(out == fixed) and np.all(out % Q == a * b % Q)
+    return out
+
+
+def canonical(x):
+    """Any word -> [0, q): a word at or above q is below 2q."""
+    x = words(x)
+    out = select(x >= Q, x - Q, x)
+    assert np.all(out < Q)
+    return out
+
+
+def add_reduced(a, b):
+    """a + b for any word a and b below q: the one carry fix never wraps."""
+    a, b = words(a), words(b)
+    assert np.all(b < Q)
+    t0, t1 = run("ADD_REDUCED", [0, 0, 0, *split(a), *split(b), EPS])[:2]
+    exact = a + b
+    want = select(exact > M64, exact - (1 << 64) + EPS, exact)
+    assert np.all(want <= M64) and np.all(join(t0, t1) == want)
+    return join(t0, t1)
+
+
+def sub_reduced(a, b):
+    """a - b for any word a and b below q: the one borrow fix never wraps."""
+    a, b = words(a), words(b)
+    assert np.all(b < Q)
+    t0, t1 = run("SUB_REDUCED", [0, 0, 0, *split(a), *split(b)])[:2]
+    exact = a - b
+    want = select(exact < 0, exact + (1 << 64) - EPS, exact)
+    assert np.all(want >= 0) and np.all(join(t0, t1) == want)
+    return join(t0, t1)
+
+
+def add_any(a, b):
+    """a + b for any words: at most two carry fixes, the last never wraps."""
+    a, b = words(a), words(b)
+    t0, t1 = run("ADD_ANY", [0, 0, 0, *split(a), *split(b), EPS])[:2]
+    want = a + b
+    for _ in range(2):
+        want = select(want > M64, want - (1 << 64) + EPS, want)
+    assert np.all(want <= M64) and np.all(join(t0, t1) == want)
+    return join(t0, t1)
+
+
+def sub_any(a, b):
+    """a - b for any words: at most two borrow fixes, the last never wraps."""
+    a, b = words(a), words(b)
+    t0, t1 = run("SUB_ANY", [0, 0, 0, *split(a), *split(b)])[:2]
+    want = a - b
+    for _ in range(2):
+        want = select(want < 0, want + (1 << 64) - EPS, want)
+    assert np.all(want >= 0) and np.all(join(t0, t1) == want)
+    return join(t0, t1)
+
+
+def ct(x, y, w):
+    """The forward's butterfly: any words in and out, w below q."""
+    assert np.all(words(w) < Q)
+    v = canonical(mul_lazy(y, w))
+    out = add_reduced(x, v), sub_reduced(x, v)
+    assert np.all(out[0] % Q == (x + w * y) % Q) and np.all(out[1] % Q == (x - w * y) % Q)
+    return out
+
+
+def gs(x, y, w):
+    """The inverse's butterfly: any words in and out."""
+    out = add_any(x, y), mul_lazy(sub_any(x, y), w)
+    assert np.all(out[0] % Q == (x + y) % Q) and np.all(out[1] % Q == (x - y) * w % Q)
+    return out
+
+
+def store(x, scale: int, inverse: bool):
+    """The store: any word -> [0, q), times scale (the forward skips 1)."""
+    return canonical(x if scale == 1 and not inverse else mul_lazy(x, scale))
+
+
+def test_shared_chains_are_poseidons():
+    """WIDE, FOLD128, ADD64 and ADD_REDUCED are poseidon.cu's chains, whose
+    ranges tests/test_torch_poseidon_lazy.py also checks; SUB_REDUCED,
+    ADD_ANY and SUB_ANY are gl64.cu's own."""
+    theirs = ptx_chains("poseidon.cu")
+    for name in ("WIDE", "FOLD128", "ADD64", "ADD_REDUCED"):
+        assert CHAINS[name] == theirs[name], name
+    assert set(CHAINS) == {"WIDE", "FOLD128", "ADD64", "ADD_REDUCED", "SUB_REDUCED",
+                           "ADD_ANY", "SUB_ANY"}
+
+
+def test_lazy_steps_hold_their_ranges():
+    """Every step on every pair of boundary and random words (canonical and
+    not), with canonical twiddles 0, 1, q - 1 and random: the asserts of
+    each step hold and every result is the right residue."""
+    rng = np.random.default_rng(11)
+    pool = EDGES + [int(v) for v in rng.integers(0, 1 << 64, size=6, dtype=np.uint64)] + [
+        int(v) for v in rng.integers(Q, 1 << 64, size=2, dtype=np.uint64)]
+    x = words([a for a in pool for _ in pool])
+    y = words([b for _ in pool for b in pool])
+    twiddles = [0, 1, Q - 1] + [int(v) for v in rng.integers(0, Q, size=3, dtype=np.uint64)]
+    mul_lazy(x, y)
+    add_any(x, y)
+    sub_any(x, y)
+    low = words([v % Q for v in y])
+    add_reduced(x, low)
+    sub_reduced(x, low)
+    for w in twiddles:
+        cx, cy = ct(x, y, w)
+        gx, gy = gs(x, y, w)
+        for lane in (cx, cy, gx, gy):  # the store: canonical, the right residue
+            for scale, inverse in ((1, False), (w, False), (w, True)):
+                out = store(lane, scale, inverse)
+                assert np.all(out < Q) and np.all(out == lane * scale % Q)
+
+
+def test_one_fix_chains_fail_on_two_lazy_words():
+    """Why GS takes the two-fix chains: ADD_REDUCED and SUB_REDUCED on a
+    second operand at or above q give a wrong residue (the fix wraps)."""
+    a, b = [M64, 0], [M64, M64]
+    t0, t1 = run("ADD_REDUCED", [0, 0, 0, *split(a[0]), *split(b[0]), EPS])[:2]
+    assert join(t0, t1) % Q != (a[0] + b[0]) % Q
+    t0, t1 = run("SUB_REDUCED", [0, 0, 0, *split(a[1]), *split(b[1])])[:2]
+    assert join(t0, t1) % Q != (a[1] - b[1]) % Q
+    assert add_any(a[0], b[0]) % Q == (a[0] + b[0]) % Q
+    assert sub_any(a[1], b[1]) % Q == (a[1] - b[1]) % Q
+    with pytest.raises(AssertionError):
+        add_reduced(a[0], b[0])
+
+
+# ---------------------------------------------------------------------------
+# The kernel's schedule on those chains
+# ---------------------------------------------------------------------------
+
+
+def run_pass(x, w_tab, offset, s, r, hi, inverse):
+    """The stages of pass (s, r) on the registers x, twiddles from the
+    per-pass table: stage s + d's u-th twiddle of group hi at word 2^d + u
+    (word 0 for d = 0) of the group's pairs."""
+    stages = range(r - 1, -1, -1) if inverse else range(r)
+    for d in stages:
+        span = (1 << r) >> (d + 1)
+        w = [w_tab[offset + 2 * ((((0 if d == 0 else (1 << d) + u) // 2) << s) + hi)
+                   + (0 if d == 0 else (1 << d) + u) % 2] for u in range(1 << d)]
+        for reg in range(WORDS):
+            k = reg % (1 << r)
+            if not k & span:
+                e = k >> (r - d)
+                butterfly = gs if inverse else ct
+                x[reg], x[reg + span] = butterfly(x[reg], x[reg + span], w[e])
+
+
+def model(plan, x: torch.Tensor, flat, scale: int, inverse: bool,
+          width: int | None = None) -> torch.Tensor:
+    """The kernel on (R, n * width) words, block by block: rows (width
+    None) or every column of the (n, width) matrices."""
+    log_n, n = plan.p.log_n, plan.p.n
+    cols, width = width is not None, width or 1
+    schedule = kmxu64.passes(log_n)
+    offsets = np.cumsum([0] + [1 << (r + s) for s, r in schedule])
+    (table,) = plan._transform_table(flat)
+    w_tab = ints(table)
+    data, out = ints(x.reshape(-1)), np.zeros(x.numel(), dtype=object)
+    transforms, g_tile = x.numel() // n, tile(log_n, cols)
+    g, t = threads(log_n, cols)
+
+    def at(tg, i):
+        base = (tg // width) * n * width + tg % width if cols else tg * n
+        return base + i * width
+
+    for block in range(-(-transforms // g_tile)):
+        tg = block * g_tile + g
+        live = tg < transforms
+        order = range(len(schedule) - 1, -1, -1) if inverse else range(len(schedule))
+        regs, smem, written = None, {}, None
+        for p in order:
+            s, r = schedule[p]
+            idx = [element(log_n, s, r, t, reg) for reg in range(WORDS)]
+            if regs is None:  # the first pass: from device memory
+                regs = [words(np.where(live, data[np.where(live, at(tg, i), 0)], 0))
+                        for i in idx]
+            else:  # the exchange: each thread's words, then the barrier
+                for reg, i in enumerate(written):
+                    for a, v in zip(tile_word(log_n, cols, g, i), regs[reg]):
+                        smem[a] = v
+                regs = [words([smem[a] for a in tile_word(log_n, cols, g, i)]) for i in idx]
+            hi = 0 if p == 0 else t // ((1 << log_n) >> (s + 3))
+            run_pass(regs, w_tab, offsets[p], s, r, hi, inverse)
+            written = idx
+        for reg, i in enumerate(written):
+            y = store(regs[reg], scale, inverse)
+            out[at(tg, i)[live]] = y[live]
+    return torch.from_numpy(np.array(out.tolist(), dtype=np.uint64).view(np.int64)
+                            .reshape(x.shape))
+
+
+@functools.lru_cache(maxsize=None)
+def plans(n: int):
+    return (GoldilocksSubPlan64(make_params(n, Q), "cpu"),
+            jntt.NttPlan(jparams.make_params(n, Q)))
+
+
+def times(plan, x: torch.Tensor, c: int) -> torch.Tensor:
+    return plan.ring.mul_tw(x, plan.ring.encode_tw([c], "cpu"))
+
+
+def test_pass_tables_hold_the_plain_twiddles():
+    """The Goldilocks pass table is the 1-tuple (w,) of the flat table's
+    words in mxu64.pass_indices order, contiguous, built once a table, for
+    the public plan and the sub-plan alike."""
+    for cls, n in ((GoldilocksSubPlan64, 32), (GoldilocksPlan64, 256)):
+        plan = cls(make_params(n, Q), "cpu")
+        for flat in (plan.plan.merged_flat, plan.plan.cyclic_inv_flat):
+            tables = plan._transform_table(flat)
+            assert len(tables) == 1 and tables[0].is_contiguous()
+            idx = torch.from_numpy(kmxu64.pass_indices(plan.p.log_n))
+            assert torch.equal(tables[0], flat[idx])
+            assert plan._transform_table(flat) is tables
+
+
+@pytest.mark.parametrize("n", [32, 256, 4096])
+def test_model_matches_plain_and_jax(n):
+    plan, jplan = plans(n)
+    rows = {32: 37, 256: 5, 4096: 2}[n]  # partial last tiles below 1024
+    x = operands((rows, n), seed=n)
+    for kind, fwd, inv in (("merged", "nwc_ntt_fwd_plain", "nwc_ntt_inv_plain"),
+                           ("cyclic", "ntt_fwd_plain", "ntt_inv_plain")):
+        flat, flat_inv = (getattr(plan.plan, f"{kind}_flat"),
+                          getattr(plan.plan, f"{kind}_inv_flat"))
+        spec = model(plan, x, flat, 1, False)
+        assert torch.equal(spec, getattr(plan, fwd)(x)), kind
+        assert torch.equal(model(plan, x, flat, EPS, False), times(plan, spec, EPS)), kind
+        back = model(plan, x, flat_inv, plan.p.n_inv, True)
+        assert torch.equal(back, getattr(plan, inv)(x)), kind
+        assert torch.equal(model(plan, x, flat_inv, 1, True), times(plan, back, n)), kind
+        assert torch.equal(model(plan, spec, flat_inv, plan.p.n_inv, True), x)
+        if kind == "merged":  # JAX's XLA merged transforms
+            assert torch.equal(spec, run_jax(lambda v: jntt.nwc_fwd_merged(jplan, v), x))
+            assert torch.equal(back, run_jax(lambda v: jntt.nwc_inv_merged(jplan, v), x))
+    # columns: widths below, at and above the tile
+    for width in (3, 8, 20):
+        xc = operands((2, n * width), seed=width)
+        assert torch.equal(model(plan, xc, plan.plan.merged_flat, 1, False, width),
+                           plan.nwc_ntt_fwd_cols_plain(xc, width)), width
+        assert torch.equal(model(plan, xc, plan.plan.cyclic_inv_flat, plan.p.n_inv, True,
+                                 width), plan.ntt_inv_cols_plain(xc, width)), width
+        if n == 4096:
+            break
+
+
+# ---------------------------------------------------------------------------
+# The column methods, on the CPU the transpose route; on the launch path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n1,n2", [(32, 32), (64, 32)])
+def test_column_methods_match_transposes_and_jax_locals(n1, n2):
+    fs = sharded.KernelFourStep(make_params(n1 * n2, Q), n1, n2, "cpu")
+    jfs = jsharded.FourStepPlan(jparams.make_params(n1 * n2, Q), n1, n2)
+    col = fs.col_k
+    assert isinstance(col, GoldilocksSubPlan64) and isinstance(col, _plan.ColumnPassPlan)
+    for d in (2, 4, 8):
+        width = n2 // d
+        x = operands((3, n1 * width), seed=d)
+        for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv"):
+            got = getattr(col, method + "_cols")(x, width)
+            assert torch.equal(got, getattr(col, method + "_cols_plain")(x, width))
+            route = fs.from_cols(getattr(col, method + "_plain")(fs.to_cols(x, width=width)),
+                                 width=width)
+            assert torch.equal(got, route), (method, width)
+            out = torch.empty_like(x)
+            assert getattr(col, method + "_cols")(x, width, out) is out
+            assert torch.equal(out, got)
+            if d == 4 and method in ("ntt_fwd", "ntt_inv"):  # JAX's local chain's passes
+                jfn = jntt.ntt_fwd_nogather if method == "ntt_fwd" else jntt.ntt_inv_nogather
+                local = functools.partial(jsharded._along, 2,
+                                          lambda u, f=jfn: f(jfs.col_plan, u))
+                want = run_jax(local, x.reshape(3, n1, width))
+                assert torch.equal(got, want.reshape(x.shape)), (method, width)
+        y = sharded.columns(fs, "nwc_ntt_fwd", False, x, x.flip(0).contiguous(), width=width)
+        assert torch.equal(y.reshape(2, 3, -1)[1],
+                           col.nwc_ntt_fwd_cols(x.flip(0).contiguous(), width))
+
+
+def test_fourstep_launches_the_column_entry_points(monkeypatch):
+    """On the launch path (the plans told their tensors are on a card) the
+    Goldilocks four-step's column pass launches gl64_forward_cols and
+    gl64_inverse_cols, never the transposes or the row transforms, and
+    hands each the tensors and Python ints of gl64.cu's C signature."""
+    source = (_build.CSRC / "gl64.cu").read_text()
+    decls = dict(re.findall(r'extern "C" int (gl64_\w+)\(([^)]*)\)', source))
+    plan = FourStepPlan64(make_params(16384, Q), "cpu")
+    fs, calls = plan.fs, []
+    for sub in (fs.col_k, fs.row_k):
+        monkeypatch.setattr(sub, "_runs_plain", lambda x: False)
+        monkeypatch.setattr(sub, "_launch", lambda entry, out, *args: calls.append(
+            (f"gl64_{entry}", args)) or out)
+    for name in ("to_cols", "from_cols"):
+        monkeypatch.setattr(fs, name, lambda *a, **k: pytest.fail("a transpose ran"))
+    a = operands((4, 16384), seed=3)
+    for op in ("nwc_poly_mult", "nwc_ntt_fwd", "ntt_inv", "nwc_poly_mult_cached"):
+        calls.clear()
+        getattr(plan, op)(*((a, a) if "mult" in op else (a,)))
+        names = [name for name, _ in calls]
+        assert not {"gl64_forward", "gl64_inverse"} & set(names), (op, names)
+        assert {"gl64_forward_cols", "gl64_inverse_cols"} & set(names), (op, names)
+        for name, args in calls:
+            params = [p.strip() for p in decls[name].split(",")]
+            assert len(args) == len(params) - 1, name  # the stream comes last
+            for param, arg in zip(params, args):
+                assert isinstance(arg, torch.Tensor) == ("*" in param), (name, param)
+            if name.endswith("_cols"):
+                tw, matrices, log_n, width, scale = args[2:]
+                assert (log_n, width, tw.shape) == (7, 128, (kmxu64.pass_indices(7).size,))
+                assert matrices == 4 and scale in (1, fs.col_params.n_inv)
+
+
+C_TYPES = {"int": kgl64.ctypes.c_int, "uint64_t": kgl64.ctypes.c_uint64}
+
+
+def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
+    """``load`` types the four radix-core entry points with the C argument
+    types of csrc/gl64.cu, and each has its own launch count."""
+    bound = {}
+    monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
+    kgl64.load.__wrapped__()
+    source = (_build.CSRC / "gl64.cu").read_text()
+    decls = dict(re.findall(r'extern "C" int (gl64_\w+)\(([^)]*)\)', source))
+    for suffix in ("forward", "inverse", "forward_cols", "inverse_cols"):
+        params = [p.strip() for p in decls[f"gl64_{suffix}"].split(",")]
+        assert len(params) == len(bound[suffix]), suffix
+        for param, ty in zip(params, bound[suffix]):
+            want = (kgl64.ctypes.c_void_p if "*" in param
+                    else C_TYPES[param.rsplit(" ", 1)[0]])
+            assert ty is want, (suffix, param)
+    assert {"gl64_forward_cols", "gl64_inverse_cols"} <= set(GoldilocksPlan64.launches)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card chip_smoke.py runs this check")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.cuda
+def test_cuda_rows_and_columns_match_plain(cuda_device):
+    for n in (32, 256, 4096):
+        plan = GoldilocksSubPlan64(make_params(n, Q), cuda_device)
+        x = operands((5, n * 8), seed=n).to(cuda_device)
+        rows = x.reshape(-1, n)
+        for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv", "nwc_spectrum"):
+            assert torch.equal(getattr(plan, method)(rows),
+                               getattr(plan, method + "_plain")(rows)), (n, method)
+        for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv"):
+            for width in (1, 3, 8):
+                xc = x[:3].reshape(-1)[:3 * n * width].reshape(3, n * width)
+                got = getattr(plan, method + "_cols")(xc, width)
+                want = getattr(plan, method + "_cols_plain")(xc, width)
+                assert torch.equal(got, want), (n, method, width)
+
+
+# ---------------------------------------------------------------------------
+# K2's ablation toggles: the default body's integers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.slow
+def test_k2_split_toggles_give_the_ports_integers():
+    """JAX's ``GoldilocksPlan64`` with ``split_left`` and
+    ``const_mul_special`` off (the dense left DFT in place of the
+    split-radix left transform at n1 = 256, tpu_ntt/kernels/gl64.py:211,
+    :216), one product in interpret mode at n = 32768: the port's four-step
+    (plain on the CPU, gl64_forward_cols and the row kernels on a card)
+    gives the same integers."""
+    dense = type("JaxGoldilocksPlan64Dense", (JaxGoldilocksPlan64,),
+                 {"split_left": False, "const_mul_special": False})
+    jm = dense(jparams.make_params(32768, Q))
+    jm.groups_per_step = 1  # keep interpret-mode cost down
+    a, b = (operands((7, 32768), seed=s)[6:].clone() for s in (31, 32))
+    edges = torch.from_numpy(np.array(EDGES[:6] * 2, dtype=np.uint64).view(np.int64))
+    a[0, :12], b[0, -12:] = edges, edges  # the boundary words among random ones
+    want = jm.nwc_poly_mult(int64_to_pairs(a), int64_to_pairs(b), interpret=True)
+    got = FourStepPlan64(make_params(32768, Q), "cpu").nwc_poly_mult(a, b)
+    assert torch.equal(got, pairs_to_int64(np.asarray(want[0]), np.asarray(want[1])))

@@ -248,6 +248,22 @@ def test_bounds_count_goldilocks_products():
     assert bounds.work("gl64_dot", GOLDILOCKS_4096, 512)[1] == (
         512 * (8 * t + 4 * 4096 + t + 4096) * 8)
     assert bounds.muls("gl64", Q) == 8
+    # the column entry points are priced as their row twins on the same
+    # transforms, and the four-step's bytes as built have no transposes:
+    # at goldilocks_32768 (256 x 128), B = 256, the nwc chain's column
+    # forward of a and b, row kernel and column inverse move what they read
+    # and write (the row kernel its two plain mid tables too)
+    col, row = make_params(256, Q), make_params(128, Q)
+    for entry in ("forward", "inverse"):
+        assert (bounds.work(f"gl64_{entry}_cols", col, 512 * 128)
+                == bounds.work(f"gl64_{entry}", col, 512 * 128))
+    data = 256 * 32768 * 8
+    nbytes, built, imads = bounds.fourstep_work("nwc", 32768, Q, 256)
+    assert nbytes == 3 * data + 2 * 32768 * 8
+    assert built == 2 * 2 * data + (3 * data + 2 * 32768 * 8) + 2 * data
+    assert imads == sum(bounds.work(k, p, rows, period=256)[1] for k, p, rows in (
+        ("gl64_forward_cols", col, 512 * 128), ("gl64_cyclic_scaled", row, 256 * 256),
+        ("gl64_inverse_cols", col, 256 * 128)))
 
 
 @pytest.mark.cuda

@@ -68,7 +68,11 @@ VARIANTS = {
 ENTRIES = {"forward": 2, "inverse": 2, "forward_cols": 3, "inverse_cols": 3}  # int arguments
 
 
-def build(source: str, out: Path) -> ctypes.CDLL:
+def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None) -> ctypes.CDLL:
+    """Build ``source`` with the kernels' flags into ``out`` and load it;
+    type each entry point ``<prefix>_<entry>`` of ``argtypes`` (by default
+    nwc64.cu's radix entries); its ``summary`` is the registers and spills
+    of ``transform_kernel<12, 0, 0>``."""
     path = out.with_suffix(".cu")
     path.write_text(source)
     proc = subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", str(out), str(path)],
@@ -83,9 +87,12 @@ def build(source: str, out: Path) -> ctypes.CDLL:
                 if "registers" in line)
     lib = ctypes.CDLL(str(out))
     ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
-    for entry, ints in ENTRIES.items():
-        fn = getattr(lib, f"nwc64_{entry}")
-        fn.argtypes = [ptr] * 4 + [i32] * ints + [u64] * 3 + [ptr]
+    if argtypes is None:
+        argtypes = {entry: [ptr] * 4 + [i32] * ints + [u64] * 3 + [ptr]
+                    for entry, ints in ENTRIES.items()}
+    for entry, types in argtypes.items():
+        fn = getattr(lib, f"{prefix}_{entry}")
+        fn.argtypes = types
         fn.restype = ctypes.c_int
     lib.summary = f"{regs} registers, {spill}"
     return lib

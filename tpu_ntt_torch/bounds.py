@@ -194,9 +194,9 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
     column inverse), ``nwc_fwd`` (column forward, ``forward_scaled``) or
     ``nwc_inv`` (``inverse_scaled``, column inverse).  Bytes: each input
     read once and the output written once, with the mid tables (and the
-    matvec's spectra of A); as built, what the kernels move, and at the
-    Goldilocks q the torch transposes around its column pass (each reads
-    and writes its tensor once; the 60-bit column pass has none)."""
+    matvec's spectra of A); as built, what the kernels move: both families'
+    column passes are column entry points (``nwc64_*_cols``,
+    ``gl64_*_cols``), priced as their row twins, with no transposes."""
     n1, n2 = default_split(n)
     l1, l2 = n1.bit_length() - 1, n2.bit_length() - 1
     data = batch * n * 8
@@ -205,7 +205,7 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
     tables = 2 * mid  # two mid tables, for every op but the halves
 
     def col(entry, polys):
-        return ntt_work(entry, n1, l1, q, 8, polys * n2, forms=forms)
+        return ntt_work(entry + "_cols", n1, l1, q, 8, polys * n2, forms=forms)
 
     def row(entry, rows, k=terms):
         return ntt_work(entry, n2, l2, q, 8, rows * n1, k, forms, period=n1)
@@ -213,33 +213,29 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
     if op == "nwc":
         kernels = [col("forward", 2 * batch), row("cyclic_scaled", batch),
                    col("inverse", batch)]
-        io, moved = 3 * data, 12 * data
+        io = 3 * data
     elif op == "cached":
         kernels = [col("forward", batch), row("cached_scaled", batch),
                    col("inverse", batch)]
-        io, moved = 3 * data, 8 * data
+        io = 3 * data
     elif op in ("dot", "dot_cached"):
         fresh = 2 if op == "dot" else 1
         entry = "dot_scaled" if op == "dot" else "dot_cached_scaled"
         kernels = [col("forward", fresh * terms * batch), row(entry, batch),
                    col("inverse", batch)]
-        io, moved = (2 * terms + 1) * data, (4 * fresh * terms + 4) * data
+        io = (2 * terms + 1) * data
     elif op == "matvec":
         kernels = [col("forward", terms * batch), row("forward_scaled", terms * batch),
                    row("matvec_scaled", batch), col("inverse", terms * batch)]
         io = 2 * terms * data + terms * terms * n * 8
-        moved = 8 * terms * data
     elif op == "nwc_fwd":
         kernels = [col("forward", batch), row("forward_scaled", batch)]
-        tables, io, moved = mid, 2 * data, 4 * data
+        tables, io = mid, 2 * data
     else:
         assert op == "nwc_inv", op
         kernels = [row("inverse_scaled", batch), col("inverse", batch)]
-        tables, io, moved = mid, 2 * data, 4 * data
-    if forms is None:  # nwc64.cu's column entry points: no transposes
-        moved = 0
-    built = sum(b for b, _ in kernels) + moved
-    return io + tables, built, sum(m for _, m in kernels)
+        tables, io = mid, 2 * data
+    return io + tables, sum(b for b, _ in kernels), sum(m for _, m in kernels)
 
 
 # ----------------------------------------------------------------------

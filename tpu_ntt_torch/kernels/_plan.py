@@ -40,6 +40,9 @@ Spectra (the layout contract of tpu_ntt/dispatch.py:51-56):
 ``ScaledKernelPlan`` adds the four-step's row pass (``sharded``), six more
 C entry points of the same source, ``<lib>_*_scaled``: ``MxuPlan64`` and
 ``GoldilocksPlan64`` are such plans, their tables (w, w') or (w,).
+``ColumnPassPlan`` adds its column pass, ``<lib>_forward_cols`` and
+``<lib>_inverse_cols``, to the sub-plans of both (``SubPlan64``,
+``GoldilocksSubPlan64``).
 
 ``bind``, ``launch``, ``check`` and ``runs_plain`` serve ``kyber.KyberPlan``
 too, whose fixed ring has other ops than these twelve.
@@ -635,6 +638,82 @@ class ScaledKernelPlan(KernelPlan):
         spectrum (times the domain factor r)."""
         c = self.ring.mul_tw(c, self._r_inv_tw)
         return self._rows_times(ntt.ntt_inv_bitrev(self.plan, c), post)
+
+
+class ColumnPassPlan:
+    """The four-step's column pass on a ``ScaledKernelPlan`` of its
+    sub-sizes (``mxu64.SubPlan64``, ``gl64.GoldilocksSubPlan64``): each
+    transform down every column of (R, n, width) natural rows, the layout
+    ``from_cols(transform(to_cols(x)))`` gives (``sharded.FourStepPlan``),
+    read and written once by the column entry points ``<lib>_forward_cols``
+    and ``<lib>_inverse_cols`` of the radix-8 core; the plain version of
+    each is that transpose route.  The family's differences stay in its
+    hooks (``_transform_table``, ``_q_args``, ``_scale_args``).  ``out``,
+    if given, is a contiguous tensor of x's size that receives the
+    result."""
+
+    def ntt_fwd_cols(self, x, width, out=None):
+        """``ntt_fwd`` down every column: bit-reversed down each column."""
+        return self._cols("forward_cols", x, width, out, self.plan.cyclic_flat,
+                          self._scale_one, self.ntt_fwd_plain)
+
+    def ntt_fwd_cols_plain(self, x, width, out=None):
+        return self._cols_plain(self.ntt_fwd_plain, x, width, out)
+
+    def nwc_ntt_fwd_cols(self, x, width, out=None):
+        return self._cols("forward_cols", x, width, out, self.plan.merged_flat,
+                          self._scale_one, self.nwc_ntt_fwd_plain)
+
+    def nwc_ntt_fwd_cols_plain(self, x, width, out=None):
+        return self._cols_plain(self.nwc_ntt_fwd_plain, x, width, out)
+
+    def ntt_inv_cols(self, x, width, out=None):
+        """``ntt_inv`` down every column of bit-reversed columns."""
+        return self._cols("inverse_cols", x, width, out, self.plan.cyclic_inv_flat,
+                          self._scale_cached, self.ntt_inv_plain)
+
+    def ntt_inv_cols_plain(self, x, width, out=None):
+        return self._cols_plain(self.ntt_inv_plain, x, width, out)
+
+    def nwc_ntt_inv_cols(self, x, width, out=None):
+        return self._cols("inverse_cols", x, width, out, self.plan.merged_inv_flat,
+                          self._scale_cached, self.nwc_ntt_inv_plain)
+
+    def nwc_ntt_inv_cols_plain(self, x, width, out=None):
+        return self._cols_plain(self.nwc_ntt_inv_plain, x, width, out)
+
+    def _cols(self, entry, x, width, out, flat, scale, plain):
+        matrices = self._check_cols(x, width, out)
+        if self._runs_plain(x):
+            return self._cols_plain(plain, x, width, out)
+        out = torch.empty_like(x) if out is None else out
+        if matrices == 0:
+            return out
+        return self._launch(entry, out, x, out, *_table(self._transform_table(flat)),
+                            matrices, self.p.log_n, width, *self._q_args(False), *scale)
+
+    def _cols_plain(self, transform, x, width, out):
+        """The transpose route: each column a row, the row transform, back."""
+        n, matrices = self.p.n, x.numel() // (self.p.n * width)
+        cols = x.reshape(matrices, n, width).transpose(1, 2).reshape(-1, n)
+        y = transform(cols).reshape(matrices, width, n).transpose(1, 2)
+        if out is None:
+            return y.reshape(x.shape)
+        out.view(matrices, n, width).copy_(y)
+        return out
+
+    def _check_cols(self, x, width, out) -> int:
+        """Check x (and out) as whole natural (n, width) matrices; return
+        how many."""
+        if width < 1 or x.numel() % (self.p.n * width):
+            raise ValueError(f"{tuple(x.shape)} is not whole ({self.p.n}, {width}) "
+                             "matrices")
+        check(x, "x", x.dim(), self.dtype, x.shape[-1], self.device)
+        if out is not None:
+            check(out, "out", out.dim(), self.dtype, out.shape[-1], self.device)
+            if out.numel() != x.numel():
+                raise ValueError(f"out holds {out.numel()} words, x {x.numel()}")
+        return x.numel() // (self.p.n * width)
 
 
 def _table(tw) -> tuple:

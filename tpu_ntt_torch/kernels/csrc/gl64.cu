@@ -13,14 +13,18 @@
 //                 nwc_spectrum, which in the plain domain is the forward)
 //   gl64_inverse  _nwc_inv_kernel (:1733: nwc_ntt_inv) and _inv_kernel
 //                 (:1559: ntt_inv)
+//   gl64_forward_cols, gl64_inverse_cols  the same two on every column of
+//                 (R, n, width) natural rows: the four-step's column pass
+//                 (tpu_ntt_torch/sharded.py), where JAX moves the axis in
+//                 XLA around the same two kernels (tpu_ntt/sharded.py:419-442)
 //   gl64_dot      _make_dot_kernel (:1599) through _dot_call (:2238)
 //   gl64_matvec   _make_matvec_kernel (:1639) through nwc_matvec_cached
 //                 (:2305), after gl64_forward has transformed s
 // and, as the row pass of the four-step that serves 8192 < n <= 2^20
-// (tpu_ntt_torch/sharded.py, where gl64_forward and gl64_inverse run the
-// column pass; JAX runs GoldilocksPlan64's split bodies at 16384 and 32768
-// and its kernel four-step with XLA mids above), K1a's large-n bodies at
-// the Goldilocks q, the counterparts of nwc64.cu's nwc64_*_scaled:
+// (tpu_ntt_torch/sharded.py, where gl64_forward_cols and gl64_inverse_cols
+// run the column pass; JAX runs GoldilocksPlan64's split bodies at 16384
+// and 32768 and its kernel four-step with XLA mids above), K1a's large-n
+// bodies at the Goldilocks q, the counterparts of nwc64.cu's nwc64_*_scaled:
 //   gl64_cyclic_scaled   _cyclic_scaled_kernel (:1501): post . INTT(NTT(pre
 //                 . a) o NTT(pre . b)), row r scaled by table row r % period;
 //                 with the column pass, the split-radix products
@@ -43,10 +47,13 @@
 // over.  32 <= n <= 8192 (the public window is 256 <= n <= 8192; below
 // it, the four-step's sub-sizes).
 //
-// Design: nwc64.cu's, in a file of its own.  The network code is a copy of
+// Two cores, as in nwc64.cu.  gl64_forward, gl64_inverse and their column
+// entry points run the radix-8 core ("The radix-8 core" below); the other
+// ten entry points run the first core, correct first and simple, until
+// they move onto the radix-8 one.  The network code of both is a copy of
 // nwc64.cu's rather than a header shared by both, so nwc64.cu is not
-// changed and its functions and times stay as they were; only the
-// arithmetic differs:
+// changed and its functions and times stay as they were; the arithmetic
+// differs.  The first core:
 // * One thread block per row (per output row for the dot and the matvec),
 //   the rows in dynamic shared memory, 8n bytes each: two for the product,
 //   three for the dot (192 KiB at n = 8192, under the 227 KB a block may
@@ -68,33 +75,122 @@
 // * Every value stays canonical in [0, q), also through the dot's and the
 //   matvec's accumulation.
 // * The four-step's row pass (the *_scaled functions) is product_kernel,
-//   forward_kernel, inverse_kernel, dot_kernel and matvec_kernel with one
-//   gl_mul more, by a table row, at entry and/or exit (never on a cached
-//   spectrum, which the row forward has already scaled).  Row r of a
+//   the first core's forward and inverse, dot_kernel and matvec_kernel with
+//   one gl_mul more, by a table row, at entry and/or exit (never on a
+//   cached spectrum, which the row forward has already scaled).  Row r of a
 //   launch reads row r % period of a (period, n) table of plain values (no
 //   Shoup companion, as for the twiddles): a batch of B polynomials of n1
 //   rows each passes period = n1.  The spectra stay plain, so `cacheable`
 //   changes nothing here, where nwc64.cu multiplies by 2^64 mod q.
 //
-// What bounds it on this card: the multiplies, as in nwc64.cu.  Hopper
-// builds a 64 x 64 -> 128 product from about eight 32-bit IMADs (the
+// What bounds the first core on this card: the multiplies, as in nwc64.cu.
+// Hopper builds a 64 x 64 -> 128 product from about eight 32-bit IMADs (the
 // phi-fold adds none), against about twelve for a Shoup-64 or Montgomery-64
 // product, so a Goldilocks butterfly has two thirds of a 60-bit one's
 // multiplies; at goldilocks_4096, B = 2048, the product needs 1.3e9 IMADs,
 // 0.08 ms at 132 SMs x 64 a clock x 1.98 GHz, against 201 MB of operands
-// and result, 0.06 ms at 3.35 TB/s.  What holds it back is what holds
-// nwc64.cu back (PERF.md): instruction issue and latency between the
-// __syncthreads of every stage.  Several stages per barrier in registers
-// and several rows per block at small n are the later work.
+// and result, 0.06 ms at 3.35 TB/s.  What holds it back is what held
+// nwc64.cu's first core back (PERF.md): instruction issue and latency
+// between the __syncthreads of every stage.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+// ---------------------------------------------------------------------------
+// The radix-8 core's carry chains, each kept whole in one asm statement
+// (the carry flag does not survive between two).  WIDE, FOLD128, ADD64 and
+// ADD_REDUCED are poseidon.cu's, SUB_REDUCED, ADD_ANY and SUB_ANY
+// this file's; tests/test_torch_gl64_radix.py reads these strings and runs
+// them on a model of the 32-bit instructions, so the operand numbers in
+// each comment are part of the contract with that test.
+// ---------------------------------------------------------------------------
+
+// a * b + c + e * 2^64 as four words r0..r3 from the four 32 x 32 partial
+// products.  %0-%3 r0..r3; %4-%6 m0..m2; %7, %8 a0, a1; %9, %10 b0, b1;
+// %11, %12 c0, c1; %13 e.  Exact when the sum is below 2^128.
+#define GL_PTX_WIDE                      \
+  "mul.lo.u32 %4, %7, %10;\n\t"          \
+  "mul.hi.u32 %5, %7, %10;\n\t"          \
+  "mad.lo.cc.u32 %4, %8, %9, %4;\n\t"    \
+  "madc.hi.cc.u32 %5, %8, %9, %5;\n\t"   \
+  "addc.u32 %6, 0, 0;\n\t"               \
+  "mad.lo.cc.u32 %0, %7, %9, %11;\n\t"   \
+  "madc.hi.cc.u32 %1, %7, %9, %12;\n\t"  \
+  "madc.lo.cc.u32 %2, %8, %10, %13;\n\t" \
+  "madc.hi.u32 %3, %8, %10, 0;\n\t"      \
+  "add.cc.u32 %1, %1, %4;\n\t"           \
+  "addc.cc.u32 %2, %2, %5;\n\t"          \
+  "addc.u32 %3, %3, %6;"
+
+// The phi-fold of r = r0 + r1 2^32 + r2 2^64 + r3 2^96, congruent to
+// X = (r1:r0) + r2 eps - r3: t = X - k 2^64 with k = floor(X / 2^64) in
+// {-1, 0, 1}.  %0, %1 t0, t1; %2 k; %3-%6 r0..r3; %7 eps = 2^32 - 1.
+#define GL_PTX_FOLD128                 \
+  "mad.lo.cc.u32 %0, %5, %7, %3;\n\t"  \
+  "madc.hi.cc.u32 %1, %5, %7, %4;\n\t" \
+  "addc.u32 %2, 0, 0;\n\t"             \
+  "sub.cc.u32 %0, %0, %6;\n\t"         \
+  "subc.cc.u32 %1, %1, 0;\n\t"         \
+  "subc.u32 %2, %2, 0;"
+
+// t += (d0:d1) mod 2^64.  %0, %1 t0, t1 (read and written); %2, %3 d0, d1.
+#define GL_PTX_ADD64                   \
+  "add.cc.u32 %0, %0, %2;\n\t"         \
+  "addc.u32 %1, %1, %3;"
+
+// a + b for b below q: a carry out of 64 bits adds eps, and then a + b -
+// 2^64 < q keeps the sum below 2^64.  %0, %1 t0, t1; %2 c; %3, %4 a0, a1;
+// %5, %6 b0, b1; %7 eps.
+#define GL_PTX_ADD_REDUCED             \
+  "add.cc.u32 %0, %3, %5;\n\t"         \
+  "addc.cc.u32 %1, %4, %6;\n\t"        \
+  "addc.u32 %2, 0, 0;\n\t"             \
+  "mad.lo.cc.u32 %0, %2, %7, %0;\n\t"  \
+  "addc.u32 %1, %1, 0;"
+
+// a - b for b below q: a borrow (2^64 added) takes eps off, and a - b +
+// 2^64 > 2^64 - q = 2^32 - 1 keeps that from wrapping.  %0, %1 t0, t1; %2
+// m (eps after a borrow, else 0); %3, %4 a0, a1; %5, %6 b0, b1.
+#define GL_PTX_SUB_REDUCED             \
+  "sub.cc.u32 %0, %3, %5;\n\t"         \
+  "subc.cc.u32 %1, %4, %6;\n\t"        \
+  "subc.u32 %2, 0, 0;\n\t"             \
+  "sub.cc.u32 %0, %0, %2;\n\t"         \
+  "subc.u32 %1, %1, 0;"
+
+// a + b for any words: the carry adds eps, which can carry once more (only
+// where a + b > 2^65 - 2^32, so both are at least q) and then leaves a sum
+// below 2^33.  %0, %1 t0, t1; %2 c; %3, %4 a0, a1; %5, %6 b0, b1; %7 eps.
+#define GL_PTX_ADD_ANY                 \
+  "add.cc.u32 %0, %3, %5;\n\t"         \
+  "addc.cc.u32 %1, %4, %6;\n\t"        \
+  "addc.u32 %2, 0, 0;\n\t"             \
+  "mad.lo.cc.u32 %0, %2, %7, %0;\n\t"  \
+  "addc.cc.u32 %1, %1, 0;\n\t"         \
+  "addc.u32 %2, 0, 0;\n\t"             \
+  "mad.lo.cc.u32 %0, %2, %7, %0;\n\t"  \
+  "addc.u32 %1, %1, 0;"
+
+// a - b for any words: the borrow takes eps off, which can borrow once
+// more (only where b - a >= q, so b is at least q) and then leaves a
+// difference above 2^64 - 2^33.  %0, %1 t0, t1; %2 m; %3, %4 a0, a1; %5,
+// %6 b0, b1.
+#define GL_PTX_SUB_ANY                 \
+  "sub.cc.u32 %0, %3, %5;\n\t"         \
+  "subc.cc.u32 %1, %4, %6;\n\t"        \
+  "subc.u32 %2, 0, 0;\n\t"             \
+  "sub.cc.u32 %0, %0, %2;\n\t"         \
+  "subc.cc.u32 %1, %1, 0;\n\t"         \
+  "subc.u32 %2, 0, 0;\n\t"             \
+  "sub.cc.u32 %0, %0, %2;\n\t"         \
+  "subc.u32 %1, %1, 0;"
+
 namespace {
 
 constexpr uint64_t kQ = 0xFFFFFFFF00000001ull;
 constexpr uint64_t kEps = 0xFFFFFFFFull;  // 2^64 mod q = 2^32 - 1
+constexpr uint32_t kEps32 = 0xFFFFFFFFu;
 
 // (a + b) mod q: a carry out of 64 bits is 2^64 = q + eps, so the wrapped
 // sum plus eps is a + b - q, already below q.
@@ -202,42 +298,6 @@ __global__ void product_kernel(const uint64_t* __restrict__ a,
   inverse(x, log_n, itw);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     out[row + i] = x[i];
-  }
-}
-
-// The forward of one row, times `scale` unless it is 1.
-__global__ void forward_kernel(const uint64_t* __restrict__ in,
-                               uint64_t* __restrict__ out,
-                               const uint64_t* __restrict__ tw, int log_n,
-                               uint64_t scale) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = in[row + i];
-  }
-  __syncthreads();
-  forward(x, 1, log_n, tw);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = scale == 1 ? x[i] : gl_mul(x[i], scale);
-  }
-}
-
-// The inverse of one row, then times `scale` (n^-1).
-__global__ void inverse_kernel(const uint64_t* __restrict__ in,
-                               uint64_t* __restrict__ out,
-                               const uint64_t* __restrict__ itw, int log_n,
-                               uint64_t scale) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = in[row + i];
-  }
-  __syncthreads();
-  inverse(x, log_n, itw);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = gl_mul(x[i], scale);
   }
 }
 
@@ -462,6 +522,365 @@ __global__ void matvec_scaled_kernel(const uint64_t* __restrict__ spectra,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The radix-8 core: gl64_forward, gl64_inverse, gl64_forward_cols and
+// gl64_inverse_cols.  The schedule is nwc64.cu's radix-8 core, copied (so
+// nwc64.cu and its measured times stay as they were): a thread holds
+// kWords = 8 words and a pass runs three stages on them in registers, one
+// barrier a pass (the first pass in forward order takes log n mod 3
+// stages, 3 if that is 0); the first pass loads straight from device
+// memory and the last stores straight to it; shared memory holds only the
+// exchange between passes, word a of the tile at a ^ ((a >> 3) & 15); the
+// twiddles come a pass at a time from host-built tables
+// (mxu64.pass_table), here the 1-tuple (w,) of plain values; a block holds
+// 1024 / n rows up to n = 1024, or a tile of max(8, 1024 / n) adjacent
+// columns up to n = 1024, then 8192 / n; __launch_bounds__ keeps 1024
+// threads of an SM resident.  nwc64.cu's header says why each piece is so.
+//
+// The arithmetic is what differs.  Harvey's lanes below 4q do not exist
+// here (q > 2^63): the only slack is that every 64-bit word is one of at
+// most two representatives of its residue (2^64 < 2q).  So a lane is ANY
+// 64-bit word congruent to its value, and the store makes it canonical
+// once.  Each step is a carry chain in PTX (the GL_PTX_* strings above:
+// four of poseidon.cu's and three of this file's), whose ranges
+// tests/test_torch_gl64_radix.py runs on a model of the 32-bit
+// instructions:
+// * the product, mul_lazy: any a, b -> a word congruent to a * b (the
+//   phi-fold, no compare);
+// * the forward's CT butterfly: v = canonical(mul_lazy(y, w)) is below q,
+//   so x + v and x - v need one carry (borrow) fix each for any word x;
+// * the inverse's GS butterfly: x + y and x - y of two arbitrary words
+//   may carry (borrow) twice, so each takes two fixes, and the product of
+//   the difference stays lazy.
+// Against the first core's canonical gl_add, gl_sub and gl_mul that drops
+// the sum's compare from every forward butterfly and the product's compare
+// from every inverse one.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t lo32(uint64_t x) { return static_cast<uint32_t>(x); }
+__device__ __forceinline__ uint32_t hi32(uint64_t x) {
+  return static_cast<uint32_t>(x >> 32);
+}
+__device__ __forceinline__ uint64_t join(uint32_t lo, uint32_t hi) {
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// A word congruent to a * b for any words a, b: a * b < 2^128, folded.
+__device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
+  uint32_t r0, r1, r2, r3, m0, m1, m2;
+  asm(GL_PTX_WIDE
+      : "=&r"(r0), "=&r"(r1), "=&r"(r2), "=&r"(r3), "=&r"(m0), "=&r"(m1), "=&r"(m2)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)), "r"(0u), "r"(0u),
+        "r"(0u));
+  uint32_t t0, t1, k;
+  asm(GL_PTX_FOLD128
+      : "=&r"(t0), "=&r"(t1), "=&r"(k)
+      : "r"(r0), "r"(r1), "r"(r2), "r"(r3), "r"(kEps32));
+  // t + k eps lies in [0, 2^64): the words of k eps mod 2^64 are (-k, k >> 31)
+  asm(GL_PTX_ADD64 : "+r"(t0), "+r"(t1) : "r"(0u - k), "r"(static_cast<uint32_t>(
+      static_cast<int32_t>(k) >> 31)));
+  return join(t0, t1);
+}
+
+// Any word -> [0, q): a word at or above q is below 2q.
+__device__ __forceinline__ uint64_t canonical(uint64_t x) { return x >= kQ ? x - kQ : x; }
+
+// a + b for any word a and b below q: one carry fix (a + b - 2^64 < q).
+__device__ __forceinline__ uint64_t add_reduced(uint64_t a, uint64_t b) {
+  uint32_t t0, t1, c;
+  asm(GL_PTX_ADD_REDUCED
+      : "=&r"(t0), "=&r"(t1), "=&r"(c)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)), "r"(kEps32));
+  return join(t0, t1);
+}
+
+// a - b for any word a and b below q: one borrow fix (a - b + 2^64 >= 2^32).
+__device__ __forceinline__ uint64_t sub_reduced(uint64_t a, uint64_t b) {
+  uint32_t t0, t1, m;
+  asm(GL_PTX_SUB_REDUCED
+      : "=&r"(t0), "=&r"(t1), "=&r"(m)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(t0, t1);
+}
+
+// a + b for any words: two carry fixes.
+__device__ __forceinline__ uint64_t add_any(uint64_t a, uint64_t b) {
+  uint32_t t0, t1, c;
+  asm(GL_PTX_ADD_ANY
+      : "=&r"(t0), "=&r"(t1), "=&r"(c)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)), "r"(kEps32));
+  return join(t0, t1);
+}
+
+// a - b for any words: two borrow fixes.
+__device__ __forceinline__ uint64_t sub_any(uint64_t a, uint64_t b) {
+  uint32_t t0, t1, m;
+  asm(GL_PTX_SUB_ANY
+      : "=&r"(t0), "=&r"(t1), "=&r"(m)
+      : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+  return join(t0, t1);
+}
+
+// Cooley-Tukey: x, y any words in, and out; w < q.
+__device__ __forceinline__ void ct(uint64_t& x, uint64_t& y, uint64_t w) {
+  const uint64_t u = x;
+  const uint64_t v = canonical(mul_lazy(y, w));  // [0, q)
+  x = add_reduced(u, v);  // any word
+  y = sub_reduced(u, v);  // any word
+}
+
+// Gentleman-Sande: x, y any words in, and out.
+__device__ __forceinline__ void gs(uint64_t& x, uint64_t& y, uint64_t w) {
+  const uint64_t u = x, v = y;
+  x = add_any(u, v);                // any word
+  y = mul_lazy(sub_any(u, v), w);   // any word
+}
+
+constexpr int kWords = 8;  // words a thread holds in every pass
+
+__host__ __device__ constexpr int first_stages(int log_n) {
+  return log_n - 3 * ((log_n - 1) / 3);
+}
+__host__ __device__ constexpr int passes(int log_n) { return (log_n - 1) / 3 + 1; }
+// the first stage of pass p (forward order) and its stages
+__host__ __device__ constexpr int pass_stage(int log_n, int p) {
+  return p == 0 ? 0 : first_stages(log_n) + 3 * (p - 1);
+}
+__host__ __device__ constexpr int pass_stages(int log_n, int p) {
+  return p == 0 ? first_stages(log_n) : 3;
+}
+// pass p's table begins after 2^(stages + stage) words of each earlier pass
+__host__ __device__ constexpr int pass_offset(int log_n, int p) {
+  int off = 0;
+  for (int k = 0; k < p; ++k) {
+    off += 1 << (pass_stages(log_n, k) + pass_stage(log_n, k));
+  }
+  return off;
+}
+// transforms a block: rows, or columns of the tile
+__host__ __device__ constexpr int tile(int log_n, bool cols) {
+  const int n = 1 << log_n;
+  if (!cols) {
+    return n >= 1024 ? 1 : 1024 / n;
+  }
+  const int least = 1024 / n > 8 ? 1024 / n : 8;
+  return least < 8192 / n ? least : 8192 / n;
+}
+__host__ __device__ constexpr int block_threads(int log_n, bool cols) {
+  return tile(log_n, cols) * ((1 << log_n) / kWords);
+}
+
+// Stage s + d's 2^d twiddles of group hi in pass table tw at stage s:
+// column 0 for d = 0, columns [2^(d - 1), 2^d) after.
+template <int kS, int kD>
+__device__ __forceinline__ void stage_twiddles(const uint64_t* tw, int hi, uint64_t (&w)[4]) {
+  constexpr int kFirst = kD == 0 ? 0 : (1 << kD) / 2;
+  constexpr int kCount = kD == 0 ? 1 : (1 << kD) / 2;
+  const ulonglong2* pw = reinterpret_cast<const ulonglong2*>(tw);
+#pragma unroll
+  for (int m = 0; m < kCount; ++m) {
+    const ulonglong2 a = __ldg(pw + ((kFirst + m) << kS) + hi);
+    w[2 * m] = a.x;
+    w[2 * m + 1] = a.y;
+  }
+}
+
+// One stage of a pass: register k of each group of 2^kR meets k + span.
+template <int kS, int kR, int kD, bool kInverse>
+__device__ __forceinline__ void stage(uint64_t (&x)[kWords], const uint64_t* tw, int hi) {
+  constexpr int kGroup = 1 << kR, kSpan = kGroup >> (kD + 1);
+  uint64_t w[4];
+  stage_twiddles<kS, kD>(tw, hi, w);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    const int k = r % kGroup;
+    if (!(k & kSpan)) {
+      const int e = k >> (kR - kD);  // the group's twiddle at this stage
+      if constexpr (kInverse) {
+        gs(x[r], x[r + kSpan], w[e]);
+      } else {
+        ct(x[r], x[r + kSpan], w[e]);
+      }
+    }
+  }
+}
+
+// Pass (kS, kR): the forward's stages in order, the inverse's reversed.
+template <int kS, int kR, bool kInverse>
+__device__ __forceinline__ void run_pass(uint64_t (&x)[kWords], const uint64_t* tw, int hi) {
+  if constexpr (kInverse) {
+    if constexpr (kR > 2) stage<kS, kR, 2, true>(x, tw, hi);
+    if constexpr (kR > 1) stage<kS, kR, 1, true>(x, tw, hi);
+    stage<kS, kR, 0, true>(x, tw, hi);
+  } else {
+    stage<kS, kR, 0, false>(x, tw, hi);
+    if constexpr (kR > 1) stage<kS, kR, 1, false>(x, tw, hi);
+    if constexpr (kR > 2) stage<kS, kR, 2, false>(x, tw, hi);
+  }
+}
+
+// Element of register r in pass (kS, kR) for thread t of its transform:
+// register c * 2^kR + k holds element k of group j = t + c * n / 8, which
+// is hi * 2^kR * T + k * T + lo with T = n >> (kS + kR), (hi, lo) = j / T,
+// j % T.
+template <int kLogN, int kS, int kR>
+__device__ __forceinline__ int element(int t, int r) {
+  constexpr int kT = (1 << kLogN) >> (kS + kR);
+  const int j = t + (r >> kR) * ((1 << kLogN) / kWords);
+  return (j / kT) * (kT << kR) + (r % (1 << kR)) * kT + j % kT;
+}
+
+// The group of thread t in a pass of three stages at kS (its twiddles' hi).
+template <int kLogN, int kS>
+__device__ __forceinline__ int group(int t) {
+  return t / ((1 << kLogN) >> (kS + 3));
+}
+
+// Word a of the tile in shared memory, swizzled.
+template <int kLogN, bool kCols>
+__device__ __forceinline__ int tile_word(int g, int i) {
+  const int a = kCols ? i * tile(kLogN, true) + g : g * (1 << kLogN) + i;
+  return a ^ ((a >> 3) & 15);
+}
+
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void to_shared(const uint64_t (&x)[kWords], uint64_t* smem, int g,
+                                          int t) {
+  constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    smem[tile_word<kLogN, kCols>(g, element<kLogN, kS, kR>(t, r))] = x[r];
+  }
+}
+
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void from_shared(uint64_t (&x)[kWords], const uint64_t* smem, int g,
+                                            int t) {
+  constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    x[r] = smem[tile_word<kLogN, kCols>(g, element<kLogN, kS, kR>(t, r))];
+  }
+}
+
+// Pass kP's words from device memory: row (or column) `at`, `stride`
+// words between elements; on rows in the last pass, four 16-byte vectors.
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void load(uint64_t (&x)[kWords], const uint64_t* in, size_t at,
+                                     size_t stride, int t, bool live) {
+  constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+  if constexpr (!kCols && kS + kR == kLogN && kR == 3) {  // element 8t + r
+    const ulonglong2* v = reinterpret_cast<const ulonglong2*>(in + at + kWords * t);
+#pragma unroll
+    for (int m = 0; m < kWords / 2; ++m) {
+      const ulonglong2 p = live ? v[m] : make_ulonglong2(0, 0);
+      x[2 * m] = p.x;
+      x[2 * m + 1] = p.y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    x[r] = live ? in[at + element<kLogN, kS, kR>(t, r) * stride] : 0;
+  }
+}
+
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void store(const uint64_t (&x)[kWords], uint64_t* out, size_t at,
+                                      size_t stride, int t, bool live) {
+  constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+  if (!live) {
+    return;
+  }
+  if constexpr (!kCols && kS + kR == kLogN && kR == 3) {
+    ulonglong2* v = reinterpret_cast<ulonglong2*>(out + at + kWords * t);
+#pragma unroll
+    for (int m = 0; m < kWords / 2; ++m) {
+      v[m] = make_ulonglong2(x[2 * m], x[2 * m + 1]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    out[at + element<kLogN, kS, kR>(t, r) * stride] = x[r];
+  }
+}
+
+// Passes kP, kP + 1, ... of the forward, each after the exchange with the
+// pass before it.
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void forward_passes(uint64_t (&x)[kWords], uint64_t* smem,
+                                               const uint64_t* tw, int g, int t) {
+  if constexpr (kP < passes(kLogN)) {
+    constexpr int kS = pass_stage(kLogN, kP), kOff = pass_offset(kLogN, kP);
+    to_shared<kLogN, kCols, kP - 1>(x, smem, g, t);
+    __syncthreads();
+    from_shared<kLogN, kCols, kP>(x, smem, g, t);
+    run_pass<kS, 3, false>(x, tw + kOff, group<kLogN, kS>(t));
+    forward_passes<kLogN, kCols, kP + 1>(x, smem, tw, g, t);
+  }
+}
+
+// Passes kP, kP - 1, ... 0 of the inverse.
+template <int kLogN, bool kCols, int kP>
+__device__ __forceinline__ void inverse_passes(uint64_t (&x)[kWords], uint64_t* smem,
+                                               const uint64_t* tw, int g, int t) {
+  if constexpr (kP >= 0) {
+    constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+    constexpr int kOff = pass_offset(kLogN, kP);
+    to_shared<kLogN, kCols, kP + 1>(x, smem, g, t);
+    __syncthreads();
+    from_shared<kLogN, kCols, kP>(x, smem, g, t);
+    run_pass<kS, kR, true>(x, tw + kOff, kP == 0 ? 0 : group<kLogN, kS>(t));
+    inverse_passes<kLogN, kCols, kP - 1>(x, smem, tw, g, t);
+  }
+}
+
+// The transforms of `transforms` rows (kCols false: row r at r * n) or
+// columns (column c of matrix m at m * n * width + c, `width` words between
+// its elements) from `in` to `out`, each then times `scale` (the forward
+// skips scale 1).  Table: the per-pass layout of mxu64.pass_table.
+template <int kLogN, bool kInverse, bool kCols>
+__global__ void __launch_bounds__(block_threads(kLogN, kCols),
+                                  1024 / block_threads(kLogN, kCols))
+    transform_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                     const uint64_t* __restrict__ pt, long long transforms, int width,
+                     uint64_t scale) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, kCols);
+  constexpr int kLast = passes(kLogN) - 1;
+  const int tid = threadIdx.x;
+  const int g = kCols ? tid % kTile : tid / kPer;
+  const int t = kCols ? tid / kTile : tid % kPer;
+  const long long tg = static_cast<long long>(blockIdx.x) * kTile + g;
+  const bool live = tg < transforms;
+  const size_t at = !live ? 0
+                    : kCols ? static_cast<size_t>(tg / width) * kN * width + tg % width
+                            : static_cast<size_t>(tg) * kN;
+  const size_t stride = kCols ? width : 1;
+  uint64_t x[kWords];
+  if constexpr (!kInverse) {
+    load<kLogN, kCols, 0>(x, in, at, stride, t, live);  // [0, q): any words
+    run_pass<0, first_stages(kLogN), false>(x, pt, 0);
+    forward_passes<kLogN, kCols, 1>(x, smem, pt, g, t);
+#pragma unroll
+    for (int r = 0; r < kWords; ++r) {  // any word -> [0, q)
+      x[r] = canonical(scale == 1 ? x[r] : mul_lazy(x[r], scale));
+    }
+    store<kLogN, kCols, kLast>(x, out, at, stride, t, live);
+  } else {
+    load<kLogN, kCols, kLast>(x, in, at, stride, t, live);  // [0, q): any words
+    constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
+    run_pass<kS, 3, true>(x, pt + kOff, group<kLogN, kS>(t));
+    inverse_passes<kLogN, kCols, kLast - 1>(x, smem, pt, g, t);
+#pragma unroll
+    for (int r = 0; r < kWords; ++r) {  // any word -> [0, q)
+      x[r] = canonical(mul_lazy(x[r], scale));
+    }
+    store<kLogN, kCols, 0>(x, out, at, stride, t, live);
+  }
+}
+
 // n / 8 threads from n = 256 on (four butterflies each), at most 1024;
 // below, a warp, or one thread a butterfly where n / 2 is less.
 int threads_for(int log_n) {
@@ -483,6 +902,52 @@ cudaError_t allow_smem(Kernel kernel, int words) {
 }
 
 const uint64_t* words(const void* p) { return static_cast<const uint64_t*>(p); }
+
+template <int kLogN, bool kInverse, bool kCols>
+int launch_transform(const void* in, void* out, const void* pt, long long transforms,
+                     int width, uint64_t scale, void* stream) {
+  constexpr int kTile = tile(kLogN, kCols);
+  constexpr int kSmem = kTile * (1 << kLogN) * static_cast<int>(sizeof(uint64_t));
+  const long long blocks = (transforms + kTile - 1) / kTile;
+  if (blocks > 0x7fffffff) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = transform_kernel<kLogN, kInverse, kCols>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  kernel<<<static_cast<unsigned>(blocks), block_threads(kLogN, kCols), kSmem,
+           static_cast<cudaStream_t>(stream)>>>(words(in), static_cast<uint64_t*>(out),
+                                                 words(pt), transforms, width, scale);
+  return cudaGetLastError();
+}
+
+// The radix-8 core's entry: log n from 5 to 13, every pointer 16-byte
+// aligned (the table's vectors, and the rows' in the last pass).
+template <bool kInverse, bool kCols>
+int launch_core(const void* in, void* out, const void* tw, int batch, int log_n, int width,
+                uint64_t scale, void* stream) {
+  if (bad_shape(batch, log_n) || width < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out) |
+       reinterpret_cast<uintptr_t>(tw)) % 16) {
+    return cudaErrorMisalignedAddress;
+  }
+  const long long transforms = static_cast<long long>(batch) * width;
+  switch (log_n) {
+#define GL64_LOG_N(L)                                                                    \
+  case L:                                                                                \
+    return launch_transform<L, kInverse, kCols>(in, out, tw, transforms, width, scale,   \
+                                                stream);
+    GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
+    GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
+#undef GL64_LOG_N
+  }
+  return cudaErrorInvalidValue;
+}
 
 template <bool kCached>
 int launch_product(const void* a, const void* b, void* out, const void* tw,
@@ -544,36 +1009,31 @@ extern "C" int gl64_cached(const void* a, const void* spectrum, void* out,
                               stream);
 }
 
+// The forward and the inverse of (batch, n) rows on the radix-8 core.  The
+// table is that of mxu64.pass_table: the flat table of the first core in
+// the per-pass layout; the forward skips scale 1.
 extern "C" int gl64_forward(const void* in, void* out, const void* tw,
                             int batch, int log_n, uint64_t scale, void* stream) {
-  if (bad_shape(batch, log_n)) {
-    return cudaErrorInvalidValue;
-  }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(forward_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  forward_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
-                   static_cast<cudaStream_t>(stream)>>>(
-      words(in), static_cast<uint64_t*>(out), words(tw), log_n, scale);
-  return cudaGetLastError();
+  return launch_core<false, false>(in, out, tw, batch, log_n, 1, scale, stream);
 }
 
 extern "C" int gl64_inverse(const void* in, void* out, const void* itw,
                             int batch, int log_n, uint64_t scale, void* stream) {
-  if (bad_shape(batch, log_n)) {
-    return cudaErrorInvalidValue;
-  }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(inverse_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  inverse_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
-                   static_cast<cudaStream_t>(stream)>>>(
-      words(in), static_cast<uint64_t*>(out), words(itw), log_n, scale);
-  return cudaGetLastError();
+  return launch_core<true, false>(in, out, itw, batch, log_n, 1, scale, stream);
+}
+
+// The same on every column of `batch` natural (n, width) matrices, in
+// place of the transposes around a row transform: column c of matrix m is
+// the n words m * n * width + c + i * width; the forward's spectrum comes
+// out down the same column, in bit-reversed order.
+extern "C" int gl64_forward_cols(const void* in, void* out, const void* tw, int batch,
+                                 int log_n, int width, uint64_t scale, void* stream) {
+  return launch_core<false, true>(in, out, tw, batch, log_n, width, scale, stream);
+}
+
+extern "C" int gl64_inverse_cols(const void* in, void* out, const void* itw, int batch,
+                                 int log_n, int width, uint64_t scale, void* stream) {
+  return launch_core<true, true>(in, out, itw, batch, log_n, width, scale, stream);
 }
 
 extern "C" int gl64_dot(const void* a, const void* b, void* out,

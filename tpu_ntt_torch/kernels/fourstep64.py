@@ -10,13 +10,12 @@ and 32768 for both families) or its kernel-locals four-step
 ``GoldilocksPlan64`` at the Goldilocks q).  The port runs one path for all
 of them, ``sharded.KernelFourStep`` at ``default_split(n)``: the column pass
 on the sub-plan's column entry points ``nwc64_forward_cols`` and
-``nwc64_inverse_cols`` (``SubPlan64``'s ``*_cols`` methods, no transposes)
-or, at the Goldilocks q, on ``gl64_forward``/``gl64_inverse`` between torch
-transposes (``GoldilocksSubPlan64``), and the row pass on the sub-plan's
-``cyclic_scaled`` and halves (``csrc/nwc64.cu``'s ``nwc64_*``,
+``nwc64_inverse_cols`` (``SubPlan64``'s ``*_cols`` methods) or, at the
+Goldilocks q, ``gl64_forward_cols`` and ``gl64_inverse_cols``
+(``GoldilocksSubPlan64``'s), no transposes, and the row pass on the
+sub-plan's ``cyclic_scaled`` and halves (``csrc/nwc64.cu``'s ``nwc64_*``,
 ``csrc/gl64.cu``'s ``gl64_*``).  The entry points below name the nwc64
-ones; the gl64 ones are the same with the prefix ``gl64_``, their column
-pass ``gl64_forward`` and ``gl64_inverse``.
+ones; the gl64 ones are the same with the prefix ``gl64_``.
 
 * ``nwc`` and ``cyclic``: column forward, the scaled row product, column
   inverse (three launches).

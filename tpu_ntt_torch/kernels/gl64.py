@@ -22,7 +22,14 @@ kernels at 32 <= n <= 8192 and its row passes (``_plan.ScaledKernelPlan``:
 ``gl64_cyclic_scaled``, ``gl64_cached_scaled``, ``gl64_forward_scaled``,
 ``gl64_inverse_scaled``, ``gl64_dot_scaled``, ``gl64_matvec_scaled``), whose
 scale tables are 1-tuples (w,) of plain values; the entry and exit scales
-are one phi-fold product each.
+are one phi-fold product each; and its column pass, the ``*_cols`` methods
+of ``_plan.ColumnPassPlan`` (``gl64_forward_cols``, ``gl64_inverse_cols``)
+on every column of natural (R, n, width) rows, with no transposes.
+
+``gl64_forward`` and ``gl64_inverse`` (and their column entry points) run
+the radix-8 core of ``csrc/gl64.cu``: passes of three stages in registers,
+twiddles in the per-pass layout of ``mxu64.pass_table``; the other ten
+kernels read the flat tables.
 """
 
 from __future__ import annotations
@@ -35,18 +42,18 @@ import torch
 from ..modmath import GOLDILOCKS_Q
 from ..params import NttParams
 from . import _plan
-from .mxu64 import MAX_N, MIN_N, SUB_MIN_N
+from .mxu64 import MAX_N, MIN_N, SUB_MIN_N, cached_pass_table
 
 #: the C entry points of csrc/gl64.cu, each with its own launch count
 KERNELS = ("gl64_product", "gl64_cached", "gl64_forward", "gl64_inverse",
            "gl64_dot", "gl64_matvec", "gl64_cyclic_scaled", "gl64_forward_scaled",
            "gl64_inverse_scaled", "gl64_cached_scaled", "gl64_dot_scaled",
-           "gl64_matvec_scaled")
+           "gl64_matvec_scaled", "gl64_forward_cols", "gl64_inverse_cols")
 
 
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build if needed and load ``csrc/gl64.cu``, its twelve entry points
+    """Build if needed and load ``csrc/gl64.cu``, its fourteen entry points
     typed as declared there."""
     ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
     return _plan.bind("gl64", {
@@ -62,6 +69,8 @@ def load() -> ctypes.CDLL:
         "inverse_scaled": [ptr] * 4 + [i32] * 3 + [u64, ptr],
         "dot_scaled": [ptr] * 7 + [i32] * 4 + [u64, i32, ptr],
         "matvec_scaled": [ptr] * 5 + [i32] * 5 + [u64, ptr],
+        "forward_cols": [ptr] * 3 + [i32] * 3 + [u64, ptr],
+        "inverse_cols": [ptr] * 3 + [i32] * 3 + [u64, ptr],
     })
 
 
@@ -103,13 +112,20 @@ class GoldilocksPlan64(_plan.ScaledKernelPlan):
     def _ring_tw(self, table: tuple):
         return table[0]  # GoldilocksRing.mul_tw takes the plain values
 
+    def _transform_table(self, flat) -> tuple:
+        """The per-pass layout of the flat table w for gl64_forward and
+        gl64_inverse and their column entry points: the 1-tuple (w,)."""
+        return cached_pass_table(self, flat)
 
-class GoldilocksSubPlan64(GoldilocksPlan64):
+
+class GoldilocksSubPlan64(_plan.ColumnPassPlan, GoldilocksPlan64):
     """``GoldilocksPlan64`` at the sub-sizes of the four-step
     (``sharded.KernelFourStep``), 32 <= n <= 8192: the column and row
     transforms of n up to 2^20.  ``kernels.covers`` never returns it, so the
     flat window stays 256 <= n <= 8192; its launches count in
-    ``GoldilocksPlan64.launches``."""
+    ``GoldilocksPlan64.launches``.  Its column pass
+    (``_plan.ColumnPassPlan``) runs ``gl64_forward_cols`` and
+    ``gl64_inverse_cols``."""
 
     name = "cuda-gl64-sub"
 

@@ -23,9 +23,9 @@ Above n = 8192 the rows outgrow a block's 227 KB, and the four-step of
 ``ntt_inv_scaled`` (the port of K1a's ``_cyclic_scaled_kernel``),
 ``cyclic_poly_mult_cached_scaled`` (against a cached spectrum),
 ``dot_scaled`` and ``matvec_scaled``, on (P, n) Shoup scale tables (w, w');
-and its column pass, ``SubPlan64``'s ``*_cols`` methods on every column of
-natural (R, n, width) rows, in place of torch transposes around a row
-transform.
+and its column pass, ``SubPlan64``'s ``*_cols`` methods
+(``_plan.ColumnPassPlan``) on every column of natural (R, n, width) rows, in
+place of torch transposes around a row transform.
 
 ``nwc64_forward`` and ``nwc64_inverse`` (and their column entry points) run
 the radix-8 core of ``csrc/nwc64.cu``: passes of three stages in registers
@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..params import NttParams
-from ._plan import ScaledKernelPlan, _table, bind, check, load
+from ._plan import ColumnPassPlan, ScaledKernelPlan, bind, load
 
 MIN_N, MAX_N = 256, 8192  # the dot's three rows of n int64 fit 227 KB at 8192
 SUB_MIN_N = 32  # the least sub-transform the four-step may ask of the kernels
@@ -85,14 +85,25 @@ def pass_indices(log_n: int) -> np.ndarray:
     return np.concatenate(idx)
 
 
-def pass_table(flat: tuple) -> tuple:
-    """The flat twiddle table (w, w') of a transform of n points (stage s's
-    group g at entry 2^s + g) in the radix-8 core's per-pass layout, both
-    halves contiguous tensors on its device: each stage's twiddles of a
-    group in 16-byte pairs, a warp's loads contiguous (csrc/nwc64.cu)."""
+def pass_table(flat) -> tuple:
+    """The flat twiddle table of a transform of n points (stage s's group g
+    at entry 2^s + g), a Shoup pair (w, w') or the plain w of Goldilocks,
+    in the radix-8 core's per-pass layout: a tuple of contiguous tensors on
+    its device, each stage's twiddles of a group in 16-byte pairs, a warp's
+    loads contiguous (csrc/nwc64.cu, csrc/gl64.cu)."""
+    flat = flat if isinstance(flat, tuple) else (flat,)
     log_n = flat[0].shape[0].bit_length() - 1
     idx = torch.from_numpy(pass_indices(log_n)).to(flat[0].device)
     return tuple(t[idx].contiguous() for t in flat)
+
+
+def cached_pass_table(plan, flat) -> tuple:
+    """``pass_table(flat)`` for a plan's ``_transform_table``, built once a
+    table (keyed by the table object, which the cache keeps alive)."""
+    cache = plan.__dict__.setdefault("_pass_tables", {})
+    if id(flat) not in cache:
+        cache[id(flat)] = (flat, pass_table(flat))
+    return cache[id(flat)][1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,20 +153,17 @@ class MxuPlan64(ScaledKernelPlan):
 
     def _transform_table(self, flat: tuple) -> tuple:
         """The per-pass layout of the flat table (w, w') for nwc64_forward
-        and nwc64_inverse, built once a table."""
-        cache = self.__dict__.setdefault("_pass_tables", {})
-        key = id(flat[0])
-        if key not in cache:
-            cache[key] = (flat, pass_table(flat))  # flat kept: its id stays its own
-        return cache[key][1]
+        and nwc64_inverse and their column entry points."""
+        return cached_pass_table(self, flat)
 
 
-class SubPlan64(MxuPlan64):
+class SubPlan64(ColumnPassPlan, MxuPlan64):
     """``MxuPlan64`` at the sub-sizes of the four-step
     (``sharded.KernelFourStep``), 32 <= n <= 8192: the column and row
     transforms of n up to 2^20.  ``kernels.covers`` never returns it, so the
     public window stays 256 <= n <= 8192; its launches count in
-    ``MxuPlan64.launches``."""
+    ``MxuPlan64.launches``.  Its column pass (``_plan.ColumnPassPlan``)
+    runs ``nwc64_forward_cols`` and ``nwc64_inverse_cols``."""
 
     name = "cuda-mxu64-sub"
 
@@ -167,75 +175,3 @@ class SubPlan64(MxuPlan64):
     def _refusal(self, p: NttParams) -> str:
         return (f"SubPlan64 covers 30 < width <= 62 at {SUB_MIN_N} <= n <= "
                 f"{MAX_N}; got n={p.n}, a {p.width}-bit q={p.q}")
-
-    # ------------------------------------------------------------------
-    # The column pass: each transform down every column of (R, n, width)
-    # natural rows, the layout from_cols(transform(to_cols(x))) gives
-    # (sharded.FourStepPlan), read and written once by the column entry
-    # points nwc64_forward_cols and nwc64_inverse_cols; the plain version
-    # of each is that transpose route.  ``out``, if given, is a contiguous
-    # tensor of x's size that receives the result.
-    # ------------------------------------------------------------------
-
-    def ntt_fwd_cols(self, x, width, out=None):
-        """``ntt_fwd`` down every column: bit-reversed down each column."""
-        return self._cols("forward_cols", x, width, out, self.plan.cyclic_flat,
-                          self._scale_one, self.ntt_fwd_plain)
-
-    def ntt_fwd_cols_plain(self, x, width, out=None):
-        return self._cols_plain(self.ntt_fwd_plain, x, width, out)
-
-    def nwc_ntt_fwd_cols(self, x, width, out=None):
-        return self._cols("forward_cols", x, width, out, self.plan.merged_flat,
-                          self._scale_one, self.nwc_ntt_fwd_plain)
-
-    def nwc_ntt_fwd_cols_plain(self, x, width, out=None):
-        return self._cols_plain(self.nwc_ntt_fwd_plain, x, width, out)
-
-    def ntt_inv_cols(self, x, width, out=None):
-        """``ntt_inv`` down every column of bit-reversed columns."""
-        return self._cols("inverse_cols", x, width, out, self.plan.cyclic_inv_flat,
-                          self._scale_cached, self.ntt_inv_plain)
-
-    def ntt_inv_cols_plain(self, x, width, out=None):
-        return self._cols_plain(self.ntt_inv_plain, x, width, out)
-
-    def nwc_ntt_inv_cols(self, x, width, out=None):
-        return self._cols("inverse_cols", x, width, out, self.plan.merged_inv_flat,
-                          self._scale_cached, self.nwc_ntt_inv_plain)
-
-    def nwc_ntt_inv_cols_plain(self, x, width, out=None):
-        return self._cols_plain(self.nwc_ntt_inv_plain, x, width, out)
-
-    def _cols(self, entry, x, width, out, flat, scale, plain):
-        matrices = self._check_cols(x, width, out)
-        if self._runs_plain(x):
-            return self._cols_plain(plain, x, width, out)
-        out = torch.empty_like(x) if out is None else out
-        if matrices == 0:
-            return out
-        return self._launch(entry, out, x, out, *_table(self._transform_table(flat)),
-                            matrices, self.p.log_n, width, *self._q_args(False), *scale)
-
-    def _cols_plain(self, transform, x, width, out):
-        """The transpose route: each column a row, the row transform, back."""
-        n, matrices = self.p.n, x.numel() // (self.p.n * width)
-        cols = x.reshape(matrices, n, width).transpose(1, 2).reshape(-1, n)
-        y = transform(cols).reshape(matrices, width, n).transpose(1, 2)
-        if out is None:
-            return y.reshape(x.shape)
-        out.view(matrices, n, width).copy_(y)
-        return out
-
-    def _check_cols(self, x, width, out) -> int:
-        """Check x (and out) as whole natural (n, width) matrices; return
-        how many."""
-        if width < 1 or x.numel() % (self.p.n * width):
-            raise ValueError(f"{tuple(x.shape)} is not whole ({self.p.n}, {width}) "
-                             "matrices")
-        check(x, "x", x.dim(), self.dtype, x.shape[-1], self.device)
-        if out is not None:
-            check(out, "out", out.dim(), self.dtype, out.shape[-1], self.device)
-            if out.numel() != x.numel():
-                raise ValueError(f"out holds {out.numel()} words, x {x.numel()}")
-        return x.numel() // (self.p.n * width)

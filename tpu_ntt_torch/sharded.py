@@ -22,15 +22,16 @@ drops the psi factors.  The inverse runs the mirror: row inverse, the
 inverse mid table, column inverse, n^-1 = n1^-1 * n2^-1 inside the two.
 
 On the card (``KernelFourStep``): the column pass is the sub-plan's
-``nwc_ntt_fwd``/``ntt_fwd`` down the columns.  At 30 < width <= 62
-(``SubPlan64``) its column methods run ``csrc/nwc64.cu``'s
-``nwc64_forward_cols`` and ``nwc64_inverse_cols``, which read each tile of
-adjacent columns of the natural rows once and write it once; at the
-Goldilocks q (``GoldilocksSubPlan64``, ``csrc/gl64.cu``'s ``gl64_forward``)
-torch transposes the columns into rows and back around the row kernel, as
-JAX moves the axis in XLA around its kernel (tpu_ntt/sharded.py:419-442).
-Either way the result is ``from_cols(transform(to_cols(x)))``, the column
-methods' plain version.  The mid table rides
+``nwc_ntt_fwd``/``ntt_fwd`` down the columns, through its column methods
+(``kernels._plan.ColumnPassPlan``): at 30 < width <= 62 (``SubPlan64``)
+``csrc/nwc64.cu``'s ``nwc64_forward_cols`` and ``nwc64_inverse_cols``, at
+the Goldilocks q (``GoldilocksSubPlan64``) ``csrc/gl64.cu``'s
+``gl64_forward_cols`` and ``gl64_inverse_cols``, which read each tile of
+adjacent columns of the natural rows once and write it once, where JAX
+moves the axis in XLA around its kernel (tpu_ntt/sharded.py:419-442).  The
+result is ``from_cols(transform(to_cols(x)))``, the column methods' plain
+version; a sub-plan without column methods (``PlainSubPlan``) takes that
+transpose route.  The mid table rides
 the row kernel as its entry scale: ``ntt_fwd_scaled``, ``ntt_inv_scaled``
 and, for a product, ``cyclic_poly_mult_scaled`` with pre = the forward mid
 and post = the inverse mid (K1a's ``_cyclic_scaled_kernel``,
@@ -289,8 +290,9 @@ def columns(fs: FourStepPlan, method: str, plain: bool, *xs: torch.Tensor,
     each of xs, (R, n1 * width) natural rows (by default width = n2; a
     shard's block is narrower), out stacked as (len(xs) * R, n1 * width)
     rows in the same layout.  A sub-plan with column methods
-    (``SubPlan64``'s ``*_cols``) writes each operand's columns in place of
-    the transposes; any other takes the transposes around its row method."""
+    (``SubPlan64``'s and ``GoldilocksSubPlan64``'s ``*_cols``) writes each
+    operand's columns in place of the transposes; any other takes the
+    transposes around its row method."""
     width, col = width or fs.n2, fs.col_k
     if hasattr(col, method + "_cols"):
         out = xs[0].new_empty((len(xs), xs[0].numel()))

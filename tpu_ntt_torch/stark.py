@@ -12,8 +12,9 @@ points are the coset psi * H_N, so the shift folds into the scale table as
 (shift * psi^-1)^i (tpu_ntt/stark.py:64-73).  For Goldilocks on a CUDA
 tensor that is ``gl64_forward`` of ``kernels/csrc/gl64.cu`` up to
 N = 8192, and above, up to N = 2^20 (Plonky2's degree 2^17 at blowup 8),
-the four-step of ``kernels.fourstep64.FourStepPlan64`` (``gl64_forward``
-down the columns, ``gl64_forward_scaled`` along the rows), whose
+the four-step of ``kernels.fourstep64.FourStepPlan64``
+(``gl64_forward_cols`` down the columns of the natural rows, no transposes,
+``gl64_forward_scaled`` along the rows), whose
 ``nwc_ntt_fwd`` is the same evaluation over psi * H_N.  The kernel order's
 slots are the port's own layout (``bitrev_to_natural_perm``, bit-reversed
 at every N), not the TPU's four-step one, so its raw slots differ from
