@@ -30,7 +30,10 @@ kernel K6).  Phases, each of which raises on failure:
    instructions one width-8 permutation issues (cuobjdump); the
    instructions a thread issues after its first barrier at n = 4096 in
    nwc64.cu's and gl64.cu's radix-8 kernels and in their first cores'
-   loops (gl64.cu's radix kernels must spill nothing);
+   loops, in the fused ``nwc64_product`` at n = 4096 and the fused
+   ``gl64_cyclic_scaled`` at n = 128 and 1024; the radix-8 kernels of
+   both files, 36 transforms and 18 fused products each, must spill
+   nothing;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: the
    radix-8 cores (``nwc64_forward``, ``nwc64_inverse`` on rows and
@@ -40,8 +43,12 @@ kernel K6).  Phases, each of which raises on failure:
    four ``gl64_*`` at the Goldilocks q, boundary rows 0, 1, q - 1,
    2^63 - 1, 2^63 and 2^64 - 2^32) at every n from 32 to 8192, B = 1, 3
    and 2048 rows, widths 1, 3, 8, 128 and 1024, cyclic and merged tables,
-   the forward at scale 1 and 2^64 mod q, the inverse at n^-1 and 1; every
-   op
+   the forward at scale 1 and 2^64 mod q, the inverse at n^-1 and 1; the
+   products fused on those cores (``nwc64_product`` and ``nwc64_cached``
+   at the three 60-bit q, ``gl64_cyclic_scaled`` and ``gl64_cached_scaled``
+   at the Goldilocks q with random pre and post tables at period 1, 3 and
+   256) at every n from 32 to 8192, B = 1, 3 and 2048, cyclic and merged
+   tables, boundary rows first; every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
    B = 256), the product, forward and inverse at n = 256 and 8192, the dot
    at n = 8192 (three rows of shared memory), every op at the generic q;
@@ -513,6 +520,7 @@ def main() -> int:
           "instructions each")
     for kernel, trips in (("transform_kernel<12, 0, 0>", ()), ("transform_kernel<12, 1, 0>", ()),
                           ("transform_kernel<8, 0, 1>", ()), ("transform_kernel<10, 0, 1>", ()),
+                          ("product_kernel<12, 0>", ()), ("product_kernel<12, 1>", ()),
                           ("forward_scaled_kernel", (4, 12, 2, 0)),
                           ("inverse_scaled_kernel", (4, 12, 8))):
         code = nwc_sass[kernel]
@@ -531,6 +539,8 @@ def main() -> int:
           "instructions each")
     for kernel, trips in (("transform_kernel<12, 0, 0>", ()), ("transform_kernel<12, 1, 0>", ()),
                           ("transform_kernel<8, 0, 1>", ()), ("transform_kernel<10, 1, 1>", ()),
+                          ("cyclic_scaled_kernel<7, 0>", ()), ("cyclic_scaled_kernel<10, 0>", ()),
+                          ("cyclic_scaled_kernel<7, 1>", ()),
                           ("forward_scaled_kernel", (4, 12, 2, 0)),
                           ("inverse_scaled_kernel", (4, 12, 8))):
         code = gl_sass[kernel]
@@ -538,12 +548,18 @@ def main() -> int:
         print(f"  sass: gl64.cu {kernel}: {len(code)} instructions; after its first barrier "
               f"a thread issues {issued or 'not counted:'} "
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
-    spills = re.findall(r"Function properties for \S*transform_kernel\S*\n[^\n]*?(\d+) bytes "
-                        r"spill stores, (\d+) bytes spill loads",
-                        libs["gl64"].with_suffix(".log").read_text())
-    if len(spills) != 36 or any(int(st) or int(ld) for st, ld in spills):
-        raise AssertionError(f"gl64.cu's radix-8 kernels spill registers: {spills}")
-    print(f"build: gl64.cu's {len(spills)} radix-8 kernels spill nothing")
+    # the radix-8 kernels of both files spill nothing: 36 transforms (a log n
+    # from 5 to 13, each direction and layout) and 18 fused products (each
+    # log n, fresh and cached) in each
+    for lib, fused in (("nwc64", "product_kernel"), ("gl64", "cyclic_scaled_kernel")):
+        log = libs[lib].with_suffix(".log").read_text()
+        for kernel, count in (("transform_kernel", 36), (fused, 18)):
+            spills = re.findall(rf"Function properties for \S*{kernel}I\S*\n[^\n]*?(\d+) "
+                                r"bytes spill stores, (\d+) bytes spill loads", log)
+            if len(spills) != count or any(int(st) or int(ld) for st, ld in spills):
+                raise AssertionError(f"{lib}.cu's {kernel}s: {count} expected, none "
+                                     f"spilling; ptxas says {spills}")
+            print(f"build: {lib}.cu's {len(spills)} radix-8 {kernel}s spill nothing")
 
     # 3. kernel vs plain version, bit for bit
     rng = np.random.default_rng(args.seed)
@@ -702,6 +718,67 @@ def main() -> int:
         print(f"kernel vs plain: the radix-8 core at q={q} checked in "
               f"{time.perf_counter() - t_q:.1f} s")
     print(f"kernel vs plain: the radix-8 cores checked in {time.perf_counter() - t0:.1f} s")
+
+    # the products fused on the radix-8 cores: nwc64_product and nwc64_cached
+    # at the three 60-bit q, gl64_cyclic_scaled and gl64_cached_scaled at the
+    # Goldilocks q with random pre and post tables at period 1, 3 and
+    # goldilocks_32768's n1 = 256; merged and cyclic tables, every log n of
+    # the sub-plans' window, B = 1, 3 and 2048 rows, boundary rows first (b's
+    # reversed against a's); each launch against its plain version, bit for
+    # bit
+    def fused_check(plan, entry, label, want, x, y, tables, *args):
+        out = torch.empty_like(x)
+        plan._launch(entry, out, x, y, out, *(w for t in tables for w in plan._table_of(entry, t)),
+                     *args)
+        torch.cuda.synchronize()
+        name = f"{plan.lib_name}_{entry}"
+        errs[name] = max(errs.get(name, 0), int((out - want).abs().max()))
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name} differs from its plain version at {label}")
+
+    t0 = time.perf_counter()
+    for q in (P60_4096.q, Q_GENERIC, Q62_MAX, GOLDILOCKS_Q):
+        t_q, checks = time.perf_counter(), 0
+        gl = q == GOLDILOCKS_Q
+        for log_n in range(5, 14):
+            n = 1 << log_n
+            plan = (GoldilocksSubPlan64 if gl else SubPlan64)(make_params(n, q), device)
+            a, b = card_operands(q, n, BATCH, gen), card_operands(q, n, BATCH, gen)
+            ends = 6 if gl else 3  # the boundary rows
+            b[:ends] = b[:ends].flip(0).clone()
+            layouts = {"merged": (plan.plan.merged_flat, plan.plan.merged_inv_flat,
+                                  plan.nwc_ntt_fwd_plain, plan.nwc_poly_mult_plain),
+                       "cyclic": (plan.plan.cyclic_flat, plan.plan.cyclic_inv_flat,
+                                  plan.ntt_fwd_plain, plan.cyclic_poly_mult_plain)}
+            for rows in (1, 3, BATCH):
+                x, y = a[:rows], b[:rows].contiguous()
+                for layout, (tw, itw, fwd, product) in layouts.items():
+                    label = f"n={n} q={q} B={rows} {layout} tables"
+                    if not gl:
+                        want = product(x, y)
+                        spectrum = plan.ring.mul_tw(fwd(y), plan._r_tw)  # times 2^64
+                        fused_check(plan, "product", label, want, x, y, (tw, itw), rows, log_n,
+                                    *plan._q_args(True), *plan._scale_fresh)
+                        fused_check(plan, "cached", label, want, x, spectrum, (tw, itw), rows,
+                                    log_n, *plan._q_args(True), *plan._scale_cached)
+                        checks += 2
+                        continue
+                    for period in {1: (1,), 3: (1, 3)}.get(rows, (1, 256)):
+                        pre, post = ((card_operands(q, n, period + ends, gen)[ends:],)
+                                     for _ in range(2))  # random rows, past the boundary
+                        want = plan._rows_times(product(plan._rows_times(x, pre),
+                                                        plan._rows_times(y, pre)), post)
+                        spectrum = fwd(plan._rows_times(y, pre))
+                        for entry, z, scale in (("cyclic_scaled", y, plan._scale_fresh),
+                                                ("cached_scaled", spectrum, plan._scale_cached)):
+                            fused_check(plan, entry, f"{label} period {period}", want, x, z,
+                                        (tw, itw), *pre, *post, period, rows, log_n, *scale)
+                        checks += 2
+        print(f"kernel vs plain: the fused products at q={q} ("
+              + ("gl64_cyclic_scaled, gl64_cached_scaled" if gl else "nwc64_product, nwc64_cached")
+              + f"), n = 32 to 8192: {checks} launches equal in "
+              f"{time.perf_counter() - t_q:.1f} s")
+    print(f"kernel vs plain: the fused products checked in {time.perf_counter() - t0:.1f} s")
 
     # K1a's large-n bodies, and K2's: the four-step at bench.py's p60_32768,
     # B = 256, p60_1048576, B = 4, and the Goldilocks rows of the same shapes

@@ -1,6 +1,7 @@
-"""The radix-8 core of ``csrc/gl64.cu`` (``gl64_forward``, ``gl64_inverse``
-and their column entry points) modelled on the CPU, and K2's two ablation
-toggles.
+"""The radix-8 core of ``csrc/gl64.cu`` (``gl64_forward``, ``gl64_inverse``,
+their column entry points, and the four-step's row pass fused on it,
+``gl64_cyclic_scaled`` and ``gl64_cached_scaled``) modelled on the CPU, and
+K2's two ablation toggles.
 
 * The lazy arithmetic: each ``GL_PTX_*`` carry chain read out of gl64.cu
   and run on a model of the 32-bit PTX instructions (numpy object arrays,
@@ -18,15 +19,22 @@ toggles.
   at n = 32, 256 and 4096, rows and columns, cyclic and negacyclic tables,
   scales 1 and 2^64 mod q (forward), n^-1 and 1 (inverse), against the
   plain ``ntt`` transforms and JAX's jitted XLA transforms.  The schedule
-  helpers (``element``, ``tile_word``, ``threads``) are
+  helpers (``lanes``, ``pass_words``, ``exchange``) are
   tests/test_torch_nwc64_radix.py's: gl64.cu's schedule is nwc64.cu's.
+* The fused row pass on the same model: the entry scale on the words the
+  first pass loads, both forwards, the slot product and n^-1 on the lanes
+  as the registers hold them, the inverse, the exit scale and one compare
+  at the store, with (P, n) tables at P = 1, 3 and 256 (goldilocks_32768's
+  256 rows of 128), against the plain row pass and JAX's XLA
+  ``cyclic_poly_mult`` between the scales.
 * ``GoldilocksSubPlan64``'s column methods (``_plan.ColumnPassPlan``;
   plain on the CPU: the transpose route) against ``FourStepPlan``'s
   transposes and JAX's four-step locals (``tpu_ntt.sharded._along`` of its
   XLA transforms) at 32 x 32 and 64 x 32, widths n2 / D for D = 2, 4, 8;
   the four-step's launch path runs them and never the transposes.
-* The C signatures ``load`` binds for the four entry points; a
-  ``cuda``-marked case holds both layouts against plain on a card.
+* The C signatures ``load`` binds for the six entry points; a
+  ``cuda``-marked case holds both layouts and both row passes against
+  plain on a card.
 * JAX's ``GoldilocksPlan64`` with ``split_left`` and ``const_mul_special``
   off (tpu_ntt/kernels/gl64.py:211, :216) in interpret mode at n = 32768
   against the port's four-step: ``slow``, about 25 s (a 12 s plan build).
@@ -44,7 +52,8 @@ import torch
 
 import tpu_ntt.ntt as jntt
 import tpu_ntt.params as jparams
-from test_torch_nwc64_radix import WORDS, element, run_jax, threads, tile, tile_word
+from test_torch_nwc64_radix import (WORDS, as_tensor, exchange, lanes, load, pass_words,
+                                    run_jax, run_jax_product)
 from tpu_ntt import sharded as jsharded
 from tpu_ntt.kernels.gl64 import GoldilocksPlan64 as JaxGoldilocksPlan64
 from tpu_ntt_torch import sharded
@@ -326,48 +335,80 @@ def run_pass(x, w_tab, offset, s, r, hi, inverse):
                 x[reg], x[reg + span] = butterfly(x[reg], x[reg + span], w[e])
 
 
-def model(plan, x: torch.Tensor, flat, scale: int, inverse: bool,
-          width: int | None = None) -> torch.Tensor:
-    """The kernel on (R, n * width) words, block by block: rows (width
-    None) or every column of the (n, width) matrices."""
-    log_n, n = plan.p.log_n, plan.p.n
-    cols, width = width is not None, width or 1
+def passes_on(plan, regs, table, inverse: bool, t, slot):
+    """The passes on the registers of ``lanes``' threads, which hold the
+    first pass's words in the order they run, with the exchange between
+    passes; ``table``: the per-pass words.  The registers end as the last
+    pass leaves them."""
+    log_n = plan.p.log_n
     schedule = kmxu64.passes(log_n)
     offsets = np.cumsum([0] + [1 << (r + s) for s, r in schedule])
+    order = range(len(schedule) - 1, -1, -1) if inverse else range(len(schedule))
+    written = None
+    for p in order:
+        s, r = schedule[p]
+        idx = pass_words(log_n, p, t)
+        if written is not None:
+            regs = [words(v) for v in exchange(regs, written, idx, slot)]
+        hi = 0 if p == 0 else t // ((1 << log_n) >> (s + 3))
+        run_pass(regs, table, offsets[p], s, r, hi, inverse)
+        written = idx
+    return regs
+
+
+def model(plan, x: torch.Tensor, flat, scale: int, inverse: bool,
+          width: int | None = None) -> torch.Tensor:
+    """The kernel on (R, n * width) words, every block at once: rows
+    (width None) or every column of the (n, width) matrices."""
+    log_n = plan.p.log_n
+    last = len(kmxu64.passes(log_n)) - 1
     (table,) = plan._transform_table(flat)
-    w_tab = ints(table)
     data, out = ints(x.reshape(-1)), np.zeros(x.numel(), dtype=object)
-    transforms, g_tile = x.numel() // n, tile(log_n, cols)
-    g, t = threads(log_n, cols)
+    first, final = (last, 0) if inverse else (0, last)
+    at, live, t, slot = lanes(plan, x, width)
+    regs = [words(v) for v in load(data, at, live, pass_words(log_n, first, t))]
+    regs = passes_on(plan, regs, ints(table), inverse, t, slot)
+    for reg, i in enumerate(pass_words(log_n, final, t)):
+        out[at(i)[live]] = store(regs[reg], scale, inverse)[live]
+    return as_tensor(out, x.shape)
 
-    def at(tg, i):
-        base = (tg // width) * n * width + tg % width if cols else tg * n
-        return base + i * width
 
-    for block in range(-(-transforms // g_tile)):
-        tg = block * g_tile + g
-        live = tg < transforms
-        order = range(len(schedule) - 1, -1, -1) if inverse else range(len(schedule))
-        regs, smem, written = None, {}, None
-        for p in order:
-            s, r = schedule[p]
-            idx = [element(log_n, s, r, t, reg) for reg in range(WORDS)]
-            if regs is None:  # the first pass: from device memory
-                regs = [words(np.where(live, data[np.where(live, at(tg, i), 0)], 0))
-                        for i in idx]
-            else:  # the exchange: each thread's words, then the barrier
-                for reg, i in enumerate(written):
-                    for a, v in zip(tile_word(log_n, cols, g, i), regs[reg]):
-                        smem[a] = v
-                regs = [words([smem[a] for a in tile_word(log_n, cols, g, i)]) for i in idx]
-            hi = 0 if p == 0 else t // ((1 << log_n) >> (s + 3))
-            run_pass(regs, w_tab, offsets[p], s, r, hi, inverse)
-            written = idx
-        for reg, i in enumerate(written):
-            y = store(regs[reg], scale, inverse)
-            out[at(tg, i)[live]] = y[live]
-    return torch.from_numpy(np.array(out.tolist(), dtype=np.uint64).view(np.int64)
-                            .reshape(x.shape))
+def row_pass_model(plan, a: torch.Tensor, b: torch.Tensor, pre, post,
+                   cached: bool = False) -> torch.Tensor:
+    """The fused row pass (gl64_cyclic_scaled; gl64_cached_scaled with
+    ``cached``) on (R, n) rows with the (P, n) tables pre and post, row r
+    reading their row r % P: pre on the words the first pass loads (b's
+    unless cached), the forward of b, the forward of a, the slot product
+    and n^-1 on the lanes as the registers hold them, the inverse from
+    those registers, post at the store and the one compare."""
+    log_n, n = plan.p.log_n, plan.p.n
+    period = pre.shape[0]
+    tw = ints(plan._transform_table(plan.plan.cyclic_flat)[0])
+    itw = ints(plan._transform_table(plan.plan.cyclic_inv_flat)[0])
+    pre_w, post_w = ints(pre.reshape(-1)), ints(post.reshape(-1))
+    wa, wb = ints(a.reshape(-1)), ints(b.reshape(-1))
+    out = np.zeros(a.numel(), dtype=object)
+    scale = (plan._scale_cached if cached else plan._scale_fresh)[0]
+    at, live, t, slot = lanes(plan, a)
+    srow = at(0) // n % period * n
+
+    def times_row(regs, table, idx):
+        return [mul_lazy(v, words(table[srow + i])) for v, i in zip(regs, idx)]
+
+    first = pass_words(log_n, 0, t)
+    spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
+    if cached:
+        y = [words(v) for v in load(wb, at, live, spectrum)]
+    else:
+        y = times_row([words(v) for v in load(wb, at, live, first)], pre_w, first)
+        y = passes_on(plan, y, tw, False, t, slot)
+    x = times_row([words(v) for v in load(wa, at, live, first)], pre_w, first)
+    x = passes_on(plan, x, tw, False, t, slot)
+    x = [mul_lazy(mul_lazy(u, v), scale) for u, v in zip(x, y)]  # any words
+    x = passes_on(plan, x, itw, True, t, slot)
+    for reg, v in enumerate(times_row(x, post_w, first)):
+        out[at(first[reg])[live]] = canonical(v)[live]
+    return as_tensor(out, a.shape)
 
 
 @functools.lru_cache(maxsize=None)
@@ -422,6 +463,55 @@ def test_model_matches_plain_and_jax(n):
                                  width), plan.ntt_inv_cols_plain(xc, width)), width
         if n == 4096:
             break
+
+
+def row_pass_operands(rows: int, n: int, period: int, seed: int):
+    """a, b and random (period, n) tables pre and post; a's rows 0-5 are
+    the boundary rows (all 0, 1, q - 1, 2^63 - 1, 2^63, 2^64 - 2^32) and b
+    holds them in reverse order, or with fewer than six rows the boundary
+    words cycled along row 0 of each."""
+    a, b = operands((rows, n), seed), operands((rows, n), seed + 1)
+    if rows < 6:
+        ends = torch.from_numpy(np.resize(np.array(EDGES[:6], dtype=np.uint64), n)
+                                .view(np.int64))
+        a[0], b[0] = ends, ends.flip(0)
+    else:
+        b[:6] = b[:6].flip(0).clone()
+    rng = np.random.default_rng(seed + 2)
+    pre, post = (torch.from_numpy(rng.integers(0, Q, size=(period, n), dtype=np.uint64)
+                                  .view(np.int64)) for _ in range(2))
+    return a, b, (pre,), (post,)
+
+
+def times_rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Row r of x times row r % P of the (P, n) table, by Python ints."""
+    rows, n = x.shape
+    t = np.resize(ints(table), (rows, n))
+    return as_tensor(ints(x) * t % Q, x.shape)
+
+
+@pytest.mark.parametrize("n,rows,period", [(32, 36, 1), (32, 36, 3), (256, 6, 3),
+                                           (4096, 2, 1), (128, 256, 256)])
+def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch):
+    """gl64_cyclic_scaled and gl64_cached_scaled, the model of their fused
+    schedule on the per-pass tables and gl64.cu's chains, against the
+    plain row pass and JAX's XLA cyclic product between the scales (by
+    Python ints); 256 rows of 128 at period 256 are goldilocks_32768's row
+    pass (n1 = 256), there gl64_cyclic_scaled alone (the model's chains on
+    Python ints take 9 s for it)."""
+    plan, jplan = plans(n)
+    a, b, pre, post = row_pass_operands(rows, n, period, seed=n + period)
+    got = row_pass_model(plan, a, b, pre[0], post[0])
+    assert torch.equal(got, plan.cyclic_poly_mult_scaled_plain(a, b, pre, post))
+    want = run_jax_product(monkeypatch, jntt.cyclic_poly_mult, jplan,
+                           times_rows(a, pre[0]), times_rows(b, pre[0]))
+    assert torch.equal(got, times_rows(want, post[0]))
+    if rows > 64:
+        return
+    spectrum = plan.ntt_fwd_scaled_plain(b, pre, True)
+    got = row_pass_model(plan, a, spectrum, pre[0], post[0], cached=True)
+    assert torch.equal(got, plan.cyclic_poly_mult_cached_scaled_plain(a, spectrum, pre, post))
+    assert torch.equal(got, times_rows(want, post[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -489,20 +579,28 @@ def test_fourstep_launches_the_column_entry_points(monkeypatch):
                 tw, matrices, log_n, width, scale = args[2:]
                 assert (log_n, width, tw.shape) == (7, 128, (kmxu64.pass_indices(7).size,))
                 assert matrices == 4 and scale in (1, fs.col_params.n_inv)
+            if name in ("gl64_cyclic_scaled", "gl64_cached_scaled"):  # the fused row pass
+                tw, itw, pre, post, period, batch, log_n = args[3:10]
+                assert tw.shape == itw.shape == (kmxu64.pass_indices(7).size,), name
+                assert (period, batch, log_n, pre.shape) == (128, 4 * 128, 7, (128, 128))
 
 
 C_TYPES = {"int": kgl64.ctypes.c_int, "uint64_t": kgl64.ctypes.c_uint64}
 
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
-    """``load`` types the four radix-core entry points with the C argument
-    types of csrc/gl64.cu, and each has its own launch count."""
+    """``load`` types the six radix-core entry points (the fused row pass's
+    two among them) with the C argument types of csrc/gl64.cu, and each has
+    its own launch count; those six read per-pass tables."""
     bound = {}
     monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
     kgl64.load.__wrapped__()
     source = (_build.CSRC / "gl64.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (gl64_\w+)\(([^)]*)\)', source))
-    for suffix in ("forward", "inverse", "forward_cols", "inverse_cols"):
+    radix = ("forward", "inverse", "forward_cols", "inverse_cols", "cyclic_scaled",
+             "cached_scaled")
+    assert GoldilocksPlan64.pass_entries == set(radix)
+    for suffix in radix:
         params = [p.strip() for p in decls[f"gl64_{suffix}"].split(",")]
         assert len(params) == len(bound[suffix]), suffix
         for param, ty in zip(params, bound[suffix]):
@@ -534,6 +632,16 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
                 got = getattr(plan, method + "_cols")(xc, width)
                 want = getattr(plan, method + "_cols_plain")(xc, width)
                 assert torch.equal(got, want), (n, method, width)
+        a, b = rows[:10], rows[10:20].contiguous()  # gl64_cyclic_scaled, gl64_cached_scaled
+        for period in (1, 5):
+            pre, post = ((t.to(cuda_device),) for t in row_pass_operands(period, n, period,
+                                                                         seed=n)[:2])
+            assert torch.equal(plan.cyclic_poly_mult_scaled(a, b, pre, post),
+                               plan.cyclic_poly_mult_scaled_plain(a, b, pre, post))
+            spectrum = plan.ntt_fwd_scaled(b, pre, True)
+            assert torch.equal(plan.cyclic_poly_mult_cached_scaled(a, spectrum, pre, post),
+                               plan.cyclic_poly_mult_cached_scaled_plain(a, spectrum, pre,
+                                                                          post))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""The radix-8 core of ``csrc/nwc64.cu`` (``nwc64_forward``, ``nwc64_inverse``
-and their column entry points) modelled on the CPU, and K1a's two ablation
-toggles.
+"""The radix-8 core of ``csrc/nwc64.cu`` (``nwc64_forward``, ``nwc64_inverse``,
+their column entry points, and the product fused on it, ``nwc64_product``
+and ``nwc64_cached``) modelled on the CPU, and K1a's two ablation toggles.
 
 * The lazy butterflies: a Python model of the .cu's Shoup product, CT and
   GS butterflies and final corrections, with the range asserts the .cu
@@ -14,12 +14,19 @@ toggles.
   ``ntt`` transforms and JAX's XLA transforms (``tpu_ntt.ntt``); the shared
   memory accesses of every pass at every n from 32 to 8192, both layouts,
   counted for bank conflicts.
+* The fused product: the model's passes run as the kernel runs them (b's
+  forward, a's, the slot product on the lanes the registers hold, its
+  lanes' range asserted, the inverse from those registers) with merged and
+  cyclic tables and against a cached spectrum, at n = 32, 256 and 4096,
+  against the plain products and JAX's XLA ``nwc_poly_mult_merged`` and
+  ``cyclic_poly_mult`` (their bodies run with their transforms jitted).
 * ``SubPlan64``'s column methods (plain on the CPU: the transpose route)
   against ``FourStepPlan``'s transposes and JAX's four-step locals
   (``tpu_ntt.sharded._along`` of its XLA transforms) at 32 x 32 and
   64 x 32, widths n2 / D for D = 2, 4 and 8.
-* The C signatures ``load`` and ``load_scaled`` bind for the four entry
-  points; a ``cuda``-marked case holds both layouts against plain on a card.
+* The C signatures ``load`` and ``load_scaled`` bind for the six entry
+  points; a ``cuda``-marked case holds both layouts and both products
+  against plain on a card.
 * JAX's ``MxuPlan64`` with ``prefix_scan = True`` and with
   ``carry_save = False`` (mxu64.py:785-797) in interpret mode at n = 256:
   the same integers as the port's ``MxuPlan64``.
@@ -142,6 +149,13 @@ def test_lazy_butterflies_hold_their_ranges(q):
             assert np.all(out < q) and np.all(out == cx * scale % q)
         out = inverse_out(gx, w, ws, q)
         assert np.all(out < q) and np.all(out == gx * w % q)
+    # the fused product's slot step on every such pair of the words above:
+    # two lanes below 2q (one compare each), or a lane below 4q against a
+    # cached canonical one
+    fx = np.array([v for v in words for _ in words], dtype=object)
+    fy = np.array([v for _ in words for v in words], dtype=object)
+    mont_lazy(csub(fx, 2 * q), csub(fy, 2 * q), q)
+    mont_lazy(fx, fy % q, q)
     # any 64-bit word into the Shoup product (its asserts: below 2q, the
     # right residue), and the butterflies' asserts bite
     shoup_lazy(MASK, q - 1, ((q - 1) << 64) // q, q)
@@ -150,6 +164,9 @@ def test_lazy_butterflies_hold_their_ranges(q):
         gs(np.array([4 * q - 1], dtype=object), zero, 1, one, q)
     with pytest.raises(AssertionError):
         ct(np.array([4 * q], dtype=object), zero, 1, one, q)
+    if 16 * q > 1 << 64:  # two lazy lanes can pass q 2^64: one must be canonical
+        with pytest.raises(AssertionError):
+            mont_lazy(np.array([4 * q - 1], dtype=object), np.array([4 * q - 1], dtype=object), q)
 
 
 # ---------------------------------------------------------------------------
@@ -214,56 +231,168 @@ def run_pass(x, w_tab, ws_tab, offset, s, r, hi, q, inverse, fresh=False):
                                                fresh and d == 0)
 
 
-def model(plan: SubPlan64, x: torch.Tensor, flat: tuple, scale: tuple, inverse: bool,
-          width: int | None = None) -> torch.Tensor:
-    """The kernel on (R, n * width) words, block by block: rows (width
-    None) or every column of the (n, width) matrices."""
-    log_n, n, q = plan.p.log_n, plan.p.n, plan.p.q
+def lanes(plan, x: torch.Tensor, width: int | None = None):
+    """Every thread of every block of the kernel on (R, n * width) words,
+    rows (width None) or every column of the (n, width) matrices, as one
+    vector: (at, live, t, slot), where at(i) is the word of element i of
+    each thread's transform, live whether that transform exists, t the
+    thread's index in its transform and slot(i) the shared-memory word of
+    element i, its block's tile laid end to end with the others."""
+    log_n, n = plan.p.log_n, plan.p.n
     cols, width = width is not None, width or 1
-    schedule = kmxu64.passes(log_n)
-    offsets = np.cumsum([0] + [1 << (r + s) for s, r in schedule])
-    w_tab, ws_tab = (ints(t) for t in kmxu64.pass_table(flat))
-    words, out = ints(x.reshape(-1)), np.zeros(x.numel(), dtype=object)
     transforms, g_tile = x.numel() // n, tile(log_n, cols)
     g, t = threads(log_n, cols)
+    block = np.repeat(np.arange(-(-transforms // g_tile)), g.size)
+    g, t = np.tile(g, block[-1] + 1), np.tile(t, block[-1] + 1)
+    tg = block * g_tile + g
+    base = (tg // width) * n * width + tg % width if cols else tg * n
+    return ((lambda i: base + i * width), tg < transforms, t,
+            lambda i: block * (g_tile << log_n) + tile_word(log_n, cols, g, i))
 
-    def at(tg, i):
-        base = (tg // width) * n * width + tg % width if cols else tg * n
-        return base + i * width
 
-    for block in range(-(-transforms // g_tile)):
-        tg = block * g_tile + g
-        live = tg < transforms
-        order = range(len(schedule) - 1, -1, -1) if inverse else range(len(schedule))
-        regs, smem, written = None, {}, None
-        for p in order:
-            s, r = schedule[p]
-            idx = [element(log_n, s, r, t, reg) for reg in range(WORDS)]
-            if regs is None:  # the first pass: from device memory
-                regs = [np.where(live, words[np.where(live, at(tg, i), 0)], 0) for i in idx]
-                regs = [np.array(v, dtype=object) for v in regs]
-            else:  # the exchange: each thread's words, then the barrier
-                for reg, i in enumerate(written):
-                    for a, v in zip(tile_word(log_n, cols, g, i), regs[reg]):
-                        smem[a] = v
-                regs = [np.array([smem[a] for a in tile_word(log_n, cols, g, i)], dtype=object)
-                        for i in idx]
-            hi = 0 if p == 0 else t // ((1 << log_n) >> (s + 3))
-            run_pass(regs, w_tab, ws_tab, offsets[p], s, r, hi, q, inverse,
-                     fresh=p == 0 and not inverse)
-            written = idx
-        for reg, i in enumerate(written):
-            y = (inverse_out if inverse else forward_out)(regs[reg], *scale, q)
-            out[at(tg, i)[live]] = y[live]
-        assert len(smem) <= g_tile * n
+def pass_words(log_n: int, p: int, t):
+    """The element each register of thread t holds in pass p."""
+    s, r = kmxu64.passes(log_n)[p]
+    return [element(log_n, s, r, t, reg) for reg in range(WORDS)]
+
+
+def load(words, at, live, idx):
+    """Registers from device memory at elements idx (0 where not live)."""
+    return [np.array(np.where(live, words[np.where(live, at(i), 0)], 0), dtype=object)
+            for i in idx]
+
+
+def exchange(regs, written, idx, slot):
+    """Each thread's words into the tile at the elements it holds, the
+    barrier, then the words of the elements idx; every word read is one
+    written in this exchange, and no two threads write one word."""
+    smem = np.full(int(max(slot(i).max() for i in written)) + 1, -1, dtype=object)
+    for reg, i in enumerate(written):
+        assert np.all(smem[slot(i)] < 0)
+        smem[slot(i)] = regs[reg]
+    regs = [smem[slot(i)] for i in idx]
+    assert all(np.all(v >= 0) for v in regs)
+    return regs
+
+
+def passes_on(plan, regs, tables, inverse: bool, t, slot):
+    """The passes on the registers of ``lanes``' threads, which hold the
+    first pass's words in the order they run (the forward's pass 0, the
+    inverse's last), with the exchange between passes; ``tables``: the
+    per-pass (w, w') tables.  The registers end as the last pass leaves
+    them."""
+    log_n, q = plan.p.log_n, plan.p.q
+    schedule = kmxu64.passes(log_n)
+    offsets = np.cumsum([0] + [1 << (r + s) for s, r in schedule])
+    w_tab, ws_tab = tables
+    order = range(len(schedule) - 1, -1, -1) if inverse else range(len(schedule))
+    written = None
+    for p in order:
+        s, r = schedule[p]
+        idx = pass_words(log_n, p, t)
+        if written is not None:
+            regs = exchange(regs, written, idx, slot)
+        hi = 0 if p == 0 else t // ((1 << log_n) >> (s + 3))
+        run_pass(regs, w_tab, ws_tab, offsets[p], s, r, hi, q, inverse,
+                 fresh=p == 0 and not inverse)
+        written = idx
+    return regs
+
+
+def as_tensor(out: np.ndarray, shape) -> torch.Tensor:
     return torch.from_numpy(np.array(out.tolist(), dtype=np.uint64).view(np.int64)
-                            .reshape(x.shape))
+                            .reshape(shape))
 
 
-def run_jax(fn, x):
-    """A JAX function of (hi, lo) pairs on int64 words, jitted (1-3 s to
-    compile here; eagerly, 7-17 s of op compiles)."""
-    out = jax.jit(fn)(int64_to_pairs(x))
+def model(plan: SubPlan64, x: torch.Tensor, flat: tuple, scale: tuple, inverse: bool,
+          width: int | None = None) -> torch.Tensor:
+    """The kernel on (R, n * width) words, every block at once: rows
+    (width None) or every column of the (n, width) matrices."""
+    log_n, q = plan.p.log_n, plan.p.q
+    last = len(kmxu64.passes(log_n)) - 1
+    tables = tuple(ints(t) for t in kmxu64.pass_table(flat))
+    words, out = ints(x.reshape(-1)), np.zeros(x.numel(), dtype=object)
+    first, final = (last, 0) if inverse else (0, last)
+    at, live, t, slot = lanes(plan, x, width)
+    regs = passes_on(plan, load(words, at, live, pass_words(log_n, first, t)), tables,
+                     inverse, t, slot)
+    for reg, i in enumerate(pass_words(log_n, final, t)):
+        y = (inverse_out if inverse else forward_out)(regs[reg], *scale, q)
+        out[at(i)[live]] = y[live]
+    return as_tensor(out, x.shape)
+
+
+def mont_lazy(a, b, q):
+    """The fused product's slot step, REDC(a * b) = a b 2^-64 mod q without
+    its compare: in [0, 2q), the inverse's range, given a b < q 2^64."""
+    assert np.all(a * b < q << 64)
+    q_prime = (-pow(q, -1, 1 << 64)) % (1 << 64)
+    lo = (a * b) & MASK
+    m = (lo * q_prime) & MASK
+    t = ((a * b) >> 64) + ((m * q) >> 64) + np.where(lo != 0, 1, 0)
+    assert np.all(t < 2 * q) and np.all(t * (1 << 64) % q == a * b % q)
+    return t
+
+
+def product_model(plan: SubPlan64, a: torch.Tensor, b: torch.Tensor, flat: tuple,
+                  inv_flat: tuple, scale: tuple, cached: bool = False) -> torch.Tensor:
+    """The fused product (nwc64_product; nwc64_cached with ``cached``) on
+    (R, n) rows: the forward of b (unless cached), the forward of a, the
+    slot product on the lanes as the registers hold them (both brought
+    below 2q by one compare each, or a's left below 4q against a cached
+    canonical b; the ranges asserted), the inverse from those registers,
+    the store at ``scale``."""
+    log_n, q = plan.p.log_n, plan.p.q
+    last = len(kmxu64.passes(log_n)) - 1
+    tw = tuple(ints(t) for t in kmxu64.pass_table(flat))
+    itw = tuple(ints(t) for t in kmxu64.pass_table(inv_flat))
+    wa, wb = ints(a.reshape(-1)), ints(b.reshape(-1))
+    out = np.zeros(a.numel(), dtype=object)
+    at, live, t, slot = lanes(plan, a)
+    spectrum = pass_words(log_n, last, t)  # 8t ... 8t + 7
+    assert all(np.all(i == WORDS * t + k) for k, i in enumerate(spectrum))
+    if cached:
+        y = load(wb, at, live, spectrum)
+        assert all(np.all(v < q) for v in y)
+    else:
+        y = passes_on(plan, load(wb, at, live, pass_words(log_n, 0, t)), tw, False, t, slot)
+        y = [csub(v, 2 * q) for v in y]  # [0, 4q) -> [0, 2q)
+    x = passes_on(plan, load(wa, at, live, pass_words(log_n, 0, t)), tw, False, t, slot)
+    for reg in range(WORDS):
+        assert np.all(x[reg] < 4 * q) and np.all(y[reg] < (q if cached else 2 * q))
+        x[reg] = mont_lazy(x[reg] if cached else csub(x[reg], 2 * q), y[reg], q)
+    x = passes_on(plan, x, itw, True, t, slot)
+    for reg, i in enumerate(pass_words(log_n, 0, t)):
+        out[at(i)[live]] = inverse_out(x[reg], *scale, q)[live]
+    return as_tensor(out, a.shape)
+
+
+def run_jax(fn, *xs):
+    """A JAX function of (hi, lo) pairs on int64 words, jitted unless it is
+    (1-3 s to compile here; eagerly, 7-17 s of op compiles)."""
+    out = (fn if hasattr(fn, "lower") else jax.jit(fn))(*(int64_to_pairs(x) for x in xs))
+    return pairs_to_int64(np.asarray(out[0]), np.asarray(out[1]))
+
+
+#: JAX's transforms, each jitted once a plan (``jax_transform``)
+JAX_TRANSFORMS = {name: getattr(jntt, name)
+                  for name in ("nwc_fwd_merged", "nwc_inv_merged", "ntt_fwd", "ntt_inv")}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_transform(name: str, jplan):
+    return jax.jit(functools.partial(JAX_TRANSFORMS[name], jplan))
+
+
+def run_jax_product(monkeypatch, product, jplan, a, b):
+    """JAX's product function (``jntt.nwc_poly_mult_merged``,
+    ``jntt.cyclic_poly_mult``) on a and b: its own body, with the
+    transforms it calls jitted by ``jax_transform``, so a product shares
+    their compiles with the transform tests (one jit of a whole product
+    costs 5-10 s here)."""
+    for name in JAX_TRANSFORMS:
+        monkeypatch.setattr(jntt, name, lambda plan, x, name=name: jax_transform(name, plan)(x))
+    out = product(jplan, int64_to_pairs(a), int64_to_pairs(b))
     return pairs_to_int64(np.asarray(out[0]), np.asarray(out[1]))
 
 
@@ -313,7 +442,7 @@ def test_shared_memory_accesses_are_conflict_free():
 def test_model_matches_plain_and_jax(n):
     plan, jplan = plans(n)
     q, r = plan.p.q, (1 << 64) % plan.p.q
-    rows = {32: 37, 256: 5, 4096: 2}[n]  # partial last tiles below 1024
+    rows = {32: 37, 256: 5, 4096: 3}[n]  # partial last tiles below 1024
     x = operands(q, (rows, n), seed=n)
     for kind, fwd, inv in (("merged", "nwc_ntt_fwd_plain", "nwc_ntt_inv_plain"),
                            ("cyclic", "ntt_fwd_plain", "ntt_inv_plain")):
@@ -327,8 +456,8 @@ def test_model_matches_plain_and_jax(n):
         assert torch.equal(back, getattr(plan, inv)(x)), kind
         assert torch.equal(model(plan, spec, flat_inv, plan._scale_cached, True), x)
         if kind == "merged":  # JAX's XLA merged transforms
-            assert torch.equal(spec, run_jax(lambda v: jntt.nwc_fwd_merged(jplan, v), x))
-            assert torch.equal(back, run_jax(lambda v: jntt.nwc_inv_merged(jplan, v), x))
+            assert torch.equal(spec, run_jax(jax_transform("nwc_fwd_merged", jplan), x))
+            assert torch.equal(back, run_jax(jax_transform("nwc_inv_merged", jplan), x))
     # columns: widths below, at and above the tile
     for width in (3, 8, 20):
         xc = operands(q, (2, n * width), seed=width)
@@ -338,6 +467,34 @@ def test_model_matches_plain_and_jax(n):
                                  True, width), plan.ntt_inv_cols_plain(xc, width)), width
         if n == 4096:
             break
+
+
+def product_operands(q: int, rows: int, n: int, seed: int):
+    """a and b with the boundary pairs (0, q - 1), (1, 1) and (q - 1, q - 1)
+    in rows 0-2, random rows after."""
+    a, b = operands(q, (rows, n), seed), operands(q, (rows, n), seed + 1)
+    b[:3] = torch.tensor([q - 1, 1, q - 1])[:, None]
+    return a, b
+
+
+@pytest.mark.parametrize("n", [32, 256, 4096])
+def test_fused_product_model_matches_plain_and_jax(n, monkeypatch):
+    """nwc64_product with merged and cyclic tables and nwc64_cached, the
+    model of their fused schedule on the per-pass tables, against the
+    plain products and JAX's XLA products."""
+    plan, jplan = plans(n)
+    q = plan.p.q
+    a, b = product_operands(q, {32: 37, 256: 5, 4096: 3}[n], n, seed=n)
+    for kind, plain, jfn in (("merged", plan.nwc_poly_mult_plain, jntt.nwc_poly_mult_merged),
+                             ("cyclic", plan.cyclic_poly_mult_plain, jntt.cyclic_poly_mult)):
+        got = product_model(plan, a, b, getattr(plan.plan, f"{kind}_flat"),
+                            getattr(plan.plan, f"{kind}_inv_flat"), plan._scale_fresh)
+        assert torch.equal(got, plain(a, b)), kind
+        assert torch.equal(got, run_jax_product(monkeypatch, jfn, jplan, a, b)), kind
+    spectrum = plan.nwc_spectrum_plain(b)
+    got = product_model(plan, a, spectrum, plan.plan.merged_flat, plan.plan.merged_inv_flat,
+                        plan._scale_cached, cached=True)
+    assert torch.equal(got, plan.nwc_poly_mult_cached_plain(a, spectrum))
 
 
 # ---------------------------------------------------------------------------
@@ -403,8 +560,9 @@ C_TYPES = {"int": kmxu64.ctypes.c_int, "uint64_t": kmxu64.ctypes.c_uint64}
 
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
-    """``load`` types nwc64_forward and nwc64_inverse, ``load_scaled`` the
-    column entry points, with the C argument types of csrc/nwc64.cu."""
+    """``load`` types nwc64_forward, nwc64_inverse, nwc64_product and
+    nwc64_cached, ``load_scaled`` the column entry points, with the C
+    argument types of csrc/nwc64.cu; those six read per-pass tables."""
     bound = {}
     monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
     _plan.load.__wrapped__("nwc64", 64)
@@ -413,7 +571,9 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     kmxu64.load_scaled.__wrapped__()
     source = (_build.CSRC / "nwc64.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (nwc64_\w+)\(([^)]*)\)', source))
-    for suffix in ("forward", "inverse", "forward_cols", "inverse_cols"):
+    radix = ("forward", "inverse", "forward_cols", "inverse_cols", "product", "cached")
+    assert MxuPlan64.pass_entries == set(radix)
+    for suffix in radix:
         params = [p.strip() for p in decls[f"nwc64_{suffix}"].split(",")]
         assert len(params) == len(bound[suffix]), suffix
         for param, ty in zip(params, bound[suffix]):
@@ -439,6 +599,11 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
         for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv", "nwc_spectrum"):
             assert torch.equal(getattr(plan, method)(rows),
                                getattr(plan, method + "_plain")(rows)), (n, method)
+        a, b = rows[:5], rows[5:10].contiguous()  # nwc64_product, nwc64_cached
+        for method, y in (("nwc_poly_mult", b), ("cyclic_poly_mult", b),
+                          ("nwc_poly_mult_cached", plan.nwc_spectrum(b))):
+            assert torch.equal(getattr(plan, method)(a, y),
+                               getattr(plan, method + "_plain")(a, y)), (n, method)
         for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv"):
             for width in (1, 3, 8):
                 xc = x[:3].reshape(-1)[:3 * n * width].reshape(3, n * width)

@@ -2,18 +2,23 @@
 """Where the radix-8 core of gl64.cu spends its time: variants of the source,
 some deliberately wrong, built and timed beside it on the card.
 
-    python3 tools/gl64_variants.py
+    python3 tools/gl64_variants.py [--against OLD/gl64.cu]
 
 Each variant edits lines of ``tpu_ntt_torch/kernels/csrc/gl64.cu``
 (``VARIANTS``) and is built as ``tools/nwc64_variants.py`` builds its own;
-then ``gl64_forward`` and ``gl64_inverse`` at goldilocks_4096, B = 2048, and
+then ``gl64_forward`` and ``gl64_inverse`` at goldilocks_4096, B = 2048,
 ``gl64_forward_cols`` and ``gl64_inverse_cols`` at the column shapes of
 goldilocks_32768 (256 x 128, B = 256) and Goldilocks 2^20 (1024 x 1024,
-B = 4) run under every variant in turns, each timed by CUDA events: the
-best of three runs of 50 launches, over two rounds.  A variant marked wrong
-computes other integers: its time says what the work it drops costs,
-nothing else.  Needs a CUDA device and nvcc; prints the card's name and
-power limit.
+B = 4), and the fused row pass ``gl64_cyclic_scaled`` at the row shapes of
+both (65536 rows of 128 at period 256; 4096 rows of 1024 at period 1024)
+and ``gl64_cached_scaled`` at the first, on random tables, run under every
+variant in turns, each timed by CUDA events: the best of three runs of 50
+launches, over two rounds.  A variant marked wrong computes other integers:
+its time says what the work it drops costs, nothing else; every other
+variant must give the base's integers.  ``--against`` builds an earlier
+gl64.cu beside them (its row pass reading the flat tables), as
+tools/nwc64_variants.py does.  Needs a CUDA device and nvcc; prints the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from nwc64_variants import best_ms, build  # noqa: E402
+from nwc64_variants import best_ms, build, build_all, count_against, parse_args  # noqa: E402,E501
 from tpu_ntt_torch.kernels import _build  # noqa: E402
 from tpu_ntt_torch.kernels.gl64 import GoldilocksSubPlan64  # noqa: E402
 from tpu_ntt_torch.params import GOLDILOCKS_4096, make_params  # noqa: E402
@@ -39,12 +44,18 @@ Q = GOLDILOCKS_4096.q
 GS = ("  x = add_any(u, v);                // any word\n"
       "  y = mul_lazy(sub_any(u, v), w);   // any word\n")
 PRODUCT = "  uint32_t r0, r1, r2, r3, m0, m1, m2;\n"
+REGISTERS = "constexpr bool kSpectrumInRegisters = true;"
+SLOT = "    x[r] = mul_lazy(mul_lazy(x[r], y[r]), scale);"
+PHASES = "constexpr bool opaque_phases(int log_n) { return log_n == 13; }"
+BLOCKS = "  return threads > 384 ? 1 : 640 / threads;"
 #: name -> (what it changes, [(text, replacement)], computes the right integers)
 VARIANTS = {
     "base": ("the source as it is", [], True),
     "canonical inverse": (
-        "the GS butterfly on canonical lanes: the first core's gl_add, gl_sub, gl_mul",
-        [(GS, "  x = gl_add(u, v);\n  y = gl_mul(gl_sub(u, v), w);\n")], True),
+        "the GS butterfly on canonical lanes: the first core's gl_add, gl_sub, gl_mul "
+        "(the fused row pass's slot made canonical for it)",
+        [(GS, "  x = gl_add(u, v);\n  y = gl_mul(gl_sub(u, v), w);\n"),
+         (SLOT, "    x[r] = canonical(mul_lazy(mul_lazy(x[r], y[r]), scale));")], True),
     "C product": ("the product as the first core's gl_mul (a * b, __umul64hi, the "
                   "phi-fold in C, its compare kept) in place of the PTX chains",
                   [(PRODUCT, "  return gl_mul(a, b);\n" + PRODUCT)], True),
@@ -64,12 +75,34 @@ VARIANTS = {
         "__launch_bounds__ with one block an SM: up to 128 registers",
         [("                                  1024 / block_threads(kLogN, kCols))",
           "                                  1)")], True),
+    # the fused row pass: where b's spectrum waits, and the slot's reduction
+    "spectrum in shared memory": (
+        "the row pass's b spectrum in a second tile, not in registers",
+        [(REGISTERS, REGISTERS.replace("true", "false"))], True),
+    "opaque phases at every n": (
+        "every log n's fused row pass computes its addresses anew in each phase",
+        [(PHASES, PHASES.replace("log_n == 13", "true"))], True),
+    "no opaque phases": (
+        "at n = 8192 too, the fused row pass's phases free to keep earlier addresses live",
+        [(PHASES, PHASES.replace("log_n == 13", "false"))], True),
+    "768 threads an SM": (
+        "the fused row pass's launch bounds at 768 threads an SM below n = 2048 (80 "
+        "registers), not 640 (96)", [(BLOCKS, BLOCKS.replace("640", "768"))], True),
+    "512 threads an SM": (
+        "the fused row pass's launch bounds at 512 threads an SM (128 registers)",
+        [(BLOCKS, BLOCKS.replace("640", "512"))], True),
+    "canonical slot": ("the slot's two products canonical: the first core's gl_mul",
+                       [(SLOT, "    x[r] = gl_mul(gl_mul(x[r], y[r]), scale);")], True),
 }
+KERNELS = ("transform_kernelILi12ELb0ELb0EE", "cyclic_scaled_kernelILi7ELb0EE",
+           "cyclic_scaled_kernelILi10ELb0EE")
 PTR, I32, U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "inverse": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "forward_cols": [PTR] * 3 + [I32] * 3 + [U64, PTR],
-            "inverse_cols": [PTR] * 3 + [I32] * 3 + [U64, PTR]}
+            "inverse_cols": [PTR] * 3 + [I32] * 3 + [U64, PTR],
+            "cyclic_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
+            "cached_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR]}
 
 
 def residues(shape, rng) -> torch.Tensor:
@@ -78,6 +111,7 @@ def residues(shape, rng) -> torch.Tensor:
 
 
 def main() -> int:
+    opts = parse_args("gl64.cu")
     if not torch.cuda.is_available():
         print("gl64_variants: no CUDA device", file=sys.stderr)
         return 1
@@ -86,48 +120,74 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     source = (_build.CSRC / "gl64.cu").read_text()
-    libs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for k, (name, (what, edits, right)) in enumerate(VARIANTS.items()):
-            text = source
-            for line, new in edits:
-                if line not in text:
-                    raise RuntimeError(f"variant {name!r}: its line is not in gl64.cu")
-                text = text.replace(line, new)
-            libs[name] = build(text, Path(tmp) / f"libvariant{k}.so", "gl64", ARGTYPES)
-            print(f"variant {name}: {what}{'' if right else ' (other integers)'}; "
-                  f"transform_kernel<12, 0, 0>: {libs[name].summary}")
+        libs = build_all(source, VARIANTS, Path(tmp), "gl64.cu", "gl64", ARGTYPES, KERNELS,
+                         "cyclic_scaled_kernelILi")
+        if opts.against:
+            path = Path(tmp) / "libagainst.so"
+            libs["against"] = build(opts.against.read_text(), path, "gl64", ARGTYPES,
+                                    KERNELS[:1], "cyclic_scaled_kernelILi")
+            print(f"against {opts.against}: {libs['against'].summary}")
+            count_against(path, {"cyclic_scaled_kernel<0>": (7, 10),
+                                 "cyclic_scaled_kernel<1>": (7, 10)})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
+        stream = torch.cuda.current_stream().cuda_stream
+        cases = []  # (label, entry, out, C arguments, the tensors they point into)
         plan = GoldilocksSubPlan64(GOLDILOCKS_4096, device)
         x = residues((2048, 4096), rng)
-        cases = [(f"gl64_{entry} goldilocks_4096 B=2048", plan, entry, x, flat, 2048, ())
-                 for entry, flat in (("forward", plan.plan.merged_flat),
-                                     ("inverse", plan.plan.merged_inv_flat))]
+        for entry, flat in (("forward", plan.plan.merged_flat),
+                            ("inverse", plan.plan.merged_inv_flat)):
+            (tw,), out = plan._transform_table(flat), torch.empty_like(x)
+            scale = plan._scale_one if entry == "forward" else plan._scale_cached
+            cases.append((f"gl64_{entry} goldilocks_4096 B=2048", entry, out,
+                          (x.data_ptr(), out.data_ptr(), tw.data_ptr(), 2048, plan.p.log_n,
+                           *scale, stream), (x, tw)))
         for n1, width, batch in ((256, 128, 256), (1024, 1024, 4)):
             col = GoldilocksSubPlan64(make_params(n1, Q), device)
             xc = residues((batch, n1 * width), rng)
-            cases += [(f"gl64_{entry} {n1} x {width} B={batch}", col, entry, xc, flat, batch,
-                       (width,)) for entry, flat in (("forward_cols", col.plan.merged_flat),
-                                                     ("inverse_cols", col.plan.merged_inv_flat))]
+            for entry, flat in (("forward_cols", col.plan.merged_flat),
+                                ("inverse_cols", col.plan.merged_inv_flat)):
+                (tw,), out = col._transform_table(flat), torch.empty_like(xc)
+                scale = col._scale_one if entry == "forward_cols" else col._scale_cached
+                cases.append((f"gl64_{entry} {n1} x {width} B={batch}", entry, out,
+                              (xc.data_ptr(), out.data_ptr(), tw.data_ptr(), batch,
+                               col.p.log_n, width, *scale, stream), (xc, tw)))
+        # the row pass of goldilocks_32768 (256 x 128, B = 256) and of 2^20
+        # (1024 x 1024, B = 4): rows of n2 at period n1
+        for n1, n2, batch, entries in ((256, 128, 256, ("cyclic_scaled", "cached_scaled")),
+                                       (1024, 1024, 4, ("cyclic_scaled",))):
+            row = GoldilocksSubPlan64(make_params(n2, Q), device)
+            a, b = residues((batch * n1, n2), rng), residues((batch * n1, n2), rng)
+            pre, post = residues((n1, n2), rng), residues((n1, n2), rng)
+            spectrum = row.ntt_fwd_scaled_plain(b, (pre,), True)
+            flat = (row.plan.cyclic_flat, row.plan.cyclic_inv_flat)  # what --against reads
+            for entry in entries:
+                z, scale = (b, row._scale_fresh) if entry == "cyclic_scaled" else (
+                    spectrum, row._scale_cached)
+                out = torch.empty_like(a)
+                call = [(a.data_ptr(), z.data_ptr(), out.data_ptr(),
+                         *(w.data_ptr() for w in tables), pre.data_ptr(), post.data_ptr(), n1,
+                         batch * n1, row.p.log_n, *scale, stream)
+                        for tables in (row._cyclic_tables(entry), flat)]
+                cases.append((f"gl64_{entry} {batch * n1} rows of {n2}, period {n1}", entry,
+                              out, call[0], (a, z, pre, post, row._cyclic_tables(entry), flat,
+                                             call[1])))
         times, want = {}, {}
-        stream = torch.cuda.current_stream().cuda_stream
         for _ in range(2):
-            for label, p, entry, xx, flat, batch, extra in cases:
-                (tw,), out = p._transform_table(flat), torch.empty_like(xx)
-                scale = p._scale_one if entry.startswith("forward") else p._scale_cached
-                args = (xx.data_ptr(), out.data_ptr(), tw.data_ptr(), batch, p.p.log_n,
-                        *extra, *scale, stream)
+            for label, entry, out, call, keep in cases:
                 for name, lib in libs.items():
                     fn = getattr(lib, f"gl64_{entry}")
+                    args = keep[-1] if name == "against" and entry.endswith("_scaled") \
+                        else call
                     if fn(*args):
                         raise RuntimeError(f"{label} under {name!r}: the launch failed")
                     torch.cuda.synchronize()
-                    if VARIANTS[name][2]:  # a right variant gives the base's integers
+                    if name == "against" or VARIANTS[name][2]:  # the base's integers
                         want.setdefault(label, out.clone())
                         if not torch.equal(out, want[label]):
                             raise AssertionError(f"{label} under {name!r} differs from base")
-                    t = best_ms(lambda fn=fn: fn(*args))
+                    t = best_ms(lambda fn=fn, args=args: fn(*args))
                     times[label, name] = min(t, times.get((label, name), t))
         for label, *_ in cases:
             print(f"{label} (ms, CUDA events): "

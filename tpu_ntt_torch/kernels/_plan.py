@@ -205,11 +205,21 @@ class KernelPlan:
         (w, w') pair as it is."""
         return table
 
+    #: the C entry points (``<lib>_<entry>``) that read their twiddles in
+    #: the per-pass layout of ``_transform_table``: the radix-8 core's; every
+    #: other entry point reads the flat tables
+    pass_entries: frozenset = frozenset()
+
     def _transform_table(self, flat):
-        """The table the ``_forward`` and ``_inverse`` entry points take for
-        a flat table (stage s's group g at entry 2^s + g): here the flat
-        table itself."""
+        """The per-pass layout of a flat table (stage s's group g at entry
+        2^s + g) for the entry points of ``pass_entries``: here, with none,
+        the flat table itself."""
         return flat
+
+    def _table_of(self, entry: str, flat) -> tuple:
+        """A twiddle table as the C arguments of ``entry``: the per-pass
+        layout for an entry of ``pass_entries``, else the flat table."""
+        return _table(self._transform_table(flat) if entry in self.pass_entries else flat)
 
     # ------------------------------------------------------------------
     # Layout map
@@ -434,22 +444,23 @@ class KernelPlan:
         out = torch.empty_like(a)
         if a.shape[0] == 0:
             return out
-        return self._launch(entry, out, a, b, out, *_table(tw), *_table(itw),
-                            a.shape[0], self.p.log_n, *self._q_args(True), *scale)
+        return self._launch(entry, out, a, b, out, *self._table_of(entry, tw),
+                            *self._table_of(entry, itw), a.shape[0], self.p.log_n,
+                            *self._q_args(True), *scale)
 
     def _forward(self, x, tw, scale):
         out = torch.empty_like(x)
         rows = x.numel() // self.p.n
         if rows == 0:
             return out
-        return self._launch("forward", out, x, out, *_table(self._transform_table(tw)),
+        return self._launch("forward", out, x, out, *self._table_of("forward", tw),
                             rows, self.p.log_n, *self._q_args(False), *scale)
 
     def _inverse(self, x, itw):
         out = torch.empty_like(x)
         if x.shape[0] == 0:
             return out
-        return self._launch("inverse", out, x, out, *_table(self._transform_table(itw)),
+        return self._launch("inverse", out, x, out, *self._table_of("inverse", itw),
                             x.shape[0], self.p.log_n, *self._q_args(False),
                             *self._scale_cached)
 
@@ -482,9 +493,8 @@ class ScaledKernelPlan(KernelPlan):
         if a.shape[0] == 0:
             return out
         return self._launch(
-            "cyclic_scaled", out, a, b, out, *_table(self.plan.cyclic_flat),
-            *_table(self.plan.cyclic_inv_flat), *pre, *post, period, a.shape[0],
-            self.p.log_n, *self._q_args(True), *self._scale_fresh)
+            "cyclic_scaled", out, a, b, out, *self._cyclic_tables("cyclic_scaled"), *pre,
+            *post, period, a.shape[0], self.p.log_n, *self._q_args(True), *self._scale_fresh)
 
     def cyclic_poly_mult_scaled_plain(self, a, b, pre, post):
         c = ntt.cyclic_poly_mult(self.plan, self._rows_times(a, pre),
@@ -504,9 +514,9 @@ class ScaledKernelPlan(KernelPlan):
         if a.shape[0] == 0:
             return out
         return self._launch(
-            "cached_scaled", out, a, spectrum, out, *_table(self.plan.cyclic_flat),
-            *_table(self.plan.cyclic_inv_flat), *pre, *post, period, a.shape[0],
-            self.p.log_n, *self._q_args(True), *self._scale_cached)
+            "cached_scaled", out, a, spectrum, out, *self._cyclic_tables("cached_scaled"),
+            *pre, *post, period, a.shape[0], self.p.log_n, *self._q_args(True),
+            *self._scale_cached)
 
     def cyclic_poly_mult_cached_scaled_plain(self, a, spectrum, pre, post):
         c = self.ring.mul(ntt.ntt_fwd_bitrev(self.plan, self._rows_times(a, pre)), spectrum)
@@ -614,6 +624,12 @@ class ScaledKernelPlan(KernelPlan):
     def ntt_inv_scaled_plain(self, x, post):
         return self._rows_times(ntt.ntt_inv_bitrev(self.plan, x), post)
 
+    def _cyclic_tables(self, entry: str) -> tuple:
+        """The cyclic forward and inverse tables as the C arguments of
+        ``entry``."""
+        return (*self._table_of(entry, self.plan.cyclic_flat),
+                *self._table_of(entry, self.plan.cyclic_inv_flat))
+
     def _check_scales(self, x: torch.Tensor, *tables) -> int:
         """Check (P, n) scale tables against the (..., B, n) rows x; return P."""
         period = tables[0][0].shape[0]
@@ -689,7 +705,7 @@ class ColumnPassPlan:
         out = torch.empty_like(x) if out is None else out
         if matrices == 0:
             return out
-        return self._launch(entry, out, x, out, *_table(self._transform_table(flat)),
+        return self._launch(entry, out, x, out, *self._table_of(entry, flat),
                             matrices, self.p.log_n, width, *self._q_args(False), *scale)
 
     def _cols_plain(self, transform, x, width, out):

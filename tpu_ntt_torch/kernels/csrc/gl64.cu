@@ -47,13 +47,17 @@
 // over.  32 <= n <= 8192 (the public window is 256 <= n <= 8192; below
 // it, the four-step's sub-sizes).
 //
-// Two cores, as in nwc64.cu.  gl64_forward, gl64_inverse and their column
-// entry points run the radix-8 core ("The radix-8 core" below); the other
-// ten entry points run the first core, correct first and simple, until
-// they move onto the radix-8 one.  The network code of both is a copy of
-// nwc64.cu's rather than a header shared by both, so nwc64.cu is not
-// changed and its functions and times stay as they were; the arithmetic
-// differs.  The first core:
+// Two cores, as in nwc64.cu.  Six entry points run the radix-8 core ("The
+// radix-8 core" below): gl64_forward, gl64_inverse and their column entry
+// points, and, fused onto it (the four-step's row pass, "The four-step's
+// row pass on the radix-8 core"), gl64_cyclic_scaled and
+// gl64_cached_scaled, the entry scale, both forwards, the slot product, the
+// inverse and the exit scale in one kernel a launch.  The other eight run
+// the first core, correct first and simple, until they move onto the
+// radix-8 one.  The network code of both is a copy of nwc64.cu's rather
+// than a header shared by both, so nwc64.cu is not changed and its
+// functions and times stay as they were; the arithmetic differs.  The
+// first core:
 // * One thread block per row (per output row for the dot and the matvec),
 //   the rows in dynamic shared memory, 8n bytes each: two for the product,
 //   three for the dot (192 KiB at n = 8192, under the 227 KB a block may
@@ -74,10 +78,10 @@
 //   cannot): gl_add takes the carry as 2^64 = q + (2^32 - 1).
 // * Every value stays canonical in [0, q), also through the dot's and the
 //   matvec's accumulation.
-// * The four-step's row pass (the *_scaled functions) is product_kernel,
-//   the first core's forward and inverse, dot_kernel and matvec_kernel with
-//   one gl_mul more, by a table row, at entry and/or exit (never on a
-//   cached spectrum, which the row forward has already scaled).  Row r of a
+// * The four-step's row pass (the other *_scaled functions) is the first
+//   core's forward and inverse, dot_kernel and matvec_kernel with one
+//   gl_mul more, by a table row, at entry and/or exit (never on a cached
+//   spectrum, which the row forward has already scaled).  Row r of a
 //   launch reads row r % period of a (period, n) table of plain values (no
 //   Shoup companion, as for the twiddles): a batch of B polynomials of n1
 //   rows each passes period = n1.  The spectra stay plain, so `cacheable`
@@ -366,41 +370,6 @@ __global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
   inverse(x, log_n, itw);
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     out[(i * batch + r) * n + e] = x[e];
-  }
-}
-
-// The four-step's row pass: product_kernel with cyclic tables between an
-// entry scale pre[r % period] and an exit scale post[r % period].  With
-// kCached, b holds the rows of a cached spectrum, used as they are.
-template <bool kCached>
-__global__ void cyclic_scaled_kernel(const uint64_t* __restrict__ a,
-                                     const uint64_t* __restrict__ b,
-                                     uint64_t* __restrict__ out,
-                                     const uint64_t* __restrict__ tw,
-                                     const uint64_t* __restrict__ itw,
-                                     const uint64_t* __restrict__ pre,
-                                     const uint64_t* __restrict__ post,
-                                     int period, int log_n, uint64_t scale) {
-  extern __shared__ uint64_t smem[];
-  const int n = 1 << log_n;
-  uint64_t* x = smem;
-  uint64_t* y = smem + n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const uint64_t w = __ldg(pre + srow + i);
-    x[i] = gl_mul(a[row + i], w);
-    y[i] = kCached ? b[row + i] : gl_mul(b[row + i], w);
-  }
-  __syncthreads();
-  forward(x, kCached ? 1 : 2, log_n, tw);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = gl_mul(gl_mul(x[i], y[i]), scale);
-  }
-  __syncthreads();
-  inverse(x, log_n, itw);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = gl_mul(x[i], __ldg(post + srow + i));
   }
 }
 
@@ -881,6 +850,125 @@ __global__ void __launch_bounds__(block_threads(kLogN, kCols),
   }
 }
 
+// The four-step's row pass on the radix-8 core, fused (gl64_cyclic_scaled,
+// gl64_cached_scaled): post . INTT(NTT(pre . a) o NTT(pre . b)) * scale, row
+// r scaled by row r % period of the (period, n) tables pre and post, in one
+// kernel a launch; device memory sees each operand and the result once.
+// nwc64.cu's fused product on this file's arithmetic: the forward of b, the
+// forward of a, the slot product in registers (after the forward's last
+// pass thread t holds spectrum words 8t ... 8t + 7 of its row, where the
+// inverse's first pass starts), the inverse.  The entry scale is one
+// product a word on the words the first pass loads, its table words taken
+// at the same positions (from L2); the exit scale one product a word
+// folded into the store, with the one compare.  b's spectrum waits in
+// eight more registers a thread, or with kSpectrumInRegisters false in the
+// tile where b's last pass read it (a's passes then exchange through a
+// second tile); a cached b is a spectrum, loaded as 16-byte vectors where
+// a's forward leaves its words, and neither scaled nor transformed.
+// tools/gl64_variants.py times both places (PERF.md).
+constexpr bool kSpectrumInRegisters = true;
+
+// Whether b's spectrum waits in registers at log n: at 1024 threads a block
+// (n = 8192) 64 registers a thread are all an SM has.
+__host__ __device__ constexpr bool spectrum_in_registers(int log_n) {
+  return kSpectrumInRegisters && block_threads(log_n, false) < 1024;
+}
+// Blocks an SM for __launch_bounds__: 1024 threads at 64 registers, or 640
+// (96 registers; 512 at n = 2048 and 4096, 128) when b's spectrum takes its
+// eight registers more.
+__host__ __device__ constexpr int product_blocks(int log_n, bool cached) {
+  const int threads = block_threads(log_n, false);
+  if (cached || !spectrum_in_registers(log_n)) {
+    return 1024 / threads;
+  }
+  return threads > 384 ? 1 : 640 / threads;
+}
+// v, which the compiler must take as new: each phase of the fused kernel
+// (b's forward, a's, the inverse: the same words) computes its swizzled
+// shared-memory addresses again from it where opaque_phases holds, at
+// n = 8192 (64 registers a thread), where the compiler would keep the first
+// phase's live through all three and spill (ptxas); below, the 96 or 128
+// registers hold them, and recomputing them costs 7 % (tools/gl64_variants.py).
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+__host__ __device__ constexpr bool opaque_phases(int log_n) { return log_n == 13; }
+// Tiles of shared memory a product block holds.
+__host__ __device__ constexpr int product_tiles(int log_n) {
+  return spectrum_in_registers(log_n) ? 1 : 2;
+}
+
+// x times the words of table row `srow` at pass kP's positions: any words.
+template <int kLogN, int kP>
+__device__ __forceinline__ void times_row(uint64_t (&x)[kWords], const uint64_t* table,
+                                          size_t srow, int t) {
+  constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    x[r] = mul_lazy(x[r], __ldg(table + srow + element<kLogN, kS, kR>(t, r)));
+  }
+}
+
+// Tables: the per-pass layout of mxu64.pass_table; pre and post plain rows.
+template <int kLogN, bool kCached>
+__global__ void __launch_bounds__(block_threads(kLogN, false), product_blocks(kLogN, kCached))
+    cyclic_scaled_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
+                         uint64_t* __restrict__ out, const uint64_t* __restrict__ tw,
+                         const uint64_t* __restrict__ itw, const uint64_t* __restrict__ pre,
+                         const uint64_t* __restrict__ post, int period, int rows,
+                         uint64_t scale) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  constexpr int kLast = passes(kLogN) - 1;
+  constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
+  constexpr bool kInRegisters = spectrum_in_registers(kLogN);
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  const size_t srow = live ? static_cast<size_t>(row % period) * kN : 0;
+  // a's passes exchange through the second tile when b's spectrum keeps the first
+  uint64_t* const work = kInRegisters || kCached ? smem : smem + kTile * kN;
+  uint64_t y[kWords];
+  if constexpr (!kCached) {
+    load<kLogN, false, 0>(y, b, at, 1, t, live);  // [0, q): any words
+    times_row<kLogN, 0>(y, pre, srow, t);
+    run_pass<0, first_stages(kLogN), false>(y, tw, 0);
+    forward_passes<kLogN, false, 1>(y, smem, tw, g, t);
+    if constexpr (kInRegisters) {
+      __syncthreads();  // a's first exchange overwrites the words b's last pass read
+    } else {
+      to_shared<kLogN, false, kLast>(y, smem, g, t);  // the words this thread read
+    }
+  }
+  constexpr bool kOpaque = opaque_phases(kLogN);
+  const int ga = kOpaque ? opaque(g) : g, ta = kOpaque ? opaque(t) : t;  // a's forward
+  uint64_t x[kWords];
+  load<kLogN, false, 0>(x, a, at, 1, ta, live);
+  times_row<kLogN, 0>(x, pre, srow, ta);
+  run_pass<0, first_stages(kLogN), false>(x, tw, 0);
+  forward_passes<kLogN, false, 1>(x, work, tw, ga, ta);
+  if constexpr (kCached) {
+    load<kLogN, false, kLast>(y, b, at, 1, ta, live);  // [0, q)
+  } else if constexpr (!kInRegisters) {
+    from_shared<kLogN, false, kLast>(y, smem, ga, ta);
+  }
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // any words, times n^-1: any word
+    x[r] = mul_lazy(mul_lazy(x[r], y[r]), scale);
+  }
+  const int gi = kOpaque ? opaque(g) : g, ti = kOpaque ? opaque(t) : t;  // the inverse
+  run_pass<kS, 3, true>(x, itw + kOff, group<kLogN, kS>(ti));
+  inverse_passes<kLogN, false, kLast - 1>(x, work, itw, gi, ti);
+  times_row<kLogN, 0>(x, post, srow, ti);  // the store's positions
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // any word -> [0, q)
+    x[r] = canonical(x[r]);
+  }
+  store<kLogN, false, 0>(x, out, at, 1, ti, live);
+}
+
 // n / 8 threads from n = 256 on (four butterflies each), at most 1024;
 // below, a warp, or one thread a butterfly where n / 2 is less.
 int threads_for(int log_n) {
@@ -968,6 +1056,27 @@ int launch_product(const void* a, const void* b, void* out, const void* tw,
   return cudaGetLastError();
 }
 
+template <int kLogN, bool kCached>
+int launch_fused(const void* a, const void* b, void* out, const void* tw, const void* itw,
+                 const void* pre, const void* post, int period, int batch, uint64_t scale,
+                 cudaStream_t stream) {
+  constexpr int kTile = tile(kLogN, false);
+  constexpr int kSmem = (kCached ? 1 : product_tiles(kLogN)) * kTile * (1 << kLogN) *
+                        static_cast<int>(sizeof(uint64_t));
+  auto kernel = cyclic_scaled_kernel<kLogN, kCached>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN, false), kSmem, stream>>>(
+      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw), words(pre),
+      words(post), period, batch, scale);
+  return cudaGetLastError();
+}
+
+// The fused row pass's entry: log n from 5 to 13, every pointer 16-byte
+// aligned (the tables' vectors, and a cached spectrum's).
 template <bool kCached>
 int launch_cyclic_scaled(const void* a, const void* b, void* out,
                          const void* tw, const void* itw, const void* pre,
@@ -976,17 +1085,23 @@ int launch_cyclic_scaled(const void* a, const void* b, void* out,
   if (bad_shape(batch, log_n) || period < 1 || batch % period) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(cyclic_scaled_kernel<kCached>, 2 * n);
-  if (err != cudaSuccess) {
-    return err;
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(tw) |
+       reinterpret_cast<uintptr_t>(itw) | reinterpret_cast<uintptr_t>(pre) |
+       reinterpret_cast<uintptr_t>(post)) % 16) {
+    return cudaErrorMisalignedAddress;
   }
-  cyclic_scaled_kernel<kCached><<<batch, threads_for(log_n),
-                                  2 * n * sizeof(uint64_t),
-                                  static_cast<cudaStream_t>(stream)>>>(
-      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw),
-      words(pre), words(post), period, log_n, scale);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define GL64_LOG_N(L)                                                                    \
+  case L:                                                                                \
+    return launch_fused<L, kCached>(a, b, out, tw, itw, pre, post, period, batch, scale, \
+                                    s);
+    GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
+    GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
+#undef GL64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1072,8 +1187,9 @@ extern "C" int gl64_matvec(const void* spectra, const void* mat, void* out,
   return cudaGetLastError();
 }
 
-// The row pass of the four-step: `period` rows of plain scales pre and
-// post, n values each; batch must be a multiple of it.
+// The row pass of the four-step, fused on the radix-8 core: `period` rows
+// of plain scales pre and post, n values each (batch must be a multiple of
+// it), the tables those of mxu64.pass_table.
 extern "C" int gl64_cyclic_scaled(const void* a, const void* b, void* out,
                                   const void* tw, const void* itw,
                                   const void* pre, const void* post, int period,

@@ -49,16 +49,20 @@
 // carried over.  Correct for any odd q < 2^62 and 32 <= n <= 8192 (the
 // public window is 256 <= n <= 8192; below it, the four-step's sub-sizes).
 //
-// Two cores.  nwc64_forward, nwc64_inverse and their column entry points run
-// the radix-8 core below ("The radix-8 core"); the other ten entry points
-// run the first core, correct first and simple (the design of nwc32.cu on
-// 64-bit words), until they move onto the radix-8 one:
+// Two cores.  Six entry points run the radix-8 core below ("The radix-8
+// core"): nwc64_forward, nwc64_inverse and their column entry points, and,
+// fused onto it ("The product on the radix-8 core"), nwc64_product and
+// nwc64_cached, both forwards, the slot product and the inverse in one
+// kernel a launch.  The other eight run the first core, correct first and
+// simple (the design of nwc32.cu on 64-bit words), until they move onto the
+// radix-8 one:
 // * One thread block per row (per output row for the dot and the matvec).
 //   The rows a block works on live in dynamic shared memory, 8n bytes each:
-//   the product holds two (128 KiB at n = 8192), the dot three (192 KiB at
-//   n = 8192, under the 227 KB a block may have), so device memory sees each
-//   operand and each result once.  n / 8 threads (at most 1024) run four
-//   butterflies each up to n = 8192 (below n = 256, a warp, or n / 2).
+//   the scaled product holds two (128 KiB at n = 8192), the dot three
+//   (192 KiB at n = 8192, under the 227 KB a block may have), so device
+//   memory sees each operand and each result once.  n / 8 threads (at most
+//   1024) run four butterflies each up to n = 8192 (below n = 256, a warp,
+//   or n / 2).
 // * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
 //   Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
 //   between stages.  The stage with m groups reads entry m + g of a flat
@@ -79,21 +83,22 @@
 //   wrapper transforms the l * B rows of s with nwc64_forward into a scratch
 //   tensor, and nwc64_matvec accumulates sum_j REDC(S_j * A_ij) from device
 //   memory (A stays in L2) and runs one inverse per output row.
-// * The four-step's row pass (the *_scaled functions) is product_kernel,
-//   the first core's forward and inverse, dot_kernel and matvec_kernel with
-//   one Shoup multiply more, by a table row, at entry and/or exit (never on a
-//   cached spectrum, which the row forward has already scaled).  Row r of
+// * The four-step's row pass (the *_scaled functions) is the first core's
+//   forward, inverse, product of two rows, dot_kernel and matvec_kernel
+//   with one Shoup multiply more, by a table row, at entry and/or exit
+//   (never on a cached spectrum, which the row forward has already scaled).  Row r of
 //   a launch reads row r % period of the (period, n) tables (w, w'): a
 //   batch of B polynomials of n1 rows each passes period = n1, every row
-//   of a polynomial in one launch.  The entry product leaves [0, q) before the transform, the exit
-//   product canonical words, as strict Shoup does for q < 2^62.
+//   of a polynomial in one launch.  The entry product leaves [0, q) before
+//   the transform, the exit product canonical words, as strict Shoup does
+//   for q < 2^62.
 //
 // What bounds the first core on this card.  Not the 64-bit multiplies it was
 // first thought to be: Hopper builds a 64 x 64 product from 32-bit IMADs,
 // about twelve for a Shoup-64 or Montgomery-64 product, and at P60_4096,
 // B = 2048 the product's 3 transforms and slot pass need 2.0e9 of them,
 // 0.12 ms at 132 SMs x 64 IMADs a clock x 1.98 GHz, against 201 MB of
-// operands and result, 0.06 ms at 3.35 TB/s.  The product takes about four
+// operands and result, 0.06 ms at 3.35 TB/s.  Its product took about four
 // times that bound (PERF.md): what holds it back is instruction issue and
 // latency between barriers (index arithmetic, shared loads and stores,
 // twiddle loads and conditional subtracts around each product) and the
@@ -178,37 +183,6 @@ __device__ void inverse(uint64_t* x, int log_n, Table itw, uint64_t q) {
       x[v] = shoup_mul(sub_mod(xu, xv, q), w, ws, q);
     }
     __syncthreads();
-  }
-}
-
-// The product of a row of a with a row of b: b is coefficients, or with
-// kCached a spectrum that is used as it is.  Its own body rather than
-// dot_kernel at one term, which would add an accumulator row, a zeroing pass
-// and a separate scale pass (3.5 % slower on the 24-bit side; PERF.md).
-template <bool kCached>
-__global__ void product_kernel(const uint64_t* __restrict__ a,
-                               const uint64_t* __restrict__ b,
-                               uint64_t* __restrict__ out, Table tw, Table itw,
-                               int log_n, uint64_t q, uint64_t q_prime,
-                               uint64_t scale, uint64_t scale_shoup) {
-  extern __shared__ uint64_t smem[];
-  const int n = 1 << log_n;
-  uint64_t* x = smem;
-  uint64_t* y = smem + n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = a[row + i];
-    y[i] = b[row + i];
-  }
-  __syncthreads();
-  forward(x, kCached ? 1 : 2, log_n, tw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = shoup_mul(mont_mul(x[i], y[i], q, q_prime), scale, scale_shoup, q);
-  }
-  __syncthreads();
-  inverse(x, log_n, itw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = x[i];
   }
 }
 
@@ -501,6 +475,23 @@ __device__ __forceinline__ void store(const uint64_t (&x)[kWords], uint64_t* out
   }
 }
 
+// v, which the compiler must take as new, so that it computes the
+// swizzled shared-memory addresses of a thread's words again from it
+// rather than keep earlier ones live (eight registers an exchange).  Where
+// a thread has 64 registers, at 1024 threads a block (n = 8192) or an SM,
+// the kernels spill without it (ptxas): each pass takes new indices at
+// n = 8192 (opaque_passes), each phase of the fused product (b's forward,
+// a's, the inverse: the same words) at n = 8192 and against a cached
+// spectrum (opaque_phases).
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+__host__ __device__ constexpr bool opaque_passes(int log_n) { return log_n == 13; }
+__host__ __device__ constexpr bool opaque_phases(int log_n, bool cached) {
+  return cached || log_n == 13;
+}
+
 // Passes kP, kP + 1, ... of the forward, each after the exchange with the
 // pass before it.
 template <int kLogN, bool kCols, int kP>
@@ -509,6 +500,10 @@ __device__ __forceinline__ void forward_passes(uint64_t (&x)[kWords], uint64_t* 
                                                int t, uint64_t q) {
   if constexpr (kP < passes(kLogN)) {
     constexpr int kS = pass_stage(kLogN, kP), kOff = pass_offset(kLogN, kP);
+    if constexpr (opaque_passes(kLogN)) {
+      g = opaque(g);
+      t = opaque(t);
+    }
     to_shared<kLogN, kCols, kP - 1>(x, smem, g, t);
     __syncthreads();
     from_shared<kLogN, kCols, kP>(x, smem, g, t);
@@ -525,6 +520,10 @@ __device__ __forceinline__ void inverse_passes(uint64_t (&x)[kWords], uint64_t* 
   if constexpr (kP >= 0) {
     constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
     constexpr int kOff = pass_offset(kLogN, kP);
+    if constexpr (opaque_passes(kLogN)) {
+      g = opaque(g);
+      t = opaque(t);
+    }
     to_shared<kLogN, kCols, kP + 1>(x, smem, g, t);
     __syncthreads();
     from_shared<kLogN, kCols, kP>(x, smem, g, t);
@@ -580,6 +579,104 @@ __global__ void __launch_bounds__(block_threads(kLogN, kCols),
     }
     store<kLogN, kCols, 0>(x, out, at, stride, t, live);
   }
+}
+
+// The product on the radix-8 core, fused (nwc64_product, nwc64_cached): the
+// forward of b, the forward of a, the slot product in registers, the
+// inverse; device memory sees each operand and the result once.  After the
+// forward's last pass thread t holds spectrum words 8t ... 8t + 7 of its
+// row, the words the inverse's first pass starts from, so the slot product
+// needs no exchange and no barrier.  The spectrum of b waits while the
+// forward of a runs either in eight more registers a thread or, with
+// kSpectrumInRegisters false, in the output row, at the thread's own words
+// (16-byte vectors written after b's forward and read back, mostly from L2,
+// before the slot product; the result overwrites them).  A cached b is a
+// spectrum, loaded as 16-byte vectors where a's forward leaves its words,
+// and transformed not at all.  tools/nwc64_variants.py times the places
+// (PERF.md; a second shared-memory tile, tried too, spilled at 64 registers).
+constexpr bool kSpectrumInRegisters = true;
+
+// Whether b's spectrum waits in registers at log n: at 1024 threads a block
+// (n = 8192) 64 registers a thread are all an SM has, so there it waits in
+// the output row whatever kSpectrumInRegisters says.
+__host__ __device__ constexpr bool spectrum_in_registers(int log_n) {
+  return kSpectrumInRegisters && block_threads(log_n, false) < 1024;
+}
+// Blocks an SM for __launch_bounds__: 1024 threads at 64 registers, or 512
+// (128 registers) when b's spectrum takes its eight registers more.
+__host__ __device__ constexpr int product_blocks(int log_n, bool cached) {
+  const int threads = block_threads(log_n, false);
+  if (cached || !spectrum_in_registers(log_n)) {
+    return 1024 / threads;
+  }
+  return threads > 384 ? 1 : 512 / threads;
+}
+
+// REDC(a * b) for a * b < q * 2^64: in [0, 2q), no compare (mont_mul's t).
+__device__ __forceinline__ uint64_t mont_lazy(uint64_t a, uint64_t b, uint64_t q,
+                                              uint64_t q_prime) {
+  const uint64_t lo = a * b;
+  const uint64_t m = lo * q_prime;
+  return __umul64hi(a, b) + __umul64hi(m, q) + (lo != 0);  // (a b + m q) / 2^64 < 2q
+}
+
+// out = INTT(NTT(a) . NTT(b)) * scale on `rows` rows (b a spectrum with
+// kCached).  Tables: the per-pass layout of mxu64.pass_table.
+template <int kLogN, bool kCached>
+__global__ void __launch_bounds__(block_threads(kLogN, false), product_blocks(kLogN, kCached))
+    product_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
+                   uint64_t* __restrict__ out, Table tw, Table itw, int rows, uint64_t q,
+                   uint64_t q_prime, uint64_t scale, uint64_t scale_shoup) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  constexpr int kLast = passes(kLogN) - 1;
+  constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
+  constexpr bool kInRegisters = spectrum_in_registers(kLogN);
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  uint64_t y[kWords];
+  if constexpr (!kCached) {
+    // lanes in [0, q) from device memory: inside the forward's [0, 4q)
+    load<kLogN, false, 0>(y, b, at, 1, t, live);
+    run_pass<0, first_stages(kLogN), false, true>(y, tw.w, tw.w_shoup, 0, q);
+    forward_passes<kLogN, false, 1>(y, smem, tw.w, tw.w_shoup, g, t, q);
+#pragma unroll
+    for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, 2q): the slot's lane
+      y[r] = csub(y[r], 2 * q);
+    }
+    if constexpr (!kInRegisters) {
+      store<kLogN, false, kLast>(y, out, at, 1, t, live);  // words 8t ... 8t + 7
+    }
+    __syncthreads();  // a's first exchange overwrites the words b's last pass read
+  }
+  constexpr bool kOpaque = opaque_phases(kLogN, kCached);
+  const int ga = kOpaque ? opaque(g) : g, ta = kOpaque ? opaque(t) : t;  // a's forward
+  uint64_t x[kWords];
+  load<kLogN, false, 0>(x, a, at, 1, ta, live);
+  run_pass<0, first_stages(kLogN), false, true>(x, tw.w, tw.w_shoup, 0, q);
+  forward_passes<kLogN, false, 1>(x, smem, tw.w, tw.w_shoup, ga, ta, q);
+  if constexpr (kCached) {
+    load<kLogN, false, kLast>(y, b, at, 1, ta, live);  // [0, q), times 2^64
+  } else if constexpr (!kInRegisters) {
+    load<kLogN, false, kLast>(y, out, at, 1, ta, live);  // this thread's own words
+  }
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    // x and y in [0, 2q), or with kCached x in [0, 4q) and y in [0, q): x y
+    // < 4 q^2 < q 2^64 (q < 2^62), so the lazy REDC is in [0, 2q), the
+    // inverse's range
+    x[r] = mont_lazy(kCached ? x[r] : csub(x[r], 2 * q), y[r], q, q_prime);
+  }
+  const int gi = kOpaque ? opaque(g) : g, ti = kOpaque ? opaque(t) : t;  // the inverse
+  run_pass<kS, 3, true>(x, itw.w + kOff, itw.w_shoup + kOff, group<kLogN, kS>(ti), q);
+  inverse_passes<kLogN, false, kLast - 1>(x, smem, itw.w, itw.w_shoup, gi, ti, q);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, q), n^-1 (and 2^64) folded in
+    x[r] = csub(shoup_lazy(x[r], scale, scale_shoup, q), q);
+  }
+  store<kLogN, false, 0>(x, out, at, 1, ti, live);
 }
 
 
@@ -835,6 +932,25 @@ Table table(const void* w, const void* w_shoup) {
                static_cast<const uint64_t*>(w_shoup)};
 }
 
+template <int kLogN, bool kCached>
+int launch_fused(const uint64_t* a, const uint64_t* b, void* out, Table tw, Table itw,
+                 int batch, uint64_t q, uint64_t q_prime, uint64_t scale,
+                 uint64_t scale_shoup, cudaStream_t stream) {
+  constexpr int kTile = tile(kLogN, false);
+  constexpr int kSmem = kTile * (1 << kLogN) * static_cast<int>(sizeof(uint64_t));
+  auto kernel = product_kernel<kLogN, kCached>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN, false), kSmem, stream>>>(
+      a, b, static_cast<uint64_t*>(out), tw, itw, batch, q, q_prime, scale, scale_shoup);
+  return cudaGetLastError();
+}
+
+// The fused product's entry: log n from 5 to 13, every pointer 16-byte
+// aligned (the tables' vectors, and a cached spectrum's).
 template <bool kCached>
 int launch_product(const void* a, const void* b, void* out, const void* tw,
                    const void* tw_shoup, const void* itw, const void* itw_shoup,
@@ -843,17 +959,26 @@ int launch_product(const void* a, const void* b, void* out, const void* tw,
   if (bad_shape(batch, log_n)) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(product_kernel<kCached>, 2 * n);
-  if (err != cudaSuccess) {
-    return err;
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(tw) |
+       reinterpret_cast<uintptr_t>(tw_shoup) | reinterpret_cast<uintptr_t>(itw) |
+       reinterpret_cast<uintptr_t>(itw_shoup)) % 16) {
+    return cudaErrorMisalignedAddress;
   }
-  product_kernel<kCached><<<batch, threads_for(log_n), 2 * n * sizeof(uint64_t),
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b),
-      static_cast<uint64_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
-      log_n, q, q_prime, scale, scale_shoup);
-  return cudaGetLastError();
+  const uint64_t* pa = static_cast<const uint64_t*>(a);
+  const uint64_t* pb = static_cast<const uint64_t*>(b);
+  const Table ptw = table(tw, tw_shoup), pitw = table(itw, itw_shoup);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define NWC64_LOG_N(L)                                                                 \
+  case L:                                                                              \
+    return launch_fused<L, kCached>(pa, pb, out, ptw, pitw, batch, q, q_prime, scale,  \
+                                    scale_shoup, s);
+    NWC64_LOG_N(5) NWC64_LOG_N(6) NWC64_LOG_N(7) NWC64_LOG_N(8) NWC64_LOG_N(9)
+    NWC64_LOG_N(10) NWC64_LOG_N(11) NWC64_LOG_N(12) NWC64_LOG_N(13)
+#undef NWC64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <bool kCached>
@@ -938,6 +1063,11 @@ int launch_core(const void* in, void* out, const void* tw, const void* tw_shoup,
 // device refuses (too much shared memory, a bad shape) never runs, so the
 // caller must check the code.
 
+// The product of (batch, n) rows of a and b, and of a with the rows of a
+// cached spectrum, on the radix-8 core, fused: the tables are those of
+// mxu64.pass_table, scale the product's (n^-1 2^64 for two fresh operands,
+// n^-1 against a cached spectrum); out overlaps neither operand (at
+// n = 8192 it holds b's spectrum while a's forward runs).
 extern "C" int nwc64_product(const void* a, const void* b, void* out,
                              const void* tw, const void* tw_shoup,
                              const void* itw, const void* itw_shoup, int batch,

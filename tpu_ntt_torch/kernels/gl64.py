@@ -28,8 +28,11 @@ on every column of natural (R, n, width) rows, with no transposes.
 
 ``gl64_forward`` and ``gl64_inverse`` (and their column entry points) run
 the radix-8 core of ``csrc/gl64.cu``: passes of three stages in registers,
-twiddles in the per-pass layout of ``mxu64.pass_table``; the other ten
-kernels read the flat tables.
+twiddles in the per-pass layout of ``mxu64.pass_table``;
+``gl64_cyclic_scaled`` and ``gl64_cached_scaled`` run the four-step's row
+pass fused on that core, on the same per-pass tables
+(``GoldilocksPlan64.pass_entries``); the other eight kernels read the flat
+tables.
 """
 
 from __future__ import annotations
@@ -112,9 +115,12 @@ class GoldilocksPlan64(_plan.ScaledKernelPlan):
     def _ring_tw(self, table: tuple):
         return table[0]  # GoldilocksRing.mul_tw takes the plain values
 
+    pass_entries = frozenset({"forward", "inverse", "forward_cols", "inverse_cols",
+                              "cyclic_scaled", "cached_scaled"})
+
     def _transform_table(self, flat) -> tuple:
-        """The per-pass layout of the flat table w for gl64_forward and
-        gl64_inverse and their column entry points: the 1-tuple (w,)."""
+        """The per-pass layout of the flat table w for the radix-8 core's
+        entry points (``pass_entries``): the 1-tuple (w,)."""
         return cached_pass_table(self, flat)
 
 

@@ -30,7 +30,10 @@ place of torch transposes around a row transform.
 ``nwc64_forward`` and ``nwc64_inverse`` (and their column entry points) run
 the radix-8 core of ``csrc/nwc64.cu``: passes of three stages in registers
 (``passes``), twiddles in a per-pass layout built here from the flat tables
-(``pass_table``); the other ten kernels read the flat tables.
+(``pass_table``); ``nwc64_product`` and ``nwc64_cached`` run both forwards,
+the slot product and the inverse fused on that core, on the same per-pass
+tables (``MxuPlan64.pass_entries``); the other eight kernels read the flat
+tables.
 """
 
 from __future__ import annotations
@@ -151,9 +154,12 @@ class MxuPlan64(ScaledKernelPlan):
     def _lib(self) -> ctypes.CDLL:
         return load_scaled()
 
+    pass_entries = frozenset({"forward", "inverse", "forward_cols", "inverse_cols",
+                              "product", "cached"})
+
     def _transform_table(self, flat: tuple) -> tuple:
-        """The per-pass layout of the flat table (w, w') for nwc64_forward
-        and nwc64_inverse and their column entry points."""
+        """The per-pass layout of the flat table (w, w') for the radix-8
+        core's entry points (``pass_entries``)."""
         return cached_pass_table(self, flat)
 
 
