@@ -30,10 +30,12 @@ kernel K6).  Phases, each of which raises on failure:
    instructions one width-8 permutation issues (cuobjdump); the
    instructions a thread issues after its first barrier at n = 4096 in
    nwc64.cu's and gl64.cu's radix-8 kernels and in their first cores'
-   loops, in the fused ``nwc64_product`` at n = 4096 and the fused
-   ``gl64_cyclic_scaled`` at n = 128 and 1024; the radix-8 kernels of
-   both files, 36 transforms and 18 fused products each, must spill
-   nothing;
+   loops, in the fused ``nwc64_product`` at n = 4096, the fused
+   ``nwc64_cyclic_scaled`` and ``gl64_cyclic_scaled`` at n = 128 and 1024
+   and the fused ``nwc64_dot_scaled`` at n = 128 (a step of its loop, one
+   forward, and the rest); the radix-8 kernels of both files, 36
+   transforms and 18 fused products each, and nwc64.cu's 18 fused row
+   passes and 18 fused dots, must spill nothing;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: the
    radix-8 cores (``nwc64_forward``, ``nwc64_inverse`` on rows and
@@ -45,10 +47,13 @@ kernel K6).  Phases, each of which raises on failure:
    and 2048 rows, widths 1, 3, 8, 128 and 1024, cyclic and merged tables,
    the forward at scale 1 and 2^64 mod q, the inverse at n^-1 and 1; the
    products fused on those cores (``nwc64_product`` and ``nwc64_cached``
-   at the three 60-bit q, ``gl64_cyclic_scaled`` and ``gl64_cached_scaled``
-   at the Goldilocks q with random pre and post tables at period 1, 3 and
-   256) at every n from 32 to 8192, B = 1, 3 and 2048, cyclic and merged
-   tables, boundary rows first; every op
+   at the three 60-bit q; the row passes ``nwc64_cyclic_scaled``,
+   ``nwc64_cached_scaled`` and ``nwc64_dot_scaled``, fresh and cached,
+   K = 1 and 4, at the same q, and ``gl64_cyclic_scaled`` and
+   ``gl64_cached_scaled`` at the Goldilocks q, with random pre and post
+   tables at period 1, 3 and 256) at every n from 32 to 8192, B = 1, 3
+   and 2048, boundary rows first, on cyclic tables, and on merged ones at
+   n = 4096 (the dot at K = 4 and B = 2048 at n = 128 alone); every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
    B = 256), the product, forward and inverse at n = 256 and 8192, the dot
    at n = 8192 (three rows of shared memory), every op at the generic q;
@@ -427,6 +432,27 @@ def issued_per_thread(listing, trips) -> int | None:
                for at, _ in code)
 
 
+def issued_with_loop(listing, trips: int) -> tuple | None:
+    """A fused dot's instructions, its one loop holding its first barrier:
+    one trip's (the loop's first instruction to its backward branch), those
+    after the loop up to the last EXIT, and what a thread issues after its
+    first barrier in ``trips`` trips (every trip but the part of the first
+    before the barrier, then the rest); None where the kernel has not one
+    loop."""
+    start = next(i for i, (_, ins) in enumerate(listing) if ins.startswith("BAR.SYNC"))
+    end = max(i for i, (_, ins) in enumerate(listing) if "EXIT" in ins)
+    loops = [(int(m.group(1), 16), at) for at, ins in listing
+             if (m := re.search(r"\bBRA (0x[0-9a-f]+)", ins)) and int(m.group(1), 16) < at]
+    if len(loops) != 1:
+        return None
+    lo, hi = loops[0]
+    addresses = [at for at, _ in listing]
+    trip = sum(lo <= at <= hi for at in addresses)
+    before = sum(lo <= at <= hi for at in addresses[:start])
+    rest = sum(at > hi for at in addresses[:end + 1])
+    return trip, rest, trips * trip - before + rest
+
+
 def nvidia_smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -465,6 +491,7 @@ def main() -> int:
     from tpu_ntt_torch.kernels.mxu import MxuPlan
     from tpu_ntt_torch.kernels.mxu64 import MxuPlan64, SubPlan64
     from tpu_ntt_torch.kernels.sol64 import SolinasPlan64
+    from tpu_ntt_torch.modmath import join64
     from tpu_ntt_torch.sharded import (KernelFourStep, column_fwd, column_inv,
                                        fourstep_nwc_poly_mult_kernel)
     from tpu_ntt_torch.params import (DILITHIUM_256, FALCON_1024, GOLDILOCKS_4096,
@@ -521,6 +548,8 @@ def main() -> int:
     for kernel, trips in (("transform_kernel<12, 0, 0>", ()), ("transform_kernel<12, 1, 0>", ()),
                           ("transform_kernel<8, 0, 1>", ()), ("transform_kernel<10, 0, 1>", ()),
                           ("product_kernel<12, 0>", ()), ("product_kernel<12, 1>", ()),
+                          ("cyclic_scaled_kernel<7, 0>", ()), ("cyclic_scaled_kernel<10, 0>", ()),
+                          ("cyclic_scaled_kernel<7, 1>", ()),
                           ("forward_scaled_kernel", (4, 12, 2, 0)),
                           ("inverse_scaled_kernel", (4, 12, 8))):
         code = nwc_sass[kernel]
@@ -528,6 +557,15 @@ def main() -> int:
         print(f"  sass: nwc64.cu {kernel}: {len(code)} instructions; after its first barrier "
               f"a thread issues {issued or 'not counted:'} "
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
+    # the fused dot's row pass at p60_32768's n2 = 128: a step of its loop
+    # (one forward: b's or a's of a term), the inverse and the store after
+    # it, and a thread's count at K = 4 (2K steps)
+    code = nwc_sass["dot_scaled_kernel<7, 0>"]
+    counted = issued_with_loop(code, 2 * DOT_TERMS)
+    print(f"  sass: nwc64.cu dot_scaled_kernel<7, 0>: {len(code)} instructions; "
+          + (f"a step's trip {counted[0]}, after the steps {counted[1]}; at K = {DOT_TERMS} "
+             f"a thread issues {counted[2]} after its first barrier" if counted else
+             f"loops not one: {sass_loops(code)}"))
     # gl64.cu's radix-8 core against its first core, counted the same way
     # (its loops are nwc64.cu's: the butterfly loop of 4 trips in the stage
     # loop of 12, then the store loop, unrolled by 4 in the forward; the
@@ -550,16 +588,20 @@ def main() -> int:
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
     # the radix-8 kernels of both files spill nothing: 36 transforms (a log n
     # from 5 to 13, each direction and layout) and 18 fused products (each
-    # log n, fresh and cached) in each
-    for lib, fused in (("nwc64", "product_kernel"), ("gl64", "cyclic_scaled_kernel")):
+    # log n, fresh and cached) in each, and nwc64.cu's 18 fused row passes
+    # and 18 fused dots
+    for lib, fused in (("nwc64", ("product_kernel", "cyclic_scaled_kernel", "dot_scaled_kernel")),
+                       ("gl64", ("cyclic_scaled_kernel",))):
         log = libs[lib].with_suffix(".log").read_text()
-        for kernel, count in (("transform_kernel", 36), (fused, 18)):
+        for kernel, count in (("transform_kernel", 36), *((f, 18) for f in fused)):
             spills = re.findall(rf"Function properties for \S*{kernel}I\S*\n[^\n]*?(\d+) "
                                 r"bytes spill stores, (\d+) bytes spill loads", log)
             if len(spills) != count or any(int(st) or int(ld) for st, ld in spills):
                 raise AssertionError(f"{lib}.cu's {kernel}s: {count} expected, none "
                                      f"spilling; ptxas says {spills}")
             print(f"build: {lib}.cu's {len(spills)} radix-8 {kernel}s spill nothing")
+
+    print(f"phase: build done at {time.perf_counter() - t_start:.1f} s (wall clock)")
 
     # 3. kernel vs plain version, bit for bit
     rng = np.random.default_rng(args.seed)
@@ -720,14 +762,33 @@ def main() -> int:
     print(f"kernel vs plain: the radix-8 cores checked in {time.perf_counter() - t0:.1f} s")
 
     # the products fused on the radix-8 cores: nwc64_product and nwc64_cached
-    # at the three 60-bit q, gl64_cyclic_scaled and gl64_cached_scaled at the
-    # Goldilocks q with random pre and post tables at period 1, 3 and
-    # goldilocks_32768's n1 = 256; merged and cyclic tables, every log n of
-    # the sub-plans' window, B = 1, 3 and 2048 rows, boundary rows first (b's
-    # reversed against a's); each launch against its plain version, bit for
-    # bit
+    # at the three 60-bit q; the four-step's row passes, nwc64_cyclic_scaled
+    # and nwc64_cached_scaled there, gl64_cyclic_scaled and
+    # gl64_cached_scaled at the Goldilocks q, with random pre and post tables
+    # at period 1, 3 and p60_32768's and goldilocks_32768's n1 = 256;
+    # cyclic tables (the four-step's) at every log n of the sub-plans'
+    # window, merged ones (the same kernels on other tables) at n = 4096
+    # alone, B = 1, 3 and 2048 rows, boundary rows first (b's reversed
+    # against a's); and nwc64_dot_scaled, fresh and cached, at K = 1 (the
+    # row pass's rows, no plain dot) and K = 4 at the last period of B = 1
+    # and 3, and at B = 2048 at p60_32768's n2 = 128 alone (the plain dot's
+    # cost); each launch against its plain version, bit for bit
+    def shoup_table(w, q):
+        """(w, floor(w 2^64 / q)) of canonical words on their device, by 64
+        steps of long division (remainders below 2q < 2^63)."""
+        r, halves = w.clone(), []
+        for _ in range(2):
+            h = torch.zeros_like(w)
+            for _ in range(32):
+                r = r * 2
+                bit = r >= q
+                r = torch.where(bit, r - q, r)
+                h = h * 2 + bit.long()
+            halves.append(h)
+        return w, join64(tuple(halves))
+
     def fused_check(plan, entry, label, want, x, y, tables, *args):
-        out = torch.empty_like(x)
+        out = torch.empty_like(want)
         plan._launch(entry, out, x, y, out, *(w for t in tables for w in plan._table_of(entry, t)),
                      *args)
         torch.cuda.synchronize()
@@ -750,6 +811,8 @@ def main() -> int:
                                   plan.nwc_ntt_fwd_plain, plan.nwc_poly_mult_plain),
                        "cyclic": (plan.plan.cyclic_flat, plan.plan.cyclic_inv_flat,
                                   plan.ntt_fwd_plain, plan.cyclic_poly_mult_plain)}
+            if log_n != 12:
+                del layouts["merged"]
             for rows in (1, 3, BATCH):
                 x, y = a[:rows], b[:rows].contiguous()
                 for layout, (tw, itw, fwd, product) in layouts.items():
@@ -762,20 +825,49 @@ def main() -> int:
                         fused_check(plan, "cached", label, want, x, spectrum, (tw, itw), rows,
                                     log_n, *plan._q_args(True), *plan._scale_cached)
                         checks += 2
-                        continue
-                    for period in {1: (1,), 3: (1, 3)}.get(rows, (1, 256)):
-                        pre, post = ((card_operands(q, n, period + ends, gen)[ends:],)
+                        if layout == "merged":  # the 60-bit row passes: the four-step's tables
+                            continue
+                    # the 60-bit row passes at B = 2048 at period 256 alone: period 1
+                    # and 3 are B = 1's and 3's
+                    periods = {1: (1,), 3: (1, 3)}.get(rows, (1, 256) if gl else (256,))
+                    for period in periods:
+                        pre, post = (card_operands(q, n, period + ends, gen)[ends:]
                                      for _ in range(2))  # random rows, past the boundary
+                        pre, post = ((pre,), (post,)) if gl else (shoup_table(pre, q),
+                                                                  shoup_table(post, q))
                         want = plan._rows_times(product(plan._rows_times(x, pre),
                                                         plan._rows_times(y, pre)), post)
                         spectrum = fwd(plan._rows_times(y, pre))
+                        if not gl:
+                            spectrum = plan.ring.mul_tw(spectrum, plan._r_tw)  # times 2^64
                         for entry, z, scale in (("cyclic_scaled", y, plan._scale_fresh),
                                                 ("cached_scaled", spectrum, plan._scale_cached)):
                             fused_check(plan, entry, f"{label} period {period}", want, x, z,
-                                        (tw, itw), *pre, *post, period, rows, log_n, *scale)
+                                        (tw, itw), *pre, *post, period, rows, log_n,
+                                        *(() if gl else plan._q_args(True)), *scale)
                         checks += 2
+                        if gl or layout == "merged":
+                            continue
+                        terms = [(x[None], y[None], spectrum[None], want)]
+                        if period == periods[-1] and (rows < BATCH or log_n == 7):
+                            x4, y4 = (card_operands(q, n, DOT_TERMS * rows, gen)
+                                      .reshape(DOT_TERMS, rows, n) for _ in range(2))
+                            s4 = plan.ntt_fwd_scaled_plain(y4.reshape(-1, n), pre, True)
+                            terms.append((x4, y4, s4.reshape(y4.shape),
+                                          plan.dot_scaled_plain(x4, y4, pre, post)))
+                        for x3, y3, s3, want3 in terms:
+                            for z, cached, scale in ((y3, 0, plan._scale_fresh),
+                                                     (s3, 1, plan._scale_cached)):
+                                fused_check(plan, "dot_scaled",
+                                            f"{label} period {period} K={x3.shape[0]}"
+                                            + (" cached" if cached else ""), want3, x3, z,
+                                            (tw, itw), *pre, *post, period, x3.shape[0], rows,
+                                            log_n, *plan._q_args(True), *scale, cached)
+                                checks += 1
         print(f"kernel vs plain: the fused products at q={q} ("
-              + ("gl64_cyclic_scaled, gl64_cached_scaled" if gl else "nwc64_product, nwc64_cached")
+              + ("gl64_cyclic_scaled, gl64_cached_scaled" if gl else
+                 "nwc64_product, nwc64_cached, nwc64_cyclic_scaled, nwc64_cached_scaled, "
+                 "nwc64_dot_scaled")
               + f"), n = 32 to 8192: {checks} launches equal in "
               f"{time.perf_counter() - t_q:.1f} s")
     print(f"kernel vs plain: the fused products checked in {time.perf_counter() - t0:.1f} s")
@@ -1053,6 +1145,7 @@ def main() -> int:
           f"({len(pairs)} boundary pairs): all {kposeidon.PROBE_ROWS} rows equal Python "
           f"integers mod q (rows {kposeidon.PROBE_LAZY_ROWS} congruent, lazy)")
 
+    print(f"phase: kernel vs plain done at {time.perf_counter() - t_start:.1f} s (wall clock)")
     # 4. independent oracle: evaluation at roots of x^n + 1, and the golden
     for name, p, (av, bv), cv in (
             ("P60_4096", P60_4096, inputs60["nwc"], out60["nwc"]),
@@ -1132,6 +1225,7 @@ def main() -> int:
               f"{rows.start}-{rows.stop - 1}, 3 k each; "
               + " and ".join(f"{inv}({fwd}(x)) == x" for fwd, inv in pairs))
 
+    print(f"phase: oracle done at {time.perf_counter() - t_start:.1f} s (wall clock)")
     # 5. main paths, through the entry points a user calls
     counts = (MxuPlan.launches, MxuPlan64.launches, KyberPlan.launches,
               GoldilocksPlan64.launches, kposeidon.launches, a2a.launches)
@@ -1516,6 +1610,7 @@ def main() -> int:
     pk2, coeffs2, rows2 = big_commit["pk"], big_commit["coeffs"], big_commit["rows"]
     big_n, t_plain_lde = STARK_DEGREE * STARK_BLOWUP, big_commit["plain_s"]
 
+    print(f"phase: main path done at {time.perf_counter() - t_start:.1f} s (wall clock)")
     # 6. timing, in turns: plain, kernel (through the main path), kernel, plain
     # each entry: (what is timed, kernel fn, plain fn, inputs, (bytes,
     # 32-bit multiplies) of a call, plain iteration counts, plain repeats)

@@ -1,6 +1,8 @@
 """The radix-8 core of ``csrc/nwc64.cu`` (``nwc64_forward``, ``nwc64_inverse``,
-their column entry points, and the product fused on it, ``nwc64_product``
-and ``nwc64_cached``) modelled on the CPU, and K1a's two ablation toggles.
+their column entry points, the product fused on it, ``nwc64_product`` and
+``nwc64_cached``, and the four-step's row passes fused on it,
+``nwc64_cyclic_scaled``, ``nwc64_cached_scaled`` and ``nwc64_dot_scaled``)
+modelled on the CPU, and K1a's two ablation toggles.
 
 * The lazy butterflies: a Python model of the .cu's Shoup product, CT and
   GS butterflies and final corrections, with the range asserts the .cu
@@ -20,13 +22,24 @@ and ``nwc64_cached``) modelled on the CPU, and K1a's two ablation toggles.
   cyclic tables and against a cached spectrum, at n = 32, 256 and 4096,
   against the plain products and JAX's XLA ``nwc_poly_mult_merged`` and
   ``cyclic_poly_mult`` (their bodies run with their transforms jitted).
+* The fused row passes on the same model (``scaled_model``): pre's lazy
+  Shoup product on the words the first pass loads (the first stage's
+  lanes then below 2q, asserted), both forwards, the slot product, for the
+  dot the sum of K terms kept below 2q, the scale's product on it, the
+  inverse, post's product and one compare at the store, with (P, n)
+  tables at (n, rows, P) = (32, 36, 1), (32, 36, 3), (256, 6, 3) and
+  (128, 256, 256) (p60_32768's row pass), fresh and cached, the dot at
+  K = 1 and 3 at (256, 6, 3),
+  against the plain row passes and JAX's XLA ``cyclic_poly_mult`` between
+  the scales (by Python ints); a faked launch shows the three entry
+  points receive the per-pass tables.
 * ``SubPlan64``'s column methods (plain on the CPU: the transpose route)
   against ``FourStepPlan``'s transposes and JAX's four-step locals
   (``tpu_ntt.sharded._along`` of its XLA transforms) at 32 x 32 and
   64 x 32, widths n2 / D for D = 2, 4 and 8.
-* The C signatures ``load`` and ``load_scaled`` bind for the six entry
-  points; a ``cuda``-marked case holds both layouts and both products
-  against plain on a card.
+* The C signatures ``load`` and ``load_scaled`` bind for the nine entry
+  points; a ``cuda``-marked case holds both layouts, both products and
+  the three row passes against plain on a card.
 * JAX's ``MxuPlan64`` with ``prefix_scan = True`` and with
   ``carry_save = False`` (mxu64.py:785-797) in interpret mode at n = 256:
   the same integers as the port's ``MxuPlan64``.
@@ -95,11 +108,14 @@ def csub(x, m):
     return np.where(x >= m, x - m, x)
 
 
-def ct(x, y, w, ws, q, canonical=False):
-    """Cooley-Tukey: lanes in [0, 4q) in and out; ``canonical``: x < q in
-    (the forward's first stage), which skips the compare."""
-    assert np.all(x < (q if canonical else 4 * q)) and np.all(y < 4 * q)
-    u = x if canonical else csub(x, 2 * q)
+def ct(x, y, w, ws, q, below=None):
+    """Cooley-Tukey: lanes in [0, 4q) in and out; ``below``: the forward's
+    first stage, which skips the compare, x below it in (q for words from
+    device memory, 2q after the row passes' lazy entry scale; the step
+    needs u < 2q)."""
+    assert np.all(x < (below or 4 * q)) and np.all(y < 4 * q)
+    assert below is None or below <= 2 * q
+    u = x if below else csub(x, 2 * q)
     assert np.all(u < 2 * q)
     v = shoup_lazy(y, w, ws, q)
     x, y = u + v, u + 2 * q - v
@@ -149,6 +165,14 @@ def test_lazy_butterflies_hold_their_ranges(q):
             assert np.all(out < q) and np.all(out == cx * scale % q)
         out = inverse_out(gx, w, ws, q)
         assert np.all(out < q) and np.all(out == gx * w % q)
+    # the row passes' first stage: x below 2q (the entry scale's lazy Shoup
+    # product), no compare
+    low = x < 2 * q
+    cx, cy = ct(x[low], y[low], q - 1, ((q - 1) << 64) // q, q, below=2 * q)
+    assert np.all(cx % q == (x[low] - y[low]) % q) and np.all(cy % q == (x[low] + y[low]) % q)
+    with pytest.raises(AssertionError):
+        ct(np.array([2 * q], dtype=object), np.array([0], dtype=object), 1, (1 << 64) // q, q,
+           below=2 * q)
     # the fused product's slot step on every such pair of the words above:
     # two lanes below 2q (one compare each), or a lane below 4q against a
     # cached canonical one
@@ -206,11 +230,11 @@ def threads(log_n: int, cols: bool):
     return (tid % g_tile, tid // g_tile) if cols else (tid // per, tid % per)
 
 
-def run_pass(x, w_tab, ws_tab, offset, s, r, hi, q, inverse, fresh=False):
+def run_pass(x, w_tab, ws_tab, offset, s, r, hi, q, inverse, fresh=None):
     """The stages of pass (s, r) on the registers x, twiddles from the
     per-pass tables: stage s + d's u-th twiddle of group hi at word
     2^d + u (word 0 for d = 0) of the group's pairs; ``fresh``: the
-    forward's first pass, its first stage on canonical lanes."""
+    forward's first pass, its first stage on lanes below ``fresh``."""
     stages = range(r - 1, -1, -1) if inverse else range(r)
     for d in stages:
         span = (1 << r) >> (d + 1)
@@ -228,7 +252,7 @@ def run_pass(x, w_tab, ws_tab, offset, s, r, hi, q, inverse, fresh=False):
                     x[reg], x[reg + span] = gs(x[reg], x[reg + span], w[e], ws[e], q)
                 else:
                     x[reg], x[reg + span] = ct(x[reg], x[reg + span], w[e], ws[e], q,
-                                               fresh and d == 0)
+                                               fresh if d == 0 else None)
 
 
 def lanes(plan, x: torch.Tensor, width: int | None = None):
@@ -275,12 +299,13 @@ def exchange(regs, written, idx, slot):
     return regs
 
 
-def passes_on(plan, regs, tables, inverse: bool, t, slot):
+def passes_on(plan, regs, tables, inverse: bool, t, slot, below=None):
     """The passes on the registers of ``lanes``' threads, which hold the
     first pass's words in the order they run (the forward's pass 0, the
     inverse's last), with the exchange between passes; ``tables``: the
-    per-pass (w, w') tables.  The registers end as the last pass leaves
-    them."""
+    per-pass (w, w') tables; ``below``: the bound of the forward's first
+    lanes (q, canonical words, by default).  The registers end as the last
+    pass leaves them."""
     log_n, q = plan.p.log_n, plan.p.q
     schedule = kmxu64.passes(log_n)
     offsets = np.cumsum([0] + [1 << (r + s) for s, r in schedule])
@@ -294,7 +319,7 @@ def passes_on(plan, regs, tables, inverse: bool, t, slot):
             regs = exchange(regs, written, idx, slot)
         hi = 0 if p == 0 else t // ((1 << log_n) >> (s + 3))
         run_pass(regs, w_tab, ws_tab, offsets[p], s, r, hi, q, inverse,
-                 fresh=p == 0 and not inverse)
+                 fresh=below or q if p == 0 and not inverse else None)
         written = idx
     return regs
 
@@ -497,6 +522,151 @@ def test_fused_product_model_matches_plain_and_jax(n, monkeypatch):
     assert torch.equal(got, plan.nwc_poly_mult_cached_plain(a, spectrum))
 
 
+def scaled_model(plan: SubPlan64, a: torch.Tensor, b: torch.Tensor, pre: tuple, post: tuple,
+                 cached: bool = False) -> torch.Tensor:
+    """The four-step's row passes fused on the radix-8 core with cyclic
+    per-pass tables: on (R, n) rows, nwc64_cyclic_scaled
+    (nwc64_cached_scaled with ``cached``); on (K, R, n) stacks,
+    nwc64_dot_scaled.  Row r reads row r % P of the (P, n) Shoup tables
+    pre and post.  Each term: pre's lazy Shoup product on the words the
+    first pass loads (b's unless cached), whose first stage then takes
+    lanes below 2q; the forward of b, the forward of a, the slot product on
+    the lanes as the registers hold them; the sum of the terms kept below
+    2q by one compare after each add; the scale's lazy Shoup product on it
+    (the row passes' slot, K = 1); the inverse from those registers, post's
+    lazy Shoup product and one compare at the store.  Every range the .cu
+    states is asserted."""
+    log_n, n, q = plan.p.log_n, plan.p.n, plan.p.q
+    a3, b3 = (x if x.dim() == 3 else x[None] for x in (a, b))
+    period = pre[0].shape[0]
+    tw = tuple(ints(t) for t in kmxu64.pass_table(plan.plan.cyclic_flat))
+    itw = tuple(ints(t) for t in kmxu64.pass_table(plan.plan.cyclic_inv_flat))
+    pre_w, post_w = (tuple(ints(t.reshape(-1)) for t in table) for table in (pre, post))
+    out = np.zeros(a3[0].numel(), dtype=object)
+    at, live, t, slot = lanes(plan, a3[0])
+    srow = at(0) // n % period * n
+    first = pass_words(log_n, 0, t)
+    spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
+
+    def times_row(regs, table):  # any words -> [0, 2q), asserted by shoup_lazy
+        return [shoup_lazy(v, table[0][srow + i], table[1][srow + i], q)
+                for v, i in zip(regs, first)]
+
+    def forward(words):
+        x = times_row(load(words, at, live, first), pre_w)
+        return passes_on(plan, x, tw, False, t, slot, below=2 * q)
+
+    acc = [np.zeros(at(0).shape, dtype=object) for _ in range(WORDS)]
+    for a_k, b_k in zip(a3, b3):
+        if cached:
+            y = load(ints(b_k.reshape(-1)), at, live, spectrum)
+            assert all(np.all(v < q) for v in y)
+        else:
+            y = [csub(v, 2 * q) for v in forward(ints(b_k.reshape(-1)))]  # [0, 4q) -> [0, 2q)
+        x = forward(ints(a_k.reshape(-1)))
+        for reg in range(WORDS):
+            assert np.all(x[reg] < 4 * q) and np.all(y[reg] < (q if cached else 2 * q))
+            p = mont_lazy(x[reg] if cached else csub(x[reg], 2 * q), y[reg], q)
+            assert np.all(acc[reg] + p < 4 * q)
+            acc[reg] = csub(acc[reg] + p, 2 * q)
+    scale = plan._scale_cached if cached else plan._scale_fresh
+    x = passes_on(plan, [shoup_lazy(v, *scale, q) for v in acc], itw, True, t, slot)
+    for reg, v in enumerate(times_row(x, post_w)):
+        out[at(first[reg])[live]] = csub(v, q)[live]
+    return as_tensor(out, a3[0].shape)
+
+
+def scale_tables(plan, period: int, seed: int) -> tuple:
+    """Random (P, n) Shoup tables pre and post, rows 0 and 1 of pre all 1
+    and all q - 1 where P allows."""
+    q, n = plan.p.q, plan.p.n
+    values = operands(q, (2, period, n), seed)
+    values[0, :2] = torch.tensor([1, q - 1])[:period, None]
+    return tuple(tuple(w.reshape(period, n) for w in plan.ring.encode_tw(v.reshape(-1).tolist(),
+                                                                            "cpu"))
+                 for v in values)
+
+
+def rows_times(x: torch.Tensor, table: tuple, q: int) -> torch.Tensor:
+    """Row r of the (R, n) x times row r % P of the (P, n) Shoup table's w,
+    by Python ints."""
+    return as_tensor(ints(x) * np.resize(ints(table[0]), x.shape) % q, x.shape)
+
+
+@pytest.mark.parametrize("n,rows,period", [(32, 36, 1), (32, 36, 3), (256, 6, 3),
+                                           (128, 256, 256)])
+def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch):
+    """nwc64_cyclic_scaled and nwc64_cached_scaled, the model of their
+    fused schedule on the per-pass tables, against the plain row passes
+    and JAX's XLA ``cyclic_poly_mult`` between the scales (by Python ints);
+    256 rows of 128 at period 256 are p60_32768's row pass (n1 = 256)."""
+    plan, jplan = plans(n)
+    q = plan.p.q
+    a, b = product_operands(q, rows, n, seed=n + period)
+    pre, post = scale_tables(plan, period, seed=n + period)
+    got = scaled_model(plan, a, b, pre, post)
+    assert torch.equal(got, plan.cyclic_poly_mult_scaled_plain(a, b, pre, post))
+    want = run_jax_product(monkeypatch, jntt.cyclic_poly_mult, jplan,
+                           rows_times(a, pre, q), rows_times(b, pre, q))
+    assert torch.equal(got, rows_times(want, post, q))
+    spectrum = plan.ntt_fwd_scaled_plain(b, pre, True)
+    got = scaled_model(plan, a, spectrum, pre, post, cached=True)
+    assert torch.equal(got, plan.cyclic_poly_mult_cached_scaled_plain(a, spectrum, pre, post))
+    assert torch.equal(got, rows_times(want, post, q))
+
+
+def test_fused_dot_model_matches_plain_and_jax(monkeypatch):
+    """nwc64_dot_scaled at K = 1 and 3, fresh and cached, the model of its
+    fused schedule (the row pass's forwards a term, the sum kept below 2q,
+    one inverse) against ``dot_scaled_plain`` and the sum of JAX's XLA
+    cyclic products between the scales, at 6 rows of 256, period 3 (a row
+    pass test's shape: JAX's eager ops compiled once)."""
+    n, rows, period = 256, 6, 3
+    plan, jplan = plans(n)
+    q = plan.p.q
+    pre, post = scale_tables(plan, period, seed=n)
+    for terms in (1, 3):
+        a = operands(q, (terms, rows, n), seed=terms)
+        b = operands(q, (terms, rows, n), seed=terms + 10).flip(1).contiguous()
+        spectra = plan.ntt_fwd_scaled_plain(b.reshape(-1, n), pre, True).reshape(b.shape)
+        want = sum(ints(run_jax_product(monkeypatch, jntt.cyclic_poly_mult, jplan,
+                                        rows_times(a[k], pre, q), rows_times(b[k], pre, q)))
+                   for k in range(terms)) % q
+        want = rows_times(as_tensor(want.reshape(-1), (rows, n)), post, q)
+        for y, cached in ((b, False), (spectra, True)):
+            got = scaled_model(plan, a, y, pre, post, cached)
+            assert torch.equal(got, plan.dot_scaled_plain(a, y, pre, post, cached))
+            assert torch.equal(got, want), (terms, cached)
+
+
+def test_row_passes_launch_with_per_pass_tables(monkeypatch):
+    """nwc64_cyclic_scaled, nwc64_cached_scaled and nwc64_dot_scaled
+    receive the cyclic tables in the per-pass layout (``pass_table``), the
+    first-core row passes the flat ones."""
+    plan = SubPlan64(make_params(128, Q_GENERIC), "cpu")
+    calls = {}
+    monkeypatch.setattr(plan, "_runs_plain", lambda x: False)
+    monkeypatch.setattr(plan, "_launch", lambda entry, out, *args: calls.update(
+        {entry: args}) or out)
+    a = operands(Q_GENERIC, (4, 128), seed=3)
+    pre, post = scale_tables(plan, 2, seed=4)
+    plan.cyclic_poly_mult_scaled(a, a, pre, post)
+    plan.cyclic_poly_mult_cached_scaled(a, a, pre, post)
+    plan.dot_scaled(a[None], a[None], pre, post)
+    plan.ntt_fwd_scaled(a, pre)
+    plan.ntt_inv_scaled(a, post)
+    tw = kmxu64.pass_table(plan.plan.cyclic_flat)
+    itw = kmxu64.pass_table(plan.plan.cyclic_inv_flat)
+    for entry in ("cyclic_scaled", "cached_scaled", "dot_scaled"):
+        tables = calls[entry][3:7]  # after a, b and out
+        for got, want in zip(tables, tw + itw):
+            assert torch.equal(got, want), entry
+        assert all(x is y for x, y in zip(calls[entry][7:11], (*pre, *post))), entry
+    assert calls["forward_scaled"][2] is plan.plan.cyclic_flat[0]
+    assert calls["inverse_scaled"][2] is plan.plan.cyclic_inv_flat[0]
+    assert {"cyclic_scaled", "cached_scaled", "dot_scaled"} <= MxuPlan64.pass_entries
+
+
 # ---------------------------------------------------------------------------
 # The column methods, on the CPU the transpose route
 # ---------------------------------------------------------------------------
@@ -561,8 +731,9 @@ C_TYPES = {"int": kmxu64.ctypes.c_int, "uint64_t": kmxu64.ctypes.c_uint64}
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     """``load`` types nwc64_forward, nwc64_inverse, nwc64_product and
-    nwc64_cached, ``load_scaled`` the column entry points, with the C
-    argument types of csrc/nwc64.cu; those six read per-pass tables."""
+    nwc64_cached, ``load_scaled`` the column entry points and the three
+    fused row passes, with the C argument types of csrc/nwc64.cu; those
+    nine read per-pass tables."""
     bound = {}
     monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
     _plan.load.__wrapped__("nwc64", 64)
@@ -571,7 +742,8 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     kmxu64.load_scaled.__wrapped__()
     source = (_build.CSRC / "nwc64.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (nwc64_\w+)\(([^)]*)\)', source))
-    radix = ("forward", "inverse", "forward_cols", "inverse_cols", "product", "cached")
+    radix = ("forward", "inverse", "forward_cols", "inverse_cols", "product", "cached",
+             "cyclic_scaled", "cached_scaled", "dot_scaled")
     assert MxuPlan64.pass_entries == set(radix)
     for suffix in radix:
         params = [p.strip() for p in decls[f"nwc64_{suffix}"].split(",")]
@@ -604,6 +776,16 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
                           ("nwc_poly_mult_cached", plan.nwc_spectrum(b))):
             assert torch.equal(getattr(plan, method)(a, y),
                                getattr(plan, method + "_plain")(a, y)), (n, method)
+        pre, post = (tuple(w.to(cuda_device) for w in table)
+                     for table in scale_tables(plan, 5, seed=n))
+        spectrum = plan.ntt_fwd_scaled(b, pre, True)
+        a3, b3 = a.reshape(1, 5, n), b.reshape(1, 5, n)
+        for method, args in (("cyclic_poly_mult_scaled", (a, b, pre, post)),
+                             ("cyclic_poly_mult_cached_scaled", (a, spectrum, pre, post)),
+                             ("dot_scaled", (a3, b3, pre, post)),
+                             ("dot_scaled", (a3, spectrum.reshape(1, 5, n), pre, post, True))):
+            assert torch.equal(getattr(plan, method)(*args),
+                               getattr(plan, method + "_plain")(*args)), (n, method)
         for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv"):
             for width in (1, 3, 8):
                 xc = x[:3].reshape(-1)[:3 * n * width].reshape(3, n * width)

@@ -35,7 +35,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from nwc64_variants import best_ms, build, build_all, count_against, parse_args  # noqa: E402,E501
+from nwc64_variants import (best_ms, build, build_all, chosen, count_against,  # noqa: E402
+                            parse_args)
 from tpu_ntt_torch.kernels import _build  # noqa: E402
 from tpu_ntt_torch.kernels.gl64 import GoldilocksSubPlan64  # noqa: E402
 from tpu_ntt_torch.params import GOLDILOCKS_4096, make_params  # noqa: E402
@@ -121,8 +122,10 @@ def main() -> int:
     print(f"card: {card}")
     source = (_build.CSRC / "gl64.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all(source, VARIANTS, Path(tmp), "gl64.cu", "gl64", ARGTYPES, KERNELS,
-                         "cyclic_scaled_kernelILi")
+        libs = build_all(source, chosen(VARIANTS, opts.only), Path(tmp), "gl64.cu", "gl64",
+                         ARGTYPES, KERNELS, "cyclic_scaled_kernelILi")
+        if opts.build_only:
+            return 0
         if opts.against:
             path = Path(tmp) / "libagainst.so"
             libs["against"] = build(opts.against.read_text(), path, "gl64", ARGTYPES,

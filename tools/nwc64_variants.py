@@ -2,24 +2,30 @@
 """Where the radix-8 core of nwc64.cu spends its time: variants of the source,
 some deliberately wrong, built and timed beside it on the card.
 
-    python3 tools/nwc64_variants.py [--against OLD/nwc64.cu]
+    python3 tools/nwc64_variants.py [--against OLD/nwc64.cu] [--build-only] [--only A,B]
 
 Each variant edits lines of ``tpu_ntt_torch/kernels/csrc/nwc64.cu``
 (``VARIANTS``) and is built by nvcc with the kernels' own flags
 (``kernels/_build.FLAGS``) into a temporary directory; then
 ``nwc64_forward`` and ``nwc64_inverse`` at P60_4096, B = 2048,
 ``nwc64_forward_cols`` and ``nwc64_inverse_cols`` at the column shapes of
-p60_32768 (256 x 128, B = 256) and p60_1048576 (1024 x 1024, B = 4), and
-the fused ``nwc64_product`` and ``nwc64_cached`` at P60_4096, B = 2048, run
-under every variant in turns, each timed by CUDA events: the best of three
-runs of 50 launches, over two rounds.  A variant marked wrong computes other
-integers: its time says what the work it drops costs, nothing else; every
-other variant must give the base's integers.  ``--against`` builds an
-earlier nwc64.cu beside them (whose product and cached entries read the
-flat tables: the first core's), times it in the same turns, holds it to the
-base's integers, and counts the instructions its first-core product issues
-(cuobjdump, chip_smoke.py's count).  Needs a CUDA device and nvcc; prints
-the card's name and power limit.
+p60_32768 (256 x 128, B = 256) and p60_1048576 (1024 x 1024, B = 4), the
+fused ``nwc64_product`` and ``nwc64_cached`` at P60_4096, B = 2048, and the
+four-step's fused row passes ``nwc64_cyclic_scaled`` and
+``nwc64_cached_scaled`` at p60_32768's rows (65536 of 128, period 256) and
+p60_1048576's (4096 of 1024, period 1024) and ``nwc64_dot_scaled`` at
+K = 4 on 16384 rows of 128, fresh and cached, run under every variant in
+turns, each timed by CUDA events: the best of three runs of 50 launches,
+over two rounds.  A variant marked wrong computes other integers: its time
+says what the work it drops costs, nothing else; every other variant must
+give the base's integers.  ``--against`` builds an earlier nwc64.cu beside
+them (whose row passes, ``AGAINST_FLAT``, read the flat tables: the first
+core's), times it in the same turns, holds it to the base's integers, and
+counts the instructions its first-core row pass issues (cuobjdump,
+chip_smoke.py's count).  ``--build-only`` stops after the builds' reports
+of registers and spills; ``--only`` builds the named variants and the
+base.  Needs a CUDA device and nvcc; prints the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -50,8 +56,51 @@ SLOT = "    x[r] = mont_lazy(kCached ? x[r] : csub(x[r], 2 * q), y[r], q, q_prim
 PASSES = "constexpr bool opaque_passes(int log_n) { return log_n == 13; }"
 PHASES = "  return cached || log_n == 13;"
 BLOCKS = "  return threads > 384 ? 1 : 512 / threads;"
+ROW_THREADS = "constexpr int kRowThreads = 512;"
+TIGHT = "constexpr int kTightFrom = 1024;"
 STORE = ("  for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, q), n^-1 (and 2^64) folded in\n"
          "    x[r] = csub(shoup_lazy(x[r], scale, scale_shoup, q), q);")
+# the fresh row pass's forwards, its b spectrum's wait and its scale
+ROW_B_FORWARD = (
+    "  uint64_t y[kWords];\n"
+    "  if constexpr (!kCached) {\n"
+    "    scaled_forward<kLogN, kHalves>(y, b, at, pre, srow, smem, tw, g, t, live, q);")
+ROW_A_FORWARD = (
+    "  scaled_forward<kLogN, kHalves>(x, a, at, pre, kCached ? srow : opaque_row(srow), smem,\n"
+    "                                 kTight ? opaque_table(tw) : tw, ga, ta, live, q);")
+PRE_WORDS = (
+    "  uint64_t w[kWords], ws[kWords];  // pre's words at the first pass's positions, kept\n"
+    "  if constexpr (!kCached) {\n"
+    "#pragma unroll\n"
+    "    for (int r = 0; r < kWords; ++r) {\n"
+    "      const size_t e = srow + element<kLogN, 0, first_stages(kLogN)>(t, r);\n"
+    "      w[r] = __ldg(pre.w + e);\n"
+    "      ws[r] = __ldg(pre.w_shoup + e);\n"
+    "    }\n"
+    "  }\n")
+
+
+def kept_pre_forward(v: str, src: str, t: str, g: str, tw: str) -> str:
+    """A forward of the row ``src`` into ``v`` entered by the pre words w,
+    ws that PRE_WORDS keeps."""
+    return (f"    load<kLogN, false, 0>({v}, {src}, at, 1, {t}, live);\n"
+            "#pragma unroll\n"
+            "    for (int r = 0; r < kWords; ++r) {\n"
+            f"      {v}[r] = shoup_lazy({v}[r], w[r], ws[r], q);\n"
+            "    }\n"
+            f"    run_pass<0, first_stages(kLogN), false, true>({v}, {tw}.w, {tw}.w_shoup, 0, q);\n"
+            f"    forward_passes<kLogN, false, 1>({v}, smem, {tw}.w, {tw}.w_shoup, {g}, {t}, q);")
+
+
+ROW_B_STORE = "    }\n    store<kLogN, false, kLast>(y, out, at, 1, t, live);"
+ROW_B_LOAD = "  } else {\n    load<kLogN, false, kLast>(y, out, at, 1, ta, live);"
+ROW_SLOT = "    x[r] = shoup_lazy(slot<kCached>(x[r], y[r], q, q_prime), scale, scale_shoup, q);"
+DOT_SCALE = ("    x[r] = shoup_lazy(x[r], scale, scale_shoup, q);\n  }\n"
+             "  scaled_inverse<kLogN>(x, out, at, post, srow, smem, opaque_table(itw), gi, ti, live, q);")
+ROW_INVERSE = "kTight ? opaque_table(itw) : itw, gi, ti,\n                        live, q);"
+INVERSE_PARAMS = "Table itw, int g, int t, bool live, uint64_t q) {"
+INVERSE_POST = ("  inverse_passes<kLogN, false, kLast - 1>(x, smem, itw.w, itw.w_shoup, g, t, q);\n"
+                "  times_row<kLogN, tight(kLogN) ? 2 : 1>(x, post, srow, t, q);")
 #: name -> (what it changes, [(line, replacement)], computes the right integers)
 VARIANTS = {
     "base": ("the source as it is", [], True),
@@ -106,21 +155,78 @@ VARIANTS = {
             (SLOT, "    x[r] = shoup_mul(mont_mul(csub(csub(x[r], 2 * q), q), y[r], q, q_prime),\n"
                    "                     scale, scale_shoup, q);"),
             (STORE, "  for (int r = 0; r < kWords; ++r) {\n    x[r] = csub(x[r], q);")], True),
+    # the fused row passes: where pre's words and the scale go, the dot's threads
+    "pre in registers": (
+        "the fresh row passes keep pre's 16 words a thread from b's entry to a's, not read again",
+        [(ROW_B_FORWARD, PRE_WORDS + ROW_B_FORWARD.rsplit("\n", 1)[0] + "\n"
+          + kept_pre_forward("y", "b", "t", "g", "tw")),
+         (ROW_A_FORWARD, "  if constexpr (kCached) {\n" + ROW_A_FORWARD + "\n  } else {\n"
+          + "    const Table ta_tw = kTight ? opaque_table(tw) : tw;\n"
+          + kept_pre_forward("x", "a", "ta", "ga", "ta_tw") + "\n  }")], True),
+    "scale at the store": (
+        "the row passes' n^-1 (2^64) at the store below n = 8192, not at the slot (the dot's "
+        "on the sum)", [
+            (ROW_SLOT, "    x[r] = slot<kCached>(x[r], y[r], q, q_prime);\n"
+                       "    x[r] = kTight ? shoup_lazy(x[r], scale, scale_shoup, q) : x[r];"),
+            (DOT_SCALE, DOT_SCALE.replace("shoup_lazy(x[r], scale, scale_shoup, q)",
+                                          "tight(kLogN) ? shoup_lazy(x[r], scale, scale_shoup, q)"
+                                          " : x[r]")
+             .replace("live, q);", "live, q, scale,\n                        scale_shoup);")),
+            (ROW_INVERSE, ROW_INVERSE.replace("live, q);", "live, q, scale, scale_shoup);")),
+            (INVERSE_PARAMS, INVERSE_PARAMS.replace(") {", ",\n    uint64_t scale, "
+                                                          "uint64_t scale_shoup) {")),
+            (INVERSE_POST, INVERSE_POST.replace(
+                "\n", "\n  if constexpr (!tight(kLogN)) {\n"
+                "#pragma unroll\n"
+                "    for (int r = 0; r < kWords; ++r) {\n"
+                "      x[r] = shoup_lazy(x[r], scale, scale_shoup, q);\n"
+                "    }\n  }\n"))], True),
+    "tight row passes at every n": (
+        "the row passes' 64-register schedule (scales in halves, opaque phases and tables) "
+        "at every n, at 512 threads an SM",
+        [(TIGHT, TIGHT.replace("1024", "0"))], True),
+    "row passes at 768 threads an SM": (
+        "the row passes' launch bounds at 768 threads an SM below n = 8192 (80 registers), "
+        "not 512 (128)", [(ROW_THREADS, ROW_THREADS.replace("512", "768"))], True),
+    "row b in registers": (
+        "the fresh row passes' b spectrum in eight registers a thread below n = 8192, not in "
+        "the output row", [
+            (ROW_B_STORE, ROW_B_STORE.replace(
+                "    store<kLogN, false, kLast>(y, out, at, 1, t, live);",
+                "    if constexpr (!spectrum_in_registers(kLogN)) {\n"
+                "      store<kLogN, false, kLast>(y, out, at, 1, t, live);\n    }")),
+            (ROW_B_LOAD, ROW_B_LOAD.replace("} else {",
+                                            "} else if constexpr (!spectrum_in_registers(kLogN)) {"))],
+        True),
+    "row passes at 1024 threads an SM": (
+        "the row passes at 1024 threads an SM below n = 8192 (64 registers, tight)",
+        [(ROW_THREADS, ROW_THREADS.replace("512", "1024"))], True),
 }
+#: the entry points an --against source runs on the first core's flat tables
+AGAINST_FLAT = ("cyclic_scaled", "cached_scaled", "dot_scaled")
 ENTRIES = {"forward": 2, "inverse": 2, "forward_cols": 3, "inverse_cols": 3}  # int arguments
 PRODUCT_TYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_uint64] * 4 + [
     ctypes.c_void_p]
+SCALED_TYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_uint64] * 4 + [
+    ctypes.c_void_p]
+DOT_TYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_uint64] * 4 + [
+    ctypes.c_int, ctypes.c_void_p]
+#: the instantiations whose registers and spills each build reports, and the
+#: fused kernels (mangled prefixes) whose every instantiation it scans for spills
+SUMMARY = ("transform_kernelILi12ELb0ELb0EE", "product_kernelILi12ELb0EE",
+           "cyclic_scaled_kernelILi7ELb0EE", "dot_scaled_kernelILi7ELb0EE")
+FUSED = ("product_kernelILi", "cyclic_scaled_kernelILi", "dot_scaled_kernelILi")
 
 
-def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None,
-          kernels=("transform_kernelILi12ELb0ELb0EE", "product_kernelILi12ELb0EE"),
-          fused="product_kernelILi") -> ctypes.CDLL:
+def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None, kernels=SUMMARY,
+          fused=FUSED) -> ctypes.CDLL:
     """Build ``source`` with the kernels' flags into ``out`` and load it;
     type each entry point ``<prefix>_<entry>`` of ``argtypes`` (by default
     nwc64.cu's radix and fused entries); its ``summary`` is the registers
     and spills of each of ``kernels`` (mangled names: by default
-    ``transform_kernel<12, 0, 0>`` and ``product_kernel<12, 0>``) and
-    which instantiations of the fused kernel (its mangled prefix) spill."""
+    ``SUMMARY``, the last two skipped where the source has none) and which
+    instantiations of the fused kernels (their mangled prefixes, one or a
+    tuple) spill."""
     path = out.with_suffix(".cu")
     path.write_text(source)
     proc = subprocess.run([_build._nvcc(), *_build.FLAGS, "-o", str(out), str(path)],
@@ -130,23 +236,28 @@ def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None,
     lines = (proc.stdout + proc.stderr).splitlines()
     summary = []
     for kernel in kernels:
-        at = next(i for i, line in enumerate(lines)
-                  if "Compiling entry" in line and kernel in line)
+        at = next((i for i, line in enumerate(lines)
+                   if "Compiling entry" in line and kernel in line), None)
+        if at is None:
+            continue
         spill = next(line.strip() for line in lines[at:] if "spill" in line)
         regs = next(re.search(r"Used (\d+) registers", line).group(1) for line in lines[at:]
                     if "registers" in line)
         summary.append(f"{kernel}: {regs} registers, {spill}")
     text = "\n".join(lines)
-    spilling = [f"<{m.group(1)}, {m.group(2)}>: {m.group(3)}/{m.group(4)} bytes" for m in re.finditer(
-        fused + r"(\d+)ELb(\d)EE\S*\n[^\n]*?(\d+) bytes spill stores, (\d+) bytes spill loads",
-        text) if m.group(3) != "0" or m.group(4) != "0"]
+    spilling = [f"{m.group(1)}<{m.group(2)}, {m.group(3)}>: {m.group(4)}/{m.group(5)} bytes"
+                for prefix_ in ((fused,) if isinstance(fused, str) else fused)
+                for m in re.finditer(
+                    "(" + prefix_ + r")(\d+)ELb(\d)EE\S*\n[^\n]*?(\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads", text) if m.group(4) != "0" or m.group(5) != "0"]
     summary.append(f"fused kernels spilling (stores/loads): {spilling or 'none'}")
     lib = ctypes.CDLL(str(out))
     ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
     if argtypes is None:
         argtypes = {entry: [ptr] * 4 + [i32] * ints + [u64] * 3 + [ptr]
                     for entry, ints in ENTRIES.items()}
-        argtypes.update(product=PRODUCT_TYPES, cached=PRODUCT_TYPES)
+        argtypes.update(product=PRODUCT_TYPES, cached=PRODUCT_TYPES, cyclic_scaled=SCALED_TYPES,
+                        cached_scaled=SCALED_TYPES, dot_scaled=DOT_TYPES)
     for entry, types in argtypes.items():
         fn = getattr(lib, f"{prefix}_{entry}")
         fn.argtypes = types
@@ -206,13 +317,23 @@ def count_against(lib: Path, kernels: dict) -> None:
 
     listing = chip_smoke.sass_listing(lib)
     for kernel, logs in kernels.items():
+        if kernel not in listing:
+            print(f"against: no {kernel} in that source")
+            continue
         for log_n in logs:
             trips = first_core_trips(log_n)
             issued = chip_smoke.issued_per_thread(listing[kernel], trips)
             threads = (1 << log_n) // trips[2]
             print(f"against: {kernel} at n = {1 << log_n}, loop trips {trips}: a thread "
                   f"issues {issued} after its first barrier, a row of {threads} threads "
-                  f"{issued * threads if issued else None}")
+                  f"{issued * threads if issued else None}"
+                  + ("" if issued else f"; its loops {chip_smoke.sass_loops(listing[kernel])}"))
+
+
+def chosen(variants: dict, only: str | None) -> dict:
+    """The base and the variants ``--only`` names (all without it)."""
+    names = only.split(",") if only else list(variants)
+    return {name: v for name, v in variants.items() if name == "base" or name in names}
 
 
 def parse_args(name: str):
@@ -220,6 +341,10 @@ def parse_args(name: str):
     parser.add_argument("--against", type=Path, default=None,
                         help=f"an earlier {name} to build, count and time beside the variants "
                         "(its fused entries read the flat tables)")
+    parser.add_argument("--build-only", action="store_true",
+                        help="build every variant and report its registers and spills, no timing")
+    parser.add_argument("--only", default=None,
+                        help="comma-separated variant names to build (base always)")
     return parser.parse_args()
 
 
@@ -234,13 +359,16 @@ def main() -> int:
     print(f"card: {card}")
     source = (_build.CSRC / "nwc64.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all(source, VARIANTS, Path(tmp), "nwc64.cu")
+        libs = build_all(source, chosen(VARIANTS, opts.only), Path(tmp), "nwc64.cu")
+        if opts.build_only:
+            return 0
         if opts.against:
             path = Path(tmp) / "libagainst.so"
             libs["against"] = build(opts.against.read_text(), path,
                                     kernels=("transform_kernelILi12ELb0ELb0EE",))
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {"product_kernel<0>": (12,), "product_kernel<1>": (12,)})
+            count_against(path, {"cyclic_scaled_kernel<0>": (7, 10),
+                                 "cyclic_scaled_kernel<1>": (7, 10)})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -282,13 +410,40 @@ def main() -> int:
                      *plan._q_args(True), *scale, stream) for tables in ((tw, itw), flat)]
             cases.append((f"nwc64_{entry} P60_4096 B=2048", entry, out, call[0],
                           (x, z, tw, itw, flat, call[1])))
+        # the four-step's row passes: p60_32768's (256 x 128, B = 256) and
+        # p60_1048576's (1024 x 1024, B = 4) rows of n2 at period n1, and the
+        # dot's at K = 4 on p60_32768's 64 polynomials (16384 rows of 128)
+        for n1, n2, rows, terms in ((256, 128, 65536, 0), (1024, 1024, 4096, 0),
+                                    (256, 128, 16384, 4)):
+            row = SubPlan64(make_params(n2, 576460752308273153), device)
+            shape = (terms, rows, n2) if terms else (rows, n2)
+            a, b = residues(row, shape), residues(row, shape)
+            pre, post = (tuple(t.reshape(n1, n2) for t in row.ring.encode_tw(
+                rng.integers(0, row.p.q, size=n1 * n2).tolist(), device)) for _ in range(2))
+            spectrum = row.ntt_fwd_scaled_plain(b.reshape(-1, n2), pre, True).reshape(shape)
+            flat = (row.plan.cyclic_flat, row.plan.cyclic_inv_flat)  # what --against reads
+            out = torch.empty((rows, n2), dtype=torch.int64, device=device)
+            entries = (("dot_scaled", b, row._scale_fresh, (terms, 0)),
+                       ("dot_scaled", spectrum, row._scale_cached, (terms, 1))) if terms else (
+                ("cyclic_scaled", b, row._scale_fresh, ()),
+                ("cached_scaled", spectrum, row._scale_cached, ()))
+            for entry, z, scale, dot in entries:
+                call = [(a.data_ptr(), z.data_ptr(), out.data_ptr(),
+                         *(w.data_ptr() for t in tables for w in t),
+                         *(w.data_ptr() for w in pre + post), n1, *dot[:1], rows, row.p.log_n,
+                         *row._q_args(True), *scale, *dot[1:], stream)
+                        for tables in ((row._transform_table(flat[0]),
+                                        row._transform_table(flat[1])), flat)]
+                label = (f"nwc64_{entry} {rows} rows of {n2}, period {n1}"
+                         + (f", K={terms}" + (" cached" if dot[1] else "") if terms else ""))
+                keep = (a, z, pre, post, flat, [row._transform_table(t) for t in flat], call[1])
+                cases.append((label, entry, out, call[0], keep))
         times, want = {}, {}
         for _ in range(2):
             for label, entry, out, call, keep in cases:
                 for name, lib in libs.items():
                     fn = getattr(lib, f"nwc64_{entry}")
-                    args = keep[-1] if name == "against" and entry in ("product", "cached") \
-                        else call
+                    args = keep[-1] if name == "against" and entry in AGAINST_FLAT else call
                     if fn(*args):
                         raise RuntimeError(f"{label} under {name!r}: the launch failed")
                     torch.cuda.synchronize()

@@ -539,9 +539,8 @@ class ScaledKernelPlan(KernelPlan):
             return out
         scale = self._scale_cached if cached else self._scale_fresh
         return self._launch(
-            "dot_scaled", out, a, b, out, *_table(self.plan.cyclic_flat),
-            *_table(self.plan.cyclic_inv_flat), *pre, *post, period, terms, batch,
-            self.p.log_n, *self._q_args(True), *scale, int(cached))
+            "dot_scaled", out, a, b, out, *self._cyclic_tables("dot_scaled"), *pre, *post,
+            period, terms, batch, self.p.log_n, *self._q_args(True), *scale, int(cached))
 
     def dot_scaled_plain(self, a, b, pre, post, cached=False):
         fa = ntt.ntt_fwd_bitrev(self.plan, self._rows_times(a, pre))

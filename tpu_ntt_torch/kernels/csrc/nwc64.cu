@@ -49,20 +49,24 @@
 // carried over.  Correct for any odd q < 2^62 and 32 <= n <= 8192 (the
 // public window is 256 <= n <= 8192; below it, the four-step's sub-sizes).
 //
-// Two cores.  Six entry points run the radix-8 core below ("The radix-8
+// Two cores.  Nine entry points run the radix-8 core below ("The radix-8
 // core"): nwc64_forward, nwc64_inverse and their column entry points, and,
 // fused onto it ("The product on the radix-8 core"), nwc64_product and
 // nwc64_cached, both forwards, the slot product and the inverse in one
-// kernel a launch.  The other eight run the first core, correct first and
-// simple (the design of nwc32.cu on 64-bit words), until they move onto the
-// radix-8 one:
+// kernel a launch, and the four-step's row passes nwc64_cyclic_scaled,
+// nwc64_cached_scaled and nwc64_dot_scaled ("The four-step's row passes
+// fused"), the same with the scales at entry and exit and, for the dot, a
+// sum of terms before the one inverse.  The other five (nwc64_dot,
+// nwc64_matvec, nwc64_forward_scaled, nwc64_inverse_scaled and
+// nwc64_matvec_scaled) run the first core, correct first and simple (the
+// design of nwc32.cu on 64-bit words), until they move onto the radix-8
+// one:
 // * One thread block per row (per output row for the dot and the matvec).
 //   The rows a block works on live in dynamic shared memory, 8n bytes each:
-//   the scaled product holds two (128 KiB at n = 8192), the dot three
-//   (192 KiB at n = 8192, under the 227 KB a block may have), so device
-//   memory sees each operand and each result once.  n / 8 threads (at most
-//   1024) run four butterflies each up to n = 8192 (below n = 256, a warp,
-//   or n / 2).
+//   the dot holds three (192 KiB at n = 8192, under the 227 KB a block may
+//   have), so device memory sees each operand and each result once.  n / 8
+//   threads (at most 1024) run four butterflies each up to n = 8192 (below
+//   n = 256, a warp, or n / 2).
 // * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
 //   Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
 //   between stages.  The stage with m groups reads entry m + g of a flat
@@ -83,15 +87,14 @@
 //   wrapper transforms the l * B rows of s with nwc64_forward into a scratch
 //   tensor, and nwc64_matvec accumulates sum_j REDC(S_j * A_ij) from device
 //   memory (A stays in L2) and runs one inverse per output row.
-// * The four-step's row pass (the *_scaled functions) is the first core's
-//   forward, inverse, product of two rows, dot_kernel and matvec_kernel
-//   with one Shoup multiply more, by a table row, at entry and/or exit
-//   (never on a cached spectrum, which the row forward has already scaled).  Row r of
-//   a launch reads row r % period of the (period, n) tables (w, w'): a
-//   batch of B polynomials of n1 rows each passes period = n1, every row
-//   of a polynomial in one launch.  The entry product leaves [0, q) before
-//   the transform, the exit product canonical words, as strict Shoup does
-//   for q < 2^62.
+// * Three of the four-step's row passes (nwc64_forward_scaled,
+//   nwc64_inverse_scaled, nwc64_matvec_scaled) are the first core's
+//   forward, inverse and matvec_kernel with one Shoup multiply more, by a
+//   table row, at entry or exit.  Row r of a launch reads row r % period
+//   of the (period, n) tables (w, w'): a batch of B polynomials of n1 rows
+//   each passes period = n1, every row of a polynomial in one launch.  The
+//   entry product leaves [0, q) before the transform, the exit product
+//   canonical words, as strict Shoup does for q < 2^62.
 //
 // What bounds the first core on this card.  Not the 64-bit multiplies it was
 // first thought to be: Hopper builds a 64 x 64 product from 32-bit IMADs,
@@ -106,6 +109,7 @@
 // does about each.
 
 #include <cstdint>
+#include <initializer_list>
 
 #include <cuda_runtime.h>
 
@@ -311,12 +315,14 @@ __device__ __forceinline__ uint64_t csub(uint64_t x, uint64_t m) {
   return x >= m ? x - m : x;
 }
 
-// Cooley-Tukey: x, y in [0, 4q) in, and out; with kCanonical, x < q in.
-template <bool kCanonical>
+// Cooley-Tukey: x, y in [0, 4q) in, and out; with kFresh (the forward's
+// first stage), x < 2q in, which skips the compare: words from device
+// memory ([0, q)), or after a row pass's lazy entry scale ([0, 2q)).
+template <bool kFresh>
 __device__ __forceinline__ void ct(uint64_t& x, uint64_t& y, uint64_t w, uint64_t ws,
                                    uint64_t q) {
   const uint64_t q2 = 2 * q;
-  const uint64_t u = kCanonical ? x : csub(x, q2);  // x < 4q: u in [0, 2q)
+  const uint64_t u = kFresh ? x : csub(x, q2);  // x < 4q (kFresh: 2q): u in [0, 2q)
   const uint64_t v = shoup_lazy(y, w, ws, q);  // y < 4q < 2^64: v in [0, 2q)
   x = u + v;                                   // [0, 4q)
   y = u + q2 - v;                              // (0, 4q)
@@ -352,7 +358,7 @@ __device__ __forceinline__ void stage_twiddles(const uint64_t* tw, const uint64_
 }
 
 // One stage of a pass: register k of each group of 2^kR meets k + span;
-// kFresh: the forward's first stage, on lanes straight from device memory.
+// kFresh: the forward's first stage, on lanes below 2q (ct).
 template <int kS, int kR, int kD, bool kInverse, bool kFresh = false>
 __device__ __forceinline__ void stage(uint64_t (&x)[kWords], const uint64_t* tw,
                                       const uint64_t* tws, int hi, uint64_t q) {
@@ -679,6 +685,266 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), product_blocks(kL
   store<kLogN, false, 0>(x, out, at, 1, ti, live);
 }
 
+// The four-step's row passes fused on the radix-8 core (nwc64_cyclic_scaled,
+// nwc64_cached_scaled, nwc64_dot_scaled): product_kernel on cyclic tables
+// between an entry scale pre[r % period] and an exit scale post[r % period],
+// each a (period, n) table of Shoup pairs (w, w'); device memory sees each
+// operand and the result once.  The entry scale is one lazy Shoup product a
+// word on the words the first pass loads (any word in, [0, 2q) out: the
+// first stage's range), pre's words read at the same positions, once for
+// each forward; `scale` (n^-1 2^64 after two fresh spectra, n^-1 against a
+// cached one) one lazy Shoup product at the slot; post one more and one
+// compare at the store.  pre and post come from L2 where they fit (2 x 512
+// KiB at p60_32768's period 256; at p60_1048576 2 x 16 MiB, each row read
+// by B rows 1024 blocks apart, from L2 or device memory).  A cached b holds
+// the rows of a cached spectrum (times 2^64), used as they are: neither
+// scaled nor transformed.  A fresh b's spectrum waits in the output row at
+// the thread's own words (16-byte vectors, read back mostly from L2) while
+// a's forward runs: eight registers more ran slower, and pre's words kept
+// in registers from b's forward to a's spilled at n = 8192
+// (tools/nwc64_variants.py; the times are in PERF.md section 5).
+//
+// Registers.  Each table word comes with its Shoup companion, so a scale's
+// words take 32 registers a thread beside the eight lanes' 16.  The row
+// passes run at 512 threads an SM (128 registers), but at n = 8192, whose
+// 1024 threads a block leave a thread 64, where the compiler would issue all
+// of a scale's loads at once and spill (ptxas).  There (`tight`) each scale
+// reads its words in two halves, the second half's addresses offset by a
+// compare on the first half's last product that is always false (`after`),
+// so that they wait for it, and each phase takes its thread indices and
+// tables anew (opaque).  (A cached b's words staged in shared memory from
+// the start spilled more there: 216 bytes at n = 8192,
+// tools/nwc64_variants.py, PERF.md.)  tools/nwc64_variants.py times the
+// threads an SM and the tight schedule at every n.
+// Threads an SM of the row passes below n = 8192, for __launch_bounds__.
+constexpr int kRowThreads = 512;
+// Threads an SM from which a row pass runs `tight`.
+constexpr int kTightFrom = 1024;
+
+__host__ __device__ constexpr int scaled_blocks(int log_n) {
+  const int threads = block_threads(log_n, false);
+  return threads > kRowThreads / 2 ? 1 : kRowThreads / threads;
+}
+// Whether a thread has 64 registers (1024 threads an SM, or kTightFrom).
+__host__ __device__ constexpr bool tight(int log_n) {
+  return scaled_blocks(log_n) * block_threads(log_n, false) >= kTightFrom;
+}
+
+// v, which the compiler must take as new (opaque, on 64 bits): table words
+// and twiddles are read again from it, not kept from an earlier phase.
+__device__ __forceinline__ size_t opaque_row(size_t v) {
+  asm volatile("" : "+l"(v));
+  return v;
+}
+__device__ __forceinline__ Table opaque_table(Table t) {
+  uintptr_t w = reinterpret_cast<uintptr_t>(t.w), ws = reinterpret_cast<uintptr_t>(t.w_shoup);
+  asm volatile("" : "+l"(w), "+l"(ws));
+  return Table{reinterpret_cast<const uint64_t*>(w), reinterpret_cast<const uint64_t*>(ws)};
+}
+// 0, from a lane v the caller knows below `bound`: an address offset by it
+// waits for v.
+__device__ __forceinline__ size_t after(uint64_t v, uint64_t bound) { return v >= bound; }
+
+// x times table row `srow`'s words at the first pass's positions (the
+// store's), lazily: any words in, [0, 2q) out.  With kHalves = 2 the second
+// four words' table words are read after the first four's products.
+template <int kLogN, int kHalves>
+__device__ __forceinline__ void times_row(uint64_t (&x)[kWords], Table table, size_t srow,
+                                          int t, uint64_t q) {
+  constexpr int kHalf = kWords / kHalves;
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h) {
+    const size_t row = h == 0 ? srow : srow + after(x[h * kHalf - 1], 2 * q);
+#pragma unroll
+    for (int r = h * kHalf; r < (h + 1) * kHalf; ++r) {
+      const int e = element<kLogN, 0, first_stages(kLogN)>(t, r);
+      x[r] = shoup_lazy(x[r], __ldg(table.w + row + e), __ldg(table.w_shoup + row + e), q);
+    }
+  }
+}
+
+// The forward of row `at` of `in`, its words times pre's: lanes in [0, 4q)
+// out, spectrum words 8t ... 8t + 7.
+template <int kLogN, int kHalves>
+__device__ __forceinline__ void scaled_forward(uint64_t (&x)[kWords], const uint64_t* in,
+                                               size_t at, Table pre, size_t srow, uint64_t* smem,
+                                               Table tw, int g, int t, bool live, uint64_t q) {
+  load<kLogN, false, 0>(x, in, at, 1, t, live);
+  times_row<kLogN, kHalves>(x, pre, srow, t, q);  // [0, 2q): the first stage's range
+  run_pass<0, first_stages(kLogN), false, true>(x, tw.w, tw.w_shoup, 0, q);
+  forward_passes<kLogN, false, 1>(x, smem, tw.w, tw.w_shoup, g, t, q);
+}
+
+// The inverse from x (lanes in [0, 2q): the slot's words, times `scale`)
+// and the store of row `at`, times post's words at the store's positions,
+// one compare.
+template <int kLogN>
+__device__ __forceinline__ void scaled_inverse(uint64_t (&x)[kWords], uint64_t* out, size_t at,
+                                               Table post, size_t srow, uint64_t* smem,
+                                               Table itw, int g, int t, bool live, uint64_t q) {
+  constexpr int kLast = passes(kLogN) - 1;
+  constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
+  run_pass<kS, 3, true>(x, itw.w + kOff, itw.w_shoup + kOff, group<kLogN, kS>(t), q);
+  inverse_passes<kLogN, false, kLast - 1>(x, smem, itw.w, itw.w_shoup, g, t, q);
+  times_row<kLogN, tight(kLogN) ? 2 : 1>(x, post, srow, t, q);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, q)
+    x[r] = csub(x[r], q);
+  }
+  store<kLogN, false, 0>(x, out, at, 1, t, live);
+}
+
+// The slot's REDC(x y) of a's lane x in [0, 4q) and b's y, in [0, 2q)
+// (fresh, after its compare) or [0, q) (cached): one compare on x against
+// a fresh y, so that x y < 4 q^2 < q 2^64 (q < 2^62) either way and the
+// lazy REDC is in [0, 2q), the inverse's range.
+template <bool kCached>
+__device__ __forceinline__ uint64_t slot(uint64_t x, uint64_t y, uint64_t q, uint64_t q_prime) {
+  return mont_lazy(kCached ? x : csub(x, 2 * q), y, q, q_prime);
+}
+
+// out = post . INTT(NTT(pre . a) o NTT(pre . b)) * scale on `rows` rows (b
+// a cached spectrum's rows with kCached), row r scaled by row r % period.
+// Tables: the per-pass layout of mxu64.pass_table.
+template <int kLogN, bool kCached>
+__global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLogN))
+    cyclic_scaled_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
+                         uint64_t* __restrict__ out, Table tw, Table itw, Table pre, Table post,
+                         int period, int rows, uint64_t q, uint64_t q_prime, uint64_t scale,
+                         uint64_t scale_shoup) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  constexpr int kLast = passes(kLogN) - 1;
+  constexpr bool kTight = tight(kLogN);
+  constexpr int kHalves = kTight ? 2 : 1;
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  const size_t srow = live ? static_cast<size_t>(row % period) * kN : 0;
+  uint64_t y[kWords];
+  if constexpr (!kCached) {
+    scaled_forward<kLogN, kHalves>(y, b, at, pre, srow, smem, tw, g, t, live, q);
+#pragma unroll
+    for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, 2q): the slot's lane
+      y[r] = csub(y[r], 2 * q);
+    }
+    store<kLogN, false, kLast>(y, out, at, 1, t, live);  // words 8t ... 8t + 7
+    __syncthreads();  // a's first exchange overwrites the words b's last pass read
+  }
+  const int ga = kTight ? opaque(g) : g, ta = kTight ? opaque(t) : t;  // a's forward
+  uint64_t x[kWords];
+  scaled_forward<kLogN, kHalves>(x, a, at, pre, kCached ? srow : opaque_row(srow), smem,
+                                 kTight ? opaque_table(tw) : tw, ga, ta, live, q);
+  if constexpr (kCached) {
+    load<kLogN, false, kLast>(y, b, at, 1, ta, live);  // [0, q), times 2^64
+  } else {
+    load<kLogN, false, kLast>(y, out, at, 1, ta, live);  // this thread's own words
+  }
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // [0, 2q) times scale: [0, 2q)
+    x[r] = shoup_lazy(slot<kCached>(x[r], y[r], q, q_prime), scale, scale_shoup, q);
+  }
+  const int gi = kTight ? opaque(g) : g, ti = kTight ? opaque(t) : t;  // the inverse
+  scaled_inverse<kLogN>(x, out, at, post, srow, smem, kTight ? opaque_table(itw) : itw, gi, ti,
+                        live, q);
+}
+
+// The dot's row pass on the radix-8 core: out = post . INTT(sum_k NTT(pre .
+// a_k) o NTT(pre . b_k)) * scale for (terms, rows, n) stacks a and b (b
+// cached spectra's rows with kCached), one output row per row.  One loop
+// of steps, each one forward: for a fresh term b's forward, whose spectrum
+// waits in a tile of shared memory at the thread's own words (8t ...
+// 8t + 7, where the slot's lanes are: no barrier), then a's, whose slot
+// product adds into the sum, in a second tile at the same words; a cached
+// term's b words are read after a's forward.  The sum stays in [0, 2q)
+// by one compare after each add (two lanes below 2q sum below 4q); after
+// the last term its words times `scale`, then one inverse.  A thread holds
+// only the forward's lanes through it, and each step takes its thread
+// indices and tables anew (opaque), so that the compiler keeps no address
+// or twiddle of the loop live across it.  The row pass's blocks an SM and tight schedule (where
+// tight, the slot takes the sum's words one at a time, so that no read of a
+// later word passes the store of an earlier one).
+
+// Tiles of shared memory a dot block holds: the exchange's, the sum's, and
+// a fresh b's spectrum's.
+__host__ __device__ constexpr int dot_tiles(bool cached) { return cached ? 2 : 3; }
+
+template <int kLogN, bool kCached>
+__global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLogN))
+    dot_scaled_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
+                      uint64_t* __restrict__ out, Table tw, Table itw, Table pre, Table post,
+                      int period, int terms, int rows, uint64_t q, uint64_t q_prime,
+                      uint64_t scale, uint64_t scale_shoup) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  constexpr int kLast = passes(kLogN) - 1;
+  constexpr int kHalves = tight(kLogN) ? 2 : 1;
+  uint64_t* const sum = smem + kTile * kN;
+  uint64_t* const spectrum = smem + 2 * kTile * kN;
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  const size_t srow = live ? static_cast<size_t>(row % period) * kN : 0;
+  uint64_t x[kWords];
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    x[r] = 0;
+  }
+  to_shared<kLogN, false, kLast>(x, sum, g, t);
+  const int steps = kCached ? terms : 2 * terms;
+#pragma unroll 1
+  for (int step = 0; step < steps; ++step) {
+    const int k = kCached ? step : step / 2;
+    const bool of_b = !kCached && step % 2 == 0;  // b's forward of a fresh term
+    const size_t ak = live ? (static_cast<size_t>(k) * rows + row) * kN : 0;
+    const int gs = opaque(g), ts = opaque(t);
+    scaled_forward<kLogN, kHalves>(x, of_b ? b : a, ak, pre, opaque_row(srow), smem,
+                                   opaque_table(tw), gs, ts, live, q);
+    if (of_b) {
+#pragma unroll
+      for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, 2q): the slot's lane
+        x[r] = csub(x[r], 2 * q);
+      }
+      to_shared<kLogN, false, kLast>(x, spectrum, gs, ts);
+    } else if constexpr (tight(kLogN)) {
+      uint64_t y[kWords];
+      if constexpr (kCached) {
+        load<kLogN, false, kLast>(y, b, ak, 1, ts, live);  // [0, q), times 2^64
+      }
+#pragma unroll
+      for (int r = 0; r < kWords; ++r) {  // [0, 2q) + [0, 2q) < 4q -> [0, 2q)
+        const int e = tile_word<kLogN, false>(gs, kWords * ts + r);
+        const uint64_t p = slot<kCached>(x[r], kCached ? y[r] : spectrum[e], q, q_prime);
+        sum[e] = csub(sum[e] + p, 2 * q);
+      }
+    } else {
+      uint64_t y[kWords], acc[kWords];
+      if constexpr (kCached) {
+        load<kLogN, false, kLast>(y, b, ak, 1, ts, live);  // [0, q), times 2^64
+      } else {
+        from_shared<kLogN, false, kLast>(y, spectrum, gs, ts);  // [0, 2q)
+      }
+      from_shared<kLogN, false, kLast>(acc, sum, gs, ts);
+#pragma unroll
+      for (int r = 0; r < kWords; ++r) {  // [0, 2q) + [0, 2q) < 4q -> [0, 2q)
+        acc[r] = csub(acc[r] + slot<kCached>(x[r], y[r], q, q_prime), 2 * q);
+      }
+      to_shared<kLogN, false, kLast>(acc, sum, gs, ts);
+    }
+    if (step + 1 < steps) {
+      __syncthreads();  // the next step's first exchange overwrites the words this one's read
+    }
+  }
+  const int gi = opaque(g), ti = opaque(t);  // the inverse
+  from_shared<kLogN, false, kLast>(x, sum, gi, ti);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, 2q)
+    x[r] = shoup_lazy(x[r], scale, scale_shoup, q);
+  }
+  scaled_inverse<kLogN>(x, out, at, post, srow, smem, opaque_table(itw), gi, ti, live, q);
+}
 
 // out[r] = INTT(sum_k NTT(a[k, r]) . NTT(b[k, r])) for (terms, batch, n)
 // stacks a and b; with `cached`, b holds spectra.  The sum stays in shared
@@ -748,43 +1014,6 @@ __global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
   }
 }
 
-// The four-step's row pass: product_kernel with cyclic tables between an
-// entry scale pre[r % period] and an exit scale post[r % period].  With
-// kCached, b holds the rows of a cached spectrum (times 2^64), used as they
-// are: the row pass of the product against a cached spectrum.
-template <bool kCached>
-__global__ void cyclic_scaled_kernel(const uint64_t* __restrict__ a,
-                                     const uint64_t* __restrict__ b,
-                                     uint64_t* __restrict__ out, Table tw,
-                                     Table itw, Table pre, Table post,
-                                     int period, int log_n, uint64_t q,
-                                     uint64_t q_prime, uint64_t scale,
-                                     uint64_t scale_shoup) {
-  extern __shared__ uint64_t smem[];
-  const int n = 1 << log_n;
-  uint64_t* x = smem;
-  uint64_t* y = smem + n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const uint64_t w = __ldg(pre.w + srow + i);
-    const uint64_t ws = __ldg(pre.w_shoup + srow + i);
-    x[i] = shoup_mul(a[row + i], w, ws, q);
-    y[i] = kCached ? b[row + i] : shoup_mul(b[row + i], w, ws, q);
-  }
-  __syncthreads();
-  forward(x, kCached ? 1 : 2, log_n, tw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = shoup_mul(mont_mul(x[i], y[i], q, q_prime), scale, scale_shoup, q);
-  }
-  __syncthreads();
-  inverse(x, log_n, itw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = shoup_mul(x[i], __ldg(post.w + srow + i),
-                             __ldg(post.w_shoup + srow + i), q);
-  }
-}
-
 // Its first half: times pre[r % period], the forward, times `scale` unless
 // it is 1.
 __global__ void forward_scaled_kernel(const uint64_t* __restrict__ in,
@@ -825,53 +1054,6 @@ __global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     out[row + i] = shoup_mul(shoup_mul(x[i], scale, scale_shoup, q),
                              __ldg(post.w + srow + i),
-                             __ldg(post.w_shoup + srow + i), q);
-  }
-}
-
-// The four-step's row pass of the dot: dot_kernel with the entry scale
-// pre[r % period] on every fresh operand and the exit scale post[r % period]
-// after the one inverse.  a and b are (terms, batch, n) stacks of the column
-// pass's rows; with `cached`, b holds cached spectrum rows, used as they are.
-__global__ void dot_scaled_kernel(const uint64_t* __restrict__ a,
-                                  const uint64_t* __restrict__ b,
-                                  uint64_t* __restrict__ out, Table tw,
-                                  Table itw, Table pre, Table post, int period,
-                                  int terms, int batch, int log_n, uint64_t q,
-                                  uint64_t q_prime, uint64_t scale,
-                                  uint64_t scale_shoup, int cached) {
-  extern __shared__ uint64_t smem[];
-  const int n = 1 << log_n;
-  uint64_t* acc = smem;
-  uint64_t* x = smem + n;
-  uint64_t* y = smem + 2 * n;
-  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = 0;
-  }
-  for (int k = 0; k < terms; ++k) {
-    const size_t row = (static_cast<size_t>(k) * batch + blockIdx.x) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint64_t w = __ldg(pre.w + srow + i);
-      const uint64_t ws = __ldg(pre.w_shoup + srow + i);
-      x[i] = shoup_mul(a[row + i], w, ws, q);
-      y[i] = cached ? b[row + i] : shoup_mul(b[row + i], w, ws, q);
-    }
-    __syncthreads();
-    forward(x, cached ? 1 : 2, log_n, tw, q);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      acc[i] = add_mod(acc[i], mont_mul(x[i], y[i], q, q_prime), q);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = shoup_mul(acc[i], scale, scale_shoup, q);
-  }
-  __syncthreads();
-  inverse(acc, log_n, itw, q);
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = shoup_mul(acc[i], __ldg(post.w + srow + i),
                              __ldg(post.w_shoup + srow + i), q);
   }
 }
@@ -932,25 +1114,33 @@ Table table(const void* w, const void* w_shoup) {
                static_cast<const uint64_t*>(w_shoup)};
 }
 
-template <int kLogN, bool kCached>
-int launch_fused(const uint64_t* a, const uint64_t* b, void* out, Table tw, Table itw,
-                 int batch, uint64_t q, uint64_t q_prime, uint64_t scale,
-                 uint64_t scale_shoup, cudaStream_t stream) {
+// A fused kernel of log n = kLogN on `batch` rows, tile(kLogN) rows a
+// block, with `tiles` tiles of shared memory.
+template <int kLogN, typename Kernel, typename... Args>
+int launch_rows(Kernel kernel, int tiles, int batch, cudaStream_t stream, Args... args) {
   constexpr int kTile = tile(kLogN, false);
-  constexpr int kSmem = kTile * (1 << kLogN) * static_cast<int>(sizeof(uint64_t));
-  auto kernel = product_kernel<kLogN, kCached>;
+  const int smem = tiles * kTile * (1 << kLogN) * static_cast<int>(sizeof(uint64_t));
   const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) {
     return err;
   }
-  kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN, false), kSmem, stream>>>(
-      a, b, static_cast<uint64_t*>(out), tw, itw, batch, q, q_prime, scale, scale_shoup);
+  kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN, false), smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
+// Whether any of the pointers is not 16-byte aligned (the tables' vectors,
+// a spectrum's, the rows' in the last pass).
+bool misaligned(std::initializer_list<const void*> pointers) {
+  uintptr_t bits = 0;
+  for (const void* p : pointers) {
+    bits |= reinterpret_cast<uintptr_t>(p);
+  }
+  return bits % 16;
+}
+
 // The fused product's entry: log n from 5 to 13, every pointer 16-byte
-// aligned (the tables' vectors, and a cached spectrum's).
+// aligned.
 template <bool kCached>
 int launch_product(const void* a, const void* b, void* out, const void* tw,
                    const void* tw_shoup, const void* itw, const void* itw_shoup,
@@ -959,21 +1149,19 @@ int launch_product(const void* a, const void* b, void* out, const void* tw,
   if (bad_shape(batch, log_n)) {
     return cudaErrorInvalidValue;
   }
-  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(tw) |
-       reinterpret_cast<uintptr_t>(tw_shoup) | reinterpret_cast<uintptr_t>(itw) |
-       reinterpret_cast<uintptr_t>(itw_shoup)) % 16) {
+  if (misaligned({a, b, out, tw, tw_shoup, itw, itw_shoup})) {
     return cudaErrorMisalignedAddress;
   }
   const uint64_t* pa = static_cast<const uint64_t*>(a);
   const uint64_t* pb = static_cast<const uint64_t*>(b);
+  uint64_t* po = static_cast<uint64_t*>(out);
   const Table ptw = table(tw, tw_shoup), pitw = table(itw, itw_shoup);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (log_n) {
-#define NWC64_LOG_N(L)                                                                 \
-  case L:                                                                              \
-    return launch_fused<L, kCached>(pa, pb, out, ptw, pitw, batch, q, q_prime, scale,  \
-                                    scale_shoup, s);
+#define NWC64_LOG_N(L)                                                                    \
+  case L:                                                                                 \
+    return launch_rows<L>(product_kernel<L, kCached>, 1, batch, s, pa, pb, po, ptw, pitw, \
+                          batch, q, q_prime, scale, scale_shoup);
     NWC64_LOG_N(5) NWC64_LOG_N(6) NWC64_LOG_N(7) NWC64_LOG_N(8) NWC64_LOG_N(9)
     NWC64_LOG_N(10) NWC64_LOG_N(11) NWC64_LOG_N(12) NWC64_LOG_N(13)
 #undef NWC64_LOG_N
@@ -981,30 +1169,45 @@ int launch_product(const void* a, const void* b, void* out, const void* tw,
   return cudaErrorInvalidValue;
 }
 
-template <bool kCached>
-int launch_cyclic_scaled(const void* a, const void* b, void* out,
-                         const void* tw, const void* tw_shoup, const void* itw,
-                         const void* itw_shoup, const void* pre,
-                         const void* pre_shoup, const void* post,
-                         const void* post_shoup, int period, int batch,
-                         int log_n, uint64_t q, uint64_t q_prime,
-                         uint64_t scale, uint64_t scale_shoup, void* stream) {
-  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
+// The fused row passes' entry (the product, cached with kCached, or with
+// kDot the dot over `terms` (terms, batch, n) rows): log n from 5 to 13,
+// whole periods, every pointer 16-byte aligned.
+template <bool kCached, bool kDot>
+int launch_scaled(const void* a, const void* b, void* out, const void* tw,
+                  const void* tw_shoup, const void* itw, const void* itw_shoup,
+                  const void* pre, const void* pre_shoup, const void* post,
+                  const void* post_shoup, int period, int terms, int batch, int log_n,
+                  uint64_t q, uint64_t q_prime, uint64_t scale, uint64_t scale_shoup,
+                  void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period || terms < 1) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(cyclic_scaled_kernel<kCached>, 2 * n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned({a, b, out, tw, tw_shoup, itw, itw_shoup, pre, pre_shoup, post, post_shoup})) {
+    return cudaErrorMisalignedAddress;
   }
-  cyclic_scaled_kernel<kCached><<<batch, threads_for(log_n),
-                                  2 * n * sizeof(uint64_t),
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b),
-      static_cast<uint64_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
-      table(pre, pre_shoup), table(post, post_shoup), period, log_n, q, q_prime,
-      scale, scale_shoup);
-  return cudaGetLastError();
+  const uint64_t* pa = static_cast<const uint64_t*>(a);
+  const uint64_t* pb = static_cast<const uint64_t*>(b);
+  uint64_t* po = static_cast<uint64_t*>(out);
+  const Table ptw = table(tw, tw_shoup), pitw = table(itw, itw_shoup);
+  const Table ppre = table(pre, pre_shoup), ppost = table(post, post_shoup);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define NWC64_LOG_N(L)                                                                        \
+  case L:                                                                                     \
+    if constexpr (kDot) {                                                                     \
+      return launch_rows<L>(dot_scaled_kernel<L, kCached>, dot_tiles(kCached), batch, s,      \
+                            pa, pb, po, ptw, pitw, ppre, ppost, period, terms, batch, q,      \
+                            q_prime, scale, scale_shoup);                                     \
+    } else {                                                                                  \
+      return launch_rows<L>(cyclic_scaled_kernel<L, kCached>, 1, batch, s, pa, pb, po,        \
+                            ptw, pitw, ppre, ppost, period, batch, q, q_prime, scale,         \
+                            scale_shoup);                                                     \
+    }
+    NWC64_LOG_N(5) NWC64_LOG_N(6) NWC64_LOG_N(7) NWC64_LOG_N(8) NWC64_LOG_N(9)
+    NWC64_LOG_N(10) NWC64_LOG_N(11) NWC64_LOG_N(12) NWC64_LOG_N(13)
+#undef NWC64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <int kLogN, bool kInverse, bool kCols>
@@ -1038,8 +1241,7 @@ int launch_core(const void* in, void* out, const void* tw, const void* tw_shoup,
   if (bad_shape(batch, log_n) || width < 1) {
     return cudaErrorInvalidValue;
   }
-  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out) |
-       reinterpret_cast<uintptr_t>(tw) | reinterpret_cast<uintptr_t>(tw_shoup)) % 16) {
+  if (misaligned({in, out, tw, tw_shoup})) {
     return cudaErrorMisalignedAddress;
   }
   const Table pt = table(tw, tw_shoup);
@@ -1170,6 +1372,8 @@ extern "C" int nwc64_matvec(const void* spectra, const void* mat, void* out,
 
 // The row pass of the four-step: `period` rows of scales pre and post, each
 // n values beside their Shoup companions; batch must be a multiple of it.
+// On the radix-8 core, fused, on the tables of mxu64.pass_table; out
+// overlaps neither operand (it holds b's spectrum while a's forward runs).
 extern "C" int nwc64_cyclic_scaled(const void* a, const void* b, void* out,
                                    const void* tw, const void* tw_shoup,
                                    const void* itw, const void* itw_shoup,
@@ -1178,10 +1382,9 @@ extern "C" int nwc64_cyclic_scaled(const void* a, const void* b, void* out,
                                    int period, int batch, int log_n, uint64_t q,
                                    uint64_t q_prime, uint64_t scale,
                                    uint64_t scale_shoup, void* stream) {
-  return launch_cyclic_scaled<false>(a, b, out, tw, tw_shoup, itw, itw_shoup,
-                                     pre, pre_shoup, post, post_shoup, period,
-                                     batch, log_n, q, q_prime, scale,
-                                     scale_shoup, stream);
+  return launch_scaled<false, false>(a, b, out, tw, tw_shoup, itw, itw_shoup, pre,
+                                     pre_shoup, post, post_shoup, period, 1, batch, log_n, q,
+                                     q_prime, scale, scale_shoup, stream);
 }
 
 // The same against the rows of a cached spectrum.
@@ -1194,10 +1397,9 @@ extern "C" int nwc64_cached_scaled(const void* a, const void* spectrum,
                                    int batch, int log_n, uint64_t q,
                                    uint64_t q_prime, uint64_t scale,
                                    uint64_t scale_shoup, void* stream) {
-  return launch_cyclic_scaled<true>(a, spectrum, out, tw, tw_shoup, itw,
-                                    itw_shoup, pre, pre_shoup, post, post_shoup,
-                                    period, batch, log_n, q, q_prime, scale,
-                                    scale_shoup, stream);
+  return launch_scaled<true, false>(a, spectrum, out, tw, tw_shoup, itw, itw_shoup, pre,
+                                    pre_shoup, post, post_shoup, period, 1, batch, log_n, q,
+                                    q_prime, scale, scale_shoup, stream);
 }
 
 extern "C" int nwc64_forward_scaled(const void* in, void* out, const void* tw,
@@ -1245,7 +1447,8 @@ extern "C" int nwc64_inverse_scaled(const void* in, void* out, const void* itw,
 }
 
 // The dot's row pass: (terms, batch, n) stacks a and b (b cached spectra
-// with `cached`), one output row per row of the batch.
+// with `cached`), one output row per row of the batch, on the radix-8 core,
+// fused, on the tables of mxu64.pass_table.
 extern "C" int nwc64_dot_scaled(const void* a, const void* b, void* out,
                                 const void* tw, const void* tw_shoup,
                                 const void* itw, const void* itw_shoup,
@@ -1254,21 +1457,12 @@ extern "C" int nwc64_dot_scaled(const void* a, const void* b, void* out,
                                 int period, int terms, int batch, int log_n,
                                 uint64_t q, uint64_t q_prime, uint64_t scale,
                                 uint64_t scale_shoup, int cached, void* stream) {
-  if (bad_shape(batch, log_n) || period < 1 || batch % period || terms < 1) {
-    return cudaErrorInvalidValue;
-  }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(dot_scaled_kernel, 3 * n);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  dot_scaled_kernel<<<batch, threads_for(log_n), 3 * n * sizeof(uint64_t),
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b),
-      static_cast<uint64_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
-      table(pre, pre_shoup), table(post, post_shoup), period, terms, batch,
-      log_n, q, q_prime, scale, scale_shoup, cached);
-  return cudaGetLastError();
+  return cached ? launch_scaled<true, true>(a, b, out, tw, tw_shoup, itw, itw_shoup, pre,
+                                            pre_shoup, post, post_shoup, period, terms, batch,
+                                            log_n, q, q_prime, scale, scale_shoup, stream)
+                : launch_scaled<false, true>(a, b, out, tw, tw_shoup, itw, itw_shoup, pre,
+                                             pre_shoup, post, post_shoup, period, terms, batch,
+                                             log_n, q, q_prime, scale, scale_shoup, stream);
 }
 
 // The matvec's row pass: the (cols, batch, n) row spectra of s against the

@@ -31,9 +31,11 @@ place of torch transposes around a row transform.
 the radix-8 core of ``csrc/nwc64.cu``: passes of three stages in registers
 (``passes``), twiddles in a per-pass layout built here from the flat tables
 (``pass_table``); ``nwc64_product`` and ``nwc64_cached`` run both forwards,
-the slot product and the inverse fused on that core, on the same per-pass
-tables (``MxuPlan64.pass_entries``); the other eight kernels read the flat
-tables.
+the slot product and the inverse fused on that core, and the four-step's
+row passes ``nwc64_cyclic_scaled``, ``nwc64_cached_scaled`` and
+``nwc64_dot_scaled`` the same between their scale tables, on the same
+per-pass tables (``MxuPlan64.pass_entries``); the other five kernels read
+the flat tables.
 """
 
 from __future__ import annotations
@@ -155,7 +157,8 @@ class MxuPlan64(ScaledKernelPlan):
         return load_scaled()
 
     pass_entries = frozenset({"forward", "inverse", "forward_cols", "inverse_cols",
-                              "product", "cached"})
+                              "product", "cached", "cyclic_scaled", "cached_scaled",
+                              "dot_scaled"})
 
     def _transform_table(self, flat: tuple) -> tuple:
         """The per-pass layout of the flat table (w, w') for the radix-8
