@@ -31,11 +31,14 @@ kernel K6).  Phases, each of which raises on failure:
    instructions a thread issues after its first barrier at n = 4096 in
    nwc64.cu's and gl64.cu's radix-8 kernels and in their first cores'
    loops, in the fused ``nwc64_product`` at n = 4096, the fused
-   ``nwc64_cyclic_scaled`` and ``gl64_cyclic_scaled`` at n = 128 and 1024
-   and the fused ``nwc64_dot_scaled`` at n = 128 (a step of its loop, one
-   forward, and the rest); the radix-8 kernels of both files, 36
-   transforms and 18 fused products each, and nwc64.cu's 18 fused row
-   passes and 18 fused dots, must spill nothing;
+   ``nwc64_cyclic_scaled`` and ``gl64_cyclic_scaled`` and the row forward
+   ``nwc64_forward_scaled`` at n = 128 and 1024, the fused
+   ``nwc64_dot_scaled`` at n = 128 and the flat ``nwc64_dot`` at n = 4096
+   (a step of its loop, one forward, and the rest); the radix-8 kernels of
+   both files, 36 transforms and 18 fused products each, and nwc64.cu's 18
+   fused row passes, 9 row forwards and 36 fused dots (18 row passes, 18
+   flat), must spill nothing; the flat dot's blocks an SM by ptxas's
+   registers and its shared memory;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: the
    radix-8 cores (``nwc64_forward``, ``nwc64_inverse`` on rows and
@@ -49,11 +52,14 @@ kernel K6).  Phases, each of which raises on failure:
    products fused on those cores (``nwc64_product`` and ``nwc64_cached``
    at the three 60-bit q; the row passes ``nwc64_cyclic_scaled``,
    ``nwc64_cached_scaled`` and ``nwc64_dot_scaled``, fresh and cached,
-   K = 1 and 4, at the same q, and ``gl64_cyclic_scaled`` and
+   K = 1 and 4, and the row forward ``nwc64_forward_scaled`` at scale 1
+   and 2^64 mod q, at the same q, and ``gl64_cyclic_scaled`` and
    ``gl64_cached_scaled`` at the Goldilocks q, with random pre and post
    tables at period 1, 3 and 256) at every n from 32 to 8192, B = 1, 3
    and 2048, boundary rows first, on cyclic tables, and on merged ones at
-   n = 4096 (the dot at K = 4 and B = 2048 at n = 128 alone); every op
+   n = 4096 (the dot at K = 4 and B = 2048 at n = 128 alone); the flat dot
+   ``nwc64_dot`` on merged tables, fresh and cached, K = 1 and 4, at the
+   same n, q and B (K = 4 at B = 2048 at n = 128 alone); every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
    B = 256), the product, forward and inverse at n = 256 and 8192, the dot
    at n = 8192 (three rows of shared memory), every op at the generic q;
@@ -166,8 +172,9 @@ kernel K6).  Phases, each of which raises on failure:
    (``kernels.poseidon.permute`` at width 8, B = 131072, and ``sponge`` on
    the STARK leaves), the plain sponge of the leaves once a turn.  The
    four-step's row kernels at p60_32768 and goldilocks_32768, and its
-   chains (nwc, nwc_fwd, nwc_inv, cached, dot, dot_cached, matvec at both;
-   nwc and cached at both 2^20 rows) against their plain chains, with the
+   chains (nwc, nwc_fwd, nwc_inv, cached, dot, dot_cached, matvec at both,
+   spectrum at p60_32768; nwc and cached at both 2^20 rows) against their
+   plain chains, the cached dot at P60_4096 beside the fresh one, with the
    product chain's parts by graph replay: column forward, row kernel,
    column inverse (beside the chain, the transpose route the column entry
    points replace, and the five transposes alone); ``nwc64_forward_cols``,
@@ -453,6 +460,19 @@ def issued_with_loop(listing, trips: int) -> tuple | None:
     return trip, rest, trips * trip - before + rest
 
 
+def ptxas_registers(log: str) -> dict:
+    """The registers ptxas gave each kernel of a build log (``-Xptxas -v``):
+    its mangled name from the kernel's own name on -> registers."""
+    registers, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '\S*?\d+([a-z][a-z_]*_kernel\S*?)'", line):
+            name = m.group(1)
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            registers[name] = int(m.group(1))
+            name = None
+    return registers
+
+
 def nvidia_smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -537,9 +557,7 @@ def main() -> int:
     # a row: the instructions a thread issues after its first barrier (the
     # radix kernels are unrolled; the first core's stage loop of 12 trips
     # around its butterfly loop of 4, then 8 words stored, as
-    # forward_scaled_kernel and inverse_scaled_kernel run those bodies after
-    # their entry loop; nvcc unrolls the forward's store loop by 4, which
-    # leaves 2 trips and a remainder loop of none)
+    # inverse_scaled_kernel runs that body after its entry loop)
     nwc_sass = sass_listing(libs["nwc64"])
     radix = [k for k in nwc_sass if k.startswith("transform_kernel<")]
     print(f"  sass: nwc64.cu's {len(radix)} radix-8 kernels, "
@@ -549,23 +567,25 @@ def main() -> int:
                           ("transform_kernel<8, 0, 1>", ()), ("transform_kernel<10, 0, 1>", ()),
                           ("product_kernel<12, 0>", ()), ("product_kernel<12, 1>", ()),
                           ("cyclic_scaled_kernel<7, 0>", ()), ("cyclic_scaled_kernel<10, 0>", ()),
-                          ("cyclic_scaled_kernel<7, 1>", ()),
-                          ("forward_scaled_kernel", (4, 12, 2, 0)),
+                          ("cyclic_scaled_kernel<7, 1>", ()), ("forward_scaled_kernel<7>", ()),
+                          ("forward_scaled_kernel<10>", ()),
                           ("inverse_scaled_kernel", (4, 12, 8))):
         code = nwc_sass[kernel]
         issued = issued_per_thread(code, trips)
         print(f"  sass: nwc64.cu {kernel}: {len(code)} instructions; after its first barrier "
               f"a thread issues {issued or 'not counted:'} "
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
-    # the fused dot's row pass at p60_32768's n2 = 128: a step of its loop
-    # (one forward: b's or a's of a term), the inverse and the store after
-    # it, and a thread's count at K = 4 (2K steps)
-    code = nwc_sass["dot_scaled_kernel<7, 0>"]
-    counted = issued_with_loop(code, 2 * DOT_TERMS)
-    print(f"  sass: nwc64.cu dot_scaled_kernel<7, 0>: {len(code)} instructions; "
-          + (f"a step's trip {counted[0]}, after the steps {counted[1]}; at K = {DOT_TERMS} "
-             f"a thread issues {counted[2]} after its first barrier" if counted else
-             f"loops not one: {sass_loops(code)}"))
+    # the fused dot's row pass at p60_32768's n2 = 128 and the flat dot at
+    # P60_4096's n = 4096, fresh: a step of the loop (one forward: b's or
+    # a's of a term), the inverse and the store after it, and a thread's
+    # count at K = 4 (2K steps)
+    for kernel in ("dot_scaled_kernel<7, 0, 1>", "dot_scaled_kernel<12, 0, 0>"):
+        code = nwc_sass[kernel]
+        counted = issued_with_loop(code, 2 * DOT_TERMS)
+        print(f"  sass: nwc64.cu {kernel}: {len(code)} instructions; "
+              + (f"a step's trip {counted[0]}, after the steps {counted[1]}; at K = "
+                 f"{DOT_TERMS} a thread issues {counted[2]} after its first barrier"
+                 if counted else f"loops not one: {sass_loops(code)}"))
     # gl64.cu's radix-8 core against its first core, counted the same way
     # (its loops are nwc64.cu's: the butterfly loop of 4 trips in the stage
     # loop of 12, then the store loop, unrolled by 4 in the forward; the
@@ -588,18 +608,37 @@ def main() -> int:
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
     # the radix-8 kernels of both files spill nothing: 36 transforms (a log n
     # from 5 to 13, each direction and layout) and 18 fused products (each
-    # log n, fresh and cached) in each, and nwc64.cu's 18 fused row passes
-    # and 18 fused dots
-    for lib, fused in (("nwc64", ("product_kernel", "cyclic_scaled_kernel", "dot_scaled_kernel")),
-                       ("gl64", ("cyclic_scaled_kernel",))):
+    # log n, fresh and cached) in each, and nwc64.cu's 18 fused row passes,
+    # 9 row forwards (a log n) and 36 fused dots (the row passes' 18 and the
+    # flat dot's 18)
+    for lib, fused in (("nwc64", (("product_kernel", 18), ("cyclic_scaled_kernel", 18),
+                                  ("forward_scaled_kernel", 9), ("dot_scaled_kernel", 36))),
+                       ("gl64", (("cyclic_scaled_kernel", 18),))):
         log = libs[lib].with_suffix(".log").read_text()
-        for kernel, count in (("transform_kernel", 36), *((f, 18) for f in fused)):
+        for kernel, count in (("transform_kernel", 36), *fused):
             spills = re.findall(rf"Function properties for \S*{kernel}I\S*\n[^\n]*?(\d+) "
                                 r"bytes spill stores, (\d+) bytes spill loads", log)
             if len(spills) != count or any(int(st) or int(ld) for st, ld in spills):
                 raise AssertionError(f"{lib}.cu's {kernel}s: {count} expected, none "
                                      f"spilling; ptxas says {spills}")
             print(f"build: {lib}.cu's {len(spills)} radix-8 {kernel}s spill nothing")
+    # the flat dot's blocks an SM: its registers (ptxas), its tiles of
+    # shared memory (three fresh, two cached, of max(n, 1024) words) and
+    # the SM's 64 Ki registers, 228 KiB (1 KiB reserved a block), 2048
+    # threads and 32 blocks
+    registers = ptxas_registers(libs["nwc64"].with_suffix(".log").read_text())
+    for log_n in range(5, 14):
+        for cached in (0, 1):
+            regs = next(v for k, v in registers.items()
+                        if k.startswith(f"dot_scaled_kernelILi{log_n}ELb{cached}ELb0EE"))
+            threads = max(1 << log_n, 1024) // 8
+            smem = (2 if cached else 3) * max(1 << log_n, 1024) * 8
+            by_regs = 65536 // (-(-regs // 8) * 8 * threads)
+            by_smem = 233472 // (smem + 1024)
+            print(f"build: nwc64.cu's flat dot at n = {1 << log_n}"
+                  f"{' cached' if cached else ''}: {regs} registers, {threads} threads and "
+                  f"{smem // 1024} KiB a block: {min(by_regs, by_smem, 2048 // threads, 32)} "
+                  f"blocks an SM (registers allow {by_regs}, shared memory {by_smem})")
 
     print(f"phase: build done at {time.perf_counter() - t_start:.1f} s (wall clock)")
 
@@ -772,7 +811,11 @@ def main() -> int:
     # against a's); and nwc64_dot_scaled, fresh and cached, at K = 1 (the
     # row pass's rows, no plain dot) and K = 4 at the last period of B = 1
     # and 3, and at B = 2048 at p60_32768's n2 = 128 alone (the plain dot's
-    # cost); each launch against its plain version, bit for bit
+    # cost); nwc64_forward_scaled at scale 1 and 2^64 mod q on the same
+    # tables; the flat dot nwc64_dot on merged tables, fresh and cached, at
+    # K = 1, and K = 4 at B = 1 and 3 (at B = 2048 at n = 128 alone, as the
+    # row pass's dot: the plain dot's cost); each launch against its plain
+    # version, bit for bit
     def shoup_table(w, q):
         """(w, floor(w 2^64 / q)) of canonical words on their device, by 64
         steps of long division (remainders below 2q < 2^63)."""
@@ -787,10 +830,10 @@ def main() -> int:
             halves.append(h)
         return w, join64(tuple(halves))
 
-    def fused_check(plan, entry, label, want, x, y, tables, *args):
+    def fused_check(plan, entry, label, want, operands, tables, *args):
         out = torch.empty_like(want)
-        plan._launch(entry, out, x, y, out, *(w for t in tables for w in plan._table_of(entry, t)),
-                     *args)
+        plan._launch(entry, out, *operands, out,
+                     *(w for t in tables for w in plan._table_of(entry, t)), *args)
         torch.cuda.synchronize()
         name = f"{plan.lib_name}_{entry}"
         errs[name] = max(errs.get(name, 0), int((out - want).abs().max()))
@@ -820,9 +863,9 @@ def main() -> int:
                     if not gl:
                         want = product(x, y)
                         spectrum = plan.ring.mul_tw(fwd(y), plan._r_tw)  # times 2^64
-                        fused_check(plan, "product", label, want, x, y, (tw, itw), rows, log_n,
-                                    *plan._q_args(True), *plan._scale_fresh)
-                        fused_check(plan, "cached", label, want, x, spectrum, (tw, itw), rows,
+                        fused_check(plan, "product", label, want, (x, y), (tw, itw), rows,
+                                    log_n, *plan._q_args(True), *plan._scale_fresh)
+                        fused_check(plan, "cached", label, want, (x, spectrum), (tw, itw), rows,
                                     log_n, *plan._q_args(True), *plan._scale_cached)
                         checks += 2
                         if layout == "merged":  # the 60-bit row passes: the four-step's tables
@@ -838,11 +881,18 @@ def main() -> int:
                         want = plan._rows_times(product(plan._rows_times(x, pre),
                                                         plan._rows_times(y, pre)), post)
                         spectrum = fwd(plan._rows_times(y, pre))
-                        if not gl:
-                            spectrum = plan.ring.mul_tw(spectrum, plan._r_tw)  # times 2^64
+                        if not gl:  # the row forward, then times 2^64
+                            fwd_y, spectrum = spectrum, plan.ring.mul_tw(spectrum, plan._r_tw)
+                            for z, scale in ((fwd_y, plan._scale_one),
+                                             (spectrum, plan._scale_spectrum)):
+                                fused_check(plan, "forward_scaled",
+                                            f"{label} period {period} scale {scale[0]}", z, (y,),
+                                            (tw,), *pre, period, rows, log_n,
+                                            *plan._q_args(False), *scale)
+                            checks += 2
                         for entry, z, scale in (("cyclic_scaled", y, plan._scale_fresh),
                                                 ("cached_scaled", spectrum, plan._scale_cached)):
-                            fused_check(plan, entry, f"{label} period {period}", want, x, z,
+                            fused_check(plan, entry, f"{label} period {period}", want, (x, z),
                                         (tw, itw), *pre, *post, period, rows, log_n,
                                         *(() if gl else plan._q_args(True)), *scale)
                         checks += 2
@@ -860,14 +910,29 @@ def main() -> int:
                                                      (s3, 1, plan._scale_cached)):
                                 fused_check(plan, "dot_scaled",
                                             f"{label} period {period} K={x3.shape[0]}"
-                                            + (" cached" if cached else ""), want3, x3, z,
+                                            + (" cached" if cached else ""), want3, (x3, z),
                                             (tw, itw), *pre, *post, period, x3.shape[0], rows,
                                             log_n, *plan._q_args(True), *scale, cached)
                                 checks += 1
+                if gl:
+                    continue
+                tw, itw = plan.plan.merged_flat, plan.plan.merged_inv_flat  # the flat dot
+                for terms in (1, DOT_TERMS) if rows < BATCH or log_n == 7 else (1,):
+                    x3, y3 = ((x[None], y[None]) if terms == 1 else
+                              (card_operands(q, n, terms * rows, gen).reshape(terms, rows, n)
+                               for _ in range(2)))
+                    s3 = plan.nwc_spectrum_plain(y3.reshape(-1, n)).reshape(y3.shape)
+                    for z, cached, want3, scale in (
+                            (y3, 0, plan.nwc_dot_plain(x3, y3), plan._scale_fresh),
+                            (s3, 1, plan.nwc_dot_cached_plain(x3, s3), plan._scale_cached)):
+                        fused_check(plan, "dot", f"n={n} q={q} B={rows} K={terms}"
+                                    + (" cached" if cached else ""), want3, (x3, z), (tw, itw),
+                                    terms, rows, log_n, *plan._q_args(True), *scale, cached)
+                        checks += 1
         print(f"kernel vs plain: the fused products at q={q} ("
               + ("gl64_cyclic_scaled, gl64_cached_scaled" if gl else
                  "nwc64_product, nwc64_cached, nwc64_cyclic_scaled, nwc64_cached_scaled, "
-                 "nwc64_dot_scaled")
+                 "nwc64_dot_scaled, nwc64_forward_scaled, nwc64_dot")
               + f"), n = 32 to 8192: {checks} launches equal in "
               f"{time.perf_counter() - t_q:.1f} s")
     print(f"kernel vs plain: the fused products checked in {time.perf_counter() - t0:.1f} s")
@@ -1663,9 +1728,12 @@ def main() -> int:
     timed["poseidon_permute"] = permute_timed(8)  # the Merkle trees' width
     timed["poseidon_sponge"] = sponge_timed(lde_rows, ONE)  # the STARK leaves
     # not kernel functions of their own: the product at the generic q, the
-    # permutation at width 12 and the sponge over bench.py's rows of 8
+    # cached dot at P60_4096, the permutation at width 12 and the sponge
+    # over bench.py's rows of 8
     timed["generic-q product"] = nwc_timed("nwc64_product", p_gen, "nwc", plan_gen,
                                            inputs_gen, BATCH)
+    timed["nwc64_dot cached"] = nwc_timed("nwc64_dot_cached", P60_4096, "dot_cached", plan60,
+                                          inputs60, DOT_BATCH)
     # the four-step's row kernels at p60_32768 and goldilocks_32768, B = 256,
     # as its product calls them, then its chains, not kernel functions of
     # their own
@@ -1731,6 +1799,7 @@ def main() -> int:
     chains = [(name, op) for name in ("p60_32768", "goldilocks_32768")
               for op in ("nwc", "nwc_fwd", "nwc_inv", "cached", "dot", "dot_cached",
                          "matvec")]
+    chains += [("p60_32768", "spectrum")]
     chains += [(name, op) for name in ("p60_1048576", "goldilocks_1048576")
                for op in ("nwc", "cached")]
     for name, op in chains:
@@ -1919,6 +1988,8 @@ def main() -> int:
     print(f"nwc_poly_mult_p60_4096_per_sec: {BATCH * per_s['nwc64_product']:.1f}; "
           f"fwd_ntt_p60_4096_per_sec: {BATCH * per_s['nwc64_forward']:.1f}; "
           f"p60_4096_matvec_4x4_per_sec: {MATVEC_BATCH_60 * per_s['nwc64_matvec']:.1f}; "
+          f"p60_4096_dot_K{DOT_TERMS}_per_sec: {DOT_BATCH * per_s['nwc64_dot']:.1f}, cached "
+          f"{DOT_BATCH * per_s['nwc64_dot cached']:.1f} (B={DOT_BATCH}); "
           f"nwc_poly_mult_q576460752308273153_4096_per_sec: "
           f"{BATCH * per_s['generic-q product']:.1f}; "
           f"nwc_poly_mult_p24_4096_per_sec: {BATCH * per_s['nwc32_product']:.1f}; "

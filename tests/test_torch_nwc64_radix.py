@@ -1,8 +1,9 @@
 """The radix-8 core of ``csrc/nwc64.cu`` (``nwc64_forward``, ``nwc64_inverse``,
 their column entry points, the product fused on it, ``nwc64_product`` and
-``nwc64_cached``, and the four-step's row passes fused on it,
-``nwc64_cyclic_scaled``, ``nwc64_cached_scaled`` and ``nwc64_dot_scaled``)
-modelled on the CPU, and K1a's two ablation toggles.
+``nwc64_cached``, the four-step's row passes fused on it,
+``nwc64_cyclic_scaled``, ``nwc64_cached_scaled`` and ``nwc64_dot_scaled``,
+its row forward ``nwc64_forward_scaled`` and the flat dot ``nwc64_dot``)
+modelled on the CPU, and K1a's three ablation toggles.
 
 * The lazy butterflies: a Python model of the .cu's Shoup product, CT and
   GS butterflies and final corrections, with the range asserts the .cu
@@ -31,18 +32,27 @@ modelled on the CPU, and K1a's two ablation toggles.
   (128, 256, 256) (p60_32768's row pass), fresh and cached, the dot at
   K = 1 and 3 at (256, 6, 3),
   against the plain row passes and JAX's XLA ``cyclic_poly_mult`` between
-  the scales (by Python ints); a faked launch shows the three entry
-  points receive the per-pass tables.
+  the scales (by Python ints); the row forward (``forward_scaled_model``:
+  pre's product, the forward, the transforms' store) at n = 128 and 1024,
+  P = 1 and 3, scale 1 and 2^64, against ``ntt_fwd_scaled_plain``; the
+  flat dot (``scaled_model`` without scales, merged tables, canonical
+  first lanes asserted) at K = 1 and 3 at n = 256 against
+  ``nwc_dot_plain`` and ``nwc_dot_cached_plain``; faked launches show the
+  five entry points receive the per-pass tables on ``SubPlan64`` and
+  ``MxuPlan64``, and the Goldilocks plans' ``gl64_forward_scaled`` and
+  ``gl64_dot`` the flat ones.
 * ``SubPlan64``'s column methods (plain on the CPU: the transpose route)
   against ``FourStepPlan``'s transposes and JAX's four-step locals
   (``tpu_ntt.sharded._along`` of its XLA transforms) at 32 x 32 and
   64 x 32, widths n2 / D for D = 2, 4 and 8.
-* The C signatures ``load`` and ``load_scaled`` bind for the nine entry
-  points; a ``cuda``-marked case holds both layouts, both products and
-  the three row passes against plain on a card.
-* JAX's ``MxuPlan64`` with ``prefix_scan = True`` and with
-  ``carry_save = False`` (mxu64.py:785-797) in interpret mode at n = 256:
-  the same integers as the port's ``MxuPlan64``.
+* The C signatures ``load`` and ``load_scaled`` bind for the eleven entry
+  points; a ``cuda``-marked case holds both layouts, both products, the
+  three row passes, the row forward and the flat dot against plain on a
+  card.
+* JAX's ``MxuPlan64`` with ``prefix_scan = True``, with
+  ``carry_save = False`` and with ``shoup_lazy = False``
+  (mxu64.py:785-799) in interpret mode at n = 256: the same integers as
+  the port's ``MxuPlan64``.
 
 Operands come from ``numpy.random.default_rng`` with rows of 0, 1 and
 q - 1.  Tolerance: none — exact integer equality.
@@ -64,7 +74,9 @@ from tpu_ntt_torch import ntt, sharded
 from tpu_ntt_torch.convert import int64_to_pairs, pairs_to_int64
 from tpu_ntt_torch.kernels import _build, _plan
 from tpu_ntt_torch.kernels import mxu64 as kmxu64
+from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64, GoldilocksSubPlan64
 from tpu_ntt_torch.kernels.mxu64 import MxuPlan64, SubPlan64
+from tpu_ntt_torch.modmath import GOLDILOCKS_Q
 from tpu_ntt_torch.params import P60_4096, make_params
 
 Q_GENERIC = 576460752308273153  # bench.py:35, 60 bits, not a trinomial
@@ -522,7 +534,56 @@ def test_fused_product_model_matches_plain_and_jax(n, monkeypatch):
     assert torch.equal(got, plan.nwc_poly_mult_cached_plain(a, spectrum))
 
 
-def scaled_model(plan: SubPlan64, a: torch.Tensor, b: torch.Tensor, pre: tuple, post: tuple,
+def row_lanes(plan: SubPlan64, x: torch.Tensor, period: int):
+    """``lanes`` of (R, n) rows, and srow: each thread's row r % P of a
+    (P, n) scale table, as a word offset (r % P) n."""
+    at, live, t, slot = lanes(plan, x)
+    return at, live, t, slot, at(0) // plan.p.n % period * plan.p.n
+
+
+def times_row(plan: SubPlan64, regs, lane, table):
+    """Registers holding the first pass's words times the (P, n) Shoup
+    table's words at the same positions of each thread's row srow, lazily:
+    any words in, [0, 2q) out (asserted by shoup_lazy); with ``table``
+    None, the registers as they are."""
+    if table is None:
+        return regs
+    *_, t, _, srow = lane
+    w, ws = (ints(v.reshape(-1)) for v in table)
+    return [shoup_lazy(v, w[srow + i], ws[srow + i], plan.p.q)
+            for v, i in zip(regs, pass_words(plan.p.log_n, 0, t))]
+
+
+def row_forward(plan: SubPlan64, words, lane, pre, tw):
+    """The fused kernels' forward of one operand (``scaled_forward``): the
+    words the first pass loads, times pre (with ``pre`` None canonical,
+    as they are), whose first stage then takes lanes below 2q (below q),
+    then the passes on the per-pass tables ``tw``: lanes below 4q, the
+    spectrum words 8t ... 8t + 7."""
+    at, live, t, slot, _ = lane
+    x = times_row(plan, load(words, at, live, pass_words(plan.p.log_n, 0, t)), lane, pre)
+    return passes_on(plan, x, tw, False, t, slot, below=plan.p.q * (1 if pre is None else 2))
+
+
+def forward_scaled_model(plan: SubPlan64, x: torch.Tensor, pre: tuple,
+                         cacheable: bool) -> torch.Tensor:
+    """nwc64_forward_scaled on (R, n) rows: ``row_forward`` on the cyclic
+    per-pass tables, row r entered by row r % P of pre, then the
+    transforms' store (scale 1, or 2^64 mod q for a cacheable spectrum) of
+    words 8t ... 8t + 7."""
+    log_n, q = plan.p.log_n, plan.p.q
+    lane = row_lanes(plan, x, pre[0].shape[0])
+    at, live, t = lane[:3]
+    tw = tuple(ints(v) for v in kmxu64.pass_table(plan.plan.cyclic_flat))
+    regs = row_forward(plan, ints(x.reshape(-1)), lane, pre, tw)
+    out = np.zeros(x.numel(), dtype=object)
+    scale = plan._scale_spectrum if cacheable else plan._scale_one
+    for reg, i in enumerate(pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)):
+        out[at(i)[live]] = forward_out(regs[reg], *scale, q)[live]
+    return as_tensor(out, x.shape)
+
+
+def scaled_model(plan: SubPlan64, a: torch.Tensor, b: torch.Tensor, pre, post,
                  cached: bool = False) -> torch.Tensor:
     """The four-step's row passes fused on the radix-8 core with cyclic
     per-pass tables: on (R, n) rows, nwc64_cyclic_scaled
@@ -534,36 +595,28 @@ def scaled_model(plan: SubPlan64, a: torch.Tensor, b: torch.Tensor, pre: tuple, 
     the lanes as the registers hold them; the sum of the terms kept below
     2q by one compare after each add; the scale's lazy Shoup product on it
     (the row passes' slot, K = 1); the inverse from those registers, post's
-    lazy Shoup product and one compare at the store.  Every range the .cu
-    states is asserted."""
-    log_n, n, q = plan.p.log_n, plan.p.n, plan.p.q
+    lazy Shoup product and one compare at the store.  With pre and post
+    None, the flat dot nwc64_dot: the same loop on the negacyclic (merged)
+    per-pass tables, no scale tables, the first pass on canonical words.
+    Every range the .cu states is asserted."""
+    log_n, q = plan.p.log_n, plan.p.q
     a3, b3 = (x if x.dim() == 3 else x[None] for x in (a, b))
-    period = pre[0].shape[0]
-    tw = tuple(ints(t) for t in kmxu64.pass_table(plan.plan.cyclic_flat))
-    itw = tuple(ints(t) for t in kmxu64.pass_table(plan.plan.cyclic_inv_flat))
-    pre_w, post_w = (tuple(ints(t.reshape(-1)) for t in table) for table in (pre, post))
+    kind = "cyclic" if pre is not None else "merged"
+    tw = tuple(ints(t) for t in kmxu64.pass_table(getattr(plan.plan, f"{kind}_flat")))
+    itw = tuple(ints(t) for t in kmxu64.pass_table(getattr(plan.plan, f"{kind}_inv_flat")))
     out = np.zeros(a3[0].numel(), dtype=object)
-    at, live, t, slot = lanes(plan, a3[0])
-    srow = at(0) // n % period * n
+    lane = row_lanes(plan, a3[0], 1 if pre is None else pre[0].shape[0])
+    at, live, t, slot, _ = lane
     first = pass_words(log_n, 0, t)
     spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
-
-    def times_row(regs, table):  # any words -> [0, 2q), asserted by shoup_lazy
-        return [shoup_lazy(v, table[0][srow + i], table[1][srow + i], q)
-                for v, i in zip(regs, first)]
-
-    def forward(words):
-        x = times_row(load(words, at, live, first), pre_w)
-        return passes_on(plan, x, tw, False, t, slot, below=2 * q)
-
     acc = [np.zeros(at(0).shape, dtype=object) for _ in range(WORDS)]
     for a_k, b_k in zip(a3, b3):
         if cached:
             y = load(ints(b_k.reshape(-1)), at, live, spectrum)
             assert all(np.all(v < q) for v in y)
-        else:
-            y = [csub(v, 2 * q) for v in forward(ints(b_k.reshape(-1)))]  # [0, 4q) -> [0, 2q)
-        x = forward(ints(a_k.reshape(-1)))
+        else:  # [0, 4q) -> [0, 2q)
+            y = [csub(v, 2 * q) for v in row_forward(plan, ints(b_k.reshape(-1)), lane, pre, tw)]
+        x = row_forward(plan, ints(a_k.reshape(-1)), lane, pre, tw)
         for reg in range(WORDS):
             assert np.all(x[reg] < 4 * q) and np.all(y[reg] < (q if cached else 2 * q))
             p = mont_lazy(x[reg] if cached else csub(x[reg], 2 * q), y[reg], q)
@@ -571,7 +624,8 @@ def scaled_model(plan: SubPlan64, a: torch.Tensor, b: torch.Tensor, pre: tuple, 
             acc[reg] = csub(acc[reg] + p, 2 * q)
     scale = plan._scale_cached if cached else plan._scale_fresh
     x = passes_on(plan, [shoup_lazy(v, *scale, q) for v in acc], itw, True, t, slot)
-    for reg, v in enumerate(times_row(x, post_w)):
+    for reg, v in enumerate(times_row(plan, x, lane, post)):
+        assert np.all(v < 2 * q)
         out[at(first[reg])[live]] = csub(v, q)[live]
     return as_tensor(out, a3[0].shape)
 
@@ -599,7 +653,10 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     """nwc64_cyclic_scaled and nwc64_cached_scaled, the model of their
     fused schedule on the per-pass tables, against the plain row passes
     and JAX's XLA ``cyclic_poly_mult`` between the scales (by Python ints);
-    256 rows of 128 at period 256 are p60_32768's row pass (n1 = 256)."""
+    256 rows of 128 at period 256 are p60_32768's row pass (n1 = 256).
+    There also the model of nwc64_forward_scaled at n = 128 and at
+    p60_1048576's n2 = 1024, periods 1 and 3, scale 1 and cacheable (times
+    2^64), against ``ntt_fwd_scaled_plain``."""
     plan, jplan = plans(n)
     q = plan.p.q
     a, b = product_operands(q, rows, n, seed=n + period)
@@ -613,6 +670,17 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     got = scaled_model(plan, a, spectrum, pre, post, cached=True)
     assert torch.equal(got, plan.cyclic_poly_mult_cached_scaled_plain(a, spectrum, pre, post))
     assert torch.equal(got, rows_times(want, post, q))
+    if (n, period) != (128, 256):
+        return
+    for n_f, rows_f in ((128, 12), (1024, 3)):  # partial tiles at 128; a block a row at 1024
+        plan_f = plans(n_f)[0]
+        x = operands(q, (rows_f, n_f), seed=n_f)
+        for period_f in (1, 3):
+            pre_f = scale_tables(plan_f, period_f, seed=period_f)[0]
+            for cacheable in (False, True):
+                assert torch.equal(forward_scaled_model(plan_f, x, pre_f, cacheable),
+                                   plan_f.ntt_fwd_scaled_plain(x, pre_f, cacheable)), (
+                    n_f, period_f, cacheable)
 
 
 def test_fused_dot_model_matches_plain_and_jax(monkeypatch):
@@ -620,7 +688,9 @@ def test_fused_dot_model_matches_plain_and_jax(monkeypatch):
     fused schedule (the row pass's forwards a term, the sum kept below 2q,
     one inverse) against ``dot_scaled_plain`` and the sum of JAX's XLA
     cyclic products between the scales, at 6 rows of 256, period 3 (a row
-    pass test's shape: JAX's eager ops compiled once)."""
+    pass test's shape: JAX's eager ops compiled once); the same loop
+    without scales on merged tables, the flat dot nwc64_dot, against
+    ``nwc_dot_plain`` and ``nwc_dot_cached_plain``."""
     n, rows, period = 256, 6, 3
     plan, jplan = plans(n)
     q = plan.p.q
@@ -637,34 +707,64 @@ def test_fused_dot_model_matches_plain_and_jax(monkeypatch):
             got = scaled_model(plan, a, y, pre, post, cached)
             assert torch.equal(got, plan.dot_scaled_plain(a, y, pre, post, cached))
             assert torch.equal(got, want), (terms, cached)
+        flat = plan.nwc_spectrum_plain(b.reshape(-1, n)).reshape(b.shape)
+        assert torch.equal(scaled_model(plan, a, b, None, None), plan.nwc_dot_plain(a, b)), terms
+        assert torch.equal(scaled_model(plan, a, flat, None, None, cached=True),
+                           plan.nwc_dot_cached_plain(a, flat)), terms
 
 
-def test_row_passes_launch_with_per_pass_tables(monkeypatch):
-    """nwc64_cyclic_scaled, nwc64_cached_scaled and nwc64_dot_scaled
-    receive the cyclic tables in the per-pass layout (``pass_table``), the
-    first-core row passes the flat ones."""
-    plan = SubPlan64(make_params(128, Q_GENERIC), "cpu")
+def faked_launches(monkeypatch, plan) -> dict:
+    """The plan's launches, faked on the CPU: entry -> the C arguments of
+    its last launch."""
     calls = {}
     monkeypatch.setattr(plan, "_runs_plain", lambda x: False)
     monkeypatch.setattr(plan, "_launch", lambda entry, out, *args: calls.update(
         {entry: args}) or out)
-    a = operands(Q_GENERIC, (4, 128), seed=3)
-    pre, post = scale_tables(plan, 2, seed=4)
-    plan.cyclic_poly_mult_scaled(a, a, pre, post)
-    plan.cyclic_poly_mult_cached_scaled(a, a, pre, post)
-    plan.dot_scaled(a[None], a[None], pre, post)
-    plan.ntt_fwd_scaled(a, pre)
-    plan.ntt_inv_scaled(a, post)
-    tw = kmxu64.pass_table(plan.plan.cyclic_flat)
-    itw = kmxu64.pass_table(plan.plan.cyclic_inv_flat)
-    for entry in ("cyclic_scaled", "cached_scaled", "dot_scaled"):
-        tables = calls[entry][3:7]  # after a, b and out
-        for got, want in zip(tables, tw + itw):
-            assert torch.equal(got, want), entry
-        assert all(x is y for x, y in zip(calls[entry][7:11], (*pre, *post))), entry
-    assert calls["forward_scaled"][2] is plan.plan.cyclic_flat[0]
-    assert calls["inverse_scaled"][2] is plan.plan.cyclic_inv_flat[0]
-    assert {"cyclic_scaled", "cached_scaled", "dot_scaled"} <= MxuPlan64.pass_entries
+    return calls
+
+
+def test_row_passes_launch_with_per_pass_tables(monkeypatch):
+    """nwc64_cyclic_scaled, nwc64_cached_scaled, nwc64_dot_scaled and
+    nwc64_forward_scaled receive the cyclic tables in the per-pass layout
+    (``pass_table``), nwc64_dot the merged ones, the first-core row pass
+    the flat ones, on ``SubPlan64`` (n = 128) and ``MxuPlan64`` (n = 256);
+    the Goldilocks plans keep the flat tables for gl64_forward_scaled and
+    gl64_dot, which run gl64.cu's first core."""
+    assert {"cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled",
+            "dot"} <= MxuPlan64.pass_entries
+    assert not {"forward_scaled", "dot"} & GoldilocksPlan64.pass_entries
+    for cls, gl_cls, n in ((SubPlan64, GoldilocksSubPlan64, 128),
+                           (MxuPlan64, GoldilocksPlan64, 256)):
+        plan = cls(make_params(n, Q_GENERIC), "cpu")
+        calls = faked_launches(monkeypatch, plan)
+        a = operands(Q_GENERIC, (4, n), seed=3)
+        pre, post = scale_tables(plan, 2, seed=4)
+        plan.cyclic_poly_mult_scaled(a, a, pre, post)
+        plan.cyclic_poly_mult_cached_scaled(a, a, pre, post)
+        plan.dot_scaled(a[None], a[None], pre, post)
+        plan.ntt_fwd_scaled(a, pre)
+        plan.ntt_inv_scaled(a, post)
+        plan.nwc_dot(a[None], a[None])
+        tw = kmxu64.pass_table(plan.plan.cyclic_flat)
+        itw = kmxu64.pass_table(plan.plan.cyclic_inv_flat)
+        merged = (kmxu64.pass_table(plan.plan.merged_flat)
+                  + kmxu64.pass_table(plan.plan.merged_inv_flat))
+        for entry, want in (("cyclic_scaled", tw + itw), ("cached_scaled", tw + itw),
+                            ("dot_scaled", tw + itw), ("dot", merged)):
+            tables = calls[entry][3:7]  # after a, b and out
+            assert all(torch.equal(x, y) for x, y in zip(tables, want)), (cls, entry)
+        for entry in ("cyclic_scaled", "cached_scaled", "dot_scaled"):
+            assert all(x is y for x, y in zip(calls[entry][7:11], (*pre, *post))), entry
+        assert all(torch.equal(x, y) for x, y in zip(calls["forward_scaled"][2:4], tw))
+        assert all(x is y for x, y in zip(calls["forward_scaled"][4:6], pre))
+        assert calls["inverse_scaled"][2] is plan.plan.cyclic_inv_flat[0]
+        gl = gl_cls(make_params(n, GOLDILOCKS_Q), "cpu")
+        calls = faked_launches(monkeypatch, gl)
+        gl.ntt_fwd_scaled(a, (a[:2].contiguous(),))
+        gl.nwc_dot(a[None], a[None])
+        assert calls["forward_scaled"][2] is _plan._table(gl.plan.cyclic_flat)[0]
+        assert calls["dot"][3] is _plan._table(gl.plan.merged_flat)[0]
+        assert calls["dot"][4] is _plan._table(gl.plan.merged_inv_flat)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -730,10 +830,10 @@ C_TYPES = {"int": kmxu64.ctypes.c_int, "uint64_t": kmxu64.ctypes.c_uint64}
 
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
-    """``load`` types nwc64_forward, nwc64_inverse, nwc64_product and
-    nwc64_cached, ``load_scaled`` the column entry points and the three
-    fused row passes, with the C argument types of csrc/nwc64.cu; those
-    nine read per-pass tables."""
+    """``load`` types nwc64_forward, nwc64_inverse, nwc64_product,
+    nwc64_cached and nwc64_dot, ``load_scaled`` the column entry points,
+    the three fused row passes and the row forward, with the C argument
+    types of csrc/nwc64.cu; those eleven read per-pass tables."""
     bound = {}
     monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
     _plan.load.__wrapped__("nwc64", 64)
@@ -743,7 +843,7 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     source = (_build.CSRC / "nwc64.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (nwc64_\w+)\(([^)]*)\)', source))
     radix = ("forward", "inverse", "forward_cols", "inverse_cols", "product", "cached",
-             "cyclic_scaled", "cached_scaled", "dot_scaled")
+             "cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled", "dot")
     assert MxuPlan64.pass_entries == set(radix)
     for suffix in radix:
         params = [p.strip() for p in decls[f"nwc64_{suffix}"].split(",")]
@@ -783,7 +883,10 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
         for method, args in (("cyclic_poly_mult_scaled", (a, b, pre, post)),
                              ("cyclic_poly_mult_cached_scaled", (a, spectrum, pre, post)),
                              ("dot_scaled", (a3, b3, pre, post)),
-                             ("dot_scaled", (a3, spectrum.reshape(1, 5, n), pre, post, True))):
+                             ("dot_scaled", (a3, spectrum.reshape(1, 5, n), pre, post, True)),
+                             ("ntt_fwd_scaled", (a, pre)), ("ntt_fwd_scaled", (a, pre, True)),
+                             ("nwc_dot", (a3, b3)),
+                             ("nwc_dot_cached", (a3, plan.nwc_spectrum(b).reshape(1, 5, n)))):
             assert torch.equal(getattr(plan, method)(*args),
                                getattr(plan, method + "_plain")(*args)), (n, method)
         for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv"):
@@ -799,13 +902,15 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("toggle", ["prefix_scan", "carry_save"])
+@pytest.mark.parametrize("toggle", ["prefix_scan", "carry_save", "shoup_lazy"])
 def test_k1a_toggle_gives_the_ports_integers(toggle):
     """JAX's ``MxuPlan64`` with the Sklansky borrow scan on (mxu64.py:797,
-    :699-708) or the u32-word accumulator in place of the carry-save lanes
-    (:791, ``_matmul_mont`` :862-945, ``_redc96`` :736), one product in
-    interpret mode at n = 256: the port's ``MxuPlan64`` gives the same."""
-    value = {"prefix_scan": True, "carry_save": False}[toggle]
+    :699-708), the u32-word accumulator in place of the carry-save lanes
+    (:791, ``_matmul_mont`` :862-945, ``_redc96`` :736) or the strict Shoup
+    product in place of the lazy one (:799, ``_shoup`` :946-953), one
+    product in interpret mode at n = 256: the port's ``MxuPlan64`` gives
+    the same."""
+    value = {"prefix_scan": True, "carry_save": False, "shoup_lazy": False}[toggle]
     jax_cls = type(f"JaxMxuPlan64_{toggle}", (JaxMxuPlan64,), {toggle: value})
     jm = jax_cls(jparams.make_params(256, Q_GENERIC))
     jm.groups_per_step = 1  # keep interpret-mode cost down

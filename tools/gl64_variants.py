@@ -36,7 +36,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from nwc64_variants import (best_ms, build, build_all, chosen, count_against,  # noqa: E402
-                            parse_args)
+                            first_core_trips, parse_args)
 from tpu_ntt_torch.kernels import _build  # noqa: E402
 from tpu_ntt_torch.kernels.gl64 import GoldilocksSubPlan64  # noqa: E402
 from tpu_ntt_torch.params import GOLDILOCKS_4096, make_params  # noqa: E402
@@ -131,8 +131,8 @@ def main() -> int:
             libs["against"] = build(opts.against.read_text(), path, "gl64", ARGTYPES,
                                     KERNELS[:1], "cyclic_scaled_kernelILi")
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {"cyclic_scaled_kernel<0>": (7, 10),
-                                 "cyclic_scaled_kernel<1>": (7, 10)})
+            count_against(path, {k: {l: first_core_trips(l) for l in (7, 10)}
+                                 for k in ("cyclic_scaled_kernel<0>", "cyclic_scaled_kernel<1>")})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream

@@ -13,16 +13,18 @@ p60_32768 (256 x 128, B = 256) and p60_1048576 (1024 x 1024, B = 4), the
 fused ``nwc64_product`` and ``nwc64_cached`` at P60_4096, B = 2048, and the
 four-step's fused row passes ``nwc64_cyclic_scaled`` and
 ``nwc64_cached_scaled`` at p60_32768's rows (65536 of 128, period 256) and
-p60_1048576's (4096 of 1024, period 1024) and ``nwc64_dot_scaled`` at
-K = 4 on 16384 rows of 128, fresh and cached, run under every variant in
-turns, each timed by CUDA events: the best of three runs of 50 launches,
-over two rounds.  A variant marked wrong computes other integers: its time
-says what the work it drops costs, nothing else; every other variant must
-give the base's integers.  ``--against`` builds an earlier nwc64.cu beside
-them (whose row passes, ``AGAINST_FLAT``, read the flat tables: the first
-core's), times it in the same turns, holds it to the base's integers, and
-counts the instructions its first-core row pass issues (cuobjdump,
-chip_smoke.py's count).  ``--build-only`` stops after the builds' reports
+p60_1048576's (4096 of 1024, period 1024), ``nwc64_dot_scaled`` at
+K = 4 on 16384 rows of 128, fresh and cached, the row forward
+``nwc64_forward_scaled`` at the same two row shapes and the flat dot
+``nwc64_dot`` at P60_4096, K = 4, B = 512, fresh and cached, run under
+every variant in turns, each timed by CUDA events: the best of three runs
+of 50 launches, over two rounds.  A variant marked wrong computes other
+integers: its time says what the work it drops costs, nothing else; every
+other variant must give the base's integers.  ``--against`` builds an
+earlier nwc64.cu beside them (whose entry points of ``AGAINST_FLAT`` read
+the flat tables: the first core's), times it in the same turns, holds it
+to the base's integers, and counts the instructions its first-core row
+forward issues (cuobjdump, chip_smoke.py's count).  ``--build-only`` stops after the builds' reports
 of registers and spills; ``--only`` builds the named variants and the
 base.  Needs a CUDA device and nvcc; prints the card's name and power
 limit.
@@ -57,6 +59,27 @@ PASSES = "constexpr bool opaque_passes(int log_n) { return log_n == 13; }"
 PHASES = "  return cached || log_n == 13;"
 BLOCKS = "  return threads > 384 ? 1 : 512 / threads;"
 ROW_THREADS = "constexpr int kRowThreads = 512;"
+FORWARD_BOUNDS = ("__launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLogN))\n"
+                  "    forward_scaled_kernel(")
+FORWARD_HALVES = "  scaled_forward<kLogN, tight(kLogN) ? 2 : 1>(x, in, at,"
+# the dot's loop: a step's slot into the sum, the sum read for the inverse
+DOT_SUM_STEP = (
+    "      uint64_t y[kWords], acc[kWords];\n"
+    "      if constexpr (kCached) {\n"
+    "        load<kLogN, false, kLast>(y, b, ak, 1, ts, live);  // [0, q), times 2^64\n"
+    "      } else {\n"
+    "        from_shared<kLogN, false, kLast>(y, spectrum, gs, ts);  // [0, 2q)\n"
+    "      }\n"
+    "      from_shared<kLogN, false, kLast>(acc, sum, gs, ts);\n"
+    "#pragma unroll\n"
+    "      for (int r = 0; r < kWords; ++r) {  // [0, 2q) + [0, 2q) < 4q -> [0, 2q)\n"
+    "        acc[r] = csub(acc[r] + slot<kCached>(x[r], y[r], q, q_prime), 2 * q);\n"
+    "      }\n"
+    "      to_shared<kLogN, false, kLast>(acc, sum, gs, ts);\n")
+DOT_SUM_START = "  to_shared<kLogN, false, kLast>(x, sum, g, t);\n  const int steps"
+DOT_SUM_END = "  from_shared<kLogN, false, kLast>(x, sum, gi, ti);\n"
+DOT_BLOCKS = ("  return scaled || log_n < 7 ? scaled_blocks(log_n) : "
+              "1024 / block_threads(log_n, false);")
 TIGHT = "constexpr int kTightFrom = 1024;"
 STORE = ("  for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, q), n^-1 (and 2^64) folded in\n"
          "    x[r] = csub(shoup_lazy(x[r], scale, scale_shoup, q), q);")
@@ -201,9 +224,32 @@ VARIANTS = {
     "row passes at 1024 threads an SM": (
         "the row passes at 1024 threads an SM below n = 8192 (64 registers, tight)",
         [(ROW_THREADS, ROW_THREADS.replace("512", "1024"))], True),
+    # the row forward's threads an SM, the flat dot's sum and threads an SM
+    "row forward at 1024 threads an SM": (
+        "nwc64_forward_scaled at the transforms' 1024 threads an SM (64 registers, pre's "
+        "words in two halves), not the fused row passes' 512",
+        [(FORWARD_BOUNDS, FORWARD_BOUNDS.replace("scaled_blocks(kLogN)",
+                                                 "1024 / block_threads(kLogN, false)")),
+         (FORWARD_HALVES, FORWARD_HALVES.replace("tight(kLogN) ? 2 : 1", "2"))], True),
+    "dot sum in registers": (
+        "where not tight the dots' sum in eight registers a thread across the loop, not in "
+        "a tile of shared memory", [
+            (DOT_SUM_START, "  uint64_t total[kWords] = {};\n" + DOT_SUM_START),
+            (DOT_SUM_STEP, DOT_SUM_STEP.replace("y[kWords], acc[kWords]", "y[kWords]")
+             .replace("      from_shared<kLogN, false, kLast>(acc, sum, gs, ts);\n", "")
+             .replace("      to_shared<kLogN, false, kLast>(acc, sum, gs, ts);\n", "")
+             .replace("acc[r]", "total[r]")),
+            (DOT_SUM_END, "  if constexpr (kTight) {\n  " + DOT_SUM_END + "  } else {\n"
+             "#pragma unroll\n    for (int r = 0; r < kWords; ++r) {\n"
+             "      x[r] = total[r];\n    }\n  }\n")], True),
+    "flat dot at 512 threads an SM": (
+        "the flat dot at the row passes' 512 threads an SM (up to 128 registers, one block at "
+        "n = 4096) at every n, the sum's words read eight at a time below n = 8192, not at "
+        "1024 (64 registers, tight) from n = 128", [(DOT_BLOCKS, "  return scaled_blocks(log_n);")],
+        True),
 }
 #: the entry points an --against source runs on the first core's flat tables
-AGAINST_FLAT = ("cyclic_scaled", "cached_scaled", "dot_scaled")
+AGAINST_FLAT = ("forward_scaled", "dot")
 ENTRIES = {"forward": 2, "inverse": 2, "forward_cols": 3, "inverse_cols": 3}  # int arguments
 PRODUCT_TYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_uint64] * 4 + [
     ctypes.c_void_p]
@@ -211,11 +257,17 @@ SCALED_TYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_uint64] *
     ctypes.c_void_p]
 DOT_TYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_uint64] * 4 + [
     ctypes.c_int, ctypes.c_void_p]
+FLAT_DOT_TYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_uint64] * 4 + [
+    ctypes.c_int, ctypes.c_void_p]
+FORWARD_SCALED_TYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_uint64] * 3 + [
+    ctypes.c_void_p]
 #: the instantiations whose registers and spills each build reports, and the
 #: fused kernels (mangled prefixes) whose every instantiation it scans for spills
 SUMMARY = ("transform_kernelILi12ELb0ELb0EE", "product_kernelILi12ELb0EE",
-           "cyclic_scaled_kernelILi7ELb0EE", "dot_scaled_kernelILi7ELb0EE")
-FUSED = ("product_kernelILi", "cyclic_scaled_kernelILi", "dot_scaled_kernelILi")
+           "cyclic_scaled_kernelILi7ELb0EE", "dot_scaled_kernelILi7ELb0ELb1EE",
+           "forward_scaled_kernelILi7EE", "dot_scaled_kernelILi12ELb0ELb0EE")
+FUSED = ("product_kernelILi", "cyclic_scaled_kernelILi", "dot_scaled_kernelILi",
+         "forward_scaled_kernelILi")
 
 
 def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None, kernels=SUMMARY,
@@ -245,10 +297,11 @@ def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None, kernels=
                     if "registers" in line)
         summary.append(f"{kernel}: {regs} registers, {spill}")
     text = "\n".join(lines)
-    spilling = [f"{m.group(1)}<{m.group(2)}, {m.group(3)}>: {m.group(4)}/{m.group(5)} bytes"
+    spilling = [f"{m.group(1)}<{', '.join([m.group(2), *re.findall(r'Lb(\d)E', m.group(3))])}>: "
+                f"{m.group(4)}/{m.group(5)} bytes"
                 for prefix_ in ((fused,) if isinstance(fused, str) else fused)
                 for m in re.finditer(
-                    "(" + prefix_ + r")(\d+)ELb(\d)EE\S*\n[^\n]*?(\d+) bytes spill stores, "
+                    "(" + prefix_ + r")(\d+)E((?:Lb\dE)*)E\S*\n[^\n]*?(\d+) bytes spill stores, "
                     r"(\d+) bytes spill loads", text) if m.group(4) != "0" or m.group(5) != "0"]
     summary.append(f"fused kernels spilling (stores/loads): {spilling or 'none'}")
     lib = ctypes.CDLL(str(out))
@@ -257,7 +310,8 @@ def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None, kernels=
         argtypes = {entry: [ptr] * 4 + [i32] * ints + [u64] * 3 + [ptr]
                     for entry, ints in ENTRIES.items()}
         argtypes.update(product=PRODUCT_TYPES, cached=PRODUCT_TYPES, cyclic_scaled=SCALED_TYPES,
-                        cached_scaled=SCALED_TYPES, dot_scaled=DOT_TYPES)
+                        cached_scaled=SCALED_TYPES, dot_scaled=DOT_TYPES, dot=FLAT_DOT_TYPES,
+                        forward_scaled=FORWARD_SCALED_TYPES)
     for entry, types in argtypes.items():
         fn = getattr(lib, f"{prefix}_{entry}")
         fn.argtypes = types
@@ -300,19 +354,32 @@ def best_ms(call, iters: int = 50) -> float:
     return best
 
 
+def first_core_threads(log_n: int) -> int:
+    """A first-core kernel's threads a row (nwc64.cu's threads_for)."""
+    n = 1 << log_n
+    return min(max(n // 8, min(n // 2, 32)), 1024)
+
+
 def first_core_trips(log_n: int) -> tuple:
     """The loop trips of the first core's product after its first barrier
     (the forward's butterfly and stage loops, the slot loop, the inverse's
-    two, the store loop) at threads_for(log n) threads a row."""
-    n = 1 << log_n
-    threads = min(max(n // 8, min(n // 2, 32)), 1024)
+    two, the store loop)."""
+    n, threads = 1 << log_n, first_core_threads(log_n)
     return (n // 2 // threads, log_n, n // threads) * 2
+
+
+def forward_trips(log_n: int) -> tuple:
+    """The same for the first core's row forward: its butterfly and stage
+    loops, then its store loop, unrolled by 4, and the remainder's."""
+    n, threads = 1 << log_n, first_core_threads(log_n)
+    return (n // 2 // threads, log_n, n // threads // 4, n // threads % 4)
 
 
 def count_against(lib: Path, kernels: dict) -> None:
     """Print the instructions a thread of each first-core kernel of the
     library ``lib`` issues after its first barrier at each log n (kernel ->
-    log n's), and a row's (times its threads), by chip_smoke.py's count."""
+    {log n: its loops' trips}), and a row's (times its threads), by
+    chip_smoke.py's count."""
     import chip_smoke
 
     listing = chip_smoke.sass_listing(lib)
@@ -320,10 +387,9 @@ def count_against(lib: Path, kernels: dict) -> None:
         if kernel not in listing:
             print(f"against: no {kernel} in that source")
             continue
-        for log_n in logs:
-            trips = first_core_trips(log_n)
+        for log_n, trips in logs.items():
             issued = chip_smoke.issued_per_thread(listing[kernel], trips)
-            threads = (1 << log_n) // trips[2]
+            threads = first_core_threads(log_n)
             print(f"against: {kernel} at n = {1 << log_n}, loop trips {trips}: a thread "
                   f"issues {issued} after its first barrier, a row of {threads} threads "
                   f"{issued * threads if issued else None}"
@@ -367,8 +433,7 @@ def main() -> int:
             libs["against"] = build(opts.against.read_text(), path,
                                     kernels=("transform_kernelILi12ELb0ELb0EE",))
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {"cyclic_scaled_kernel<0>": (7, 10),
-                                 "cyclic_scaled_kernel<1>": (7, 10)})
+            count_against(path, {"forward_scaled_kernel": {l: forward_trips(l) for l in (7, 10)}})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -438,6 +503,29 @@ def main() -> int:
                          + (f", K={terms}" + (" cached" if dot[1] else "") if terms else ""))
                 keep = (a, z, pre, post, flat, [row._transform_table(t) for t in flat], call[1])
                 cases.append((label, entry, out, call[0], keep))
+            if not terms:  # the row forward of a, at scale 1
+                fout = torch.empty_like(a)
+                call = [(a.data_ptr(), fout.data_ptr(), *(w.data_ptr() for w in tw),
+                         *(w.data_ptr() for w in pre), n1, rows, row.p.log_n, row.p.q,
+                         *row._scale_one, stream)
+                        for tw in (row._transform_table(flat[0]), flat[0])]
+                cases.append((f"nwc64_forward_scaled {rows} rows of {n2}, period {n1}",
+                              "forward_scaled", fout, call[0],
+                              (a, fout, pre, flat, row._transform_table(flat[0]), call[1])))
+        # the flat dot at P60_4096, K = 4, B = 512, fresh and cached
+        a4, b4 = residues(plan, (4, 512, 4096)), residues(plan, (4, 512, 4096))
+        s4 = plan.nwc_spectrum_plain(b4.reshape(-1, 4096)).reshape(b4.shape)
+        out = torch.empty((512, 4096), dtype=torch.int64, device=device)
+        merged = (plan.plan.merged_flat, plan.plan.merged_inv_flat)  # what --against reads
+        for z, scale, cached in ((b4, plan._scale_fresh, 0), (s4, plan._scale_cached, 1)):
+            call = [(a4.data_ptr(), z.data_ptr(), out.data_ptr(),
+                     *(w.data_ptr() for t in tables for w in t), 4, 512, plan.p.log_n,
+                     *plan._q_args(True), *scale, cached, stream)
+                    for tables in ((plan._transform_table(merged[0]),
+                                    plan._transform_table(merged[1])), merged)]
+            cases.append(("nwc64_dot P60_4096 K=4 B=512" + (" cached" if cached else ""), "dot",
+                          out, call[0],
+                          (a4, z, merged, [plan._transform_table(t) for t in merged], call[1])))
         times, want = {}, {}
         for _ in range(2):
             for label, entry, out, call, keep in cases:

@@ -73,8 +73,8 @@ def table_words(form: str) -> int:
 def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
              terms: int = DOT_TERMS, forms=None, period: int = 1) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) of one call of a fused NTT kernel entry
-    (``product``, ``cached``, ``forward``, ``inverse``, ``dot``,
-    ``matvec``, the column entry points ``forward_cols`` and
+    (``product``, ``cached``, ``forward``, ``inverse``, ``dot`` fresh or,
+    as ``dot_cached``, cached, ``matvec``, the column entry points ``forward_cols`` and
     ``inverse_cols`` on ``batch`` columns, and the four-step's row kernels
     ``cyclic_scaled``, ``cached_scaled``, ``forward_scaled`` at scale 1,
     ``inverse_scaled``, ``dot_scaled`` fresh or, as ``dot_cached_scaled``,
@@ -120,9 +120,10 @@ def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
         return 2 * rows, batch * t * shoup
     if entry == "inverse":
         return 2 * rows, batch * (t + n) * shoup
-    if entry == "dot":
+    if entry in ("dot", "dot_cached"):
+        fresh = 2 if entry == "dot" else 1  # operands transformed
         return ((2 * terms + 1) * rows,
-                batch * (2 * terms * t * shoup + terms * n * mont + (t + n) * shoup))
+                batch * (fresh * terms * t * shoup + terms * n * mont + (t + n) * shoup))
     assert entry == "matvec", entry
     return ((terms + terms) * rows + terms * terms * n * word,
             batch * (terms * t * shoup + terms * (terms * n * mont + (t + n) * shoup)))
@@ -191,8 +192,9 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
     ``cached_scaled``, column inverse), ``dot`` and ``dot_cached`` (column
     forward of each fresh operand, ``dot_scaled``, column inverse),
     ``matvec`` (column forward of s, ``forward_scaled``, ``matvec_scaled``,
-    column inverse), ``nwc_fwd`` (column forward, ``forward_scaled``) or
-    ``nwc_inv`` (``inverse_scaled``, column inverse).  Bytes: each input
+    column inverse), ``nwc_fwd`` (column forward, ``forward_scaled``),
+    ``spectrum`` (the same, and at a 60-bit q one Shoup product a word by
+    2^64) or ``nwc_inv`` (``inverse_scaled``, column inverse).  Bytes: each input
     read once and the output written once, with the mid tables (and the
     matvec's spectra of A); as built, what the kernels move: both families'
     column passes are column entry points (``nwc64_*_cols``,
@@ -228,8 +230,10 @@ def fourstep_work(op: str, n: int, q: int, batch: int,
         kernels = [col("forward", terms * batch), row("forward_scaled", terms * batch),
                    row("matvec_scaled", batch), col("inverse", terms * batch)]
         io = 2 * terms * data + terms * terms * n * 8
-    elif op == "nwc_fwd":
+    elif op in ("nwc_fwd", "spectrum"):
         kernels = [col("forward", batch), row("forward_scaled", batch)]
+        if op == "spectrum" and not forms:  # times 2^64 mod q
+            kernels.append((0, batch * n * muls("shoup64", q)))
         tables, io = mid, 2 * data
     else:
         assert op == "nwc_inv", op

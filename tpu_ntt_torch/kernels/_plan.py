@@ -425,8 +425,8 @@ class KernelPlan:
             return out
         scale = self._scale_cached if cached else self._scale_fresh
         return self._launch(
-            "dot", out, a, b, out, *_table(self.plan.merged_flat),
-            *_table(self.plan.merged_inv_flat), terms, batch, self.p.log_n,
+            "dot", out, a, b, out, *self._table_of("dot", self.plan.merged_flat),
+            *self._table_of("dot", self.plan.merged_inv_flat), terms, batch, self.p.log_n,
             *self._q_args(True), *scale, int(cached))
 
     def _check(self, t: torch.Tensor, name: str, dims: int) -> None:
@@ -599,8 +599,8 @@ class ScaledKernelPlan(KernelPlan):
             return out
         scale = self._scale_spectrum if cacheable else self._scale_one
         return self._launch(
-            "forward_scaled", out, x, out, *_table(self.plan.cyclic_flat), *pre, period,
-            x.shape[0], self.p.log_n, *self._q_args(False), *scale)
+            "forward_scaled", out, x, out, *self._table_of("forward_scaled", self.plan.cyclic_flat),
+            *pre, period, x.shape[0], self.p.log_n, *self._q_args(False), *scale)
 
     def ntt_fwd_scaled_plain(self, x, pre, cacheable=False):
         y = ntt.ntt_fwd_bitrev(self.plan, self._rows_times(x, pre))

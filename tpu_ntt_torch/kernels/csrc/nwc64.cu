@@ -49,52 +49,49 @@
 // carried over.  Correct for any odd q < 2^62 and 32 <= n <= 8192 (the
 // public window is 256 <= n <= 8192; below it, the four-step's sub-sizes).
 //
-// Two cores.  Nine entry points run the radix-8 core below ("The radix-8
+// Two cores.  Eleven entry points run the radix-8 core below ("The radix-8
 // core"): nwc64_forward, nwc64_inverse and their column entry points, and,
 // fused onto it ("The product on the radix-8 core"), nwc64_product and
 // nwc64_cached, both forwards, the slot product and the inverse in one
-// kernel a launch, and the four-step's row passes nwc64_cyclic_scaled,
+// kernel a launch, the four-step's row passes nwc64_cyclic_scaled,
 // nwc64_cached_scaled and nwc64_dot_scaled ("The four-step's row passes
 // fused"), the same with the scales at entry and exit and, for the dot, a
-// sum of terms before the one inverse.  The other five (nwc64_dot,
-// nwc64_matvec, nwc64_forward_scaled, nwc64_inverse_scaled and
-// nwc64_matvec_scaled) run the first core, correct first and simple (the
-// design of nwc32.cu on 64-bit words), until they move onto the radix-8
-// one:
-// * One thread block per row (per output row for the dot and the matvec).
-//   The rows a block works on live in dynamic shared memory, 8n bytes each:
-//   the dot holds three (192 KiB at n = 8192, under the 227 KB a block may
-//   have), so device memory sees each operand and each result once.  n / 8
-//   threads (at most 1024) run four butterflies each up to n = 8192 (below
-//   n = 256, a warp, or n / 2).
-// * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
-//   Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
-//   between stages.  The stage with m groups reads entry m + g of a flat
-//   length-n table for group g, beside its Shoup companion
+// sum of terms before the one inverse, and on the same two kernels' code
+// the row forward nwc64_forward_scaled and the flat dot nwc64_dot (the dot
+// without scales, on the negacyclic tables).  The other three
+// (nwc64_matvec, nwc64_inverse_scaled and nwc64_matvec_scaled) run the
+// first core, correct first and simple (the design of nwc32.cu on 64-bit
+// words), until they move onto the radix-8 one:
+// * One thread block per row (per output row for the matvec), the row in
+//   dynamic shared memory, 8n bytes, so device memory sees each operand and
+//   each result once.  n / 8 threads (at most 1024) run four butterflies
+//   each up to n = 8192 (below n = 256, a warp, or n / 2).
+// * A Gentleman-Sande inverse (bit-reversed in, natural out),
+//   __syncthreads between stages.  The stage with m groups reads entry
+//   m + g of a flat length-n table for group g, beside its Shoup companion
 //   w' = floor(w * 2^64 / q); a constant multiply is Shoup with __umul64hi.
 //   The cyclic ops take the tables with omega powers (ntt.py, "bitrev").
 // * The slot product is Montgomery-64 (one REDC): a*b*2^-64.  Its 2^-64 and
 //   the inverse's n^-1 are cancelled by one Shoup multiply with the scale the
-//   wrapper passes (n^-1 * 2^64 mod q for two fresh spectra; n^-1 against a
-//   cached spectrum, which holds its 2^64 already).  Montgomery serves every
-//   odd q < 2^62 in three wide multiplies; the TPU's Solinas fold exists only
-//   because Mosaic has no 64-bit multiply.
-// * Every value stays canonical in [0, q), also through the dot's and the
-//   matvec's accumulation (one conditional subtract after each add: two
-//   residues below q < 2^62 sum below 2^63).
+//   wrapper passes (n^-1 against cached spectra, which hold their 2^64
+//   already).  Montgomery serves every odd q < 2^62 in three wide
+//   multiplies; the TPU's Solinas fold exists only because Mosaic has no
+//   64-bit multiply.
+// * Every value stays canonical in [0, q), also through the matvec's
+//   accumulation (one conditional subtract after each add: two residues
+//   below q < 2^62 sum below 2^63).
 // * The matvec keeps the l + k transforms of mxu64.py:1639 without holding A
 //   in shared memory (k * l * n * 8 bytes, 512 KiB at 4 x 4, n = 4096): the
 //   wrapper transforms the l * B rows of s with nwc64_forward into a scratch
 //   tensor, and nwc64_matvec accumulates sum_j REDC(S_j * A_ij) from device
 //   memory (A stays in L2) and runs one inverse per output row.
-// * Three of the four-step's row passes (nwc64_forward_scaled,
-//   nwc64_inverse_scaled, nwc64_matvec_scaled) are the first core's
-//   forward, inverse and matvec_kernel with one Shoup multiply more, by a
-//   table row, at entry or exit.  Row r of a launch reads row r % period
-//   of the (period, n) tables (w, w'): a batch of B polynomials of n1 rows
-//   each passes period = n1, every row of a polynomial in one launch.  The
-//   entry product leaves [0, q) before the transform, the exit product
-//   canonical words, as strict Shoup does for q < 2^62.
+// * Two of the four-step's row passes (nwc64_inverse_scaled,
+//   nwc64_matvec_scaled) are the first core's inverse and matvec_kernel
+//   with one Shoup multiply more, by a table row, at exit.  Row r of a
+//   launch reads row r % period of the (period, n) tables (w, w'): a batch
+//   of B polynomials of n1 rows each passes period = n1, every row of a
+//   polynomial in one launch.  The exit product leaves canonical words, as
+//   strict Shoup does for q < 2^62.
 //
 // What bounds the first core on this card.  Not the 64-bit multiplies it was
 // first thought to be: Hopper builds a 64 x 64 product from 32-bit IMADs,
@@ -146,32 +143,10 @@ struct Table {
   const uint64_t* w_shoup;
 };
 
-// Cooley-Tukey forward, in place, on `rows` rows of n values spaced n apart:
-// stage s has m = 2^s groups of 2t values, t = n >> (s + 1); butterfly j
-// pairs u = 2t * (j / t) + j % t with u + t.
-__device__ void forward(uint64_t* x, int rows, int log_n, Table tw, uint64_t q) {
-  const int n = 1 << log_n;
-  for (int s = 0; s < log_n; ++s) {
-    const int lt = log_n - 1 - s;
-    for (int j = threadIdx.x; j < n / 2; j += blockDim.x) {
-      const int g = j >> lt;
-      const int u = (g << (lt + 1)) | (j & ((1 << lt) - 1));
-      const int v = u + (1 << lt);
-      const uint64_t w = __ldg(tw.w + (1 << s) + g);
-      const uint64_t ws = __ldg(tw.w_shoup + (1 << s) + g);
-      for (int r = 0; r < rows; ++r) {
-        uint64_t* y = x + r * n;
-        const uint64_t yu = y[u], yv = shoup_mul(y[v], w, ws, q);
-        y[u] = add_mod(yu, yv, q);
-        y[v] = sub_mod(yu, yv, q);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Gentleman-Sande inverse of one row, in place: the forward's stages in
-// reverse order.  No n^-1: the caller's scale carries it.
+// Gentleman-Sande inverse of one row, in place: stage s has m = 2^s groups
+// of 2t values, t = n >> (s + 1), butterfly j pairing u = 2t * (j / t) +
+// j % t with u + t, the stages from the last to the first.  No n^-1: the
+// caller's scale carries it.
 __device__ void inverse(uint64_t* x, int log_n, Table itw, uint64_t q) {
   const int n = 1 << log_n;
   for (int s = log_n - 1; s >= 0; --s) {
@@ -192,8 +167,8 @@ __device__ void inverse(uint64_t* x, int log_n, Table itw, uint64_t q) {
 
 // ---------------------------------------------------------------------------
 // The radix-8 core: nwc64_forward, nwc64_inverse, nwc64_forward_cols and
-// nwc64_inverse_cols.  The same integers as the first core's forward and
-// inverse (a canonical result is unique), by another schedule:
+// nwc64_inverse_cols.  The same integers as a transform of one stage a
+// barrier (a canonical result is unique), by another schedule:
 //
 // * Passes in registers.  A thread holds kWords = 8 words and a pass runs
 //   three stages on them with no barrier between them: stage s + d of a
@@ -538,6 +513,17 @@ __device__ __forceinline__ void inverse_passes(uint64_t (&x)[kWords], uint64_t* 
   }
 }
 
+// The forward's store: lanes in [0, 4q) to [0, q), times `scale` (one lazy
+// Shoup product of the lane as it is) unless it is 1 (two compares).
+__device__ __forceinline__ void forward_out(uint64_t (&x)[kWords], uint64_t q, uint64_t scale,
+                                            uint64_t scale_shoup) {
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    x[r] = scale == 1 ? csub(csub(x[r], 2 * q), q)
+                      : csub(shoup_lazy(x[r], scale, scale_shoup, q), q);
+  }
+}
+
 // The transforms of `transforms` rows (kCols false: row r at r * n) or
 // columns (column c of matrix m at m * n * width + c, `width` words between
 // its elements) from `in` to `out`, each then times `scale` (the forward
@@ -566,12 +552,7 @@ __global__ void __launch_bounds__(block_threads(kLogN, kCols),
     load<kLogN, kCols, 0>(x, in, at, stride, t, live);
     run_pass<0, first_stages(kLogN), false, true>(x, pt.w, pt.w_shoup, 0, q);
     forward_passes<kLogN, kCols, 1>(x, smem, pt.w, pt.w_shoup, g, t, q);
-    const uint64_t q2 = 2 * q;
-#pragma unroll
-    for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, q)
-      x[r] = scale == 1 ? csub(csub(x[r], q2), q)
-                        : csub(shoup_lazy(x[r], scale, scale_shoup, q), q);
-    }
+    forward_out(x, q, scale, scale_shoup);
     store<kLogN, kCols, kLast>(x, out, at, stride, t, live);
   } else {
     // lanes in [0, q) from device memory: inside the inverse's [0, 2q)
@@ -763,22 +744,25 @@ __device__ __forceinline__ void times_row(uint64_t (&x)[kWords], Table table, si
   }
 }
 
-// The forward of row `at` of `in`, its words times pre's: lanes in [0, 4q)
+// The forward of row `at` of `in`, its words times pre's (with kScaled;
+// without, the flat dot's canonical words as they are): lanes in [0, 4q)
 // out, spectrum words 8t ... 8t + 7.
-template <int kLogN, int kHalves>
+template <int kLogN, int kHalves, bool kScaled = true>
 __device__ __forceinline__ void scaled_forward(uint64_t (&x)[kWords], const uint64_t* in,
                                                size_t at, Table pre, size_t srow, uint64_t* smem,
                                                Table tw, int g, int t, bool live, uint64_t q) {
   load<kLogN, false, 0>(x, in, at, 1, t, live);
-  times_row<kLogN, kHalves>(x, pre, srow, t, q);  // [0, 2q): the first stage's range
+  if constexpr (kScaled) {
+    times_row<kLogN, kHalves>(x, pre, srow, t, q);  // [0, 2q): the first stage's range
+  }  // else [0, q) from device memory: inside it too
   run_pass<0, first_stages(kLogN), false, true>(x, tw.w, tw.w_shoup, 0, q);
   forward_passes<kLogN, false, 1>(x, smem, tw.w, tw.w_shoup, g, t, q);
 }
 
 // The inverse from x (lanes in [0, 2q): the slot's words, times `scale`)
-// and the store of row `at`, times post's words at the store's positions,
-// one compare.
-template <int kLogN>
+// and the store of row `at`, times post's words at the store's positions
+// (with kScaled), one compare.
+template <int kLogN, bool kScaled = true>
 __device__ __forceinline__ void scaled_inverse(uint64_t (&x)[kWords], uint64_t* out, size_t at,
                                                Table post, size_t srow, uint64_t* smem,
                                                Table itw, int g, int t, bool live, uint64_t q) {
@@ -786,12 +770,42 @@ __device__ __forceinline__ void scaled_inverse(uint64_t (&x)[kWords], uint64_t* 
   constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
   run_pass<kS, 3, true>(x, itw.w + kOff, itw.w_shoup + kOff, group<kLogN, kS>(t), q);
   inverse_passes<kLogN, false, kLast - 1>(x, smem, itw.w, itw.w_shoup, g, t, q);
-  times_row<kLogN, tight(kLogN) ? 2 : 1>(x, post, srow, t, q);
+  if constexpr (kScaled) {
+    times_row<kLogN, tight(kLogN) ? 2 : 1>(x, post, srow, t, q);
+  }
 #pragma unroll
   for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, q)
     x[r] = csub(x[r], q);
   }
   store<kLogN, false, 0>(x, out, at, 1, t, live);
+}
+
+// The four-step's row forward on the radix-8 core (nwc64_forward_scaled):
+// out = NTT(pre . in) * scale on `rows` rows, row r scaled by row r % period
+// of the (period, n) Shoup table pre: scaled_forward (pre's lazy product on
+// the words the first pass loads), then the transforms' store (`scale` one
+// lazy Shoup product where it is not 1: a cacheable spectrum, times 2^64)
+// of spectrum words 8t ... 8t + 7.  Rows tile a block as in the
+// transforms, at the row passes' threads an SM (scaled_blocks) and, where
+// tight, pre's words in two halves: at the transforms' 1024 threads an SM
+// it spilled at n = 512 and ran about 1 % faster at n = 128, 4 % slower at
+// 1024 (tools/nwc64_variants.py, PERF.md section 5).
+template <int kLogN>
+__global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLogN))
+    forward_scaled_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, Table tw,
+                          Table pre, int period, int rows, uint64_t q, uint64_t scale,
+                          uint64_t scale_shoup) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  const size_t srow = live ? static_cast<size_t>(row % period) * kN : 0;
+  uint64_t x[kWords];
+  scaled_forward<kLogN, tight(kLogN) ? 2 : 1>(x, in, at, pre, srow, smem, tw, g, t, live, q);
+  forward_out(x, q, scale, scale_shoup);
+  store<kLogN, false, passes(kLogN) - 1>(x, out, at, 1, t, live);
 }
 
 // The slot's REDC(x y) of a's lane x in [0, 4q) and b's y, in [0, 2q)
@@ -865,13 +879,32 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLo
 // or twiddle of the loop live across it.  The row pass's blocks an SM and tight schedule (where
 // tight, the slot takes the sum's words one at a time, so that no read of a
 // later word passes the store of an earlier one).
+//
+// With kScaled false the same loop is the flat dot (nwc64_dot, K1b at
+// n <= 8192): out = INTT(sum_k NTT(a_k) o NTT(b_k)) * scale on the
+// negacyclic tables, no pre or post product (pre, post and period unused):
+// the first pass takes the rows' canonical words, the store one compare.
+// Its three tiles take 24 KiB a block up to n = 1024, 48 KiB at 2048, 96
+// KiB at 4096 and 192 KiB at 8192: room for two blocks of 512 threads at
+// n = 4096, which the row pass's 512 threads an SM left to one (ptxas gave
+// a thread 96 registers).  Without scale tables the dot's tight schedule
+// fits 64 registers, so from n = 128 the flat dot runs 1024 threads an SM
+// and tight, 3.5 % faster fresh and 5.6 % cached at n = 4096; at n = 32
+// and 64 that spilled 8 bytes, and there it keeps 512
+// (tools/nwc64_variants.py, PERF.md section 5).
 
 // Tiles of shared memory a dot block holds: the exchange's, the sum's, and
 // a fresh b's spectrum's.
 __host__ __device__ constexpr int dot_tiles(bool cached) { return cached ? 2 : 3; }
 
-template <int kLogN, bool kCached>
-__global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLogN))
+// Blocks an SM of a dot for __launch_bounds__: the row pass's, or the flat
+// dot's 1024 threads an SM from n = 128.
+__host__ __device__ constexpr int dot_blocks(int log_n, bool scaled) {
+  return scaled || log_n < 7 ? scaled_blocks(log_n) : 1024 / block_threads(log_n, false);
+}
+
+template <int kLogN, bool kCached, bool kScaled>
+__global__ void __launch_bounds__(block_threads(kLogN, false), dot_blocks(kLogN, kScaled))
     dot_scaled_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
                       uint64_t* __restrict__ out, Table tw, Table itw, Table pre, Table post,
                       int period, int terms, int rows, uint64_t q, uint64_t q_prime,
@@ -880,6 +913,8 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLo
   constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
   constexpr int kLast = passes(kLogN) - 1;
   constexpr int kHalves = tight(kLogN) ? 2 : 1;
+  // 64 registers a thread: the slot takes the sum's words one at a time
+  constexpr bool kTight = dot_blocks(kLogN, kScaled) * block_threads(kLogN, false) >= kTightFrom;
   uint64_t* const sum = smem + kTile * kN;
   uint64_t* const spectrum = smem + 2 * kTile * kN;
   const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
@@ -900,15 +935,15 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLo
     const bool of_b = !kCached && step % 2 == 0;  // b's forward of a fresh term
     const size_t ak = live ? (static_cast<size_t>(k) * rows + row) * kN : 0;
     const int gs = opaque(g), ts = opaque(t);
-    scaled_forward<kLogN, kHalves>(x, of_b ? b : a, ak, pre, opaque_row(srow), smem,
-                                   opaque_table(tw), gs, ts, live, q);
+    scaled_forward<kLogN, kHalves, kScaled>(x, of_b ? b : a, ak, pre, opaque_row(srow), smem,
+                                            opaque_table(tw), gs, ts, live, q);
     if (of_b) {
 #pragma unroll
       for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, 2q): the slot's lane
         x[r] = csub(x[r], 2 * q);
       }
       to_shared<kLogN, false, kLast>(x, spectrum, gs, ts);
-    } else if constexpr (tight(kLogN)) {
+    } else if constexpr (kTight) {
       uint64_t y[kWords];
       if constexpr (kCached) {
         load<kLogN, false, kLast>(y, b, ak, 1, ts, live);  // [0, q), times 2^64
@@ -943,48 +978,8 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLo
   for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, 2q)
     x[r] = shoup_lazy(x[r], scale, scale_shoup, q);
   }
-  scaled_inverse<kLogN>(x, out, at, post, srow, smem, opaque_table(itw), gi, ti, live, q);
-}
-
-// out[r] = INTT(sum_k NTT(a[k, r]) . NTT(b[k, r])) for (terms, batch, n)
-// stacks a and b; with `cached`, b holds spectra.  The sum stays in shared
-// memory, one inverse per output row.
-__global__ void dot_kernel(const uint64_t* __restrict__ a,
-                           const uint64_t* __restrict__ b,
-                           uint64_t* __restrict__ out, Table tw, Table itw,
-                           int terms, int batch, int log_n, uint64_t q,
-                           uint64_t q_prime, uint64_t scale,
-                           uint64_t scale_shoup, int cached) {
-  extern __shared__ uint64_t smem[];
-  const int n = 1 << log_n;
-  uint64_t* acc = smem;
-  uint64_t* x = smem + n;
-  uint64_t* y = smem + 2 * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = 0;
-  }
-  for (int k = 0; k < terms; ++k) {
-    const size_t row = (static_cast<size_t>(k) * batch + blockIdx.x) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      x[i] = a[row + i];
-      y[i] = b[row + i];
-    }
-    __syncthreads();
-    forward(x, cached ? 1 : 2, log_n, tw, q);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      acc[i] = add_mod(acc[i], mont_mul(x[i], y[i], q, q_prime), q);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = shoup_mul(acc[i], scale, scale_shoup, q);
-  }
-  __syncthreads();
-  inverse(acc, log_n, itw, q);
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = acc[i];
-  }
+  scaled_inverse<kLogN, kScaled>(x, out, at, post, srow, smem, opaque_table(itw), gi, ti, live,
+                                 q);
 }
 
 // out[i, r] = INTT(sum_j S[j, r] . A[i, j]) for block (r, i): S is the
@@ -1014,29 +1009,8 @@ __global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
   }
 }
 
-// Its first half: times pre[r % period], the forward, times `scale` unless
-// it is 1.
-__global__ void forward_scaled_kernel(const uint64_t* __restrict__ in,
-                                      uint64_t* __restrict__ out, Table tw,
-                                      Table pre, int period, int log_n,
-                                      uint64_t q, uint64_t scale,
-                                      uint64_t scale_shoup) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = shoup_mul(in[row + i], __ldg(pre.w + srow + i),
-                     __ldg(pre.w_shoup + srow + i), q);
-  }
-  __syncthreads();
-  forward(x, 1, log_n, tw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = scale == 1 ? x[i] : shoup_mul(x[i], scale, scale_shoup, q);
-  }
-}
-
-// Its second half: the inverse, times `scale` (n^-1), times post[r % period].
+// The four-step's row inverse: the inverse, times `scale` (n^-1), times
+// post[r % period].
 __global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
                                       uint64_t* __restrict__ out, Table itw,
                                       Table post, int period, int log_n,
@@ -1059,7 +1033,7 @@ __global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
 }
 
 // The four-step's row pass of the matvec: matvec_kernel on the rows of the
-// spectra of s (their row forward done by forward_scaled_kernel) against A's
+// spectra of s (their row forward done by nwc64_forward_scaled) against A's
 // cached spectra, (rows, cols, period, n), row r reading A's row r % period;
 // the exit scale post[r % period] after the inverse.
 __global__ void matvec_scaled_kernel(const uint64_t* __restrict__ spectra,
@@ -1170,9 +1144,10 @@ int launch_product(const void* a, const void* b, void* out, const void* tw,
 }
 
 // The fused row passes' entry (the product, cached with kCached, or with
-// kDot the dot over `terms` (terms, batch, n) rows): log n from 5 to 13,
-// whole periods, every pointer 16-byte aligned.
-template <bool kCached, bool kDot>
+// kDot the dot over `terms` (terms, batch, n) rows; kScaled false: the flat
+// dot, no scale tables): log n from 5 to 13, whole periods, every pointer
+// 16-byte aligned.
+template <bool kCached, bool kDot, bool kScaled = true>
 int launch_scaled(const void* a, const void* b, void* out, const void* tw,
                   const void* tw_shoup, const void* itw, const void* itw_shoup,
                   const void* pre, const void* pre_shoup, const void* post,
@@ -1195,9 +1170,9 @@ int launch_scaled(const void* a, const void* b, void* out, const void* tw,
 #define NWC64_LOG_N(L)                                                                        \
   case L:                                                                                     \
     if constexpr (kDot) {                                                                     \
-      return launch_rows<L>(dot_scaled_kernel<L, kCached>, dot_tiles(kCached), batch, s,      \
-                            pa, pb, po, ptw, pitw, ppre, ppost, period, terms, batch, q,      \
-                            q_prime, scale, scale_shoup);                                     \
+      return launch_rows<L>(dot_scaled_kernel<L, kCached, kScaled>, dot_tiles(kCached),       \
+                            batch, s, pa, pb, po, ptw, pitw, ppre, ppost, period, terms,      \
+                            batch, q, q_prime, scale, scale_shoup);                           \
     } else {                                                                                  \
       return launch_rows<L>(cyclic_scaled_kernel<L, kCached>, 1, batch, s, pa, pb, po,        \
                             ptw, pitw, ppre, ppost, period, batch, q, q_prime, scale,         \
@@ -1328,25 +1303,26 @@ extern "C" int nwc64_inverse_cols(const void* in, void* out, const void* itw,
                                  scale_shoup, stream);
 }
 
+// The dot of (terms, batch, n) stacks a and b, 1 <= terms <= 8 (b holds
+// spectra with `cached`), one output row per row of the batch: the loop of
+// nwc64_dot_scaled without its scale tables, on the tables of
+// mxu64.pass_table.
 extern "C" int nwc64_dot(const void* a, const void* b, void* out,
                          const void* tw, const void* tw_shoup, const void* itw,
                          const void* itw_shoup, int terms, int batch, int log_n,
                          uint64_t q, uint64_t q_prime, uint64_t scale,
                          uint64_t scale_shoup, int cached, void* stream) {
-  if (bad_shape(batch, log_n) || terms < 1 || terms > 8) {
+  if (terms > 8) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(dot_kernel, 3 * n);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  dot_kernel<<<batch, threads_for(log_n), 3 * n * sizeof(uint64_t),
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(a), static_cast<const uint64_t*>(b),
-      static_cast<uint64_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
-      terms, batch, log_n, q, q_prime, scale, scale_shoup, cached);
-  return cudaGetLastError();
+  return cached ? launch_scaled<true, true, false>(a, b, out, tw, tw_shoup, itw, itw_shoup,
+                                                   nullptr, nullptr, nullptr, nullptr, 1, terms,
+                                                   batch, log_n, q, q_prime, scale, scale_shoup,
+                                                   stream)
+                : launch_scaled<false, true, false>(a, b, out, tw, tw_shoup, itw, itw_shoup,
+                                                    nullptr, nullptr, nullptr, nullptr, 1, terms,
+                                                    batch, log_n, q, q_prime, scale, scale_shoup,
+                                                    stream);
 }
 
 extern "C" int nwc64_matvec(const void* spectra, const void* mat, void* out,
@@ -1402,6 +1378,8 @@ extern "C" int nwc64_cached_scaled(const void* a, const void* spectrum,
                                     q_prime, scale, scale_shoup, stream);
 }
 
+// The row forward: NTT(pre . in) times `scale` (1, or 2^64 for a cacheable
+// spectrum), on the radix-8 core with the tables of mxu64.pass_table.
 extern "C" int nwc64_forward_scaled(const void* in, void* out, const void* tw,
                                     const void* tw_shoup, const void* pre,
                                     const void* pre_shoup, int period,
@@ -1411,17 +1389,23 @@ extern "C" int nwc64_forward_scaled(const void* in, void* out, const void* tw,
   if (bad_shape(batch, log_n) || period < 1 || batch % period) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(forward_scaled_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned({in, out, tw, tw_shoup, pre, pre_shoup})) {
+    return cudaErrorMisalignedAddress;
   }
-  forward_scaled_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
-      table(tw, tw_shoup), table(pre, pre_shoup), period, log_n, q, scale,
-      scale_shoup);
-  return cudaGetLastError();
+  const uint64_t* pin = static_cast<const uint64_t*>(in);
+  uint64_t* po = static_cast<uint64_t*>(out);
+  const Table ptw = table(tw, tw_shoup), ppre = table(pre, pre_shoup);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define NWC64_LOG_N(L)                                                                     \
+  case L:                                                                                  \
+    return launch_rows<L>(forward_scaled_kernel<L>, 1, batch, s, pin, po, ptw, ppre, period, \
+                          batch, q, scale, scale_shoup);
+    NWC64_LOG_N(5) NWC64_LOG_N(6) NWC64_LOG_N(7) NWC64_LOG_N(8) NWC64_LOG_N(9)
+    NWC64_LOG_N(10) NWC64_LOG_N(11) NWC64_LOG_N(12) NWC64_LOG_N(13)
+#undef NWC64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int nwc64_inverse_scaled(const void* in, void* out, const void* itw,

@@ -31,10 +31,13 @@ place of torch transposes around a row transform.
 the radix-8 core of ``csrc/nwc64.cu``: passes of three stages in registers
 (``passes``), twiddles in a per-pass layout built here from the flat tables
 (``pass_table``); ``nwc64_product`` and ``nwc64_cached`` run both forwards,
-the slot product and the inverse fused on that core, and the four-step's
-row passes ``nwc64_cyclic_scaled``, ``nwc64_cached_scaled`` and
-``nwc64_dot_scaled`` the same between their scale tables, on the same
-per-pass tables (``MxuPlan64.pass_entries``); the other five kernels read
+the slot product and the inverse fused on that core, the four-step's row
+passes ``nwc64_cyclic_scaled``, ``nwc64_cached_scaled`` and
+``nwc64_dot_scaled`` the same between their scale tables, its row forward
+``nwc64_forward_scaled`` the entry scale and one forward, and the flat dot
+``nwc64_dot`` the dot's row pass without scales, all on the same per-pass
+tables (``MxuPlan64.pass_entries``); the other three kernels
+(``nwc64_matvec``, ``nwc64_inverse_scaled``, ``nwc64_matvec_scaled``) read
 the flat tables.
 """
 
@@ -158,7 +161,7 @@ class MxuPlan64(ScaledKernelPlan):
 
     pass_entries = frozenset({"forward", "inverse", "forward_cols", "inverse_cols",
                               "product", "cached", "cyclic_scaled", "cached_scaled",
-                              "dot_scaled"})
+                              "dot_scaled", "forward_scaled", "dot"})
 
     def _transform_table(self, flat: tuple) -> tuple:
         """The per-pass layout of the flat table (w, w') for the radix-8
