@@ -30,15 +30,17 @@ kernel K6).  Phases, each of which raises on failure:
    instructions one width-8 permutation issues (cuobjdump); the
    instructions a thread issues after its first barrier at n = 4096 in
    nwc64.cu's and gl64.cu's radix-8 kernels and in their first cores'
-   loops, in the fused ``nwc64_product`` at n = 4096, the fused
-   ``nwc64_cyclic_scaled`` and ``gl64_cyclic_scaled`` and the row forward
-   ``nwc64_forward_scaled`` at n = 128 and 1024, the fused
+   loops, in the fused ``nwc64_product`` and ``gl64_product`` (fresh and
+   cached) at n = 4096, the fused ``nwc64_cyclic_scaled`` and
+   ``gl64_cyclic_scaled`` and the row forwards ``nwc64_forward_scaled``
+   and ``gl64_forward_scaled`` at n = 128 and 1024, the fused
    ``nwc64_dot_scaled`` at n = 128 and the flat ``nwc64_dot`` at n = 4096
    (a step of its loop, one forward, and the rest); the radix-8 kernels of
-   both files, 36 transforms and 18 fused products each, and nwc64.cu's 18
-   fused row passes, 9 row forwards and 36 fused dots (18 row passes, 18
-   flat), must spill nothing; the flat dot's blocks an SM by ptxas's
-   registers and its shared memory;
+   both files, 36 transforms and 9 row forwards each, nwc64.cu's 18 fused
+   products, 18 fused row passes and 36 fused dots (18 row passes, 18
+   flat), and gl64.cu's 36 fused products (18 flat, 18 row passes), must
+   spill nothing; the blocks an SM of nwc64.cu's flat dot and gl64.cu's
+   flat product, by ptxas's registers and their shared memory;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: the
    radix-8 cores (``nwc64_forward``, ``nwc64_inverse`` on rows and
@@ -53,11 +55,14 @@ kernel K6).  Phases, each of which raises on failure:
    at the three 60-bit q; the row passes ``nwc64_cyclic_scaled``,
    ``nwc64_cached_scaled`` and ``nwc64_dot_scaled``, fresh and cached,
    K = 1 and 4, and the row forward ``nwc64_forward_scaled`` at scale 1
-   and 2^64 mod q, at the same q, and ``gl64_cyclic_scaled`` and
-   ``gl64_cached_scaled`` at the Goldilocks q, with random pre and post
-   tables at period 1, 3 and 256) at every n from 32 to 8192, B = 1, 3
-   and 2048, boundary rows first, on cyclic tables, and on merged ones at
-   n = 4096 (the dot at K = 4 and B = 2048 at n = 128 alone); the flat dot
+   and 2^64 mod q, at the same q; ``gl64_product`` and ``gl64_cached``,
+   ``gl64_cyclic_scaled``, ``gl64_cached_scaled`` and the row forward
+   ``gl64_forward_scaled`` at scale 1 and q - 1 at the Goldilocks q; the
+   row kernels with random pre and post tables at period 1, 3 and 256) at
+   every n from 32 to 8192, B = 1, 3 and 2048, boundary rows first, on
+   cyclic tables, and on merged ones at n = 4096 (the Goldilocks flat
+   products at every n; the dot at K = 4 and B = 2048 at n = 128 alone);
+   the flat dot
    ``nwc64_dot`` on merged tables, fresh and cached, K = 1 and 4, at the
    same n, q and B (K = 4 at B = 2048 at n = 128 alone); every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
@@ -586,10 +591,11 @@ def main() -> int:
               + (f"a step's trip {counted[0]}, after the steps {counted[1]}; at K = "
                  f"{DOT_TERMS} a thread issues {counted[2]} after its first barrier"
                  if counted else f"loops not one: {sass_loops(code)}"))
-    # gl64.cu's radix-8 core against its first core, counted the same way
-    # (its loops are nwc64.cu's: the butterfly loop of 4 trips in the stage
-    # loop of 12, then the store loop, unrolled by 4 in the forward; the
-    # inverse's stores two products a word)
+    # gl64.cu's radix-8 core against its first core, counted the same way:
+    # the transforms, the flat product fresh and cached at n = 4096, the row
+    # pass and the row forward at n = 128 and 1024; the first core's row
+    # inverse (its loops are nwc64.cu's: the butterfly loop of 4 trips in
+    # the stage loop of 12, then the store loop, two products a word)
     gl_sass = sass_listing(libs["gl64"])
     radix = [k for k in gl_sass if k.startswith("transform_kernel<")]
     print(f"  sass: gl64.cu's {len(radix)} radix-8 kernels, "
@@ -597,9 +603,12 @@ def main() -> int:
           "instructions each")
     for kernel, trips in (("transform_kernel<12, 0, 0>", ()), ("transform_kernel<12, 1, 0>", ()),
                           ("transform_kernel<8, 0, 1>", ()), ("transform_kernel<10, 1, 1>", ()),
-                          ("cyclic_scaled_kernel<7, 0>", ()), ("cyclic_scaled_kernel<10, 0>", ()),
-                          ("cyclic_scaled_kernel<7, 1>", ()),
-                          ("forward_scaled_kernel", (4, 12, 2, 0)),
+                          ("cyclic_scaled_kernel<12, 0, 0>", ()),
+                          ("cyclic_scaled_kernel<12, 1, 0>", ()),
+                          ("cyclic_scaled_kernel<7, 0, 1>", ()),
+                          ("cyclic_scaled_kernel<10, 0, 1>", ()),
+                          ("cyclic_scaled_kernel<7, 1, 1>", ()), ("forward_scaled_kernel<7>", ()),
+                          ("forward_scaled_kernel<10>", ()),
                           ("inverse_scaled_kernel", (4, 12, 8))):
         code = gl_sass[kernel]
         issued = issued_per_thread(code, trips)
@@ -607,13 +616,14 @@ def main() -> int:
               f"a thread issues {issued or 'not counted:'} "
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
     # the radix-8 kernels of both files spill nothing: 36 transforms (a log n
-    # from 5 to 13, each direction and layout) and 18 fused products (each
-    # log n, fresh and cached) in each, and nwc64.cu's 18 fused row passes,
-    # 9 row forwards (a log n) and 36 fused dots (the row passes' 18 and the
-    # flat dot's 18)
+    # from 5 to 13, each direction and layout) and 9 row forwards (a log n)
+    # in each, nwc64.cu's 18 fused products (each log n, fresh and cached),
+    # 18 fused row passes and 36 fused dots (the row passes' 18 and the flat
+    # dot's 18), and gl64.cu's 36 fused products (the flat product's 18 and
+    # the row pass's 18, fresh and cached)
     for lib, fused in (("nwc64", (("product_kernel", 18), ("cyclic_scaled_kernel", 18),
                                   ("forward_scaled_kernel", 9), ("dot_scaled_kernel", 36))),
-                       ("gl64", (("cyclic_scaled_kernel", 18),))):
+                       ("gl64", (("cyclic_scaled_kernel", 36), ("forward_scaled_kernel", 9)))):
         log = libs[lib].with_suffix(".log").read_text()
         for kernel, count in (("transform_kernel", 36), *fused):
             spills = re.findall(rf"Function properties for \S*{kernel}I\S*\n[^\n]*?(\d+) "
@@ -622,23 +632,26 @@ def main() -> int:
                 raise AssertionError(f"{lib}.cu's {kernel}s: {count} expected, none "
                                      f"spilling; ptxas says {spills}")
             print(f"build: {lib}.cu's {len(spills)} radix-8 {kernel}s spill nothing")
-    # the flat dot's blocks an SM: its registers (ptxas), its tiles of
-    # shared memory (three fresh, two cached, of max(n, 1024) words) and
-    # the SM's 64 Ki registers, 228 KiB (1 KiB reserved a block), 2048
-    # threads and 32 blocks
-    registers = ptxas_registers(libs["nwc64"].with_suffix(".log").read_text())
-    for log_n in range(5, 14):
-        for cached in (0, 1):
-            regs = next(v for k, v in registers.items()
-                        if k.startswith(f"dot_scaled_kernelILi{log_n}ELb{cached}ELb0EE"))
-            threads = max(1 << log_n, 1024) // 8
-            smem = (2 if cached else 3) * max(1 << log_n, 1024) * 8
-            by_regs = 65536 // (-(-regs // 8) * 8 * threads)
-            by_smem = 233472 // (smem + 1024)
-            print(f"build: nwc64.cu's flat dot at n = {1 << log_n}"
-                  f"{' cached' if cached else ''}: {regs} registers, {threads} threads and "
-                  f"{smem // 1024} KiB a block: {min(by_regs, by_smem, 2048 // threads, 32)} "
-                  f"blocks an SM (registers allow {by_regs}, shared memory {by_smem})")
+    # the blocks an SM of nwc64.cu's flat dot and gl64.cu's flat product:
+    # their registers (ptxas), their tiles of shared memory (the dot three
+    # fresh, two cached; the product one, b's spectrum waiting in the output
+    # row; of max(n, 1024) words) and the SM's 64 Ki registers, 228 KiB
+    # (1 KiB reserved a block), 2048 threads and 32 blocks
+    for lib, what, kernel, tiles in (("nwc64", "flat dot", "dot_scaled_kernel", (3, 2)),
+                                     ("gl64", "flat product", "cyclic_scaled_kernel", (1, 1))):
+        registers = ptxas_registers(libs[lib].with_suffix(".log").read_text())
+        for log_n in range(5, 14):
+            for cached in (0, 1):
+                regs = next(v for k, v in registers.items()
+                            if k.startswith(f"{kernel}ILi{log_n}ELb{cached}ELb0EE"))
+                threads = max(1 << log_n, 1024) // 8
+                smem = tiles[cached] * max(1 << log_n, 1024) * 8
+                by_regs = 65536 // (-(-regs // 8) * 8 * threads)
+                by_smem = 233472 // (smem + 1024)
+                print(f"build: {lib}.cu's {what} at n = {1 << log_n}"
+                      f"{' cached' if cached else ''}: {regs} registers, {threads} threads and "
+                      f"{smem // 1024} KiB a block: {min(by_regs, by_smem, 2048 // threads, 32)} "
+                      f"blocks an SM (registers allow {by_regs}, shared memory {by_smem})")
 
     print(f"phase: build done at {time.perf_counter() - t_start:.1f} s (wall clock)")
 
@@ -801,18 +814,21 @@ def main() -> int:
     print(f"kernel vs plain: the radix-8 cores checked in {time.perf_counter() - t0:.1f} s")
 
     # the products fused on the radix-8 cores: nwc64_product and nwc64_cached
-    # at the three 60-bit q; the four-step's row passes, nwc64_cyclic_scaled
-    # and nwc64_cached_scaled there, gl64_cyclic_scaled and
-    # gl64_cached_scaled at the Goldilocks q, with random pre and post tables
-    # at period 1, 3 and p60_32768's and goldilocks_32768's n1 = 256;
-    # cyclic tables (the four-step's) at every log n of the sub-plans'
-    # window, merged ones (the same kernels on other tables) at n = 4096
-    # alone, B = 1, 3 and 2048 rows, boundary rows first (b's reversed
-    # against a's); and nwc64_dot_scaled, fresh and cached, at K = 1 (the
-    # row pass's rows, no plain dot) and K = 4 at the last period of B = 1
-    # and 3, and at B = 2048 at p60_32768's n2 = 128 alone (the plain dot's
-    # cost); nwc64_forward_scaled at scale 1 and 2^64 mod q on the same
-    # tables; the flat dot nwc64_dot on merged tables, fresh and cached, at
+    # at the three 60-bit q, gl64_product and gl64_cached at the Goldilocks
+    # q; the four-step's row passes, nwc64_cyclic_scaled and
+    # nwc64_cached_scaled there, gl64_cyclic_scaled and gl64_cached_scaled
+    # at the Goldilocks q, with random pre and post tables at period 1, 3
+    # and p60_32768's and goldilocks_32768's n1 = 256; cyclic tables (the
+    # four-step's) at every log n of the sub-plans' window, merged ones (the
+    # same kernels on other tables) at n = 4096 alone (the Goldilocks flat
+    # products at every n: K2's own tables), B = 1, 3 and 2048 rows,
+    # boundary rows first (b's reversed against a's); and nwc64_dot_scaled,
+    # fresh and cached, at K = 1 (the row pass's rows, no plain dot) and
+    # K = 4 at the last period of B = 1 and 3, and at B = 2048 at
+    # p60_32768's n2 = 128 alone (the plain dot's cost); the row forwards
+    # nwc64_forward_scaled at scale 1 and 2^64 mod q and gl64_forward_scaled
+    # at scale 1 and q - 1 on the same tables; the flat dot nwc64_dot on
+    # merged tables, fresh and cached, at
     # K = 1, and K = 4 at B = 1 and 3 (at B = 2048 at n = 128 alone, as the
     # row pass's dot: the plain dot's cost); each launch against its plain
     # version, bit for bit
@@ -854,22 +870,21 @@ def main() -> int:
                                   plan.nwc_ntt_fwd_plain, plan.nwc_poly_mult_plain),
                        "cyclic": (plan.plan.cyclic_flat, plan.plan.cyclic_inv_flat,
                                   plan.ntt_fwd_plain, plan.cyclic_poly_mult_plain)}
-            if log_n != 12:
+            if log_n != 12 and not gl:
                 del layouts["merged"]
             for rows in (1, 3, BATCH):
                 x, y = a[:rows], b[:rows].contiguous()
                 for layout, (tw, itw, fwd, product) in layouts.items():
                     label = f"n={n} q={q} B={rows} {layout} tables"
-                    if not gl:
-                        want = product(x, y)
-                        spectrum = plan.ring.mul_tw(fwd(y), plan._r_tw)  # times 2^64
-                        fused_check(plan, "product", label, want, (x, y), (tw, itw), rows,
-                                    log_n, *plan._q_args(True), *plan._scale_fresh)
-                        fused_check(plan, "cached", label, want, (x, spectrum), (tw, itw), rows,
-                                    log_n, *plan._q_args(True), *plan._scale_cached)
-                        checks += 2
-                        if layout == "merged":  # the 60-bit row passes: the four-step's tables
-                            continue
+                    want = product(x, y)
+                    spectrum = plan.ring.mul_tw(fwd(y), plan._r_tw)  # times 2^64 mod q
+                    fused_check(plan, "product", label, want, (x, y), (tw, itw), rows,
+                                log_n, *plan._q_args(True), *plan._scale_fresh)
+                    fused_check(plan, "cached", label, want, (x, spectrum), (tw, itw), rows,
+                                log_n, *plan._q_args(True), *plan._scale_cached)
+                    checks += 2
+                    if layout == "merged":  # the row passes: the four-step's tables
+                        continue
                     # the 60-bit row passes at B = 2048 at period 256 alone: period 1
                     # and 3 are B = 1's and 3's
                     periods = {1: (1,), 3: (1, 3)}.get(rows, (1, 256) if gl else (256,))
@@ -880,23 +895,26 @@ def main() -> int:
                                                                   shoup_table(post, q))
                         want = plan._rows_times(product(plan._rows_times(x, pre),
                                                         plan._rows_times(y, pre)), post)
-                        spectrum = fwd(plan._rows_times(y, pre))
-                        if not gl:  # the row forward, then times 2^64
-                            fwd_y, spectrum = spectrum, plan.ring.mul_tw(spectrum, plan._r_tw)
-                            for z, scale in ((fwd_y, plan._scale_one),
-                                             (spectrum, plan._scale_spectrum)):
-                                fused_check(plan, "forward_scaled",
-                                            f"{label} period {period} scale {scale[0]}", z, (y,),
-                                            (tw,), *pre, period, rows, log_n,
-                                            *plan._q_args(False), *scale)
-                            checks += 2
+                        # the row forward, then times 2^64 mod q (the cached spectrum's
+                        # domain) or, for Goldilocks, whose r is 1, times q - 1
+                        fwd_y = fwd(plan._rows_times(y, pre))
+                        spectrum = plan.ring.mul_tw(fwd_y, plan._r_tw)
+                        other = q - 1 if gl else plan._scale_spectrum[0]
+                        for scale in (1, other):
+                            z = fwd_y if scale == 1 else plan.ring.mul_tw(
+                                fwd_y, plan.ring.encode_tw([scale], device))
+                            fused_check(plan, "forward_scaled",
+                                        f"{label} period {period} scale {scale}", z, (y,),
+                                        (tw,), *pre, period, rows, log_n,
+                                        *plan._q_args(False), *plan._scale_args(scale))
+                        checks += 2
                         for entry, z, scale in (("cyclic_scaled", y, plan._scale_fresh),
                                                 ("cached_scaled", spectrum, plan._scale_cached)):
                             fused_check(plan, entry, f"{label} period {period}", want, (x, z),
                                         (tw, itw), *pre, *post, period, rows, log_n,
-                                        *(() if gl else plan._q_args(True)), *scale)
+                                        *plan._q_args(True), *scale)
                         checks += 2
-                        if gl or layout == "merged":
+                        if gl:
                             continue
                         terms = [(x[None], y[None], spectrum[None], want)]
                         if period == periods[-1] and (rows < BATCH or log_n == 7):
@@ -930,7 +948,8 @@ def main() -> int:
                                     terms, rows, log_n, *plan._q_args(True), *scale, cached)
                         checks += 1
         print(f"kernel vs plain: the fused products at q={q} ("
-              + ("gl64_cyclic_scaled, gl64_cached_scaled" if gl else
+              + ("gl64_product, gl64_cached, gl64_cyclic_scaled, gl64_cached_scaled, "
+                 "gl64_forward_scaled" if gl else
                  "nwc64_product, nwc64_cached, nwc64_cyclic_scaled, nwc64_cached_scaled, "
                  "nwc64_dot_scaled, nwc64_forward_scaled, nwc64_dot")
               + f"), n = 32 to 8192: {checks} launches equal in "

@@ -1,7 +1,8 @@
 """The radix-8 core of ``csrc/gl64.cu`` (``gl64_forward``, ``gl64_inverse``,
-their column entry points, and the four-step's row pass fused on it,
-``gl64_cyclic_scaled`` and ``gl64_cached_scaled``) modelled on the CPU, and
-K2's two ablation toggles.
+their column entry points, the row forward ``gl64_forward_scaled``, and the
+products fused on it: K2's flat ``gl64_product`` and ``gl64_cached``, the
+four-step's row pass ``gl64_cyclic_scaled`` and ``gl64_cached_scaled``)
+modelled on the CPU, and K2's two ablation toggles.
 
 * The lazy arithmetic: each ``GL_PTX_*`` carry chain read out of gl64.cu
   and run on a model of the 32-bit PTX instructions (numpy object arrays,
@@ -21,20 +22,27 @@ K2's two ablation toggles.
   plain ``ntt`` transforms and JAX's jitted XLA transforms.  The schedule
   helpers (``lanes``, ``pass_words``, ``exchange``) are
   tests/test_torch_nwc64_radix.py's: gl64.cu's schedule is nwc64.cu's.
-* The fused row pass on the same model: the entry scale on the words the
-  first pass loads, both forwards, the slot product and n^-1 on the lanes
-  as the registers hold them, the inverse, the exit scale and one compare
-  at the store, with (P, n) tables at P = 1, 3 and 256 (goldilocks_32768's
-  256 rows of 128), against the plain row pass and JAX's XLA
-  ``cyclic_poly_mult`` between the scales.
+* The fused products on the same model (``fused_model``): both forwards,
+  the slot product and n^-1 on the lanes as the registers hold them, the
+  inverse, one compare at the store.  K2's flat product, fresh and cached,
+  on merged and cyclic tables at n = 32 and 256 and on merged ones at
+  goldilocks_4096's n, against the plain products and JAX's XLA
+  ``nwc_poly_mult_merged`` and ``cyclic_poly_mult``; the row pass with the
+  entry scale on the words the first pass loads and the exit scale at the
+  store, (P, n) tables at P = 1, 3 and 256 (goldilocks_32768's 256 rows of
+  128), against the plain row pass and JAX's XLA ``cyclic_poly_mult``
+  between the scales.  The row forward (``model`` with ``pre``) at the row
+  pass's shapes, scale 1 and q - 1, against ``ntt_fwd_scaled_plain``
+  and JAX's XLA ``ntt_fwd`` of the scaled rows.
 * ``GoldilocksSubPlan64``'s column methods (``_plan.ColumnPassPlan``;
   plain on the CPU: the transpose route) against ``FourStepPlan``'s
   transposes and JAX's four-step locals (``tpu_ntt.sharded._along`` of its
   XLA transforms) at 32 x 32 and 64 x 32, widths n2 / D for D = 2, 4, 8;
   the four-step's launch path runs them and never the transposes.
-* The C signatures ``load`` binds for the six entry points; a
-  ``cuda``-marked case holds both layouts and both row passes against
-  plain on a card.
+* The C signatures ``load`` binds for the nine entry points, and faked
+  launches that hand them the per-pass tables; a ``cuda``-marked case holds
+  both layouts, the flat products, the row forward and both row passes
+  against plain on a card.
 * JAX's ``GoldilocksPlan64`` with ``split_left`` and ``const_mul_special``
   off (tpu_ntt/kernels/gl64.py:211, :216) in interpret mode at n = 32768
   against the port's four-step: ``slow``, about 25 s (a 12 s plan build).
@@ -52,8 +60,8 @@ import torch
 
 import tpu_ntt.ntt as jntt
 import tpu_ntt.params as jparams
-from test_torch_nwc64_radix import (WORDS, as_tensor, exchange, lanes, load, pass_words,
-                                    run_jax, run_jax_product)
+from test_torch_nwc64_radix import (WORDS, as_tensor, exchange, jax_transform, lanes, load,
+                                    pass_words, run_jax, run_jax_product)
 from tpu_ntt import sharded as jsharded
 from tpu_ntt.kernels.gl64 import GoldilocksPlan64 as JaxGoldilocksPlan64
 from tpu_ntt_torch import sharded
@@ -356,57 +364,67 @@ def passes_on(plan, regs, table, inverse: bool, t, slot):
     return regs
 
 
+def times_row(plan, regs, at, table, idx):
+    """Registers holding the words idx of each thread's row times the same
+    words of its row r % P of the (P, n) table (mul_lazy: any words); with
+    ``table`` None, the registers as they are."""
+    if table is None:
+        return regs
+    n = plan.p.n
+    srow = at(0) // n % table.shape[0] * n
+    w = ints(table.reshape(-1))
+    return [mul_lazy(v, words(w[srow + i])) for v, i in zip(regs, idx)]
+
+
 def model(plan, x: torch.Tensor, flat, scale: int, inverse: bool,
-          width: int | None = None) -> torch.Tensor:
+          width: int | None = None, pre: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel on (R, n * width) words, every block at once: rows
-    (width None) or every column of the (n, width) matrices."""
+    (width None) or every column of the (n, width) matrices.  With the
+    (P, n) table ``pre``, the row forward gl64_forward_scaled: row r's
+    words times row r % P's as the first pass loads them."""
     log_n = plan.p.log_n
     last = len(kmxu64.passes(log_n)) - 1
     (table,) = plan._transform_table(flat)
     data, out = ints(x.reshape(-1)), np.zeros(x.numel(), dtype=object)
     first, final = (last, 0) if inverse else (0, last)
     at, live, t, slot = lanes(plan, x, width)
-    regs = [words(v) for v in load(data, at, live, pass_words(log_n, first, t))]
+    idx = pass_words(log_n, first, t)
+    regs = times_row(plan, [words(v) for v in load(data, at, live, idx)], at, pre, idx)
     regs = passes_on(plan, regs, ints(table), inverse, t, slot)
     for reg, i in enumerate(pass_words(log_n, final, t)):
         out[at(i)[live]] = store(regs[reg], scale, inverse)[live]
     return as_tensor(out, x.shape)
 
 
-def row_pass_model(plan, a: torch.Tensor, b: torch.Tensor, pre, post,
-                   cached: bool = False) -> torch.Tensor:
-    """The fused row pass (gl64_cyclic_scaled; gl64_cached_scaled with
-    ``cached``) on (R, n) rows with the (P, n) tables pre and post, row r
-    reading their row r % P: pre on the words the first pass loads (b's
+def fused_model(plan, a: torch.Tensor, b: torch.Tensor, pre, post,
+                cached: bool = False, layout: str = "cyclic") -> torch.Tensor:
+    """The products fused on the core on (R, n) rows: the row pass
+    (gl64_cyclic_scaled; gl64_cached_scaled with ``cached``) with the (P, n)
+    tables pre and post, row r reading their row r % P, on cyclic tables;
+    with pre and post None, K2's flat product (gl64_product, gl64_cached)
+    on the ``layout`` tables.  pre on the words the first pass loads (b's
     unless cached), the forward of b, the forward of a, the slot product
     and n^-1 on the lanes as the registers hold them, the inverse from
     those registers, post at the store and the one compare."""
-    log_n, n = plan.p.log_n, plan.p.n
-    period = pre.shape[0]
-    tw = ints(plan._transform_table(plan.plan.cyclic_flat)[0])
-    itw = ints(plan._transform_table(plan.plan.cyclic_inv_flat)[0])
-    pre_w, post_w = ints(pre.reshape(-1)), ints(post.reshape(-1))
+    log_n = plan.p.log_n
+    tw = ints(plan._transform_table(getattr(plan.plan, f"{layout}_flat"))[0])
+    itw = ints(plan._transform_table(getattr(plan.plan, f"{layout}_inv_flat"))[0])
     wa, wb = ints(a.reshape(-1)), ints(b.reshape(-1))
     out = np.zeros(a.numel(), dtype=object)
     scale = (plan._scale_cached if cached else plan._scale_fresh)[0]
     at, live, t, slot = lanes(plan, a)
-    srow = at(0) // n % period * n
-
-    def times_row(regs, table, idx):
-        return [mul_lazy(v, words(table[srow + i])) for v, i in zip(regs, idx)]
-
     first = pass_words(log_n, 0, t)
     spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
     if cached:
         y = [words(v) for v in load(wb, at, live, spectrum)]
     else:
-        y = times_row([words(v) for v in load(wb, at, live, first)], pre_w, first)
+        y = times_row(plan, [words(v) for v in load(wb, at, live, first)], at, pre, first)
         y = passes_on(plan, y, tw, False, t, slot)
-    x = times_row([words(v) for v in load(wa, at, live, first)], pre_w, first)
+    x = times_row(plan, [words(v) for v in load(wa, at, live, first)], at, pre, first)
     x = passes_on(plan, x, tw, False, t, slot)
     x = [mul_lazy(mul_lazy(u, v), scale) for u, v in zip(x, y)]  # any words
     x = passes_on(plan, x, itw, True, t, slot)
-    for reg, v in enumerate(times_row(x, post_w, first)):
+    for reg, v in enumerate(times_row(plan, x, at, post, first)):
         out[at(first[reg])[live]] = canonical(v)[live]
     return as_tensor(out, a.shape)
 
@@ -436,7 +454,12 @@ def test_pass_tables_hold_the_plain_twiddles():
 
 
 @pytest.mark.parametrize("n", [32, 256, 4096])
-def test_model_matches_plain_and_jax(n):
+def test_model_matches_plain_and_jax(n, monkeypatch):
+    """The transforms' model on rows and columns; then K2's flat product
+    fused on the core (``fused_model`` without scales: gl64_product, and
+    gl64_cached against the plain spectrum) on merged tables, against the
+    plain products and JAX's XLA ``nwc_poly_mult_merged`` (its body around
+    the transforms jitted here: the same shape, so the same jits)."""
     plan, jplan = plans(n)
     rows = {32: 37, 256: 5, 4096: 2}[n]  # partial last tiles below 1024
     x = operands((rows, n), seed=n)
@@ -452,8 +475,8 @@ def test_model_matches_plain_and_jax(n):
         assert torch.equal(model(plan, x, flat_inv, 1, True), times(plan, back, n)), kind
         assert torch.equal(model(plan, spec, flat_inv, plan.p.n_inv, True), x)
         if kind == "merged":  # JAX's XLA merged transforms
-            assert torch.equal(spec, run_jax(lambda v: jntt.nwc_fwd_merged(jplan, v), x))
-            assert torch.equal(back, run_jax(lambda v: jntt.nwc_inv_merged(jplan, v), x))
+            assert torch.equal(spec, run_jax(jax_transform("nwc_fwd_merged", jplan), x))
+            assert torch.equal(back, run_jax(jax_transform("nwc_inv_merged", jplan), x))
     # columns: widths below, at and above the tile
     for width in (3, 8, 20):
         xc = operands((2, n * width), seed=width)
@@ -463,6 +486,14 @@ def test_model_matches_plain_and_jax(n):
                                  width), plan.ntt_inv_cols_plain(xc, width)), width
         if n == 4096:
             break
+    a, b = row_pass_operands(rows, n, 1, seed=n)[:2]  # x's shape: JAX's jits shared
+    want = plan.nwc_poly_mult_plain(a, b)
+    assert torch.equal(fused_model(plan, a, b, None, None, layout="merged"), want)
+    assert torch.equal(want, run_jax_product(monkeypatch, jntt.nwc_poly_mult_merged, jplan, a, b))
+    spectrum = plan.nwc_spectrum_plain(b)
+    got = fused_model(plan, a, spectrum, None, None, True, "merged")
+    assert torch.equal(got, want)
+    assert torch.equal(got, plan.nwc_poly_mult_cached_plain(a, spectrum))
 
 
 def row_pass_operands(rows: int, n: int, period: int, seed: int):
@@ -498,18 +529,33 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     plain row pass and JAX's XLA cyclic product between the scales (by
     Python ints); 256 rows of 128 at period 256 are goldilocks_32768's row
     pass (n1 = 256), there gl64_cyclic_scaled alone (the model's chains on
-    Python ints take 9 s for it)."""
+    Python ints take 9 s for it).  The row forward gl64_forward_scaled on
+    a and pre, at scale 1 (and q - 1 but at 256 rows), against
+    ``ntt_fwd_scaled_plain`` and JAX's XLA ``ntt_fwd`` of the scaled rows.
+    At period 3, K2's flat product on the cyclic tables, fresh and cached,
+    against ``cyclic_poly_mult_plain`` and JAX's on a and b."""
     plan, jplan = plans(n)
     a, b, pre, post = row_pass_operands(rows, n, period, seed=n + period)
-    got = row_pass_model(plan, a, b, pre[0], post[0])
+    got = fused_model(plan, a, b, pre[0], post[0])
     assert torch.equal(got, plan.cyclic_poly_mult_scaled_plain(a, b, pre, post))
     want = run_jax_product(monkeypatch, jntt.cyclic_poly_mult, jplan,
                            times_rows(a, pre[0]), times_rows(b, pre[0]))
     assert torch.equal(got, times_rows(want, post[0]))
+    spec = model(plan, a, plan.plan.cyclic_flat, 1, False, pre=pre[0])
+    assert torch.equal(spec, plan.ntt_fwd_scaled_plain(a, pre))
+    natural = run_jax(jax_transform("ntt_fwd", jplan), times_rows(a, pre[0]))
+    assert torch.equal(plan.bitrev_to_natural(spec), natural)
     if rows > 64:
         return
+    assert torch.equal(model(plan, a, plan.plan.cyclic_flat, Q - 1, False, pre=pre[0]),
+                       times(plan, spec, Q - 1))
+    if n < 4096 and period == 3:  # K2's flat product on cyclic tables, fresh and cached
+        flat = plan.cyclic_poly_mult_plain(a, b)
+        assert torch.equal(flat, run_jax_product(monkeypatch, jntt.cyclic_poly_mult, jplan, a, b))
+        assert torch.equal(fused_model(plan, a, b, None, None), flat)
+        assert torch.equal(fused_model(plan, a, plan.ntt_fwd_plain(b), None, None, True), flat)
     spectrum = plan.ntt_fwd_scaled_plain(b, pre, True)
-    got = row_pass_model(plan, a, spectrum, pre[0], post[0], cached=True)
+    got = fused_model(plan, a, spectrum, pre[0], post[0], cached=True)
     assert torch.equal(got, plan.cyclic_poly_mult_cached_scaled_plain(a, spectrum, pre, post))
     assert torch.equal(got, times_rows(want, post[0]))
 
@@ -589,16 +635,19 @@ C_TYPES = {"int": kgl64.ctypes.c_int, "uint64_t": kgl64.ctypes.c_uint64}
 
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
-    """``load`` types the six radix-core entry points (the fused row pass's
-    two among them) with the C argument types of csrc/gl64.cu, and each has
-    its own launch count; those six read per-pass tables."""
+    """``load`` types the nine radix-core entry points (the row forward, the
+    flat products and the row pass's two among them) with the C argument
+    types of csrc/gl64.cu, and each has its own launch count; those nine
+    read per-pass tables: faked launches on the CPU hand gl64_product the
+    merged or cyclic per-pass tables, gl64_cached the merged ones and
+    gl64_forward_scaled the cyclic one."""
     bound = {}
     monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
     kgl64.load.__wrapped__()
     source = (_build.CSRC / "gl64.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (gl64_\w+)\(([^)]*)\)', source))
-    radix = ("forward", "inverse", "forward_cols", "inverse_cols", "cyclic_scaled",
-             "cached_scaled")
+    radix = ("forward", "inverse", "forward_cols", "inverse_cols", "forward_scaled",
+             "product", "cached", "cyclic_scaled", "cached_scaled")
     assert GoldilocksPlan64.pass_entries == set(radix)
     for suffix in radix:
         params = [p.strip() for p in decls[f"gl64_{suffix}"].split(",")]
@@ -608,6 +657,22 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
                     else C_TYPES[param.rsplit(" ", 1)[0]])
             assert ty is want, (suffix, param)
     assert {"gl64_forward_cols", "gl64_inverse_cols"} <= set(GoldilocksPlan64.launches)
+    plan, calls = GoldilocksPlan64(make_params(256, Q), "cpu"), []
+    monkeypatch.setattr(plan, "_runs_plain", lambda x: False)
+    monkeypatch.setattr(plan, "_launch", lambda entry, out, *args: calls.append(
+        (entry, args)) or out)
+    a = operands((4, 256), seed=5)
+    plan.nwc_poly_mult(a, a)
+    plan.cyclic_poly_mult(a, a)
+    plan.nwc_poly_mult_cached(a, a)
+    plan.ntt_fwd_scaled(a, (a[:2].contiguous(),))
+    tables = {kind: [plan._transform_table(getattr(plan.plan, f"{kind}{inv}_flat"))[0]
+                     for inv in ("", "_inv")] for kind in ("merged", "cyclic")}
+    for (entry, args), kind in zip(calls, ("merged", "cyclic", "merged")):
+        assert args[3] is tables[kind][0] and args[4] is tables[kind][1], (entry, kind)
+        assert args[5:7] == (4, 8), entry
+    assert [entry for entry, _ in calls] == ["product", "product", "cached", "forward_scaled"]
+    assert calls[3][1][2] is tables["cyclic"][0] and calls[3][1][4:7] == (2, 4, 8)
 
 
 @pytest.fixture
@@ -632,13 +697,20 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
                 got = getattr(plan, method + "_cols")(xc, width)
                 want = getattr(plan, method + "_cols_plain")(xc, width)
                 assert torch.equal(got, want), (n, method, width)
-        a, b = rows[:10], rows[10:20].contiguous()  # gl64_cyclic_scaled, gl64_cached_scaled
-        for period in (1, 5):
+        a, b = rows[:10], rows[10:20].contiguous()
+        for method in ("nwc_poly_mult", "cyclic_poly_mult"):  # gl64_product
+            assert torch.equal(getattr(plan, method)(a, b),
+                               getattr(plan, method + "_plain")(a, b)), (n, method)
+        spectrum = plan.nwc_spectrum(b)  # gl64_cached
+        assert torch.equal(plan.nwc_poly_mult_cached(a, spectrum),
+                           plan.nwc_poly_mult_cached_plain(a, spectrum)), n
+        for period in (1, 5):  # gl64_forward_scaled, gl64_cyclic_scaled, gl64_cached_scaled
             pre, post = ((t.to(cuda_device),) for t in row_pass_operands(period, n, period,
                                                                          seed=n)[:2])
             assert torch.equal(plan.cyclic_poly_mult_scaled(a, b, pre, post),
                                plan.cyclic_poly_mult_scaled_plain(a, b, pre, post))
             spectrum = plan.ntt_fwd_scaled(b, pre, True)
+            assert torch.equal(spectrum, plan.ntt_fwd_scaled_plain(b, pre, True)), (n, period)
             assert torch.equal(plan.cyclic_poly_mult_cached_scaled(a, spectrum, pre, post),
                                plan.cyclic_poly_mult_cached_scaled_plain(a, spectrum, pre,
                                                                           post))

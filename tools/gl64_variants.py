@@ -2,23 +2,29 @@
 """Where the radix-8 core of gl64.cu spends its time: variants of the source,
 some deliberately wrong, built and timed beside it on the card.
 
-    python3 tools/gl64_variants.py [--against OLD/gl64.cu]
+    python3 tools/gl64_variants.py [--against OLD/gl64.cu] [--build-only] [--only A,B]
 
 Each variant edits lines of ``tpu_ntt_torch/kernels/csrc/gl64.cu``
 (``VARIANTS``) and is built as ``tools/nwc64_variants.py`` builds its own;
 then ``gl64_forward`` and ``gl64_inverse`` at goldilocks_4096, B = 2048,
 ``gl64_forward_cols`` and ``gl64_inverse_cols`` at the column shapes of
 goldilocks_32768 (256 x 128, B = 256) and Goldilocks 2^20 (1024 x 1024,
-B = 4), and the fused row pass ``gl64_cyclic_scaled`` at the row shapes of
-both (65536 rows of 128 at period 256; 4096 rows of 1024 at period 1024)
-and ``gl64_cached_scaled`` at the first, on random tables, run under every
-variant in turns, each timed by CUDA events: the best of three runs of 50
+B = 4), the fused flat ``gl64_product`` and ``gl64_cached`` at
+goldilocks_4096, B = 2048, on merged tables, and the four-step's row
+kernels at the row shapes of both (65536 rows of 128 at period 256; 4096
+rows of 1024 at period 1024): the fused row pass ``gl64_cyclic_scaled`` at
+both, ``gl64_cached_scaled`` at the first, and the row forward
+``gl64_forward_scaled`` at both, on random tables, run under every variant
+in turns, each timed by CUDA events: the best of three runs of 50
 launches, over two rounds.  A variant marked wrong computes other integers:
 its time says what the work it drops costs, nothing else; every other
 variant must give the base's integers.  ``--against`` builds an earlier
-gl64.cu beside them (its row pass reading the flat tables), as
-tools/nwc64_variants.py does.  Needs a CUDA device and nvcc; prints the
-card's name and power limit.
+gl64.cu beside them (its entry points of ``AGAINST_FLAT`` reading the flat
+tables: the first core's), times it in the same turns, holds it to the
+base's integers and counts the instructions its first-core product and row
+forward issue, as tools/nwc64_variants.py does.  ``--build-only`` and
+``--only`` as there.  Needs a CUDA device and nvcc; prints the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from nwc64_variants import (best_ms, build, build_all, chosen, count_against,  # noqa: E402
-                            first_core_trips, parse_args)
+                            first_core_trips, forward_trips, parse_args)
 from tpu_ntt_torch.kernels import _build  # noqa: E402
 from tpu_ntt_torch.kernels.gl64 import GoldilocksSubPlan64  # noqa: E402
 from tpu_ntt_torch.params import GOLDILOCKS_4096, make_params  # noqa: E402
@@ -47,8 +53,14 @@ GS = ("  x = add_any(u, v);                // any word\n"
 PRODUCT = "  uint32_t r0, r1, r2, r3, m0, m1, m2;\n"
 REGISTERS = "constexpr bool kSpectrumInRegisters = true;"
 SLOT = "    x[r] = mul_lazy(mul_lazy(x[r], y[r]), scale);"
-PHASES = "constexpr bool opaque_phases(int log_n) { return log_n == 13; }"
+PHASES = "  return log_n == 13 || (!cached && !spectrum_in_registers(log_n, scaled));"
+OPAQUE_TW = "  const uint64_t* const twa = kOpaque ? opaque(tw) : tw;"
+FUSED_SMEM = ("  constexpr int kSmem = kTile * (1 << kLogN) * static_cast<int>(sizeof(uint64_t));\n"
+              "  auto kernel = cyclic_scaled_kernel<kLogN, kCached, kScaled>;")
 BLOCKS = "  return threads > 384 ? 1 : 640 / threads;"
+FLAT_B = "  return scaled && kSpectrumInRegisters && block_threads(log_n, false) < 1024;"
+FORWARD_BOUNDS = ("                                  1024 / block_threads(kLogN, false))\n"
+                  "    forward_scaled_kernel(")
 #: name -> (what it changes, [(text, replacement)], computes the right integers)
 VARIANTS = {
     "base": ("the source as it is", [], True),
@@ -77,15 +89,21 @@ VARIANTS = {
         [("                                  1024 / block_threads(kLogN, kCols))",
           "                                  1)")], True),
     # the fused row pass: where b's spectrum waits, and the slot's reduction
-    "spectrum in shared memory": (
-        "the row pass's b spectrum in a second tile, not in registers",
+    "row b in the output row": (
+        "the row pass's b spectrum in the output row, not in registers",
         [(REGISTERS, REGISTERS.replace("true", "false"))], True),
     "opaque phases at every n": (
-        "every log n's fused row pass computes its addresses anew in each phase",
-        [(PHASES, PHASES.replace("log_n == 13", "true"))], True),
+        "every fused kernel computes its addresses anew in each phase, at every log n",
+        [(PHASES, "  return true;")], True),
     "no opaque phases": (
-        "at n = 8192 too, the fused row pass's phases free to keep earlier addresses live",
-        [(PHASES, PHASES.replace("log_n == 13", "false"))], True),
+        "no fused kernel's phases take opaque indices and twiddles: the compiler free to "
+        "keep earlier addresses live", [(PHASES, "  return false;")], True),
+    "opaque phases at n = 8192 only": (
+        "the flat product's phases free to keep earlier addresses live below n = 8192, as "
+        "the row pass's", [(PHASES, "  return log_n == 13;")], True),
+    "no opaque twiddles": (
+        "a's forward reads its twiddles through the table pointer b's read, where the phases "
+        "are opaque", [(OPAQUE_TW, "  const uint64_t* const twa = tw;")], True),
     "768 threads an SM": (
         "the fused row pass's launch bounds at 768 threads an SM below n = 2048 (80 "
         "registers), not 640 (96)", [(BLOCKS, BLOCKS.replace("640", "768"))], True),
@@ -94,14 +112,45 @@ VARIANTS = {
         [(BLOCKS, BLOCKS.replace("640", "512"))], True),
     "canonical slot": ("the slot's two products canonical: the first core's gl_mul",
                        [(SLOT, "    x[r] = gl_mul(gl_mul(x[r], y[r]), scale);")], True),
+    # the row forward's threads an SM; where the flat product's b spectrum waits
+    "row forward at 512 threads an SM": (
+        "gl64_forward_scaled at 512 threads an SM (up to 128 registers), not the "
+        "transforms' 1024 (64)",
+        [(FORWARD_BOUNDS, FORWARD_BOUNDS.replace("1024 / block_threads(kLogN, false)",
+                                                 "block_threads(kLogN, false) > 256 ? 1 : "
+                                                 "512 / block_threads(kLogN, false)"))], True),
+    "flat product b in registers": (
+        "the flat product's fresh b spectrum in eight registers a thread below n = 8192, as "
+        "the row pass's (640 threads an SM; one block of 512 at n = 4096), not in the output "
+        "row (1024: two blocks)",
+        [(FLAT_B, FLAT_B.replace("scaled && ", ""))], True),
+    "b in a second shared tile": (
+        "where b's spectrum does not wait in registers, it waits in a second tile of shared "
+        "memory at the words this thread wrote, not in the output row", [
+            ("      store<kLogN, false, kLast>(y, out, at, 1, t, live);  // words 8t ... 8t + 7",
+             "      to_shared<kLogN, false, kLast>(y, smem + kTile * kN, g, t);"),
+            ("    load<kLogN, false, kLast>(y, out, at, 1, ta, live);  // this thread's own words",
+             "    from_shared<kLogN, false, kLast>(y, smem + kTile * kN, ga, ta);"),
+            (FUSED_SMEM, FUSED_SMEM.replace(
+                "kTile * (1 << kLogN)",
+                "(kCached || spectrum_in_registers(kLogN, kScaled) ? 1 : 2) * kTile * (1 << kLogN)"))],
+        True),
 }
-KERNELS = ("transform_kernelILi12ELb0ELb0EE", "cyclic_scaled_kernelILi7ELb0EE",
-           "cyclic_scaled_kernelILi10ELb0EE")
+#: the entry points an --against source runs on the first core's flat tables
+AGAINST_FLAT = ("product", "cached", "forward_scaled")
+KERNELS = ("transform_kernelILi12ELb0ELb0EE", "cyclic_scaled_kernelILi12ELb0ELb0EE",
+           "cyclic_scaled_kernelILi12ELb1ELb0EE", "cyclic_scaled_kernelILi7ELb0ELb1EE",
+           "cyclic_scaled_kernelILi10ELb0ELb1EE", "forward_scaled_kernelILi7EE",
+           "forward_scaled_kernelILi10EE")
+FUSED = ("cyclic_scaled_kernelILi", "forward_scaled_kernelILi")
 PTR, I32, U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "inverse": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "forward_cols": [PTR] * 3 + [I32] * 3 + [U64, PTR],
             "inverse_cols": [PTR] * 3 + [I32] * 3 + [U64, PTR],
+            "product": [PTR] * 5 + [I32] * 2 + [U64, PTR],
+            "cached": [PTR] * 5 + [I32] * 2 + [U64, PTR],
+            "forward_scaled": [PTR] * 4 + [I32] * 3 + [U64, PTR],
             "cyclic_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
             "cached_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR]}
 
@@ -123,16 +172,17 @@ def main() -> int:
     source = (_build.CSRC / "gl64.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(source, chosen(VARIANTS, opts.only), Path(tmp), "gl64.cu", "gl64",
-                         ARGTYPES, KERNELS, "cyclic_scaled_kernelILi")
+                         ARGTYPES, KERNELS, FUSED)
         if opts.build_only:
             return 0
         if opts.against:
             path = Path(tmp) / "libagainst.so"
             libs["against"] = build(opts.against.read_text(), path, "gl64", ARGTYPES,
-                                    KERNELS[:1], "cyclic_scaled_kernelILi")
+                                    KERNELS[:1], FUSED)
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {k: {l: first_core_trips(l) for l in (7, 10)}
-                                 for k in ("cyclic_scaled_kernel<0>", "cyclic_scaled_kernel<1>")})
+            count_against(path, {"product_kernel<0>": {12: first_core_trips(12)},
+                                 "product_kernel<1>": {12: first_core_trips(12)},
+                                 "forward_scaled_kernel": {l: forward_trips(l) for l in (7, 10)}})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -156,6 +206,19 @@ def main() -> int:
                 cases.append((f"gl64_{entry} {n1} x {width} B={batch}", entry, out,
                               (xc.data_ptr(), out.data_ptr(), tw.data_ptr(), batch,
                                col.p.log_n, width, *scale, stream), (xc, tw)))
+        # the flat product at goldilocks_4096, B = 2048, merged tables, fresh
+        # and cached
+        y = residues((2048, 4096), rng)
+        spectrum = plan.nwc_spectrum_plain(y)
+        merged = (plan.plan.merged_flat, plan.plan.merged_inv_flat)  # what --against reads
+        for entry, z, scale in (("product", y, plan._scale_fresh),
+                                ("cached", spectrum, plan._scale_cached)):
+            out = torch.empty_like(x)
+            call = [(x.data_ptr(), z.data_ptr(), out.data_ptr(),
+                     *(w.data_ptr() for w in tables), 2048, plan.p.log_n, *scale, stream)
+                    for tables in ([plan._transform_table(t)[0] for t in merged], merged)]
+            cases.append((f"gl64_{entry} goldilocks_4096 B=2048", entry, out, call[0],
+                          (x, z, merged, call[1])))
         # the row pass of goldilocks_32768 (256 x 128, B = 256) and of 2^20
         # (1024 x 1024, B = 4): rows of n2 at period n1
         for n1, n2, batch, entries in ((256, 128, 256, ("cyclic_scaled", "cached_scaled")),
@@ -176,13 +239,19 @@ def main() -> int:
                 cases.append((f"gl64_{entry} {batch * n1} rows of {n2}, period {n1}", entry,
                               out, call[0], (a, z, pre, post, row._cyclic_tables(entry), flat,
                                              call[1])))
+            fout = torch.empty_like(a)  # the row forward of a, at scale 1
+            call = [(a.data_ptr(), fout.data_ptr(), tw.data_ptr(), pre.data_ptr(), n1,
+                     batch * n1, row.p.log_n, *row._scale_one, stream)
+                    for tw in (row._transform_table(flat[0])[0], flat[0])]
+            cases.append((f"gl64_forward_scaled {batch * n1} rows of {n2}, period {n1}",
+                          "forward_scaled", fout, call[0],
+                          (a, pre, flat, row._transform_table(flat[0]), call[1])))
         times, want = {}, {}
         for _ in range(2):
             for label, entry, out, call, keep in cases:
                 for name, lib in libs.items():
                     fn = getattr(lib, f"gl64_{entry}")
-                    args = keep[-1] if name == "against" and entry.endswith("_scaled") \
-                        else call
+                    args = keep[-1] if name == "against" and entry in AGAINST_FLAT else call
                     if fn(*args):
                         raise RuntimeError(f"{label} under {name!r}: the launch failed")
                     torch.cuda.synchronize()

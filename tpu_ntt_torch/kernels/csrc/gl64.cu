@@ -47,22 +47,24 @@
 // over.  32 <= n <= 8192 (the public window is 256 <= n <= 8192; below
 // it, the four-step's sub-sizes).
 //
-// Two cores, as in nwc64.cu.  Six entry points run the radix-8 core ("The
+// Two cores, as in nwc64.cu.  Nine entry points run the radix-8 core ("The
 // radix-8 core" below): gl64_forward, gl64_inverse and their column entry
-// points, and, fused onto it (the four-step's row pass, "The four-step's
-// row pass on the radix-8 core"), gl64_cyclic_scaled and
-// gl64_cached_scaled, the entry scale, both forwards, the slot product, the
-// inverse and the exit scale in one kernel a launch.  The other eight run
-// the first core, correct first and simple, until they move onto the
-// radix-8 one.  The network code of both is a copy of nwc64.cu's rather
-// than a header shared by both, so nwc64.cu is not changed and its
-// functions and times stay as they were; the arithmetic differs.  The
-// first core:
-// * One thread block per row (per output row for the dot and the matvec),
-//   the rows in dynamic shared memory, 8n bytes each: two for the product,
-//   three for the dot (192 KiB at n = 8192, under the 227 KB a block may
-//   have).  n / 8 threads (at most 1024), four butterflies each, from
-//   n = 256 on; below, a warp, or n / 2 (the four-step's sub-sizes).
+// points; the row forward gl64_forward_scaled, the entry scale and one
+// forward on it; and, fused onto it ("The products fused on the radix-8
+// core"), both forwards, the slot product and the inverse in one kernel a
+// launch: K2's flat product gl64_product and gl64_cached, and the
+// four-step's row pass gl64_cyclic_scaled and gl64_cached_scaled, with the
+// entry and exit scales.  The other five (gl64_dot, gl64_matvec,
+// gl64_inverse_scaled, gl64_dot_scaled, gl64_matvec_scaled) run the first
+// core, correct first and simple, until they move onto the radix-8 one.
+// The network code of both is a copy of nwc64.cu's rather than a header
+// shared by both, so nwc64.cu is not changed and its functions and times
+// stay as they were; the arithmetic differs.  The first core:
+// * One thread block per output row, the rows in dynamic shared memory, 8n
+//   bytes each: one for the inverses and the matvec, three for the dot
+//   (192 KiB at n = 8192, under the 227 KB a block may have).  n / 8
+//   threads (at most 1024), four butterflies each, from n = 256 on; below,
+//   a warp, or n / 2 (the four-step's sub-sizes).
 // * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
 //   Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
 //   between stages; the stage with m groups reads entry m + g of a flat
@@ -78,23 +80,23 @@
 //   cannot): gl_add takes the carry as 2^64 = q + (2^32 - 1).
 // * Every value stays canonical in [0, q), also through the dot's and the
 //   matvec's accumulation.
-// * The four-step's row pass (the other *_scaled functions) is the first
-//   core's forward and inverse, dot_kernel and matvec_kernel with one
-//   gl_mul more, by a table row, at entry and/or exit (never on a cached
-//   spectrum, which the row forward has already scaled).  Row r of a
-//   launch reads row r % period of a (period, n) table of plain values (no
-//   Shoup companion, as for the twiddles): a batch of B polynomials of n1
-//   rows each passes period = n1.  The spectra stay plain, so `cacheable`
-//   changes nothing here, where nwc64.cu multiplies by 2^64 mod q.
+// * The four-step's first-core row kernels are the first core's inverse,
+//   dot_kernel and matvec_kernel with one gl_mul more, by a table row, at
+//   entry and/or exit (never on a cached spectrum, which the row forward
+//   has already scaled).  Row r of a launch reads row r % period of a
+//   (period, n) table of plain values (no Shoup companion, as for the
+//   twiddles): a batch of B polynomials of n1 rows each passes period = n1.
+//   The spectra stay plain, so `cacheable` changes nothing here, where
+//   nwc64.cu multiplies by 2^64 mod q.
 //
-// What bounds the first core on this card: the multiplies, as in nwc64.cu.
+// What bounds both cores on this card: the multiplies, as in nwc64.cu.
 // Hopper builds a 64 x 64 -> 128 product from about eight 32-bit IMADs (the
 // phi-fold adds none), against about twelve for a Shoup-64 or Montgomery-64
 // product, so a Goldilocks butterfly has two thirds of a 60-bit one's
 // multiplies; at goldilocks_4096, B = 2048, the product needs 1.3e9 IMADs,
 // 0.08 ms at 132 SMs x 64 a clock x 1.98 GHz, against 201 MB of operands
-// and result, 0.06 ms at 3.35 TB/s.  What holds it back is what held
-// nwc64.cu's first core back (PERF.md): instruction issue and latency
+// and result, 0.06 ms at 3.35 TB/s.  What holds the first core back is what
+// held nwc64.cu's first core back (PERF.md): instruction issue and latency
 // between the __syncthreads of every stage.
 
 #include <cstdint>
@@ -275,36 +277,6 @@ __device__ void inverse(uint64_t* x, int log_n, const uint64_t* itw) {
   }
 }
 
-// The product of a row of a with a row of b: b is coefficients, or with
-// kCached a spectrum that is used as it is.
-template <bool kCached>
-__global__ void product_kernel(const uint64_t* __restrict__ a,
-                               const uint64_t* __restrict__ b,
-                               uint64_t* __restrict__ out,
-                               const uint64_t* __restrict__ tw,
-                               const uint64_t* __restrict__ itw, int log_n,
-                               uint64_t scale) {
-  extern __shared__ uint64_t smem[];
-  const int n = 1 << log_n;
-  uint64_t* x = smem;
-  uint64_t* y = smem + n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = a[row + i];
-    y[i] = b[row + i];
-  }
-  __syncthreads();
-  forward(x, kCached ? 1 : 2, log_n, tw);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = gl_mul(gl_mul(x[i], y[i]), scale);
-  }
-  __syncthreads();
-  inverse(x, log_n, itw);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = x[i];
-  }
-}
-
 // out[r] = INTT(sum_k NTT(a[k, r]) . NTT(b[k, r])) for (terms, batch, n)
 // stacks a and b; with `cached`, b holds spectra.  The sum stays in shared
 // memory, one inverse per output row.
@@ -373,28 +345,9 @@ __global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
   }
 }
 
-// Its first half: times pre[r % period], the forward, times `scale` unless
-// it is 1.
-__global__ void forward_scaled_kernel(const uint64_t* __restrict__ in,
-                                      uint64_t* __restrict__ out,
-                                      const uint64_t* __restrict__ tw,
-                                      const uint64_t* __restrict__ pre,
-                                      int period, int log_n, uint64_t scale) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = gl_mul(in[row + i], __ldg(pre + srow + i));
-  }
-  __syncthreads();
-  forward(x, 1, log_n, tw);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = scale == 1 ? x[i] : gl_mul(x[i], scale);
-  }
-}
-
-// Its second half: the inverse, times `scale` (n^-1), times post[r % period].
+// The second half of the four-step's row pass (gl64_forward_scaled, on the
+// radix-8 core, is the first): the inverse, times `scale` (n^-1), times
+// post[r % period].
 __global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
                                       uint64_t* __restrict__ out,
                                       const uint64_t* __restrict__ itw,
@@ -805,6 +758,15 @@ __device__ __forceinline__ void inverse_passes(uint64_t (&x)[kWords], uint64_t* 
   }
 }
 
+// The forward's store: any word -> [0, q), times `scale` (one lazy product)
+// unless it is 1, then the one compare.
+__device__ __forceinline__ void forward_out(uint64_t (&x)[kWords], uint64_t scale) {
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    x[r] = canonical(scale == 1 ? x[r] : mul_lazy(x[r], scale));
+  }
+}
+
 // The transforms of `transforms` rows (kCols false: row r at r * n) or
 // columns (column c of matrix m at m * n * width + c, `width` words between
 // its elements) from `in` to `out`, each then times `scale` (the forward
@@ -832,10 +794,7 @@ __global__ void __launch_bounds__(block_threads(kLogN, kCols),
     load<kLogN, kCols, 0>(x, in, at, stride, t, live);  // [0, q): any words
     run_pass<0, first_stages(kLogN), false>(x, pt, 0);
     forward_passes<kLogN, kCols, 1>(x, smem, pt, g, t);
-#pragma unroll
-    for (int r = 0; r < kWords; ++r) {  // any word -> [0, q)
-      x[r] = canonical(scale == 1 ? x[r] : mul_lazy(x[r], scale));
-    }
+    forward_out(x, scale);
     store<kLogN, kCols, kLast>(x, out, at, stride, t, live);
   } else {
     load<kLogN, kCols, kLast>(x, in, at, stride, t, live);  // [0, q): any words
@@ -850,55 +809,6 @@ __global__ void __launch_bounds__(block_threads(kLogN, kCols),
   }
 }
 
-// The four-step's row pass on the radix-8 core, fused (gl64_cyclic_scaled,
-// gl64_cached_scaled): post . INTT(NTT(pre . a) o NTT(pre . b)) * scale, row
-// r scaled by row r % period of the (period, n) tables pre and post, in one
-// kernel a launch; device memory sees each operand and the result once.
-// nwc64.cu's fused product on this file's arithmetic: the forward of b, the
-// forward of a, the slot product in registers (after the forward's last
-// pass thread t holds spectrum words 8t ... 8t + 7 of its row, where the
-// inverse's first pass starts), the inverse.  The entry scale is one
-// product a word on the words the first pass loads, its table words taken
-// at the same positions (from L2); the exit scale one product a word
-// folded into the store, with the one compare.  b's spectrum waits in
-// eight more registers a thread, or with kSpectrumInRegisters false in the
-// tile where b's last pass read it (a's passes then exchange through a
-// second tile); a cached b is a spectrum, loaded as 16-byte vectors where
-// a's forward leaves its words, and neither scaled nor transformed.
-// tools/gl64_variants.py times both places (PERF.md).
-constexpr bool kSpectrumInRegisters = true;
-
-// Whether b's spectrum waits in registers at log n: at 1024 threads a block
-// (n = 8192) 64 registers a thread are all an SM has.
-__host__ __device__ constexpr bool spectrum_in_registers(int log_n) {
-  return kSpectrumInRegisters && block_threads(log_n, false) < 1024;
-}
-// Blocks an SM for __launch_bounds__: 1024 threads at 64 registers, or 640
-// (96 registers; 512 at n = 2048 and 4096, 128) when b's spectrum takes its
-// eight registers more.
-__host__ __device__ constexpr int product_blocks(int log_n, bool cached) {
-  const int threads = block_threads(log_n, false);
-  if (cached || !spectrum_in_registers(log_n)) {
-    return 1024 / threads;
-  }
-  return threads > 384 ? 1 : 640 / threads;
-}
-// v, which the compiler must take as new: each phase of the fused kernel
-// (b's forward, a's, the inverse: the same words) computes its swizzled
-// shared-memory addresses again from it where opaque_phases holds, at
-// n = 8192 (64 registers a thread), where the compiler would keep the first
-// phase's live through all three and spill (ptxas); below, the 96 or 128
-// registers hold them, and recomputing them costs 7 % (tools/gl64_variants.py).
-__device__ __forceinline__ int opaque(int v) {
-  asm volatile("" : "+r"(v));
-  return v;
-}
-__host__ __device__ constexpr bool opaque_phases(int log_n) { return log_n == 13; }
-// Tiles of shared memory a product block holds.
-__host__ __device__ constexpr int product_tiles(int log_n) {
-  return spectrum_in_registers(log_n) ? 1 : 2;
-}
-
 // x times the words of table row `srow` at pass kP's positions: any words.
 template <int kLogN, int kP>
 __device__ __forceinline__ void times_row(uint64_t (&x)[kWords], const uint64_t* table,
@@ -910,9 +820,109 @@ __device__ __forceinline__ void times_row(uint64_t (&x)[kWords], const uint64_t*
   }
 }
 
+// The four-step's row forward on the radix-8 core (gl64_forward_scaled):
+// out = NTT(pre . in) * scale on `rows` rows, row r scaled by row r % period
+// of the (period, n) table pre of plain values.  pre's product is one
+// mul_lazy a word on the words the first pass loads, its table words read
+// at the same positions (from L2): any words, which the CT butterfly takes;
+// then the forward's passes and the transforms' store (forward_out) of
+// spectrum words 8t ... 8t + 7.  Rows tile a block as in the transforms, at
+// their 1024 threads an SM: a pre word has no Shoup companion, so the scale
+// costs a thread 16 registers where nwc64.cu's pairs cost 32 (and spilled
+// there at 1024 threads); here nothing spills, and 1024 ran 0.3 % faster
+// than 512 (tools/gl64_variants.py, PERF.md).
+template <int kLogN>
+__global__ void __launch_bounds__(block_threads(kLogN, false),
+                                  1024 / block_threads(kLogN, false))
+    forward_scaled_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                          const uint64_t* __restrict__ tw, const uint64_t* __restrict__ pre,
+                          int period, int rows, uint64_t scale) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  const size_t srow = live ? static_cast<size_t>(row % period) * kN : 0;
+  uint64_t x[kWords];
+  load<kLogN, false, 0>(x, in, at, 1, t, live);  // [0, q)
+  times_row<kLogN, 0>(x, pre, srow, t);          // any words
+  run_pass<0, first_stages(kLogN), false>(x, tw, 0);
+  forward_passes<kLogN, false, 1>(x, smem, tw, g, t);
+  forward_out(x, scale);
+  store<kLogN, false, passes(kLogN) - 1>(x, out, at, 1, t, live);
+}
+
+// The products fused on the radix-8 core, one kernel a launch; device
+// memory sees each operand and the result once.  nwc64.cu's fused product
+// on this file's arithmetic: the forward of b, the forward of a, the slot
+// product in registers (after the forward's last pass thread t holds
+// spectrum words 8t ... 8t + 7 of its row, where the inverse's first pass
+// starts), the inverse, one compare at the store.  The slot is
+// mul_lazy(mul_lazy(x, y), scale): any words in and out, `scale` the n^-1
+// the wrapper passes.  A cached b is a spectrum, loaded as 16-byte vectors
+// where a's forward leaves its words, and neither scaled nor transformed.
+// * kScaled, the four-step's row pass (gl64_cyclic_scaled,
+//   gl64_cached_scaled): post . INTT(NTT(pre . a) o NTT(pre . b)) * scale,
+//   row r scaled by row r % period of the (period, n) tables pre and post.
+//   The entry scale is one product a word on the words the first pass
+//   loads, its table words taken at the same positions (from L2); the exit
+//   scale one product a word before the store's compare.
+// * Without, K2's flat product (gl64_product, gl64_cached): INTT(NTT(a) o
+//   NTT(b)) * scale on merged or cyclic tables; pre, post and period unused.
+// b's spectrum waits in eight more registers a thread, or in the output row
+// at the thread's own words (16-byte vectors written after b's forward and
+// read back, mostly from L2, before the slot product; the result
+// overwrites them), as in nwc64.cu.  The row pass keeps it in registers
+// below n = 8192 (kSpectrumInRegisters); the flat product in the output
+// row at every n, so that its 64-register threads run 1024 an SM: two
+// blocks of 512 at n = 4096, where registers leave one and ran 2.0 %
+// slower.  A second tile of shared memory, tried too, ran 2.7 % faster
+// than the output row but spilled 8 to 36 bytes at five log n
+// (tools/gl64_variants.py, PERF.md).
+constexpr bool kSpectrumInRegisters = true;
+
+// Whether b's spectrum waits in registers at log n: at 1024 threads a block
+// (n = 8192) 64 registers a thread are all an SM has.
+__host__ __device__ constexpr bool spectrum_in_registers(int log_n, bool scaled) {
+  return scaled && kSpectrumInRegisters && block_threads(log_n, false) < 1024;
+}
+// Blocks an SM for __launch_bounds__: 1024 threads at 64 registers, or 640
+// (96 registers; 512 at n = 2048 and 4096, 128) when b's spectrum takes its
+// eight registers more.
+__host__ __device__ constexpr int product_blocks(int log_n, bool cached, bool scaled) {
+  const int threads = block_threads(log_n, false);
+  if (cached || !spectrum_in_registers(log_n, scaled)) {
+    return 1024 / threads;
+  }
+  return threads > 384 ? 1 : 640 / threads;
+}
+// v, which the compiler must take as new: each phase of the fused kernel
+// (b's forward, a's, the inverse: the same words) computes its swizzled
+// shared-memory addresses again from it, and a's forward reads its
+// twiddles through an opaque table pointer, where opaque_phases holds: where
+// a thread has 64 registers (n = 8192; the fresh flat product, whose b
+// spectrum waits in the output row, at every n), the compiler would keep
+// the first phase's addresses and twiddles live through the others and
+// spill (ptxas); below, the row pass's 96 or 128 registers hold them, and
+// recomputing them costs 7 % (tools/gl64_variants.py).
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+__device__ __forceinline__ const uint64_t* opaque(const uint64_t* p) {
+  uintptr_t v = reinterpret_cast<uintptr_t>(p);
+  asm volatile("" : "+l"(v));
+  return reinterpret_cast<const uint64_t*>(v);
+}
+__host__ __device__ constexpr bool opaque_phases(int log_n, bool cached, bool scaled) {
+  return log_n == 13 || (!cached && !spectrum_in_registers(log_n, scaled));
+}
+
 // Tables: the per-pass layout of mxu64.pass_table; pre and post plain rows.
-template <int kLogN, bool kCached>
-__global__ void __launch_bounds__(block_threads(kLogN, false), product_blocks(kLogN, kCached))
+template <int kLogN, bool kCached, bool kScaled>
+__global__ void __launch_bounds__(block_threads(kLogN, false),
+                                  product_blocks(kLogN, kCached, kScaled))
     cyclic_scaled_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
                          uint64_t* __restrict__ out, const uint64_t* __restrict__ tw,
                          const uint64_t* __restrict__ itw, const uint64_t* __restrict__ pre,
@@ -922,37 +932,39 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), product_blocks(kL
   constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
   constexpr int kLast = passes(kLogN) - 1;
   constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
-  constexpr bool kInRegisters = spectrum_in_registers(kLogN);
+  constexpr bool kInRegisters = spectrum_in_registers(kLogN, kScaled);
   const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
   const int row = blockIdx.x * kTile + g;
   const bool live = row < rows;
   const size_t at = live ? static_cast<size_t>(row) * kN : 0;
   const size_t srow = live ? static_cast<size_t>(row % period) * kN : 0;
-  // a's passes exchange through the second tile when b's spectrum keeps the first
-  uint64_t* const work = kInRegisters || kCached ? smem : smem + kTile * kN;
   uint64_t y[kWords];
   if constexpr (!kCached) {
     load<kLogN, false, 0>(y, b, at, 1, t, live);  // [0, q): any words
-    times_row<kLogN, 0>(y, pre, srow, t);
+    if constexpr (kScaled) {
+      times_row<kLogN, 0>(y, pre, srow, t);
+    }
     run_pass<0, first_stages(kLogN), false>(y, tw, 0);
     forward_passes<kLogN, false, 1>(y, smem, tw, g, t);
-    if constexpr (kInRegisters) {
-      __syncthreads();  // a's first exchange overwrites the words b's last pass read
-    } else {
-      to_shared<kLogN, false, kLast>(y, smem, g, t);  // the words this thread read
+    if constexpr (!kInRegisters) {
+      store<kLogN, false, kLast>(y, out, at, 1, t, live);  // words 8t ... 8t + 7
     }
+    __syncthreads();  // a's first exchange overwrites the words b's last pass read
   }
-  constexpr bool kOpaque = opaque_phases(kLogN);
+  constexpr bool kOpaque = opaque_phases(kLogN, kCached, kScaled);
   const int ga = kOpaque ? opaque(g) : g, ta = kOpaque ? opaque(t) : t;  // a's forward
+  const uint64_t* const twa = kOpaque ? opaque(tw) : tw;
   uint64_t x[kWords];
   load<kLogN, false, 0>(x, a, at, 1, ta, live);
-  times_row<kLogN, 0>(x, pre, srow, ta);
-  run_pass<0, first_stages(kLogN), false>(x, tw, 0);
-  forward_passes<kLogN, false, 1>(x, work, tw, ga, ta);
+  if constexpr (kScaled) {
+    times_row<kLogN, 0>(x, pre, srow, ta);
+  }
+  run_pass<0, first_stages(kLogN), false>(x, twa, 0);
+  forward_passes<kLogN, false, 1>(x, smem, twa, ga, ta);
   if constexpr (kCached) {
     load<kLogN, false, kLast>(y, b, at, 1, ta, live);  // [0, q)
   } else if constexpr (!kInRegisters) {
-    from_shared<kLogN, false, kLast>(y, smem, ga, ta);
+    load<kLogN, false, kLast>(y, out, at, 1, ta, live);  // this thread's own words
   }
 #pragma unroll
   for (int r = 0; r < kWords; ++r) {  // any words, times n^-1: any word
@@ -960,8 +972,10 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), product_blocks(kL
   }
   const int gi = kOpaque ? opaque(g) : g, ti = kOpaque ? opaque(t) : t;  // the inverse
   run_pass<kS, 3, true>(x, itw + kOff, group<kLogN, kS>(ti));
-  inverse_passes<kLogN, false, kLast - 1>(x, work, itw, gi, ti);
-  times_row<kLogN, 0>(x, post, srow, ti);  // the store's positions
+  inverse_passes<kLogN, false, kLast - 1>(x, smem, itw, gi, ti);
+  if constexpr (kScaled) {
+    times_row<kLogN, 0>(x, post, srow, ti);  // the store's positions
+  }
 #pragma unroll
   for (int r = 0; r < kWords; ++r) {  // any word -> [0, q)
     x[r] = canonical(x[r]);
@@ -1012,6 +1026,13 @@ int launch_transform(const void* in, void* out, const void* pt, long long transf
   return cudaGetLastError();
 }
 
+// Whether any pointer is not 16-byte aligned, as the radix-8 core's vector
+// loads of tables and rows need.
+template <typename... P>
+bool misaligned(const P*... p) {
+  return ((reinterpret_cast<uintptr_t>(p) % 16 != 0) || ...);
+}
+
 // The radix-8 core's entry: log n from 5 to 13, every pointer 16-byte
 // aligned (the table's vectors, and the rows' in the last pass).
 template <bool kInverse, bool kCols>
@@ -1020,8 +1041,7 @@ int launch_core(const void* in, void* out, const void* tw, int batch, int log_n,
   if (bad_shape(batch, log_n) || width < 1) {
     return cudaErrorInvalidValue;
   }
-  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out) |
-       reinterpret_cast<uintptr_t>(tw)) % 16) {
+  if (misaligned(in, out, tw)) {
     return cudaErrorMisalignedAddress;
   }
   const long long transforms = static_cast<long long>(batch) * width;
@@ -1037,33 +1057,28 @@ int launch_core(const void* in, void* out, const void* tw, int batch, int log_n,
   return cudaErrorInvalidValue;
 }
 
-template <bool kCached>
-int launch_product(const void* a, const void* b, void* out, const void* tw,
-                   const void* itw, int batch, int log_n, uint64_t scale,
-                   void* stream) {
-  if (bad_shape(batch, log_n)) {
-    return cudaErrorInvalidValue;
-  }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(product_kernel<kCached>, 2 * n);
+template <int kLogN>
+int launch_forward_scaled(const void* in, void* out, const void* tw, const void* pre,
+                          int period, int batch, uint64_t scale, cudaStream_t stream) {
+  constexpr int kTile = tile(kLogN, false);
+  auto kernel = forward_scaled_kernel<kLogN>;
+  const cudaError_t err = allow_smem(kernel, kTile << kLogN);
   if (err != cudaSuccess) {
     return err;
   }
-  product_kernel<kCached><<<batch, threads_for(log_n), 2 * n * sizeof(uint64_t),
-                            static_cast<cudaStream_t>(stream)>>>(
-      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw),
-      log_n, scale);
+  kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN, false),
+           (kTile << kLogN) * sizeof(uint64_t), stream>>>(
+      words(in), static_cast<uint64_t*>(out), words(tw), words(pre), period, batch, scale);
   return cudaGetLastError();
 }
 
-template <int kLogN, bool kCached>
+template <int kLogN, bool kCached, bool kScaled>
 int launch_fused(const void* a, const void* b, void* out, const void* tw, const void* itw,
                  const void* pre, const void* post, int period, int batch, uint64_t scale,
                  cudaStream_t stream) {
   constexpr int kTile = tile(kLogN, false);
-  constexpr int kSmem = (kCached ? 1 : product_tiles(kLogN)) * kTile * (1 << kLogN) *
-                        static_cast<int>(sizeof(uint64_t));
-  auto kernel = cyclic_scaled_kernel<kLogN, kCached>;
+  constexpr int kSmem = kTile * (1 << kLogN) * static_cast<int>(sizeof(uint64_t));
+  auto kernel = cyclic_scaled_kernel<kLogN, kCached, kScaled>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) {
@@ -1075,28 +1090,25 @@ int launch_fused(const void* a, const void* b, void* out, const void* tw, const 
   return cudaGetLastError();
 }
 
-// The fused row pass's entry: log n from 5 to 13, every pointer 16-byte
-// aligned (the tables' vectors, and a cached spectrum's).
-template <bool kCached>
-int launch_cyclic_scaled(const void* a, const void* b, void* out,
-                         const void* tw, const void* itw, const void* pre,
-                         const void* post, int period, int batch, int log_n,
-                         uint64_t scale, void* stream) {
+// The fused products' entry: log n from 5 to 13, every pointer 16-byte
+// aligned (the tables' vectors, and a cached spectrum's); the flat product
+// (kScaled false) passes no pre or post, and period 1.
+template <bool kCached, bool kScaled>
+int launch_product(const void* a, const void* b, void* out, const void* tw, const void* itw,
+                   const void* pre, const void* post, int period, int batch, int log_n,
+                   uint64_t scale, void* stream) {
   if (bad_shape(batch, log_n) || period < 1 || batch % period) {
     return cudaErrorInvalidValue;
   }
-  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-       reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(tw) |
-       reinterpret_cast<uintptr_t>(itw) | reinterpret_cast<uintptr_t>(pre) |
-       reinterpret_cast<uintptr_t>(post)) % 16) {
+  if (misaligned(a, b, out, tw, itw, pre, post)) {
     return cudaErrorMisalignedAddress;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (log_n) {
 #define GL64_LOG_N(L)                                                                    \
   case L:                                                                                \
-    return launch_fused<L, kCached>(a, b, out, tw, itw, pre, post, period, batch, scale, \
-                                    s);
+    return launch_fused<L, kCached, kScaled>(a, b, out, tw, itw, pre, post, period,      \
+                                             batch, scale, s);
     GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
     GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
 #undef GL64_LOG_N
@@ -1111,17 +1123,22 @@ int launch_cyclic_scaled(const void* a, const void* b, void* out,
 // device refuses (too much shared memory, a bad shape) never runs, so the
 // caller must check the code.
 
+// The product of (batch, n) rows on the radix-8 core, fused: merged tables
+// give the negacyclic product, cyclic ones the cyclic; the tables are those
+// of mxu64.pass_table, the scale n^-1.
 extern "C" int gl64_product(const void* a, const void* b, void* out,
                             const void* tw, const void* itw, int batch,
                             int log_n, uint64_t scale, void* stream) {
-  return launch_product<false>(a, b, out, tw, itw, batch, log_n, scale, stream);
+  return launch_product<false, false>(a, b, out, tw, itw, nullptr, nullptr, 1, batch, log_n,
+                                      scale, stream);
 }
 
+// The same against a plain-domain, bit-reversed cached spectrum.
 extern "C" int gl64_cached(const void* a, const void* spectrum, void* out,
                            const void* tw, const void* itw, int batch,
                            int log_n, uint64_t scale, void* stream) {
-  return launch_product<true>(a, spectrum, out, tw, itw, batch, log_n, scale,
-                              stream);
+  return launch_product<true, false>(a, spectrum, out, tw, itw, nullptr, nullptr, 1, batch,
+                                     log_n, scale, stream);
 }
 
 // The forward and the inverse of (batch, n) rows on the radix-8 core.  The
@@ -1195,8 +1212,8 @@ extern "C" int gl64_cyclic_scaled(const void* a, const void* b, void* out,
                                   const void* pre, const void* post, int period,
                                   int batch, int log_n, uint64_t scale,
                                   void* stream) {
-  return launch_cyclic_scaled<false>(a, b, out, tw, itw, pre, post, period,
-                                     batch, log_n, scale, stream);
+  return launch_product<false, true>(a, b, out, tw, itw, pre, post, period, batch, log_n,
+                                     scale, stream);
 }
 
 // The same against the rows of a cached spectrum.
@@ -1205,26 +1222,32 @@ extern "C" int gl64_cached_scaled(const void* a, const void* spectrum,
                                   const void* pre, const void* post, int period,
                                   int batch, int log_n, uint64_t scale,
                                   void* stream) {
-  return launch_cyclic_scaled<true>(a, spectrum, out, tw, itw, pre, post,
-                                    period, batch, log_n, scale, stream);
+  return launch_product<true, true>(a, spectrum, out, tw, itw, pre, post, period, batch,
+                                    log_n, scale, stream);
 }
 
+// The row forward on the radix-8 core: NTT(pre . in) * scale (scale 1
+// skipped), pre as for gl64_cyclic_scaled, the table that of
+// mxu64.pass_table.
 extern "C" int gl64_forward_scaled(const void* in, void* out, const void* tw,
                                    const void* pre, int period, int batch,
                                    int log_n, uint64_t scale, void* stream) {
   if (bad_shape(batch, log_n) || period < 1 || batch % period) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(forward_scaled_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned(in, out, tw, pre)) {
+    return cudaErrorMisalignedAddress;
   }
-  forward_scaled_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
-                          static_cast<cudaStream_t>(stream)>>>(
-      words(in), static_cast<uint64_t*>(out), words(tw), words(pre), period,
-      log_n, scale);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define GL64_LOG_N(L)                                                                    \
+  case L:                                                                                \
+    return launch_forward_scaled<L>(in, out, tw, pre, period, batch, scale, s);
+    GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
+    GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
+#undef GL64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int gl64_inverse_scaled(const void* in, void* out, const void* itw,

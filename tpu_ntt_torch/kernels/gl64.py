@@ -28,11 +28,13 @@ on every column of natural (R, n, width) rows, with no transposes.
 
 ``gl64_forward`` and ``gl64_inverse`` (and their column entry points) run
 the radix-8 core of ``csrc/gl64.cu``: passes of three stages in registers,
-twiddles in the per-pass layout of ``mxu64.pass_table``;
-``gl64_cyclic_scaled`` and ``gl64_cached_scaled`` run the four-step's row
-pass fused on that core, on the same per-pass tables
-(``GoldilocksPlan64.pass_entries``); the other eight kernels read the flat
-tables.
+twiddles in the per-pass layout of ``mxu64.pass_table``; so does the
+four-step's row forward ``gl64_forward_scaled``.  The products fused on
+that core, both forwards, the slot product and the inverse in one kernel,
+are K2's flat product (``gl64_product``, ``gl64_cached``) and the
+four-step's row pass (``gl64_cyclic_scaled``, ``gl64_cached_scaled``).
+These nine read the per-pass tables (``GoldilocksPlan64.pass_entries``);
+the other five kernels run the first core on the flat tables.
 """
 
 from __future__ import annotations
@@ -116,7 +118,8 @@ class GoldilocksPlan64(_plan.ScaledKernelPlan):
         return table[0]  # GoldilocksRing.mul_tw takes the plain values
 
     pass_entries = frozenset({"forward", "inverse", "forward_cols", "inverse_cols",
-                              "cyclic_scaled", "cached_scaled"})
+                              "forward_scaled", "product", "cached", "cyclic_scaled",
+                              "cached_scaled"})
 
     def _transform_table(self, flat) -> tuple:
         """The per-pass layout of the flat table w for the radix-8 core's
