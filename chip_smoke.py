@@ -34,13 +34,16 @@ kernel K6).  Phases, each of which raises on failure:
    cached) at n = 4096, the fused ``nwc64_cyclic_scaled`` and
    ``gl64_cyclic_scaled`` and the row forwards ``nwc64_forward_scaled``
    and ``gl64_forward_scaled`` at n = 128 and 1024, the fused
-   ``nwc64_dot_scaled`` at n = 128 and the flat ``nwc64_dot`` at n = 4096
-   (a step of its loop, one forward, and the rest); the radix-8 kernels of
-   both files, 36 transforms and 9 row forwards each, nwc64.cu's 18 fused
-   products, 18 fused row passes and 36 fused dots (18 row passes, 18
-   flat), and gl64.cu's 36 fused products (18 flat, 18 row passes), must
-   spill nothing; the blocks an SM of nwc64.cu's flat dot and gl64.cu's
-   flat product, by ptxas's registers and their shared memory;
+   ``nwc64_dot_scaled`` at n = 128 and the flat ``nwc64_dot`` and
+   ``gl64_dot`` at n = 4096 (a step of its loop, one forward, and the
+   rest), and nwc32.cu's radix-16 forward at n = 256, 4096 and 16384 with
+   its shared-memory instructions; the radix kernels of the three files,
+   36 transforms and 9 row forwards in each 64-bit one, nwc64.cu's 18
+   fused products, 18 fused row passes and 36 fused dots (18 row passes,
+   18 flat), gl64.cu's 36 fused products (18 flat, 18 row passes) and 18
+   flat dots, and nwc32.cu's 7 radix-16 forwards, must spill nothing; the
+   blocks an SM of both flat dots and gl64.cu's flat product, by ptxas's
+   registers and their shared memory;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: the
    radix-8 cores (``nwc64_forward``, ``nwc64_inverse`` on rows and
@@ -64,7 +67,12 @@ kernel K6).  Phases, each of which raises on failure:
    products at every n; the dot at K = 4 and B = 2048 at n = 128 alone);
    the flat dot
    ``nwc64_dot`` on merged tables, fresh and cached, K = 1 and 4, at the
-   same n, q and B (K = 4 at B = 2048 at n = 128 alone); every op
+   same n, q and B (K = 4 at B = 2048 at n = 128 alone); ``gl64_dot`` on
+   gl64.cu's radix-8 core, fresh and cached, K = 1 and 4, n = 32 to 8192,
+   B = 1, 3 and 512, and K = 4 at B = 2048 at n = 4096, boundary rows
+   first; ``nwc32_forward`` on nwc32.cu's radix-16 core at n = 256 to
+   16384 (q = 8380417 to 4096, q = 16580609, q = 12289 to 2048), B = 1, 3
+   and 2048, merged and cyclic tables, scale 1 and 2^32 mod q; every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
    B = 256), the product, forward and inverse at n = 256 and 8192, the dot
    at n = 8192 (three rows of shared memory), every op at the generic q;
@@ -179,10 +187,11 @@ kernel K6).  Phases, each of which raises on failure:
    four-step's row kernels at p60_32768 and goldilocks_32768, and its
    chains (nwc, nwc_fwd, nwc_inv, cached, dot, dot_cached, matvec at both,
    spectrum at p60_32768; nwc and cached at both 2^20 rows) against their
-   plain chains, the cached dot at P60_4096 beside the fresh one, with the
-   product chain's parts by graph replay: column forward, row kernel,
-   column inverse (beside the chain, the transpose route the column entry
-   points replace, and the five transposes alone); ``nwc64_forward_cols``,
+   plain chains, the cached dots at P60_4096 and goldilocks_4096 beside the
+   fresh ones, with the product chain's parts by graph replay: column
+   forward, row kernel, column inverse (beside the chain, the transpose
+   route the column entry points replace, and the five transposes
+   alone); ``nwc64_forward_cols``,
    ``nwc64_inverse_cols``, ``gl64_forward_cols`` and ``gl64_inverse_cols``
    at p60_32768's and goldilocks_32768's column passes; the degree-2^17
    commitment's LDE (and its parts: the torch coset scale and pad, the
@@ -584,13 +593,16 @@ def main() -> int:
     # P60_4096's n = 4096, fresh: a step of the loop (one forward: b's or
     # a's of a term), the inverse and the store after it, and a thread's
     # count at K = 4 (2K steps)
-    for kernel in ("dot_scaled_kernel<7, 0, 1>", "dot_scaled_kernel<12, 0, 0>"):
-        code = nwc_sass[kernel]
-        counted = issued_with_loop(code, 2 * DOT_TERMS)
-        print(f"  sass: nwc64.cu {kernel}: {len(code)} instructions; "
+    def print_dot(lib, listing, kernel, steps):
+        code = listing[kernel]
+        counted = issued_with_loop(code, steps)
+        print(f"  sass: {lib}.cu {kernel}: {len(code)} instructions; "
               + (f"a step's trip {counted[0]}, after the steps {counted[1]}; at K = "
                  f"{DOT_TERMS} a thread issues {counted[2]} after its first barrier"
                  if counted else f"loops not one: {sass_loops(code)}"))
+
+    for kernel in ("dot_scaled_kernel<7, 0, 1>", "dot_scaled_kernel<12, 0, 0>"):
+        print_dot("nwc64", nwc_sass, kernel, 2 * DOT_TERMS)
     # gl64.cu's radix-8 core against its first core, counted the same way:
     # the transforms, the flat product fresh and cached at n = 4096, the row
     # pass and the row forward at n = 128 and 1024; the first core's row
@@ -615,35 +627,58 @@ def main() -> int:
         print(f"  sass: gl64.cu {kernel}: {len(code)} instructions; after its first barrier "
               f"a thread issues {issued or 'not counted:'} "
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
-    # the radix-8 kernels of both files spill nothing: 36 transforms (a log n
-    # from 5 to 13, each direction and layout) and 9 row forwards (a log n)
-    # in each, nwc64.cu's 18 fused products (each log n, fresh and cached),
-    # 18 fused row passes and 36 fused dots (the row passes' 18 and the flat
-    # dot's 18), and gl64.cu's 36 fused products (the flat product's 18 and
-    # the row pass's 18, fresh and cached)
-    for lib, fused in (("nwc64", (("product_kernel", 18), ("cyclic_scaled_kernel", 18),
-                                  ("forward_scaled_kernel", 9), ("dot_scaled_kernel", 36))),
-                       ("gl64", (("cyclic_scaled_kernel", 36), ("forward_scaled_kernel", 9)))):
+    # gl64.cu's flat dot on the radix-8 core at n = 4096, fresh (2K steps)
+    # and cached (K), counted as nwc64.cu's; nwc32.cu's radix-16 forward at
+    # n = 256, 4096 and 16384 (unrolled), and its shared-memory accesses
+    # (the last pass's exchange as 16-byte vectors)
+    print_dot("gl64", gl_sass, "dot_kernel<12, 0>", 2 * DOT_TERMS)
+    print_dot("gl64", gl_sass, "dot_kernel<12, 1>", DOT_TERMS)
+    w32_sass = sass_listing(libs["nwc32"])
+    for kernel in ("radix_forward_kernel<8>", "radix_forward_kernel<12>",
+                   "radix_forward_kernel<14>"):
+        code = w32_sass[kernel]
+        issued = issued_per_thread(code, ())
+        shared = {op: sum(ins.startswith(op + " ") for _, ins in code)
+                  for op in ("LDS", "LDS.128", "STS", "STS.128")}
+        print(f"  sass: nwc32.cu {kernel}: {len(code)} instructions; after its first barrier "
+              f"a thread issues {issued or 'not counted:'} "
+              + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}")
+              + f"; shared-memory instructions {shared}")
+    # the radix kernels of the three files spill nothing: 36 transforms (a
+    # log n from 5 to 13, each direction and layout) and 9 row forwards (a
+    # log n) in each 64-bit file, nwc64.cu's 18 fused products (each log n,
+    # fresh and cached), 18 fused row passes and 36 fused dots (the row
+    # passes' 18 and the flat dot's 18), gl64.cu's 36 fused products (the
+    # flat product's 18 and the row pass's 18, fresh and cached) and 18
+    # flat dots, and nwc32.cu's 7 radix-16 forwards (a log n from 8 to 14)
+    for lib, kernels in (("nwc64", (("transform_kernel", 36), ("product_kernel", 18),
+                                    ("cyclic_scaled_kernel", 18), ("forward_scaled_kernel", 9),
+                                    ("dot_scaled_kernel", 36))),
+                         ("gl64", (("transform_kernel", 36), ("cyclic_scaled_kernel", 36),
+                                   ("forward_scaled_kernel", 9), ("dot_kernel", 18))),
+                         ("nwc32", (("radix_forward_kernel", 7),))):
         log = libs[lib].with_suffix(".log").read_text()
-        for kernel, count in (("transform_kernel", 36), *fused):
+        for kernel, count in kernels:
             spills = re.findall(rf"Function properties for \S*{kernel}I\S*\n[^\n]*?(\d+) "
                                 r"bytes spill stores, (\d+) bytes spill loads", log)
             if len(spills) != count or any(int(st) or int(ld) for st, ld in spills):
                 raise AssertionError(f"{lib}.cu's {kernel}s: {count} expected, none "
                                      f"spilling; ptxas says {spills}")
-            print(f"build: {lib}.cu's {len(spills)} radix-8 {kernel}s spill nothing")
-    # the blocks an SM of nwc64.cu's flat dot and gl64.cu's flat product:
-    # their registers (ptxas), their tiles of shared memory (the dot three
-    # fresh, two cached; the product one, b's spectrum waiting in the output
-    # row; of max(n, 1024) words) and the SM's 64 Ki registers, 228 KiB
-    # (1 KiB reserved a block), 2048 threads and 32 blocks
-    for lib, what, kernel, tiles in (("nwc64", "flat dot", "dot_scaled_kernel", (3, 2)),
-                                     ("gl64", "flat product", "cyclic_scaled_kernel", (1, 1))):
+            print(f"build: {lib}.cu's {len(spills)} radix {kernel}s spill nothing")
+    # the blocks an SM of nwc64.cu's and gl64.cu's flat dots and gl64.cu's
+    # flat product: their registers (ptxas), their tiles of shared memory
+    # (a dot three fresh, two cached; the product one, b's spectrum waiting
+    # in the output row; of max(n, 1024) words) and the SM's 64 Ki
+    # registers, 228 KiB (1 KiB reserved a block), 2048 threads and 32 blocks
+    for lib, what, kernel, tiles, tail in (
+            ("nwc64", "flat dot", "dot_scaled_kernel", (3, 2), "Lb0EE"),
+            ("gl64", "flat dot", "dot_kernel", (3, 2), "E"),
+            ("gl64", "flat product", "cyclic_scaled_kernel", (1, 1), "Lb0EE")):
         registers = ptxas_registers(libs[lib].with_suffix(".log").read_text())
         for log_n in range(5, 14):
             for cached in (0, 1):
                 regs = next(v for k, v in registers.items()
-                            if k.startswith(f"{kernel}ILi{log_n}ELb{cached}ELb0EE"))
+                            if k.startswith(f"{kernel}ILi{log_n}ELb{cached}E{tail}"))
                 threads = max(1 << log_n, 1024) // 8
                 smem = tiles[cached] * max(1 << log_n, 1024) * 8
                 by_regs = 65536 // (-(-regs // 8) * 8 * threads)
@@ -955,6 +990,65 @@ def main() -> int:
               + f"), n = 32 to 8192: {checks} launches equal in "
               f"{time.perf_counter() - t_q:.1f} s")
     print(f"kernel vs plain: the fused products checked in {time.perf_counter() - t0:.1f} s")
+
+    def silent_check(name: str, label: str, got, want) -> None:
+        torch.cuda.synchronize()
+        errs[name] = max(errs.get(name, 0), int((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version at {label}")
+
+    # gl64_dot on gl64.cu's radix-8 core: fresh and cached, K = 1 and 4, at
+    # every log n of the sub-plans' window, B = 1, 3 and DOT_BATCH, and the
+    # K = 4 loop at B = 2048 at n = 4096; boundary rows first (b's reversed)
+    t0, checks = time.perf_counter(), 0
+    for log_n in range(5, 14):
+        n = 1 << log_n
+        plan = GoldilocksSubPlan64(make_params(n, GOLDILOCKS_Q), device)
+        shapes = [(terms, rows) for terms in (1, DOT_TERMS) for rows in (1, 3, DOT_BATCH)]
+        for terms, rows in shapes + ([(DOT_TERMS, BATCH)] if n == 4096 else []):
+            x3, y3 = (card_operands(GOLDILOCKS_Q, n, terms * rows, gen).reshape(terms, rows, n)
+                      for _ in range(2))
+            y3 = y3.flip(1).contiguous()
+            s3 = plan.nwc_spectrum_plain(y3.reshape(-1, n)).reshape(y3.shape)
+            label = f"n={n} K={terms} B={rows}"
+            silent_check("gl64_dot", label, plan.nwc_dot(x3, y3), plan.nwc_dot_plain(x3, y3))
+            silent_check("gl64_dot", label + " cached", plan.nwc_dot_cached(x3, s3),
+                         plan.nwc_dot_cached_plain(x3, s3))
+            checks += 2
+    print(f"kernel vs plain: gl64_dot, fresh and cached, K = 1 and {DOT_TERMS}, n = 32 to 8192, "
+          f"B = 1, 3, {DOT_BATCH} (and {BATCH} at n = 4096, K = {DOT_TERMS}): {checks} launches "
+          f"equal in {time.perf_counter() - t0:.1f} s")
+
+    # nwc32_forward on nwc32.cu's radix-16 core: n = 256 to 16384 at
+    # q = 16580609, to 4096 at P24_4096's and DILITHIUM_256's q = 8380417
+    # and to 2048 at FALCON's q = 12289; B = 1, 3 and 2048, boundary rows
+    # first; merged and cyclic tables, scale 1 and 2^32 mod q (a cached
+    # spectrum's domain)
+    t0, checks = time.perf_counter(), 0
+    for q in (8380417, 16580609, 12289):
+        for log_n in range(8, 15):
+            n = 1 << log_n
+            if (q - 1) % (2 * n):
+                continue
+            plan = MxuPlan(make_params(n, q), device)
+            x = card_operands(q, n, BATCH, gen).to(torch.int32)
+            for flat, plain in ((plan.plan.merged_flat, plan.nwc_ntt_fwd_plain),
+                                (plan.plan.cyclic_flat, plan.ntt_fwd_plain)):
+                for rows in (1, 3, BATCH):
+                    want = plain(x[:rows])
+                    for scale in (plan._scale_one, plan._scale_spectrum):
+                        if scale[0] != 1:
+                            want = plan.ring.mul_tw(want, plan._r_tw)
+                        out = torch.empty_like(x[:rows])
+                        plan._launch("forward", out, x[:rows], out,
+                                     *plan._table_of("forward", flat), rows, log_n,
+                                     *plan._q_args(False), *scale)
+                        silent_check("nwc32_forward", f"n={n} q={q} B={rows} scale {scale[0]}",
+                                     out, want)
+                        checks += 1
+    print(f"kernel vs plain: nwc32_forward, merged and cyclic tables, scale 1 and 2^32 mod q, "
+          f"n = 256 to 16384, q = 8380417, 16580609, 12289, B = 1, 3, {BATCH}: {checks} "
+          f"launches equal in {time.perf_counter() - t0:.1f} s")
 
     # K1a's large-n bodies, and K2's: the four-step at bench.py's p60_32768,
     # B = 256, p60_1048576, B = 4, and the Goldilocks rows of the same shapes
@@ -1747,12 +1841,15 @@ def main() -> int:
     timed["poseidon_permute"] = permute_timed(8)  # the Merkle trees' width
     timed["poseidon_sponge"] = sponge_timed(lde_rows, ONE)  # the STARK leaves
     # not kernel functions of their own: the product at the generic q, the
-    # cached dot at P60_4096, the permutation at width 12 and the sponge
+    # cached dots at P60_4096 and goldilocks_4096, the permutation at width
+    # 12 and the sponge
     # over bench.py's rows of 8
     timed["generic-q product"] = nwc_timed("nwc64_product", p_gen, "nwc", plan_gen,
                                            inputs_gen, BATCH)
     timed["nwc64_dot cached"] = nwc_timed("nwc64_dot_cached", P60_4096, "dot_cached", plan60,
                                           inputs60, DOT_BATCH)
+    timed["gl64_dot cached"] = nwc_timed("gl64_dot_cached", GOLDILOCKS_4096, "dot_cached",
+                                         plan_gl, inputs_gl, DOT_BATCH)
     # the four-step's row kernels at p60_32768 and goldilocks_32768, B = 256,
     # as its product calls them, then its chains, not kernel functions of
     # their own
@@ -2021,7 +2118,9 @@ def main() -> int:
           f"{kb_ * per_s['kyber_matvec']:.1f}; B={kb_}; "
           f"nwc_poly_mult_goldilocks_4096_per_sec: {BATCH * per_s['gl64_product']:.1f}; "
           f"fwd_ntt_goldilocks_4096_per_sec: {BATCH * per_s['gl64_forward']:.1f}; "
-          f"B={BATCH}; poseidon2_w8_perm_per_sec: "
+          f"B={BATCH}; goldilocks_4096_dot_K{DOT_TERMS}_per_sec: "
+          f"{DOT_BATCH * per_s['gl64_dot']:.1f}, cached {DOT_BATCH * per_s['gl64_dot cached']:.1f}"
+          f" (B={DOT_BATCH}); poseidon2_w8_perm_per_sec: "
           f"{POSEIDON_BATCH * per_s['poseidon_permute']:.1f}; poseidon2_w12_perm_per_sec: "
           f"{POSEIDON_BATCH * per_s['width-12 permute']:.1f}; B={POSEIDON_BATCH}; "
           f"stark_leaf_rows_of_{STARK_COLS}_per_sec: "

@@ -1,8 +1,8 @@
 """The radix-8 core of ``csrc/gl64.cu`` (``gl64_forward``, ``gl64_inverse``,
 their column entry points, the row forward ``gl64_forward_scaled``, and the
-products fused on it: K2's flat ``gl64_product`` and ``gl64_cached``, the
-four-step's row pass ``gl64_cyclic_scaled`` and ``gl64_cached_scaled``)
-modelled on the CPU, and K2's two ablation toggles.
+products fused on it: K2's flat ``gl64_product``, ``gl64_cached`` and
+``gl64_dot``, the four-step's row pass ``gl64_cyclic_scaled`` and
+``gl64_cached_scaled``) modelled on the CPU, and K2's two ablation toggles.
 
 * The lazy arithmetic: each ``GL_PTX_*`` carry chain read out of gl64.cu
   and run on a model of the 32-bit PTX instructions (numpy object arrays,
@@ -33,16 +33,23 @@ modelled on the CPU, and K2's two ablation toggles.
   128), against the plain row pass and JAX's XLA ``cyclic_poly_mult``
   between the scales.  The row forward (``model`` with ``pre``) at the row
   pass's shapes, scale 1 and q - 1, against ``ntt_fwd_scaled_plain``
-  and JAX's XLA ``ntt_fwd`` of the scaled rows.
+  and JAX's XLA ``ntt_fwd`` of the scaled rows.  K2's flat dot
+  (``dot_model``: a forward a loop step, the slot's mul_lazy into a sum of
+  add_any, one inverse) at K = 1 and 4, fresh and cached, at n = 32, 256
+  and 4096 on merged tables, against ``nwc_dot_plain``,
+  ``nwc_dot_cached_plain`` and the sum of JAX's XLA
+  ``nwc_poly_mult_merged`` of the terms (JAX's ``GoldilocksPlan64`` dot in
+  interpret mode at n = 256 is tests/test_torch_kernels_gl64.py's, held to
+  the same plain dot).
 * ``GoldilocksSubPlan64``'s column methods (``_plan.ColumnPassPlan``;
   plain on the CPU: the transpose route) against ``FourStepPlan``'s
   transposes and JAX's four-step locals (``tpu_ntt.sharded._along`` of its
   XLA transforms) at 32 x 32 and 64 x 32, widths n2 / D for D = 2, 4, 8;
   the four-step's launch path runs them and never the transposes.
-* The C signatures ``load`` binds for the nine entry points, and faked
+* The C signatures ``load`` binds for the ten entry points, and faked
   launches that hand them the per-pass tables; a ``cuda``-marked case holds
-  both layouts, the flat products, the row forward and both row passes
-  against plain on a card.
+  both layouts, the flat products and dot, the row forward and both row
+  passes against plain on a card.
 * JAX's ``GoldilocksPlan64`` with ``split_left`` and ``const_mul_special``
   off (tpu_ntt/kernels/gl64.py:211, :216) in interpret mode at n = 32768
   against the port's four-step: ``slow``, about 25 s (a 12 s plan build).
@@ -142,30 +149,35 @@ def run(chain: str, regs: list) -> list:
     """Execute GL_PTX_<chain> on the operands ``regs`` (32-bit words or
     object arrays of them, %k = regs[k]) as PTX does: .cc writes the carry
     flag (for sub, the borrow), addc/subc/madc read it, the destination
-    keeps 32 bits."""
-    regs, cf = [words(r) for r in regs], None
+    keeps 32 bits.  The words run as uint64 (a 32 x 32 product plus two
+    32-bit words and a carry stays below 2^64); object arrays out."""
+    regs, cf = [np.asarray(words(r)).astype(np.uint64) for r in regs], None
+    one = np.uint64(1)
     for op, d, srcs in CHAINS[chain]:
-        v = [regs[k] if kind == "%" else k for kind, k in srcs]
-        assert all(np.all((x >= 0) & (x <= M32)) for x in v), (chain, op)
+        v = [regs[k] if kind == "%" else np.uint64(k) for kind, k in srcs]
+        assert all(np.all(x <= M32) for x in v), (chain, op)
         assert op.endswith(".u32"), op
         base = op.split(".")[0]
         carry_in = base in ("addc", "subc", "madc")
         assert not carry_in or cf is not None, f"{chain}: {op} reads no carry"
-        c = cf if carry_in else 0
+        c = cf if carry_in else np.uint64(0)
         if base in ("add", "addc"):
             s = v[0] + v[1] + c
         elif base in ("sub", "subc"):
-            s = v[0] - v[1] - c
+            with np.errstate(over="ignore"):  # wraps below 0: its low 32 bits are the result
+                s = v[0] - v[1] - c
+            borrow = (v[0] < v[1] + c).astype(np.uint64)
         elif base in ("mul", "mad", "madc"):
             prod = v[0] * v[1]
-            part = prod >> 32 if ".hi" in op else prod & M32
-            s = part + (v[2] if base != "mul" else 0) + c
+            part = prod >> np.uint64(32) if ".hi" in op else prod & np.uint64(M32)
+            s = part + (v[2] if base != "mul" else np.uint64(0)) + c
         else:
             raise AssertionError(f"{chain}: no model of {op}")
-        regs[d] = words(s & M32)
+        regs[d] = s & np.uint64(M32)
         if ".cc" in op:
-            cf = select(s < 0, 1, 0) if base in ("sub", "subc") else words(s >> 32)
-    return regs
+            cf = borrow if base in ("sub", "subc") else s >> np.uint64(32)
+            assert np.all(cf <= one)
+    return [words(r.astype(object)) for r in regs]
 
 
 def split(x):
@@ -429,6 +441,43 @@ def fused_model(plan, a: torch.Tensor, b: torch.Tensor, pre, post,
     return as_tensor(out, a.shape)
 
 
+def dot_model(plan, a: torch.Tensor, b: torch.Tensor, spectra: torch.Tensor) -> list:
+    """K2's flat dot gl64_dot on (K, R, n) stacks, merged per-pass tables,
+    as the kernel runs it: per term the forward of b (fresh; cached, the
+    words of b's plain spectrum where a's forward leaves its own, 8t ...
+    8t + 7), the forward of a, the slot's mul_lazy added into the sum by
+    add_any (any words, the sum starting at 0), then one inverse from the
+    sum, n^-1 by mul_lazy and the one compare at the store.  a's forwards
+    serve both; the sums after the first term are K = 1's.  Returns the
+    outputs [fresh K = 1, cached K = 1, fresh K, cached K]."""
+    log_n = plan.p.log_n
+    tw = ints(plan._transform_table(plan.plan.merged_flat)[0])
+    itw = ints(plan._transform_table(plan.plan.merged_inv_flat)[0])
+    at, live, t, slot = lanes(plan, a[0])
+    first = pass_words(log_n, 0, t)
+    spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
+    sums = [[words(np.zeros(at(0).shape, dtype=object)) for _ in range(WORDS)]
+            for _ in range(2)]
+    outs = []
+    for k in range(a.shape[0]):
+        fresh = passes_on(plan, [words(v) for v in load(ints(b[k].reshape(-1)), at, live, first)],
+                          tw, False, t, slot)
+        cached = [words(v) for v in load(ints(spectra[k].reshape(-1)), at, live, spectrum)]
+        x = passes_on(plan, [words(v) for v in load(ints(a[k].reshape(-1)), at, live, first)],
+                      tw, False, t, slot)
+        sums = [[add_any(acc, mul_lazy(u, v)) for acc, u, v in zip(total, x, y)]
+                for total, y in zip(sums, (fresh, cached))]
+        if k + 1 not in (1, a.shape[0]):
+            continue
+        for total in sums:
+            out = np.zeros(a[0].numel(), dtype=object)
+            x = passes_on(plan, list(total), itw, True, t, slot)  # total stays
+            for reg, v in enumerate(x):
+                out[at(first[reg])[live]] = canonical(mul_lazy(v, plan.p.n_inv))[live]
+            outs.append(as_tensor(out, a[0].shape))
+    return outs if a.shape[0] > 1 else outs * 2
+
+
 @functools.lru_cache(maxsize=None)
 def plans(n: int):
     return (GoldilocksSubPlan64(make_params(n, Q), "cpu"),
@@ -459,7 +508,9 @@ def test_model_matches_plain_and_jax(n, monkeypatch):
     fused on the core (``fused_model`` without scales: gl64_product, and
     gl64_cached against the plain spectrum) on merged tables, against the
     plain products and JAX's XLA ``nwc_poly_mult_merged`` (its body around
-    the transforms jitted here: the same shape, so the same jits)."""
+    the transforms jitted here: the same shape, so the same jits); then
+    K2's flat dot (``dot_model``) at K = 1 and 4, fresh and cached, against
+    the plain dots and the sum of JAX's products of its terms."""
     plan, jplan = plans(n)
     rows = {32: 37, 256: 5, 4096: 2}[n]  # partial last tiles below 1024
     x = operands((rows, n), seed=n)
@@ -494,6 +545,17 @@ def test_model_matches_plain_and_jax(n, monkeypatch):
     got = fused_model(plan, a, spectrum, None, None, True, "merged")
     assert torch.equal(got, want)
     assert torch.equal(got, plan.nwc_poly_mult_cached_plain(a, spectrum))
+    a3 = operands((4, rows, n), seed=n + 1)
+    b3 = operands((4, rows, n), seed=n + 2).flip(1).contiguous()
+    spectra = plan.nwc_spectrum_plain(b3.reshape(-1, n)).reshape(b3.shape)
+    terms = [ints(run_jax_product(monkeypatch, jntt.nwc_poly_mult_merged, jplan, a3[k], b3[k]))
+             for k in range(4)]
+    got = dot_model(plan, a3, b3, spectra)
+    for (k, cached), out in zip(((1, False), (1, True), (4, False), (4, True)), got):
+        want = as_tensor((sum(terms[:k]) % Q).reshape(-1), (rows, n))
+        plain = (plan.nwc_dot_cached_plain(a3[:k], spectra[:k]) if cached
+                 else plan.nwc_dot_plain(a3[:k], b3[:k]))
+        assert torch.equal(out, plain) and torch.equal(out, want), (k, cached)
 
 
 def row_pass_operands(rows: int, n: int, period: int, seed: int):
@@ -635,19 +697,19 @@ C_TYPES = {"int": kgl64.ctypes.c_int, "uint64_t": kgl64.ctypes.c_uint64}
 
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
-    """``load`` types the nine radix-core entry points (the row forward, the
-    flat products and the row pass's two among them) with the C argument
-    types of csrc/gl64.cu, and each has its own launch count; those nine
-    read per-pass tables: faked launches on the CPU hand gl64_product the
-    merged or cyclic per-pass tables, gl64_cached the merged ones and
-    gl64_forward_scaled the cyclic one."""
+    """``load`` types the ten radix-core entry points (the row forward, the
+    flat products and dot and the row pass's two among them) with the C
+    argument types of csrc/gl64.cu, and each has its own launch count;
+    those ten read per-pass tables: faked launches on the CPU hand
+    gl64_product the merged or cyclic per-pass tables, gl64_cached and
+    gl64_dot the merged ones and gl64_forward_scaled the cyclic one."""
     bound = {}
     monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
     kgl64.load.__wrapped__()
     source = (_build.CSRC / "gl64.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (gl64_\w+)\(([^)]*)\)', source))
     radix = ("forward", "inverse", "forward_cols", "inverse_cols", "forward_scaled",
-             "product", "cached", "cyclic_scaled", "cached_scaled")
+             "product", "cached", "cyclic_scaled", "cached_scaled", "dot")
     assert GoldilocksPlan64.pass_entries == set(radix)
     for suffix in radix:
         params = [p.strip() for p in decls[f"gl64_{suffix}"].split(",")]
@@ -666,13 +728,19 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     plan.cyclic_poly_mult(a, a)
     plan.nwc_poly_mult_cached(a, a)
     plan.ntt_fwd_scaled(a, (a[:2].contiguous(),))
+    plan.nwc_dot(a.reshape(2, 2, 256), a.reshape(2, 2, 256))
+    plan.nwc_dot_cached(a.reshape(2, 2, 256), a.reshape(2, 2, 256))
     tables = {kind: [plan._transform_table(getattr(plan.plan, f"{kind}{inv}_flat"))[0]
                      for inv in ("", "_inv")] for kind in ("merged", "cyclic")}
-    for (entry, args), kind in zip(calls, ("merged", "cyclic", "merged")):
+    for (entry, args), kind in zip(calls[:3] + calls[4:], ("merged", "cyclic", "merged",
+                                                           "merged", "merged")):
         assert args[3] is tables[kind][0] and args[4] is tables[kind][1], (entry, kind)
-        assert args[5:7] == (4, 8), entry
-    assert [entry for entry, _ in calls] == ["product", "product", "cached", "forward_scaled"]
+        assert args[5:7] == ((4, 8) if entry != "dot" else (2, 2)), entry
+    assert [entry for entry, _ in calls] == ["product", "product", "cached", "forward_scaled",
+                                             "dot", "dot"]
     assert calls[3][1][2] is tables["cyclic"][0] and calls[3][1][4:7] == (2, 4, 8)
+    assert [args[7:] for _, args in calls[4:]] == [(8, plan._scale_fresh[0], 0),
+                                                   (8, plan._scale_cached[0], 1)]
 
 
 @pytest.fixture
@@ -704,6 +772,11 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
         spectrum = plan.nwc_spectrum(b)  # gl64_cached
         assert torch.equal(plan.nwc_poly_mult_cached(a, spectrum),
                            plan.nwc_poly_mult_cached_plain(a, spectrum)), n
+        a3, b3 = a.reshape(2, 5, n), b.reshape(2, 5, n)  # gl64_dot
+        assert torch.equal(plan.nwc_dot(a3, b3), plan.nwc_dot_plain(a3, b3)), n
+        spectra = spectrum.reshape(2, 5, n)
+        assert torch.equal(plan.nwc_dot_cached(a3, spectra),
+                           plan.nwc_dot_cached_plain(a3, spectra)), n
         for period in (1, 5):  # gl64_forward_scaled, gl64_cyclic_scaled, gl64_cached_scaled
             pre, post = ((t.to(cuda_device),) for t in row_pass_operands(period, n, period,
                                                                          seed=n)[:2])

@@ -39,8 +39,8 @@ modelled on the CPU, and K1a's three ablation toggles.
   first lanes asserted) at K = 1 and 3 at n = 256 against
   ``nwc_dot_plain`` and ``nwc_dot_cached_plain``; faked launches show the
   five entry points receive the per-pass tables on ``SubPlan64`` and
-  ``MxuPlan64``, the Goldilocks plans' ``gl64_forward_scaled`` its
-  per-pass table and ``gl64_dot`` the flat ones.
+  ``MxuPlan64``, the Goldilocks plans' ``gl64_forward_scaled`` and
+  ``gl64_dot`` theirs.
 * ``SubPlan64``'s column methods (plain on the CPU: the transpose route)
   against ``FourStepPlan``'s transposes and JAX's four-step locals
   (``tpu_ntt.sharded._along`` of its XLA transforms) at 32 x 32 and
@@ -728,13 +728,11 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
     nwc64_forward_scaled receive the cyclic tables in the per-pass layout
     (``pass_table``), nwc64_dot the merged ones, the first-core row pass
     the flat ones, on ``SubPlan64`` (n = 128) and ``MxuPlan64`` (n = 256);
-    on the Goldilocks plans gl64_forward_scaled, on gl64.cu's radix-8 core,
-    receives the cyclic per-pass table, and gl64_dot, which runs gl64.cu's
-    first core, keeps the flat tables."""
+    on the Goldilocks plans gl64_forward_scaled and gl64_dot, on gl64.cu's
+    radix-8 core, receive the cyclic and the merged per-pass tables."""
     assert {"cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled",
             "dot"} <= MxuPlan64.pass_entries
-    assert "forward_scaled" in GoldilocksPlan64.pass_entries
-    assert "dot" not in GoldilocksPlan64.pass_entries
+    assert {"forward_scaled", "dot"} <= GoldilocksPlan64.pass_entries
     for cls, gl_cls, n in ((SubPlan64, GoldilocksSubPlan64, 128),
                            (MxuPlan64, GoldilocksPlan64, 256)):
         plan = cls(make_params(n, Q_GENERIC), "cpu")
@@ -765,8 +763,8 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
         gl.ntt_fwd_scaled(a, (a[:2].contiguous(),))
         gl.nwc_dot(a[None], a[None])
         assert calls["forward_scaled"][2] is gl._transform_table(gl.plan.cyclic_flat)[0]
-        assert calls["dot"][3] is _plan._table(gl.plan.merged_flat)[0]
-        assert calls["dot"][4] is _plan._table(gl.plan.merged_inv_flat)[0]
+        assert calls["dot"][3] is gl._transform_table(gl.plan.merged_flat)[0]
+        assert calls["dot"][4] is gl._transform_table(gl.plan.merged_inv_flat)[0]
 
 
 # ---------------------------------------------------------------------------

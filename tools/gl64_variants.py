@@ -10,7 +10,8 @@ then ``gl64_forward`` and ``gl64_inverse`` at goldilocks_4096, B = 2048,
 ``gl64_forward_cols`` and ``gl64_inverse_cols`` at the column shapes of
 goldilocks_32768 (256 x 128, B = 256) and Goldilocks 2^20 (1024 x 1024,
 B = 4), the fused flat ``gl64_product`` and ``gl64_cached`` at
-goldilocks_4096, B = 2048, on merged tables, and the four-step's row
+goldilocks_4096, B = 2048, on merged tables, the flat dot ``gl64_dot`` at
+goldilocks_4096, K = 4, B = 512, fresh and cached, and the four-step's row
 kernels at the row shapes of both (65536 rows of 128 at period 256; 4096
 rows of 1024 at period 1024): the fused row pass ``gl64_cyclic_scaled`` at
 both, ``gl64_cached_scaled`` at the first, and the row forward
@@ -21,8 +22,9 @@ its time says what the work it drops costs, nothing else; every other
 variant must give the base's integers.  ``--against`` builds an earlier
 gl64.cu beside them (its entry points of ``AGAINST_FLAT`` reading the flat
 tables: the first core's), times it in the same turns, holds it to the
-base's integers and counts the instructions its first-core product and row
-forward issue, as tools/nwc64_variants.py does.  ``--build-only`` and
+base's integers and counts the instructions its first-core dot issues at
+n = 4096, K = 4, as tools/nwc64_variants.py counts its own (its first
+barrier lies inside its loop of terms).  ``--build-only`` and
 ``--only`` as there.  Needs a CUDA device and nvcc; prints the card's name
 and power limit.
 """
@@ -42,7 +44,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from nwc64_variants import (best_ms, build, build_all, chosen, count_against,  # noqa: E402
-                            first_core_trips, forward_trips, parse_args)
+                            first_core_threads, parse_args)
 from tpu_ntt_torch.kernels import _build  # noqa: E402
 from tpu_ntt_torch.kernels.gl64 import GoldilocksSubPlan64  # noqa: E402
 from tpu_ntt_torch.params import GOLDILOCKS_4096, make_params  # noqa: E402
@@ -61,6 +63,13 @@ BLOCKS = "  return threads > 384 ? 1 : 640 / threads;"
 FLAT_B = "  return scaled && kSpectrumInRegisters && block_threads(log_n, false) < 1024;"
 FORWARD_BOUNDS = ("                                  1024 / block_threads(kLogN, false))\n"
                   "    forward_scaled_kernel(")
+DOT_BOUNDS = ("                                  1024 / block_threads(kLogN, false))\n"
+              "    dot_kernel(")
+DOT_AT_512 = DOT_BOUNDS.replace("1024 / block_threads(kLogN, false)",
+                                "block_threads(kLogN, false) > 256 ? 1 : "
+                                "512 / block_threads(kLogN, false)")
+DOT_B = "        spectrum[r * kThreads] = x[r];"
+DOT_SLOT_B = "kCached ? y[r] : spectrum[r * kThreads]"
 #: name -> (what it changes, [(text, replacement)], computes the right integers)
 VARIANTS = {
     "base": ("the source as it is", [], True),
@@ -135,14 +144,42 @@ VARIANTS = {
                 "kTile * (1 << kLogN)",
                 "(kCached || spectrum_in_registers(kLogN, kScaled) ? 1 : 2) * kTile * (1 << kLogN)"))],
         True),
+    # the flat dot: where a fresh b's spectrum waits, the private tiles' layout,
+    # the threads an SM
+    "dot b in the output row": (
+        "the flat dot's fresh b spectrum in the output row at the thread's own words (from "
+        "L2), not in a third shared tile (two tiles a block)",
+        [(DOT_B, "        if (live) out[at + kWords * ts + r] = x[r];"),
+         (DOT_SLOT_B, "kCached ? y[r] : out[at + kWords * ts + r]"),
+         ("constexpr int dot_tiles(bool cached) { return cached ? 2 : 3; }",
+          "constexpr int dot_tiles(bool cached) { return 2; }")], True),
+    "dot b in registers at 512 threads an SM": (
+        "the flat dot's fresh b spectrum in eight registers a thread across the loop's steps, "
+        "at 512 threads an SM (128 registers)",
+        [(DOT_B, "        held[r] = x[r];"), (DOT_SLOT_B, "kCached ? y[r] : held[r]"),
+         ("  const int steps = kCached ? terms : 2 * terms;",
+          "  uint64_t held[kWords];\n  const int steps = kCached ? terms : 2 * terms;"),
+         (DOT_BOUNDS, DOT_AT_512)], True),
+    "dot swizzled tiles": (
+        "the flat dot's sum and b spectrum at the exchange tile's swizzled words 8t ... 8t + 7 "
+        "(nwc64.cu's), not word r of thread i at r * threads + i",
+        [("  uint64_t* const sum = smem + kTile * kN + threadIdx.x;",
+          "  uint64_t* const sum = smem + kTile * kN;"),
+         ("sum[r * kThreads]", "sum[tile_word<kLogN, false>(g, kWords * t + r)]"),
+         ("spectrum[r * kThreads]", "spectrum[tile_word<kLogN, false>(g, kWords * t + r)]")],
+        True),
+    "dot at 512 threads an SM": (
+        "the flat dot's launch bounds at 512 threads an SM (128 registers)",
+        [(DOT_BOUNDS, DOT_AT_512)], True),
 }
 #: the entry points an --against source runs on the first core's flat tables
-AGAINST_FLAT = ("product", "cached", "forward_scaled")
+AGAINST_FLAT = ("dot",)
 KERNELS = ("transform_kernelILi12ELb0ELb0EE", "cyclic_scaled_kernelILi12ELb0ELb0EE",
            "cyclic_scaled_kernelILi12ELb1ELb0EE", "cyclic_scaled_kernelILi7ELb0ELb1EE",
            "cyclic_scaled_kernelILi10ELb0ELb1EE", "forward_scaled_kernelILi7EE",
-           "forward_scaled_kernelILi10EE")
-FUSED = ("cyclic_scaled_kernelILi", "forward_scaled_kernelILi")
+           "forward_scaled_kernelILi10EE", "dot_kernelILi12ELb0EE", "dot_kernelILi12ELb1EE",
+           "dot_kernelILi13ELb0EE")
+FUSED = ("cyclic_scaled_kernelILi", "forward_scaled_kernelILi", "dot_kernelILi")
 PTR, I32, U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "inverse": [PTR] * 3 + [I32] * 2 + [U64, PTR],
@@ -152,7 +189,19 @@ ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "cached": [PTR] * 5 + [I32] * 2 + [U64, PTR],
             "forward_scaled": [PTR] * 4 + [I32] * 3 + [U64, PTR],
             "cyclic_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
-            "cached_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR]}
+            "cached_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
+            "dot": [PTR] * 5 + [I32] * 3 + [U64, I32, PTR]}
+
+
+def first_core_dot_trips(log_n: int, terms: int = 4) -> tuple:
+    """The loop trips of the first core's fresh dot after its first barrier,
+    in the address order of its loops' branches: the forward's butterfly
+    and stage loops, the slot loop, the loop of terms around them, the
+    scale loop, the inverse's butterfly and stage loops, the store loop (the
+    loads of each term before its barrier are not counted)."""
+    n, threads = 1 << log_n, first_core_threads(log_n)
+    return (n // 2 // threads, log_n, n // threads, terms, n // threads, n // 2 // threads,
+            log_n, n // threads)
 
 
 def residues(shape, rng) -> torch.Tensor:
@@ -180,9 +229,7 @@ def main() -> int:
             libs["against"] = build(opts.against.read_text(), path, "gl64", ARGTYPES,
                                     KERNELS[:1], FUSED)
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {"product_kernel<0>": {12: first_core_trips(12)},
-                                 "product_kernel<1>": {12: first_core_trips(12)},
-                                 "forward_scaled_kernel": {l: forward_trips(l) for l in (7, 10)}})
+            count_against(path, {"dot_kernel": {12: first_core_dot_trips(12)}})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -219,6 +266,18 @@ def main() -> int:
                     for tables in ([plan._transform_table(t)[0] for t in merged], merged)]
             cases.append((f"gl64_{entry} goldilocks_4096 B=2048", entry, out, call[0],
                           (x, z, merged, call[1])))
+        # the flat dot at goldilocks_4096, K = 4, B = 512, merged tables,
+        # fresh and cached
+        a3, b3 = residues((4, 512, 4096), rng), residues((4, 512, 4096), rng)
+        spectra = plan.nwc_spectrum_plain(b3.reshape(-1, 4096)).reshape(b3.shape)
+        for z, cached, scale in ((b3, 0, plan._scale_fresh), (spectra, 1, plan._scale_cached)):
+            out = torch.empty_like(a3[0])
+            call = [(a3.data_ptr(), z.data_ptr(), out.data_ptr(),
+                     *(w.data_ptr() for w in tables), 4, 512, plan.p.log_n, *scale, cached,
+                     stream)
+                    for tables in ([plan._transform_table(t)[0] for t in merged], merged)]
+            cases.append((f"gl64_dot goldilocks_4096 K=4 B=512{' cached' if cached else ''}",
+                          "dot", out, call[0], (a3, z, merged, call[1])))
         # the row pass of goldilocks_32768 (256 x 128, B = 256) and of 2^20
         # (1024 x 1024, B = 4): rows of n2 at period n1
         for n1, n2, batch, entries in ((256, 128, 256, ("cyclic_scaled", "cached_scaled")),

@@ -375,11 +375,11 @@ def forward_trips(log_n: int) -> tuple:
     return (n // 2 // threads, log_n, n // threads // 4, n // threads % 4)
 
 
-def count_against(lib: Path, kernels: dict) -> None:
+def count_against(lib: Path, kernels: dict, row_threads=first_core_threads) -> None:
     """Print the instructions a thread of each first-core kernel of the
     library ``lib`` issues after its first barrier at each log n (kernel ->
-    {log n: its loops' trips}), and a row's (times its threads), by
-    chip_smoke.py's count."""
+    {log n: its loops' trips}), and a row's (times its threads at log n,
+    ``row_threads``), by chip_smoke.py's count."""
     import chip_smoke
 
     listing = chip_smoke.sass_listing(lib)
@@ -389,7 +389,7 @@ def count_against(lib: Path, kernels: dict) -> None:
             continue
         for log_n, trips in logs.items():
             issued = chip_smoke.issued_per_thread(listing[kernel], trips)
-            threads = first_core_threads(log_n)
+            threads = row_threads(log_n)
             print(f"against: {kernel} at n = {1 << log_n}, loop trips {trips}: a thread "
                   f"issues {issued} after its first barrier, a row of {threads} threads "
                   f"{issued * threads if issued else None}"

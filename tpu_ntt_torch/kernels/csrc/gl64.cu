@@ -47,22 +47,24 @@
 // over.  32 <= n <= 8192 (the public window is 256 <= n <= 8192; below
 // it, the four-step's sub-sizes).
 //
-// Two cores, as in nwc64.cu.  Nine entry points run the radix-8 core ("The
+// Two cores, as in nwc64.cu.  Ten entry points run the radix-8 core ("The
 // radix-8 core" below): gl64_forward, gl64_inverse and their column entry
 // points; the row forward gl64_forward_scaled, the entry scale and one
 // forward on it; and, fused onto it ("The products fused on the radix-8
 // core"), both forwards, the slot product and the inverse in one kernel a
 // launch: K2's flat product gl64_product and gl64_cached, and the
 // four-step's row pass gl64_cyclic_scaled and gl64_cached_scaled, with the
-// entry and exit scales.  The other five (gl64_dot, gl64_matvec,
-// gl64_inverse_scaled, gl64_dot_scaled, gl64_matvec_scaled) run the first
-// core, correct first and simple, until they move onto the radix-8 one.
+// entry and exit scales; and K2's flat dot gl64_dot ("The dot fused on the
+// radix-8 core"), a forward a loop step and one inverse.  The other four
+// (gl64_matvec, gl64_inverse_scaled, gl64_dot_scaled, gl64_matvec_scaled)
+// run the first core, correct first and simple, until they move onto the
+// radix-8 one.
 // The network code of both is a copy of nwc64.cu's rather than a header
 // shared by both, so nwc64.cu is not changed and its functions and times
 // stay as they were; the arithmetic differs.  The first core:
 // * One thread block per output row, the rows in dynamic shared memory, 8n
-//   bytes each: one for the inverses and the matvec, three for the dot
-//   (192 KiB at n = 8192, under the 227 KB a block may have).  n / 8
+//   bytes each: one for the inverses and the matvec, three for the row
+//   pass's dot (192 KiB at n = 8192, under the 227 KB a block may have).  n / 8
 //   threads (at most 1024), four butterflies each, from n = 256 on; below,
 //   a warp, or n / 2 (the four-step's sub-sizes).
 // * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
@@ -81,7 +83,8 @@
 // * Every value stays canonical in [0, q), also through the dot's and the
 //   matvec's accumulation.
 // * The four-step's first-core row kernels are the first core's inverse,
-//   dot_kernel and matvec_kernel with one gl_mul more, by a table row, at
+//   a dot of its forward and inverse, and matvec_kernel with one gl_mul
+//   more, by a table row, at
 //   entry and/or exit (never on a cached spectrum, which the row forward
 //   has already scaled).  Row r of a launch reads row r % period of a
 //   (period, n) table of plain values (no Shoup companion, as for the
@@ -277,47 +280,6 @@ __device__ void inverse(uint64_t* x, int log_n, const uint64_t* itw) {
   }
 }
 
-// out[r] = INTT(sum_k NTT(a[k, r]) . NTT(b[k, r])) for (terms, batch, n)
-// stacks a and b; with `cached`, b holds spectra.  The sum stays in shared
-// memory, one inverse per output row.
-__global__ void dot_kernel(const uint64_t* __restrict__ a,
-                           const uint64_t* __restrict__ b,
-                           uint64_t* __restrict__ out,
-                           const uint64_t* __restrict__ tw,
-                           const uint64_t* __restrict__ itw, int terms,
-                           int batch, int log_n, uint64_t scale, int cached) {
-  extern __shared__ uint64_t smem[];
-  const int n = 1 << log_n;
-  uint64_t* acc = smem;
-  uint64_t* x = smem + n;
-  uint64_t* y = smem + 2 * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = 0;
-  }
-  for (int k = 0; k < terms; ++k) {
-    const size_t row = (static_cast<size_t>(k) * batch + blockIdx.x) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      x[i] = a[row + i];
-      y[i] = b[row + i];
-    }
-    __syncthreads();
-    forward(x, cached ? 1 : 2, log_n, tw);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      acc[i] = gl_add(acc[i], gl_mul(x[i], y[i]));
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = gl_mul(acc[i], scale);
-  }
-  __syncthreads();
-  inverse(acc, log_n, itw);
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = acc[i];
-  }
-}
-
 // out[i, r] = INTT(sum_j S[j, r] . A[i, j]) for block (r, i): S is the
 // (cols, batch, n) stack of spectra of s, A the (rows, cols, n) cached
 // spectra, both plain.
@@ -367,10 +329,12 @@ __global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
   }
 }
 
-// The four-step's row pass of the dot: dot_kernel with the entry scale
-// pre[r % period] on every fresh operand and the exit scale post[r % period]
-// after the one inverse.  a and b are (terms, batch, n) stacks of the column
-// pass's rows; with `cached`, b holds cached spectrum rows, used as they are.
+// The four-step's row pass of the dot on the first core: out = post .
+// INTT(sum_k NTT(pre . a_k) o NTT(pre . b_k)) * scale, the sum in shared
+// memory, one inverse a row, the entry scale pre[r % period] on every fresh
+// operand and the exit scale post[r % period] after the inverse.  a and b
+// are (terms, batch, n) stacks of the column pass's rows; with `cached`, b
+// holds cached spectrum rows, used as they are.
 __global__ void dot_scaled_kernel(const uint64_t* __restrict__ a,
                                   const uint64_t* __restrict__ b,
                                   uint64_t* __restrict__ out,
@@ -983,6 +947,103 @@ __global__ void __launch_bounds__(block_threads(kLogN, false),
   store<kLogN, false, 0>(x, out, at, 1, ti, live);
 }
 
+// The dot fused on the radix-8 core (gl64_dot, K1b's body at the Goldilocks
+// q): out = INTT(sum_k NTT(a_k) o NTT(b_k)) * scale for (terms, rows, n)
+// stacks a and b (b plain-domain spectra with kCached), one output row a
+// row, on merged (or cyclic) per-pass tables; nwc64.cu's flat dot on this
+// file's arithmetic.  One loop of steps, each one forward on the core: a
+// fresh term's b, then its a, whose slot product goes into the sum; a's
+// alone against a cached spectrum, whose words are read (16-byte vectors)
+// where a's forward leaves its own.  The slot is mul_lazy and the sum
+// add_any: lanes are any 64-bit words, and a sum of two can carry twice.
+// After the last term one inverse, `scale` (n^-1) one mul_lazy a word and
+// one compare at the store, as in the transforms.
+//
+// Where the words wait.  After a forward thread t holds spectrum words
+// 8t ... 8t + 7 of its row, the words the slot needs, so the sum and a
+// fresh b's spectrum are private to the thread: each waits in a tile of
+// shared memory of its own beside the exchange's, word r of thread i at
+// r * threads + i (a warp's accesses 256 contiguous bytes: no bank conflict,
+// no swizzle, one address a thread and constant offsets), 24 KiB a block up
+// to n = 1024, 96 KiB at 4096 and 192 KiB at 8192 fresh (two tiles
+// cached): two blocks of 512 threads an SM at n = 4096.  A thread keeps only
+// the forward's eight lanes (16 registers) through the loop, and each step
+// takes its thread indices and twiddle pointer anew (opaque), so that the
+// compiler keeps no address or twiddle of one step live into the next:
+// 1024 threads an SM, 64 registers a thread, at every n.  At K = 4, B = 512,
+// n = 4096, b's spectrum in the output row ran 26 % slower, in registers at
+// 512 threads an SM 7 % slower (and spilled at n = 8192), both tiles at
+// nwc64.cu's swizzled words 0.8 % slower (tools/gl64_variants.py, PERF.md).
+__host__ __device__ constexpr int dot_tiles(bool cached) { return cached ? 2 : 3; }
+
+template <int kLogN, bool kCached>
+__global__ void __launch_bounds__(block_threads(kLogN, false),
+                                  1024 / block_threads(kLogN, false))
+    dot_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
+               uint64_t* __restrict__ out, const uint64_t* __restrict__ tw,
+               const uint64_t* __restrict__ itw, int terms, int rows, uint64_t scale) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  constexpr int kThreads = block_threads(kLogN, false);
+  constexpr int kLast = passes(kLogN) - 1;
+  constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
+  uint64_t* const sum = smem + kTile * kN + threadIdx.x;  // word r at sum[r * kThreads]
+  uint64_t* const spectrum = sum + kTile * kN;            // a fresh b's, the same
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    sum[r * kThreads] = 0;
+  }
+  const int steps = kCached ? terms : 2 * terms;
+#pragma unroll 1
+  for (int step = 0; step < steps; ++step) {
+    const int k = kCached ? step : step / 2;
+    const bool of_b = !kCached && step % 2 == 0;  // b's forward of a fresh term
+    const size_t ak = live ? (static_cast<size_t>(k) * rows + row) * kN : 0;
+    const int gs = opaque(g), ts = opaque(t);
+    const uint64_t* const tws = opaque(tw);
+    uint64_t x[kWords];
+    load<kLogN, false, 0>(x, of_b ? b : a, ak, 1, ts, live);  // [0, q): any words
+    run_pass<0, first_stages(kLogN), false>(x, tws, 0);
+    forward_passes<kLogN, false, 1>(x, smem, tws, gs, ts);    // words 8t ... 8t + 7
+    if (of_b) {
+#pragma unroll
+      for (int r = 0; r < kWords; ++r) {
+        spectrum[r * kThreads] = x[r];
+      }
+    } else {
+      uint64_t y[kWords];
+      if constexpr (kCached) {
+        load<kLogN, false, kLast>(y, b, ak, 1, ts, live);  // [0, q)
+      }
+#pragma unroll
+      for (int r = 0; r < kWords; ++r) {  // any words
+        sum[r * kThreads] =
+            add_any(sum[r * kThreads], mul_lazy(x[r], kCached ? y[r] : spectrum[r * kThreads]));
+      }
+    }
+    if (step + 1 < steps) {
+      __syncthreads();  // the next step's first exchange overwrites the words this one's read
+    }
+  }
+  const int gi = opaque(g), ti = opaque(t);  // the inverse
+  uint64_t x[kWords];
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    x[r] = sum[r * kThreads];
+  }
+  run_pass<kS, 3, true>(x, itw + kOff, group<kLogN, kS>(ti));
+  inverse_passes<kLogN, false, kLast - 1>(x, smem, itw, gi, ti);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // any word -> [0, q)
+    x[r] = canonical(mul_lazy(x[r], scale));
+  }
+  store<kLogN, false, 0>(x, out, at, 1, ti, live);
+}
+
 // n / 8 threads from n = 256 on (four butterflies each), at most 1024;
 // below, a warp, or one thread a butterfly where n / 2 is less.
 int threads_for(int log_n) {
@@ -1090,6 +1151,24 @@ int launch_fused(const void* a, const void* b, void* out, const void* tw, const 
   return cudaGetLastError();
 }
 
+template <int kLogN, bool kCached>
+int launch_dot(const void* a, const void* b, void* out, const void* tw, const void* itw,
+               int terms, int batch, uint64_t scale, cudaStream_t stream) {
+  constexpr int kTile = tile(kLogN, false);
+  constexpr int kSmem =
+      dot_tiles(kCached) * kTile * (1 << kLogN) * static_cast<int>(sizeof(uint64_t));
+  auto kernel = dot_kernel<kLogN, kCached>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN, false), kSmem, stream>>>(
+      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw), terms, batch,
+      scale);
+  return cudaGetLastError();
+}
+
 // The fused products' entry: log n from 5 to 13, every pointer 16-byte
 // aligned (the tables' vectors, and a cached spectrum's); the flat product
 // (kScaled false) passes no pre or post, and period 1.
@@ -1168,22 +1247,30 @@ extern "C" int gl64_inverse_cols(const void* in, void* out, const void* itw, int
   return launch_core<true, true>(in, out, itw, batch, log_n, width, scale, stream);
 }
 
+// The dot of (terms, batch, n) stacks a and b, 1 <= terms <= 8 (b holds
+// plain-domain spectra with `cached`), one output row a row of the batch,
+// on the radix-8 core, fused; the tables are those of mxu64.pass_table,
+// the scale n^-1; every pointer 16-byte aligned.
 extern "C" int gl64_dot(const void* a, const void* b, void* out,
                         const void* tw, const void* itw, int terms, int batch,
                         int log_n, uint64_t scale, int cached, void* stream) {
   if (bad_shape(batch, log_n) || terms < 1 || terms > 8) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(dot_kernel, 3 * n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned(a, b, out, tw, itw)) {
+    return cudaErrorMisalignedAddress;
   }
-  dot_kernel<<<batch, threads_for(log_n), 3 * n * sizeof(uint64_t),
-               static_cast<cudaStream_t>(stream)>>>(
-      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw),
-      terms, batch, log_n, scale, cached);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define GL64_LOG_N(L)                                                                    \
+  case L:                                                                                \
+    return cached ? launch_dot<L, true>(a, b, out, tw, itw, terms, batch, scale, s)       \
+                  : launch_dot<L, false>(a, b, out, tw, itw, terms, batch, scale, s);
+    GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
+    GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
+#undef GL64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int gl64_matvec(const void* spectra, const void* mat, void* out,

@@ -11,6 +11,10 @@ tensor raises ``TypeError``.
 The ops, their plain versions, the launch counts and the spectrum layout
 (bit-reversed; cached spectra times 2^32 mod q, tpu_ntt's domain) are
 ``_plan.KernelPlan``'s; the kernels are those of ``csrc/nwc32.cu``.
+``nwc32_forward`` (the forwards, the spectrum, and the matvec's transform
+of s) runs that file's radix-16 core, passes of four stages in registers,
+on the per-pass layout of ``mxu64.pass_table`` with ``RADIX`` stages a pass
+(``MxuPlan.pass_entries``); the other five kernels read the flat tables.
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ import torch
 
 from ..params import NttParams
 from ._plan import KernelPlan
+from .mxu64 import cached_pass_table
 
 MIN_N, MAX_N = 256, 16384  # the JAX window; the dot's 3 rows of n int32 fit 227 KB
 MAX_WIDTH = 24
+RADIX = 4  # stages a pass of nwc32.cu's radix-16 core
 
 #: the C entry points of csrc/nwc32.cu, each with its own launch count
 KERNELS = ("nwc32_product", "nwc32_cached", "nwc32_forward", "nwc32_inverse",
@@ -49,3 +55,11 @@ class MxuPlan(KernelPlan):
         if p.width > MAX_WIDTH:
             return f"MxuPlan requires width <= 24, q < 2^24 (got {p.width}-bit q)"
         return f"n={p.n} must be a multiple of 128 in [256, 16384]"
+
+    pass_entries = frozenset({"forward"})
+
+    def _transform_table(self, flat: tuple) -> tuple:
+        """The per-pass layout of the flat table (w, w') for the radix-16
+        core's entry point: pairs of 32-bit words, a warp's 8-byte loads
+        of consecutive groups contiguous."""
+        return cached_pass_table(self, flat, RADIX)

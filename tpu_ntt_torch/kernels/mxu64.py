@@ -64,16 +64,18 @@ KERNELS = ("nwc64_product", "nwc64_cached", "nwc64_forward", "nwc64_inverse",
            "nwc64_inverse_cols")
 
 
-def passes(log_n: int) -> list[tuple[int, int]]:
-    """The radix-8 core's passes in forward order, (first stage, stages):
-    the first takes log_n mod 3 stages (3 where that is 0), every later one
-    three.  The inverse runs them in reverse order."""
-    first = log_n - 3 * ((log_n - 1) // 3)
-    return [(0, first)] + [(s, 3) for s in range(first, log_n, 3)]
+def passes(log_n: int, radix: int = 3) -> list[tuple[int, int]]:
+    """A radix core's passes in forward order, (first stage, stages): the
+    first takes log_n mod ``radix`` stages (``radix`` where that is 0),
+    every later one ``radix``; 3 in the radix-8 cores of nwc64.cu and
+    gl64.cu, 4 in the radix-16 core of nwc32.cu.  The inverse runs them in
+    reverse order."""
+    first = log_n - radix * ((log_n - 1) // radix)
+    return [(0, first)] + [(s, radix) for s in range(first, log_n, radix)]
 
 
 @functools.lru_cache(maxsize=None)
-def pass_indices(log_n: int) -> np.ndarray:
+def pass_indices(log_n: int, radix: int = 3) -> np.ndarray:
     """The flat-table index of each word of ``pass_table``.  Pass (s, r)
     holds 2^(r - 1) columns of 2^s pairs, the pair of column c and group
     hi at words 2 * (c * 2^s + hi) and + 1 after the earlier passes' words:
@@ -81,7 +83,7 @@ def pass_indices(log_n: int) -> np.ndarray:
     entry 0, never read), else stage s + d's u-th twiddle of the group,
     flat entry 2^(s + d) + hi * 2^d + u, with 2c + h = 2^d + u."""
     idx = []
-    for s, r in passes(log_n):
+    for s, r in passes(log_n, radix):
         col, hi, half = np.meshgrid(np.arange(1 << (r - 1)), np.arange(1 << s),
                                     np.arange(2), indexing="ij")
         word = 2 * col + half
@@ -93,24 +95,25 @@ def pass_indices(log_n: int) -> np.ndarray:
     return np.concatenate(idx)
 
 
-def pass_table(flat) -> tuple:
+def pass_table(flat, radix: int = 3) -> tuple:
     """The flat twiddle table of a transform of n points (stage s's group g
     at entry 2^s + g), a Shoup pair (w, w') or the plain w of Goldilocks,
-    in the radix-8 core's per-pass layout: a tuple of contiguous tensors on
-    its device, each stage's twiddles of a group in 16-byte pairs, a warp's
-    loads contiguous (csrc/nwc64.cu, csrc/gl64.cu)."""
+    in a radix core's per-pass layout (``radix`` stages a pass): a tuple of
+    contiguous tensors on its device, each stage's twiddles of a group in
+    pairs (16 bytes of 64-bit words, 8 of 32-bit ones), a warp's loads
+    contiguous (csrc/nwc64.cu, csrc/gl64.cu, csrc/nwc32.cu)."""
     flat = flat if isinstance(flat, tuple) else (flat,)
     log_n = flat[0].shape[0].bit_length() - 1
-    idx = torch.from_numpy(pass_indices(log_n)).to(flat[0].device)
+    idx = torch.from_numpy(pass_indices(log_n, radix)).to(flat[0].device)
     return tuple(t[idx].contiguous() for t in flat)
 
 
-def cached_pass_table(plan, flat) -> tuple:
-    """``pass_table(flat)`` for a plan's ``_transform_table``, built once a
-    table (keyed by the table object, which the cache keeps alive)."""
+def cached_pass_table(plan, flat, radix: int = 3) -> tuple:
+    """``pass_table(flat, radix)`` for a plan's ``_transform_table``, built
+    once a table (keyed by the table object, which the cache keeps alive)."""
     cache = plan.__dict__.setdefault("_pass_tables", {})
     if id(flat) not in cache:
-        cache[id(flat)] = (flat, pass_table(flat))
+        cache[id(flat)] = (flat, pass_table(flat, radix))
     return cache[id(flat)][1]
 
 
