@@ -32,18 +32,20 @@ kernel K6).  Phases, each of which raises on failure:
    nwc64.cu's and gl64.cu's radix-8 kernels and in their first cores'
    loops, in the fused ``nwc64_product`` and ``gl64_product`` (fresh and
    cached) at n = 4096, the fused ``nwc64_cyclic_scaled`` and
-   ``gl64_cyclic_scaled`` and the row forwards ``nwc64_forward_scaled``
-   and ``gl64_forward_scaled`` at n = 128 and 1024, the fused
-   ``nwc64_dot_scaled`` at n = 128 and the flat ``nwc64_dot`` and
-   ``gl64_dot`` at n = 4096 (a step of its loop, one forward, and the
-   rest), and nwc32.cu's radix-16 forward at n = 256, 4096 and 16384 with
-   its shared-memory instructions; the radix kernels of the three files,
-   36 transforms and 9 row forwards in each 64-bit one, nwc64.cu's 18
-   fused products, 18 fused row passes and 36 fused dots (18 row passes,
-   18 flat), gl64.cu's 36 fused products (18 flat, 18 row passes) and 18
-   flat dots, and nwc32.cu's 7 radix-16 forwards, must spill nothing; the
-   blocks an SM of both flat dots and gl64.cu's flat product, by ptxas's
-   registers and their shared memory;
+   ``gl64_cyclic_scaled``, the row forwards ``nwc64_forward_scaled``
+   and ``gl64_forward_scaled`` and nwc64.cu's row inverse
+   ``nwc64_inverse_scaled`` at n = 128 and 1024, the fused dots'
+   row passes ``nwc64_dot_scaled`` and ``gl64_dot_scaled`` at n = 128 and
+   the flat ``nwc64_dot`` and ``gl64_dot`` at n = 4096 (a step of its
+   loop, one forward, and the rest), and nwc32.cu's radix-16 forward at
+   n = 256, 4096 and 16384 with its shared-memory instructions; the radix
+   kernels of the three files, 36 transforms and 9 row forwards in each
+   64-bit one, nwc64.cu's 18 fused products, 18 fused row passes, 9 row
+   inverses and 36 fused dots (18 row passes, 18 flat), gl64.cu's 36 fused
+   products (18 flat, 18 row passes) and 36 fused dots (18 flat, 18 row
+   passes), and nwc32.cu's 7 radix-16 forwards, must spill nothing; the
+   blocks an SM of both flat dots, gl64.cu's row-pass dot and its flat
+   product, by ptxas's registers and their shared memory;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
    bit for bit on the card, with boundary rows of 0, 1 and q - 1: the
    radix-8 cores (``nwc64_forward``, ``nwc64_inverse`` on rows and
@@ -70,7 +72,12 @@ kernel K6).  Phases, each of which raises on failure:
    same n, q and B (K = 4 at B = 2048 at n = 128 alone); ``gl64_dot`` on
    gl64.cu's radix-8 core, fresh and cached, K = 1 and 4, n = 32 to 8192,
    B = 1, 3 and 512, and K = 4 at B = 2048 at n = 4096, boundary rows
-   first; ``nwc32_forward`` on nwc32.cu's radix-16 core at n = 256 to
+   first; the row inverse ``nwc64_inverse_scaled`` at the three 60-bit q,
+   n = 32 to 8192, B = 1, 3 and 2048, periods 1 and 3 (1 and 256 at
+   2048); the dot's row pass ``gl64_dot_scaled``, fresh and cached, K = 1
+   and 4, n = 32 to 8192, B = 1 and 3, periods 1 and 3, and K = 4 at
+   B = 2048 at n = 128 (period 256) and 1024 (period 1024) and at B = 264
+   at n = 8192; ``nwc32_forward`` on nwc32.cu's radix-16 core at n = 256 to
    16384 (q = 8380417 to 4096, q = 16580609, q = 12289 to 2048), B = 1, 3
    and 2048, merged and cyclic tables, scale 1 and 2^32 mod q; every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
@@ -570,8 +577,9 @@ def main() -> int:
     # nwc64.cu's radix-8 core against the first core at n = 4096, 512 threads
     # a row: the instructions a thread issues after its first barrier (the
     # radix kernels are unrolled; the first core's stage loop of 12 trips
-    # around its butterfly loop of 4, then 8 words stored, as
-    # inverse_scaled_kernel runs that body after its entry loop)
+    # around its butterfly loop of 4, then 8 words stored, as matvec_kernel
+    # runs that body after its accumulation); the row forward and the row
+    # inverse at n = 128 and 1024
     nwc_sass = sass_listing(libs["nwc64"])
     radix = [k for k in nwc_sass if k.startswith("transform_kernel<")]
     print(f"  sass: nwc64.cu's {len(radix)} radix-8 kernels, "
@@ -582,8 +590,8 @@ def main() -> int:
                           ("product_kernel<12, 0>", ()), ("product_kernel<12, 1>", ()),
                           ("cyclic_scaled_kernel<7, 0>", ()), ("cyclic_scaled_kernel<10, 0>", ()),
                           ("cyclic_scaled_kernel<7, 1>", ()), ("forward_scaled_kernel<7>", ()),
-                          ("forward_scaled_kernel<10>", ()),
-                          ("inverse_scaled_kernel", (4, 12, 8))):
+                          ("forward_scaled_kernel<10>", ()), ("inverse_scaled_kernel<7>", ()),
+                          ("inverse_scaled_kernel<10>", ()), ("matvec_kernel", (4, 12, 8))):
         code = nwc_sass[kernel]
         issued = issued_per_thread(code, trips)
         print(f"  sass: nwc64.cu {kernel}: {len(code)} instructions; after its first barrier "
@@ -628,11 +636,13 @@ def main() -> int:
               f"a thread issues {issued or 'not counted:'} "
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
     # gl64.cu's flat dot on the radix-8 core at n = 4096, fresh (2K steps)
-    # and cached (K), counted as nwc64.cu's; nwc32.cu's radix-16 forward at
+    # and cached (K), and its row-pass dot at n = 128, fresh, counted as
+    # nwc64.cu's; nwc32.cu's radix-16 forward at
     # n = 256, 4096 and 16384 (unrolled), and its shared-memory accesses
     # (the last pass's exchange as 16-byte vectors)
-    print_dot("gl64", gl_sass, "dot_kernel<12, 0>", 2 * DOT_TERMS)
-    print_dot("gl64", gl_sass, "dot_kernel<12, 1>", DOT_TERMS)
+    print_dot("gl64", gl_sass, "dot_kernel<12, 0, 0>", 2 * DOT_TERMS)
+    print_dot("gl64", gl_sass, "dot_kernel<12, 1, 0>", DOT_TERMS)
+    print_dot("gl64", gl_sass, "dot_kernel<7, 0, 1>", 2 * DOT_TERMS)
     w32_sass = sass_listing(libs["nwc32"])
     for kernel in ("radix_forward_kernel<8>", "radix_forward_kernel<12>",
                    "radix_forward_kernel<14>"):
@@ -647,15 +657,16 @@ def main() -> int:
     # the radix kernels of the three files spill nothing: 36 transforms (a
     # log n from 5 to 13, each direction and layout) and 9 row forwards (a
     # log n) in each 64-bit file, nwc64.cu's 18 fused products (each log n,
-    # fresh and cached), 18 fused row passes and 36 fused dots (the row
-    # passes' 18 and the flat dot's 18), gl64.cu's 36 fused products (the
-    # flat product's 18 and the row pass's 18, fresh and cached) and 18
-    # flat dots, and nwc32.cu's 7 radix-16 forwards (a log n from 8 to 14)
+    # fresh and cached), 18 fused row passes, 9 row inverses and 36 fused
+    # dots (the row passes' 18 and the flat dot's 18), gl64.cu's 36 fused
+    # products (the flat product's 18 and the row pass's 18, fresh and
+    # cached) and 36 fused dots (the flat dot's 18 and the row pass's 18),
+    # and nwc32.cu's 7 radix-16 forwards (a log n from 8 to 14)
     for lib, kernels in (("nwc64", (("transform_kernel", 36), ("product_kernel", 18),
                                     ("cyclic_scaled_kernel", 18), ("forward_scaled_kernel", 9),
-                                    ("dot_scaled_kernel", 36))),
+                                    ("inverse_scaled_kernel", 9), ("dot_scaled_kernel", 36))),
                          ("gl64", (("transform_kernel", 36), ("cyclic_scaled_kernel", 36),
-                                   ("forward_scaled_kernel", 9), ("dot_kernel", 18))),
+                                   ("forward_scaled_kernel", 9), ("dot_kernel", 36))),
                          ("nwc32", (("radix_forward_kernel", 7),))):
         log = libs[lib].with_suffix(".log").read_text()
         for kernel, count in kernels:
@@ -665,14 +676,15 @@ def main() -> int:
                 raise AssertionError(f"{lib}.cu's {kernel}s: {count} expected, none "
                                      f"spilling; ptxas says {spills}")
             print(f"build: {lib}.cu's {len(spills)} radix {kernel}s spill nothing")
-    # the blocks an SM of nwc64.cu's and gl64.cu's flat dots and gl64.cu's
-    # flat product: their registers (ptxas), their tiles of shared memory
-    # (a dot three fresh, two cached; the product one, b's spectrum waiting
-    # in the output row; of max(n, 1024) words) and the SM's 64 Ki
+    # the blocks an SM of nwc64.cu's and gl64.cu's flat dots, gl64.cu's
+    # row-pass dot and its flat product: their registers (ptxas), their tiles
+    # of shared memory (a dot three fresh, two cached; the product one, b's
+    # spectrum waiting in the output row; of max(n, 1024) words) and the SM's 64 Ki
     # registers, 228 KiB (1 KiB reserved a block), 2048 threads and 32 blocks
     for lib, what, kernel, tiles, tail in (
             ("nwc64", "flat dot", "dot_scaled_kernel", (3, 2), "Lb0EE"),
-            ("gl64", "flat dot", "dot_kernel", (3, 2), "E"),
+            ("gl64", "flat dot", "dot_kernel", (3, 2), "Lb0EE"),
+            ("gl64", "row-pass dot", "dot_kernel", (3, 2), "Lb1EE"),
             ("gl64", "flat product", "cyclic_scaled_kernel", (1, 1), "Lb0EE")):
         registers = ptxas_registers(libs[lib].with_suffix(".log").read_text())
         for log_n in range(5, 14):
@@ -1018,6 +1030,60 @@ def main() -> int:
     print(f"kernel vs plain: gl64_dot, fresh and cached, K = 1 and {DOT_TERMS}, n = 32 to 8192, "
           f"B = 1, 3, {DOT_BATCH} (and {BATCH} at n = 4096, K = {DOT_TERMS}): {checks} launches "
           f"equal in {time.perf_counter() - t0:.1f} s")
+
+    # gl64_dot_scaled, the dot's row pass on the same loop with the scales:
+    # fresh and cached, K = 1 and 4, at every log n at B = 1 (period 1) and
+    # 3 (periods 1 and 3), the K = 4 loop at B = 2048 at n = 128 (period
+    # 256, goldilocks_32768's rows) and 1024 (period 1024, 2^20's) and at
+    # B = 264 at n = 8192 (period 3); random pre and post tables, boundary
+    # rows first (b's reversed)
+    t0, checks = time.perf_counter(), 0
+    for log_n in range(5, 14):
+        n = 1 << log_n
+        plan = GoldilocksSubPlan64(make_params(n, GOLDILOCKS_Q), device)
+        shapes = [(terms, rows, period) for terms in (1, DOT_TERMS)
+                  for rows, period in ((1, 1), (3, 1), (3, 3))]
+        shapes += {7: [(DOT_TERMS, BATCH, 256)], 10: [(DOT_TERMS, BATCH, 1024)],
+                   13: [(DOT_TERMS, 264, 3)]}.get(log_n, [])
+        for terms, rows, period in shapes:
+            x3, y3 = (card_operands(GOLDILOCKS_Q, n, terms * rows, gen).reshape(terms, rows, n)
+                      for _ in range(2))
+            y3 = y3.flip(1).contiguous()
+            pre, post = ((card_operands(GOLDILOCKS_Q, n, period + 6, gen)[6:],)
+                         for _ in range(2))  # random rows, past the boundary
+            s3 = plan.ntt_fwd_scaled_plain(y3.reshape(-1, n), pre, True).reshape(y3.shape)
+            label = f"n={n} K={terms} B={rows} period {period}"
+            silent_check("gl64_dot_scaled", label, plan.dot_scaled(x3, y3, pre, post),
+                         plan.dot_scaled_plain(x3, y3, pre, post))
+            silent_check("gl64_dot_scaled", label + " cached",
+                         plan.dot_scaled(x3, s3, pre, post, True),
+                         plan.dot_scaled_plain(x3, s3, pre, post, True))
+            checks += 2
+    print(f"kernel vs plain: gl64_dot_scaled, fresh and cached, K = 1 and {DOT_TERMS}, n = 32 to "
+          f"8192, B = 1 and 3 at periods 1 and 3, K = {DOT_TERMS} at B = {BATCH} at n = 128 and "
+          f"1024 and at B = 264 at n = 8192: {checks} launches equal in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # nwc64_inverse_scaled, the row inverse on nwc64.cu's radix-8 core: at
+    # the three 60-bit q, every log n, B = 1, 3 and 2048 rows (boundary rows
+    # first) taken as bit-reversed spectra, random post tables at period 1
+    # and 3 (1 and 256 at B = 2048), cyclic per-pass tables, n^-1
+    t0, checks = time.perf_counter(), 0
+    for q in (P60_4096.q, Q_GENERIC, Q62_MAX):
+        for log_n in range(5, 14):
+            n = 1 << log_n
+            plan = SubPlan64(make_params(n, q), device)
+            x = card_operands(q, n, BATCH, gen)
+            for rows, periods in ((1, (1,)), (3, (1, 3)), (BATCH, (1, 256))):
+                for period in periods:
+                    post = shoup_table(card_operands(q, n, period + 3, gen)[3:], q)
+                    fused_check(plan, "inverse_scaled", f"n={n} q={q} B={rows} period {period}",
+                                plan.ntt_inv_scaled_plain(x[:rows], post), (x[:rows],),
+                                (plan.plan.cyclic_inv_flat,), *post, period, rows, log_n,
+                                *plan._q_args(False), *plan._scale_cached)
+                    checks += 1
+    print(f"kernel vs plain: nwc64_inverse_scaled at three q, n = 32 to 8192, B = 1, 3, {BATCH}, "
+          f"periods 1, 3 and 256: {checks} launches equal in {time.perf_counter() - t0:.1f} s")
 
     # nwc32_forward on nwc32.cu's radix-16 core: n = 256 to 16384 at
     # q = 16580609, to 4096 at P24_4096's and DILITHIUM_256's q = 8380417
@@ -1888,6 +1954,11 @@ def main() -> int:
                 lambda x, y: rk.dot_scaled(x, y, pre, post),
                 lambda x, y: rk.dot_scaled_plain(x, y, pre, post),
                 (run["ma3"], run["mb3"]), rows_d),
+            f"{lib}_dot_scaled cached": entry(
+                "dot_cached_scaled", f"dot row pass, cached, K={DOT_TERMS}, {rows_d} rows",
+                lambda x, y: rk.dot_scaled(x, y, pre, post, True),
+                lambda x, y: rk.dot_scaled_plain(x, y, pre, post, True),
+                (run["ma3"], run["spec3"]), rows_d),
             f"{lib}_matvec_scaled": entry(
                 "matvec_scaled", f"4x4 matvec row pass, {rows_d} rows",
                 lambda x, y: rk.matvec_scaled(x, y, post),

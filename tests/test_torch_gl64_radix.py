@@ -1,8 +1,9 @@
 """The radix-8 core of ``csrc/gl64.cu`` (``gl64_forward``, ``gl64_inverse``,
 their column entry points, the row forward ``gl64_forward_scaled``, and the
 products fused on it: K2's flat ``gl64_product``, ``gl64_cached`` and
-``gl64_dot``, the four-step's row pass ``gl64_cyclic_scaled`` and
-``gl64_cached_scaled``) modelled on the CPU, and K2's two ablation toggles.
+``gl64_dot``, the four-step's row passes ``gl64_cyclic_scaled``,
+``gl64_cached_scaled`` and ``gl64_dot_scaled``) modelled on the CPU, and
+K2's two ablation toggles.
 
 * The lazy arithmetic: each ``GL_PTX_*`` carry chain read out of gl64.cu
   and run on a model of the 32-bit PTX instructions (numpy object arrays,
@@ -40,7 +41,11 @@ products fused on it: K2's flat ``gl64_product``, ``gl64_cached`` and
   ``nwc_dot_cached_plain`` and the sum of JAX's XLA
   ``nwc_poly_mult_merged`` of the terms (JAX's ``GoldilocksPlan64`` dot in
   interpret mode at n = 256 is tests/test_torch_kernels_gl64.py's, held to
-  the same plain dot).
+  the same plain dot); the four-step's row pass of the dot
+  ``gl64_dot_scaled`` (``dot_model`` with pre and post on cyclic tables)
+  at K = 1 and 4, fresh and cached, n = 32 (36 rows) and 256 (6 rows),
+  period 3, against ``dot_scaled_plain`` and the sum of JAX's XLA cyclic
+  products between the scales.
 * ``GoldilocksSubPlan64``'s column methods (``_plan.ColumnPassPlan``;
   plain on the CPU: the transpose route) against ``FourStepPlan``'s
   transposes and JAX's four-step locals (``tpu_ntt.sharded._along`` of its
@@ -441,30 +446,41 @@ def fused_model(plan, a: torch.Tensor, b: torch.Tensor, pre, post,
     return as_tensor(out, a.shape)
 
 
-def dot_model(plan, a: torch.Tensor, b: torch.Tensor, spectra: torch.Tensor) -> list:
-    """K2's flat dot gl64_dot on (K, R, n) stacks, merged per-pass tables,
-    as the kernel runs it: per term the forward of b (fresh; cached, the
-    words of b's plain spectrum where a's forward leaves its own, 8t ...
-    8t + 7), the forward of a, the slot's mul_lazy added into the sum by
-    add_any (any words, the sum starting at 0), then one inverse from the
-    sum, n^-1 by mul_lazy and the one compare at the store.  a's forwards
-    serve both; the sums after the first term are K = 1's.  Returns the
-    outputs [fresh K = 1, cached K = 1, fresh K, cached K]."""
+def dot_model(plan, a: torch.Tensor, b: torch.Tensor, spectra: torch.Tensor, pre=None,
+              post=None) -> list:
+    """The dots on (K, R, n) stacks as the kernel runs them: per term the
+    forward of b (fresh; cached, the words of b's plain spectrum where a's
+    forward leaves its own, 8t ... 8t + 7), the forward of a, the slot's
+    mul_lazy added into the sum by add_any (any words, the sum starting at
+    0), then one inverse from the sum, n^-1 by mul_lazy and the one compare
+    at the store.  Without tables K2's flat dot gl64_dot on merged
+    per-pass tables; with the (P, n) tables pre and post, row r reading
+    their row r % P, the row pass gl64_dot_scaled on cyclic ones: pre by
+    mul_lazy on the words each fresh operand's first pass loads (a cached
+    b's never), post by mul_lazy after n^-1's at the store's positions,
+    before the compare.  a's forwards serve both; the sums after the first
+    term are K = 1's.  Returns the outputs [fresh K = 1, cached K = 1,
+    fresh K, cached K]."""
     log_n = plan.p.log_n
-    tw = ints(plan._transform_table(plan.plan.merged_flat)[0])
-    itw = ints(plan._transform_table(plan.plan.merged_inv_flat)[0])
+    kind = "merged" if pre is None else "cyclic"
+    tw = ints(plan._transform_table(getattr(plan.plan, f"{kind}_flat"))[0])
+    itw = ints(plan._transform_table(getattr(plan.plan, f"{kind}_inv_flat"))[0])
     at, live, t, slot = lanes(plan, a[0])
     first = pass_words(log_n, 0, t)
     spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
+
+    def forward(x):
+        regs = times_row(plan, [words(v) for v in load(ints(x.reshape(-1)), at, live, first)], at,
+                         pre, first)
+        return passes_on(plan, regs, tw, False, t, slot)
+
     sums = [[words(np.zeros(at(0).shape, dtype=object)) for _ in range(WORDS)]
             for _ in range(2)]
     outs = []
     for k in range(a.shape[0]):
-        fresh = passes_on(plan, [words(v) for v in load(ints(b[k].reshape(-1)), at, live, first)],
-                          tw, False, t, slot)
+        fresh = forward(b[k])
         cached = [words(v) for v in load(ints(spectra[k].reshape(-1)), at, live, spectrum)]
-        x = passes_on(plan, [words(v) for v in load(ints(a[k].reshape(-1)), at, live, first)],
-                      tw, False, t, slot)
+        x = forward(a[k])
         sums = [[add_any(acc, mul_lazy(u, v)) for acc, u, v in zip(total, x, y)]
                 for total, y in zip(sums, (fresh, cached))]
         if k + 1 not in (1, a.shape[0]):
@@ -472,8 +488,9 @@ def dot_model(plan, a: torch.Tensor, b: torch.Tensor, spectra: torch.Tensor) -> 
         for total in sums:
             out = np.zeros(a[0].numel(), dtype=object)
             x = passes_on(plan, list(total), itw, True, t, slot)  # total stays
+            x = times_row(plan, [mul_lazy(v, plan.p.n_inv) for v in x], at, post, first)
             for reg, v in enumerate(x):
-                out[at(first[reg])[live]] = canonical(mul_lazy(v, plan.p.n_inv))[live]
+                out[at(first[reg])[live]] = canonical(v)[live]
             outs.append(as_tensor(out, a[0].shape))
     return outs if a.shape[0] > 1 else outs * 2
 
@@ -622,6 +639,32 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     assert torch.equal(got, times_rows(want, post[0]))
 
 
+@pytest.mark.parametrize("n,rows", [(32, 36), (256, 6)])
+def test_row_pass_dot_model_matches_plain_and_jax(n, rows, monkeypatch):
+    """gl64_dot_scaled, the dot's row pass (``dot_model`` with pre and
+    post: the flat dot's loop on cyclic per-pass tables with the scales),
+    at K = 1 and 4, fresh and cached, on (P, n) tables at period 3, against
+    ``dot_scaled_plain`` and the sum of JAX's XLA cyclic products of the
+    terms between the scales (by Python ints); term 0's rows 0-5 are the
+    boundary rows (0, 1, q - 1, 2^63 - 1, 2^63, 2^64 - 2^32), b's in
+    reverse order.  The shapes are the row pass test's, so JAX's jitted
+    transforms are shared."""
+    plan, jplan = plans(n)
+    _, _, pre, post = row_pass_operands(rows, n, 3, seed=n + 5)
+    a3 = operands((4, rows, n), seed=n + 6)
+    b3 = operands((4, rows, n), seed=n + 7).flip(1).contiguous()
+    spectra = plan.ntt_fwd_scaled_plain(b3.reshape(-1, n), pre, True).reshape(b3.shape)
+    terms = [ints(run_jax_product(monkeypatch, jntt.cyclic_poly_mult, jplan,
+                                  times_rows(a3[k], pre[0]), times_rows(b3[k], pre[0])))
+             for k in range(4)]
+    got = dot_model(plan, a3, b3, spectra, pre[0], post[0])
+    for (k, cached), out in zip(((1, False), (1, True), (4, False), (4, True)), got):
+        want = times_rows(as_tensor((sum(terms[:k]) % Q).reshape(-1), (rows, n)), post[0])
+        plain = plan.dot_scaled_plain(a3[:k], spectra[:k] if cached else b3[:k], pre, post,
+                                      cached)
+        assert torch.equal(out, plain) and torch.equal(out, want), (k, cached)
+
+
 # ---------------------------------------------------------------------------
 # The column methods, on the CPU the transpose route; on the launch path
 # ---------------------------------------------------------------------------
@@ -697,10 +740,10 @@ C_TYPES = {"int": kgl64.ctypes.c_int, "uint64_t": kgl64.ctypes.c_uint64}
 
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
-    """``load`` types the ten radix-core entry points (the row forward, the
-    flat products and dot and the row pass's two among them) with the C
-    argument types of csrc/gl64.cu, and each has its own launch count;
-    those ten read per-pass tables: faked launches on the CPU hand
+    """``load`` types the eleven radix-core entry points (the row forward,
+    the flat products and dot and the row pass's three among them) with the
+    C argument types of csrc/gl64.cu, and each has its own launch count;
+    those eleven read per-pass tables: faked launches on the CPU hand
     gl64_product the merged or cyclic per-pass tables, gl64_cached and
     gl64_dot the merged ones and gl64_forward_scaled the cyclic one."""
     bound = {}
@@ -709,7 +752,7 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     source = (_build.CSRC / "gl64.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (gl64_\w+)\(([^)]*)\)', source))
     radix = ("forward", "inverse", "forward_cols", "inverse_cols", "forward_scaled",
-             "product", "cached", "cyclic_scaled", "cached_scaled", "dot")
+             "product", "cached", "cyclic_scaled", "cached_scaled", "dot", "dot_scaled")
     assert GoldilocksPlan64.pass_entries == set(radix)
     for suffix in radix:
         params = [p.strip() for p in decls[f"gl64_{suffix}"].split(",")]
@@ -777,7 +820,7 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
         spectra = spectrum.reshape(2, 5, n)
         assert torch.equal(plan.nwc_dot_cached(a3, spectra),
                            plan.nwc_dot_cached_plain(a3, spectra)), n
-        for period in (1, 5):  # gl64_forward_scaled, gl64_cyclic_scaled, gl64_cached_scaled
+        for period in (1, 5):  # the row forward, both row passes, the row dot
             pre, post = ((t.to(cuda_device),) for t in row_pass_operands(period, n, period,
                                                                          seed=n)[:2])
             assert torch.equal(plan.cyclic_poly_mult_scaled(a, b, pre, post),
@@ -787,6 +830,10 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
             assert torch.equal(plan.cyclic_poly_mult_cached_scaled(a, spectrum, pre, post),
                                plan.cyclic_poly_mult_cached_scaled_plain(a, spectrum, pre,
                                                                           post))
+            spectra = plan.ntt_fwd_scaled(b3.reshape(-1, n), pre, True).reshape(b3.shape)
+            for y, cached in ((b3, False), (spectra, True)):  # gl64_dot_scaled
+                assert torch.equal(plan.dot_scaled(a3, y, pre, post, cached),
+                                   plan.dot_scaled_plain(a3, y, pre, post, cached)), (n, period)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 their column entry points, the product fused on it, ``nwc64_product`` and
 ``nwc64_cached``, the four-step's row passes fused on it,
 ``nwc64_cyclic_scaled``, ``nwc64_cached_scaled`` and ``nwc64_dot_scaled``,
-its row forward ``nwc64_forward_scaled`` and the flat dot ``nwc64_dot``)
-modelled on the CPU, and K1a's three ablation toggles.
+its row forward ``nwc64_forward_scaled``, its row inverse
+``nwc64_inverse_scaled`` and the flat dot ``nwc64_dot``) modelled on the
+CPU, and K1a's three ablation toggles.
 
 * The lazy butterflies: a Python model of the .cu's Shoup product, CT and
   GS butterflies and final corrections, with the range asserts the .cu
@@ -35,20 +36,24 @@ modelled on the CPU, and K1a's three ablation toggles.
   the scales (by Python ints); the row forward (``forward_scaled_model``:
   pre's product, the forward, the transforms' store) at n = 128 and 1024,
   P = 1 and 3, scale 1 and 2^64, against ``ntt_fwd_scaled_plain``; the
-  flat dot (``scaled_model`` without scales, merged tables, canonical
+  row inverse (``inverse_scaled_model``: the spectrum's words, n^-1's lazy
+  Shoup product below 2q, the passes, post's product and one compare) at
+  the same shapes against ``ntt_inv_scaled_plain`` and JAX's XLA
+  ``ntt_inv`` times post; the flat dot (``scaled_model`` without scales, merged tables, canonical
   first lanes asserted) at K = 1 and 3 at n = 256 against
   ``nwc_dot_plain`` and ``nwc_dot_cached_plain``; faked launches show the
-  five entry points receive the per-pass tables on ``SubPlan64`` and
-  ``MxuPlan64``, the Goldilocks plans' ``gl64_forward_scaled`` and
-  ``gl64_dot`` theirs.
+  six entry points receive the per-pass tables on ``SubPlan64`` and
+  ``MxuPlan64``, the Goldilocks plans' ``gl64_forward_scaled``,
+  ``gl64_dot`` and ``gl64_dot_scaled`` theirs and ``gl64_inverse_scaled``
+  the flat one.
 * ``SubPlan64``'s column methods (plain on the CPU: the transpose route)
   against ``FourStepPlan``'s transposes and JAX's four-step locals
   (``tpu_ntt.sharded._along`` of its XLA transforms) at 32 x 32 and
   64 x 32, widths n2 / D for D = 2, 4 and 8.
-* The C signatures ``load`` and ``load_scaled`` bind for the eleven entry
+* The C signatures ``load`` and ``load_scaled`` bind for the twelve entry
   points; a ``cuda``-marked case holds both layouts, both products, the
-  three row passes, the row forward and the flat dot against plain on a
-  card.
+  three row passes, the row forward, the row inverse and the flat dot
+  against plain on a card.
 * JAX's ``MxuPlan64`` with ``prefix_scan = True``, with
   ``carry_save = False`` and with ``shoup_lazy = False``
   (mxu64.py:785-799) in interpret mode at n = 256: the same integers as
@@ -62,6 +67,7 @@ import functools
 import re
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -404,10 +410,29 @@ def product_model(plan: SubPlan64, a: torch.Tensor, b: torch.Tensor, flat: tuple
     return as_tensor(out, a.shape)
 
 
+class RowBuckets:
+    """A JAX transform of (hi, lo) pairs of (..., R, n) rows, jitted once,
+    run on the rows padded with zero rows to max(64, 2^ceil(log2 R)): the
+    tests' row counts (2 to 37 here, 256 there) share its compiles, 1-3 s
+    each.  The transforms act on each row alone, so the padding changes
+    no row."""
+
+    def __init__(self, fn):
+        self.fn = jax.jit(fn)
+
+    def __call__(self, x):
+        rows = x[0].shape[-2]
+        pad = [(0, 0)] * (x[0].ndim - 2) + [(0, max(64, 1 << (rows - 1).bit_length()) - rows),
+                                             (0, 0)]
+        out = self.fn(tuple(jnp.pad(w, pad) for w in x))
+        return tuple(w[..., :rows, :] for w in out)
+
+
 def run_jax(fn, *xs):
     """A JAX function of (hi, lo) pairs on int64 words, jitted unless it is
     (1-3 s to compile here; eagerly, 7-17 s of op compiles)."""
-    out = (fn if hasattr(fn, "lower") else jax.jit(fn))(*(int64_to_pairs(x) for x in xs))
+    jitted = fn if hasattr(fn, "lower") or isinstance(fn, RowBuckets) else jax.jit(fn)
+    out = jitted(*(int64_to_pairs(x) for x in xs))
     return pairs_to_int64(np.asarray(out[0]), np.asarray(out[1]))
 
 
@@ -417,8 +442,8 @@ JAX_TRANSFORMS = {name: getattr(jntt, name)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_transform(name: str, jplan):
-    return jax.jit(functools.partial(JAX_TRANSFORMS[name], jplan))
+def jax_transform(name: str, jplan) -> RowBuckets:
+    return RowBuckets(functools.partial(JAX_TRANSFORMS[name], jplan))
 
 
 def run_jax_product(monkeypatch, product, jplan, a, b):
@@ -583,6 +608,32 @@ def forward_scaled_model(plan: SubPlan64, x: torch.Tensor, pre: tuple,
     return as_tensor(out, x.shape)
 
 
+def inverse_scaled_model(plan: SubPlan64, x: torch.Tensor, post: tuple) -> torch.Tensor:
+    """nwc64_inverse_scaled on (R, n) bit-reversed spectra: the words the
+    inverse's first pass loads (8t ... 8t + 7, canonical), one lazy Shoup
+    product by n^-1 (any word in, [0, 2q) out: the inverse's range), the
+    passes on the cyclic per-pass tables, post's lazy Shoup product at the
+    store's positions (the .cu reads its words in halves where a thread has
+    64 registers: the same products), one compare.  Row r reads row r % P
+    of post."""
+    log_n, q = plan.p.log_n, plan.p.q
+    lane = row_lanes(plan, x, post[0].shape[0])
+    at, live, t, slot, _ = lane
+    itw = tuple(ints(v) for v in kmxu64.pass_table(plan.plan.cyclic_inv_flat))
+    spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
+    assert all(np.all(i == WORDS * t + k) for k, i in enumerate(spectrum))
+    regs = load(ints(x.reshape(-1)), at, live, spectrum)
+    assert all(np.all(v < q) for v in regs)
+    regs = passes_on(plan, [shoup_lazy(v, *plan._scale_cached, q) for v in regs], itw, True, t,
+                     slot)
+    out = np.zeros(x.numel(), dtype=object)
+    for reg, (v, i) in enumerate(zip(times_row(plan, regs, lane, post),
+                                     pass_words(log_n, 0, t))):
+        assert np.all(v < 2 * q)
+        out[at(i)[live]] = csub(v, q)[live]
+    return as_tensor(out, x.shape)
+
+
 def scaled_model(plan: SubPlan64, a: torch.Tensor, b: torch.Tensor, pre, post,
                  cached: bool = False) -> torch.Tensor:
     """The four-step's row passes fused on the radix-8 core with cyclic
@@ -654,9 +705,12 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     fused schedule on the per-pass tables, against the plain row passes
     and JAX's XLA ``cyclic_poly_mult`` between the scales (by Python ints);
     256 rows of 128 at period 256 are p60_32768's row pass (n1 = 256).
-    There also the model of nwc64_forward_scaled at n = 128 and at
-    p60_1048576's n2 = 1024, periods 1 and 3, scale 1 and cacheable (times
-    2^64), against ``ntt_fwd_scaled_plain``."""
+    There also the models of nwc64_forward_scaled (scale 1 and cacheable,
+    times 2^64) and nwc64_inverse_scaled at n = 128 (partial tiles) and at
+    p60_1048576's n2 = 1024, periods 1 and 3, rows of 0, 1 and q - 1
+    first, against ``ntt_fwd_scaled_plain`` and ``ntt_inv_scaled_plain``,
+    and the row inverse against JAX's XLA ``ntt_inv`` of the same spectra
+    (in natural order) times post (by Python ints)."""
     plan, jplan = plans(n)
     q = plan.p.q
     a, b = product_operands(q, rows, n, seed=n + period)
@@ -672,15 +726,20 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     assert torch.equal(got, rows_times(want, post, q))
     if (n, period) != (128, 256):
         return
-    for n_f, rows_f in ((128, 12), (1024, 3)):  # partial tiles at 128; a block a row at 1024
-        plan_f = plans(n_f)[0]
+    for n_f, rows_f in ((128, 12), (1024, 6)):  # partial tiles at 128; a block a row at 1024
+        plan_f, jplan_f = plans(n_f)
         x = operands(q, (rows_f, n_f), seed=n_f)
+        # JAX's ntt_inv reads natural order: the port's bit-reversed spectra permuted
+        jax_inv = run_jax(jax_transform("ntt_inv", jplan_f), plan_f.bitrev_to_natural(x))
         for period_f in (1, 3):
-            pre_f = scale_tables(plan_f, period_f, seed=period_f)[0]
+            pre_f, post_f = scale_tables(plan_f, period_f, seed=period_f)
             for cacheable in (False, True):
                 assert torch.equal(forward_scaled_model(plan_f, x, pre_f, cacheable),
                                    plan_f.ntt_fwd_scaled_plain(x, pre_f, cacheable)), (
                     n_f, period_f, cacheable)
+            got = inverse_scaled_model(plan_f, x, post_f)
+            assert torch.equal(got, plan_f.ntt_inv_scaled_plain(x, post_f)), (n_f, period_f)
+            assert torch.equal(got, rows_times(jax_inv, post_f, q)), (n_f, period_f)
 
 
 def test_fused_dot_model_matches_plain_and_jax(monkeypatch):
@@ -724,15 +783,18 @@ def faked_launches(monkeypatch, plan) -> dict:
 
 
 def test_row_passes_launch_with_per_pass_tables(monkeypatch):
-    """nwc64_cyclic_scaled, nwc64_cached_scaled, nwc64_dot_scaled and
-    nwc64_forward_scaled receive the cyclic tables in the per-pass layout
-    (``pass_table``), nwc64_dot the merged ones, the first-core row pass
-    the flat ones, on ``SubPlan64`` (n = 128) and ``MxuPlan64`` (n = 256);
-    on the Goldilocks plans gl64_forward_scaled and gl64_dot, on gl64.cu's
-    radix-8 core, receive the cyclic and the merged per-pass tables."""
-    assert {"cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled",
+    """nwc64_cyclic_scaled, nwc64_cached_scaled, nwc64_dot_scaled,
+    nwc64_forward_scaled and nwc64_inverse_scaled receive the cyclic tables
+    in the per-pass layout (``pass_table``), nwc64_dot the merged ones, on
+    ``SubPlan64`` (n = 128) and ``MxuPlan64`` (n = 256); on the Goldilocks
+    plans gl64_forward_scaled, gl64_dot and gl64_dot_scaled, on gl64.cu's
+    radix-8 core, receive the cyclic and the merged per-pass tables, and
+    gl64_inverse_scaled, on gl64.cu's first core, the flat one (the shared
+    ``ScaledKernelPlan.ntt_inv_scaled`` routes by ``pass_entries``)."""
+    assert {"cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled", "inverse_scaled",
             "dot"} <= MxuPlan64.pass_entries
-    assert {"forward_scaled", "dot"} <= GoldilocksPlan64.pass_entries
+    assert {"forward_scaled", "dot", "dot_scaled"} <= GoldilocksPlan64.pass_entries
+    assert "inverse_scaled" not in GoldilocksPlan64.pass_entries
     for cls, gl_cls, n in ((SubPlan64, GoldilocksSubPlan64, 128),
                            (MxuPlan64, GoldilocksPlan64, 256)):
         plan = cls(make_params(n, Q_GENERIC), "cpu")
@@ -757,14 +819,25 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
             assert all(x is y for x, y in zip(calls[entry][7:11], (*pre, *post))), entry
         assert all(torch.equal(x, y) for x, y in zip(calls["forward_scaled"][2:4], tw))
         assert all(x is y for x, y in zip(calls["forward_scaled"][4:6], pre))
-        assert calls["inverse_scaled"][2] is plan.plan.cyclic_inv_flat[0]
+        assert all(x is y for x, y in zip(calls["inverse_scaled"][2:4],
+                                          plan._transform_table(plan.plan.cyclic_inv_flat)))
+        assert all(torch.equal(x, y) for x, y in zip(calls["inverse_scaled"][2:4], itw))
+        assert all(x is y for x, y in zip(calls["inverse_scaled"][4:6], post))
         gl = gl_cls(make_params(n, GOLDILOCKS_Q), "cpu")
         calls = faked_launches(monkeypatch, gl)
-        gl.ntt_fwd_scaled(a, (a[:2].contiguous(),))
+        gl_pre, gl_post = (a[:2].contiguous(),), (a[2:].contiguous(),)
+        gl.ntt_fwd_scaled(a, gl_pre)
         gl.nwc_dot(a[None], a[None])
+        gl.dot_scaled(a[None], a[None], gl_pre, gl_post)
+        gl.ntt_inv_scaled(a, gl_post)
         assert calls["forward_scaled"][2] is gl._transform_table(gl.plan.cyclic_flat)[0]
         assert calls["dot"][3] is gl._transform_table(gl.plan.merged_flat)[0]
         assert calls["dot"][4] is gl._transform_table(gl.plan.merged_inv_flat)[0]
+        assert calls["dot_scaled"][3] is gl._transform_table(gl.plan.cyclic_flat)[0]
+        assert calls["dot_scaled"][4] is gl._transform_table(gl.plan.cyclic_inv_flat)[0]
+        assert calls["dot_scaled"][5:7] == (*gl_pre, *gl_post)
+        assert calls["inverse_scaled"][2] is _plan._table(gl.plan.cyclic_inv_flat)[0]
+        assert calls["inverse_scaled"][2].shape == (n,) and calls["inverse_scaled"][3] is gl_post[0]
 
 
 # ---------------------------------------------------------------------------
@@ -832,8 +905,9 @@ C_TYPES = {"int": kmxu64.ctypes.c_int, "uint64_t": kmxu64.ctypes.c_uint64}
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     """``load`` types nwc64_forward, nwc64_inverse, nwc64_product,
     nwc64_cached and nwc64_dot, ``load_scaled`` the column entry points,
-    the three fused row passes and the row forward, with the C argument
-    types of csrc/nwc64.cu; those eleven read per-pass tables."""
+    the three fused row passes, the row forward and the row inverse, with
+    the C argument types of csrc/nwc64.cu; those twelve read per-pass
+    tables."""
     bound = {}
     monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
     _plan.load.__wrapped__("nwc64", 64)
@@ -843,7 +917,8 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     source = (_build.CSRC / "nwc64.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (nwc64_\w+)\(([^)]*)\)', source))
     radix = ("forward", "inverse", "forward_cols", "inverse_cols", "product", "cached",
-             "cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled", "dot")
+             "cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled", "inverse_scaled",
+             "dot")
     assert MxuPlan64.pass_entries == set(radix)
     for suffix in radix:
         params = [p.strip() for p in decls[f"nwc64_{suffix}"].split(",")]
@@ -885,6 +960,7 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
                              ("dot_scaled", (a3, b3, pre, post)),
                              ("dot_scaled", (a3, spectrum.reshape(1, 5, n), pre, post, True)),
                              ("ntt_fwd_scaled", (a, pre)), ("ntt_fwd_scaled", (a, pre, True)),
+                             ("ntt_inv_scaled", (a, post)),
                              ("nwc_dot", (a3, b3)),
                              ("nwc_dot_cached", (a3, plan.nwc_spectrum(b).reshape(1, 5, n)))):
             assert torch.equal(getattr(plan, method)(*args),

@@ -15,16 +15,19 @@ goldilocks_4096, K = 4, B = 512, fresh and cached, and the four-step's row
 kernels at the row shapes of both (65536 rows of 128 at period 256; 4096
 rows of 1024 at period 1024): the fused row pass ``gl64_cyclic_scaled`` at
 both, ``gl64_cached_scaled`` at the first, and the row forward
-``gl64_forward_scaled`` at both, on random tables, run under every variant
+``gl64_forward_scaled`` at both, on random tables, and the dot's row pass
+``gl64_dot_scaled`` at K = 4 on goldilocks_32768's 16384 rows of 128 at
+period 256, fresh and cached, and on 4096 rows of 1024 at period 1024,
+run under every variant
 in turns, each timed by CUDA events: the best of three runs of 50
 launches, over two rounds.  A variant marked wrong computes other integers:
 its time says what the work it drops costs, nothing else; every other
 variant must give the base's integers.  ``--against`` builds an earlier
 gl64.cu beside them (its entry points of ``AGAINST_FLAT`` reading the flat
 tables: the first core's), times it in the same turns, holds it to the
-base's integers and counts the instructions its first-core dot issues at
-n = 4096, K = 4, as tools/nwc64_variants.py counts its own (its first
-barrier lies inside its loop of terms).  ``--build-only`` and
+base's integers and counts the instructions its first-core row-pass dot
+issues at n = 128, K = 4, as tools/nwc64_variants.py counts its own (its
+first barrier lies inside its loop of terms).  ``--build-only`` and
 ``--only`` as there.  Needs a CUDA device and nvcc; prints the card's name
 and power limit.
 """
@@ -63,11 +66,12 @@ BLOCKS = "  return threads > 384 ? 1 : 640 / threads;"
 FLAT_B = "  return scaled && kSpectrumInRegisters && block_threads(log_n, false) < 1024;"
 FORWARD_BOUNDS = ("                                  1024 / block_threads(kLogN, false))\n"
                   "    forward_scaled_kernel(")
-DOT_BOUNDS = ("                                  1024 / block_threads(kLogN, false))\n"
+DOT_BOUNDS = ("__launch_bounds__(block_threads(kLogN, false), dot_blocks(kLogN, kScaled))\n"
               "    dot_kernel(")
-DOT_AT_512 = DOT_BOUNDS.replace("1024 / block_threads(kLogN, false)",
+DOT_AT_512 = DOT_BOUNDS.replace("dot_blocks(kLogN, kScaled)",
                                 "block_threads(kLogN, false) > 256 ? 1 : "
                                 "512 / block_threads(kLogN, false)")
+DOT_ROW_BLOCKS = "  return !scaled ? 1024 / threads : threads > 256 ? 1 : 512 / threads;"
 DOT_B = "        spectrum[r * kThreads] = x[r];"
 DOT_SLOT_B = "kCached ? y[r] : spectrum[r * kThreads]"
 #: name -> (what it changes, [(text, replacement)], computes the right integers)
@@ -169,16 +173,20 @@ VARIANTS = {
          ("spectrum[r * kThreads]", "spectrum[tile_word<kLogN, false>(g, kWords * t + r)]")],
         True),
     "dot at 512 threads an SM": (
-        "the flat dot's launch bounds at 512 threads an SM (128 registers)",
-        [(DOT_BOUNDS, DOT_AT_512)], True),
+        "the flat dot's launch bounds, as the row-pass dot's, at 512 threads an SM (128 "
+        "registers)", [(DOT_BOUNDS, DOT_AT_512)], True),
+    "row-pass dot at 1024 threads an SM": (
+        "gl64_dot_scaled's launch bounds at 1024 threads an SM (64 registers), the flat dot's, "
+        "not 512", [(DOT_ROW_BLOCKS, "  return 1024 / threads;")], True),
 }
 #: the entry points an --against source runs on the first core's flat tables
-AGAINST_FLAT = ("dot",)
+AGAINST_FLAT = ("dot_scaled",)
 KERNELS = ("transform_kernelILi12ELb0ELb0EE", "cyclic_scaled_kernelILi12ELb0ELb0EE",
            "cyclic_scaled_kernelILi12ELb1ELb0EE", "cyclic_scaled_kernelILi7ELb0ELb1EE",
            "cyclic_scaled_kernelILi10ELb0ELb1EE", "forward_scaled_kernelILi7EE",
-           "forward_scaled_kernelILi10EE", "dot_kernelILi12ELb0EE", "dot_kernelILi12ELb1EE",
-           "dot_kernelILi13ELb0EE")
+           "forward_scaled_kernelILi10EE", "dot_kernelILi12ELb0ELb0EE",
+           "dot_kernelILi12ELb1ELb0EE", "dot_kernelILi13ELb0ELb0EE", "dot_kernelILi7ELb0ELb1EE",
+           "dot_kernelILi7ELb1ELb1EE")
 FUSED = ("cyclic_scaled_kernelILi", "forward_scaled_kernelILi", "dot_kernelILi")
 PTR, I32, U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
@@ -190,7 +198,8 @@ ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "forward_scaled": [PTR] * 4 + [I32] * 3 + [U64, PTR],
             "cyclic_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
             "cached_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
-            "dot": [PTR] * 5 + [I32] * 3 + [U64, I32, PTR]}
+            "dot": [PTR] * 5 + [I32] * 3 + [U64, I32, PTR],
+            "dot_scaled": [PTR] * 7 + [I32] * 4 + [U64, I32, PTR]}
 
 
 def first_core_dot_trips(log_n: int, terms: int = 4) -> tuple:
@@ -229,7 +238,7 @@ def main() -> int:
             libs["against"] = build(opts.against.read_text(), path, "gl64", ARGTYPES,
                                     KERNELS[:1], FUSED)
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {"dot_kernel": {12: first_core_dot_trips(12)}})
+            count_against(path, {"dot_scaled_kernel": {7: first_core_dot_trips(7)}})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -305,6 +314,25 @@ def main() -> int:
             cases.append((f"gl64_forward_scaled {batch * n1} rows of {n2}, period {n1}",
                           "forward_scaled", fout, call[0],
                           (a, pre, flat, row._transform_table(flat[0]), call[1])))
+        # the dot's row pass at K = 4: goldilocks_32768's 16384 rows of 128 at
+        # period 256, and 4096 rows of 1024 at period 1024, fresh and cached
+        for n1, n2, rows in ((256, 128, 16384), (1024, 1024, 4096)):
+            row = GoldilocksSubPlan64(make_params(n2, Q), device)
+            a3, b3 = residues((4, rows, n2), rng), residues((4, rows, n2), rng)
+            pre, post = residues((n1, n2), rng), residues((n1, n2), rng)
+            spectra = row.ntt_fwd_scaled_plain(b3.reshape(-1, n2), (pre,), True).reshape(b3.shape)
+            flat = (row.plan.cyclic_flat, row.plan.cyclic_inv_flat)  # what --against reads
+            out = torch.empty_like(a3[0])
+            for z, cached, scale in ((b3, 0, row._scale_fresh),
+                                     (spectra, 1, row._scale_cached)):
+                call = [(a3.data_ptr(), z.data_ptr(), out.data_ptr(),
+                         *(w.data_ptr() for w in tables), pre.data_ptr(), post.data_ptr(), n1, 4,
+                         rows, row.p.log_n, *scale, cached, stream)
+                        for tables in (row._cyclic_tables("dot_scaled"), flat)]
+                cases.append((f"gl64_dot_scaled {rows} rows of {n2}, period {n1}, K=4"
+                              + (" cached" if cached else ""), "dot_scaled", out, call[0],
+                              (a3, z, pre, post, row._cyclic_tables("dot_scaled"), flat,
+                               call[1])))
         times, want = {}, {}
         for _ in range(2):
             for label, entry, out, call, keep in cases:

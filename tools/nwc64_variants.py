@@ -15,7 +15,8 @@ four-step's fused row passes ``nwc64_cyclic_scaled`` and
 ``nwc64_cached_scaled`` at p60_32768's rows (65536 of 128, period 256) and
 p60_1048576's (4096 of 1024, period 1024), ``nwc64_dot_scaled`` at
 K = 4 on 16384 rows of 128, fresh and cached, the row forward
-``nwc64_forward_scaled`` at the same two row shapes and the flat dot
+``nwc64_forward_scaled`` and the row inverse ``nwc64_inverse_scaled`` at
+the same two row shapes and the flat dot
 ``nwc64_dot`` at P60_4096, K = 4, B = 512, fresh and cached, run under
 every variant in turns, each timed by CUDA events: the best of three runs
 of 50 launches, over two rounds.  A variant marked wrong computes other
@@ -24,7 +25,7 @@ other variant must give the base's integers.  ``--against`` builds an
 earlier nwc64.cu beside them (whose entry points of ``AGAINST_FLAT`` read
 the flat tables: the first core's), times it in the same turns, holds it
 to the base's integers, and counts the instructions its first-core row
-forward issues (cuobjdump, chip_smoke.py's count).  ``--build-only`` stops after the builds' reports
+inverse issues (cuobjdump, chip_smoke.py's count).  ``--build-only`` stops after the builds' reports
 of registers and spills; ``--only`` builds the named variants and the
 base.  Needs a CUDA device and nvcc; prints the card's name and power
 limit.
@@ -61,6 +62,8 @@ BLOCKS = "  return threads > 384 ? 1 : 512 / threads;"
 ROW_THREADS = "constexpr int kRowThreads = 512;"
 FORWARD_BOUNDS = ("__launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLogN))\n"
                   "    forward_scaled_kernel(")
+INVERSE_BOUNDS = ("__launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLogN))\n"
+                  "    inverse_scaled_kernel(")
 FORWARD_HALVES = "  scaled_forward<kLogN, tight(kLogN) ? 2 : 1>(x, in, at,"
 # the dot's loop: a step's slot into the sum, the sum read for the inverse
 DOT_SUM_STEP = (
@@ -231,6 +234,11 @@ VARIANTS = {
         [(FORWARD_BOUNDS, FORWARD_BOUNDS.replace("scaled_blocks(kLogN)",
                                                  "1024 / block_threads(kLogN, false)")),
          (FORWARD_HALVES, FORWARD_HALVES.replace("tight(kLogN) ? 2 : 1", "2"))], True),
+    "row inverse at 1024 threads an SM": (
+        "nwc64_inverse_scaled at the transforms' 1024 threads an SM (64 registers), not the "
+        "fused row passes' 512",
+        [(INVERSE_BOUNDS, INVERSE_BOUNDS.replace("scaled_blocks(kLogN)",
+                                                 "1024 / block_threads(kLogN, false)"))], True),
     "dot sum in registers": (
         "where not tight the dots' sum in eight registers a thread across the loop, not in "
         "a tile of shared memory", [
@@ -249,7 +257,7 @@ VARIANTS = {
         True),
 }
 #: the entry points an --against source runs on the first core's flat tables
-AGAINST_FLAT = ("forward_scaled", "dot")
+AGAINST_FLAT = ("inverse_scaled",)
 ENTRIES = {"forward": 2, "inverse": 2, "forward_cols": 3, "inverse_cols": 3}  # int arguments
 PRODUCT_TYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_uint64] * 4 + [
     ctypes.c_void_p]
@@ -260,14 +268,15 @@ DOT_TYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_uint64] * 4 
 FLAT_DOT_TYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_uint64] * 4 + [
     ctypes.c_int, ctypes.c_void_p]
 FORWARD_SCALED_TYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_uint64] * 3 + [
-    ctypes.c_void_p]
+    ctypes.c_void_p]  # nwc64_inverse_scaled's too
 #: the instantiations whose registers and spills each build reports, and the
 #: fused kernels (mangled prefixes) whose every instantiation it scans for spills
 SUMMARY = ("transform_kernelILi12ELb0ELb0EE", "product_kernelILi12ELb0EE",
            "cyclic_scaled_kernelILi7ELb0EE", "dot_scaled_kernelILi7ELb0ELb1EE",
-           "forward_scaled_kernelILi7EE", "dot_scaled_kernelILi12ELb0ELb0EE")
+           "forward_scaled_kernelILi7EE", "dot_scaled_kernelILi12ELb0ELb0EE",
+           "inverse_scaled_kernelILi7EE")
 FUSED = ("product_kernelILi", "cyclic_scaled_kernelILi", "dot_scaled_kernelILi",
-         "forward_scaled_kernelILi")
+         "forward_scaled_kernelILi", "inverse_scaled_kernelILi")
 
 
 def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None, kernels=SUMMARY,
@@ -311,7 +320,8 @@ def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None, kernels=
                     for entry, ints in ENTRIES.items()}
         argtypes.update(product=PRODUCT_TYPES, cached=PRODUCT_TYPES, cyclic_scaled=SCALED_TYPES,
                         cached_scaled=SCALED_TYPES, dot_scaled=DOT_TYPES, dot=FLAT_DOT_TYPES,
-                        forward_scaled=FORWARD_SCALED_TYPES)
+                        forward_scaled=FORWARD_SCALED_TYPES,
+                        inverse_scaled=FORWARD_SCALED_TYPES)
     for entry, types in argtypes.items():
         fn = getattr(lib, f"{prefix}_{entry}")
         fn.argtypes = types
@@ -368,11 +378,11 @@ def first_core_trips(log_n: int) -> tuple:
     return (n // 2 // threads, log_n, n // threads) * 2
 
 
-def forward_trips(log_n: int) -> tuple:
-    """The same for the first core's row forward: its butterfly and stage
-    loops, then its store loop, unrolled by 4, and the remainder's."""
+def inverse_trips(log_n: int) -> tuple:
+    """The same for the first core's row inverse: its butterfly and stage
+    loops, then its store loop."""
     n, threads = 1 << log_n, first_core_threads(log_n)
-    return (n // 2 // threads, log_n, n // threads // 4, n // threads % 4)
+    return (n // 2 // threads, log_n, n // threads)
 
 
 def count_against(lib: Path, kernels: dict, row_threads=first_core_threads) -> None:
@@ -433,7 +443,7 @@ def main() -> int:
             libs["against"] = build(opts.against.read_text(), path,
                                     kernels=("transform_kernelILi12ELb0ELb0EE",))
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {"forward_scaled_kernel": {l: forward_trips(l) for l in (7, 10)}})
+            count_against(path, {"inverse_scaled_kernel": {l: inverse_trips(l) for l in (7, 10)}})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -503,7 +513,7 @@ def main() -> int:
                          + (f", K={terms}" + (" cached" if dot[1] else "") if terms else ""))
                 keep = (a, z, pre, post, flat, [row._transform_table(t) for t in flat], call[1])
                 cases.append((label, entry, out, call[0], keep))
-            if not terms:  # the row forward of a, at scale 1
+            if not terms:  # the row forward of a, at scale 1, and the row inverse
                 fout = torch.empty_like(a)
                 call = [(a.data_ptr(), fout.data_ptr(), *(w.data_ptr() for w in tw),
                          *(w.data_ptr() for w in pre), n1, rows, row.p.log_n, row.p.q,
@@ -512,6 +522,14 @@ def main() -> int:
                 cases.append((f"nwc64_forward_scaled {rows} rows of {n2}, period {n1}",
                               "forward_scaled", fout, call[0],
                               (a, fout, pre, flat, row._transform_table(flat[0]), call[1])))
+                iout = torch.empty_like(a)
+                call = [(a.data_ptr(), iout.data_ptr(), *(w.data_ptr() for w in itw),
+                         *(w.data_ptr() for w in post), n1, rows, row.p.log_n, row.p.q,
+                         *row._scale_cached, stream)
+                        for itw in (row._transform_table(flat[1]), flat[1])]
+                cases.append((f"nwc64_inverse_scaled {rows} rows of {n2}, period {n1}",
+                              "inverse_scaled", iout, call[0],
+                              (a, iout, post, flat, row._transform_table(flat[1]), call[1])))
         # the flat dot at P60_4096, K = 4, B = 512, fresh and cached
         a4, b4 = residues(plan, (4, 512, 4096)), residues(plan, (4, 512, 4096))
         s4 = plan.nwc_spectrum_plain(b4.reshape(-1, 4096)).reshape(b4.shape)

@@ -616,7 +616,8 @@ class ScaledKernelPlan(KernelPlan):
         if x.shape[0] == 0:
             return out
         return self._launch(
-            "inverse_scaled", out, x, out, *_table(self.plan.cyclic_inv_flat), *post,
+            "inverse_scaled", out, x, out,
+            *self._table_of("inverse_scaled", self.plan.cyclic_inv_flat), *post,
             period, x.shape[0], self.p.log_n, *self._q_args(False),
             *self._scale_cached)
 

@@ -47,30 +47,28 @@
 // over.  32 <= n <= 8192 (the public window is 256 <= n <= 8192; below
 // it, the four-step's sub-sizes).
 //
-// Two cores, as in nwc64.cu.  Ten entry points run the radix-8 core ("The
-// radix-8 core" below): gl64_forward, gl64_inverse and their column entry
-// points; the row forward gl64_forward_scaled, the entry scale and one
-// forward on it; and, fused onto it ("The products fused on the radix-8
-// core"), both forwards, the slot product and the inverse in one kernel a
-// launch: K2's flat product gl64_product and gl64_cached, and the
+// Two cores, as in nwc64.cu.  Eleven entry points run the radix-8 core
+// ("The radix-8 core" below): gl64_forward, gl64_inverse and their column
+// entry points; the row forward gl64_forward_scaled, the entry scale and
+// one forward on it; and, fused onto it ("The products fused on the
+// radix-8 core"), both forwards, the slot product and the inverse in one
+// kernel a launch: K2's flat product gl64_product and gl64_cached, and the
 // four-step's row pass gl64_cyclic_scaled and gl64_cached_scaled, with the
-// entry and exit scales; and K2's flat dot gl64_dot ("The dot fused on the
-// radix-8 core"), a forward a loop step and one inverse.  The other four
-// (gl64_matvec, gl64_inverse_scaled, gl64_dot_scaled, gl64_matvec_scaled)
-// run the first core, correct first and simple, until they move onto the
+// entry and exit scales; and the dots ("The dot fused on the radix-8
+// core"), a forward a loop step and one inverse: K2's flat gl64_dot and,
+// with the scales, the four-step's row pass gl64_dot_scaled.  The other
+// three (gl64_matvec, gl64_inverse_scaled, gl64_matvec_scaled) run the
+// first core's inverse, correct first and simple, until they move onto the
 // radix-8 one.
 // The network code of both is a copy of nwc64.cu's rather than a header
 // shared by both, so nwc64.cu is not changed and its functions and times
 // stay as they were; the arithmetic differs.  The first core:
-// * One thread block per output row, the rows in dynamic shared memory, 8n
-//   bytes each: one for the inverses and the matvec, three for the row
-//   pass's dot (192 KiB at n = 8192, under the 227 KB a block may have).  n / 8
-//   threads (at most 1024), four butterflies each, from n = 256 on; below,
-//   a warp, or n / 2 (the four-step's sub-sizes).
-// * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
-//   Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
-//   between stages; the stage with m groups reads entry m + g of a flat
-//   length-n table of plain twiddles.
+// * One thread block per output row, the row in dynamic shared memory, 8n
+//   bytes.  n / 8 threads (at most 1024), four butterflies each, from
+//   n = 256 on; below, a warp, or n / 2 (the four-step's sub-sizes).
+// * A Gentleman-Sande inverse (bit-reversed in, natural out),
+//   __syncthreads between stages; the stage with m groups reads entry
+//   m + g of a flat length-n table of plain twiddles.
 // * Every product is gl_mul: the 128-bit product from a * b and
 //   __umul64hi, reduced by the phi-fold (2^96 = -1, 2^64 = 2^32 - 1 mod q:
 //   shifts, adds and one conditional subtract, no multiply).  Shoup's form
@@ -80,17 +78,15 @@
 //   the wrapper passes.
 // * A sum of two residues can pass 2^64 here (nwc64.cu's add_mod assumes it
 //   cannot): gl_add takes the carry as 2^64 = q + (2^32 - 1).
-// * Every value stays canonical in [0, q), also through the dot's and the
-//   matvec's accumulation.
-// * The four-step's first-core row kernels are the first core's inverse,
-//   a dot of its forward and inverse, and matvec_kernel with one gl_mul
-//   more, by a table row, at
-//   entry and/or exit (never on a cached spectrum, which the row forward
-//   has already scaled).  Row r of a launch reads row r % period of a
-//   (period, n) table of plain values (no Shoup companion, as for the
-//   twiddles): a batch of B polynomials of n1 rows each passes period = n1.
-//   The spectra stay plain, so `cacheable` changes nothing here, where
-//   nwc64.cu multiplies by 2^64 mod q.
+// * Every value stays canonical in [0, q), also through the matvec's
+//   accumulation.
+// * The four-step's first-core row kernels are the first core's inverse and
+//   matvec_kernel with one gl_mul more, by a table row, at exit.  Row r of
+//   a launch reads row r % period of a (period, n) table of plain values
+//   (no Shoup companion, as for the twiddles): a batch of B polynomials of
+//   n1 rows each passes period = n1.  The spectra stay plain, so
+//   `cacheable` changes nothing here, where nwc64.cu multiplies by 2^64
+//   mod q.
 //
 // What bounds both cores on this card: the multiplies, as in nwc64.cu.
 // Hopper builds a 64 x 64 -> 128 product from about eight 32-bit IMADs (the
@@ -238,29 +234,6 @@ __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
   return gl_reduce(a * b, __umul64hi(a, b));
 }
 
-// Cooley-Tukey forward, in place, on `rows` rows of n values spaced n apart:
-// stage s has m = 2^s groups of 2t values, t = n >> (s + 1); butterfly j
-// pairs u = 2t * (j / t) + j % t with u + t.
-__device__ void forward(uint64_t* x, int rows, int log_n, const uint64_t* tw) {
-  const int n = 1 << log_n;
-  for (int s = 0; s < log_n; ++s) {
-    const int lt = log_n - 1 - s;
-    for (int j = threadIdx.x; j < n / 2; j += blockDim.x) {
-      const int g = j >> lt;
-      const int u = (g << (lt + 1)) | (j & ((1 << lt) - 1));
-      const int v = u + (1 << lt);
-      const uint64_t w = __ldg(tw + (1 << s) + g);
-      for (int r = 0; r < rows; ++r) {
-        uint64_t* y = x + r * n;
-        const uint64_t yu = y[u], yv = gl_mul(y[v], w);
-        y[u] = gl_add(yu, yv);
-        y[v] = gl_sub(yu, yv);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // Gentleman-Sande inverse of one row, in place: the forward's stages in
 // reverse order.  No n^-1: the caller's scale carries it.
 __device__ void inverse(uint64_t* x, int log_n, const uint64_t* itw) {
@@ -326,55 +299,6 @@ __global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
   inverse(x, log_n, itw);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     out[row + i] = gl_mul(gl_mul(x[i], scale), __ldg(post + srow + i));
-  }
-}
-
-// The four-step's row pass of the dot on the first core: out = post .
-// INTT(sum_k NTT(pre . a_k) o NTT(pre . b_k)) * scale, the sum in shared
-// memory, one inverse a row, the entry scale pre[r % period] on every fresh
-// operand and the exit scale post[r % period] after the inverse.  a and b
-// are (terms, batch, n) stacks of the column pass's rows; with `cached`, b
-// holds cached spectrum rows, used as they are.
-__global__ void dot_scaled_kernel(const uint64_t* __restrict__ a,
-                                  const uint64_t* __restrict__ b,
-                                  uint64_t* __restrict__ out,
-                                  const uint64_t* __restrict__ tw,
-                                  const uint64_t* __restrict__ itw,
-                                  const uint64_t* __restrict__ pre,
-                                  const uint64_t* __restrict__ post,
-                                  int period, int terms, int batch, int log_n,
-                                  uint64_t scale, int cached) {
-  extern __shared__ uint64_t smem[];
-  const int n = 1 << log_n;
-  uint64_t* acc = smem;
-  uint64_t* x = smem + n;
-  uint64_t* y = smem + 2 * n;
-  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = 0;
-  }
-  for (int k = 0; k < terms; ++k) {
-    const size_t row = (static_cast<size_t>(k) * batch + blockIdx.x) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const uint64_t w = __ldg(pre + srow + i);
-      x[i] = gl_mul(a[row + i], w);
-      y[i] = cached ? b[row + i] : gl_mul(b[row + i], w);
-    }
-    __syncthreads();
-    forward(x, cached ? 1 : 2, log_n, tw);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      acc[i] = gl_add(acc[i], gl_mul(x[i], y[i]));
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = gl_mul(acc[i], scale);
-  }
-  __syncthreads();
-  inverse(acc, log_n, itw);
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = gl_mul(acc[i], __ldg(post + srow + i));
   }
 }
 
@@ -958,6 +882,15 @@ __global__ void __launch_bounds__(block_threads(kLogN, false),
 // add_any: lanes are any 64-bit words, and a sum of two can carry twice.
 // After the last term one inverse, `scale` (n^-1) one mul_lazy a word and
 // one compare at the store, as in the transforms.
+// * kScaled, the four-step's row pass (gl64_dot_scaled): out = post .
+//   INTT(sum_k NTT(pre . a_k) o NTT(pre . b_k)) * scale, row r scaled by
+//   row r % period of the (period, n) tables pre and post, on cyclic
+//   tables.  pre is one mul_lazy a word on the words each fresh operand's
+//   first pass loads (a cached b is never scaled), its table words read at
+//   the same positions (from L2) through a pointer each step takes anew;
+//   post one mul_lazy a word after n^-1's, at the store's positions, before
+//   the one compare.  A table word has no Shoup companion, so a scale's
+//   eight words take 16 registers where nwc64.cu's pairs take 32.
 //
 // Where the words wait.  After a forward thread t holds spectrum words
 // 8t ... 8t + 7 of its row, the words the slot needs, so the sum and a
@@ -976,12 +909,22 @@ __global__ void __launch_bounds__(block_threads(kLogN, false),
 // nwc64.cu's swizzled words 0.8 % slower (tools/gl64_variants.py, PERF.md).
 __host__ __device__ constexpr int dot_tiles(bool cached) { return cached ? 2 : 3; }
 
-template <int kLogN, bool kCached>
-__global__ void __launch_bounds__(block_threads(kLogN, false),
-                                  1024 / block_threads(kLogN, false))
+// Blocks an SM of a dot for __launch_bounds__: the flat dot's 1024 threads
+// an SM (64 registers), the row pass's 512 (up to 128 registers), which
+// both fit without a spill: at goldilocks_32768's rows 512 ran 0.6 %
+// faster fresh and 1.5 % cached (tools/gl64_variants.py, PERF.md).
+__host__ __device__ constexpr int dot_blocks(int log_n, bool scaled) {
+  const int threads = block_threads(log_n, false);
+  return !scaled ? 1024 / threads : threads > 256 ? 1 : 512 / threads;
+}
+
+template <int kLogN, bool kCached, bool kScaled>
+__global__ void __launch_bounds__(block_threads(kLogN, false), dot_blocks(kLogN, kScaled))
     dot_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
                uint64_t* __restrict__ out, const uint64_t* __restrict__ tw,
-               const uint64_t* __restrict__ itw, int terms, int rows, uint64_t scale) {
+               const uint64_t* __restrict__ itw, const uint64_t* __restrict__ pre,
+               const uint64_t* __restrict__ post, int period, int terms, int rows,
+               uint64_t scale) {
   extern __shared__ uint64_t smem[];
   constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
   constexpr int kThreads = block_threads(kLogN, false);
@@ -993,6 +936,7 @@ __global__ void __launch_bounds__(block_threads(kLogN, false),
   const int row = blockIdx.x * kTile + g;
   const bool live = row < rows;
   const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  const size_t srow = live ? static_cast<size_t>(row % period) * kN : 0;
 #pragma unroll
   for (int r = 0; r < kWords; ++r) {
     sum[r * kThreads] = 0;
@@ -1007,6 +951,9 @@ __global__ void __launch_bounds__(block_threads(kLogN, false),
     const uint64_t* const tws = opaque(tw);
     uint64_t x[kWords];
     load<kLogN, false, 0>(x, of_b ? b : a, ak, 1, ts, live);  // [0, q): any words
+    if constexpr (kScaled) {
+      times_row<kLogN, 0>(x, opaque(pre), srow, ts);          // any words
+    }
     run_pass<0, first_stages(kLogN), false>(x, tws, 0);
     forward_passes<kLogN, false, 1>(x, smem, tws, gs, ts);    // words 8t ... 8t + 7
     if (of_b) {
@@ -1038,8 +985,15 @@ __global__ void __launch_bounds__(block_threads(kLogN, false),
   run_pass<kS, 3, true>(x, itw + kOff, group<kLogN, kS>(ti));
   inverse_passes<kLogN, false, kLast - 1>(x, smem, itw, gi, ti);
 #pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // any words
+    x[r] = mul_lazy(x[r], scale);
+  }
+  if constexpr (kScaled) {
+    times_row<kLogN, 0>(x, post, srow, ti);  // the store's positions
+  }
+#pragma unroll
   for (int r = 0; r < kWords; ++r) {  // any word -> [0, q)
-    x[r] = canonical(mul_lazy(x[r], scale));
+    x[r] = canonical(x[r]);
   }
   store<kLogN, false, 0>(x, out, at, 1, ti, live);
 }
@@ -1151,22 +1105,50 @@ int launch_fused(const void* a, const void* b, void* out, const void* tw, const 
   return cudaGetLastError();
 }
 
-template <int kLogN, bool kCached>
+template <int kLogN, bool kCached, bool kScaled>
 int launch_dot(const void* a, const void* b, void* out, const void* tw, const void* itw,
-               int terms, int batch, uint64_t scale, cudaStream_t stream) {
+               const void* pre, const void* post, int period, int terms, int batch,
+               uint64_t scale, cudaStream_t stream) {
   constexpr int kTile = tile(kLogN, false);
   constexpr int kSmem =
       dot_tiles(kCached) * kTile * (1 << kLogN) * static_cast<int>(sizeof(uint64_t));
-  auto kernel = dot_kernel<kLogN, kCached>;
+  auto kernel = dot_kernel<kLogN, kCached, kScaled>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) {
     return err;
   }
   kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN, false), kSmem, stream>>>(
-      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw), terms, batch,
-      scale);
+      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw), words(pre),
+      words(post), period, terms, batch, scale);
   return cudaGetLastError();
+}
+
+// The dots' entry: log n from 5 to 13, whole periods, every pointer 16-byte
+// aligned; the flat dot (kScaled false) passes no pre or post, and period 1.
+template <bool kScaled>
+int launch_dots(const void* a, const void* b, void* out, const void* tw, const void* itw,
+                const void* pre, const void* post, int period, int terms, int batch, int log_n,
+                uint64_t scale, int cached, void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period || terms < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (misaligned(a, b, out, tw, itw, pre, post)) {
+    return cudaErrorMisalignedAddress;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define GL64_LOG_N(L)                                                                       \
+  case L:                                                                                   \
+    return cached ? launch_dot<L, true, kScaled>(a, b, out, tw, itw, pre, post, period,     \
+                                                 terms, batch, scale, s)                    \
+                  : launch_dot<L, false, kScaled>(a, b, out, tw, itw, pre, post, period,    \
+                                                  terms, batch, scale, s);
+    GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
+    GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
+#undef GL64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The fused products' entry: log n from 5 to 13, every pointer 16-byte
@@ -1254,23 +1236,11 @@ extern "C" int gl64_inverse_cols(const void* in, void* out, const void* itw, int
 extern "C" int gl64_dot(const void* a, const void* b, void* out,
                         const void* tw, const void* itw, int terms, int batch,
                         int log_n, uint64_t scale, int cached, void* stream) {
-  if (bad_shape(batch, log_n) || terms < 1 || terms > 8) {
+  if (terms > 8) {
     return cudaErrorInvalidValue;
   }
-  if (misaligned(a, b, out, tw, itw)) {
-    return cudaErrorMisalignedAddress;
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (log_n) {
-#define GL64_LOG_N(L)                                                                    \
-  case L:                                                                                \
-    return cached ? launch_dot<L, true>(a, b, out, tw, itw, terms, batch, scale, s)       \
-                  : launch_dot<L, false>(a, b, out, tw, itw, terms, batch, scale, s);
-    GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
-    GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
-#undef GL64_LOG_N
-  }
-  return cudaErrorInvalidValue;
+  return launch_dots<false>(a, b, out, tw, itw, nullptr, nullptr, 1, terms, batch, log_n, scale,
+                            cached, stream);
 }
 
 extern "C" int gl64_matvec(const void* spectra, const void* mat, void* out,
@@ -1356,25 +1326,16 @@ extern "C" int gl64_inverse_scaled(const void* in, void* out, const void* itw,
 }
 
 // The dot's row pass: (terms, batch, n) stacks a and b (b cached spectra
-// with `cached`), one output row per row of the batch.
+// with `cached`), one output row per row of the batch, pre and post as for
+// gl64_cyclic_scaled: the flat dot's loop on the radix-8 core with the
+// scales, on the tables of mxu64.pass_table.
 extern "C" int gl64_dot_scaled(const void* a, const void* b, void* out,
                                const void* tw, const void* itw, const void* pre,
                                const void* post, int period, int terms,
                                int batch, int log_n, uint64_t scale, int cached,
                                void* stream) {
-  if (bad_shape(batch, log_n) || period < 1 || batch % period || terms < 1) {
-    return cudaErrorInvalidValue;
-  }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(dot_scaled_kernel, 3 * n);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  dot_scaled_kernel<<<batch, threads_for(log_n), 3 * n * sizeof(uint64_t),
-                      static_cast<cudaStream_t>(stream)>>>(
-      words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw),
-      words(pre), words(post), period, terms, batch, log_n, scale, cached);
-  return cudaGetLastError();
+  return launch_dots<true>(a, b, out, tw, itw, pre, post, period, terms, batch, log_n, scale,
+                           cached, stream);
 }
 
 // The matvec's row pass: the (cols, batch, n) row spectra of s against the

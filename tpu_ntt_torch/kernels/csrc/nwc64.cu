@@ -49,7 +49,7 @@
 // carried over.  Correct for any odd q < 2^62 and 32 <= n <= 8192 (the
 // public window is 256 <= n <= 8192; below it, the four-step's sub-sizes).
 //
-// Two cores.  Eleven entry points run the radix-8 core below ("The radix-8
+// Two cores.  Twelve entry points run the radix-8 core below ("The radix-8
 // core"): nwc64_forward, nwc64_inverse and their column entry points, and,
 // fused onto it ("The product on the radix-8 core"), nwc64_product and
 // nwc64_cached, both forwards, the slot product and the inverse in one
@@ -57,15 +57,15 @@
 // nwc64_cached_scaled and nwc64_dot_scaled ("The four-step's row passes
 // fused"), the same with the scales at entry and exit and, for the dot, a
 // sum of terms before the one inverse, and on the same two kernels' code
-// the row forward nwc64_forward_scaled and the flat dot nwc64_dot (the dot
-// without scales, on the negacyclic tables).  The other three
-// (nwc64_matvec, nwc64_inverse_scaled and nwc64_matvec_scaled) run the
+// the row forward nwc64_forward_scaled, the row inverse nwc64_inverse_scaled
+// and the flat dot nwc64_dot (the dot without scales, on the negacyclic
+// tables).  The other two (nwc64_matvec and nwc64_matvec_scaled) run the
 // first core, correct first and simple (the design of nwc32.cu on 64-bit
 // words), until they move onto the radix-8 one:
-// * One thread block per row (per output row for the matvec), the row in
-//   dynamic shared memory, 8n bytes, so device memory sees each operand and
-//   each result once.  n / 8 threads (at most 1024) run four butterflies
-//   each up to n = 8192 (below n = 256, a warp, or n / 2).
+// * One thread block per output row, the row in dynamic shared memory, 8n
+//   bytes, so device memory sees each operand and each result once.  n / 8
+//   threads (at most 1024) run four butterflies each up to n = 8192 (below
+//   n = 256, a warp, or n / 2).
 // * A Gentleman-Sande inverse (bit-reversed in, natural out),
 //   __syncthreads between stages.  The stage with m groups reads entry
 //   m + g of a flat length-n table for group g, beside its Shoup companion
@@ -85,13 +85,12 @@
 //   wrapper transforms the l * B rows of s with nwc64_forward into a scratch
 //   tensor, and nwc64_matvec accumulates sum_j REDC(S_j * A_ij) from device
 //   memory (A stays in L2) and runs one inverse per output row.
-// * Two of the four-step's row passes (nwc64_inverse_scaled,
-//   nwc64_matvec_scaled) are the first core's inverse and matvec_kernel
-//   with one Shoup multiply more, by a table row, at exit.  Row r of a
-//   launch reads row r % period of the (period, n) tables (w, w'): a batch
-//   of B polynomials of n1 rows each passes period = n1, every row of a
-//   polynomial in one launch.  The exit product leaves canonical words, as
-//   strict Shoup does for q < 2^62.
+// * The four-step's row pass of the matvec (nwc64_matvec_scaled) is
+//   matvec_kernel with one Shoup multiply more, by a table row, at exit.
+//   Row r of a launch reads row r % period of the (period, n) tables (w,
+//   w'): a batch of B polynomials of n1 rows each passes period = n1, every
+//   row of a polynomial in one launch.  The exit product leaves canonical
+//   words, as strict Shoup does for q < 2^62.
 //
 // What bounds the first core on this card.  Not the 64-bit multiplies it was
 // first thought to be: Hopper builds a 64 x 64 product from 32-bit IMADs,
@@ -808,6 +807,35 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLo
   store<kLogN, false, passes(kLogN) - 1>(x, out, at, 1, t, live);
 }
 
+// The four-step's row inverse on the radix-8 core (nwc64_inverse_scaled):
+// out = post . INTT(in) * scale on `rows` bit-reversed spectra, row r scaled
+// by row r % period of the (period, n) Shoup table post.  The spectrum's
+// words 8t ... 8t + 7 (the inverse's first pass; 16-byte vectors), one lazy
+// Shoup product by `scale` (n^-1) on them, then scaled_inverse: the passes,
+// post's lazy product at the store's positions (in halves where tight) and
+// one compare.  Rows tile a block as in the transforms, at the row passes'
+// threads an SM (scaled_blocks).
+template <int kLogN>
+__global__ void __launch_bounds__(block_threads(kLogN, false), scaled_blocks(kLogN))
+    inverse_scaled_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, Table itw,
+                          Table post, int period, int rows, uint64_t q, uint64_t scale,
+                          uint64_t scale_shoup) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  const size_t srow = live ? static_cast<size_t>(row % period) * kN : 0;
+  uint64_t x[kWords];
+  load<kLogN, false, passes(kLogN) - 1>(x, in, at, 1, t, live);  // words 8t ... 8t + 7
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // any word times n^-1: [0, 2q), the inverse's range
+    x[r] = shoup_lazy(x[r], scale, scale_shoup, q);
+  }
+  scaled_inverse<kLogN>(x, out, at, post, srow, smem, itw, g, t, live, q);
+}
+
 // The slot's REDC(x y) of a's lane x in [0, 4q) and b's y, in [0, 2q)
 // (fresh, after its compare) or [0, q) (cached): one compare on x against
 // a fresh y, so that x y < 4 q^2 < q 2^64 (q < 2^62) either way and the
@@ -1006,29 +1034,6 @@ __global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
   inverse(x, log_n, itw, q);
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     out[(i * batch + r) * n + e] = x[e];
-  }
-}
-
-// The four-step's row inverse: the inverse, times `scale` (n^-1), times
-// post[r % period].
-__global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
-                                      uint64_t* __restrict__ out, Table itw,
-                                      Table post, int period, int log_n,
-                                      uint64_t q, uint64_t scale,
-                                      uint64_t scale_shoup) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = in[row + i];
-  }
-  __syncthreads();
-  inverse(x, log_n, itw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = shoup_mul(shoup_mul(x[i], scale, scale_shoup, q),
-                             __ldg(post.w + srow + i),
-                             __ldg(post.w_shoup + srow + i), q);
   }
 }
 
@@ -1408,6 +1413,8 @@ extern "C" int nwc64_forward_scaled(const void* in, void* out, const void* tw,
   return cudaErrorInvalidValue;
 }
 
+// The row inverse: post . INTT(in) times `scale` (n^-1) for bit-reversed
+// spectra, on the radix-8 core with the tables of mxu64.pass_table.
 extern "C" int nwc64_inverse_scaled(const void* in, void* out, const void* itw,
                                     const void* itw_shoup, const void* post,
                                     const void* post_shoup, int period,
@@ -1417,17 +1424,23 @@ extern "C" int nwc64_inverse_scaled(const void* in, void* out, const void* itw,
   if (bad_shape(batch, log_n) || period < 1 || batch % period) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(inverse_scaled_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned({in, out, itw, itw_shoup, post, post_shoup})) {
+    return cudaErrorMisalignedAddress;
   }
-  inverse_scaled_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
-      table(itw, itw_shoup), table(post, post_shoup), period, log_n, q, scale,
-      scale_shoup);
-  return cudaGetLastError();
+  const uint64_t* pin = static_cast<const uint64_t*>(in);
+  uint64_t* po = static_cast<uint64_t*>(out);
+  const Table pitw = table(itw, itw_shoup), ppost = table(post, post_shoup);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define NWC64_LOG_N(L)                                                                     \
+  case L:                                                                                  \
+    return launch_rows<L>(inverse_scaled_kernel<L>, 1, batch, s, pin, po, pitw, ppost,     \
+                          period, batch, q, scale, scale_shoup);
+    NWC64_LOG_N(5) NWC64_LOG_N(6) NWC64_LOG_N(7) NWC64_LOG_N(8) NWC64_LOG_N(9)
+    NWC64_LOG_N(10) NWC64_LOG_N(11) NWC64_LOG_N(12) NWC64_LOG_N(13)
+#undef NWC64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The dot's row pass: (terms, batch, n) stacks a and b (b cached spectra

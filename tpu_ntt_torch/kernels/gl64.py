@@ -32,11 +32,13 @@ twiddles in the per-pass layout of ``mxu64.pass_table``; so does the
 four-step's row forward ``gl64_forward_scaled``.  The products fused on
 that core, both forwards, the slot product and the inverse in one kernel,
 are K2's flat product (``gl64_product``, ``gl64_cached``) and the
-four-step's row pass (``gl64_cyclic_scaled``, ``gl64_cached_scaled``); K2's
-flat dot ``gl64_dot`` runs a forward a loop step on it, the sum in shared
-memory, and one inverse.  These ten read the per-pass tables
-(``GoldilocksPlan64.pass_entries``); the other four kernels run the first
-core on the flat tables.
+four-step's row pass (``gl64_cyclic_scaled``, ``gl64_cached_scaled``); the
+dots, K2's flat ``gl64_dot`` and with the scales the four-step's row pass
+``gl64_dot_scaled``, run a forward a loop step on it, the sum in shared
+memory, and one inverse.  These eleven read the per-pass tables
+(``GoldilocksPlan64.pass_entries``); the other three kernels
+(``gl64_matvec``, ``gl64_inverse_scaled``, ``gl64_matvec_scaled``) run the
+first core on the flat tables.
 """
 
 from __future__ import annotations
@@ -121,7 +123,7 @@ class GoldilocksPlan64(_plan.ScaledKernelPlan):
 
     pass_entries = frozenset({"forward", "inverse", "forward_cols", "inverse_cols",
                               "forward_scaled", "product", "cached", "cyclic_scaled",
-                              "cached_scaled", "dot"})
+                              "cached_scaled", "dot", "dot_scaled"})
 
     def _transform_table(self, flat) -> tuple:
         """The per-pass layout of the flat table w for the radix-8 core's
