@@ -38,12 +38,15 @@ kernel K6).  Phases, each of which raises on failure:
    row passes ``nwc64_dot_scaled`` and ``gl64_dot_scaled`` at n = 128 and
    the flat ``nwc64_dot`` and ``gl64_dot`` at n = 4096 (a step of its
    loop, one forward, and the rest), and nwc32.cu's radix-16 forward at
-   n = 256, 4096 and 16384 with its shared-memory instructions; the radix
+   n = 256, 4096 and 16384 and its fused product, fresh and cached, at
+   n = 4096, with their shared-memory instructions, and its fused dot at
+   n = 4096, fresh and cached, counted as the flat dots; the radix
    kernels of the three files, 36 transforms and 9 row forwards in each
    64-bit one, nwc64.cu's 18 fused products, 18 fused row passes, 9 row
    inverses and 36 fused dots (18 row passes, 18 flat), gl64.cu's 36 fused
    products (18 flat, 18 row passes) and 36 fused dots (18 flat, 18 row
-   passes), and nwc32.cu's 7 radix-16 forwards, must spill nothing; the
+   passes), and nwc32.cu's 7 radix-16 forwards, 14 fused products and 14
+   fused dots, must spill nothing; the
    blocks an SM of both flat dots, gl64.cu's row-pass dot and its flat
    product, by ptxas's registers and their shared memory;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
@@ -79,7 +82,11 @@ kernel K6).  Phases, each of which raises on failure:
    B = 2048 at n = 128 (period 256) and 1024 (period 1024) and at B = 264
    at n = 8192; ``nwc32_forward`` on nwc32.cu's radix-16 core at n = 256 to
    16384 (q = 8380417 to 4096, q = 16580609, q = 12289 to 2048), B = 1, 3
-   and 2048, merged and cyclic tables, scale 1 and 2^32 mod q; every op
+   and 2048, merged and cyclic tables, scale 1 and 2^32 mod q; the
+   products and the dot fused on it at the same n and q, boundary rows
+   first: ``nwc32_product`` on merged and cyclic tables and
+   ``nwc32_cached`` at B = 1, 3 and 2048, ``nwc32_dot`` fresh and cached
+   at K = 1, 4 and 8, B = 1, 3 and 512; every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
    B = 256), the product, forward and inverse at n = 256 and 8192, the dot
    at n = 8192 (three rows of shared memory), every op at the generic q;
@@ -194,8 +201,12 @@ kernel K6).  Phases, each of which raises on failure:
    four-step's row kernels at p60_32768 and goldilocks_32768, and its
    chains (nwc, nwc_fwd, nwc_inv, cached, dot, dot_cached, matvec at both,
    spectrum at p60_32768; nwc and cached at both 2^20 rows) against their
-   plain chains, the cached dots at P60_4096 and goldilocks_4096 beside the
-   fresh ones, with the product chain's parts by graph replay: column
+   plain chains, the cached dots at P60_4096, P24_4096 and
+   goldilocks_4096 beside the fresh ones, the three matvecs' accumulate-
+   and-inverse kernels alone beside their ops (``nwc64_matvec``,
+   ``gl64_matvec`` at B = 256 and ``nwc32_matvec`` at DILITHIUM_256,
+   B = 8192, on the spectra of s; their bounds ``bounds.ntt_work``'s
+   ``matvec_alone``), with the product chain's parts by graph replay: column
    forward, row kernel, column inverse (beside the chain, the transpose
    route the column entry points replace, and the five transposes
    alone); ``nwc64_forward_cols``,
@@ -637,15 +648,19 @@ def main() -> int:
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}"))
     # gl64.cu's flat dot on the radix-8 core at n = 4096, fresh (2K steps)
     # and cached (K), and its row-pass dot at n = 128, fresh, counted as
-    # nwc64.cu's; nwc32.cu's radix-16 forward at
-    # n = 256, 4096 and 16384 (unrolled), and its shared-memory accesses
-    # (the last pass's exchange as 16-byte vectors)
+    # nwc64.cu's; nwc32.cu's radix-16 forward at n = 256, 4096 and 16384
+    # and its fused product at n = 4096, fresh and cached (unrolled), and
+    # their shared-memory accesses (the last pass's exchange as 16-byte
+    # vectors); its fused dot at n = 4096, fresh and cached, as the others
     print_dot("gl64", gl_sass, "dot_kernel<12, 0, 0>", 2 * DOT_TERMS)
     print_dot("gl64", gl_sass, "dot_kernel<12, 1, 0>", DOT_TERMS)
     print_dot("gl64", gl_sass, "dot_kernel<7, 0, 1>", 2 * DOT_TERMS)
     w32_sass = sass_listing(libs["nwc32"])
+    print_dot("nwc32", w32_sass, "dot_kernel<12, 0>", 2 * DOT_TERMS)
+    print_dot("nwc32", w32_sass, "dot_kernel<12, 1>", DOT_TERMS)
     for kernel in ("radix_forward_kernel<8>", "radix_forward_kernel<12>",
-                   "radix_forward_kernel<14>"):
+                   "radix_forward_kernel<14>", "product_kernel<12, 0>",
+                   "product_kernel<12, 1>"):
         code = w32_sass[kernel]
         issued = issued_per_thread(code, ())
         shared = {op: sum(ins.startswith(op + " ") for _, ins in code)
@@ -661,13 +676,15 @@ def main() -> int:
     # dots (the row passes' 18 and the flat dot's 18), gl64.cu's 36 fused
     # products (the flat product's 18 and the row pass's 18, fresh and
     # cached) and 36 fused dots (the flat dot's 18 and the row pass's 18),
-    # and nwc32.cu's 7 radix-16 forwards (a log n from 8 to 14)
+    # and nwc32.cu's 7 radix-16 forwards (a log n from 8 to 14), 14 fused
+    # products and 14 fused dots (each log n, fresh and cached)
     for lib, kernels in (("nwc64", (("transform_kernel", 36), ("product_kernel", 18),
                                     ("cyclic_scaled_kernel", 18), ("forward_scaled_kernel", 9),
                                     ("inverse_scaled_kernel", 9), ("dot_scaled_kernel", 36))),
                          ("gl64", (("transform_kernel", 36), ("cyclic_scaled_kernel", 36),
                                    ("forward_scaled_kernel", 9), ("dot_kernel", 36))),
-                         ("nwc32", (("radix_forward_kernel", 7),))):
+                         ("nwc32", (("radix_forward_kernel", 7), ("product_kernel", 14),
+                                    ("dot_kernel", 14)))):
         log = libs[lib].with_suffix(".log").read_text()
         for kernel, count in kernels:
             spills = re.findall(rf"Function properties for \S*{kernel}I\S*\n[^\n]*?(\d+) "
@@ -1115,6 +1132,47 @@ def main() -> int:
     print(f"kernel vs plain: nwc32_forward, merged and cyclic tables, scale 1 and 2^32 mod q, "
           f"n = 256 to 16384, q = 8380417, 16580609, 12289, B = 1, 3, {BATCH}: {checks} "
           f"launches equal in {time.perf_counter() - t0:.1f} s")
+
+    # nwc32_product, nwc32_cached and nwc32_dot fused on the radix-16 core,
+    # at the forward's n and q: the negacyclic and cyclic products (merged
+    # and cyclic tables) and the product against a cached spectrum at B = 1,
+    # 3 and 2048, the dot fresh and cached at K = 1, 4 and 8, B = 1, 3 and
+    # DOT_BATCH; boundary rows first, b's reversed against a's
+    t0, checks = time.perf_counter(), 0
+    for q in (8380417, 16580609, 12289):
+        for log_n in range(8, 15):
+            n = 1 << log_n
+            if (q - 1) % (2 * n):
+                continue
+            plan = MxuPlan(make_params(n, q), device)
+            a, b = (card_operands(q, n, BATCH, gen).to(torch.int32) for _ in range(2))
+            b[:3] = b[:3].flip(0).clone()
+            for rows in (1, 3, BATCH):
+                x, y = a[:rows], b[:rows].contiguous()
+                spectrum = plan.nwc_spectrum_plain(y)
+                label = f"n={n} q={q} B={rows}"
+                for method in ("nwc_poly_mult", "cyclic_poly_mult"):
+                    silent_check("nwc32_product", f"{method} {label}", getattr(plan, method)(x, y),
+                                 getattr(plan, method + "_plain")(x, y))
+                silent_check("nwc32_cached", label, plan.nwc_poly_mult_cached(x, spectrum),
+                             plan.nwc_poly_mult_cached_plain(x, spectrum))
+                checks += 3
+            for terms in (1, DOT_TERMS, 8):
+                for rows in (1, 3, DOT_BATCH):
+                    x3, y3 = (card_operands(q, n, terms * rows, gen).to(torch.int32)
+                              .reshape(terms, rows, n) for _ in range(2))
+                    y3 = y3.flip(1).contiguous()
+                    s3 = plan.nwc_spectrum_plain(y3.reshape(-1, n)).reshape(y3.shape)
+                    label = f"n={n} q={q} K={terms} B={rows}"
+                    silent_check("nwc32_dot", label, plan.nwc_dot(x3, y3),
+                                 plan.nwc_dot_plain(x3, y3))
+                    silent_check("nwc32_dot", label + " cached", plan.nwc_dot_cached(x3, s3),
+                                 plan.nwc_dot_cached_plain(x3, s3))
+                    checks += 2
+    print(f"kernel vs plain: nwc32_product (negacyclic and cyclic), nwc32_cached at B = 1, 3, "
+          f"{BATCH}, nwc32_dot fresh and cached at K = 1, {DOT_TERMS}, 8, B = 1, 3, {DOT_BATCH}, "
+          f"n = 256 to 16384, q = 8380417, 16580609, 12289: {checks} launches equal in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # K1a's large-n bodies, and K2's: the four-step at bench.py's p60_32768,
     # B = 256, p60_1048576, B = 4, and the Goldilocks rows of the same shapes
@@ -1916,6 +1974,23 @@ def main() -> int:
                                           inputs60, DOT_BATCH)
     timed["gl64_dot cached"] = nwc_timed("gl64_dot_cached", GOLDILOCKS_4096, "dot_cached",
                                          plan_gl, inputs_gl, DOT_BATCH)
+    timed["nwc32_dot cached"] = nwc_timed("nwc32_dot_cached", P24_4096, "dot_cached", p24,
+                                          inputs24, DOT_BATCH)
+    # the matvecs' accumulate-and-inverse kernels alone (the ops above time
+    # the forward of s with them), on the spectra of s that forward makes;
+    # beside them the op's plain version
+    for family, p, plan, (s_mv, spectra_mv), batch in (
+            ("nwc64", P60_4096, plan60, inputs60["matvec"], MATVEC_BATCH_60),
+            ("gl64", GOLDILOCKS_4096, plan_gl, inputs_gl["matvec"], MATVEC_BATCH_60),
+            ("nwc32", DILITHIUM_256, pdil, (s_dil, spec_dil), MATVEC_BATCH)):
+        fs_mv = plan.nwc_ntt_fwd(s_mv.reshape(-1, p.n)).reshape(s_mv.shape)
+        timed[f"{family}_matvec kernel"] = (
+            f"the matvec kernel alone at {p.name}, 4x4 B={batch}",
+            functools.partial(lambda plan, fs, _s, spectra: plan._matvec(fs, spectra), plan,
+                              fs_mv),
+            plan.nwc_matvec_cached_plain, (s_mv, spectra_mv),
+            work(f"{family}_matvec_alone", p, batch, DOT_TERMS), *(SLOW if p.width > 30 else
+                                                                 ((1, 3), 3)))
     # the four-step's row kernels at p60_32768 and goldilocks_32768, B = 256,
     # as its product calls them, then its chains, not kernel functions of
     # their own
@@ -2181,6 +2256,8 @@ def main() -> int:
           f"{BATCH * per_s['generic-q product']:.1f}; "
           f"nwc_poly_mult_p24_4096_per_sec: {BATCH * per_s['nwc32_product']:.1f}; "
           f"fwd_ntt_p24_4096_per_sec: {BATCH * per_s['nwc32_forward']:.1f}; "
+          f"p24_4096_dot_K{DOT_TERMS}_per_sec: {DOT_BATCH * per_s['nwc32_dot']:.1f}, cached "
+          f"{DOT_BATCH * per_s['nwc32_dot cached']:.1f} (B={DOT_BATCH}); "
           f"dilithium_256_matvec_4x4_per_sec: {MATVEC_BATCH * per_s['nwc32_matvec']:.1f}; "
           f"B={BATCH} (p60 matvec B={MATVEC_BATCH_60}, dilithium matvec "
           f"B={MATVEC_BATCH}); mlkem_3329_poly_mult_per_sec: "

@@ -83,8 +83,9 @@ def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
     each transform needs (n/2) log2 n twiddle products, each slot product
     one Montgomery product, each scale one Shoup product.  ``terms`` is the
     K of the dot and both k and l of the matvec, whose count is the whole
-    op: the forward of s and the accumulate-and-inverse (``matvec_scaled``:
-    the accumulate-and-inverse alone, ``batch`` rows of s).  ``period`` is
+    op: the forward of s and the accumulate-and-inverse (``matvec_alone``
+    and ``matvec_scaled``: the accumulate-and-inverse alone, ``batch``
+    columns of s, ``batch`` rows of s).  ``period`` is
     the rows of a row kernel's scale tables (and of the matvec's matrix),
     each table (w, w') (w alone for Goldilocks), read once.  ``forms``
     overrides the (twiddle, slot) product forms, which default to Shoup and
@@ -124,6 +125,9 @@ def ntt_work(entry: str, n: int, log_n: int, q: int, word: int, batch: int,
         fresh = 2 if entry == "dot" else 1  # operands transformed
         return ((2 * terms + 1) * rows,
                 batch * (fresh * terms * t * shoup + terms * n * mont + (t + n) * shoup))
+    if entry == "matvec_alone":  # the accumulate-and-inverse on the spectra of s
+        return ((terms + terms) * rows + terms * terms * n * word,
+                batch * terms * (terms * n * mont + (t + n) * shoup))
     assert entry == "matvec", entry
     return ((terms + terms) * rows + terms * terms * n * word,
             batch * (terms * t * shoup + terms * (terms * n * mont + (t + n) * shoup)))

@@ -382,14 +382,9 @@ class KernelPlan:
             raise ValueError(f"nwc_matvec supports 1 <= k, l <= 8, got k={k}, l={l}")
         if self._runs_plain(s):
             return self.nwc_matvec_cached_plain(s, spectra)
-        batch = s.shape[1]
-        out = s.new_empty((k, batch, self.p.n))
-        if batch == 0:
-            return out
-        fs = self._forward(s, self.plan.merged_flat, self._scale_one)
-        return self._launch(
-            "matvec", out, fs, spectra, out, *_table(self.plan.merged_inv_flat),
-            k, l, batch, self.p.log_n, *self._q_args(True), *self._scale_cached)
+        if s.shape[1] == 0:
+            return s.new_empty((k, 0, self.p.n))
+        return self._matvec(self._forward(s, self.plan.merged_flat, self._scale_one), spectra)
 
     def nwc_matvec_cached_plain(self, s, spectra):
         fs = ntt.nwc_fwd_merged(self.plan, s)
@@ -412,6 +407,16 @@ class KernelPlan:
         for k in range(1, c.shape[0]):
             acc = self.ring.add(acc, c[k])
         return acc
+
+    def _matvec(self, fs, spectra):
+        """The matvec's accumulate-and-inverse kernel alone: (k, B, n) out of
+        the (l, B, n) plain spectra fs of s (``nwc_ntt_fwd``) and the
+        (k, l, n) cached spectra of A."""
+        (k, l), batch = spectra.shape[:2], fs.shape[1]
+        out = fs.new_empty((k, batch, self.p.n))
+        return self._launch(
+            "matvec", out, fs, spectra, out, *_table(self.plan.merged_inv_flat),
+            k, l, batch, self.p.log_n, *self._q_args(True), *self._scale_cached)
 
     def _dot(self, a, b, cached: bool):
         self._check_like(a, b, 3)

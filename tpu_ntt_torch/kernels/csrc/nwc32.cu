@@ -21,28 +21,27 @@
 // (mxu.py:10-35); none of them is carried over.  Correct for any odd
 // q < 2^30 and 256 <= n <= 16384.
 //
-// Two cores.  nwc32_forward runs the radix-16 core ("The radix-16 core"
-// below): nwc64.cu's radix-8 schedule on 32-bit lanes, four stages a pass.
-// The other five run the first core, correct first and simple (the shape of
-// nwc64.cu's), until they move onto the radix-16 one; they read the
-// spectra in the bit-reversed order both forwards write:
-// * One thread block per row (per output row for the dot and the matvec).
-//   The rows a block works on live in dynamic shared memory: 4n bytes each,
-//   64 KiB at n = 16384, so device memory sees each operand and each result
-//   once.  n / 4 threads (at most 1024) run two butterflies each up to
-//   n = 4096.
-// * A merged-psi Cooley-Tukey forward (natural in, bit-reversed out) and a
-//   Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
+// Two cores.  nwc32_forward, nwc32_product, nwc32_cached and nwc32_dot run
+// the radix-16 core ("The radix-16 core" below): nwc64.cu's radix-8
+// schedule on 32-bit lanes, four stages a pass, the products and the dot
+// fused on it.  nwc32_inverse and nwc32_matvec run the first core, correct
+// first and simple (the shape of nwc64.cu's), until they move onto the
+// radix-16 one; they read the spectra in the bit-reversed order the forward
+// writes:
+// * One thread block per row (per output row for the matvec), the row in
+//   dynamic shared memory: 4n bytes, 64 KiB at n = 16384, so device memory
+//   sees each operand and each result once.  n / 4 threads (at most 1024)
+//   run two butterflies each up to n = 4096.
+// * A Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
 //   between stages.  The stage with m groups reads entry m + g of a flat
 //   length-n table for group g, beside its Shoup companion
 //   w' = floor(w * 2^32 / q); a constant multiply is Shoup with __umulhi.
 //   The cyclic ops take the tables with omega powers (ntt.py, "bitrev").
 // * The slot product is Montgomery-32 (one REDC): a*b*2^-32.  Its 2^-32 and
 //   the inverse's n^-1 are cancelled by one Shoup multiply with the scale the
-//   wrapper passes (n^-1 * 2^32 mod q for two fresh spectra; n^-1 against a
-//   cached spectrum, which holds its 2^32 already).
-// * Every value stays canonical in [0, q), also through the dot's and the
-//   matvec's accumulation (one conditional subtract after each add).
+//   wrapper passes (n^-1 against a cached spectrum, which holds its 2^32).
+// * Every value stays canonical in [0, q), also through the matvec's
+//   accumulation (one conditional subtract after each add).
 // * The matvec keeps the l + k transforms of mxu.py:544-551 without holding
 //   l + 1 rows in shared memory (576 KiB at n = 16384, l = 8): the wrapper
 //   transforms the l * B rows of s with nwc32_forward (the radix-16 core)
@@ -55,16 +54,16 @@
 // and adds.  At P24_4096, B = 2048, the product's 3 transforms and slot pass
 // need 3.4e8 IMADs, 0.021 ms at 132 SMs x 64 IMADs a clock x 1.98 GHz,
 // against 101 MB of operands and result, 0.030 ms at 3.35 TB/s: device
-// memory bounds it.  The design keeps every intermediate in shared memory,
-// so device memory moves nothing twice.  What holds the first core back is
-// neither: a butterfly is about 30 instructions (index arithmetic, shared
-// loads and stores, twiddle loads, conditional subtracts) between 12
-// barriers a transform, and on an H100 SXM at 700 W the product takes about
-// 8x its bound (PERF.md).  The radix-16 core's header says what it does
-// about each; a forward alone moves 67 MB at P24_4096, B = 2048 (0.020 ms)
-// and needs 1.0e8 IMADs (0.006 ms): device memory bounds it.
+// memory bounds it, and the fused kernels move nothing twice.  What holds
+// the first core back is neither: a butterfly is about 30 instructions
+// (index arithmetic, shared loads and stores, twiddle loads, conditional
+// subtracts) between 12 barriers a transform, and on an H100 SXM at 700 W
+// its inverse takes about 5.5x its bound (PERF.md).  The radix-16 core's
+// header says what it does about each; a forward alone moves 67 MB at
+// P24_4096, B = 2048 (0.020 ms) and needs 1.0e8 IMADs (0.006 ms).
 
 #include <cstdint>
+#include <initializer_list>
 
 #include <cuda_runtime.h>
 
@@ -102,30 +101,6 @@ struct Table {
   const uint32_t* w_shoup;
 };
 
-// Cooley-Tukey forward, in place, on `rows` rows of n values spaced n apart:
-// stage s has m = 2^s groups of 2t values, t = n >> (s + 1); butterfly j
-// pairs u = 2t * (j / t) + j % t with u + t.
-__device__ void forward(uint32_t* x, int rows, int log_n, Table tw, uint32_t q) {
-  const int n = 1 << log_n;
-  for (int s = 0; s < log_n; ++s) {
-    const int lt = log_n - 1 - s;
-    for (int j = threadIdx.x; j < n / 2; j += blockDim.x) {
-      const int g = j >> lt;
-      const int u = (g << (lt + 1)) | (j & ((1 << lt) - 1));
-      const int v = u + (1 << lt);
-      const uint32_t w = __ldg(tw.w + (1 << s) + g);
-      const uint32_t ws = __ldg(tw.w_shoup + (1 << s) + g);
-      for (int r = 0; r < rows; ++r) {
-        uint32_t* y = x + r * n;
-        const uint32_t yu = y[u], yv = shoup_mul(y[v], w, ws, q);
-        y[u] = add_mod(yu, yv, q);
-        y[v] = sub_mod(yu, yv, q);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // Gentleman-Sande inverse of one row, in place: the forward's stages in
 // reverse order.  No n^-1: the caller's scale carries it.
 __device__ void inverse(uint32_t* x, int log_n, Table itw, uint32_t q) {
@@ -146,38 +121,6 @@ __device__ void inverse(uint32_t* x, int log_n, Table itw, uint32_t q) {
   }
 }
 
-// The product of a row of a with a row of b: b is coefficients, or with
-// kCached a spectrum that is used as it is.  dot_kernel at one term computes
-// the same; this body skips its accumulator row, zeroing pass and separate
-// scale pass, and is 3.5 % faster for the product, 4.7 % for the cached one
-// (P24_4096, B = 2048, H100 SXM at 700 W; PERF.md).
-template <bool kCached>
-__global__ void product_kernel(const uint32_t* __restrict__ a,
-                               const uint32_t* __restrict__ b,
-                               uint32_t* __restrict__ out, Table tw, Table itw,
-                               int log_n, uint32_t q, uint32_t q_prime,
-                               uint32_t scale, uint32_t scale_shoup) {
-  extern __shared__ uint32_t smem[];
-  const int n = 1 << log_n;
-  uint32_t* x = smem;
-  uint32_t* y = smem + n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = a[row + i];
-    y[i] = b[row + i];
-  }
-  __syncthreads();
-  forward(x, kCached ? 1 : 2, log_n, tw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = shoup_mul(mont_mul(x[i], y[i], q, q_prime), scale, scale_shoup, q);
-  }
-  __syncthreads();
-  inverse(x, log_n, itw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = x[i];
-  }
-}
-
 // The inverse of one row, then times `scale` (n^-1).
 __global__ void inverse_kernel(const uint32_t* __restrict__ in,
                                uint32_t* __restrict__ out, Table itw, int log_n,
@@ -192,47 +135,6 @@ __global__ void inverse_kernel(const uint32_t* __restrict__ in,
   inverse(x, log_n, itw, q);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     out[row + i] = shoup_mul(x[i], scale, scale_shoup, q);
-  }
-}
-
-// out[r] = INTT(sum_k NTT(a[k, r]) . NTT(b[k, r])) for (terms, batch, n)
-// stacks a and b; with `cached`, b holds spectra.  The sum stays in shared
-// memory, one inverse per output row.
-__global__ void dot_kernel(const uint32_t* __restrict__ a,
-                           const uint32_t* __restrict__ b,
-                           uint32_t* __restrict__ out, Table tw, Table itw,
-                           int terms, int batch, int log_n, uint32_t q,
-                           uint32_t q_prime, uint32_t scale,
-                           uint32_t scale_shoup, int cached) {
-  extern __shared__ uint32_t smem[];
-  const int n = 1 << log_n;
-  uint32_t* acc = smem;
-  uint32_t* x = smem + n;
-  uint32_t* y = smem + 2 * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = 0;
-  }
-  for (int k = 0; k < terms; ++k) {
-    const size_t row = (static_cast<size_t>(k) * batch + blockIdx.x) * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      x[i] = a[row + i];
-      y[i] = b[row + i];
-    }
-    __syncthreads();
-    forward(x, cached ? 1 : 2, log_n, tw, q);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      acc[i] = add_mod(acc[i], mont_mul(x[i], y[i], q, q_prime), q);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    acc[i] = shoup_mul(acc[i], scale, scale_shoup, q);
-  }
-  __syncthreads();
-  inverse(acc, log_n, itw, q);
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = acc[i];
   }
 }
 
@@ -264,10 +166,10 @@ __global__ void matvec_kernel(const uint32_t* __restrict__ spectra,
 }
 
 // ---------------------------------------------------------------------------
-// The radix-16 core: nwc32_forward.  The schedule of nwc64.cu's radix-8
-// core on 32-bit lanes, the same integers as the first core's forward (a
-// canonical result is unique) in the same bit-reversed order, by another
-// schedule:
+// The radix-16 core: nwc32_forward, and fused on it nwc32_product,
+// nwc32_cached and nwc32_dot.  The schedule of nwc64.cu's radix-8 core on
+// 32-bit lanes, the same integers as the first core (a canonical result is
+// unique) in the same orders, by another schedule:
 // * Passes in registers.  A thread holds kWords = 16 words, 16 registers as
 //   nwc64.cu's eight 64-bit ones, and a pass runs four stages on them with
 //   no barrier between them: stage s + d of a radix-16 group pairs its
@@ -275,23 +177,28 @@ __global__ void matvec_kernel(const uint32_t* __restrict__ spectra,
 //   barriers instead of twelve of each.  The first pass takes log n mod 4
 //   stages, 4 if that is 0 (then each thread holds 16 / 2^stages groups);
 //   it is the pass at stage 0, where every group has the same twiddles.
-//   Shapes, pass stages and table offsets are template constants (kLogN):
-//   one kernel a log n from 8 to 14, every loop unrolled.  Sixteen words a
-//   thread keep n = 16384 at 1024 threads a row, where eight would need
-//   2048: every n of the window runs the same core.
-// * Device memory once.  The first pass loads straight from device memory
-//   (register k of group j is element k * n / 2^stages + j: a warp's 4-byte
-//   loads cover 128 contiguous bytes of a row), the last stores straight to
-//   it, the correction and the scale folded into its registers (a thread's
-//   sixteen words are adjacent there: four 16-byte stores).  Shared memory
-//   is only the exchange between passes: each pass reads and then writes the
-//   same sixteen words of each thread, so one barrier a pass suffices.
+//   The inverse runs the passes in reverse order, each pass's stages
+//   reversed.  Shapes, pass stages and table offsets are template constants
+//   (kLogN): one kernel a log n from 8 to 14, every loop but the dot's
+//   unrolled.  Sixteen words a thread keep n = 16384 at 1024 threads a row,
+//   where eight would need 2048: every n of the window runs the same core.
+// * Device memory once.  A forward's first pass loads straight from device
+//   memory (register k of group j is element k * n / 2^stages + j: a warp's
+//   4-byte loads cover 128 contiguous bytes of a row), and the inverse's
+//   last pass stores there from the same positions.  The forward's last
+//   pass leaves a thread spectrum words 16t ... 16t + 15, adjacent: the
+//   forward kernel stores them as four 16-byte vectors, a cached spectrum's
+//   arrive there as four 16-byte loads, and the inverse's first pass starts
+//   from them, so a fused kernel's slot product needs no exchange and no
+//   barrier.  Shared memory is only the exchange between passes: each pass
+//   reads and then writes the same sixteen words of each thread, so one
+//   barrier a pass suffices.
 // * No swizzle.  Word i of row g of the tile lives at g * n + i.  The
 //   first passes' 4-byte accesses of a warp conflict at most two ways, and
 //   in the last pass a thread's sixteen words are adjacent (16t ...
 //   16t + 15), which the compiler moves as 16-byte vectors
 //   (tests/test_torch_nwc32_radix.py counts the conflicts at every n from
-//   256 to 16384).  nwc64.cu's kind of swizzle, a ^ ((a >> 4) & 31) here,
+//   256 to 16384, both directions).  nwc64.cu's kind of swizzle, a ^ ((a >> 4) & 31) here,
 //   conflict-free on 4-byte words but sixteen scalar accesses a pass, ran
 //   0.1 to 8 % slower at every shape timed (tools/nwc32_variants.py,
 //   PERF.md): the kernel waits on device memory, not on shared memory.
@@ -299,9 +206,11 @@ __global__ void matvec_kernel(const uint32_t* __restrict__ spectra,
 //   uint32_t in [0, 4q): the CT butterfly brings x under 2q with one
 //   compare, leaves the Shoup product (a * w - hi(a * w') q, __umulhi) in
 //   [0, 2q), and returns x + v and x + 2q - v; the first stage takes the
-//   words of device memory, below q, as they are.  One correction to
-//   [0, q) at the store: two compares at scale 1, else one lazy Shoup
-//   product of the lane as it is and one compare.
+//   words of device memory, below q, as they are.  The GS butterfly keeps
+//   its lanes in [0, 2q): x + y with one compare, and the Shoup product of
+//   x + 2q - y.  One correction to [0, q) at the forward's store: two
+//   compares at scale 1, else one lazy Shoup product of the lane as it is
+//   and one compare; one compare at the inverse's.
 // * Twiddles a pass at a time, host-built (mxu64.pass_table with four
 //   stages a pass): pass (s, R) holds 2^(R - 1) columns of 8-byte pairs of
 //   twiddles for each of its 2^s groups, w and w' in two tables of the same
@@ -309,7 +218,8 @@ __global__ void matvec_kernel(const uint32_t* __restrict__ spectra,
 //   two), columns 2 and 3 (stage s + 2's four), columns 4 to 7 (stage
 //   s + 3's eight).  A stage loads what it uses, one 8-byte vector per two
 //   twiddles; a warp's loads are 256 contiguous bytes (consecutive groups,
-//   in the last pass) or one broadcast word.
+//   in the last pass) or one broadcast word.  The inverse reads the inverse
+//   table in the same layout.
 // * Several rows a block, at least 128 threads: 2048 / n rows up to
 //   n = 2048 (n / 16 threads a row, so eight rows of 256 a block, the
 //   DILITHIUM_256 matvec's shape), one row of n / 16 threads above (blocks
@@ -369,6 +279,14 @@ __device__ __forceinline__ void ct(uint32_t& x, uint32_t& y, uint32_t w, uint32_
   y = u + q2 - v;                              // (0, 4q)
 }
 
+// Gentleman-Sande: x, y in [0, 2q) in, and out.
+__device__ __forceinline__ void gs(uint32_t& x, uint32_t& y, uint32_t w, uint32_t ws, uint32_t q) {
+  const uint32_t q2 = 2 * q;
+  const uint32_t u = x, v = y;
+  x = csub(u + v, q2);                   // u + v < 4q < 2^32: [0, 2q)
+  y = shoup_lazy(u + q2 - v, w, ws, q);  // u + 2q - v in (0, 4q): [0, 2q)
+}
+
 // Stage s + d's 2^d twiddles of group hi in the pass tables at stage s:
 // column 0 for d = 0, columns [2^(d - 1), 2^d) after.
 template <int kS, int kD>
@@ -390,8 +308,8 @@ __device__ __forceinline__ void stage_twiddles(const uint32_t* tw, const uint32_
 }
 
 // One stage of a pass: register k of each group of 2^kR meets k + span;
-// kFresh: the first stage of the first pass (ct).
-template <int kS, int kR, int kD, bool kFresh>
+// kFresh: the first stage of a forward (ct).
+template <int kS, int kR, int kD, bool kInverse, bool kFresh = false>
 __device__ __forceinline__ void stage(uint32_t (&x)[kWords], const uint32_t* tw,
                                       const uint32_t* tws, int hi, uint32_t q) {
   constexpr int kGroup = 1 << kR, kSpan = kGroup >> (kD + 1);
@@ -402,19 +320,30 @@ __device__ __forceinline__ void stage(uint32_t (&x)[kWords], const uint32_t* tw,
     const int k = r % kGroup;
     if (!(k & kSpan)) {
       const int e = k >> (kR - kD);  // the group's twiddle at this stage
-      ct<kFresh>(x[r], x[r + kSpan], w[e], ws[e], q);
+      if constexpr (kInverse) {
+        gs(x[r], x[r + kSpan], w[e], ws[e], q);
+      } else {
+        ct<kFresh>(x[r], x[r + kSpan], w[e], ws[e], q);
+      }
     }
   }
 }
 
-// Pass (kS, kR): its stages in order.
-template <int kS, int kR, bool kFresh = false>
+// Pass (kS, kR): the forward's stages in order, the inverse's reversed.
+template <int kS, int kR, bool kInverse, bool kFresh = false>
 __device__ __forceinline__ void run_pass(uint32_t (&x)[kWords], const uint32_t* tw,
                                          const uint32_t* tws, int hi, uint32_t q) {
-  stage<kS, kR, 0, kFresh>(x, tw, tws, hi, q);
-  if constexpr (kR > 1) stage<kS, kR, 1, false>(x, tw, tws, hi, q);
-  if constexpr (kR > 2) stage<kS, kR, 2, false>(x, tw, tws, hi, q);
-  if constexpr (kR > 3) stage<kS, kR, 3, false>(x, tw, tws, hi, q);
+  if constexpr (kInverse) {
+    if constexpr (kR > 3) stage<kS, kR, 3, true>(x, tw, tws, hi, q);
+    if constexpr (kR > 2) stage<kS, kR, 2, true>(x, tw, tws, hi, q);
+    if constexpr (kR > 1) stage<kS, kR, 1, true>(x, tw, tws, hi, q);
+    stage<kS, kR, 0, true>(x, tw, tws, hi, q);
+  } else {
+    stage<kS, kR, 0, false, kFresh>(x, tw, tws, hi, q);
+    if constexpr (kR > 1) stage<kS, kR, 1, false>(x, tw, tws, hi, q);
+    if constexpr (kR > 2) stage<kS, kR, 2, false>(x, tw, tws, hi, q);
+    if constexpr (kR > 3) stage<kS, kR, 3, false>(x, tw, tws, hi, q);
+  }
 }
 
 // Element of register r in pass (kS, kR) for thread t of its row: register
@@ -469,46 +398,291 @@ __device__ __forceinline__ void forward_passes(uint32_t (&x)[kWords], uint32_t* 
     to_shared<kLogN, kP - 1>(x, smem, g, t);
     __syncthreads();
     from_shared<kLogN, kP>(x, smem, g, t);
-    run_pass<kS, kRadix>(x, pt.w + kOff, pt.w_shoup + kOff, group<kLogN, kS>(t), q);
+    run_pass<kS, kRadix, false>(x, pt.w + kOff, pt.w_shoup + kOff, group<kLogN, kS>(t), q);
     forward_passes<kLogN, kP + 1>(x, smem, pt, g, t, q);
   }
 }
 
-// out = NTT(in) * scale (scale 1 skipped) on `rows` rows: the first pass's
-// words from device memory ([0, q)), the passes, the lanes of [0, 4q) made
-// canonical at the store of spectrum words 16t ... 16t + 15 (four 16-byte
-// vectors).  Tables: the per-pass layout of mxu64.pass_table, four stages
-// a pass.
+// Passes kP, kP - 1, ... 0 of the inverse, each after the exchange with the
+// pass after it.
+template <int kLogN, int kP>
+__device__ __forceinline__ void inverse_passes(uint32_t (&x)[kWords], uint32_t* smem,
+                                               Table pt, int g, int t, uint32_t q) {
+  if constexpr (kP >= 0) {
+    constexpr int kS = pass_stage(kLogN, kP), kR = pass_stages(kLogN, kP);
+    constexpr int kOff = pass_offset(kLogN, kP);
+    to_shared<kLogN, kP + 1>(x, smem, g, t);
+    __syncthreads();
+    from_shared<kLogN, kP>(x, smem, g, t);
+    run_pass<kS, kR, true>(x, pt.w + kOff, pt.w_shoup + kOff, kP == 0 ? 0 : group<kLogN, kS>(t),
+                           q);
+    inverse_passes<kLogN, kP - 1>(x, smem, pt, g, t, q);
+  }
+}
+
+// The forward of row `at` of `in`: the first pass's words from device
+// memory ([0, q)), the passes; lanes in [0, 4q) out, spectrum words
+// 16t ... 16t + 15.
 template <int kLogN>
-__global__ void __launch_bounds__(block_threads(kLogN), 1024 / block_threads(kLogN))
-    radix_forward_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, Table pt,
-                         int rows, uint32_t q, uint32_t scale, uint32_t scale_shoup) {
-  extern __shared__ uint32_t smem[];
-  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN);
+__device__ __forceinline__ void forward_row(uint32_t (&x)[kWords], const uint32_t* in, size_t at,
+                                            uint32_t* smem, Table pt, int g, int t, bool live,
+                                            uint32_t q) {
   constexpr int kR0 = first_stages(kLogN);
-  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
-  const int row = blockIdx.x * kTile + g;
-  const bool live = row < rows;
-  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
-  uint32_t x[kWords];
 #pragma unroll
   for (int r = 0; r < kWords; ++r) {  // [0, q)
     x[r] = live ? in[at + element<kLogN, 0, kR0>(t, r)] : 0;
   }
-  run_pass<0, kR0, true>(x, pt.w, pt.w_shoup, 0, q);
+  run_pass<0, kR0, false, true>(x, pt.w, pt.w_shoup, 0, q);
   forward_passes<kLogN, 1>(x, smem, pt, g, t, q);
+}
+
+// The inverse from spectrum words 16t ... 16t + 15 (lanes in [0, 2q)) and
+// the store of row `at` in natural order, one compare: the last pass's
+// words to the positions the forward's first pass loads from.
+template <int kLogN>
+__device__ __forceinline__ void inverse_row(uint32_t (&x)[kWords], uint32_t* out, size_t at,
+                                            uint32_t* smem, Table pt, int g, int t, bool live,
+                                            uint32_t q) {
+  constexpr int kLast = passes(kLogN) - 1;
+  constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
+  run_pass<kS, kRadix, true>(x, pt.w + kOff, pt.w_shoup + kOff, group<kLogN, kS>(t), q);
+  inverse_passes<kLogN, kLast - 1>(x, smem, pt, g, t, q);
+  if (live) {
 #pragma unroll
-  for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, q)
-    x[r] = scale == 1 ? csub(csub(x[r], 2 * q), q)
-                      : csub(shoup_lazy(x[r], scale, scale_shoup, q), q);
+    for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, q)
+      out[at + element<kLogN, 0, first_stages(kLogN)>(t, r)] = csub(x[r], q);
+    }
   }
-  if (live) {  // the last pass holds elements 16t ... 16t + 15
+}
+
+// Spectrum words 16t ... 16t + 15 of row `at`: four 16-byte vectors.
+__device__ __forceinline__ void store_words(const uint32_t (&x)[kWords], uint32_t* out, size_t at,
+                                            int t, bool live) {
+  if (live) {
     uint4* v = reinterpret_cast<uint4*>(out + at + kWords * t);
 #pragma unroll
     for (int m = 0; m < kWords / 4; ++m) {
       v[m] = make_uint4(x[4 * m], x[4 * m + 1], x[4 * m + 2], x[4 * m + 3]);
     }
   }
+}
+
+// out = NTT(in) * scale (scale 1 skipped) on `rows` rows: the forward, the
+// lanes of [0, 4q) made canonical at the store of spectrum words 16t ...
+// 16t + 15 (four 16-byte vectors).  Tables: the per-pass layout of
+// mxu64.pass_table, four stages a pass.
+template <int kLogN>
+__global__ void __launch_bounds__(block_threads(kLogN), 1024 / block_threads(kLogN))
+    radix_forward_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, Table pt,
+                         int rows, uint32_t q, uint32_t scale, uint32_t scale_shoup) {
+  extern __shared__ uint32_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN);
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  uint32_t x[kWords];
+  forward_row<kLogN>(x, in, at, smem, pt, g, t, live, q);
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, q)
+    x[r] = scale == 1 ? csub(csub(x[r], 2 * q), q)
+                      : csub(shoup_lazy(x[r], scale, scale_shoup, q), q);
+  }
+  store_words(x, out, at, t, live);  // the last pass holds elements 16t ... 16t + 15
+}
+
+// The products and the dot fused on the radix-16 core.  A slot product is a
+// lazy REDC: a's lane x of [0, 4q), brought under 2q against a fresh
+// spectrum's lane y (also under 2q, after its compare), or as it is against
+// a cached spectrum's canonical word: x y < 4 q^2 < q 2^32 (q < 2^30)
+// either way, so (x y + m q) / 2^32 < 2q, the inverse's range, with no
+// compare.  A fresh b's spectrum waits while a's forward runs, and the
+// dot's sum between its terms, each in a tile of shared memory private to
+// each thread (word r of thread i at r * threads + i: a warp's 4-byte
+// accesses hit 32 banks, no barrier), where the slot's lanes are; b's
+// words reach the slot four at a time.  tools/nwc32_variants.py times the
+// other places (PERF.md): b's spectrum in 16 registers ran as fast but
+// spilled at six log n, at 512 threads an SM 6 % slower, in the output row
+// 8 % slower (P24_4096, B = 2048); the dot's sum in registers spilled at
+// every cached log n from 512 and ran from 6 % faster (n = 16384) to 10 %
+// slower (DILITHIUM_256); 512 threads an SM ran 5 to 7 % slower than 1024.
+
+// REDC(a * b) for a * b < q * 2^32: in [0, 2q), no compare.
+__device__ __forceinline__ uint32_t mont_lazy(uint32_t a, uint32_t b, uint32_t q,
+                                              uint32_t q_prime) {
+  const uint32_t lo = a * b;
+  const uint32_t m = lo * q_prime;
+  return __umulhi(a, b) + __umulhi(m, q) + (lo != 0);  // (a b + m q) / 2^32 < 2q
+}
+
+template <bool kCached>
+__device__ __forceinline__ uint32_t slot(uint32_t x, uint32_t y, uint32_t q, uint32_t q_prime) {
+  return mont_lazy(kCached ? x : csub(x, 2 * q), y, q, q_prime);
+}
+
+// Word r of this thread in a private tile.
+template <int kLogN>
+__device__ __forceinline__ int own(int r) {
+  return r * block_threads(kLogN) + threadIdx.x;
+}
+
+// Words 4m ... 4m + 3 of b's spectrum lanes of this thread: a cached
+// spectrum's from row `at` ([0, q), times 2^32: one 16-byte vector of words
+// 16t + 4m ...), a fresh one's from its private tile ([0, 2q)).
+template <int kLogN, bool kCached>
+__device__ __forceinline__ void spectrum_words(uint32_t (&y)[4], const uint32_t* b,
+                                               const uint32_t* own_tile, size_t at, int t, int m,
+                                               bool live) {
+  if constexpr (kCached) {
+    const uint4 v = live ? reinterpret_cast<const uint4*>(b + at + kWords * t)[m]
+                         : make_uint4(0, 0, 0, 0);
+    y[0] = v.x;
+    y[1] = v.y;
+    y[2] = v.z;
+    y[3] = v.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      y[i] = own_tile[own<kLogN>(4 * m + i)];
+    }
+  }
+}
+
+// Blocks an SM of the fused kernels, for __launch_bounds__: 1024 threads.
+__host__ __device__ constexpr int fused_blocks(int log_n) {
+  return 1024 / block_threads(log_n);
+}
+
+// v, which the compiler must take as new (with kOn), so that each phase of a
+// fused kernel (a forward; the slot and the inverse) computes its addresses
+// again from it rather than keep an earlier phase's live.
+template <bool kOn>
+__device__ __forceinline__ int opaque(int v) {
+  if constexpr (kOn) {
+    asm volatile("" : "+r"(v));
+  }
+  return v;
+}
+template <bool kOn>
+__device__ __forceinline__ size_t opaque_row(size_t v) {
+  if constexpr (kOn) {
+    asm volatile("" : "+l"(v));
+  }
+  return v;
+}
+// Whether a fused kernel's phases take their indices anew: where ptxas
+// spilled without it at 64 registers a thread (the product at n = 8192, the
+// cached one also at 512 and 16384, the cached dot at 8192).  Elsewhere it
+// spilled nothing either way and cost 1 to 12 % (tools/nwc32_variants.py,
+// PERF.md).
+__host__ __device__ constexpr bool opaque_phases(int log_n, bool cached, bool dot) {
+  return dot ? cached && log_n == 13 : log_n == 13 || (cached && (log_n == 9 || log_n == 14));
+}
+
+// out = INTT(NTT(a) o NTT(b)) * scale on `rows` rows (b a cached spectrum
+// with kCached), `scale` at the slot (n^-1 2^32 after two fresh spectra,
+// n^-1 against a cached one): b's forward, its lanes under 2q in a private
+// tile, a's forward, the slot, the inverse.  Tables: the per-pass layout.
+template <int kLogN, bool kCached>
+__global__ void __launch_bounds__(block_threads(kLogN), fused_blocks(kLogN))
+    product_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                   uint32_t* __restrict__ out, Table tw, Table itw, int rows, uint32_t q,
+                   uint32_t q_prime, uint32_t scale, uint32_t scale_shoup) {
+  extern __shared__ uint32_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN);
+  uint32_t* const spectrum = smem + kTile * kN;
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  uint32_t x[kWords];
+  if constexpr (!kCached) {
+    forward_row<kLogN>(x, b, at, smem, tw, g, t, live, q);
+#pragma unroll
+    for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, 2q): the slot's lane
+      spectrum[own<kLogN>(r)] = csub(x[r], 2 * q);
+    }
+    __syncthreads();  // a's first exchange overwrites the words b's last pass read
+  }
+  constexpr bool kOpaque = opaque_phases(kLogN, kCached, false);
+  forward_row<kLogN>(x, a, opaque_row<kOpaque>(at), smem, tw, opaque<kOpaque>(g),
+                     opaque<kOpaque>(t), live, q);
+  const int gi = opaque<kOpaque>(g), ti = opaque<kOpaque>(t);  // the slot and the inverse
+  const size_t ai = opaque_row<kOpaque>(at);
+#pragma unroll
+  for (int m = 0; m < kWords / 4; ++m) {
+    uint32_t y[4];
+    spectrum_words<kLogN, kCached>(y, b, spectrum, ai, ti, m, live);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // [0, 2q)
+      const int r = 4 * m + i;
+      x[r] = shoup_lazy(slot<kCached>(x[r], y[i], q, q_prime), scale, scale_shoup, q);
+    }
+  }
+  inverse_row<kLogN>(x, out, ai, smem, itw, gi, ti, live, q);
+}
+
+// out = INTT(sum_k NTT(a_k) o NTT(b_k)) * scale for (terms, rows, n) stacks
+// a and b (b cached spectra with kCached), one output row per row.  One loop
+// of steps, each one forward: for a fresh term b's, whose lanes under 2q
+// wait in a private tile, then a's, whose slot products add into the sum,
+// in a second private tile; a cached term's b words are read after a's
+// forward.  The sum stays in [0, 2q) by one compare after each add (two
+// lanes below 2q sum below 4q < 2^32); after the last term its lanes times
+// `scale`, then one inverse.
+template <int kLogN, bool kCached>
+__global__ void __launch_bounds__(block_threads(kLogN), fused_blocks(kLogN))
+    dot_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+               uint32_t* __restrict__ out, Table tw, Table itw, int terms, int rows, uint32_t q,
+               uint32_t q_prime, uint32_t scale, uint32_t scale_shoup) {
+  extern __shared__ uint32_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN);
+  uint32_t* const sum = smem + kTile * kN;
+  uint32_t* const spectrum = smem + 2 * kTile * kN;
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  uint32_t x[kWords];
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {
+    sum[own<kLogN>(r)] = 0;
+  }
+  constexpr bool kOpaque = opaque_phases(kLogN, kCached, true);
+  const int steps = kCached ? terms : 2 * terms;
+#pragma unroll 1
+  for (int step = 0; step < steps; ++step) {
+    const int k = kCached ? step : step / 2;
+    const bool of_b = !kCached && step % 2 == 0;  // b's forward of a fresh term
+    const size_t ak = live ? (static_cast<size_t>(k) * rows + row) * kN : 0;
+    const int gk = opaque<kOpaque>(g), tk = opaque<kOpaque>(t);  // this step's
+    forward_row<kLogN>(x, of_b ? b : a, ak, smem, tw, gk, tk, live, q);
+    if (of_b) {
+#pragma unroll
+      for (int r = 0; r < kWords; ++r) {  // [0, 4q) -> [0, 2q): the slot's lane
+        spectrum[own<kLogN>(r)] = csub(x[r], 2 * q);
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < kWords / 4; ++m) {
+        uint32_t y[4];
+        spectrum_words<kLogN, kCached>(y, b, spectrum, ak, tk, m, live);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // [0, 2q) + [0, 2q) < 4q -> [0, 2q)
+          const int e = own<kLogN>(4 * m + i);
+          sum[e] = csub(sum[e] + slot<kCached>(x[4 * m + i], y[i], q, q_prime), 2 * q);
+        }
+      }
+    }
+    if (step + 1 < steps) {
+      __syncthreads();  // the next step's first exchange overwrites the words this one read
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // [0, 2q) -> [0, 2q)
+    x[r] = shoup_lazy(sum[own<kLogN>(r)], scale, scale_shoup, q);
+  }
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  inverse_row<kLogN>(x, out, at, smem, itw, opaque<kOpaque>(g), opaque<kOpaque>(t), live, q);
 }
 
 int threads_for(int log_n) {
@@ -518,6 +692,20 @@ int threads_for(int log_n) {
 
 bool bad_shape(int batch, int log_n) {
   return batch < 1 || log_n < 8 || log_n > 14;
+}
+
+// Whether a row pointer is not 16-byte aligned (the spectrum words' vectors)
+// or a table pointer not 8-byte aligned (its pairs).
+bool misaligned(std::initializer_list<const void*> rows,
+                std::initializer_list<const void*> tables) {
+  uintptr_t r = 0, t = 0;
+  for (const void* p : rows) {
+    r |= reinterpret_cast<uintptr_t>(p);
+  }
+  for (const void* p : tables) {
+    t |= reinterpret_cast<uintptr_t>(p);
+  }
+  return r % 16 || t % 8;
 }
 
 // Lifts the kernel's dynamic shared memory cap to `words` uint32 values.
@@ -532,6 +720,22 @@ Table table(const void* w, const void* w_shoup) {
                static_cast<const uint32_t*>(w_shoup)};
 }
 
+// A radix-16 kernel of log n = kLogN on `batch` rows, tile(kLogN) rows a
+// block, with `tiles` tiles of shared memory.
+template <int kLogN, typename Kernel, typename... Args>
+int launch_rows(Kernel kernel, int tiles, int batch, cudaStream_t stream, Args... args) {
+  constexpr int kTile = tile(kLogN);
+  const cudaError_t err = allow_smem(kernel, tiles * (kTile << kLogN));
+  if (err != cudaSuccess) {
+    return err;
+  }
+  kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN),
+           tiles * (kTile << kLogN) * sizeof(uint32_t), stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The fused product's entry (cached with kCached): log n from 8 to 14,
+// the rows 16-byte aligned, the tables 8-byte aligned.
 template <bool kCached>
 int launch_product(const void* a, const void* b, void* out, const void* tw,
                    const void* tw_shoup, const void* itw, const void* itw_shoup,
@@ -540,42 +744,67 @@ int launch_product(const void* a, const void* b, void* out, const void* tw,
   if (bad_shape(batch, log_n)) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(product_kernel<kCached>, 2 * n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned({a, b, out}, {tw, tw_shoup, itw, itw_shoup})) {
+    return cudaErrorMisalignedAddress;
   }
-  product_kernel<kCached><<<batch, threads_for(log_n), 2 * n * sizeof(uint32_t),
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<uint32_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
-      log_n, q, q_prime, scale, scale_shoup);
-  return cudaGetLastError();
+  const uint32_t* pa = static_cast<const uint32_t*>(a);
+  const uint32_t* pb = static_cast<const uint32_t*>(b);
+  uint32_t* po = static_cast<uint32_t*>(out);
+  const Table ptw = table(tw, tw_shoup), pitw = table(itw, itw_shoup);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define NWC32_LOG_N(L)                                                                      \
+  case L:                                                                                   \
+    return launch_rows<L>(product_kernel<L, kCached>, kCached ? 1 : 2, batch, s, pa, pb, po, \
+                          ptw, pitw, batch, q, q_prime, scale, scale_shoup);
+    NWC32_LOG_N(8) NWC32_LOG_N(9) NWC32_LOG_N(10) NWC32_LOG_N(11) NWC32_LOG_N(12)
+    NWC32_LOG_N(13) NWC32_LOG_N(14)
+#undef NWC32_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
-template <int kLogN>
-int launch_forward(const void* in, void* out, const void* tw, const void* tw_shoup, int batch,
-                   uint32_t q, uint32_t scale, uint32_t scale_shoup, cudaStream_t stream) {
-  constexpr int kTile = tile(kLogN);
-  auto kernel = radix_forward_kernel<kLogN>;
-  const cudaError_t err = allow_smem(kernel, kTile << kLogN);
-  if (err != cudaSuccess) {
-    return err;
+// The fused dot's entry: one to eight terms, as launch_product.
+template <bool kCached>
+int launch_dot(const void* a, const void* b, void* out, const void* tw, const void* tw_shoup,
+               const void* itw, const void* itw_shoup, int terms, int batch, int log_n,
+               uint32_t q, uint32_t q_prime, uint32_t scale, uint32_t scale_shoup,
+               void* stream) {
+  if (bad_shape(batch, log_n) || terms < 1 || terms > 8) {
+    return cudaErrorInvalidValue;
   }
-  kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN),
-           (kTile << kLogN) * sizeof(uint32_t), stream>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), table(tw, tw_shoup),
-      batch, q, scale, scale_shoup);
-  return cudaGetLastError();
+  if (misaligned({a, b, out}, {tw, tw_shoup, itw, itw_shoup})) {
+    return cudaErrorMisalignedAddress;
+  }
+  const uint32_t* pa = static_cast<const uint32_t*>(a);
+  const uint32_t* pb = static_cast<const uint32_t*>(b);
+  uint32_t* po = static_cast<uint32_t*>(out);
+  const Table ptw = table(tw, tw_shoup), pitw = table(itw, itw_shoup);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define NWC32_LOG_N(L)                                                                   \
+  case L:                                                                                \
+    return launch_rows<L>(dot_kernel<L, kCached>, kCached ? 2 : 3, batch, s, pa, pb, po, \
+                          ptw, pitw, terms, batch, q, q_prime, scale, scale_shoup);
+    NWC32_LOG_N(8) NWC32_LOG_N(9) NWC32_LOG_N(10) NWC32_LOG_N(11) NWC32_LOG_N(12)
+    NWC32_LOG_N(13) NWC32_LOG_N(14)
+#undef NWC32_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Every entry point launches on `stream`, which must belong to the current
 // device, and returns the CUDA error code (0 on success).  A launch the
-// device refuses (too much shared memory, a bad shape) never runs, so the
-// caller must check the code.
+// device refuses (too much shared memory, a bad shape, a misaligned
+// pointer) never runs, so the caller must check the code.  The radix-16
+// entry points (product, cached, forward, dot) read their tables (w, w')
+// in the per-pass layout of mxu64.pass_table at four stages a pass; the
+// first core's (inverse, matvec) the flat tables.
 
+// out = INTT(NTT(a) o NTT(b)) * scale on (batch, n) rows, fused on the
+// radix-16 core; rows 16-byte aligned, tables 8-byte aligned.
 extern "C" int nwc32_product(const void* a, const void* b, void* out,
                              const void* tw, const void* tw_shoup,
                              const void* itw, const void* itw_shoup, int batch,
@@ -585,6 +814,7 @@ extern "C" int nwc32_product(const void* a, const void* b, void* out,
                                log_n, q, q_prime, scale, scale_shoup, stream);
 }
 
+// The same against a cached spectrum (one forward).
 extern "C" int nwc32_cached(const void* a, const void* spectrum, void* out,
                             const void* tw, const void* tw_shoup,
                             const void* itw, const void* itw_shoup, int batch,
@@ -596,8 +826,7 @@ extern "C" int nwc32_cached(const void* a, const void* spectrum, void* out,
 }
 
 // The forward of (batch, n) rows on the radix-16 core, times `scale` unless
-// it is 1; the tables (w, w') those of mxu64.pass_table at four stages a
-// pass; out 16-byte aligned, the tables 8-byte aligned.
+// it is 1; out 16-byte aligned, the tables 8-byte aligned.
 extern "C" int nwc32_forward(const void* in, void* out, const void* tw,
                              const void* tw_shoup, int batch, int log_n,
                              uint32_t q, uint32_t scale, uint32_t scale_shoup,
@@ -605,15 +834,18 @@ extern "C" int nwc32_forward(const void* in, void* out, const void* tw,
   if (bad_shape(batch, log_n)) {
     return cudaErrorInvalidValue;
   }
-  if (reinterpret_cast<uintptr_t>(out) % 16 || reinterpret_cast<uintptr_t>(tw) % 8 ||
-      reinterpret_cast<uintptr_t>(tw_shoup) % 8) {
+  if (misaligned({out}, {tw, tw_shoup})) {
     return cudaErrorMisalignedAddress;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Table pt = table(tw, tw_shoup);
+  const uint32_t* pi = static_cast<const uint32_t*>(in);
+  uint32_t* po = static_cast<uint32_t*>(out);
   switch (log_n) {
 #define NWC32_LOG_N(L) \
   case L:              \
-    return launch_forward<L>(in, out, tw, tw_shoup, batch, q, scale, scale_shoup, s);
+    return launch_rows<L>(radix_forward_kernel<L>, 1, batch, s, pi, po, pt, batch, q, scale, \
+                          scale_shoup);
     NWC32_LOG_N(8) NWC32_LOG_N(9) NWC32_LOG_N(10) NWC32_LOG_N(11) NWC32_LOG_N(12)
     NWC32_LOG_N(13) NWC32_LOG_N(14)
 #undef NWC32_LOG_N
@@ -640,25 +872,17 @@ extern "C" int nwc32_inverse(const void* in, void* out, const void* itw,
   return cudaGetLastError();
 }
 
+// out = INTT(sum_k NTT(a_k) o NTT(b_k)) * scale for (terms, batch, n) stacks
+// (b cached spectra where `cached` is nonzero), 1 <= terms <= 8, fused on
+// the radix-16 core; rows 16-byte aligned, tables 8-byte aligned.
 extern "C" int nwc32_dot(const void* a, const void* b, void* out,
                          const void* tw, const void* tw_shoup, const void* itw,
                          const void* itw_shoup, int terms, int batch, int log_n,
                          uint32_t q, uint32_t q_prime, uint32_t scale,
                          uint32_t scale_shoup, int cached, void* stream) {
-  if (bad_shape(batch, log_n) || terms < 1 || terms > 8) {
-    return cudaErrorInvalidValue;
-  }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(dot_kernel, 3 * n);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  dot_kernel<<<batch, threads_for(log_n), 3 * n * sizeof(uint32_t),
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<uint32_t*>(out), table(tw, tw_shoup), table(itw, itw_shoup),
-      terms, batch, log_n, q, q_prime, scale, scale_shoup, cached);
-  return cudaGetLastError();
+  return (cached ? launch_dot<true> : launch_dot<false>)(a, b, out, tw, tw_shoup, itw, itw_shoup,
+                                                         terms, batch, log_n, q, q_prime, scale,
+                                                         scale_shoup, stream);
 }
 
 extern "C" int nwc32_matvec(const void* spectra, const void* mat, void* out,

@@ -13,8 +13,11 @@ The ops, their plain versions, the launch counts and the spectrum layout
 ``_plan.KernelPlan``'s; the kernels are those of ``csrc/nwc32.cu``.
 ``nwc32_forward`` (the forwards, the spectrum, and the matvec's transform
 of s) runs that file's radix-16 core, passes of four stages in registers,
-on the per-pass layout of ``mxu64.pass_table`` with ``RADIX`` stages a pass
-(``MxuPlan.pass_entries``); the other five kernels read the flat tables.
+and ``nwc32_product`` (the negacyclic and cyclic products),
+``nwc32_cached`` and ``nwc32_dot`` (fresh and cached) are fused on it: all
+four read the per-pass layout of ``mxu64.pass_table`` with ``RADIX`` stages
+a pass (``MxuPlan.pass_entries``); ``nwc32_inverse`` and ``nwc32_matvec``
+read the flat tables.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ class MxuPlan(KernelPlan):
             return f"MxuPlan requires width <= 24, q < 2^24 (got {p.width}-bit q)"
         return f"n={p.n} must be a multiple of 128 in [256, 16384]"
 
-    pass_entries = frozenset({"forward"})
+    pass_entries = frozenset({"forward", "product", "cached", "dot"})
 
     def _transform_table(self, flat: tuple) -> tuple:
         """The per-pass layout of the flat table (w, w') for the radix-16
