@@ -29,24 +29,26 @@ kernel K6).  Phases, each of which raises on failure:
    nothing); the SASS length of each poseidon.cu kernel and the
    instructions one width-8 permutation issues (cuobjdump); the
    instructions a thread issues after its first barrier at n = 4096 in
-   nwc64.cu's and gl64.cu's radix-8 kernels and in their first cores'
-   loops, in the fused ``nwc64_product`` and ``gl64_product`` (fresh and
+   nwc64.cu's and gl64.cu's radix-8 kernels, in the fused
+   ``nwc64_product`` and ``gl64_product`` (fresh and
    cached) at n = 4096, the fused ``nwc64_cyclic_scaled`` and
    ``gl64_cyclic_scaled``, the row forwards ``nwc64_forward_scaled``
-   and ``gl64_forward_scaled`` and nwc64.cu's row inverse
-   ``nwc64_inverse_scaled`` at n = 128 and 1024, the fused dots'
-   row passes ``nwc64_dot_scaled`` and ``gl64_dot_scaled`` at n = 128 and
-   the flat ``nwc64_dot`` and ``gl64_dot`` at n = 4096 (a step of its
-   loop, one forward, and the rest), and nwc32.cu's radix-16 forward at
+   and ``gl64_forward_scaled`` and the row inverses
+   ``nwc64_inverse_scaled`` and ``gl64_inverse_scaled`` at n = 128 and
+   1024, the fused dots' row passes ``nwc64_dot_scaled`` and
+   ``gl64_dot_scaled`` at n = 128 and the flat ``nwc64_dot`` and
+   ``gl64_dot`` at n = 4096 (a step of its loop, one forward, and the
+   rest), nwc64.cu's matvec ``nwc64_matvec`` at n = 4096 (a step of its
+   loop of l, and the rest), and nwc32.cu's radix-16 forward at
    n = 256, 4096 and 16384 and its fused product, fresh and cached, at
    n = 4096, with their shared-memory instructions, and its fused dot at
    n = 4096, fresh and cached, counted as the flat dots; the radix
-   kernels of the three files, 36 transforms and 9 row forwards in each
-   64-bit one, nwc64.cu's 18 fused products, 18 fused row passes, 9 row
-   inverses and 36 fused dots (18 row passes, 18 flat), gl64.cu's 36 fused
-   products (18 flat, 18 row passes) and 36 fused dots (18 flat, 18 row
-   passes), and nwc32.cu's 7 radix-16 forwards, 14 fused products and 14
-   fused dots, must spill nothing; the
+   kernels of the three files, 36 transforms, 9 row forwards and 9 row
+   inverses in each 64-bit one, nwc64.cu's 18 fused products, 18 fused row
+   passes, 36 fused dots (18 row passes, 18 flat) and 9 matvecs, gl64.cu's
+   36 fused products (18 flat, 18 row passes) and 36 fused dots (18 flat,
+   18 row passes), and nwc32.cu's 7 radix-16 forwards, 14 fused products
+   and 14 fused dots, must spill nothing; the
    blocks an SM of both flat dots, gl64.cu's row-pass dot and its flat
    product, by ptxas's registers and their shared memory;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
@@ -75,9 +77,12 @@ kernel K6).  Phases, each of which raises on failure:
    same n, q and B (K = 4 at B = 2048 at n = 128 alone); ``gl64_dot`` on
    gl64.cu's radix-8 core, fresh and cached, K = 1 and 4, n = 32 to 8192,
    B = 1, 3 and 512, and K = 4 at B = 2048 at n = 4096, boundary rows
-   first; the row inverse ``nwc64_inverse_scaled`` at the three 60-bit q,
-   n = 32 to 8192, B = 1, 3 and 2048, periods 1 and 3 (1 and 256 at
-   2048); the dot's row pass ``gl64_dot_scaled``, fresh and cached, K = 1
+   first; the row inverses ``nwc64_inverse_scaled`` at the three 60-bit q
+   and ``gl64_inverse_scaled`` at the Goldilocks q, n = 32 to 8192, B = 1,
+   3 and 2048, periods 1 and 3 (1 and 256 at 2048); the matvec's
+   accumulate-and-inverse ``nwc64_matvec`` alone at the three 60-bit q,
+   n = 256 to 8192, (k, l) = (1, 1), (4, 4), (8, 8) and (3, 5), B = 1, 3
+   and 256, against the plain matvec; the dot's row pass ``gl64_dot_scaled``, fresh and cached, K = 1
    and 4, n = 32 to 8192, B = 1 and 3, periods 1 and 3, and K = 4 at
    B = 2048 at n = 128 (period 256) and 1024 (period 1024) and at B = 264
    at n = 8192; ``nwc32_forward`` on nwc32.cu's radix-16 core at n = 256 to
@@ -585,12 +590,10 @@ def main() -> int:
     per_perm = issued_per_thread(listing["permute_kernel<8>"], (4, 22, 4))
     print(f"  sass: one width-8 permutation at rf = 8, rp = 22 (its loads and stores "
           f"with it): {per_perm or 'loops not recognised, not'} counted instructions")
-    # nwc64.cu's radix-8 core against the first core at n = 4096, 512 threads
-    # a row: the instructions a thread issues after its first barrier (the
-    # radix kernels are unrolled; the first core's stage loop of 12 trips
-    # around its butterfly loop of 4, then 8 words stored, as matvec_kernel
-    # runs that body after its accumulation); the row forward and the row
-    # inverse at n = 128 and 1024
+    # nwc64.cu's radix-8 core at n = 4096, 512 threads a row: the
+    # instructions a thread issues after its first barrier (the radix
+    # kernels are unrolled); the row forward and the row inverse at n = 128
+    # and 1024
     nwc_sass = sass_listing(libs["nwc64"])
     radix = [k for k in nwc_sass if k.startswith("transform_kernel<")]
     print(f"  sass: nwc64.cu's {len(radix)} radix-8 kernels, "
@@ -602,7 +605,7 @@ def main() -> int:
                           ("cyclic_scaled_kernel<7, 0>", ()), ("cyclic_scaled_kernel<10, 0>", ()),
                           ("cyclic_scaled_kernel<7, 1>", ()), ("forward_scaled_kernel<7>", ()),
                           ("forward_scaled_kernel<10>", ()), ("inverse_scaled_kernel<7>", ()),
-                          ("inverse_scaled_kernel<10>", ()), ("matvec_kernel", (4, 12, 8))):
+                          ("inverse_scaled_kernel<10>", ())):
         code = nwc_sass[kernel]
         issued = issued_per_thread(code, trips)
         print(f"  sass: nwc64.cu {kernel}: {len(code)} instructions; after its first barrier "
@@ -622,11 +625,20 @@ def main() -> int:
 
     for kernel in ("dot_scaled_kernel<7, 0, 1>", "dot_scaled_kernel<12, 0, 0>"):
         print_dot("nwc64", nwc_sass, kernel, 2 * DOT_TERMS)
-    # gl64.cu's radix-8 core against its first core, counted the same way:
-    # the transforms, the flat product fresh and cached at n = 4096, the row
-    # pass and the row forward at n = 128 and 1024; the first core's row
-    # inverse (its loops are nwc64.cu's: the butterfly loop of 4 trips in
-    # the stage loop of 12, then the store loop, two products a word)
+    # the matvec at P60_4096 (n = 4096), its loop of l steps (a term's loads
+    # and slot products) before its first barrier: a step's trip, what comes
+    # after the loop, and a thread's whole count at l = 4 (the 4 x 4 matvec)
+    code = nwc_sass["matvec_kernel<12>"]
+    counted = issued_with_loop(code, DOT_TERMS)
+    upto_exit = max(i for i, (_, ins) in enumerate(code) if "EXIT" in ins) + 1
+    print(f"  sass: nwc64.cu matvec_kernel<12>: {len(code)} instructions; "
+          + (f"a step's trip {counted[0]}, after the loop {counted[1]}; at l = {DOT_TERMS} a "
+             f"thread issues {upto_exit + (DOT_TERMS - 1) * counted[0]} in all, "
+             f"{issued_per_thread(code, ())} after its first barrier"
+             if counted else f"loops not one: {sass_loops(code)}"))
+    # gl64.cu's radix-8 core, counted the same way: the transforms, the flat
+    # product fresh and cached at n = 4096, the row pass, the row forward and
+    # the row inverse at n = 128 and 1024
     gl_sass = sass_listing(libs["gl64"])
     radix = [k for k in gl_sass if k.startswith("transform_kernel<")]
     print(f"  sass: gl64.cu's {len(radix)} radix-8 kernels, "
@@ -639,8 +651,8 @@ def main() -> int:
                           ("cyclic_scaled_kernel<7, 0, 1>", ()),
                           ("cyclic_scaled_kernel<10, 0, 1>", ()),
                           ("cyclic_scaled_kernel<7, 1, 1>", ()), ("forward_scaled_kernel<7>", ()),
-                          ("forward_scaled_kernel<10>", ()),
-                          ("inverse_scaled_kernel", (4, 12, 8))):
+                          ("forward_scaled_kernel<10>", ()), ("inverse_scaled_kernel<7>", ()),
+                          ("inverse_scaled_kernel<10>", ())):
         code = gl_sass[kernel]
         issued = issued_per_thread(code, trips)
         print(f"  sass: gl64.cu {kernel}: {len(code)} instructions; after its first barrier "
@@ -670,19 +682,21 @@ def main() -> int:
               + ("" if issued else f"loops (first, branch, instructions) {sass_loops(code)}")
               + f"; shared-memory instructions {shared}")
     # the radix kernels of the three files spill nothing: 36 transforms (a
-    # log n from 5 to 13, each direction and layout) and 9 row forwards (a
-    # log n) in each 64-bit file, nwc64.cu's 18 fused products (each log n,
-    # fresh and cached), 18 fused row passes, 9 row inverses and 36 fused
-    # dots (the row passes' 18 and the flat dot's 18), gl64.cu's 36 fused
-    # products (the flat product's 18 and the row pass's 18, fresh and
-    # cached) and 36 fused dots (the flat dot's 18 and the row pass's 18),
-    # and nwc32.cu's 7 radix-16 forwards (a log n from 8 to 14), 14 fused
-    # products and 14 fused dots (each log n, fresh and cached)
+    # log n from 5 to 13, each direction and layout), 9 row forwards and 9
+    # row inverses (a log n) in each 64-bit file, nwc64.cu's 18 fused
+    # products (each log n, fresh and cached), 18 fused row passes, 36 fused
+    # dots (the row passes' 18 and the flat dot's 18) and 9 matvecs,
+    # gl64.cu's 36 fused products (the flat product's 18 and the row pass's
+    # 18, fresh and cached) and 36 fused dots (the flat dot's 18 and the row
+    # pass's 18), and nwc32.cu's 7 radix-16 forwards (a log n from 8 to 14),
+    # 14 fused products and 14 fused dots (each log n, fresh and cached)
     for lib, kernels in (("nwc64", (("transform_kernel", 36), ("product_kernel", 18),
                                     ("cyclic_scaled_kernel", 18), ("forward_scaled_kernel", 9),
-                                    ("inverse_scaled_kernel", 9), ("dot_scaled_kernel", 36))),
+                                    ("inverse_scaled_kernel", 9), ("dot_scaled_kernel", 36),
+                                    ("matvec_kernel", 9))),
                          ("gl64", (("transform_kernel", 36), ("cyclic_scaled_kernel", 36),
-                                   ("forward_scaled_kernel", 9), ("dot_kernel", 36))),
+                                   ("forward_scaled_kernel", 9), ("inverse_scaled_kernel", 9),
+                                   ("dot_kernel", 36))),
                          ("nwc32", (("radix_forward_kernel", 7), ("product_kernel", 14),
                                     ("dot_kernel", 14)))):
         log = libs[lib].with_suffix(".log").read_text()
@@ -1081,26 +1095,58 @@ def main() -> int:
           f"1024 and at B = 264 at n = 8192: {checks} launches equal in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # nwc64_inverse_scaled, the row inverse on nwc64.cu's radix-8 core: at
-    # the three 60-bit q, every log n, B = 1, 3 and 2048 rows (boundary rows
-    # first) taken as bit-reversed spectra, random post tables at period 1
-    # and 3 (1 and 256 at B = 2048), cyclic per-pass tables, n^-1
+    # the row inverses on the radix-8 cores: nwc64_inverse_scaled at the
+    # three 60-bit q and gl64_inverse_scaled at the Goldilocks q, every log
+    # n, B = 1, 3 and 2048 rows (boundary rows first) taken as bit-reversed
+    # spectra, random post tables at period 1 and 3 (1 and 256 at B =
+    # 2048), cyclic per-pass tables, n^-1
     t0, checks = time.perf_counter(), 0
-    for q in (P60_4096.q, Q_GENERIC, Q62_MAX):
+    for q in (P60_4096.q, Q_GENERIC, Q62_MAX, GOLDILOCKS_Q):
+        gl = q == GOLDILOCKS_Q
+        ends = 6 if gl else 3  # the boundary rows
         for log_n in range(5, 14):
             n = 1 << log_n
-            plan = SubPlan64(make_params(n, q), device)
+            plan = (GoldilocksSubPlan64 if gl else SubPlan64)(make_params(n, q), device)
             x = card_operands(q, n, BATCH, gen)
             for rows, periods in ((1, (1,)), (3, (1, 3)), (BATCH, (1, 256))):
                 for period in periods:
-                    post = shoup_table(card_operands(q, n, period + 3, gen)[3:], q)
+                    post = card_operands(q, n, period + ends, gen)[ends:]  # random rows
+                    post = (post,) if gl else shoup_table(post, q)
                     fused_check(plan, "inverse_scaled", f"n={n} q={q} B={rows} period {period}",
                                 plan.ntt_inv_scaled_plain(x[:rows], post), (x[:rows],),
                                 (plan.plan.cyclic_inv_flat,), *post, period, rows, log_n,
                                 *plan._q_args(False), *plan._scale_cached)
                     checks += 1
-    print(f"kernel vs plain: nwc64_inverse_scaled at three q, n = 32 to 8192, B = 1, 3, {BATCH}, "
-          f"periods 1, 3 and 256: {checks} launches equal in {time.perf_counter() - t0:.1f} s")
+    print(f"kernel vs plain: nwc64_inverse_scaled at three q and gl64_inverse_scaled, n = 32 to "
+          f"8192, B = 1, 3, {BATCH}, periods 1, 3 and 256: {checks} launches equal in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # nwc64_matvec alone, the matvec's accumulate-and-inverse on nwc64.cu's
+    # radix-8 core, on the spectra of s that nwc64_forward makes, against the
+    # plain matvec of s (its own forward): at the three 60-bit q, n = 256 to
+    # 8192, (k, l) = (1, 1), (4, 4), (8, 8) and (3, 5), B = 1, 3 and
+    # MATVEC_BATCH_60 (the first B rows of s: out's batch row r reads s's row
+    # r alone, so one plain matvec serves the three); s's rows 0, 1 and
+    # q - 1 first, A's first row all q - 1
+    t0, checks = time.perf_counter(), 0
+    for q in (P60_4096.q, Q_GENERIC, Q62_MAX):
+        for log_n in range(8, 14):
+            n = 1 << log_n
+            plan = MxuPlan64(make_params(n, q), device)
+            for k, l in ((1, 1), (4, 4), (8, 8), (3, 5)):
+                spectra = plan.nwc_matvec_spectra_plain(
+                    card_operands(q, n, k * l + 2, gen)[2:].reshape(k, l, n))
+                s_mv = card_operands(q, n, l * MATVEC_BATCH_60, gen).reshape(l, -1, n)
+                want = plan.nwc_matvec_cached_plain(s_mv, spectra)
+                for rows in (1, 3, MATVEC_BATCH_60):
+                    s_rows = s_mv[:, :rows].contiguous()
+                    fs_mv = plan.nwc_ntt_fwd(s_rows.reshape(-1, n)).reshape(s_rows.shape)
+                    silent_check("nwc64_matvec", f"n={n} q={q} {k} x {l} B={rows}",
+                                 plan._matvec(fs_mv, spectra), want[:, :rows])
+                    checks += 1
+    print(f"kernel vs plain: nwc64_matvec alone at three q, n = 256 to 8192, (k, l) = (1, 1), "
+          f"(4, 4), (8, 8), (3, 5), B = 1, 3, {MATVEC_BATCH_60}: {checks} launches equal in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # nwc32_forward on nwc32.cu's radix-16 core: n = 256 to 16384 at
     # q = 16580609, to 4096 at P24_4096's and DILITHIUM_256's q = 8380417

@@ -1,6 +1,6 @@
 """The radix-8 core of ``csrc/gl64.cu`` (``gl64_forward``, ``gl64_inverse``,
-their column entry points, the row forward ``gl64_forward_scaled``, and the
-products fused on it: K2's flat ``gl64_product``, ``gl64_cached`` and
+their column entry points, the row forward ``gl64_forward_scaled``, the row
+inverse ``gl64_inverse_scaled``, and the products fused on it: K2's flat ``gl64_product``, ``gl64_cached`` and
 ``gl64_dot``, the four-step's row passes ``gl64_cyclic_scaled``,
 ``gl64_cached_scaled`` and ``gl64_dot_scaled``) modelled on the CPU, and
 K2's two ablation toggles.
@@ -34,7 +34,10 @@ K2's two ablation toggles.
   128), against the plain row pass and JAX's XLA ``cyclic_poly_mult``
   between the scales.  The row forward (``model`` with ``pre``) at the row
   pass's shapes, scale 1 and q - 1, against ``ntt_fwd_scaled_plain``
-  and JAX's XLA ``ntt_fwd`` of the scaled rows.  K2's flat dot
+  and JAX's XLA ``ntt_fwd`` of the scaled rows; the row inverse
+  (``inverse_scaled_model``: n^-1 on the spectrum's words, the passes, post
+  at the store) at n = 128 and 1024, P = 1 and 3, against
+  ``ntt_inv_scaled_plain`` and JAX's XLA ``ntt_inv`` times post.  K2's flat dot
   (``dot_model``: a forward a loop step, the slot's mul_lazy into a sum of
   add_any, one inverse) at K = 1 and 4, fresh and cached, at n = 32, 256
   and 4096 on merged tables, against ``nwc_dot_plain``,
@@ -51,10 +54,10 @@ K2's two ablation toggles.
   transposes and JAX's four-step locals (``tpu_ntt.sharded._along`` of its
   XLA transforms) at 32 x 32 and 64 x 32, widths n2 / D for D = 2, 4, 8;
   the four-step's launch path runs them and never the transposes.
-* The C signatures ``load`` binds for the ten entry points, and faked
-  launches that hand them the per-pass tables; a ``cuda``-marked case holds
-  both layouts, the flat products and dot, the row forward and both row
-  passes against plain on a card.
+* The C signatures ``load`` binds for the twelve radix-core entry points,
+  and faked launches that hand them the per-pass tables; a ``cuda``-marked
+  case holds both layouts, the flat products and dot, the row forward, the
+  row inverse and both row passes against plain on a card.
 * JAX's ``GoldilocksPlan64`` with ``split_left`` and ``const_mul_special``
   off (tpu_ntt/kernels/gl64.py:211, :216) in interpret mode at n = 32768
   against the port's four-step: ``slow``, about 25 s (a 12 s plan build).
@@ -495,6 +498,27 @@ def dot_model(plan, a: torch.Tensor, b: torch.Tensor, spectra: torch.Tensor, pre
     return outs if a.shape[0] > 1 else outs * 2
 
 
+def inverse_scaled_model(plan, x: torch.Tensor, post: torch.Tensor) -> torch.Tensor:
+    """gl64_inverse_scaled on (R, n) bit-reversed spectra: the words the
+    inverse's first pass loads (8t ... 8t + 7), one mul_lazy by n^-1 (any
+    words), the passes on the cyclic per-pass table, post's mul_lazy at the
+    store's positions (row r reading row r % P of the (P, n) table), the
+    one compare."""
+    log_n = plan.p.log_n
+    (itw,) = plan._transform_table(plan.plan.cyclic_inv_flat)
+    at, live, t, slot = lanes(plan, x)
+    first = pass_words(log_n, 0, t)
+    spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
+    assert all(np.all(i == WORDS * t + k) for k, i in enumerate(spectrum))
+    regs = [mul_lazy(words(v), plan.p.n_inv) for v in load(ints(x.reshape(-1)), at, live,
+                                                          spectrum)]
+    regs = passes_on(plan, regs, ints(itw), True, t, slot)
+    out = np.zeros(x.numel(), dtype=object)
+    for reg, v in enumerate(times_row(plan, regs, at, post, first)):
+        out[at(first[reg])[live]] = canonical(v)[live]
+    return as_tensor(out, x.shape)
+
+
 @functools.lru_cache(maxsize=None)
 def plans(n: int):
     return (GoldilocksSubPlan64(make_params(n, Q), "cpu"),
@@ -608,9 +632,14 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     plain row pass and JAX's XLA cyclic product between the scales (by
     Python ints); 256 rows of 128 at period 256 are goldilocks_32768's row
     pass (n1 = 256), there gl64_cyclic_scaled alone (the model's chains on
-    Python ints take 9 s for it).  The row forward gl64_forward_scaled on
-    a and pre, at scale 1 (and q - 1 but at 256 rows), against
-    ``ntt_fwd_scaled_plain`` and JAX's XLA ``ntt_fwd`` of the scaled rows.
+    Python ints take 9 s for it), and the row inverse gl64_inverse_scaled
+    (``inverse_scaled_model``) at n = 128 (partial tiles) and 1024, periods
+    1 and 3, rows of the boundary words first, against
+    ``ntt_inv_scaled_plain`` and JAX's XLA ``ntt_inv`` of the same spectra
+    in natural order times post (by Python ints).  The row forward
+    gl64_forward_scaled on a and pre, at scale 1 (and q - 1 but at 256
+    rows), against ``ntt_fwd_scaled_plain`` and JAX's XLA ``ntt_fwd`` of
+    the scaled rows.
     At period 3, K2's flat product on the cyclic tables, fresh and cached,
     against ``cyclic_poly_mult_plain`` and JAX's on a and b."""
     plan, jplan = plans(n)
@@ -624,6 +653,18 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     assert torch.equal(spec, plan.ntt_fwd_scaled_plain(a, pre))
     natural = run_jax(jax_transform("ntt_fwd", jplan), times_rows(a, pre[0]))
     assert torch.equal(plan.bitrev_to_natural(spec), natural)
+    if period == 256:  # the row inverse at n = 128 (partial tiles) and a block a row at 1024
+        for n_i, rows_i in ((128, 12), (1024, 6)):
+            plan_i, jplan_i = plans(n_i)
+            x = operands((rows_i, n_i), seed=n_i)  # the boundary rows first
+            # JAX's ntt_inv reads natural order: the port's bit-reversed spectra permuted
+            jax_inv = run_jax(jax_transform("ntt_inv", jplan_i), plan_i.bitrev_to_natural(x))
+            for period_i in (1, 3):  # post's rows: the boundary words from 2^64 - 2^32 down
+                post_i = operands((6, n_i), seed=n_i + period_i).flip(0)[:period_i].contiguous()
+                got = inverse_scaled_model(plan_i, x, post_i)
+                assert torch.equal(got, plan_i.ntt_inv_scaled_plain(x, (post_i,))), (n_i,
+                                                                                     period_i)
+                assert torch.equal(got, times_rows(jax_inv, post_i)), (n_i, period_i)
     if rows > 64:
         return
     assert torch.equal(model(plan, a, plan.plan.cyclic_flat, Q - 1, False, pre=pre[0]),
@@ -740,10 +781,10 @@ C_TYPES = {"int": kgl64.ctypes.c_int, "uint64_t": kgl64.ctypes.c_uint64}
 
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
-    """``load`` types the eleven radix-core entry points (the row forward,
-    the flat products and dot and the row pass's three among them) with the
-    C argument types of csrc/gl64.cu, and each has its own launch count;
-    those eleven read per-pass tables: faked launches on the CPU hand
+    """``load`` types the twelve radix-core entry points (the row forward,
+    the row inverse, the flat products and dot and the row pass's three
+    among them) with the C argument types of csrc/gl64.cu, and each has its
+    own launch count; those twelve read per-pass tables: faked launches on the CPU hand
     gl64_product the merged or cyclic per-pass tables, gl64_cached and
     gl64_dot the merged ones and gl64_forward_scaled the cyclic one."""
     bound = {}
@@ -752,7 +793,8 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     source = (_build.CSRC / "gl64.cu").read_text()
     decls = dict(re.findall(r'extern "C" int (gl64_\w+)\(([^)]*)\)', source))
     radix = ("forward", "inverse", "forward_cols", "inverse_cols", "forward_scaled",
-             "product", "cached", "cyclic_scaled", "cached_scaled", "dot", "dot_scaled")
+             "product", "cached", "cyclic_scaled", "cached_scaled", "dot", "dot_scaled",
+             "inverse_scaled")
     assert GoldilocksPlan64.pass_entries == set(radix)
     for suffix in radix:
         params = [p.strip() for p in decls[f"gl64_{suffix}"].split(",")]
@@ -827,6 +869,8 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
                                plan.cyclic_poly_mult_scaled_plain(a, b, pre, post))
             spectrum = plan.ntt_fwd_scaled(b, pre, True)
             assert torch.equal(spectrum, plan.ntt_fwd_scaled_plain(b, pre, True)), (n, period)
+            assert torch.equal(plan.ntt_inv_scaled(a, post),  # the row inverse
+                               plan.ntt_inv_scaled_plain(a, post)), (n, period)
             assert torch.equal(plan.cyclic_poly_mult_cached_scaled(a, spectrum, pre, post),
                                plan.cyclic_poly_mult_cached_scaled_plain(a, spectrum, pre,
                                                                           post))

@@ -3,8 +3,9 @@ their column entry points, the product fused on it, ``nwc64_product`` and
 ``nwc64_cached``, the four-step's row passes fused on it,
 ``nwc64_cyclic_scaled``, ``nwc64_cached_scaled`` and ``nwc64_dot_scaled``,
 its row forward ``nwc64_forward_scaled``, its row inverse
-``nwc64_inverse_scaled`` and the flat dot ``nwc64_dot``) modelled on the
-CPU, and K1a's three ablation toggles.
+``nwc64_inverse_scaled``, the flat dot ``nwc64_dot`` and the matvec's
+accumulate-and-inverse ``nwc64_matvec``) modelled on the CPU, and K1a's
+three ablation toggles.
 
 * The lazy butterflies: a Python model of the .cu's Shoup product, CT and
   GS butterflies and final corrections, with the range asserts the .cu
@@ -41,19 +42,24 @@ CPU, and K1a's three ablation toggles.
   the same shapes against ``ntt_inv_scaled_plain`` and JAX's XLA
   ``ntt_inv`` times post; the flat dot (``scaled_model`` without scales, merged tables, canonical
   first lanes asserted) at K = 1 and 3 at n = 256 against
-  ``nwc_dot_plain`` and ``nwc_dot_cached_plain``; faked launches show the
-  six entry points receive the per-pass tables on ``SubPlan64`` and
-  ``MxuPlan64``, the Goldilocks plans' ``gl64_forward_scaled``,
-  ``gl64_dot`` and ``gl64_dot_scaled`` theirs and ``gl64_inverse_scaled``
-  the flat one.
+  ``nwc_dot_plain`` and ``nwc_dot_cached_plain``; the matvec
+  (``matvec_model``: the words 8t ... 8t + 7 of each S[j, r] and A[i, j],
+  the sum of lazy REDCs kept below 2q, n^-1, the inverse) at (k, l) =
+  (1, 1) and (3, 2) on 6 rows of 256 against ``nwc_matvec_cached_plain``
+  and the sums of JAX's XLA ``nwc_poly_mult_merged``, its sum's bound at
+  l = 8 on q - 1; faked launches show the seven entry points receive the
+  per-pass tables on ``SubPlan64`` and ``MxuPlan64``, the Goldilocks
+  plans' ``gl64_forward_scaled``, ``gl64_dot``, ``gl64_dot_scaled`` and
+  ``gl64_inverse_scaled`` theirs, ``gl64_matvec`` and ``nwc32_matvec`` the
+  flat ones.
 * ``SubPlan64``'s column methods (plain on the CPU: the transpose route)
   against ``FourStepPlan``'s transposes and JAX's four-step locals
   (``tpu_ntt.sharded._along`` of its XLA transforms) at 32 x 32 and
   64 x 32, widths n2 / D for D = 2, 4 and 8.
-* The C signatures ``load`` and ``load_scaled`` bind for the twelve entry
-  points; a ``cuda``-marked case holds both layouts, both products, the
-  three row passes, the row forward, the row inverse and the flat dot
-  against plain on a card.
+* The C signatures ``load`` and ``load_scaled`` bind for the thirteen
+  entry points; a ``cuda``-marked case holds both layouts, both products,
+  the three row passes, the row forward, the row inverse, the flat dot and
+  the matvec against plain on a card.
 * JAX's ``MxuPlan64`` with ``prefix_scan = True``, with
   ``carry_save = False`` and with ``shoup_lazy = False``
   (mxu64.py:785-799) in interpret mode at n = 256: the same integers as
@@ -67,7 +73,6 @@ import functools
 import re
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -81,6 +86,7 @@ from tpu_ntt_torch.convert import int64_to_pairs, pairs_to_int64
 from tpu_ntt_torch.kernels import _build, _plan
 from tpu_ntt_torch.kernels import mxu64 as kmxu64
 from tpu_ntt_torch.kernels.gl64 import GoldilocksPlan64, GoldilocksSubPlan64
+from tpu_ntt_torch.kernels.mxu import MxuPlan
 from tpu_ntt_torch.kernels.mxu64 import MxuPlan64, SubPlan64
 from tpu_ntt_torch.modmath import GOLDILOCKS_Q
 from tpu_ntt_torch.params import P60_4096, make_params
@@ -415,7 +421,8 @@ class RowBuckets:
     run on the rows padded with zero rows to max(64, 2^ceil(log2 R)): the
     tests' row counts (2 to 37 here, 256 there) share its compiles, 1-3 s
     each.  The transforms act on each row alone, so the padding changes
-    no row."""
+    no row.  The padding and the cut back are numpy's: as eager JAX ops
+    they would compile again for every row count."""
 
     def __init__(self, fn):
         self.fn = jax.jit(fn)
@@ -424,8 +431,8 @@ class RowBuckets:
         rows = x[0].shape[-2]
         pad = [(0, 0)] * (x[0].ndim - 2) + [(0, max(64, 1 << (rows - 1).bit_length()) - rows),
                                              (0, 0)]
-        out = self.fn(tuple(jnp.pad(w, pad) for w in x))
-        return tuple(w[..., :rows, :] for w in out)
+        out = self.fn(tuple(np.pad(np.asarray(w), pad) for w in x))
+        return tuple(np.asarray(w)[..., :rows, :] for w in out)
 
 
 def run_jax(fn, *xs):
@@ -446,14 +453,28 @@ def jax_transform(name: str, jplan) -> RowBuckets:
     return RowBuckets(functools.partial(JAX_TRANSFORMS[name], jplan))
 
 
+@functools.lru_cache(maxsize=None)
+def jax_slot_mul(jplan) -> RowBuckets:
+    """The plan's ring's slot product of two (hi, lo) operands of one shape,
+    jitted once a plan as a ``RowBuckets`` of their four words: eagerly,
+    each of its hundred-odd ops dispatches alone and compiles again for
+    every new row count."""
+    ring = jplan.ring
+    mul = type(ring).mul
+    return RowBuckets(lambda x: mul(ring, x[:2], x[2:]))
+
+
 def run_jax_product(monkeypatch, product, jplan, a, b):
     """JAX's product function (``jntt.nwc_poly_mult_merged``,
     ``jntt.cyclic_poly_mult``) on a and b: its own body, with the
-    transforms it calls jitted by ``jax_transform``, so a product shares
-    their compiles with the transform tests (one jit of a whole product
-    costs 5-10 s here)."""
+    transforms it calls jitted by ``jax_transform`` and its ring's slot
+    product by ``jax_slot_mul``, so a product shares their compiles with
+    the transform tests and the other products of its plan (one jit of a
+    whole product costs 5-10 s here)."""
     for name in JAX_TRANSFORMS:
         monkeypatch.setattr(jntt, name, lambda plan, x, name=name: jax_transform(name, plan)(x))
+    monkeypatch.setattr(jplan.ring, "mul",
+                        lambda x, y: jax_slot_mul(jplan)((*x, *y)), raising=False)
     out = product(jplan, int64_to_pairs(a), int64_to_pairs(b))
     return pairs_to_int64(np.asarray(out[0]), np.asarray(out[1]))
 
@@ -681,6 +702,47 @@ def scaled_model(plan: SubPlan64, a: torch.Tensor, b: torch.Tensor, pre, post,
     return as_tensor(out, a3[0].shape)
 
 
+def matvec_sum(terms, q):
+    """The matvec's sum of slot products: for each (s, a) pair of canonical
+    words, mont_lazy in [0, 2q), added into a sum kept below 2q by one
+    compare a term; every range asserted."""
+    acc = 0
+    for s, a in terms:
+        assert np.all(s < q) and np.all(a < q)
+        p = mont_lazy(s, a, q)
+        assert np.all(acc + p < 4 * q)
+        acc = csub(acc + p, 2 * q)
+    return acc
+
+
+def matvec_model(plan: SubPlan64, s: torch.Tensor, spectra: torch.Tensor) -> torch.Tensor:
+    """nwc64_matvec on the (l, B, n) rows s against the (k, l, n) cached
+    spectra of A, after the wrapper's forward of s (``model``, merged
+    tables): output row o = r k + i, the k rows of batch row r adjacent,
+    rows tiling blocks as in the transforms.  Thread t of row (i, r) loads
+    words 8t ... 8t + 7 of S[j, r] and A[i, j] for each j (``matvec_sum``),
+    n^-1's lazy Shoup product, the passes on the merged inverse per-pass
+    tables, one compare at the natural-order store; (k, B, n) out."""
+    log_n, q, n = plan.p.log_n, plan.p.q, plan.p.n
+    (k, l), batch = spectra.shape[:2], s.shape[1]
+    fs = model(plan, s.reshape(-1, n), plan.plan.merged_flat, plan._scale_one, False)
+    words_s, words_a = ints(fs.reshape(-1)), ints(spectra.reshape(-1))
+    at, live, t, slot = lanes(plan, torch.empty((k * batch, n), dtype=torch.int64))
+    r, i = at(0) // n // k, at(0) // n % k
+    spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
+    acc = [matvec_sum([(load(words_s, lambda e: (j * batch + r) * n + e, live, [e])[0],
+                        load(words_a, lambda e: (i * l + j) * n + e, live, [e])[0])
+                       for j in range(l)], q) for e in spectrum]
+    itw = tuple(ints(v) for v in kmxu64.pass_table(plan.plan.merged_inv_flat))
+    x = passes_on(plan, [shoup_lazy(v, *plan._scale_cached, q) for v in acc], itw, True, t,
+                  slot)
+    out = np.zeros(k * batch * n, dtype=object)
+    for v, e in zip(x, pass_words(log_n, 0, t)):
+        assert np.all(v < 2 * q)
+        out[((i * batch + r) * n + e)[live]] = csub(v, q)[live]
+    return as_tensor(out, (k, batch, n))
+
+
 def scale_tables(plan, period: int, seed: int) -> tuple:
     """Random (P, n) Shoup tables pre and post, rows 0 and 1 of pre all 1
     and all q - 1 where P allows."""
@@ -749,7 +811,11 @@ def test_fused_dot_model_matches_plain_and_jax(monkeypatch):
     cyclic products between the scales, at 6 rows of 256, period 3 (a row
     pass test's shape: JAX's eager ops compiled once); the same loop
     without scales on merged tables, the flat dot nwc64_dot, against
-    ``nwc_dot_plain`` and ``nwc_dot_cached_plain``."""
+    ``nwc_dot_plain`` and ``nwc_dot_cached_plain``.  On the same rows the
+    matvec nwc64_matvec (``matvec_model``) at (k, l) = (1, 1) and (3, 2)
+    against ``nwc_matvec_cached_plain`` and the sums over j of JAX's XLA
+    ``nwc_poly_mult_merged(A[i, j], s[j])``; its sum stays below 2q at
+    l = 8 with every operand q - 1, at the three q."""
     n, rows, period = 256, 6, 3
     plan, jplan = plans(n)
     q = plan.p.q
@@ -770,6 +836,25 @@ def test_fused_dot_model_matches_plain_and_jax(monkeypatch):
         assert torch.equal(scaled_model(plan, a, b, None, None), plan.nwc_dot_plain(a, b)), terms
         assert torch.equal(scaled_model(plan, a, flat, None, None, cached=True),
                            plan.nwc_dot_cached_plain(a, flat)), terms
+    # nwc64_matvec on the same rows: the k rows of A by the l rows of s,
+    # against the plain matvec and the sums of JAX's XLA negacyclic products
+    for k, l in ((1, 1), (3, 2)):
+        s = operands(q, (l, rows, n), seed=20 + l)  # rows 0, 1, q - 1 first
+        mat = operands(q, (k * l + 1, n), seed=30 + k)[1:].reshape(k, l, n).contiguous()
+        mat[0, 0] = q - 1
+        spectra = plan.nwc_matvec_spectra_plain(mat)
+        got = matvec_model(plan, s, spectra)
+        assert torch.equal(got, plan.nwc_matvec_cached_plain(s, spectra)), (k, l)
+        for i in range(k):
+            want = sum(ints(run_jax_product(monkeypatch, jntt.nwc_poly_mult_merged, jplan,
+                                            mat[i, j].expand(rows, n).contiguous(), s[j]))
+                       for j in range(l)) % q
+            assert torch.equal(got[i], as_tensor(want.reshape(-1), (rows, n))), (k, l, i)
+    # the sum's bound at the most terms, every operand q - 1
+    for q_ in QS:
+        edge = np.full(4, q_ - 1, dtype=object)
+        total = matvec_sum([(edge, edge)] * 8, q_)
+        assert np.all(total < 2 * q_) and np.all((total << 64) % q_ == 8 * (q_ - 1) ** 2 % q_)
 
 
 def faked_launches(monkeypatch, plan) -> dict:
@@ -785,16 +870,19 @@ def faked_launches(monkeypatch, plan) -> dict:
 def test_row_passes_launch_with_per_pass_tables(monkeypatch):
     """nwc64_cyclic_scaled, nwc64_cached_scaled, nwc64_dot_scaled,
     nwc64_forward_scaled and nwc64_inverse_scaled receive the cyclic tables
-    in the per-pass layout (``pass_table``), nwc64_dot the merged ones, on
-    ``SubPlan64`` (n = 128) and ``MxuPlan64`` (n = 256); on the Goldilocks
-    plans gl64_forward_scaled, gl64_dot and gl64_dot_scaled, on gl64.cu's
-    radix-8 core, receive the cyclic and the merged per-pass tables, and
-    gl64_inverse_scaled, on gl64.cu's first core, the flat one (the shared
-    ``ScaledKernelPlan.ntt_inv_scaled`` routes by ``pass_entries``)."""
+    in the per-pass layout (``pass_table``), nwc64_dot the merged ones and
+    nwc64_matvec the merged inverse's, on ``SubPlan64`` (n = 128) and
+    ``MxuPlan64`` (n = 256); on the Goldilocks plans gl64_forward_scaled,
+    gl64_dot, gl64_dot_scaled and gl64_inverse_scaled, on gl64.cu's radix-8
+    core, receive the cyclic and the merged per-pass tables (the shared
+    ``ScaledKernelPlan.ntt_inv_scaled`` and ``KernelPlan._matvec`` route by
+    ``pass_entries``); gl64_matvec and nwc32_matvec, on their files' first
+    cores, the flat merged inverse tables."""
     assert {"cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled", "inverse_scaled",
-            "dot"} <= MxuPlan64.pass_entries
-    assert {"forward_scaled", "dot", "dot_scaled"} <= GoldilocksPlan64.pass_entries
-    assert "inverse_scaled" not in GoldilocksPlan64.pass_entries
+            "dot", "matvec"} <= MxuPlan64.pass_entries
+    assert {"forward_scaled", "dot", "dot_scaled", "inverse_scaled"} <= \
+        GoldilocksPlan64.pass_entries
+    assert "matvec" not in GoldilocksPlan64.pass_entries | MxuPlan.pass_entries
     for cls, gl_cls, n in ((SubPlan64, GoldilocksSubPlan64, 128),
                            (MxuPlan64, GoldilocksPlan64, 256)):
         plan = cls(make_params(n, Q_GENERIC), "cpu")
@@ -807,6 +895,7 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
         plan.ntt_fwd_scaled(a, pre)
         plan.ntt_inv_scaled(a, post)
         plan.nwc_dot(a[None], a[None])
+        plan.nwc_matvec_cached(a.reshape(2, 2, n), a[:2].reshape(1, 2, n))
         tw = kmxu64.pass_table(plan.plan.cyclic_flat)
         itw = kmxu64.pass_table(plan.plan.cyclic_inv_flat)
         merged = (kmxu64.pass_table(plan.plan.merged_flat)
@@ -823,6 +912,11 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
                                           plan._transform_table(plan.plan.cyclic_inv_flat)))
         assert all(torch.equal(x, y) for x, y in zip(calls["inverse_scaled"][2:4], itw))
         assert all(x is y for x, y in zip(calls["inverse_scaled"][4:6], post))
+        assert all(x is y for x, y in zip(calls["matvec"][3:5],
+                                          plan._transform_table(plan.plan.merged_inv_flat)))
+        assert all(torch.equal(x, y) for x, y in zip(
+            calls["matvec"][3:5], kmxu64.pass_table(plan.plan.merged_inv_flat)))
+        assert calls["matvec"][5:8] == (1, 2, 2)  # k, l, B
         gl = gl_cls(make_params(n, GOLDILOCKS_Q), "cpu")
         calls = faked_launches(monkeypatch, gl)
         gl_pre, gl_post = (a[:2].contiguous(),), (a[2:].contiguous(),)
@@ -830,14 +924,25 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
         gl.nwc_dot(a[None], a[None])
         gl.dot_scaled(a[None], a[None], gl_pre, gl_post)
         gl.ntt_inv_scaled(a, gl_post)
+        gl.nwc_matvec_cached(a.reshape(2, 2, n), a[:2].reshape(1, 2, n))
         assert calls["forward_scaled"][2] is gl._transform_table(gl.plan.cyclic_flat)[0]
         assert calls["dot"][3] is gl._transform_table(gl.plan.merged_flat)[0]
         assert calls["dot"][4] is gl._transform_table(gl.plan.merged_inv_flat)[0]
         assert calls["dot_scaled"][3] is gl._transform_table(gl.plan.cyclic_flat)[0]
         assert calls["dot_scaled"][4] is gl._transform_table(gl.plan.cyclic_inv_flat)[0]
         assert calls["dot_scaled"][5:7] == (*gl_pre, *gl_post)
-        assert calls["inverse_scaled"][2] is _plan._table(gl.plan.cyclic_inv_flat)[0]
-        assert calls["inverse_scaled"][2].shape == (n,) and calls["inverse_scaled"][3] is gl_post[0]
+        assert calls["inverse_scaled"][2] is gl._transform_table(gl.plan.cyclic_inv_flat)[0]
+        assert torch.equal(calls["inverse_scaled"][2],
+                           kmxu64.pass_table(gl.plan.cyclic_inv_flat)[0])
+        assert calls["inverse_scaled"][3] is gl_post[0]
+        assert calls["matvec"][3] is _plan._table(gl.plan.merged_inv_flat)[0]
+        assert calls["matvec"][3].shape == (n,)
+    plan24 = MxuPlan(make_params(256, 8380417), "cpu")
+    calls = faked_launches(monkeypatch, plan24)
+    s24 = torch.ones((2, 2, 256), dtype=torch.int32)
+    plan24.nwc_matvec_cached(s24, s24[:1])
+    assert all(x is y for x, y in zip(calls["matvec"][3:5],
+                                      _plan._table(plan24.plan.merged_inv_flat)))
 
 
 # ---------------------------------------------------------------------------
@@ -904,10 +1009,10 @@ C_TYPES = {"int": kmxu64.ctypes.c_int, "uint64_t": kmxu64.ctypes.c_uint64}
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     """``load`` types nwc64_forward, nwc64_inverse, nwc64_product,
-    nwc64_cached and nwc64_dot, ``load_scaled`` the column entry points,
-    the three fused row passes, the row forward and the row inverse, with
-    the C argument types of csrc/nwc64.cu; those twelve read per-pass
-    tables."""
+    nwc64_cached, nwc64_dot and nwc64_matvec, ``load_scaled`` the column
+    entry points, the three fused row passes, the row forward and the row
+    inverse, with the C argument types of csrc/nwc64.cu; those thirteen
+    read per-pass tables."""
     bound = {}
     monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
     _plan.load.__wrapped__("nwc64", 64)
@@ -918,7 +1023,7 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     decls = dict(re.findall(r'extern "C" int (nwc64_\w+)\(([^)]*)\)', source))
     radix = ("forward", "inverse", "forward_cols", "inverse_cols", "product", "cached",
              "cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled", "inverse_scaled",
-             "dot")
+             "dot", "matvec")
     assert MxuPlan64.pass_entries == set(radix)
     for suffix in radix:
         params = [p.strip() for p in decls[f"nwc64_{suffix}"].split(",")]
@@ -962,7 +1067,10 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
                              ("ntt_fwd_scaled", (a, pre)), ("ntt_fwd_scaled", (a, pre, True)),
                              ("ntt_inv_scaled", (a, post)),
                              ("nwc_dot", (a3, b3)),
-                             ("nwc_dot_cached", (a3, plan.nwc_spectrum(b).reshape(1, 5, n)))):
+                             ("nwc_dot_cached", (a3, plan.nwc_spectrum(b).reshape(1, 5, n))),
+                             ("nwc_matvec_cached", (rows[:10].reshape(2, 5, n),
+                                                    plan.nwc_matvec_spectra(
+                                                        rows[10:16].reshape(3, 2, n))))):
             assert torch.equal(getattr(plan, method)(*args),
                                getattr(plan, method + "_plain")(*args)), (n, method)
         for method in ("ntt_fwd", "nwc_ntt_fwd", "ntt_inv", "nwc_ntt_inv"):

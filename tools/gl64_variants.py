@@ -18,16 +18,17 @@ both, ``gl64_cached_scaled`` at the first, and the row forward
 ``gl64_forward_scaled`` at both, on random tables, and the dot's row pass
 ``gl64_dot_scaled`` at K = 4 on goldilocks_32768's 16384 rows of 128 at
 period 256, fresh and cached, and on 4096 rows of 1024 at period 1024,
-run under every variant
+and the row inverse ``gl64_inverse_scaled`` at both row shapes, run under
+every variant
 in turns, each timed by CUDA events: the best of three runs of 50
 launches, over two rounds.  A variant marked wrong computes other integers:
 its time says what the work it drops costs, nothing else; every other
 variant must give the base's integers.  ``--against`` builds an earlier
 gl64.cu beside them (its entry points of ``AGAINST_FLAT`` reading the flat
 tables: the first core's), times it in the same turns, holds it to the
-base's integers and counts the instructions its first-core row-pass dot
-issues at n = 128, K = 4, as tools/nwc64_variants.py counts its own (its
-first barrier lies inside its loop of terms).  ``--build-only`` and
+base's integers and counts the instructions its first-core row inverse
+issues after its first barrier at n = 128 and 1024, as
+tools/nwc64_variants.py counts its own.  ``--build-only`` and
 ``--only`` as there.  Needs a CUDA device and nvcc; prints the card's name
 and power limit.
 """
@@ -47,7 +48,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from nwc64_variants import (best_ms, build, build_all, chosen, count_against,  # noqa: E402
-                            first_core_threads, parse_args)
+                            inverse_trips, parse_args)
 from tpu_ntt_torch.kernels import _build  # noqa: E402
 from tpu_ntt_torch.kernels.gl64 import GoldilocksSubPlan64  # noqa: E402
 from tpu_ntt_torch.params import GOLDILOCKS_4096, make_params  # noqa: E402
@@ -71,6 +72,10 @@ DOT_BOUNDS = ("__launch_bounds__(block_threads(kLogN, false), dot_blocks(kLogN, 
 DOT_AT_512 = DOT_BOUNDS.replace("dot_blocks(kLogN, kScaled)",
                                 "block_threads(kLogN, false) > 256 ? 1 : "
                                 "512 / block_threads(kLogN, false)")
+INVERSE_BOUNDS = ("                                  block_threads(kLogN, false) > 256\n"
+                  "                                      ? 1\n"
+                  "                                      : 512 / block_threads(kLogN, false))\n"
+                  "    inverse_scaled_kernel(")
 DOT_ROW_BLOCKS = "  return !scaled ? 1024 / threads : threads > 256 ? 1 : 512 / threads;"
 DOT_B = "        spectrum[r * kThreads] = x[r];"
 DOT_SLOT_B = "kCached ? y[r] : spectrum[r * kThreads]"
@@ -178,16 +183,23 @@ VARIANTS = {
     "row-pass dot at 1024 threads an SM": (
         "gl64_dot_scaled's launch bounds at 1024 threads an SM (64 registers), the flat dot's, "
         "not 512", [(DOT_ROW_BLOCKS, "  return 1024 / threads;")], True),
+    # the row inverse's threads an SM
+    "row inverse at 1024 threads an SM": (
+        "gl64_inverse_scaled at the transforms' 1024 threads an SM (64 registers), not 512",
+        [(INVERSE_BOUNDS, "                                  1024 / block_threads(kLogN, false))\n"
+                          "    inverse_scaled_kernel(")], True),
 }
 #: the entry points an --against source runs on the first core's flat tables
-AGAINST_FLAT = ("dot_scaled",)
+AGAINST_FLAT = ("inverse_scaled",)
 KERNELS = ("transform_kernelILi12ELb0ELb0EE", "cyclic_scaled_kernelILi12ELb0ELb0EE",
            "cyclic_scaled_kernelILi12ELb1ELb0EE", "cyclic_scaled_kernelILi7ELb0ELb1EE",
            "cyclic_scaled_kernelILi10ELb0ELb1EE", "forward_scaled_kernelILi7EE",
            "forward_scaled_kernelILi10EE", "dot_kernelILi12ELb0ELb0EE",
            "dot_kernelILi12ELb1ELb0EE", "dot_kernelILi13ELb0ELb0EE", "dot_kernelILi7ELb0ELb1EE",
-           "dot_kernelILi7ELb1ELb1EE")
-FUSED = ("cyclic_scaled_kernelILi", "forward_scaled_kernelILi", "dot_kernelILi")
+           "dot_kernelILi7ELb1ELb1EE", "inverse_scaled_kernelILi7EE",
+           "inverse_scaled_kernelILi10EE")
+FUSED = ("cyclic_scaled_kernelILi", "forward_scaled_kernelILi", "dot_kernelILi",
+         "inverse_scaled_kernelILi")
 PTR, I32, U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "inverse": [PTR] * 3 + [I32] * 2 + [U64, PTR],
@@ -196,21 +208,11 @@ ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "product": [PTR] * 5 + [I32] * 2 + [U64, PTR],
             "cached": [PTR] * 5 + [I32] * 2 + [U64, PTR],
             "forward_scaled": [PTR] * 4 + [I32] * 3 + [U64, PTR],
+            "inverse_scaled": [PTR] * 4 + [I32] * 3 + [U64, PTR],
             "cyclic_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
             "cached_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
             "dot": [PTR] * 5 + [I32] * 3 + [U64, I32, PTR],
             "dot_scaled": [PTR] * 7 + [I32] * 4 + [U64, I32, PTR]}
-
-
-def first_core_dot_trips(log_n: int, terms: int = 4) -> tuple:
-    """The loop trips of the first core's fresh dot after its first barrier,
-    in the address order of its loops' branches: the forward's butterfly
-    and stage loops, the slot loop, the loop of terms around them, the
-    scale loop, the inverse's butterfly and stage loops, the store loop (the
-    loads of each term before its barrier are not counted)."""
-    n, threads = 1 << log_n, first_core_threads(log_n)
-    return (n // 2 // threads, log_n, n // threads, terms, n // threads, n // 2 // threads,
-            log_n, n // threads)
 
 
 def residues(shape, rng) -> torch.Tensor:
@@ -238,7 +240,7 @@ def main() -> int:
             libs["against"] = build(opts.against.read_text(), path, "gl64", ARGTYPES,
                                     KERNELS[:1], FUSED)
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {"dot_scaled_kernel": {7: first_core_dot_trips(7)}})
+            count_against(path, {"inverse_scaled_kernel": {l: inverse_trips(l) for l in (7, 10)}})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -314,6 +316,13 @@ def main() -> int:
             cases.append((f"gl64_forward_scaled {batch * n1} rows of {n2}, period {n1}",
                           "forward_scaled", fout, call[0],
                           (a, pre, flat, row._transform_table(flat[0]), call[1])))
+            iout = torch.empty_like(a)  # the row inverse of a, taken as spectra, at n^-1
+            call = [(a.data_ptr(), iout.data_ptr(), itw.data_ptr(), post.data_ptr(), n1,
+                     batch * n1, row.p.log_n, *row._scale_cached, stream)
+                    for itw in (row._transform_table(flat[1])[0], flat[1])]
+            cases.append((f"gl64_inverse_scaled {batch * n1} rows of {n2}, period {n1}",
+                          "inverse_scaled", iout, call[0],
+                          (a, post, flat, row._transform_table(flat[1]), call[1])))
         # the dot's row pass at K = 4: goldilocks_32768's 16384 rows of 128 at
         # period 256, and 4096 rows of 1024 at period 1024, fresh and cached
         for n1, n2, rows in ((256, 128, 16384), (1024, 1024, 4096)):

@@ -16,16 +16,17 @@ four-step's fused row passes ``nwc64_cyclic_scaled`` and
 p60_1048576's (4096 of 1024, period 1024), ``nwc64_dot_scaled`` at
 K = 4 on 16384 rows of 128, fresh and cached, the row forward
 ``nwc64_forward_scaled`` and the row inverse ``nwc64_inverse_scaled`` at
-the same two row shapes and the flat dot
-``nwc64_dot`` at P60_4096, K = 4, B = 512, fresh and cached, run under
-every variant in turns, each timed by CUDA events: the best of three runs
+the same two row shapes, the flat dot ``nwc64_dot`` at P60_4096, K = 4,
+B = 512, fresh and cached, and the matvec's accumulate-and-inverse
+``nwc64_matvec`` at P60_4096, 4 x 4, B = 256, run under every variant in
+turns, each timed by CUDA events: the best of three runs
 of 50 launches, over two rounds.  A variant marked wrong computes other
 integers: its time says what the work it drops costs, nothing else; every
 other variant must give the base's integers.  ``--against`` builds an
 earlier nwc64.cu beside them (whose entry points of ``AGAINST_FLAT`` read
 the flat tables: the first core's), times it in the same turns, holds it
-to the base's integers, and counts the instructions its first-core row
-inverse issues (cuobjdump, chip_smoke.py's count).  ``--build-only`` stops after the builds' reports
+to the base's integers, and counts the instructions its first-core
+matvec issues after its first barrier (cuobjdump, chip_smoke.py's count).  ``--build-only`` stops after the builds' reports
 of registers and spills; ``--only`` builds the named variants and the
 base.  Needs a CUDA device and nvcc; prints the card's name and power
 limit.
@@ -120,13 +121,20 @@ def kept_pre_forward(v: str, src: str, t: str, g: str, tw: str) -> str:
 
 ROW_B_STORE = "    }\n    store<kLogN, false, kLast>(y, out, at, 1, t, live);"
 ROW_B_LOAD = "  } else {\n    load<kLogN, false, kLast>(y, out, at, 1, ta, live);"
-ROW_SLOT = "    x[r] = shoup_lazy(slot<kCached>(x[r], y[r], q, q_prime), scale, scale_shoup, q);"
-DOT_SCALE = ("    x[r] = shoup_lazy(x[r], scale, scale_shoup, q);\n  }\n"
-             "  scaled_inverse<kLogN>(x, out, at, post, srow, smem, opaque_table(itw), gi, ti, live, q);")
-ROW_INVERSE = "kTight ? opaque_table(itw) : itw, gi, ti,\n                        live, q);"
-INVERSE_PARAMS = "Table itw, int g, int t, bool live, uint64_t q) {"
-INVERSE_POST = ("  inverse_passes<kLogN, false, kLast - 1>(x, smem, itw.w, itw.w_shoup, g, t, q);\n"
-                "  times_row<kLogN, tight(kLogN) ? 2 : 1>(x, post, srow, t, q);")
+MATVEC_BLOCKS = ("__host__ __device__ constexpr int matvec_blocks(int log_n) {\n"
+                 "  return 1024 / block_threads(log_n, false);")
+MATVEC_ORDER = "  const int r = live ? o / rows : 0, i = live ? o % rows : 0;  // batch row, row of A"
+MATVEC_OPAQUE = "  constexpr bool kOpaque = opaque_passes(kLogN);"
+MATVEC_STEP = "    const int tj = opaque_passes(kLogN) ? opaque(t) : t;  // the step's words 8t ... 8t + 7"
+MATVEC_ZERO = ("  uint64_t* const sum = smem + kTile * kN + threadIdx.x;  // word w at sum[w * kThreads]\n"
+               "#pragma unroll\n  for (int w = 0; w < kWords; ++w) {\n    sum[w * kThreads] = 0;\n"
+               "  }\n")
+MATVEC_ADD = ("      sum[w * kThreads] = csub(sum[w * kThreads] + mont_lazy(s[w], a[w], q, q_prime), "
+              "2 * q);")
+MATVEC_SCALE = ("  uint64_t x[kWords];\n#pragma unroll\n  for (int w = 0; w < kWords; ++w) {  "
+                "// [0, 2q) -> [0, 2q)\n    x[w] = shoup_lazy(sum[w * kThreads], scale, scale_shoup, "
+                "q);")
+MATVEC_LAUNCH = "    return launch_rows<L>(matvec_kernel<L>, 2, rows * batch,"
 #: name -> (what it changes, [(line, replacement)], computes the right integers)
 VARIANTS = {
     "base": ("the source as it is", [], True),
@@ -189,24 +197,6 @@ VARIANTS = {
          (ROW_A_FORWARD, "  if constexpr (kCached) {\n" + ROW_A_FORWARD + "\n  } else {\n"
           + "    const Table ta_tw = kTight ? opaque_table(tw) : tw;\n"
           + kept_pre_forward("x", "a", "ta", "ga", "ta_tw") + "\n  }")], True),
-    "scale at the store": (
-        "the row passes' n^-1 (2^64) at the store below n = 8192, not at the slot (the dot's "
-        "on the sum)", [
-            (ROW_SLOT, "    x[r] = slot<kCached>(x[r], y[r], q, q_prime);\n"
-                       "    x[r] = kTight ? shoup_lazy(x[r], scale, scale_shoup, q) : x[r];"),
-            (DOT_SCALE, DOT_SCALE.replace("shoup_lazy(x[r], scale, scale_shoup, q)",
-                                          "tight(kLogN) ? shoup_lazy(x[r], scale, scale_shoup, q)"
-                                          " : x[r]")
-             .replace("live, q);", "live, q, scale,\n                        scale_shoup);")),
-            (ROW_INVERSE, ROW_INVERSE.replace("live, q);", "live, q, scale, scale_shoup);")),
-            (INVERSE_PARAMS, INVERSE_PARAMS.replace(") {", ",\n    uint64_t scale, "
-                                                          "uint64_t scale_shoup) {")),
-            (INVERSE_POST, INVERSE_POST.replace(
-                "\n", "\n  if constexpr (!tight(kLogN)) {\n"
-                "#pragma unroll\n"
-                "    for (int r = 0; r < kWords; ++r) {\n"
-                "      x[r] = shoup_lazy(x[r], scale, scale_shoup, q);\n"
-                "    }\n  }\n"))], True),
     "tight row passes at every n": (
         "the row passes' 64-register schedule (scales in halves, opaque phases and tables) "
         "at every n, at 512 threads an SM",
@@ -239,6 +229,31 @@ VARIANTS = {
         "fused row passes' 512",
         [(INVERSE_BOUNDS, INVERSE_BOUNDS.replace("scaled_blocks(kLogN)",
                                                  "1024 / block_threads(kLogN, false)"))], True),
+    # the matvec: its threads an SM and the order of its output rows
+    "matvec at 512 threads an SM": (
+        "nwc64_matvec at the row passes' 512 threads an SM (up to 128 registers), not the "
+        "transforms' 1024 (64)",
+        [(MATVEC_BLOCKS, MATVEC_BLOCKS.replace("1024 / block_threads(log_n, false)",
+                                               "scaled_blocks(log_n)"))], True),
+    "matvec opaque at every n": (
+        "nwc64_matvec's steps and inverse take their thread indices and table anew (opaque) "
+        "at every n, not at n = 8192 alone",
+        [(MATVEC_STEP, "    const int tj = opaque(t);"),
+         (MATVEC_OPAQUE, "  constexpr bool kOpaque = true;")], True),
+    "matvec sum in registers": (
+        "nwc64_matvec's sum in eight registers a thread, not in a shared tile private to "
+        "each thread (one tile a block)",
+        [(MATVEC_ZERO, "  uint64_t x[kWords];\n#pragma unroll\n  for (int w = 0; w < kWords; ++w) {\n"
+                       "    x[w] = 0;\n  }\n"),
+         (MATVEC_ADD, "      x[w] = csub(x[w] + mont_lazy(s[w], a[w], q, q_prime), 2 * q);"),
+         (MATVEC_SCALE, "#pragma unroll\n  for (int w = 0; w < kWords; ++w) {\n"
+                        "    x[w] = shoup_lazy(x[w], scale, scale_shoup, q);"),
+         (MATVEC_LAUNCH, MATVEC_LAUNCH.replace(", 2, ", ", 1, "))], True),
+    "matvec batch row fastest": (
+        "nwc64_matvec's output rows in the first core's order, the batch row fastest (the k "
+        "rows that read one row of S B rows apart), not the k rows of a batch row adjacent",
+        [(MATVEC_ORDER, "  const int r = live ? o % batch : 0, i = live ? o / batch : 0;")],
+        True),
     "dot sum in registers": (
         "where not tight the dots' sum in eight registers a thread across the loop, not in "
         "a tile of shared memory", [
@@ -257,7 +272,7 @@ VARIANTS = {
         True),
 }
 #: the entry points an --against source runs on the first core's flat tables
-AGAINST_FLAT = ("inverse_scaled",)
+AGAINST_FLAT = ("matvec",)
 ENTRIES = {"forward": 2, "inverse": 2, "forward_cols": 3, "inverse_cols": 3}  # int arguments
 PRODUCT_TYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_uint64] * 4 + [
     ctypes.c_void_p]
@@ -269,14 +284,16 @@ FLAT_DOT_TYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_uint64] 
     ctypes.c_int, ctypes.c_void_p]
 FORWARD_SCALED_TYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_uint64] * 3 + [
     ctypes.c_void_p]  # nwc64_inverse_scaled's too
+MATVEC_TYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_uint64] * 4 + [
+    ctypes.c_void_p]
 #: the instantiations whose registers and spills each build reports, and the
 #: fused kernels (mangled prefixes) whose every instantiation it scans for spills
 SUMMARY = ("transform_kernelILi12ELb0ELb0EE", "product_kernelILi12ELb0EE",
            "cyclic_scaled_kernelILi7ELb0EE", "dot_scaled_kernelILi7ELb0ELb1EE",
            "forward_scaled_kernelILi7EE", "dot_scaled_kernelILi12ELb0ELb0EE",
-           "inverse_scaled_kernelILi7EE")
+           "inverse_scaled_kernelILi7EE", "matvec_kernelILi12EE")
 FUSED = ("product_kernelILi", "cyclic_scaled_kernelILi", "dot_scaled_kernelILi",
-         "forward_scaled_kernelILi", "inverse_scaled_kernelILi")
+         "forward_scaled_kernelILi", "inverse_scaled_kernelILi", "matvec_kernelILi")
 
 
 def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None, kernels=SUMMARY,
@@ -321,7 +338,7 @@ def build(source: str, out: Path, prefix: str = "nwc64", argtypes=None, kernels=
         argtypes.update(product=PRODUCT_TYPES, cached=PRODUCT_TYPES, cyclic_scaled=SCALED_TYPES,
                         cached_scaled=SCALED_TYPES, dot_scaled=DOT_TYPES, dot=FLAT_DOT_TYPES,
                         forward_scaled=FORWARD_SCALED_TYPES,
-                        inverse_scaled=FORWARD_SCALED_TYPES)
+                        inverse_scaled=FORWARD_SCALED_TYPES, matvec=MATVEC_TYPES)
     for entry, types in argtypes.items():
         fn = getattr(lib, f"{prefix}_{entry}")
         fn.argtypes = types
@@ -379,8 +396,8 @@ def first_core_trips(log_n: int) -> tuple:
 
 
 def inverse_trips(log_n: int) -> tuple:
-    """The same for the first core's row inverse: its butterfly and stage
-    loops, then its store loop."""
+    """The same for the first core's row inverse, and for its matvec after
+    its accumulation: its butterfly and stage loops, then its store loop."""
     n, threads = 1 << log_n, first_core_threads(log_n)
     return (n // 2 // threads, log_n, n // threads)
 
@@ -443,7 +460,7 @@ def main() -> int:
             libs["against"] = build(opts.against.read_text(), path,
                                     kernels=("transform_kernelILi12ELb0ELb0EE",))
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {"inverse_scaled_kernel": {l: inverse_trips(l) for l in (7, 10)}})
+            count_against(path, {"matvec_kernel": {12: inverse_trips(12)}})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -544,6 +561,18 @@ def main() -> int:
             cases.append(("nwc64_dot P60_4096 K=4 B=512" + (" cached" if cached else ""), "dot",
                           out, call[0],
                           (a4, z, merged, [plan._transform_table(t) for t in merged], call[1])))
+        # the matvec's accumulate-and-inverse at P60_4096, 4 x 4, B = 256, on
+        # the plain spectra of s (the wrapper's forward) and A's cached ones
+        s4 = residues(plan, (4, 256, 4096))
+        fs4 = plan.nwc_ntt_fwd_plain(s4.reshape(-1, 4096)).reshape(s4.shape)
+        mat4 = plan.nwc_matvec_spectra_plain(residues(plan, (4, 4, 4096)))
+        mout = torch.empty((4, 256, 4096), dtype=torch.int64, device=device)
+        inv = plan.plan.merged_inv_flat  # what --against reads
+        call = [(fs4.data_ptr(), mat4.data_ptr(), mout.data_ptr(), *(w.data_ptr() for w in t), 4,
+                 4, 256, plan.p.log_n, *plan._q_args(True), *plan._scale_cached, stream)
+                for t in (plan._transform_table(inv), inv)]
+        cases.append(("nwc64_matvec P60_4096 4x4 B=256", "matvec", mout, call[0],
+                      (fs4, mat4, inv, plan._transform_table(inv), call[1])))
         times, want = {}, {}
         for _ in range(2):
             for label, entry, out, call, keep in cases:

@@ -415,7 +415,8 @@ class KernelPlan:
         (k, l), batch = spectra.shape[:2], fs.shape[1]
         out = fs.new_empty((k, batch, self.p.n))
         return self._launch(
-            "matvec", out, fs, spectra, out, *_table(self.plan.merged_inv_flat),
+            "matvec", out, fs, spectra, out,
+            *self._table_of("matvec", self.plan.merged_inv_flat),
             k, l, batch, self.p.log_n, *self._q_args(True), *self._scale_cached)
 
     def _dot(self, a, b, cached: bool):

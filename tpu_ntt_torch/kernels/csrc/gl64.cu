@@ -47,19 +47,19 @@
 // over.  32 <= n <= 8192 (the public window is 256 <= n <= 8192; below
 // it, the four-step's sub-sizes).
 //
-// Two cores, as in nwc64.cu.  Eleven entry points run the radix-8 core
+// Two cores, as in nwc64.cu.  Twelve entry points run the radix-8 core
 // ("The radix-8 core" below): gl64_forward, gl64_inverse and their column
 // entry points; the row forward gl64_forward_scaled, the entry scale and
-// one forward on it; and, fused onto it ("The products fused on the
+// one forward on it, and the row inverse gl64_inverse_scaled, one inverse
+// and the exit scale; and, fused onto it ("The products fused on the
 // radix-8 core"), both forwards, the slot product and the inverse in one
 // kernel a launch: K2's flat product gl64_product and gl64_cached, and the
 // four-step's row pass gl64_cyclic_scaled and gl64_cached_scaled, with the
 // entry and exit scales; and the dots ("The dot fused on the radix-8
 // core"), a forward a loop step and one inverse: K2's flat gl64_dot and,
 // with the scales, the four-step's row pass gl64_dot_scaled.  The other
-// three (gl64_matvec, gl64_inverse_scaled, gl64_matvec_scaled) run the
-// first core's inverse, correct first and simple, until they move onto the
-// radix-8 one.
+// two (gl64_matvec, gl64_matvec_scaled) run the first core's inverse,
+// correct first and simple, until they move onto the radix-8 one.
 // The network code of both is a copy of nwc64.cu's rather than a header
 // shared by both, so nwc64.cu is not changed and its functions and times
 // stay as they were; the arithmetic differs.  The first core:
@@ -80,7 +80,7 @@
 //   cannot): gl_add takes the carry as 2^64 = q + (2^32 - 1).
 // * Every value stays canonical in [0, q), also through the matvec's
 //   accumulation.
-// * The four-step's first-core row kernels are the first core's inverse and
+// * The four-step's first-core row kernel gl64_matvec_scaled is
 //   matvec_kernel with one gl_mul more, by a table row, at exit.  Row r of
 //   a launch reads row r % period of a (period, n) table of plain values
 //   (no Shoup companion, as for the twiddles): a batch of B polynomials of
@@ -277,28 +277,6 @@ __global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
   inverse(x, log_n, itw);
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     out[(i * batch + r) * n + e] = x[e];
-  }
-}
-
-// The second half of the four-step's row pass (gl64_forward_scaled, on the
-// radix-8 core, is the first): the inverse, times `scale` (n^-1), times
-// post[r % period].
-__global__ void inverse_scaled_kernel(const uint64_t* __restrict__ in,
-                                      uint64_t* __restrict__ out,
-                                      const uint64_t* __restrict__ itw,
-                                      const uint64_t* __restrict__ post,
-                                      int period, int log_n, uint64_t scale) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  const size_t srow = static_cast<size_t>(blockIdx.x % period) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = in[row + i];
-  }
-  __syncthreads();
-  inverse(x, log_n, itw);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = gl_mul(gl_mul(x[i], scale), __ldg(post + srow + i));
   }
 }
 
@@ -741,6 +719,50 @@ __global__ void __launch_bounds__(block_threads(kLogN, false),
   store<kLogN, false, passes(kLogN) - 1>(x, out, at, 1, t, live);
 }
 
+// The four-step's row inverse on the radix-8 core (gl64_inverse_scaled):
+// out = post . INTT(in) * scale on `rows` bit-reversed spectra, row r scaled
+// by row r % period of the (period, n) table post of plain values;
+// nwc64.cu's row inverse on this file's arithmetic.  The spectrum's words
+// 8t ... 8t + 7 (the inverse's first pass; 16-byte vectors), one mul_lazy
+// by `scale` (n^-1: any words), the inverse's passes, post's mul_lazy at
+// the store's positions (its table words from L2) and the one compare, as
+// the fused row pass's tail.  Rows tile a block as in the transforms, at
+// 512 threads an SM: ptxas gives a thread 64 registers either way, and 512
+// ran 1.3 % faster than the transforms' 1024 at both row shapes
+// (tools/gl64_variants.py, PERF.md).
+template <int kLogN>
+__global__ void __launch_bounds__(block_threads(kLogN, false),
+                                  block_threads(kLogN, false) > 256
+                                      ? 1
+                                      : 512 / block_threads(kLogN, false))
+    inverse_scaled_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                          const uint64_t* __restrict__ itw, const uint64_t* __restrict__ post,
+                          int period, int rows, uint64_t scale) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  constexpr int kLast = passes(kLogN) - 1;
+  constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  const size_t srow = live ? static_cast<size_t>(row % period) * kN : 0;
+  uint64_t x[kWords];
+  load<kLogN, false, kLast>(x, in, at, 1, t, live);  // words 8t ... 8t + 7, [0, q)
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // any words
+    x[r] = mul_lazy(x[r], scale);
+  }
+  run_pass<kS, 3, true>(x, itw + kOff, group<kLogN, kS>(t));
+  inverse_passes<kLogN, false, kLast - 1>(x, smem, itw, g, t);
+  times_row<kLogN, 0>(x, post, srow, t);  // the store's positions
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // any word -> [0, q)
+    x[r] = canonical(x[r]);
+  }
+  store<kLogN, false, 0>(x, out, at, 1, t, live);
+}
+
 // The products fused on the radix-8 core, one kernel a launch; device
 // memory sees each operand and the result once.  nwc64.cu's fused product
 // on this file's arithmetic: the forward of b, the forward of a, the slot
@@ -1072,19 +1094,44 @@ int launch_core(const void* in, void* out, const void* tw, int batch, int log_n,
   return cudaErrorInvalidValue;
 }
 
-template <int kLogN>
-int launch_forward_scaled(const void* in, void* out, const void* tw, const void* pre,
-                          int period, int batch, uint64_t scale, cudaStream_t stream) {
+// A row transform (the row forward, or with kInverse the row inverse) of
+// log n = kLogN on `batch` rows, tile(kLogN) rows a block.
+template <int kLogN, bool kInverse>
+int launch_row(const void* in, void* out, const void* tw, const void* table, int period,
+               int batch, uint64_t scale, cudaStream_t stream) {
   constexpr int kTile = tile(kLogN, false);
-  auto kernel = forward_scaled_kernel<kLogN>;
+  auto kernel = kInverse ? inverse_scaled_kernel<kLogN> : forward_scaled_kernel<kLogN>;
   const cudaError_t err = allow_smem(kernel, kTile << kLogN);
   if (err != cudaSuccess) {
     return err;
   }
   kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN, false),
            (kTile << kLogN) * sizeof(uint64_t), stream>>>(
-      words(in), static_cast<uint64_t*>(out), words(tw), words(pre), period, batch, scale);
+      words(in), static_cast<uint64_t*>(out), words(tw), words(table), period, batch, scale);
   return cudaGetLastError();
+}
+
+// The row transforms' entry: log n from 5 to 13, whole periods, every
+// pointer 16-byte aligned.
+template <bool kInverse>
+int launch_rows(const void* in, void* out, const void* tw, const void* table, int period,
+                int batch, int log_n, uint64_t scale, void* stream) {
+  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
+    return cudaErrorInvalidValue;
+  }
+  if (misaligned(in, out, tw, table)) {
+    return cudaErrorMisalignedAddress;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define GL64_LOG_N(L)                                                                    \
+  case L:                                                                                \
+    return launch_row<L, kInverse>(in, out, tw, table, period, batch, scale, s);
+    GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
+    GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
+#undef GL64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <int kLogN, bool kCached, bool kScaled>
@@ -1289,40 +1336,16 @@ extern "C" int gl64_cached_scaled(const void* a, const void* spectrum,
 extern "C" int gl64_forward_scaled(const void* in, void* out, const void* tw,
                                    const void* pre, int period, int batch,
                                    int log_n, uint64_t scale, void* stream) {
-  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
-    return cudaErrorInvalidValue;
-  }
-  if (misaligned(in, out, tw, pre)) {
-    return cudaErrorMisalignedAddress;
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (log_n) {
-#define GL64_LOG_N(L)                                                                    \
-  case L:                                                                                \
-    return launch_forward_scaled<L>(in, out, tw, pre, period, batch, scale, s);
-    GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
-    GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
-#undef GL64_LOG_N
-  }
-  return cudaErrorInvalidValue;
+  return launch_rows<false>(in, out, tw, pre, period, batch, log_n, scale, stream);
 }
 
+// The row inverse on the radix-8 core: post . INTT(in) * scale (n^-1) for
+// bit-reversed spectra, post as for gl64_cyclic_scaled, the table that of
+// mxu64.pass_table.
 extern "C" int gl64_inverse_scaled(const void* in, void* out, const void* itw,
                                    const void* post, int period, int batch,
                                    int log_n, uint64_t scale, void* stream) {
-  if (bad_shape(batch, log_n) || period < 1 || batch % period) {
-    return cudaErrorInvalidValue;
-  }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(inverse_scaled_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  inverse_scaled_kernel<<<batch, threads_for(log_n), n * sizeof(uint64_t),
-                          static_cast<cudaStream_t>(stream)>>>(
-      words(in), static_cast<uint64_t*>(out), words(itw), words(post), period,
-      log_n, scale);
-  return cudaGetLastError();
+  return launch_rows<true>(in, out, itw, post, period, batch, log_n, scale, stream);
 }
 
 // The dot's row pass: (terms, batch, n) stacks a and b (b cached spectra

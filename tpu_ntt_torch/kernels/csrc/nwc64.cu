@@ -49,19 +49,21 @@
 // carried over.  Correct for any odd q < 2^62 and 32 <= n <= 8192 (the
 // public window is 256 <= n <= 8192; below it, the four-step's sub-sizes).
 //
-// Two cores.  Twelve entry points run the radix-8 core below ("The radix-8
-// core"): nwc64_forward, nwc64_inverse and their column entry points, and,
-// fused onto it ("The product on the radix-8 core"), nwc64_product and
-// nwc64_cached, both forwards, the slot product and the inverse in one
-// kernel a launch, the four-step's row passes nwc64_cyclic_scaled,
-// nwc64_cached_scaled and nwc64_dot_scaled ("The four-step's row passes
-// fused"), the same with the scales at entry and exit and, for the dot, a
-// sum of terms before the one inverse, and on the same two kernels' code
-// the row forward nwc64_forward_scaled, the row inverse nwc64_inverse_scaled
-// and the flat dot nwc64_dot (the dot without scales, on the negacyclic
-// tables).  The other two (nwc64_matvec and nwc64_matvec_scaled) run the
+// Two cores.  Thirteen entry points run the radix-8 core below ("The
+// radix-8 core"): nwc64_forward, nwc64_inverse and their column entry
+// points, and, fused onto it ("The product on the radix-8 core"),
+// nwc64_product and nwc64_cached, both forwards, the slot product and the
+// inverse in one kernel a launch, the four-step's row passes
+// nwc64_cyclic_scaled, nwc64_cached_scaled and nwc64_dot_scaled ("The
+// four-step's row passes fused"), the same with the scales at entry and
+// exit and, for the dot, a sum of terms before the one inverse, and on the
+// same two kernels' code the row forward nwc64_forward_scaled, the row
+// inverse nwc64_inverse_scaled, the flat dot nwc64_dot (the dot without
+// scales, on the negacyclic tables) and the matvec's accumulate-and-inverse
+// nwc64_matvec (the row inverse with an l-term sum of slot products in
+// place of its one load).  The other one, nwc64_matvec_scaled, runs the
 // first core, correct first and simple (the design of nwc32.cu on 64-bit
-// words), until they move onto the radix-8 one:
+// words), until it moves onto the radix-8 one:
 // * One thread block per output row, the row in dynamic shared memory, 8n
 //   bytes, so device memory sees each operand and each result once.  n / 8
 //   threads (at most 1024) run four butterflies each up to n = 8192 (below
@@ -77,20 +79,19 @@
 //   already).  Montgomery serves every odd q < 2^62 in three wide
 //   multiplies; the TPU's Solinas fold exists only because Mosaic has no
 //   64-bit multiply.
-// * Every value stays canonical in [0, q), also through the matvec's
-//   accumulation (one conditional subtract after each add: two residues
-//   below q < 2^62 sum below 2^63).
-// * The matvec keeps the l + k transforms of mxu64.py:1639 without holding A
-//   in shared memory (k * l * n * 8 bytes, 512 KiB at 4 x 4, n = 4096): the
-//   wrapper transforms the l * B rows of s with nwc64_forward into a scratch
-//   tensor, and nwc64_matvec accumulates sum_j REDC(S_j * A_ij) from device
-//   memory (A stays in L2) and runs one inverse per output row.
-// * The four-step's row pass of the matvec (nwc64_matvec_scaled) is
-//   matvec_kernel with one Shoup multiply more, by a table row, at exit.
-//   Row r of a launch reads row r % period of the (period, n) tables (w,
-//   w'): a batch of B polynomials of n1 rows each passes period = n1, every
-//   row of a polynomial in one launch.  The exit product leaves canonical
-//   words, as strict Shoup does for q < 2^62.
+// * Every value stays canonical in [0, q), also through the accumulation
+//   (one conditional subtract after each add: two residues below q < 2^62
+//   sum below 2^63).
+// * The matvec's row pass keeps the l + k transforms of mxu64.py:1639
+//   without holding A in shared memory (k * l * n * 8 bytes): the
+//   four-step's wrapper transforms the rows of s with nwc64_forward_scaled,
+//   and nwc64_matvec_scaled accumulates sum_j REDC(S_j * A_ij) from device
+//   memory (A stays in L2), runs one inverse per output row and one Shoup
+//   multiply more, by a table row, at exit.  Row r of a launch reads row
+//   r % period of the (period, n) tables (w, w'): a batch of B polynomials
+//   of n1 rows each passes period = n1, every row of a polynomial in one
+//   launch.  The exit product leaves canonical words, as strict Shoup does
+//   for q < 2^62.
 //
 // What bounds the first core on this card.  Not the 64-bit multiplies it was
 // first thought to be: Hopper builds a 64 x 64 product from 32-bit IMADs,
@@ -1010,37 +1011,85 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), dot_blocks(kLogN,
                                  q);
 }
 
-// out[i, r] = INTT(sum_j S[j, r] . A[i, j]) for block (r, i): S is the
-// (cols, batch, n) stack of plain spectra of s, A the (rows, cols, n) cached
-// spectra (times 2^64), so each REDC gives the plain product.
-__global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
-                              const uint64_t* __restrict__ mat,
-                              uint64_t* __restrict__ out, Table itw, int cols,
-                              int batch, int log_n, uint64_t q, uint64_t q_prime,
-                              uint64_t scale, uint64_t scale_shoup) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t r = blockIdx.x, i = blockIdx.y;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    uint64_t acc = 0;
-    for (int j = 0; j < cols; ++j) {
-      const uint64_t s = spectra[(j * batch + r) * n + e];
-      const uint64_t m = __ldg(mat + (i * cols + j) * n + e);
-      acc = add_mod(acc, mont_mul(s, m, q, q_prime), q);
-    }
-    x[e] = shoup_mul(acc, scale, scale_shoup, q);
-  }
-  __syncthreads();
-  inverse(x, log_n, itw, q);
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    out[(i * batch + r) * n + e] = x[e];
-  }
+// The matvec's accumulate-and-inverse on the radix-8 core (nwc64_matvec,
+// K1c): out[i, r] = INTT(sum_j S[j, r] o A[i, j]) * scale for the (cols,
+// batch, n) plain spectra S of s (the wrapper's nwc64_forward) and the
+// (rows, cols, n) cached spectra A (times 2^64, so each REDC gives the
+// plain product), on the per-pass tables of mxu64.pass_table.  Thread t of
+// output row (i, r) loads, for each j, words 8t ... 8t + 7 of S[j, r] and
+// of A[i, j] as 16-byte vectors: both are canonical bit-reversed spectra,
+// and those are the words the inverse's first pass starts from, so no
+// exchange comes before it.  Their slot product mont_lazy is in [0, 2q)
+// (s a < q^2 < q 2^64), added into a sum kept below 2q by one compare a
+// term, as the dot's; then `scale` one lazy Shoup product and
+// scaled_inverse without post: the passes, one compare, the natural-order
+// store.  The k output rows of one batch row r are adjacent (output row o
+// = r * rows + i, rows tiling a block as in the transforms), so the words
+// of S a block reads come from device memory once and from L2 k - 1
+// times; A (k l n words, 512 KiB at 4 x 4, n = 4096) stays in L2.
+// Registers: at the transforms' 1024 threads an SM a thread has 64, which
+// the sum and a term's two operands (48) nearly fill: the sum waits in a
+// tile of shared memory private to each thread (word w of thread i at
+// w * threads + i: a warp's accesses 256 contiguous bytes), and at
+// n = 8192 (opaque_passes) each step takes its thread index anew and the
+// inverse its indices and table (opaque), so that the compiler keeps no
+// address of one phase live into the next.  In registers the sum spilled
+// 8 to 16 bytes at three log n, with or without opaque, and at 512 threads
+// an SM at n = 8192, which also ran 11 % slower; the tile without opaque
+// spilled 8 bytes at n = 8192 alone, and opaque at every n cost 1.3 % at
+// n = 4096 (tools/nwc64_variants.py, PERF.md).
+__host__ __device__ constexpr int matvec_blocks(int log_n) {
+  return 1024 / block_threads(log_n, false);
 }
 
-// The four-step's row pass of the matvec: matvec_kernel on the rows of the
-// spectra of s (their row forward done by nwc64_forward_scaled) against A's
-// cached spectra, (rows, cols, period, n), row r reading A's row r % period;
-// the exit scale post[r % period] after the inverse.
+template <int kLogN>
+__global__ void __launch_bounds__(block_threads(kLogN, false), matvec_blocks(kLogN))
+    matvec_kernel(const uint64_t* __restrict__ spectra, const uint64_t* __restrict__ mat,
+                  uint64_t* __restrict__ out, Table itw, int rows, int cols, int batch,
+                  uint64_t q, uint64_t q_prime, uint64_t scale, uint64_t scale_shoup) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  constexpr int kThreads = block_threads(kLogN, false), kLast = passes(kLogN) - 1;
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int o = blockIdx.x * kTile + g;
+  const bool live = o < rows * batch;
+  const int r = live ? o / rows : 0, i = live ? o % rows : 0;  // batch row, row of A
+  uint64_t* const sum = smem + kTile * kN + threadIdx.x;  // word w at sum[w * kThreads]
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    sum[w * kThreads] = 0;
+  }
+#pragma unroll 1
+  for (int j = 0; j < cols; ++j) {
+    const int tj = opaque_passes(kLogN) ? opaque(t) : t;  // the step's words 8t ... 8t + 7
+    uint64_t s[kWords], a[kWords];
+    load<kLogN, false, kLast>(s, spectra, (static_cast<size_t>(j) * batch + r) * kN, 1, tj,
+                              live);  // [0, q)
+    load<kLogN, false, kLast>(a, mat, (static_cast<size_t>(i) * cols + j) * kN, 1, tj,
+                              live);  // [0, q), times 2^64
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {  // [0, 2q) + [0, 2q) < 4q -> [0, 2q)
+      sum[w * kThreads] = csub(sum[w * kThreads] + mont_lazy(s[w], a[w], q, q_prime), 2 * q);
+    }
+  }
+  uint64_t x[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {  // [0, 2q) -> [0, 2q)
+    x[w] = shoup_lazy(sum[w * kThreads], scale, scale_shoup, q);
+  }
+  constexpr bool kOpaque = opaque_passes(kLogN);
+  const int gv = kOpaque ? opaque(g) : g, tv = kOpaque ? opaque(t) : t;  // the inverse
+  scaled_inverse<kLogN, false>(x, out, (static_cast<size_t>(i) * batch + r) * kN, Table{}, 0,
+                               smem, kOpaque ? opaque_table(itw) : itw, gv, tv, live, q);
+}
+
+// The four-step's row pass of the matvec, on the first core: block (r, i)
+// accumulates sum_j REDC(S[j, r] . A[i, j]) canonically (a mont_mul and an
+// add_mod a term) into its row in shared memory, times `scale`, runs the
+// first core's inverse and the exit scale post[r % period].  S holds the
+// rows of the spectra of s (their row forward done by nwc64_forward_scaled),
+// A the (rows, cols, period, n) rows of A's cached spectra, row r reading
+// A's row r % period.
 __global__ void matvec_scaled_kernel(const uint64_t* __restrict__ spectra,
                                      const uint64_t* __restrict__ mat,
                                      uint64_t* __restrict__ out, Table itw,
@@ -1330,25 +1379,37 @@ extern "C" int nwc64_dot(const void* a, const void* b, void* out,
                                                     stream);
 }
 
+// The matvec's accumulate-and-inverse: the (cols, batch, n) plain spectra
+// of s against the (rows, cols, n) cached spectra of A, 1 <= rows, cols <=
+// 8; (rows, batch, n) out, on the radix-8 core with the inverse tables of
+// mxu64.pass_table; every pointer 16-byte aligned.
 extern "C" int nwc64_matvec(const void* spectra, const void* mat, void* out,
                             const void* itw, const void* itw_shoup, int rows,
                             int cols, int batch, int log_n, uint64_t q,
                             uint64_t q_prime, uint64_t scale,
                             uint64_t scale_shoup, void* stream) {
-  if (bad_shape(batch, log_n) || rows < 1 || rows > 8 || cols < 1 || cols > 8) {
+  if (bad_shape(batch, log_n) || rows < 1 || rows > 8 || cols < 1 || cols > 8 ||
+      batch > 0x7fffffff / rows) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(matvec_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned({spectra, mat, out, itw, itw_shoup})) {
+    return cudaErrorMisalignedAddress;
   }
-  matvec_kernel<<<dim3(batch, rows), threads_for(log_n), n * sizeof(uint64_t),
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(spectra), static_cast<const uint64_t*>(mat),
-      static_cast<uint64_t*>(out), table(itw, itw_shoup), cols, batch, log_n, q,
-      q_prime, scale, scale_shoup);
-  return cudaGetLastError();
+  const uint64_t* ps = static_cast<const uint64_t*>(spectra);
+  const uint64_t* pm = static_cast<const uint64_t*>(mat);
+  uint64_t* po = static_cast<uint64_t*>(out);
+  const Table pitw = table(itw, itw_shoup);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define NWC64_LOG_N(L)                                                                     \
+  case L:                                                                                  \
+    return launch_rows<L>(matvec_kernel<L>, 2, rows * batch, s, ps, pm, po, pitw, rows,    \
+                          cols, batch, q, q_prime, scale, scale_shoup);
+    NWC64_LOG_N(5) NWC64_LOG_N(6) NWC64_LOG_N(7) NWC64_LOG_N(8) NWC64_LOG_N(9)
+    NWC64_LOG_N(10) NWC64_LOG_N(11) NWC64_LOG_N(12) NWC64_LOG_N(13)
+#undef NWC64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The row pass of the four-step: `period` rows of scales pre and post, each

@@ -28,17 +28,17 @@ on every column of natural (R, n, width) rows, with no transposes.
 
 ``gl64_forward`` and ``gl64_inverse`` (and their column entry points) run
 the radix-8 core of ``csrc/gl64.cu``: passes of three stages in registers,
-twiddles in the per-pass layout of ``mxu64.pass_table``; so does the
-four-step's row forward ``gl64_forward_scaled``.  The products fused on
-that core, both forwards, the slot product and the inverse in one kernel,
-are K2's flat product (``gl64_product``, ``gl64_cached``) and the
+twiddles in the per-pass layout of ``mxu64.pass_table``; so do the
+four-step's row forward ``gl64_forward_scaled`` and row inverse
+``gl64_inverse_scaled``.  The products fused on that core, both forwards,
+the slot product and the inverse in one kernel, are K2's flat product (``gl64_product``, ``gl64_cached``) and the
 four-step's row pass (``gl64_cyclic_scaled``, ``gl64_cached_scaled``); the
 dots, K2's flat ``gl64_dot`` and with the scales the four-step's row pass
 ``gl64_dot_scaled``, run a forward a loop step on it, the sum in shared
-memory, and one inverse.  These eleven read the per-pass tables
-(``GoldilocksPlan64.pass_entries``); the other three kernels
-(``gl64_matvec``, ``gl64_inverse_scaled``, ``gl64_matvec_scaled``) run the
-first core on the flat tables.
+memory, and one inverse.  These twelve read the per-pass tables
+(``GoldilocksPlan64.pass_entries``); the other two kernels
+(``gl64_matvec``, ``gl64_matvec_scaled``) run the first core on the flat
+tables.
 """
 
 from __future__ import annotations
@@ -123,7 +123,7 @@ class GoldilocksPlan64(_plan.ScaledKernelPlan):
 
     pass_entries = frozenset({"forward", "inverse", "forward_cols", "inverse_cols",
                               "forward_scaled", "product", "cached", "cyclic_scaled",
-                              "cached_scaled", "dot", "dot_scaled"})
+                              "cached_scaled", "dot", "dot_scaled", "inverse_scaled"})
 
     def _transform_table(self, flat) -> tuple:
         """The per-pass layout of the flat table w for the radix-8 core's

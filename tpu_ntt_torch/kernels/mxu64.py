@@ -35,10 +35,11 @@ the slot product and the inverse fused on that core, the four-step's row
 passes ``nwc64_cyclic_scaled``, ``nwc64_cached_scaled`` and
 ``nwc64_dot_scaled`` the same between their scale tables, its row forward
 ``nwc64_forward_scaled`` the entry scale and one forward, its row inverse
-``nwc64_inverse_scaled`` one inverse and the exit scale, and the flat dot
-``nwc64_dot`` the dot's row pass without scales, all on the same per-pass
-tables (``MxuPlan64.pass_entries``); the other two kernels
-(``nwc64_matvec``, ``nwc64_matvec_scaled``) read the flat tables.
+``nwc64_inverse_scaled`` one inverse and the exit scale, the flat dot
+``nwc64_dot`` the dot's row pass without scales, and the matvec's
+``nwc64_matvec`` the row inverse from a sum of slot products, all on the
+same per-pass tables (``MxuPlan64.pass_entries``); the last kernel,
+``nwc64_matvec_scaled``, reads the flat tables.
 """
 
 from __future__ import annotations
@@ -164,7 +165,8 @@ class MxuPlan64(ScaledKernelPlan):
 
     pass_entries = frozenset({"forward", "inverse", "forward_cols", "inverse_cols",
                               "product", "cached", "cyclic_scaled", "cached_scaled",
-                              "dot_scaled", "forward_scaled", "inverse_scaled", "dot"})
+                              "dot_scaled", "forward_scaled", "inverse_scaled", "dot",
+                              "matvec"})
 
     def _transform_table(self, flat: tuple) -> tuple:
         """The per-pass layout of the flat table (w, w') for the radix-8
