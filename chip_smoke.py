@@ -38,17 +38,19 @@ kernel K6).  Phases, each of which raises on failure:
    1024, the fused dots' row passes ``nwc64_dot_scaled`` and
    ``gl64_dot_scaled`` at n = 128 and the flat ``nwc64_dot`` and
    ``gl64_dot`` at n = 4096 (a step of its loop, one forward, and the
-   rest), nwc64.cu's matvec ``nwc64_matvec`` at n = 4096 (a step of its
-   loop of l, and the rest), and nwc32.cu's radix-16 forward at
+   rest), nwc64.cu's matvec ``nwc64_matvec`` at n = 4096 and gl64.cu's
+   matvec row pass ``gl64_matvec_scaled`` at n = 128 (a step of its loop
+   of l, and the rest), and nwc32.cu's radix-16 forward and inverse at
    n = 256, 4096 and 16384 and its fused product, fresh and cached, at
    n = 4096, with their shared-memory instructions, and its fused dot at
    n = 4096, fresh and cached, counted as the flat dots; the radix
    kernels of the three files, 36 transforms, 9 row forwards and 9 row
    inverses in each 64-bit one, nwc64.cu's 18 fused products, 18 fused row
    passes, 36 fused dots (18 row passes, 18 flat) and 9 matvecs, gl64.cu's
-   36 fused products (18 flat, 18 row passes) and 36 fused dots (18 flat,
-   18 row passes), and nwc32.cu's 7 radix-16 forwards, 14 fused products
-   and 14 fused dots, must spill nothing; the
+   36 fused products (18 flat, 18 row passes), 36 fused dots (18 flat,
+   18 row passes) and 9 matvec row passes, and nwc32.cu's 7 radix-16
+   forwards, 7 inverses, 14 fused products and 14 fused dots, must spill
+   nothing; the
    blocks an SM of both flat dots, gl64.cu's row-pass dot and its flat
    product, by ptxas's registers and their shared memory;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
@@ -82,12 +84,18 @@ kernel K6).  Phases, each of which raises on failure:
    3 and 2048, periods 1 and 3 (1 and 256 at 2048); the matvec's
    accumulate-and-inverse ``nwc64_matvec`` alone at the three 60-bit q,
    n = 256 to 8192, (k, l) = (1, 1), (4, 4), (8, 8) and (3, 5), B = 1, 3
-   and 256, against the plain matvec; the dot's row pass ``gl64_dot_scaled``, fresh and cached, K = 1
+   and 256, against the plain matvec; the matvec's row pass
+   ``gl64_matvec_scaled`` alone at the Goldilocks q, n = 32 to 8192, the
+   same (k, l) and B, periods 1 and 3 (1 and 256 at B = 256), S's and A's
+   first words 0, 1, q - 1, 2^63 - 1, 2^63 and 2^64 - 2^32, against the
+   plain row pass; the dot's row pass ``gl64_dot_scaled``, fresh and cached, K = 1
    and 4, n = 32 to 8192, B = 1 and 3, periods 1 and 3, and K = 4 at
    B = 2048 at n = 128 (period 256) and 1024 (period 1024) and at B = 264
    at n = 8192; ``nwc32_forward`` on nwc32.cu's radix-16 core at n = 256 to
    16384 (q = 8380417 to 4096, q = 16580609, q = 12289 to 2048), B = 1, 3
-   and 2048, merged and cyclic tables, scale 1 and 2^32 mod q; the
+   and 2048, merged and cyclic tables, scale 1 and 2^32 mod q;
+   ``nwc32_inverse`` on the same core at the same n, q and B, merged and
+   cyclic tables, scale n^-1 and 1; the
    products and the dot fused on it at the same n and q, boundary rows
    first: ``nwc32_product`` on merged and cyclic tables and
    ``nwc32_cached`` at B = 1, 3 and 2048, ``nwc32_dot`` fresh and cached
@@ -667,12 +675,24 @@ def main() -> int:
     print_dot("gl64", gl_sass, "dot_kernel<12, 0, 0>", 2 * DOT_TERMS)
     print_dot("gl64", gl_sass, "dot_kernel<12, 1, 0>", DOT_TERMS)
     print_dot("gl64", gl_sass, "dot_kernel<7, 0, 1>", 2 * DOT_TERMS)
+    # gl64.cu's matvec row pass at goldilocks_32768's n2 = 128, its loop of l
+    # steps (a term's loads and slot products) before its first barrier, as
+    # nwc64.cu's matvec
+    code = gl_sass["radix_matvec_kernel<7>"]
+    counted = issued_with_loop(code, DOT_TERMS)
+    upto_exit = max(i for i, (_, ins) in enumerate(code) if "EXIT" in ins) + 1
+    print(f"  sass: gl64.cu radix_matvec_kernel<7>: {len(code)} instructions; "
+          + (f"a step's trip {counted[0]}, after the loop {counted[1]}; at l = {DOT_TERMS} a "
+             f"thread issues {upto_exit + (DOT_TERMS - 1) * counted[0]} in all, "
+             f"{issued_per_thread(code, ())} after its first barrier"
+             if counted else f"loops not one: {sass_loops(code)}"))
     w32_sass = sass_listing(libs["nwc32"])
     print_dot("nwc32", w32_sass, "dot_kernel<12, 0>", 2 * DOT_TERMS)
     print_dot("nwc32", w32_sass, "dot_kernel<12, 1>", DOT_TERMS)
     for kernel in ("radix_forward_kernel<8>", "radix_forward_kernel<12>",
-                   "radix_forward_kernel<14>", "product_kernel<12, 0>",
-                   "product_kernel<12, 1>"):
+                   "radix_forward_kernel<14>", "radix_inverse_kernel<8>",
+                   "radix_inverse_kernel<12>", "radix_inverse_kernel<14>",
+                   "product_kernel<12, 0>", "product_kernel<12, 1>"):
         code = w32_sass[kernel]
         issued = issued_per_thread(code, ())
         shared = {op: sum(ins.startswith(op + " ") for _, ins in code)
@@ -687,18 +707,19 @@ def main() -> int:
     # products (each log n, fresh and cached), 18 fused row passes, 36 fused
     # dots (the row passes' 18 and the flat dot's 18) and 9 matvecs,
     # gl64.cu's 36 fused products (the flat product's 18 and the row pass's
-    # 18, fresh and cached) and 36 fused dots (the flat dot's 18 and the row
-    # pass's 18), and nwc32.cu's 7 radix-16 forwards (a log n from 8 to 14),
-    # 14 fused products and 14 fused dots (each log n, fresh and cached)
+    # 18, fresh and cached), 36 fused dots (the flat dot's 18 and the row
+    # pass's 18) and 9 matvec row passes, and nwc32.cu's 7 radix-16 forwards
+    # and 7 inverses (a log n from 8 to 14), 14 fused products and 14 fused
+    # dots (each log n, fresh and cached)
     for lib, kernels in (("nwc64", (("transform_kernel", 36), ("product_kernel", 18),
                                     ("cyclic_scaled_kernel", 18), ("forward_scaled_kernel", 9),
                                     ("inverse_scaled_kernel", 9), ("dot_scaled_kernel", 36),
                                     ("matvec_kernel", 9))),
                          ("gl64", (("transform_kernel", 36), ("cyclic_scaled_kernel", 36),
                                    ("forward_scaled_kernel", 9), ("inverse_scaled_kernel", 9),
-                                   ("dot_kernel", 36))),
-                         ("nwc32", (("radix_forward_kernel", 7), ("product_kernel", 14),
-                                    ("dot_kernel", 14)))):
+                                   ("dot_kernel", 36), ("radix_matvec_kernel", 9))),
+                         ("nwc32", (("radix_forward_kernel", 7), ("radix_inverse_kernel", 7),
+                                    ("product_kernel", 14), ("dot_kernel", 14)))):
         log = libs[lib].with_suffix(".log").read_text()
         for kernel, count in kernels:
             spills = re.findall(rf"Function properties for \S*{kernel}I\S*\n[^\n]*?(\d+) "
@@ -1148,6 +1169,37 @@ def main() -> int:
           f"(4, 4), (8, 8), (3, 5), B = 1, 3, {MATVEC_BATCH_60}: {checks} launches equal in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # gl64_matvec_scaled, the Goldilocks four-step's matvec row pass on
+    # gl64.cu's radix-8 core, alone: every log n, (k, l) = (1, 1), (4, 4),
+    # (8, 8) and (3, 5), B = 1, 3 and MATVEC_BATCH_60 rows of s (periods 1
+    # and 3, and 1 and 256 at the last), S's and A's first words 0, 1, q - 1,
+    # 2^63 - 1, 2^63 and 2^64 - 2^32, random post tables; against the plain
+    # row pass
+    def boundary_words(x):
+        """x with its first six words the boundary words."""
+        x.view(-1)[:6] = card_operands(GOLDILOCKS_Q, 1, 6, gen).view(-1)
+        return x
+
+    t0, checks = time.perf_counter(), 0
+    for log_n in range(5, 14):
+        n = 1 << log_n
+        plan = GoldilocksSubPlan64(make_params(n, GOLDILOCKS_Q), device)
+        for k, l in ((1, 1), (4, 4), (8, 8), (3, 5)):
+            for rows, periods in ((1, (1,)), (3, (1, 3)), (MATVEC_BATCH_60, (1, 256))):
+                for period in periods:
+                    s_mv = boundary_words(card_operands(GOLDILOCKS_Q, n, l * rows, gen)
+                                          .reshape(l, rows, n))
+                    mat = boundary_words(card_operands(GOLDILOCKS_Q, n, k * l * period, gen)
+                                         .reshape(k, l, period, n))
+                    post = (card_operands(GOLDILOCKS_Q, n, period + 6, gen)[6:],)  # random rows
+                    silent_check("gl64_matvec_scaled", f"n={n} {k} x {l} B={rows} period {period}",
+                                 plan.matvec_scaled(s_mv, mat, post),
+                                 plan.matvec_scaled_plain(s_mv, mat, post))
+                    checks += 1
+    print(f"kernel vs plain: gl64_matvec_scaled alone, n = 32 to 8192, (k, l) = (1, 1), (4, 4), "
+          f"(8, 8), (3, 5), B = 1, 3, {MATVEC_BATCH_60}, periods 1, 3 and 256: {checks} launches "
+          f"equal in {time.perf_counter() - t0:.1f} s")
+
     # nwc32_forward on nwc32.cu's radix-16 core: n = 256 to 16384 at
     # q = 16580609, to 4096 at P24_4096's and DILITHIUM_256's q = 8380417
     # and to 2048 at FALCON's q = 12289; B = 1, 3 and 2048, boundary rows
@@ -1176,6 +1228,35 @@ def main() -> int:
                                      out, want)
                         checks += 1
     print(f"kernel vs plain: nwc32_forward, merged and cyclic tables, scale 1 and 2^32 mod q, "
+          f"n = 256 to 16384, q = 8380417, 16580609, 12289, B = 1, 3, {BATCH}: {checks} "
+          f"launches equal in {time.perf_counter() - t0:.1f} s")
+
+    # nwc32_inverse on the radix-16 core at the forward's n and q, B = 1, 3
+    # and 2048 bit-reversed spectra (boundary rows first), merged and cyclic
+    # tables, scale n^-1 and 1
+    t0, checks = time.perf_counter(), 0
+    for q in (8380417, 16580609, 12289):
+        for log_n in range(8, 15):
+            n = 1 << log_n
+            if (q - 1) % (2 * n):
+                continue
+            plan = MxuPlan(make_params(n, q), device)
+            x = card_operands(q, n, BATCH, gen).to(torch.int32)
+            for flat, plain in ((plan.plan.merged_inv_flat, plan.nwc_ntt_inv_plain),
+                                (plan.plan.cyclic_inv_flat, plan.ntt_inv_plain)):
+                for rows in (1, 3, BATCH):
+                    want = plain(x[:rows])
+                    for scale in (plan._scale_cached, plan._scale_one):
+                        if scale[0] == 1:  # the plain inverse times n
+                            want = plan.ring.mul_tw(want, plan.ring.encode_tw([n], device))
+                        out = torch.empty_like(x[:rows])
+                        plan._launch("inverse", out, x[:rows], out,
+                                     *plan._table_of("inverse", flat), rows, log_n,
+                                     *plan._q_args(False), *scale)
+                        silent_check("nwc32_inverse", f"n={n} q={q} B={rows} scale {scale[0]}",
+                                     out, want)
+                        checks += 1
+    print(f"kernel vs plain: nwc32_inverse, merged and cyclic tables, scale n^-1 and 1, "
           f"n = 256 to 16384, q = 8380417, 16580609, 12289, B = 1, 3, {BATCH}: {checks} "
           f"launches equal in {time.perf_counter() - t0:.1f} s")
 

@@ -1,9 +1,10 @@
 """The radix-8 core of ``csrc/gl64.cu`` (``gl64_forward``, ``gl64_inverse``,
 their column entry points, the row forward ``gl64_forward_scaled``, the row
-inverse ``gl64_inverse_scaled``, and the products fused on it: K2's flat ``gl64_product``, ``gl64_cached`` and
-``gl64_dot``, the four-step's row passes ``gl64_cyclic_scaled``,
-``gl64_cached_scaled`` and ``gl64_dot_scaled``) modelled on the CPU, and
-K2's two ablation toggles.
+inverse ``gl64_inverse_scaled``, and the products fused on it: K2's flat
+``gl64_product``, ``gl64_cached`` and ``gl64_dot``, the four-step's row
+passes ``gl64_cyclic_scaled``, ``gl64_cached_scaled``, ``gl64_dot_scaled``
+and ``gl64_matvec_scaled``) modelled on the CPU, and K2's two ablation
+toggles.
 
 * The lazy arithmetic: each ``GL_PTX_*`` carry chain read out of gl64.cu
   and run on a model of the 32-bit PTX instructions (numpy object arrays,
@@ -37,7 +38,13 @@ K2's two ablation toggles.
   and JAX's XLA ``ntt_fwd`` of the scaled rows; the row inverse
   (``inverse_scaled_model``: n^-1 on the spectrum's words, the passes, post
   at the store) at n = 128 and 1024, P = 1 and 3, against
-  ``ntt_inv_scaled_plain`` and JAX's XLA ``ntt_inv`` times post.  K2's flat dot
+  ``ntt_inv_scaled_plain`` and JAX's XLA ``ntt_inv`` times post; the
+  matvec's row pass (``matvec_scaled_model``: words 8t ... 8t + 7 of each
+  S[j, r] and A[i, j, r % P], the slot's mul_lazy summed by add_any, n^-1,
+  the passes, post at the store) at the same n, (k, l) = (1, 1) and (3, 2),
+  P = 1 and 3, against ``matvec_scaled_plain`` and JAX's XLA ``ntt_inv``
+  of the slot sums in natural order times post, in the inverse's JAX call
+  (at n = 128 padded to the row pass's 256 rows: one compile).  K2's flat dot
   (``dot_model``: a forward a loop step, the slot's mul_lazy into a sum of
   add_any, one inverse) at K = 1 and 4, fresh and cached, at n = 32, 256
   and 4096 on merged tables, against ``nwc_dot_plain``,
@@ -54,10 +61,11 @@ K2's two ablation toggles.
   transposes and JAX's four-step locals (``tpu_ntt.sharded._along`` of its
   XLA transforms) at 32 x 32 and 64 x 32, widths n2 / D for D = 2, 4, 8;
   the four-step's launch path runs them and never the transposes.
-* The C signatures ``load`` binds for the twelve radix-core entry points,
-  and faked launches that hand them the per-pass tables; a ``cuda``-marked
-  case holds both layouts, the flat products and dot, the row forward, the
-  row inverse and both row passes against plain on a card.
+* The C signatures ``load`` binds for the thirteen radix-core entry
+  points, and faked launches that hand them the per-pass tables; a
+  ``cuda``-marked case holds both layouts, the flat products and dot, the
+  row forward, the row inverse, both row passes, the row dot and the
+  matvec's row pass against plain on a card.
 * JAX's ``GoldilocksPlan64`` with ``split_left`` and ``const_mul_special``
   off (tpu_ntt/kernels/gl64.py:211, :216) in interpret mode at n = 32768
   against the port's four-step: ``slow``, about 25 s (a 12 s plan build).
@@ -111,7 +119,7 @@ def ints(t: torch.Tensor) -> np.ndarray:
 
 
 def words(values) -> np.ndarray:
-    return np.array(values, dtype=object)
+    return np.asarray(values, dtype=object)
 
 
 def select(cond, a, b) -> np.ndarray:
@@ -153,17 +161,19 @@ def _parse(ins: str):
 CHAINS = ptx_chains("gl64.cu")
 
 
-def run(chain: str, regs: list) -> list:
-    """Execute GL_PTX_<chain> on the operands ``regs`` (32-bit words or
-    object arrays of them, %k = regs[k]) as PTX does: .cc writes the carry
-    flag (for sub, the borrow), addc/subc/madc read it, the destination
-    keeps 32 bits.  The words run as uint64 (a 32 x 32 product plus two
-    32-bit words and a carry stays below 2^64); object arrays out."""
-    regs, cf = [np.asarray(words(r)).astype(np.uint64) for r in regs], None
+def run(chain: str, regs: list, outs: int) -> list:
+    """Execute GL_PTX_<chain> on the operands ``regs`` (32-bit words, or
+    arrays of them, %k = regs[k]) as PTX does: .cc writes the carry flag
+    (for sub, the borrow), addc/subc/madc read it, the destination keeps 32
+    bits.  The words run as uint64 (a 32 x 32 product plus two 32-bit words
+    and a carry stays below 2^64); %0 ... %(outs - 1) out, object arrays."""
+    regs, cf = [np.asarray(r, dtype=object if np.ndim(r) == 0 else None).astype(np.uint64)
+                for r in regs], None
+    # every operand is 32 bits: the registers given, and each destination after
+    assert all(np.all(r <= M32) for r in regs), chain
     one = np.uint64(1)
     for op, d, srcs in CHAINS[chain]:
         v = [regs[k] if kind == "%" else np.uint64(k) for kind, k in srcs]
-        assert all(np.all(x <= M32) for x in v), (chain, op)
         assert op.endswith(".u32"), op
         base = op.split(".")[0]
         carry_in = base in ("addc", "subc", "madc")
@@ -185,11 +195,13 @@ def run(chain: str, regs: list) -> list:
         if ".cc" in op:
             cf = borrow if base in ("sub", "subc") else s >> np.uint64(32)
             assert np.all(cf <= one)
-    return [words(r.astype(object)) for r in regs]
+    return [words(r.astype(object)) for r in regs[:outs]]
 
 
 def split(x):
-    return [x & M32, x >> 32]
+    """A word's 32-bit halves (lo, hi), as uint64 arrays."""
+    u = np.asarray(x, dtype=object).astype(np.uint64)
+    return [u & np.uint64(M32), u >> np.uint64(32)]
 
 
 def join(t0, t1):
@@ -204,17 +216,18 @@ def mul_lazy(a, b):
     (exact: a * b < 2^128), the fold with k in {-1, 0, 1}, then t + k eps,
     which must not wrap."""
     a, b = words(a), words(b)
-    r = run("WIDE", [0] * 7 + split(a) + split(b) + [0, 0, 0])[:4]
-    assert np.all(r[0] | r[1] << 32 | r[2] << 64 | r[3] << 96 == a * b)
-    t0, t1, k = run("FOLD128", [0, 0, 0, *r, EPS])[:3]
+    ab = a * b
+    r = run("WIDE", [0] * 7 + split(a) + split(b) + [0, 0, 0], 4)
+    assert np.all(r[0] | r[1] << 32 | r[2] << 64 | r[3] << 96 == ab)
+    t0, t1, k = run("FOLD128", [0, 0, 0, *r, EPS], 3)
     signed = select(k == M32, -1, k)
     assert np.all((signed >= -1) & (signed <= 1))
     t = join(t0, t1)
     fixed = t + signed * EPS
     assert np.all((fixed >= 0) & (fixed <= M64)), "t + k eps wrapped"
-    t0, t1 = run("ADD64", [t0, t1, (0 - k) & M32, select(k >> 31 == 1, M32, 0)])[:2]
+    t0, t1 = run("ADD64", [t0, t1, (0 - k) & M32, select(k >> 31 == 1, M32, 0)], 2)
     out = join(t0, t1)
-    assert np.all(out == fixed) and np.all(out % Q == a * b % Q)
+    assert np.all(out == fixed) and np.all(out % Q == ab % Q)
     return out
 
 
@@ -230,7 +243,7 @@ def add_reduced(a, b):
     """a + b for any word a and b below q: the one carry fix never wraps."""
     a, b = words(a), words(b)
     assert np.all(b < Q)
-    t0, t1 = run("ADD_REDUCED", [0, 0, 0, *split(a), *split(b), EPS])[:2]
+    t0, t1 = run("ADD_REDUCED", [0, 0, 0, *split(a), *split(b), EPS], 2)
     exact = a + b
     want = select(exact > M64, exact - (1 << 64) + EPS, exact)
     assert np.all(want <= M64) and np.all(join(t0, t1) == want)
@@ -241,7 +254,7 @@ def sub_reduced(a, b):
     """a - b for any word a and b below q: the one borrow fix never wraps."""
     a, b = words(a), words(b)
     assert np.all(b < Q)
-    t0, t1 = run("SUB_REDUCED", [0, 0, 0, *split(a), *split(b)])[:2]
+    t0, t1 = run("SUB_REDUCED", [0, 0, 0, *split(a), *split(b)], 2)
     exact = a - b
     want = select(exact < 0, exact + (1 << 64) - EPS, exact)
     assert np.all(want >= 0) and np.all(join(t0, t1) == want)
@@ -251,7 +264,7 @@ def sub_reduced(a, b):
 def add_any(a, b):
     """a + b for any words: at most two carry fixes, the last never wraps."""
     a, b = words(a), words(b)
-    t0, t1 = run("ADD_ANY", [0, 0, 0, *split(a), *split(b), EPS])[:2]
+    t0, t1 = run("ADD_ANY", [0, 0, 0, *split(a), *split(b), EPS], 2)
     want = a + b
     for _ in range(2):
         want = select(want > M64, want - (1 << 64) + EPS, want)
@@ -262,7 +275,7 @@ def add_any(a, b):
 def sub_any(a, b):
     """a - b for any words: at most two borrow fixes, the last never wraps."""
     a, b = words(a), words(b)
-    t0, t1 = run("SUB_ANY", [0, 0, 0, *split(a), *split(b)])[:2]
+    t0, t1 = run("SUB_ANY", [0, 0, 0, *split(a), *split(b)], 2)
     want = a - b
     for _ in range(2):
         want = select(want < 0, want + (1 << 64) - EPS, want)
@@ -275,7 +288,8 @@ def ct(x, y, w):
     assert np.all(words(w) < Q)
     v = canonical(mul_lazy(y, w))
     out = add_reduced(x, v), sub_reduced(x, v)
-    assert np.all(out[0] % Q == (x + w * y) % Q) and np.all(out[1] % Q == (x - w * y) % Q)
+    wy = w * y
+    assert np.all(out[0] % Q == (x + wy) % Q) and np.all(out[1] % Q == (x - wy) % Q)
     return out
 
 
@@ -331,9 +345,9 @@ def test_one_fix_chains_fail_on_two_lazy_words():
     """Why GS takes the two-fix chains: ADD_REDUCED and SUB_REDUCED on a
     second operand at or above q give a wrong residue (the fix wraps)."""
     a, b = [M64, 0], [M64, M64]
-    t0, t1 = run("ADD_REDUCED", [0, 0, 0, *split(a[0]), *split(b[0]), EPS])[:2]
+    t0, t1 = run("ADD_REDUCED", [0, 0, 0, *split(a[0]), *split(b[0]), EPS], 2)
     assert join(t0, t1) % Q != (a[0] + b[0]) % Q
-    t0, t1 = run("SUB_REDUCED", [0, 0, 0, *split(a[1]), *split(b[1])])[:2]
+    t0, t1 = run("SUB_REDUCED", [0, 0, 0, *split(a[1]), *split(b[1])], 2)
     assert join(t0, t1) % Q != (a[1] - b[1]) % Q
     assert add_any(a[0], b[0]) % Q == (a[0] + b[0]) % Q
     assert sub_any(a[1], b[1]) % Q == (a[1] - b[1]) % Q
@@ -396,12 +410,14 @@ def times_row(plan, regs, at, table, idx):
     return [mul_lazy(v, words(w[srow + i])) for v, i in zip(regs, idx)]
 
 
-def model(plan, x: torch.Tensor, flat, scale: int, inverse: bool,
-          width: int | None = None, pre: torch.Tensor | None = None) -> torch.Tensor:
+def model(plan, x: torch.Tensor, flat, scale, inverse: bool,
+          width: int | None = None, pre: torch.Tensor | None = None):
     """The kernel on (R, n * width) words, every block at once: rows
     (width None) or every column of the (n, width) matrices.  With the
     (P, n) table ``pre``, the row forward gl64_forward_scaled: row r's
-    words times row r % P's as the first pass loads them."""
+    words times row r % P's as the first pass loads them.  ``scale`` an
+    int, or a tuple of them: the store at each, one output each, from one
+    run of the passes."""
     log_n = plan.p.log_n
     last = len(kmxu64.passes(log_n)) - 1
     (table,) = plan._transform_table(flat)
@@ -411,9 +427,12 @@ def model(plan, x: torch.Tensor, flat, scale: int, inverse: bool,
     idx = pass_words(log_n, first, t)
     regs = times_row(plan, [words(v) for v in load(data, at, live, idx)], at, pre, idx)
     regs = passes_on(plan, regs, ints(table), inverse, t, slot)
-    for reg, i in enumerate(pass_words(log_n, final, t)):
-        out[at(i)[live]] = store(regs[reg], scale, inverse)[live]
-    return as_tensor(out, x.shape)
+    outs = []
+    for c in scale if isinstance(scale, tuple) else (scale,):
+        for reg, i in enumerate(pass_words(log_n, final, t)):
+            out[at(i)[live]] = store(regs[reg], c, inverse)[live]
+        outs.append(as_tensor(out, x.shape))
+    return outs if isinstance(scale, tuple) else outs[0]
 
 
 def fused_model(plan, a: torch.Tensor, b: torch.Tensor, pre, post,
@@ -519,6 +538,36 @@ def inverse_scaled_model(plan, x: torch.Tensor, post: torch.Tensor) -> torch.Ten
     return as_tensor(out, x.shape)
 
 
+def matvec_scaled_model(plan, spectra: torch.Tensor, mat: torch.Tensor,
+                        post: torch.Tensor) -> torch.Tensor:
+    """gl64_matvec_scaled on the (l, B, n) row spectra of s against the
+    (k, l, P, n) rows of A's cached spectra: output row o = r k + i, the k
+    rows of batch row r adjacent, rows tiling blocks as in the transforms.
+    Thread t of row (i, r) loads words 8t ... 8t + 7 of S[j, r] and of
+    A[i, j, r % P] for each j, the slot's mul_lazy added by add_any into a
+    sum from 0 (any words), then one mul_lazy by n^-1, the passes on the
+    cyclic inverse per-pass table, post's mul_lazy at the store's positions
+    (row r % P of the (P, n) table) and the one compare; (k, B, n) out."""
+    log_n, n = plan.p.log_n, plan.p.n
+    (l, batch), (k, period) = spectra.shape[:2], (mat.shape[0], mat.shape[2])
+    (itw,) = plan._transform_table(plan.plan.cyclic_inv_flat)
+    words_s, words_a = ints(spectra.reshape(-1)), ints(mat.reshape(-1))
+    at, live, t, slot = lanes(plan, torch.empty((k * batch, n), dtype=torch.int64))
+    r, i = at(0) // n // k, at(0) // n % k  # batch row, row of A
+    spectrum = pass_words(log_n, len(kmxu64.passes(log_n)) - 1, t)  # 8t ... 8t + 7
+    total = [words(np.zeros(r.shape, dtype=object)) for _ in range(WORDS)]
+    for j in range(l):
+        s = load(words_s, lambda e: (j * batch + r) * n + e, live, spectrum)
+        a = load(words_a, lambda e: ((i * l + j) * period + r % period) * n + e, live, spectrum)
+        total = [add_any(acc, mul_lazy(words(u), words(v))) for acc, u, v in zip(total, s, a)]
+    regs = passes_on(plan, [mul_lazy(v, plan.p.n_inv) for v in total], ints(itw), True, t, slot)
+    first = pass_words(log_n, 0, t)
+    out = np.zeros(k * batch * n, dtype=object)
+    for v, e in zip(times_row(plan, regs, lambda e: r * n + e, post, first), first):
+        out[((i * batch + r) * n + e)[live]] = canonical(v)[live]
+    return as_tensor(out, (k, batch, n))
+
+
 @functools.lru_cache(maxsize=None)
 def plans(n: int):
     return (GoldilocksSubPlan64(make_params(n, Q), "cpu"),
@@ -559,12 +608,12 @@ def test_model_matches_plain_and_jax(n, monkeypatch):
                            ("cyclic", "ntt_fwd_plain", "ntt_inv_plain")):
         flat, flat_inv = (getattr(plan.plan, f"{kind}_flat"),
                           getattr(plan.plan, f"{kind}_inv_flat"))
-        spec = model(plan, x, flat, 1, False)
+        spec, spec_eps = model(plan, x, flat, (1, EPS), False)
         assert torch.equal(spec, getattr(plan, fwd)(x)), kind
-        assert torch.equal(model(plan, x, flat, EPS, False), times(plan, spec, EPS)), kind
-        back = model(plan, x, flat_inv, plan.p.n_inv, True)
+        assert torch.equal(spec_eps, times(plan, spec, EPS)), kind
+        back, back_n = model(plan, x, flat_inv, (plan.p.n_inv, 1), True)
         assert torch.equal(back, getattr(plan, inv)(x)), kind
-        assert torch.equal(model(plan, x, flat_inv, 1, True), times(plan, back, n)), kind
+        assert torch.equal(back_n, times(plan, back, n)), kind
         assert torch.equal(model(plan, spec, flat_inv, plan.p.n_inv, True), x)
         if kind == "merged":  # JAX's XLA merged transforms
             assert torch.equal(spec, run_jax(jax_transform("nwc_fwd_merged", jplan), x))
@@ -617,6 +666,31 @@ def row_pass_operands(rows: int, n: int, period: int, seed: int):
     return a, b, (pre,), (post,)
 
 
+def matvec_operands(plan, k: int, l: int, period: int, seed: int):
+    """The matvec's row pass on B = 3 batch rows: the (l, B, n) row spectra
+    of s, whose rows start with the boundary rows (all 0, 1, q - 1, ...);
+    the (k, l, P, n) rows of A's, the boundary rows reversed first (with
+    fewer than six, the boundary words from 2^64 - 2^32 down cycled along
+    row 0); a random (P, n) table post; and the (k, B, n) slot sums
+    sum_j S[j, r] A[i, j, r % P] mod q by Python ints."""
+    n, batch = plan.p.n, 3
+    s = operands((l * batch, n), seed)
+    mat = operands((k * l * period, n), seed + 1)
+    ends = min(6, mat.shape[0])
+    mat[:ends] = mat[:ends].flip(0).clone()
+    if ends < 6:
+        mat[0] = torch.from_numpy(np.resize(np.array(EDGES[5::-1], dtype=np.uint64), n)
+                                  .view(np.int64))
+    rng = np.random.default_rng(seed + 2)
+    post = torch.from_numpy(rng.integers(0, Q, size=(period, n), dtype=np.uint64).view(np.int64))
+    words_s, words_a = ints(s).reshape(l, batch, n), ints(mat).reshape(k, l, period, n)
+    rows = np.arange(batch) % period
+    sums = np.array([sum(words_s[j] * words_a[i, j][rows] for j in range(l)) % Q
+                     for i in range(k)])
+    return (s.reshape(l, batch, n), mat.reshape(k, l, period, n), post,
+            as_tensor(sums.reshape(-1), (k, batch, n)))
+
+
 def times_rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Row r of x times row r % P of the (P, n) table, by Python ints."""
     rows, n = x.shape
@@ -633,13 +707,16 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     Python ints); 256 rows of 128 at period 256 are goldilocks_32768's row
     pass (n1 = 256), there gl64_cyclic_scaled alone (the model's chains on
     Python ints take 9 s for it), and the row inverse gl64_inverse_scaled
-    (``inverse_scaled_model``) at n = 128 (partial tiles) and 1024, periods
-    1 and 3, rows of the boundary words first, against
-    ``ntt_inv_scaled_plain`` and JAX's XLA ``ntt_inv`` of the same spectra
-    in natural order times post (by Python ints).  The row forward
-    gl64_forward_scaled on a and pre, at scale 1 (and q - 1 but at 256
-    rows), against ``ntt_fwd_scaled_plain`` and JAX's XLA ``ntt_fwd`` of
-    the scaled rows.
+    (``inverse_scaled_model``) and the matvec's row pass
+    gl64_matvec_scaled (``matvec_scaled_model``: (k, l) = (1, 1) and (3, 2),
+    three batch rows, so nine rows of 128 end in a partial tile) at n = 128
+    and 1024, periods 1 and 3, the boundary words first, against
+    ``ntt_inv_scaled_plain`` and ``matvec_scaled_plain`` and JAX's XLA
+    ``ntt_inv`` of the same spectra (and of the slot sums, by Python ints)
+    in natural order times post (by Python ints), all in one JAX call.
+    The row forward gl64_forward_scaled on a and pre, at scale 1 and q - 1
+    (one run of the model's passes, two stores), against
+    ``ntt_fwd_scaled_plain`` and JAX's XLA ``ntt_fwd`` of the scaled rows.
     At period 3, K2's flat product on the cyclic tables, fresh and cached,
     against ``cyclic_poly_mult_plain`` and JAX's on a and b."""
     plan, jplan = plans(n)
@@ -649,26 +726,39 @@ def test_fused_row_pass_model_matches_plain_and_jax(n, rows, period, monkeypatch
     want = run_jax_product(monkeypatch, jntt.cyclic_poly_mult, jplan,
                            times_rows(a, pre[0]), times_rows(b, pre[0]))
     assert torch.equal(got, times_rows(want, post[0]))
-    spec = model(plan, a, plan.plan.cyclic_flat, 1, False, pre=pre[0])
+    spec, spec_q1 = model(plan, a, plan.plan.cyclic_flat, (1, Q - 1), False, pre=pre[0])
     assert torch.equal(spec, plan.ntt_fwd_scaled_plain(a, pre))
+    assert torch.equal(spec_q1, times(plan, spec, Q - 1))
     natural = run_jax(jax_transform("ntt_fwd", jplan), times_rows(a, pre[0]))
     assert torch.equal(plan.bitrev_to_natural(spec), natural)
-    if period == 256:  # the row inverse at n = 128 (partial tiles) and a block a row at 1024
+    if period == 256:  # the row inverse and the matvec's row pass at n = 128 and 1024
         for n_i, rows_i in ((128, 12), (1024, 6)):
             plan_i, jplan_i = plans(n_i)
             x = operands((rows_i, n_i), seed=n_i)  # the boundary rows first
-            # JAX's ntt_inv reads natural order: the port's bit-reversed spectra permuted
-            jax_inv = run_jax(jax_transform("ntt_inv", jplan_i), plan_i.bitrev_to_natural(x))
+            matvecs = [matvec_operands(plan_i, k, l, period_i, seed=n_i + 4 * k + l + period_i)
+                       for k, l in ((1, 1), (3, 2)) for period_i in (1, 3)]
+            # JAX's ntt_inv reads natural order: the port's bit-reversed spectra permuted;
+            # x's rows and the matvecs' slot sums in one call
+            stacked = torch.cat([x] + [sums.reshape(-1, n_i) for *_, sums in matvecs])
+            sizes = [rows_i] + [sums[..., 0].numel() for *_, sums in matvecs]
+            if n_i == n:  # padded to the row pass's rows: JAX's ntt_inv compiled once at 128
+                stacked = torch.cat([stacked, stacked.new_zeros((rows - sum(sizes), n_i))])
+            jax_inv = run_jax(jax_transform("ntt_inv", jplan_i),
+                              plan_i.bitrev_to_natural(stacked))[:sum(sizes)].split(sizes)
             for period_i in (1, 3):  # post's rows: the boundary words from 2^64 - 2^32 down
                 post_i = operands((6, n_i), seed=n_i + period_i).flip(0)[:period_i].contiguous()
                 got = inverse_scaled_model(plan_i, x, post_i)
                 assert torch.equal(got, plan_i.ntt_inv_scaled_plain(x, (post_i,))), (n_i,
                                                                                      period_i)
-                assert torch.equal(got, times_rows(jax_inv, post_i)), (n_i, period_i)
+                assert torch.equal(got, times_rows(jax_inv[0], post_i)), (n_i, period_i)
+            # gl64_matvec_scaled: n = 128 at k = 3 ends in a partial tile (9 rows, 8 a block)
+            for (spectra, mat, post_i, sums), inv in zip(matvecs, jax_inv[1:]):
+                got = matvec_scaled_model(plan_i, spectra, mat, post_i)
+                label = (n_i, *mat.shape[:3])
+                assert torch.equal(got, plan_i.matvec_scaled_plain(spectra, mat, (post_i,))), label
+                assert torch.equal(got, times_rows(inv, post_i).reshape(got.shape)), label
     if rows > 64:
         return
-    assert torch.equal(model(plan, a, plan.plan.cyclic_flat, Q - 1, False, pre=pre[0]),
-                       times(plan, spec, Q - 1))
     if n < 4096 and period == 3:  # K2's flat product on cyclic tables, fresh and cached
         flat = plan.cyclic_poly_mult_plain(a, b)
         assert torch.equal(flat, run_jax_product(monkeypatch, jntt.cyclic_poly_mult, jplan, a, b))
@@ -781,12 +871,13 @@ C_TYPES = {"int": kgl64.ctypes.c_int, "uint64_t": kgl64.ctypes.c_uint64}
 
 
 def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
-    """``load`` types the twelve radix-core entry points (the row forward,
-    the row inverse, the flat products and dot and the row pass's three
-    among them) with the C argument types of csrc/gl64.cu, and each has its
-    own launch count; those twelve read per-pass tables: faked launches on the CPU hand
-    gl64_product the merged or cyclic per-pass tables, gl64_cached and
-    gl64_dot the merged ones and gl64_forward_scaled the cyclic one."""
+    """``load`` types the thirteen radix-core entry points (the row
+    forward, the row inverse, the flat products and dot and the row pass's
+    four among them) with the C argument types of csrc/gl64.cu, and each
+    has its own launch count; those thirteen read per-pass tables: faked
+    launches on the CPU hand gl64_product the merged or cyclic per-pass
+    tables, gl64_cached and gl64_dot the merged ones and
+    gl64_forward_scaled the cyclic one."""
     bound = {}
     monkeypatch.setattr(_plan, "bind", lambda name, argtypes: bound.update(argtypes))
     kgl64.load.__wrapped__()
@@ -794,7 +885,7 @@ def test_load_binds_the_c_signatures_of_the_radix_core(monkeypatch):
     decls = dict(re.findall(r'extern "C" int (gl64_\w+)\(([^)]*)\)', source))
     radix = ("forward", "inverse", "forward_cols", "inverse_cols", "forward_scaled",
              "product", "cached", "cyclic_scaled", "cached_scaled", "dot", "dot_scaled",
-             "inverse_scaled")
+             "inverse_scaled", "matvec_scaled")
     assert GoldilocksPlan64.pass_entries == set(radix)
     for suffix in radix:
         params = [p.strip() for p in decls[f"gl64_{suffix}"].split(",")]
@@ -878,6 +969,9 @@ def test_cuda_rows_and_columns_match_plain(cuda_device):
             for y, cached in ((b3, False), (spectra, True)):  # gl64_dot_scaled
                 assert torch.equal(plan.dot_scaled(a3, y, pre, post, cached),
                                    plan.dot_scaled_plain(a3, y, pre, post, cached)), (n, period)
+            mat = spectra.reshape(-1, n)[:2 * period].reshape(2, 1, period, n)  # 2 x 1
+            assert torch.equal(plan.matvec_scaled(spectra[:1], mat, post),  # gl64_matvec_scaled
+                               plan.matvec_scaled_plain(spectra[:1], mat, post)), (n, period)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""The radix-16 core of ``csrc/nwc32.cu`` (``nwc32_forward``, and fused on it
-``nwc32_product``, ``nwc32_cached`` and ``nwc32_dot``) modelled on the CPU,
-and K3's two ablation toggles.
+"""The radix-16 core of ``csrc/nwc32.cu`` (``nwc32_forward``,
+``nwc32_inverse``, and fused on it ``nwc32_product``, ``nwc32_cached`` and
+``nwc32_dot``) modelled on the CPU, and K3's two ablation toggles.
 
 * The lazy arithmetic: a model of the .cu's 32-bit Shoup product
   (``__umulhi``), CT and GS butterflies, lazy REDC slot, the dot's sum and
@@ -15,8 +15,10 @@ and K3's two ablation toggles.
   passes in reverse order, the slot, the dot's loop) at n = 256, 4096 and
   16384, boundary rows 0, 1 and q - 1 first, cyclic and merged tables:
   the forward at scales 1 and 2^32 mod q against ``ntt_fwd_plain``,
-  ``nwc_ntt_fwd_plain`` and ``nwc_spectrum_plain``; the inverse against
-  ``nwc_ntt_inv_plain`` and ``ntt_inv_plain``; the fused product, cyclic
+  ``nwc_ntt_fwd_plain`` and ``nwc_spectrum_plain``; the inverse
+  (``nwc32_inverse``: the spectrum's words, n^-1's lazy Shoup product, the
+  passes) against ``nwc_ntt_inv_plain`` and ``ntt_inv_plain``, and above
+  n = 256 against JAX's jitted XLA inverses; the fused product, cyclic
   product, cached product and dot (K = 1 and 3, fresh and cached) against
   their plain versions; and all of them against JAX: ``MxuPlan`` in
   interpret mode at DILITHIUM_256 (``nwc_poly_mult``,
@@ -26,9 +28,9 @@ and K3's two ablation toggles.
   private tiles at every n from 256 to 16384, counted for bank conflicts
   (two ways at most, the last pass's words adjacent, the private tiles
   none).
-* Faked launches on the CPU: ``nwc32_forward``, ``nwc32_product``,
-  ``nwc32_cached`` and ``nwc32_dot`` receive the per-pass tables,
-  ``nwc32_inverse`` and ``nwc32_matvec`` the flat ones.
+* Faked launches on the CPU: ``nwc32_forward``, ``nwc32_inverse``,
+  ``nwc32_product``, ``nwc32_cached`` and ``nwc32_dot`` receive the
+  per-pass tables, ``nwc32_matvec`` the flat ones.
 * JAX's ``MxuPlan`` with ``int8_path=False`` (bf16 limbs) and with
   ``balanced = True`` (tpu_ntt/kernels/mxu.py:103-105) in interpret mode
   at DILITHIUM_256: ``nwc_ntt_fwd``, ``nwc_spectrum`` and
@@ -408,7 +410,7 @@ def times(plan: MxuPlan, x: torch.Tensor, c: int) -> torch.Tensor:
     return uint32_to_int32(words(x) * np.uint64(c) % np.uint64(plan.p.q))
 
 
-FUSED_ENTRIES = {"forward", "product", "cached", "dot"}
+RADIX_ENTRIES = {"forward", "inverse", "product", "cached", "dot"}
 
 
 def test_pass_schedule_and_tables_cover_every_stage():
@@ -430,7 +432,7 @@ def test_pass_schedule_and_tables_cover_every_stage():
     assert torch.equal(ws, plan.plan.merged_flat[1][torch.from_numpy(kmxu64.pass_indices(8, 4))])
     assert plan._transform_table(plan.plan.merged_flat) is plan._transform_table(
         plan.plan.merged_flat)
-    assert MxuPlan.pass_entries == FUSED_ENTRIES
+    assert MxuPlan.pass_entries == RADIX_ENTRIES
 
 
 def test_shared_memory_accesses_conflict_at_most_two_ways():
@@ -539,8 +541,10 @@ def test_fused_model_matches_plain_and_jax(n, q, rows):
     merged = (plan.plan.merged_flat, plan.plan.merged_inv_flat)
     cyclic = (plan.plan.cyclic_flat, plan.plan.cyclic_inv_flat)
     fa = plan.nwc_ntt_fwd_plain(a)
-    assert torch.equal(inverse_model(plan, fa, merged[1]), plan.nwc_ntt_inv_plain(fa))
-    assert torch.equal(inverse_model(plan, fa, cyclic[1]), plan.ntt_inv_plain(fa))
+    nwc_back = inverse_model(plan, fa, merged[1])
+    assert torch.equal(nwc_back, plan.nwc_ntt_inv_plain(fa))
+    cyc_back = inverse_model(plan, fa, cyclic[1])
+    assert torch.equal(cyc_back, plan.ntt_inv_plain(fa))
     nwc = product_model(plan, a, b, *merged, cached=False)
     assert torch.equal(nwc, plan.nwc_poly_mult_plain(a, b))
     cyc = product_model(plan, a, b, *cyclic, cached=False)
@@ -574,6 +578,9 @@ def test_fused_model_matches_plain_and_jax(n, q, rows):
         return
     nwc_fwd, nwc_inv, fwd, inv = jax_transforms(n, q)
     qq = np.uint64(q)
+    assert np.array_equal(int32_to_uint32(nwc_back), np.asarray(nwc_inv(int32_to_uint32(fa))))
+    assert np.array_equal(int32_to_uint32(cyc_back),
+                          np.asarray(inv(int32_to_uint32(plan.bitrev_to_natural(fa)))))
 
     def spectral(f, x):
         return np.asarray(f(x)).astype(np.uint64)
@@ -601,8 +608,9 @@ def test_forward_launches_with_per_pass_tables(monkeypatch):
     its flat tables, four stages a pass, and so do the fused ops:
     nwc32_product (the negacyclic product on the merged tables, the cyclic
     one on the cyclic tables), nwc32_cached and nwc32_dot (fresh and
-    cached) both tables, forward and inverse; nwc32_inverse and
-    nwc32_matvec get the flat tables."""
+    cached) both tables, forward and inverse; nwc32_inverse the inverse's
+    (ntt_inv the cyclic, nwc_ntt_inv the merged), with n^-1; nwc32_matvec
+    alone gets the flat tables."""
     plan = MxuPlan(DILITHIUM_256, "cpu")
     calls = []
     monkeypatch.setattr(plan, "_runs_plain", lambda x: False)
@@ -624,8 +632,8 @@ def test_forward_launches_with_per_pass_tables(monkeypatch):
             (plan.nwc_poly_mult, (a, a), [("product", pm + pim)]),
             (plan.cyclic_poly_mult, (a, a), [("product", pc + pic)]),
             (plan.nwc_poly_mult_cached, (a, a), [("cached", pm + pim)]),
-            (plan.ntt_inv, (a,), [("inverse", icyclic)]),
-            (plan.nwc_ntt_inv, (a,), [("inverse", imerged)]),
+            (plan.ntt_inv, (a,), [("inverse", pic)]),
+            (plan.nwc_ntt_inv, (a,), [("inverse", pim)]),
             (plan.nwc_dot, (a3, a3), [("dot", pm + pim)]),
             (plan.nwc_dot_cached, (a3, a3), [("dot", pm + pim)])):
         calls.clear()
@@ -636,9 +644,11 @@ def test_forward_launches_with_per_pass_tables(monkeypatch):
             assert all(x is y for x, y in zip(got[at:at + len(tables)], tables)), (
                 fn.__name__, entry)
             per_pass_table = any(tables[0] is t for t in (pm[0], pc[0], pim[0], pic[0]))
-            assert (entry in FUSED_ENTRIES) == per_pass_table, (fn.__name__, entry)
-            if entry == "forward":
+            assert (entry in RADIX_ENTRIES) == per_pass_table, (fn.__name__, entry)
+            if entry in ("forward", "inverse"):
                 assert got[at + 2] == a.numel() // 256 and got[at + 3] == 8
+            if entry == "inverse":
+                assert got[at + 5:at + 7] == plan._scale_cached  # n^-1 and its companion
             if entry == "dot":
                 assert got[at + 4:at + 7] == (2, 1, 8) and got[-1] == (fn == plan.nwc_dot_cached)
 
@@ -683,14 +693,14 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_forward_matches_plain(cuda_device):
-    """The four radix-16 entry points on the card against their plain
-    versions: the forwards and the spectrum, the negacyclic, cyclic and
-    cached products, the dot at K = 3, fresh and cached."""
+    """The five radix-16 entry points on the card against their plain
+    versions: the forwards and the spectrum, both inverses, the negacyclic,
+    cyclic and cached products, the dot at K = 3, fresh and cached."""
     for n, q in ((256, DILITHIUM_256.q), (4096, 8380417), (16384, 16580609)):
         plan = MxuPlan(make_params(n, q), cuda_device)
         x = uint32_to_int32(operands(q, (19, n), seed=n)).to(cuda_device)
         y = x.flip(0).contiguous()
-        for method in ("ntt_fwd", "nwc_ntt_fwd", "nwc_spectrum"):
+        for method in ("ntt_fwd", "nwc_ntt_fwd", "nwc_spectrum", "ntt_inv", "nwc_ntt_inv"):
             assert torch.equal(getattr(plan, method)(x),
                                getattr(plan, method + "_plain")(x)), (n, method)
         spectrum = plan.nwc_spectrum(y)

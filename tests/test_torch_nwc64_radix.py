@@ -873,16 +873,19 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
     in the per-pass layout (``pass_table``), nwc64_dot the merged ones and
     nwc64_matvec the merged inverse's, on ``SubPlan64`` (n = 128) and
     ``MxuPlan64`` (n = 256); on the Goldilocks plans gl64_forward_scaled,
-    gl64_dot, gl64_dot_scaled and gl64_inverse_scaled, on gl64.cu's radix-8
-    core, receive the cyclic and the merged per-pass tables (the shared
-    ``ScaledKernelPlan.ntt_inv_scaled`` and ``KernelPlan._matvec`` route by
-    ``pass_entries``); gl64_matvec and nwc32_matvec, on their files' first
-    cores, the flat merged inverse tables."""
+    gl64_dot, gl64_dot_scaled, gl64_inverse_scaled and gl64_matvec_scaled,
+    on gl64.cu's radix-8 core, receive the cyclic and the merged per-pass
+    tables (the shared ``ScaledKernelPlan.ntt_inv_scaled``,
+    ``ScaledKernelPlan.matvec_scaled`` and ``KernelPlan._matvec`` route by
+    ``pass_entries``); nwc64_matvec_scaled on nwc64.cu's first core the flat
+    cyclic inverse table, and gl64_matvec and nwc32_matvec, on their files'
+    first cores, the flat merged inverse tables."""
     assert {"cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled", "inverse_scaled",
             "dot", "matvec"} <= MxuPlan64.pass_entries
-    assert {"forward_scaled", "dot", "dot_scaled", "inverse_scaled"} <= \
+    assert {"forward_scaled", "dot", "dot_scaled", "inverse_scaled", "matvec_scaled"} <= \
         GoldilocksPlan64.pass_entries
     assert "matvec" not in GoldilocksPlan64.pass_entries | MxuPlan.pass_entries
+    assert "matvec_scaled" not in MxuPlan64.pass_entries
     for cls, gl_cls, n in ((SubPlan64, GoldilocksSubPlan64, 128),
                            (MxuPlan64, GoldilocksPlan64, 256)):
         plan = cls(make_params(n, Q_GENERIC), "cpu")
@@ -896,6 +899,7 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
         plan.ntt_inv_scaled(a, post)
         plan.nwc_dot(a[None], a[None])
         plan.nwc_matvec_cached(a.reshape(2, 2, n), a[:2].reshape(1, 2, n))
+        plan.matvec_scaled(a[None], a[:2].reshape(1, 1, 2, n), post)
         tw = kmxu64.pass_table(plan.plan.cyclic_flat)
         itw = kmxu64.pass_table(plan.plan.cyclic_inv_flat)
         merged = (kmxu64.pass_table(plan.plan.merged_flat)
@@ -917,6 +921,9 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
         assert all(torch.equal(x, y) for x, y in zip(
             calls["matvec"][3:5], kmxu64.pass_table(plan.plan.merged_inv_flat)))
         assert calls["matvec"][5:8] == (1, 2, 2)  # k, l, B
+        assert all(x is y for x, y in zip(calls["matvec_scaled"][3:5],
+                                          _plan._table(plan.plan.cyclic_inv_flat)))
+        assert calls["matvec_scaled"][7:11] == (2, 1, 1, 4)  # P, k, l, B
         gl = gl_cls(make_params(n, GOLDILOCKS_Q), "cpu")
         calls = faked_launches(monkeypatch, gl)
         gl_pre, gl_post = (a[:2].contiguous(),), (a[2:].contiguous(),)
@@ -925,6 +932,7 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
         gl.dot_scaled(a[None], a[None], gl_pre, gl_post)
         gl.ntt_inv_scaled(a, gl_post)
         gl.nwc_matvec_cached(a.reshape(2, 2, n), a[:2].reshape(1, 2, n))
+        gl.matvec_scaled(a[None], a[:2].reshape(1, 1, 2, n), gl_post)
         assert calls["forward_scaled"][2] is gl._transform_table(gl.plan.cyclic_flat)[0]
         assert calls["dot"][3] is gl._transform_table(gl.plan.merged_flat)[0]
         assert calls["dot"][4] is gl._transform_table(gl.plan.merged_inv_flat)[0]
@@ -937,6 +945,11 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
         assert calls["inverse_scaled"][3] is gl_post[0]
         assert calls["matvec"][3] is _plan._table(gl.plan.merged_inv_flat)[0]
         assert calls["matvec"][3].shape == (n,)
+        assert calls["matvec_scaled"][3] is gl._transform_table(gl.plan.cyclic_inv_flat)[0]
+        assert torch.equal(calls["matvec_scaled"][3],
+                           kmxu64.pass_table(gl.plan.cyclic_inv_flat)[0])
+        assert calls["matvec_scaled"][4] is gl_post[0]
+        assert calls["matvec_scaled"][5:9] == (2, 1, 1, 4)  # P, k, l, B
     plan24 = MxuPlan(make_params(256, 8380417), "cpu")
     calls = faked_launches(monkeypatch, plan24)
     s24 = torch.ones((2, 2, 256), dtype=torch.int32)

@@ -18,16 +18,18 @@ both, ``gl64_cached_scaled`` at the first, and the row forward
 ``gl64_forward_scaled`` at both, on random tables, and the dot's row pass
 ``gl64_dot_scaled`` at K = 4 on goldilocks_32768's 16384 rows of 128 at
 period 256, fresh and cached, and on 4096 rows of 1024 at period 1024,
-and the row inverse ``gl64_inverse_scaled`` at both row shapes, run under
-every variant
-in turns, each timed by CUDA events: the best of three runs of 50
-launches, over two rounds.  A variant marked wrong computes other integers:
-its time says what the work it drops costs, nothing else; every other
-variant must give the base's integers.  ``--against`` builds an earlier
+the row inverse ``gl64_inverse_scaled`` at both row shapes, and the
+matvec's row pass ``gl64_matvec_scaled`` at 4 x 4 on goldilocks_32768's
+16384 rows of 128 (B = 64) at period 256 and on 4096 rows of 1024 (B = 4)
+at period 1024, run under every variant in turns, each timed by CUDA
+events: the best of three runs of 50 launches, over two rounds.  A
+variant marked wrong computes other integers: its time says what the work
+it drops costs, nothing else; every other variant must give the base's
+integers.  ``--against`` builds an earlier
 gl64.cu beside them (its entry points of ``AGAINST_FLAT`` reading the flat
 tables: the first core's), times it in the same turns, holds it to the
-base's integers and counts the instructions its first-core row inverse
-issues after its first barrier at n = 128 and 1024, as
+base's integers and counts the instructions its first-core matvec row
+pass issues after its first barrier at n = 128 and 1024, as
 tools/nwc64_variants.py counts its own.  ``--build-only`` and
 ``--only`` as there.  Needs a CUDA device and nvcc; prints the card's name
 and power limit.
@@ -78,6 +80,18 @@ INVERSE_BOUNDS = ("                                  block_threads(kLogN, false)
                   "    inverse_scaled_kernel(")
 DOT_ROW_BLOCKS = "  return !scaled ? 1024 / threads : threads > 256 ? 1 : 512 / threads;"
 DOT_B = "        spectrum[r * kThreads] = x[r];"
+MATVEC_BLOCKS = ("                                  1024 / block_threads(kLogN, false))\n"
+                 "    radix_matvec_kernel(")
+MATVEC_ORDER = ("  const int r = live ? o / rows : 0, i = live ? o % rows : 0;  "
+                "// batch row, row of A")
+MATVEC_ZERO = "  uint64_t x[kWords];\n#pragma unroll\n  for (int w = 0; w < kWords; ++w) {\n    x[w] = 0;\n"
+MATVEC_ADD = "      x[w] = add_any(x[w], mul_lazy(s[w], a[w]));"
+MATVEC_SCALE = ("#pragma unroll\n  for (int w = 0; w < kWords; ++w) {  // any words\n"
+                "    x[w] = mul_lazy(x[w], scale);")
+MATVEC_SMEM = ("  auto kernel = radix_matvec_kernel<kLogN>;\n"
+               "  const cudaError_t err = allow_smem(kernel, kTile << kLogN);")
+MATVEC_LAUNCH = "(kTile << kLogN) * sizeof(uint64_t), stream>>>(\n      words(spectra)"
+TILE_WORD = "sum[w * block_threads(kLogN, false)]"
 DOT_SLOT_B = "kCached ? y[r] : spectrum[r * kThreads]"
 #: name -> (what it changes, [(text, replacement)], computes the right integers)
 VARIANTS = {
@@ -188,18 +202,42 @@ VARIANTS = {
         "gl64_inverse_scaled at the transforms' 1024 threads an SM (64 registers), not 512",
         [(INVERSE_BOUNDS, "                                  1024 / block_threads(kLogN, false))\n"
                           "    inverse_scaled_kernel(")], True),
+    # the matvec's row pass: where its sum waits, its threads an SM and the
+    # order of its output rows
+    "matvec sum in a private tile": (
+        "gl64_matvec_scaled's sum in a tile of shared memory private to each thread (word w "
+        "of thread i at w * threads + i), nwc64.cu's, not in eight registers",
+        [(MATVEC_ZERO, "  uint64_t* const sum = smem + kTile * kN + threadIdx.x;\n#pragma unroll\n"
+                       f"  for (int w = 0; w < kWords; ++w) {{\n    {TILE_WORD} = 0;\n"),
+         (MATVEC_ADD, f"      {TILE_WORD} = add_any({TILE_WORD}, mul_lazy(s[w], a[w]));"),
+         (MATVEC_SCALE, "  uint64_t x[kWords];\n" + MATVEC_SCALE.replace("x[w], scale",
+                                                                     f"{TILE_WORD}, scale")),
+         (MATVEC_SMEM, MATVEC_SMEM.replace("kTile << kLogN", "2 * kTile << kLogN")),
+         (MATVEC_LAUNCH, MATVEC_LAUNCH.replace("(kTile", "(2 * kTile"))], True),
+    "matvec at 512 threads an SM": (
+        "gl64_matvec_scaled at the row passes' 512 threads an SM (up to 128 registers), not "
+        "the transforms' 1024",
+        [(MATVEC_BLOCKS, MATVEC_BLOCKS.replace("1024 / block_threads(kLogN, false)",
+                                               "block_threads(kLogN, false) > 256 ? 1 : "
+                                               "512 / block_threads(kLogN, false)"))], True),
+    "matvec batch row fastest": (
+        "gl64_matvec_scaled's output rows in the first core's order, the batch row fastest "
+        "(the k rows of a batch row a batch apart), not the k rows of a batch row adjacent",
+        [(MATVEC_ORDER, "  const int r = live ? o % batch : 0, i = live ? o / batch : 0;")],
+        True),
 }
 #: the entry points an --against source runs on the first core's flat tables
-AGAINST_FLAT = ("inverse_scaled",)
+AGAINST_FLAT = ("matvec_scaled",)
 KERNELS = ("transform_kernelILi12ELb0ELb0EE", "cyclic_scaled_kernelILi12ELb0ELb0EE",
            "cyclic_scaled_kernelILi12ELb1ELb0EE", "cyclic_scaled_kernelILi7ELb0ELb1EE",
            "cyclic_scaled_kernelILi10ELb0ELb1EE", "forward_scaled_kernelILi7EE",
            "forward_scaled_kernelILi10EE", "dot_kernelILi12ELb0ELb0EE",
            "dot_kernelILi12ELb1ELb0EE", "dot_kernelILi13ELb0ELb0EE", "dot_kernelILi7ELb0ELb1EE",
            "dot_kernelILi7ELb1ELb1EE", "inverse_scaled_kernelILi7EE",
-           "inverse_scaled_kernelILi10EE")
+           "inverse_scaled_kernelILi10EE", "radix_matvec_kernelILi7EE",
+           "radix_matvec_kernelILi10EE")
 FUSED = ("cyclic_scaled_kernelILi", "forward_scaled_kernelILi", "dot_kernelILi",
-         "inverse_scaled_kernelILi")
+         "inverse_scaled_kernelILi", "radix_matvec_kernelILi")
 PTR, I32, U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
 ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "inverse": [PTR] * 3 + [I32] * 2 + [U64, PTR],
@@ -212,7 +250,8 @@ ARGTYPES = {"forward": [PTR] * 3 + [I32] * 2 + [U64, PTR],
             "cyclic_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
             "cached_scaled": [PTR] * 7 + [I32] * 3 + [U64, PTR],
             "dot": [PTR] * 5 + [I32] * 3 + [U64, I32, PTR],
-            "dot_scaled": [PTR] * 7 + [I32] * 4 + [U64, I32, PTR]}
+            "dot_scaled": [PTR] * 7 + [I32] * 4 + [U64, I32, PTR],
+            "matvec_scaled": [PTR] * 5 + [I32] * 5 + [U64, PTR]}
 
 
 def residues(shape, rng) -> torch.Tensor:
@@ -240,7 +279,7 @@ def main() -> int:
             libs["against"] = build(opts.against.read_text(), path, "gl64", ARGTYPES,
                                     KERNELS[:1], FUSED)
             print(f"against {opts.against}: {libs['against'].summary}")
-            count_against(path, {"inverse_scaled_kernel": {l: inverse_trips(l) for l in (7, 10)}})
+            count_against(path, {"matvec_scaled_kernel": {l: inverse_trips(l) for l in (7, 10)}})
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -342,6 +381,20 @@ def main() -> int:
                               + (" cached" if cached else ""), "dot_scaled", out, call[0],
                               (a3, z, pre, post, row._cyclic_tables("dot_scaled"), flat,
                                call[1])))
+        # the matvec's row pass at 4 x 4: goldilocks_32768's 16384 rows of 128
+        # (B = 64) at period 256, and 4096 rows of 1024 (B = 4) at period 1024
+        for n1, n2, rows in ((256, 128, 16384), (1024, 1024, 4096)):
+            row = GoldilocksSubPlan64(make_params(n2, Q), device)
+            s4, mat = residues((4, rows, n2), rng), residues((4, 4, n1, n2), rng)
+            post = residues((n1, n2), rng)
+            itw = row.plan.cyclic_inv_flat  # what --against reads
+            out = torch.empty_like(s4)
+            call = [(s4.data_ptr(), mat.data_ptr(), out.data_ptr(), table.data_ptr(),
+                     post.data_ptr(), n1, 4, 4, rows, row.p.log_n, *row._scale_cached, stream)
+                    for table in (row._transform_table(itw)[0], itw)]
+            cases.append((f"gl64_matvec_scaled 4x4, {rows} rows of {n2}, period {n1}",
+                          "matvec_scaled", out, call[0],
+                          (s4, mat, post, itw, row._transform_table(itw), call[1])))
         times, want = {}, {}
         for _ in range(2):
             for label, entry, out, call, keep in cases:

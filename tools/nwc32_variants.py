@@ -9,7 +9,8 @@ Each variant edits lines of ``tpu_ntt_torch/kernels/csrc/nwc32.cu``
 then ``nwc32_forward`` on merged tables at P24_4096, B = 2048 (scale 1 and
 2^32 mod q, the spectrum's), at DILITHIUM_256 on the 32768 rows of the
 4 x 4 matvec's s (B = 8192), at FALCON_1024 and at n = 16384
-(q = 16580609), B = 2048; the fused ``nwc32_product`` and ``nwc32_cached``
+(q = 16580609), B = 2048; ``nwc32_inverse`` on merged tables at n^-1 at
+the same four shapes; the fused ``nwc32_product`` and ``nwc32_cached``
 at the same four shapes (DILITHIUM_256 at B = 8192); and the fused
 ``nwc32_dot`` at K = 4, fresh and cached, at P24_4096 (B = 512),
 DILITHIUM_256 (B = 2048) and n = 16384 (B = 128), run under every variant
@@ -18,9 +19,11 @@ launches, over two rounds.  A variant marked wrong computes other
 integers: its time says what the work it drops costs, nothing else; every
 other variant must give the base's integers.  ``--against`` builds an
 earlier nwc32.cu beside them (its entry points of ``AGAINST_FLAT`` reading
-the flat tables: the first core's), times it in the same turns and holds
-it to the base's integers.  ``--build-only`` and ``--only`` as there.
-Needs a CUDA device and nvcc; prints the card's name and power limit.
+the flat tables: the first core's), times it in the same turns, holds it
+to the base's integers and counts the instructions its first-core inverse
+issues after its first barrier at n = 256, 4096 and 16384.
+``--build-only`` and ``--only`` as there.  Needs a CUDA device and nvcc;
+prints the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from nwc64_variants import best_ms, build, build_all, chosen, parse_args  # noqa: E402
+from nwc64_variants import (best_ms, build, build_all, chosen, count_against,  # noqa: E402
+                            parse_args)
 from tpu_ntt_torch.kernels import _build  # noqa: E402
 from tpu_ntt_torch.kernels.mxu import MxuPlan  # noqa: E402
 from tpu_ntt_torch.params import DILITHIUM_256, FALCON_1024, P24_4096, make_params  # noqa: E402
@@ -45,6 +49,7 @@ from tpu_ntt_torch.params import DILITHIUM_256, FALCON_1024, P24_4096, make_para
 TILE = "  return log_n >= 11 ? 1 : 2048 >> log_n;"
 WORD = "  return g * (1 << kLogN) + i;"
 BOUNDS = "__launch_bounds__(block_threads(kLogN), 1024 / block_threads(kLogN))"
+INVERSE_BOUNDS = BOUNDS + "\n    radix_inverse_kernel("
 PASSES = ("  run_pass<0, kR0, false, true>(x, pt.w, pt.w_shoup, 0, q);\n"
           "  forward_passes<kLogN, 1>(x, smem, pt, g, t, q);\n")
 FUSED_BLOCKS = "  return 1024 / block_threads(log_n);"
@@ -123,23 +128,33 @@ VARIANTS = {
     "swizzle": ("the tile's word a at a ^ ((a >> 4) & 31): no bank conflict, no 16-byte "
                 "accesses", [(WORD, "  const int a = g * (1 << kLogN) + i;\n"
                                     "  return a ^ ((a >> 4) & 31);")], True),
-    "one block an SM": ("the forward's __launch_bounds__ with one block an SM: up to 128 "
-                        "registers", [(BOUNDS, "__launch_bounds__(block_threads(kLogN), 1)")],
-                        True),
+    "one block an SM": ("the forward's and the inverse's __launch_bounds__ with one block an "
+                        "SM: up to 128 registers",
+                        [(BOUNDS, "__launch_bounds__(block_threads(kLogN), 1)")], True),
+    "inverse at 512 threads an SM": (
+        "nwc32_inverse at 512 threads an SM (1024 at n = 16384; up to 128 registers a "
+        "thread), not 1024",
+        [(INVERSE_BOUNDS, INVERSE_BOUNDS.replace("1024 / block_threads(kLogN)",
+                                                 "(1024 / block_threads(kLogN) + 1) / 2"))],
+        True),
     "device memory only": ("wrong: the loads and stores, no forward pass between them",
                            [(PASSES, "")], False),
-    "passes only": ("wrong: the passes on zeros, no load or store of the rows (forward, product)",
+    "passes only": ("wrong: the passes on zeros, no load or store of the rows (forward, "
+                    "inverse, product)",
                     [("  const bool live = row < rows;\n  const size_t at",
                       "  const bool live = row < rows && rows < 0;\n  const size_t at")], False),
 }
 #: the entry points an --against source runs on the first core's flat tables
-AGAINST_FLAT = ("product", "cached", "dot")
-KERNELS = ("radix_forward_kernelILi12EE", "product_kernelILi12ELb0EE",
-           "product_kernelILi12ELb1EE", "dot_kernelILi12ELb0EE", "dot_kernelILi12ELb1EE")
-FUSED = ("radix_forward_kernelILi", "product_kernelILi", "dot_kernelILi")
+AGAINST_FLAT = ("inverse",)
+KERNELS = ("radix_forward_kernelILi12EE", "radix_inverse_kernelILi12EE",
+           "product_kernelILi12ELb0EE", "product_kernelILi12ELb1EE", "dot_kernelILi12ELb0EE",
+           "dot_kernelILi12ELb1EE")
+FUSED = ("radix_forward_kernelILi", "radix_inverse_kernelILi", "product_kernelILi",
+         "dot_kernelILi")
 ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 PRODUCT_TYPES = [ptr] * 7 + [i32] * 2 + [u32] * 4 + [ptr]
-ARGTYPES = {"forward": [ptr] * 4 + [i32] * 2 + [u32] * 3 + [ptr], "product": PRODUCT_TYPES,
+ARGTYPES = {"forward": [ptr] * 4 + [i32] * 2 + [u32] * 3 + [ptr],
+            "inverse": [ptr] * 4 + [i32] * 2 + [u32] * 3 + [ptr], "product": PRODUCT_TYPES,
             "cached": PRODUCT_TYPES, "dot": [ptr] * 7 + [i32] * 3 + [u32] * 4 + [i32, ptr]}
 
 
@@ -159,8 +174,16 @@ def main() -> int:
         if opts.build_only:
             return 0
         if opts.against:
-            libs["against"] = build(opts.against.read_text(), Path(tmp) / "libagainst.so",
-                                    "nwc32", ARGTYPES, (), FUSED)
+            path = Path(tmp) / "libagainst.so"
+            libs["against"] = build(opts.against.read_text(), path, "nwc32", ARGTYPES, (), FUSED)
+            # the first core's inverse: n / 4 threads a row (at most 1024), its
+            # butterfly and stage loops, then its store loop
+            def threads(log_n):
+                return min(1 << (log_n - 2), 1024)
+
+            count_against(path, {"inverse_kernel": {
+                l: ((1 << l) // 2 // threads(l), l, (1 << l) // threads(l)) for l in (8, 12, 14)}},
+                threads)
         device = torch.device("cuda", 0)
         rng = np.random.default_rng(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -185,6 +208,14 @@ def main() -> int:
                         p.log_n, p.q, *scale, stream)
                 cases.append((f"nwc32_forward {p.name} B={rows} scale {scale[0]}", "forward",
                               out, call, call, (x, tw)))
+            # the inverse of x taken as spectra, merged tables, n^-1
+            iflat = plan.plan.merged_inv_flat  # what --against reads
+            out = torch.empty_like(x)
+            call = [(x.data_ptr(), out.data_ptr(), *(w.data_ptr() for w in itw), rows, p.log_n,
+                     p.q, *plan._scale_cached, stream)
+                    for itw in (plan._transform_table(iflat), iflat)]
+            cases.append((f"nwc32_inverse {p.name} B={rows}", "inverse", out, *call,
+                          (x, iflat, plan._transform_table(iflat))))
             # the fused products at B = 8192 at DILITHIUM_256 (its matvec's batch)
             rows = min(rows, 8192)
             a, b = x[:rows], residues(p, (rows, p.n))

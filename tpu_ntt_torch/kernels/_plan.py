@@ -578,8 +578,9 @@ class ScaledKernelPlan(KernelPlan):
         if batch == 0:
             return out
         return self._launch(
-            "matvec_scaled", out, spectra, mat, out, *_table(self.plan.cyclic_inv_flat),
-            *post, period, k, l, batch, self.p.log_n, *self._q_args(True),
+            "matvec_scaled", out, spectra, mat, out,
+            *self._table_of("matvec_scaled", self.plan.cyclic_inv_flat), *post, period, k, l,
+            batch, self.p.log_n, *self._q_args(True),
             *self._scale_cached)
 
     def matvec_scaled_plain(self, spectra, mat, post):

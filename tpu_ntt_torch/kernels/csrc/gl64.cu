@@ -47,7 +47,7 @@
 // over.  32 <= n <= 8192 (the public window is 256 <= n <= 8192; below
 // it, the four-step's sub-sizes).
 //
-// Two cores, as in nwc64.cu.  Twelve entry points run the radix-8 core
+// Two cores, as in nwc64.cu.  Thirteen entry points run the radix-8 core
 // ("The radix-8 core" below): gl64_forward, gl64_inverse and their column
 // entry points; the row forward gl64_forward_scaled, the entry scale and
 // one forward on it, and the row inverse gl64_inverse_scaled, one inverse
@@ -55,11 +55,12 @@
 // radix-8 core"), both forwards, the slot product and the inverse in one
 // kernel a launch: K2's flat product gl64_product and gl64_cached, and the
 // four-step's row pass gl64_cyclic_scaled and gl64_cached_scaled, with the
-// entry and exit scales; and the dots ("The dot fused on the radix-8
-// core"), a forward a loop step and one inverse: K2's flat gl64_dot and,
-// with the scales, the four-step's row pass gl64_dot_scaled.  The other
-// two (gl64_matvec, gl64_matvec_scaled) run the first core's inverse,
-// correct first and simple, until they move onto the radix-8 one.
+// entry and exit scales; the dots ("The dot fused on the radix-8 core"), a
+// forward a loop step and one inverse: K2's flat gl64_dot and, with the
+// scales, the four-step's row pass gl64_dot_scaled; and the four-step's row
+// pass of the matvec gl64_matvec_scaled, a sum of slot products a loop step
+// and one inverse.  The other one (gl64_matvec) runs the first core's
+// inverse, correct first and simple, until it moves onto the radix-8 one.
 // The network code of both is a copy of nwc64.cu's rather than a header
 // shared by both, so nwc64.cu is not changed and its functions and times
 // stay as they were; the arithmetic differs.  The first core:
@@ -80,13 +81,6 @@
 //   cannot): gl_add takes the carry as 2^64 = q + (2^32 - 1).
 // * Every value stays canonical in [0, q), also through the matvec's
 //   accumulation.
-// * The four-step's first-core row kernel gl64_matvec_scaled is
-//   matvec_kernel with one gl_mul more, by a table row, at exit.  Row r of
-//   a launch reads row r % period of a (period, n) table of plain values
-//   (no Shoup companion, as for the twiddles): a batch of B polynomials of
-//   n1 rows each passes period = n1.  The spectra stay plain, so
-//   `cacheable` changes nothing here, where nwc64.cu multiplies by 2^64
-//   mod q.
 //
 // What bounds both cores on this card: the multiplies, as in nwc64.cu.
 // Hopper builds a 64 x 64 -> 128 product from about eight 32-bit IMADs (the
@@ -277,36 +271,6 @@ __global__ void matvec_kernel(const uint64_t* __restrict__ spectra,
   inverse(x, log_n, itw);
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     out[(i * batch + r) * n + e] = x[e];
-  }
-}
-
-// The four-step's row pass of the matvec: matvec_kernel on the rows of the
-// spectra of s (their row forward done by forward_scaled_kernel) against A's
-// cached spectra, (rows, cols, period, n), row r reading A's row r % period;
-// the exit scale post[r % period] after the inverse.
-__global__ void matvec_scaled_kernel(const uint64_t* __restrict__ spectra,
-                                     const uint64_t* __restrict__ mat,
-                                     uint64_t* __restrict__ out,
-                                     const uint64_t* __restrict__ itw,
-                                     const uint64_t* __restrict__ post,
-                                     int period, int cols, int batch,
-                                     int log_n, uint64_t scale) {
-  extern __shared__ uint64_t x[];
-  const int n = 1 << log_n;
-  const size_t r = blockIdx.x, i = blockIdx.y, p = blockIdx.x % period;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    uint64_t acc = 0;
-    for (int j = 0; j < cols; ++j) {
-      const uint64_t s = spectra[(static_cast<size_t>(j) * batch + r) * n + e];
-      const uint64_t m = __ldg(mat + ((i * cols + j) * period + p) * n + e);
-      acc = gl_add(acc, gl_mul(s, m));
-    }
-    x[e] = gl_mul(acc, scale);
-  }
-  __syncthreads();
-  inverse(x, log_n, itw);
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    out[(i * batch + r) * n + e] = gl_mul(x[e], __ldg(post + p * n + e));
   }
 }
 
@@ -1020,6 +984,79 @@ __global__ void __launch_bounds__(block_threads(kLogN, false), dot_blocks(kLogN,
   store<kLogN, false, 0>(x, out, at, 1, ti, live);
 }
 
+// The four-step's row pass of the matvec on the radix-8 core
+// (gl64_matvec_scaled, K1c's body at the Goldilocks q): out[i, r] = post .
+// INTT(sum_j S[j, r] o A[i, j, r % P]) * scale for the (cols, batch, n) row
+// spectra S of s (their row forward done by gl64_forward_scaled) and the
+// (rows, cols, P, n) rows A of the cached spectra of the matrix, both plain
+// (a Goldilocks cached spectrum has domain factor 1, so `cacheable` changes
+// nothing and the slot needs no REDC), row r scaled by row r % P of the
+// (P, n) table post of plain values, on cyclic per-pass tables: nwc64.cu's
+// matvec_kernel on this file's arithmetic, with the row inverse's tail.
+// Thread t of output row (i, r) loads, for each j, words 8t ... 8t + 7 of
+// S[j, r] and of A[i, j, r % P] as 16-byte vectors: the words where the
+// inverse's first pass starts, so no exchange comes before it.  The slot is
+// mul_lazy and the sum add_any (any words in and out, the dot's).  Then
+// `scale` (n^-1) one mul_lazy a word, the inverse's passes, post's
+// mul_lazy at the store's positions and the one compare.  The k output rows
+// of one batch row are adjacent (output row o = r * rows + i, rows tiling a
+// block as in the transforms), so the words of S a block reads come from
+// device memory once and from L2 k - 1 times; A (k l P n words, 4 MiB at
+// goldilocks_32768's 4 x 4) stays in L2: with the batch row fastest the
+// kernel ran 7.4 % slower there and 37 % slower at 2^20's rows of 1024.
+// The sum waits in eight registers a thread, 1024 threads an SM: the
+// Goldilocks slot needs no q registers, so ptxas spills nothing at 64 a
+// thread, where nwc64.cu's sum spilled and waits in a shared tile; such a
+// tile ran 2.6 % slower at goldilocks_32768's rows of 128 and 6.8 % at
+// 2^20's rows of 1024, and 512 threads an SM 0.8 % faster and 4.2 %
+// slower (tools/gl64_variants.py, PERF.md).
+template <int kLogN>
+__global__ void __launch_bounds__(block_threads(kLogN, false),
+                                  1024 / block_threads(kLogN, false))
+    radix_matvec_kernel(const uint64_t* __restrict__ spectra, const uint64_t* __restrict__ mat,
+                        uint64_t* __restrict__ out, const uint64_t* __restrict__ itw,
+                        const uint64_t* __restrict__ post, int period, int rows, int cols,
+                        int batch, uint64_t scale) {
+  extern __shared__ uint64_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN, false);
+  constexpr int kLast = passes(kLogN) - 1;
+  constexpr int kS = pass_stage(kLogN, kLast), kOff = pass_offset(kLogN, kLast);
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int o = blockIdx.x * kTile + g;
+  const bool live = o < rows * batch;
+  const int r = live ? o / rows : 0, i = live ? o % rows : 0;  // batch row, row of A
+  const size_t srow = static_cast<size_t>(r % period) * kN;
+  uint64_t x[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    x[w] = 0;
+  }
+#pragma unroll 1
+  for (int j = 0; j < cols; ++j) {
+    uint64_t s[kWords], a[kWords];
+    load<kLogN, false, kLast>(s, spectra, (static_cast<size_t>(j) * batch + r) * kN, 1, t,
+                              live);  // [0, q)
+    load<kLogN, false, kLast>(a, mat, (static_cast<size_t>(i) * cols + j) * period * kN + srow,
+                              1, t, live);  // [0, q)
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {  // any words
+      x[w] = add_any(x[w], mul_lazy(s[w], a[w]));
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {  // any words
+    x[w] = mul_lazy(x[w], scale);
+  }
+  run_pass<kS, 3, true>(x, itw + kOff, group<kLogN, kS>(t));
+  inverse_passes<kLogN, false, kLast - 1>(x, smem, itw, g, t);
+  times_row<kLogN, 0>(x, post, srow, t);  // the store's positions
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {  // any word -> [0, q)
+    x[w] = canonical(x[w]);
+  }
+  store<kLogN, false, 0>(x, out, (static_cast<size_t>(i) * batch + r) * kN, 1, t, live);
+}
+
 // n / 8 threads from n = 256 on (four butterflies each), at most 1024;
 // below, a warp, or one thread a butterfly where n / 2 is less.
 int threads_for(int log_n) {
@@ -1168,6 +1205,25 @@ int launch_dot(const void* a, const void* b, void* out, const void* tw, const vo
   kernel<<<(batch + kTile - 1) / kTile, block_threads(kLogN, false), kSmem, stream>>>(
       words(a), words(b), static_cast<uint64_t*>(out), words(tw), words(itw), words(pre),
       words(post), period, terms, batch, scale);
+  return cudaGetLastError();
+}
+
+// The matvec's row pass at log n = kLogN: rows * batch output rows,
+// tile(kLogN) a block.
+template <int kLogN>
+int launch_matvec(const void* spectra, const void* mat, void* out, const void* itw,
+                  const void* post, int period, int rows, int cols, int batch, uint64_t scale,
+                  cudaStream_t stream) {
+  constexpr int kTile = tile(kLogN, false);
+  auto kernel = radix_matvec_kernel<kLogN>;
+  const cudaError_t err = allow_smem(kernel, kTile << kLogN);
+  if (err != cudaSuccess) {
+    return err;
+  }
+  kernel<<<(rows * batch + kTile - 1) / kTile, block_threads(kLogN, false),
+           (kTile << kLogN) * sizeof(uint64_t), stream>>>(
+      words(spectra), words(mat), static_cast<uint64_t*>(out), words(itw), words(post), period,
+      rows, cols, batch, scale);
   return cudaGetLastError();
 }
 
@@ -1361,27 +1417,32 @@ extern "C" int gl64_dot_scaled(const void* a, const void* b, void* out,
                            cached, stream);
 }
 
-// The matvec's row pass: the (cols, batch, n) row spectra of s against the
-// (rows, cols, period, n) cached spectra of A; (rows, batch, n) out.
+// The matvec's row pass on the radix-8 core: the (cols, batch, n) row
+// spectra of s against the (rows, cols, period, n) cached spectra of A, row
+// r of s meeting A's row r % period, post as for gl64_cyclic_scaled;
+// (rows, batch, n) out, on the inverse table of mxu64.pass_table.
 extern "C" int gl64_matvec_scaled(const void* spectra, const void* mat,
                                   void* out, const void* itw, const void* post,
                                   int period, int rows, int cols, int batch,
                                   int log_n, uint64_t scale, void* stream) {
   if (bad_shape(batch, log_n) || period < 1 || batch % period || rows < 1 ||
-      rows > 65535 || cols < 1) {
+      rows > 65535 || cols < 1 || batch > 0x7fffffff / rows) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(matvec_scaled_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned(spectra, mat, out, itw, post)) {
+    return cudaErrorMisalignedAddress;
   }
-  matvec_scaled_kernel<<<dim3(batch, rows), threads_for(log_n),
-                         n * sizeof(uint64_t),
-                         static_cast<cudaStream_t>(stream)>>>(
-      words(spectra), words(mat), static_cast<uint64_t*>(out), words(itw),
-      words(post), period, cols, batch, log_n, scale);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define GL64_LOG_N(L)                                                                    \
+  case L:                                                                                \
+    return launch_matvec<L>(spectra, mat, out, itw, post, period, rows, cols, batch,     \
+                            scale, s);
+    GL64_LOG_N(5) GL64_LOG_N(6) GL64_LOG_N(7) GL64_LOG_N(8) GL64_LOG_N(9)
+    GL64_LOG_N(10) GL64_LOG_N(11) GL64_LOG_N(12) GL64_LOG_N(13)
+#undef GL64_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* gl64_error_string(int err) {

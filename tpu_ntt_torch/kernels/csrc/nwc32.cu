@@ -21,17 +21,17 @@
 // (mxu.py:10-35); none of them is carried over.  Correct for any odd
 // q < 2^30 and 256 <= n <= 16384.
 //
-// Two cores.  nwc32_forward, nwc32_product, nwc32_cached and nwc32_dot run
-// the radix-16 core ("The radix-16 core" below): nwc64.cu's radix-8
-// schedule on 32-bit lanes, four stages a pass, the products and the dot
-// fused on it.  nwc32_inverse and nwc32_matvec run the first core, correct
-// first and simple (the shape of nwc64.cu's), until they move onto the
-// radix-16 one; they read the spectra in the bit-reversed order the forward
-// writes:
-// * One thread block per row (per output row for the matvec), the row in
-//   dynamic shared memory: 4n bytes, 64 KiB at n = 16384, so device memory
-//   sees each operand and each result once.  n / 4 threads (at most 1024)
-//   run two butterflies each up to n = 4096.
+// Two cores.  nwc32_forward, nwc32_inverse, nwc32_product, nwc32_cached
+// and nwc32_dot run the radix-16 core ("The radix-16 core" below):
+// nwc64.cu's radix-8 schedule on 32-bit lanes, four stages a pass, the
+// products and the dot fused on it.  nwc32_matvec runs the first core,
+// correct first and simple (the shape of nwc64.cu's), until it moves onto
+// the radix-16 one; it reads the spectra in the bit-reversed order the
+// forward writes:
+// * One thread block per output row, the row in dynamic shared memory: 4n
+//   bytes, 64 KiB at n = 16384, so device memory sees each operand and
+//   each result once.  n / 4 threads (at most 1024) run two butterflies
+//   each up to n = 4096.
 // * A Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
 //   between stages.  The stage with m groups reads entry m + g of a flat
 //   length-n table for group g, beside its Shoup companion
@@ -58,7 +58,7 @@
 // the first core back is neither: a butterfly is about 30 instructions
 // (index arithmetic, shared loads and stores, twiddle loads, conditional
 // subtracts) between 12 barriers a transform, and on an H100 SXM at 700 W
-// its inverse takes about 5.5x its bound (PERF.md).  The radix-16 core's
+// its inverse took about 5.5x its bound (PERF.md).  The radix-16 core's
 // header says what it does about each; a forward alone moves 67 MB at
 // P24_4096, B = 2048 (0.020 ms) and needs 1.0e8 IMADs (0.006 ms).
 
@@ -121,23 +121,6 @@ __device__ void inverse(uint32_t* x, int log_n, Table itw, uint32_t q) {
   }
 }
 
-// The inverse of one row, then times `scale` (n^-1).
-__global__ void inverse_kernel(const uint32_t* __restrict__ in,
-                               uint32_t* __restrict__ out, Table itw, int log_n,
-                               uint32_t q, uint32_t scale, uint32_t scale_shoup) {
-  extern __shared__ uint32_t x[];
-  const int n = 1 << log_n;
-  const size_t row = static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    x[i] = in[row + i];
-  }
-  __syncthreads();
-  inverse(x, log_n, itw, q);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    out[row + i] = shoup_mul(x[i], scale, scale_shoup, q);
-  }
-}
-
 // out[i, r] = INTT(sum_j S[j, r] . A[i, j]) for block (r, i): S is the
 // (cols, batch, n) stack of plain spectra of s, A the (rows, cols, n) cached
 // spectra (times 2^32), so each REDC gives the plain product.
@@ -166,10 +149,10 @@ __global__ void matvec_kernel(const uint32_t* __restrict__ spectra,
 }
 
 // ---------------------------------------------------------------------------
-// The radix-16 core: nwc32_forward, and fused on it nwc32_product,
-// nwc32_cached and nwc32_dot.  The schedule of nwc64.cu's radix-8 core on
-// 32-bit lanes, the same integers as the first core (a canonical result is
-// unique) in the same orders, by another schedule:
+// The radix-16 core: nwc32_forward, nwc32_inverse, and fused on it
+// nwc32_product, nwc32_cached and nwc32_dot.  The schedule of nwc64.cu's
+// radix-8 core on 32-bit lanes, the same integers as the first core (a
+// canonical result is unique) in the same orders, by another schedule:
 // * Passes in registers.  A thread holds kWords = 16 words, 16 registers as
 //   nwc64.cu's eight 64-bit ones, and a pass runs four stages on them with
 //   no barrier between them: stage s + d of a radix-16 group pairs its
@@ -455,7 +438,21 @@ __device__ __forceinline__ void inverse_row(uint32_t (&x)[kWords], uint32_t* out
   }
 }
 
-// Spectrum words 16t ... 16t + 15 of row `at`: four 16-byte vectors.
+// Spectrum words 16t ... 16t + 15 of row `at`: four 16-byte vectors (0
+// where the row is not live).
+__device__ __forceinline__ void load_words(uint32_t (&x)[kWords], const uint32_t* in, size_t at,
+                                           int t, bool live) {
+  const uint4* v = reinterpret_cast<const uint4*>(in + at + kWords * t);
+#pragma unroll
+  for (int m = 0; m < kWords / 4; ++m) {
+    const uint4 w = live ? v[m] : make_uint4(0, 0, 0, 0);
+    x[4 * m] = w.x;
+    x[4 * m + 1] = w.y;
+    x[4 * m + 2] = w.z;
+    x[4 * m + 3] = w.w;
+  }
+}
+
 __device__ __forceinline__ void store_words(const uint32_t (&x)[kWords], uint32_t* out, size_t at,
                                             int t, bool live) {
   if (live) {
@@ -489,6 +486,31 @@ __global__ void __launch_bounds__(block_threads(kLogN), 1024 / block_threads(kLo
                       : csub(shoup_lazy(x[r], scale, scale_shoup, q), q);
   }
   store_words(x, out, at, t, live);  // the last pass holds elements 16t ... 16t + 15
+}
+
+// out = INTT(in) * scale on `rows` bit-reversed spectra (scale n^-1; the
+// merged tables fold the negacyclic untwist in): spectrum words 16t ...
+// 16t + 15 (four 16-byte vectors, canonical), one lazy Shoup product by
+// `scale` ([0, 2q): the GS lanes' range), then inverse_row: the passes, one
+// compare, the natural-order store.  Tiles and 1024 threads an SM as the
+// forward's.
+template <int kLogN>
+__global__ void __launch_bounds__(block_threads(kLogN), 1024 / block_threads(kLogN))
+    radix_inverse_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, Table pt,
+                         int rows, uint32_t q, uint32_t scale, uint32_t scale_shoup) {
+  extern __shared__ uint32_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN);
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int row = blockIdx.x * kTile + g;
+  const bool live = row < rows;
+  const size_t at = live ? static_cast<size_t>(row) * kN : 0;
+  uint32_t x[kWords];
+  load_words(x, in, at, t, live);  // [0, q)
+#pragma unroll
+  for (int r = 0; r < kWords; ++r) {  // [0, 2q)
+    x[r] = shoup_lazy(x[r], scale, scale_shoup, q);
+  }
+  inverse_row<kLogN>(x, out, at, smem, pt, g, t, live, q);
 }
 
 // The products and the dot fused on the radix-16 core.  A slot product is a
@@ -799,9 +821,9 @@ int launch_dot(const void* a, const void* b, void* out, const void* tw, const vo
 // device, and returns the CUDA error code (0 on success).  A launch the
 // device refuses (too much shared memory, a bad shape, a misaligned
 // pointer) never runs, so the caller must check the code.  The radix-16
-// entry points (product, cached, forward, dot) read their tables (w, w')
-// in the per-pass layout of mxu64.pass_table at four stages a pass; the
-// first core's (inverse, matvec) the flat tables.
+// entry points (product, cached, forward, inverse, dot) read their tables
+// (w, w') in the per-pass layout of mxu64.pass_table at four stages a pass;
+// the first core's (matvec) the flat tables.
 
 // out = INTT(NTT(a) o NTT(b)) * scale on (batch, n) rows, fused on the
 // radix-16 core; rows 16-byte aligned, tables 8-byte aligned.
@@ -853,6 +875,8 @@ extern "C" int nwc32_forward(const void* in, void* out, const void* tw,
   return cudaErrorInvalidValue;
 }
 
+// The inverse of (batch, n) bit-reversed spectra on the radix-16 core,
+// times `scale`; in 16-byte aligned, the tables 8-byte aligned.
 extern "C" int nwc32_inverse(const void* in, void* out, const void* itw,
                              const void* itw_shoup, int batch, int log_n,
                              uint32_t q, uint32_t scale, uint32_t scale_shoup,
@@ -860,16 +884,23 @@ extern "C" int nwc32_inverse(const void* in, void* out, const void* itw,
   if (bad_shape(batch, log_n)) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(inverse_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned({in}, {itw, itw_shoup})) {
+    return cudaErrorMisalignedAddress;
   }
-  inverse_kernel<<<batch, threads_for(log_n), n * sizeof(uint32_t),
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-      table(itw, itw_shoup), log_n, q, scale, scale_shoup);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Table pt = table(itw, itw_shoup);
+  const uint32_t* pi = static_cast<const uint32_t*>(in);
+  uint32_t* po = static_cast<uint32_t*>(out);
+  switch (log_n) {
+#define NWC32_LOG_N(L) \
+  case L:              \
+    return launch_rows<L>(radix_inverse_kernel<L>, 1, batch, s, pi, po, pt, batch, q, scale, \
+                          scale_shoup);
+    NWC32_LOG_N(8) NWC32_LOG_N(9) NWC32_LOG_N(10) NWC32_LOG_N(11) NWC32_LOG_N(12)
+    NWC32_LOG_N(13) NWC32_LOG_N(14)
+#undef NWC32_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 // out = INTT(sum_k NTT(a_k) o NTT(b_k)) * scale for (terms, batch, n) stacks

@@ -31,14 +31,16 @@ the radix-8 core of ``csrc/gl64.cu``: passes of three stages in registers,
 twiddles in the per-pass layout of ``mxu64.pass_table``; so do the
 four-step's row forward ``gl64_forward_scaled`` and row inverse
 ``gl64_inverse_scaled``.  The products fused on that core, both forwards,
-the slot product and the inverse in one kernel, are K2's flat product (``gl64_product``, ``gl64_cached``) and the
-four-step's row pass (``gl64_cyclic_scaled``, ``gl64_cached_scaled``); the
-dots, K2's flat ``gl64_dot`` and with the scales the four-step's row pass
+the slot product and the inverse in one kernel, are K2's flat product
+(``gl64_product``, ``gl64_cached``) and the four-step's row pass
+(``gl64_cyclic_scaled``, ``gl64_cached_scaled``); the dots, K2's flat
+``gl64_dot`` and with the scales the four-step's row pass
 ``gl64_dot_scaled``, run a forward a loop step on it, the sum in shared
-memory, and one inverse.  These twelve read the per-pass tables
-(``GoldilocksPlan64.pass_entries``); the other two kernels
-(``gl64_matvec``, ``gl64_matvec_scaled``) run the first core on the flat
-tables.
+memory, and one inverse; the four-step's row pass of the matvec
+``gl64_matvec_scaled`` sums the slot products of the spectra of s and A a
+loop step, then runs one inverse.  These thirteen read the per-pass tables
+(``GoldilocksPlan64.pass_entries``); the last kernel, ``gl64_matvec``,
+runs the first core on the flat tables.
 """
 
 from __future__ import annotations
@@ -123,7 +125,8 @@ class GoldilocksPlan64(_plan.ScaledKernelPlan):
 
     pass_entries = frozenset({"forward", "inverse", "forward_cols", "inverse_cols",
                               "forward_scaled", "product", "cached", "cyclic_scaled",
-                              "cached_scaled", "dot", "dot_scaled", "inverse_scaled"})
+                              "cached_scaled", "dot", "dot_scaled", "inverse_scaled",
+                              "matvec_scaled"})
 
     def _transform_table(self, flat) -> tuple:
         """The per-pass layout of the flat table w for the radix-8 core's

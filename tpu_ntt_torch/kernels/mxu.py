@@ -12,12 +12,12 @@ The ops, their plain versions, the launch counts and the spectrum layout
 (bit-reversed; cached spectra times 2^32 mod q, tpu_ntt's domain) are
 ``_plan.KernelPlan``'s; the kernels are those of ``csrc/nwc32.cu``.
 ``nwc32_forward`` (the forwards, the spectrum, and the matvec's transform
-of s) runs that file's radix-16 core, passes of four stages in registers,
-and ``nwc32_product`` (the negacyclic and cyclic products),
-``nwc32_cached`` and ``nwc32_dot`` (fresh and cached) are fused on it: all
-four read the per-pass layout of ``mxu64.pass_table`` with ``RADIX`` stages
-a pass (``MxuPlan.pass_entries``); ``nwc32_inverse`` and ``nwc32_matvec``
-read the flat tables.
+of s) and ``nwc32_inverse`` (both inverses) run that file's radix-16 core,
+passes of four stages in registers, and ``nwc32_product`` (the negacyclic
+and cyclic products), ``nwc32_cached`` and ``nwc32_dot`` (fresh and
+cached) are fused on it: all five read the per-pass layout of
+``mxu64.pass_table`` with ``RADIX`` stages a pass (``MxuPlan.pass_entries``);
+``nwc32_matvec`` reads the flat tables.
 """
 
 from __future__ import annotations
@@ -59,10 +59,10 @@ class MxuPlan(KernelPlan):
             return f"MxuPlan requires width <= 24, q < 2^24 (got {p.width}-bit q)"
         return f"n={p.n} must be a multiple of 128 in [256, 16384]"
 
-    pass_entries = frozenset({"forward", "product", "cached", "dot"})
+    pass_entries = frozenset({"forward", "inverse", "product", "cached", "dot"})
 
     def _transform_table(self, flat: tuple) -> tuple:
         """The per-pass layout of the flat table (w, w') for the radix-16
-        core's entry point: pairs of 32-bit words, a warp's 8-byte loads
+        core's entry points: pairs of 32-bit words, a warp's 8-byte loads
         of consecutive groups contiguous."""
         return cached_pass_table(self, flat, RADIX)
