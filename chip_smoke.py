@@ -43,14 +43,17 @@ kernel K6).  Phases, each of which raises on failure:
    of l, and the rest), and nwc32.cu's radix-16 forward and inverse at
    n = 256, 4096 and 16384 and its fused product, fresh and cached, at
    n = 4096, with their shared-memory instructions, and its fused dot at
-   n = 4096, fresh and cached, counted as the flat dots; the radix
-   kernels of the three files, 36 transforms, 9 row forwards and 9 row
+   n = 4096, fresh and cached, counted as the flat dots, and its matvec
+   ``radix_matvec_kernel<8>`` and kyber.cu's radix-16 dot, fresh and
+   cached at K = 3, counted as the matvecs (a step, after the loop, in
+   all); the radix
+   kernels of the four files, 36 transforms, 9 row forwards and 9 row
    inverses in each 64-bit one, nwc64.cu's 18 fused products, 18 fused row
    passes, 36 fused dots (18 row passes, 18 flat) and 9 matvecs, gl64.cu's
    36 fused products (18 flat, 18 row passes), 36 fused dots (18 flat,
    18 row passes) and 9 matvec row passes, and nwc32.cu's 7 radix-16
-   forwards, 7 inverses, 14 fused products and 14 fused dots, must spill
-   nothing; the
+   forwards, 7 inverses, 14 fused products, 14 fused dots and 7 matvecs,
+   and kyber.cu's 2 dots, must spill nothing; the
    blocks an SM of both flat dots, gl64.cu's row-pass dot and its flat
    product, by ptxas's registers and their shared memory;
 3. kernel vs plain: each kernel function equals its plain PyTorch version
@@ -99,7 +102,12 @@ kernel K6).  Phases, each of which raises on failure:
    products and the dot fused on it at the same n and q, boundary rows
    first: ``nwc32_product`` on merged and cyclic tables and
    ``nwc32_cached`` at B = 1, 3 and 2048, ``nwc32_dot`` fresh and cached
-   at K = 1, 4 and 8, B = 1, 3 and 512; every op
+   at K = 1, 4 and 8, B = 1, 3 and 512; ``nwc32_matvec`` alone at the same
+   n and q, (k, l) = (1, 1), (4, 4), (8, 8) and (3, 5), B = 1, 3 and 37,
+   s's rows 0, 1 and q - 1 first and A's first row all q - 1, against the
+   plain matvec; ``kyber_dot`` on kyber.cu's radix-16 core, fresh and
+   cached, K = 1 to 8, B = 1, 3, 9 and 16384, rows 0, 1 and q - 1 first;
+   every op
    at P60_4096, B = 2048 (the dot at K = 4, B = 512, the matvec 4 x 4 at
    B = 256), the product, forward and inverse at n = 256 and 8192, the dot
    at n = 8192 (three rows of shared memory), every op at the generic q;
@@ -214,8 +222,8 @@ kernel K6).  Phases, each of which raises on failure:
    four-step's row kernels at p60_32768 and goldilocks_32768, and its
    chains (nwc, nwc_fwd, nwc_inv, cached, dot, dot_cached, matvec at both,
    spectrum at p60_32768; nwc and cached at both 2^20 rows) against their
-   plain chains, the cached dots at P60_4096, P24_4096 and
-   goldilocks_4096 beside the fresh ones, the three matvecs' accumulate-
+   plain chains, the cached dots at P60_4096, P24_4096, goldilocks_4096
+   and ML-KEM-768 beside the fresh ones, the three matvecs' accumulate-
    and-inverse kernels alone beside their ops (``nwc64_matvec``,
    ``gl64_matvec`` at B = 256 and ``nwc32_matvec`` at DILITHIUM_256,
    B = 8192, on the spectra of s; their bounds ``bounds.ntt_work``'s
@@ -459,25 +467,29 @@ def sass_listing(lib) -> dict:
     return kernels
 
 
-def sass_loops(listing) -> list:
-    """The loops of a kernel after its first barrier, in the address order of
-    their backward branches: (first address, branch address, instructions)."""
-    start = next(i for i, (_, ins) in enumerate(listing) if ins.startswith("BAR.SYNC"))
+def sass_loops(listing, whole: bool = False) -> list:
+    """The loops of a kernel after its first barrier (``whole``: in all of
+    it), in the address order of their backward branches: (first address,
+    branch address, instructions)."""
+    start = 0 if whole else next(i for i, (_, ins) in enumerate(listing)
+                                 if ins.startswith("BAR.SYNC"))
     code = listing[start:]
     loops = [(int(m.group(1), 16), at) for at, ins in code
              if (m := re.search(r"\bBRA (0x[0-9a-f]+)", ins)) and int(m.group(1), 16) < at]
     return [(lo, hi, sum(lo <= at <= hi for at, _ in code)) for lo, hi in loops]
 
 
-def issued_per_thread(listing, trips) -> int | None:
-    """Instructions a thread issues after its block barrier, up to its last
-    EXIT: each instruction once for every trip of each loop around it (a
-    backward branch; ``trips[i]`` for the i-th in address order, so nested
-    loops multiply); None where the loops are not as many as ``trips``."""
-    start = next(i for i, (_, ins) in enumerate(listing) if ins.startswith("BAR.SYNC"))
+def issued_per_thread(listing, trips, whole: bool = False) -> int | None:
+    """Instructions a thread issues after its block barrier (``whole``: from
+    its first instruction), up to its last EXIT: each instruction once for
+    every trip of each loop around it (a backward branch; ``trips[i]`` for
+    the i-th in address order, so nested loops multiply); None where the
+    loops are not as many as ``trips``."""
+    start = 0 if whole else next(i for i, (_, ins) in enumerate(listing)
+                                 if ins.startswith("BAR.SYNC"))
     end = max(i for i, (_, ins) in enumerate(listing) if "EXIT" in ins)
     code = listing[start:end + 1]
-    loops = sass_loops(listing)
+    loops = sass_loops(listing, whole)
     if len(loops) != len(trips):
         return None
     return sum(int(np.prod([t for (lo, hi, _), t in zip(loops, trips) if lo <= at <= hi]))
@@ -689,6 +701,47 @@ def main() -> int:
     w32_sass = sass_listing(libs["nwc32"])
     print_dot("nwc32", w32_sass, "dot_kernel<12, 0>", 2 * DOT_TERMS)
     print_dot("nwc32", w32_sass, "dot_kernel<12, 1>", DOT_TERMS)
+
+    def print_loops(lib, listing, kernel, trips, what):
+        """A kernel whose loops each run ``trips`` steps: each loop's body
+        (a step), the code before the first loop and after the last, and
+        what a thread issues in all: the code outside the loops once, each
+        loop's body trips times, or trips - 1 where the compiler peeled the
+        first step into the code before the loop (that code then holds the
+        step's global loads, two fewer at most); a step with two arms (the
+        fresh kyber dot's: b's store or a's base case) counts both, so its
+        count is an upper bound."""
+        code = listing[kernel]
+        end = max(i for i, (_, ins) in enumerate(code) if "EXIT" in ins)
+        addresses = [at for at, _ in code[:end + 1]]
+        loops = sass_loops(code, whole=True)
+
+        def loads(lo, hi):
+            return sum(lo <= at <= hi and ins.startswith("LDG") for at, ins in code)
+
+        total, peeled, prev = 0, [], -1
+        for lo, hi, body in loops:
+            peeled.append(loads(prev + 1, lo - 1) >= loads(lo, hi) - 2)
+            total += body * (trips - peeled[-1])
+            prev = hi
+        total += sum(not any(lo <= at <= hi for lo, hi, _ in loops) for at in addresses)
+        barrier = any(ins.startswith("BAR.SYNC") for _, ins in code)
+        print(f"  sass: {lib}.cu {kernel}: {len(code)} instructions; {len(loops)} loop(s), "
+              f"a step {[body for *_, body in loops]} (first step peeled: {peeled}); before "
+              f"the first {sum(at < loops[0][0] for at in addresses)}, after the last "
+              f"{sum(at > loops[-1][1] for at in addresses)}; at {what} a thread issues "
+              f"{total} in all"
+              + (f", {issued_per_thread(code, ())} after its first barrier" if barrier else ""))
+
+    # nwc32.cu's matvec at DILITHIUM_256's n = 256 (two loops of l steps,
+    # one a half of a thread's words: a term's loads and multiply-adds, then
+    # the REDCs, n^-1 and the inverse) and kyber.cu's dot, fresh (2K steps)
+    # and cached (K) at ML-KEM-768's K = 3 (a step a forward and, for a's,
+    # the base case; then the inverse)
+    print_loops("nwc32", w32_sass, "radix_matvec_kernel<8>", DOT_TERMS, f"l = {DOT_TERMS}")
+    kyber_sass = sass_listing(libs["kyber"])
+    print_loops("kyber", kyber_sass, "dot_kernel<0>", 2 * KYBER_K, f"K = {KYBER_K} fresh")
+    print_loops("kyber", kyber_sass, "dot_kernel<1>", KYBER_K, f"K = {KYBER_K} cached")
     for kernel in ("radix_forward_kernel<8>", "radix_forward_kernel<12>",
                    "radix_forward_kernel<14>", "radix_inverse_kernel<8>",
                    "radix_inverse_kernel<12>", "radix_inverse_kernel<14>",
@@ -708,9 +761,10 @@ def main() -> int:
     # dots (the row passes' 18 and the flat dot's 18) and 9 matvecs,
     # gl64.cu's 36 fused products (the flat product's 18 and the row pass's
     # 18, fresh and cached), 36 fused dots (the flat dot's 18 and the row
-    # pass's 18) and 9 matvec row passes, and nwc32.cu's 7 radix-16 forwards
+    # pass's 18) and 9 matvec row passes, nwc32.cu's 7 radix-16 forwards
     # and 7 inverses (a log n from 8 to 14), 14 fused products and 14 fused
-    # dots (each log n, fresh and cached)
+    # dots (each log n, fresh and cached) and 7 matvecs, and kyber.cu's 2
+    # radix-16 dots (fresh and cached)
     for lib, kernels in (("nwc64", (("transform_kernel", 36), ("product_kernel", 18),
                                     ("cyclic_scaled_kernel", 18), ("forward_scaled_kernel", 9),
                                     ("inverse_scaled_kernel", 9), ("dot_scaled_kernel", 36),
@@ -719,7 +773,9 @@ def main() -> int:
                                    ("forward_scaled_kernel", 9), ("inverse_scaled_kernel", 9),
                                    ("dot_kernel", 36), ("radix_matvec_kernel", 9))),
                          ("nwc32", (("radix_forward_kernel", 7), ("radix_inverse_kernel", 7),
-                                    ("product_kernel", 14), ("dot_kernel", 14)))):
+                                    ("product_kernel", 14), ("dot_kernel", 14),
+                                    ("radix_matvec_kernel", 7))),
+                         ("kyber", (("dot_kernel", 2),))):
         log = libs[lib].with_suffix(".log").read_text()
         for kernel, count in kernels:
             spills = re.findall(rf"Function properties for \S*{kernel}I\S*\n[^\n]*?(\d+) "
@@ -1301,6 +1357,36 @@ def main() -> int:
           f"n = 256 to 16384, q = 8380417, 16580609, 12289: {checks} launches equal in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # nwc32_matvec alone, the matvec's accumulate-and-inverse on the
+    # radix-16 core, on the spectra of s that nwc32_forward makes, against
+    # the plain matvec of s (its own forward): at the forward's n and q,
+    # (k, l) = (1, 1), (4, 4), (8, 8) and (3, 5), B = 1, 3 and 37 (k B output
+    # rows not a multiple of the tile but at k = 8: out's batch row r reads
+    # s's row r alone, so one plain matvec serves the three); s's rows 0, 1
+    # and q - 1 first, A's first row all q - 1
+    t0, checks = time.perf_counter(), 0
+    for q in (8380417, 16580609, 12289):
+        for log_n in range(8, 15):
+            n = 1 << log_n
+            if (q - 1) % (2 * n):
+                continue
+            plan = MxuPlan(make_params(n, q), device)
+            for k, l in ((1, 1), (4, 4), (8, 8), (3, 5)):
+                mat = card_operands(q, n, k * l + 2, gen)[2:].reshape(k, l, n)
+                mat[0, 0] = q - 1
+                spectra = plan.nwc_matvec_spectra_plain(mat.to(torch.int32))
+                s_mv = card_operands(q, n, l * 37, gen).to(torch.int32).reshape(l, -1, n)
+                want = plan.nwc_matvec_cached_plain(s_mv, spectra)
+                for rows in (1, 3, 37):
+                    s_rows = s_mv[:, :rows].contiguous()
+                    fs_mv = plan.nwc_ntt_fwd(s_rows.reshape(-1, n)).reshape(s_rows.shape)
+                    silent_check("nwc32_matvec", f"n={n} q={q} {k} x {l} B={rows}",
+                                 plan._matvec(fs_mv, spectra), want[:, :rows])
+                    checks += 1
+    print(f"kernel vs plain: nwc32_matvec alone, n = 256 to 16384, q = 8380417, 16580609, "
+          f"12289, (k, l) = (1, 1), (4, 4), (8, 8), (3, 5), B = 1, 3, 37: {checks} launches "
+          f"equal in {time.perf_counter() - t0:.1f} s")
+
     # K1a's large-n bodies, and K2's: the four-step at bench.py's p60_32768,
     # B = 256, p60_1048576, B = 4, and the Goldilocks rows of the same shapes
     # (bounds.LARGE_ROWS); its row kernels and column passes against their
@@ -1487,6 +1573,26 @@ def main() -> int:
         A_k = b_k[:, :k].contiguous()
         check_kyber("matvec", "matvec", f"{k}x{k} B={KYBER_SMALL_BATCH}",
                     (s_k, kp.matvec_spectra(A_k)))
+
+    # kyber_dot on its radix-16 core, fresh and cached, K = 1 to 8, B = 1, 3,
+    # 9 (a partial tile of eight rows) and KYBER_BATCH, rows of 0, 1 and
+    # q - 1 first (b's reversed against a's, so 0 meets q - 1)
+    t0, checks = time.perf_counter(), 0
+    kgen = torch.Generator(device).manual_seed(args.seed)
+    for terms in range(1, 9):
+        x3, y3 = (card_operands(kq, kyber.N, terms * kb_, kgen).to(torch.int32)
+                  .reshape(terms, kb_, kyber.N) for _ in range(2))
+        y3[0, :3] = y3[0, :3].flip(0).clone()
+        s3 = kp.spectrum_plain(y3.reshape(-1, kyber.N)).reshape(y3.shape)
+        for rows in (1, 3, 9, kb_):
+            a_r, b_r, s_r = (t[:, :rows].contiguous() for t in (x3, y3, s3))
+            label = f"K={terms} B={rows}"
+            silent_check("kyber_dot", label, kp.dot(a_r, b_r), kp.dot_plain(a_r, b_r))
+            silent_check("kyber_dot", label + " cached", kp.dot_cached(a_r, s_r),
+                         kp.dot_cached_plain(a_r, s_r))
+            checks += 2
+    print(f"kernel vs plain: kyber_dot fresh and cached, K = 1 to 8, B = 1, 3, 9, {kb_}: "
+          f"{checks} launches equal in {time.perf_counter() - t0:.1f} s")
 
     # K2: every gl64 function at goldilocks_4096 (bench.py:147) with rows of
     # 0, 1, q - 1, 2^63 and 2^63 - 1, B = 2048 (the dot at K = 4, B = 512, the
@@ -2103,6 +2209,7 @@ def main() -> int:
                                          plan_gl, inputs_gl, DOT_BATCH)
     timed["nwc32_dot cached"] = nwc_timed("nwc32_dot_cached", P24_4096, "dot_cached", p24,
                                           inputs24, DOT_BATCH)
+    timed["kyber_dot cached"] = kyber_timed("kyber_dot_cached", "dot_cached")
     # the matvecs' accumulate-and-inverse kernels alone (the ops above time
     # the forward of s with them), on the spectra of s that forward makes;
     # beside them the op's plain version

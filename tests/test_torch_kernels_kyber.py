@@ -47,10 +47,13 @@ def residues(shape, seed: int) -> np.ndarray:
     return x
 
 
-def plans(parity_matrices: bool = True):
+def plans(parity_matrices: bool = True, supertile: bool = False):
     jp = JaxKyberPlan()
     jp.parity_matrices = parity_matrices
-    jp.groups_per_step = 1  # keep interpret-mode cost down
+    jp.supertile = supertile
+    # keep interpret-mode cost down: one group a grid step, two for the
+    # super-tile body, whose groups share one matmul
+    jp.groups_per_step = 2 if supertile else 1
     return KyberPlan("cpu"), jp
 
 
@@ -62,13 +65,20 @@ def same(got: torch.Tensor, want) -> bool:
     return np.array_equal(int32_to_uint32(got), np.asarray(want))
 
 
-@pytest.mark.parametrize("parity_matrices", [True, False])
+@pytest.mark.parametrize("parity_matrices", [True, False, "supertile"])
 def test_spectrum_free_ops_match_jax_interpret(parity_matrices):
-    tp, jp = plans(parity_matrices)
+    """Both layouts, and "supertile": K4b's ablation body, the pair layout
+    with ``KyberPlan.supertile = True`` (tpu_ntt/kernels/kyber.py:482-484,
+    ``_poly_mult_kernel_st``), whose ``poly_mult`` runs two groups' rows
+    (130 rows: three groups of 64 and a padded fourth) in one matmul."""
+    supertile = parity_matrices == "supertile"
+    if supertile:
+        parity_matrices = False
+    tp, jp = plans(parity_matrices, supertile)
     # two TPU groups, the second padded: 128 polynomials each in the
     # parity-matrix layout, 64 in the pair layout (which ntt and intt take)
     a, b = residues((130, N), 1), residues((130, N), 2)
-    rows = 130 if parity_matrices else 65
+    rows = 130 if parity_matrices or supertile else 65
     assert same(tp.poly_mult(t(a[:rows]), t(b[:rows])),
                 jp.poly_mult(a[:rows], b[:rows], True))
     assert same(tp.ntt(t(a[:65])), jp.ntt(a[:65], True))

@@ -1,18 +1,21 @@
 """The radix-16 core of ``csrc/nwc32.cu`` (``nwc32_forward``,
-``nwc32_inverse``, and fused on it ``nwc32_product``, ``nwc32_cached`` and
-``nwc32_dot``) modelled on the CPU, and K3's two ablation toggles.
+``nwc32_inverse``, and fused on it ``nwc32_product``, ``nwc32_cached``,
+``nwc32_dot`` and ``nwc32_matvec``) modelled on the CPU, and K3's two
+ablation toggles.
 
 * The lazy arithmetic: a model of the .cu's 32-bit Shoup product
-  (``__umulhi``), CT and GS butterflies, lazy REDC slot, the dot's sum and
-  the stores, with the range asserts the .cu states beside each step (CT
-  lanes below 4q, GS lanes, slot products and the sum below 2q, every word
-  below 2^32), on every pair of 0, 1, q - 1, q, 2q - 1, 4q - 1 and random
+  (``__umulhi``), CT and GS butterflies, lazy REDC slot, the dot's sum, the
+  matvec's REDC of its 64-bit sum and the stores, with the range asserts
+  the .cu states beside each step (CT lanes below 4q, GS lanes, slot
+  products and the sum below 2q, the matvec's REDC of eight products below
+  3q, every word below 2^32), on every pair of 0, 1, q - 1, q, 2q - 1, 4q - 1 and random
   words at DILITHIUM_256's and P24_4096's q = 8380417, q = 16580609,
   FALCON's q = 12289 and q = 2^30 - 2^18 + 1, near the header's bound.
 * The pass schedule: a numpy model of the kernels (which words each thread
   holds in each pass, the exchanges through the tile, the per-pass tables
   of ``mxu64.pass_table`` at four stages a pass, the forward, the inverse's
-  passes in reverse order, the slot, the dot's loop) at n = 256, 4096 and
+  passes in reverse order, the slot, the dot's loop, the matvec's loop and
+  its output rows) at n = 256, 4096 and
   16384, boundary rows 0, 1 and q - 1 first, cyclic and merged tables:
   the forward at scales 1 and 2^32 mod q against ``ntt_fwd_plain``,
   ``nwc_ntt_fwd_plain`` and ``nwc_spectrum_plain``; the inverse
@@ -24,13 +27,20 @@
   interpret mode at DILITHIUM_256 (``nwc_poly_mult``,
   ``nwc_poly_mult_cached``, ``nwc_dot``, ``nwc_dot_cached`` at K = 3), its
   jitted XLA transforms at n = 4096 and 16384, through the layout maps; the
-  shared-memory accesses of every exchange of both directions and of the
+  matvec's accumulate-and-inverse (``radix_matvec_kernel``: words 16t ...
+  16t + 15 of S[j, r] and A[i, j] a loop step, their plain products summed
+  in 64 bits, one REDC, n^-1, the inverse, the k output rows of a batch
+  row adjacent)
+  at (k, l) = (1, 1), (4, 4) and (3, 5) on the spectra of s against
+  ``nwc_matvec_cached_plain`` and the slot sums of JAX's jitted XLA
+  transforms, at DILITHIUM_256 (1, 1) also against ``MxuPlan`` in
+  interpret mode; the shared-memory accesses of every exchange of both directions and of the
   private tiles at every n from 256 to 16384, counted for bank conflicts
   (two ways at most, the last pass's words adjacent, the private tiles
   none).
 * Faked launches on the CPU: ``nwc32_forward``, ``nwc32_inverse``,
-  ``nwc32_product``, ``nwc32_cached`` and ``nwc32_dot`` receive the
-  per-pass tables, ``nwc32_matvec`` the flat ones.
+  ``nwc32_product``, ``nwc32_cached``, ``nwc32_dot`` and ``nwc32_matvec``
+  receive the per-pass tables.
 * JAX's ``MxuPlan`` with ``int8_path=False`` (bf16 limbs) and with
   ``balanced = True`` (tpu_ntt/kernels/mxu.py:103-105) in interpret mode
   at DILITHIUM_256: ``nwc_ntt_fwd``, ``nwc_spectrum`` and
@@ -50,7 +60,8 @@ import torch
 import tpu_ntt.ntt as jntt
 import tpu_ntt.params as jparams
 from tpu_ntt.kernels.mxu import MxuPlan as JaxMxuPlan
-from tpu_ntt_torch.convert import int32_to_uint32, spectra_from_jax, uint32_to_int32
+from tpu_ntt_torch.convert import (int32_to_uint32, matvec_spectra_from_jax, spectra_from_jax,
+                                   uint32_to_int32)
 from tpu_ntt_torch.kernels import mxu64 as kmxu64
 from tpu_ntt_torch.kernels.mxu import RADIX, MxuPlan
 from tpu_ntt_torch.params import DILITHIUM_256, make_params
@@ -145,6 +156,19 @@ def add_sum(acc, p, q):
     return out
 
 
+def redc64(t, q, q_prime):
+    """The matvec's REDC of its 64-bit sum t < 2^63: (t + m q) / 2^32 with
+    m = lo(t) q' mod 2^32 (t + m q below 2^64: no wrap); congruent to
+    t 2^-32, below t / 2^32 + q."""
+    t = np.asarray(t, dtype=np.uint64)
+    assert np.all(t < np.uint64(1 << 63))
+    m = ((t & np.uint64(M32)) * np.uint64(q_prime)) & np.uint64(M32)
+    r = (t + m * np.uint64(q)) >> np.uint64(32)
+    assert np.all(r.astype(object) < t.astype(object) // (1 << 32) + q + 1)
+    assert np.all((r << np.uint64(32)) % np.uint64(q) == t % np.uint64(q))
+    return r
+
+
 def forward_out(x, scale, scale_shoup, q):
     """The forward's store: [0, 4q) -> [0, q), times scale unless it is 1."""
     y = csub(csub(x, 2 * q), q) if scale == 1 else csub(shoup_lazy(x, scale, scale_shoup, q), q)
@@ -162,7 +186,9 @@ def test_lazy_butterflies_hold_their_ranges(q):
     Shoup product in [0, 2q) for any 32-bit word, the CT lanes in [0, 4q),
     the GS lanes, the slot's lazy REDC and the dot's sum in [0, 2q), the
     stores canonical; the butterflies' outputs are x + wy, x - wy and
-    x + y, (x - y) w, the slot's x y 2^-32."""
+    x + y, (x - y) w, the slot's x y 2^-32; the matvec's REDC of 64-bit sums
+    of up to eight products of canonical words (8 (q - 1)^2 first) below 3q
+    and congruent to the sum times 2^-32."""
     rng = np.random.default_rng(q)
     q_prime = (-pow(q, -1, 1 << 32)) % (1 << 32)
     edge = np.array([0, 1, q - 1, q, 2 * q - 1, 4 * q - 1], dtype=np.uint64)
@@ -193,6 +219,15 @@ def test_lazy_butterflies_hold_their_ranges(q):
     for scale in (1, (1 << 32) % q, q - 1):
         got = forward_out(lanes, scale, shoup(scale, q), q)
         assert np.all(got == lanes * np.uint64(scale) % np.uint64(q))
+    # the matvec's 64-bit sums of up to eight products of canonical words,
+    # their worst first: one REDC below 3q, then the scale's product below 2q
+    canon = np.concatenate([np.array([q - 1, 0, 1], dtype=np.uint64),
+                            rng.integers(0, q, 64, dtype=np.uint64)])
+    sums = np.concatenate([[np.uint64(8 * (q - 1) ** 2)],
+                           (canon[:, None] * canon[None, :]).reshape(-1) * np.uint64(8),
+                           rng.integers(0, 8 * q * q, 4096, dtype=np.uint64)])
+    reduced = redc64(sums, q, q_prime)
+    assert np.all(reduced < 3 * q) and np.all(shoup_lazy(reduced, 1, shoup(1, q), q) < 2 * q)
     with pytest.raises(AssertionError):
         ct(np.array([4 * q], dtype=np.uint64), np.zeros(1, np.uint64), 1, shoup(1, q), q)
     with pytest.raises(AssertionError):
@@ -262,11 +297,14 @@ class Launch:
         return [np.where(live, data[np.where(live, row * self.n + i, 0)], 0).astype(np.uint64)
                 for i in pass_words(self.log_n, p, self.t)]
 
-    def store(self, regs: list, p: int) -> torch.Tensor:
+    def store(self, regs: list, p: int, out_row=None) -> torch.Tensor:
+        """Pass p's words to the rows of a (rows, n) tensor: each thread's
+        own row, or ``out_row`` (a row for each thread)."""
         out = np.zeros(self.rows * self.n, dtype=np.uint64)
+        row = self.row if out_row is None else out_row
         for reg, i in enumerate(pass_words(self.log_n, p, self.t)):
             assert np.all(regs[reg][self.live] < self.q)
-            out[(self.row * self.n + i)[self.live]] = regs[reg][self.live]
+            out[(row * self.n + i)[self.live]] = regs[reg][self.live]
         return uint32_to_int32(out.astype(np.uint32).reshape(self.rows, self.n))
 
     def exchange(self, regs: list, written: int, read: int) -> list:
@@ -319,17 +357,17 @@ class Launch:
         assert all(np.all(i == WORDS * self.t + reg) for reg, i in enumerate(last))
         return regs
 
-    def inverse(self, regs: list, tables) -> torch.Tensor:
+    def inverse(self, regs: list, tables, out_row=None) -> torch.Tensor:
         """The inverse from the last pass's registers (lanes in [0, 2q)):
         the passes in reverse order, each after its exchange, then the
         store in natural order at the forward's load positions, one
-        compare."""
+        compare (to ``out_row`` as ``store``)."""
         last = len(self.schedule) - 1
         for p in range(last, -1, -1):
             if p < last:
                 regs = self.exchange(regs, p + 1, p)
             self.run_pass(regs, tables, p, inverse=True)
-        return self.store([csub(v, self.q) for v in regs], 0)
+        return self.store([csub(v, self.q) for v in regs], 0, out_row)
 
 
 def per_pass(plan: MxuPlan, flat: tuple):
@@ -387,6 +425,32 @@ def dot_model(plan: MxuPlan, a: torch.Tensor, b: torch.Tensor, cached: bool) -> 
     return run.inverse([shoup_lazy(s, *scale, run.q) for s in acc], itw)
 
 
+def matvec_model(plan: MxuPlan, fs: torch.Tensor, spectra: torch.Tensor) -> torch.Tensor:
+    """radix_matvec_kernel on the (l, B, n) plain spectra fs of s and the
+    (k, l, n) cached spectra of A: output row o = r * k + i (the k rows of
+    batch row r adjacent, tiling the blocks), a loop step the words 16t ...
+    16t + 15 of S[j, r] and A[i, j] and their plain products added into
+    64-bit sums (below l q^2 < 2^63, no reduction), then one REDC (below
+    3q) and n^-1's lazy Shoup product, the inverse on the merged inverse's
+    per-pass tables and the store to row i * B + r; (k, B, n) out."""
+    (k, l), batch = spectra.shape[:2], fs.shape[1]
+    run = Launch(plan, k * batch)
+    o = np.where(run.live, run.row, 0)
+    r, i = o // k, o % k
+    last = pass_words(run.log_n, len(run.schedule) - 1, run.t)
+    S, A = words(fs).reshape(l, batch, run.n), words(spectra)
+    acc = [np.zeros_like(run.t, dtype=np.uint64) for _ in range(WORDS)]
+    for j in range(l):
+        s_regs = [np.where(run.live, S[j, r, w], 0) for w in last]  # [0, q)
+        a_regs = [np.where(run.live, A[i, j, w], 0) for w in last]  # [0, q), times 2^32
+        assert all(np.all(v < run.q) for v in s_regs + a_regs)
+        acc = [v + x * y for v, x, y in zip(acc, s_regs, a_regs)]
+    assert all(np.all(v <= np.uint64(l * (run.q - 1) ** 2)) for v in acc) and l <= 8
+    regs = [shoup_lazy(redc64(v, run.q, run.q_prime), *plan._scale_cached, run.q) for v in acc]
+    out = run.inverse(regs, per_pass(plan, plan.plan.merged_inv_flat), out_row=i * batch + r)
+    return out.reshape(k, batch, run.n)
+
+
 @functools.lru_cache(maxsize=None)
 def plans(n: int, q: int):
     """The port's plan and JAX's NttPlan at (n, q): DILITHIUM_256's psi at
@@ -410,7 +474,7 @@ def times(plan: MxuPlan, x: torch.Tensor, c: int) -> torch.Tensor:
     return uint32_to_int32(words(x) * np.uint64(c) % np.uint64(plan.p.q))
 
 
-RADIX_ENTRIES = {"forward", "inverse", "product", "cached", "dot"}
+RADIX_ENTRIES = {"forward", "inverse", "product", "cached", "dot", "matvec"}
 
 
 def test_pass_schedule_and_tables_cover_every_stage():
@@ -596,6 +660,48 @@ def test_fused_model_matches_plain_and_jax(n, q, rows):
                           np.asarray(nwc_inv(acc.astype(np.uint32))))
 
 
+@pytest.mark.parametrize("n,q", [(256, DILITHIUM_256.q), (4096, 8380417), (16384, 16580609)])
+def test_matvec_model_matches_plain_and_jax(n, q):
+    """radix_matvec_kernel's model at (k, l) = (1, 1), (4, 4) and (3, 5) on
+    B = 3 rows of s (B = 1 at n = 16384: a partial block of eight output
+    rows below n = 2048), s's rows 0, 1 and q - 1 first and A's first row
+    all q - 1, on the spectra of s the forward makes: against
+    ``nwc_matvec_cached_plain`` and the slot sums of JAX's jitted XLA
+    forward (s and A, their rows padded to 32 to share one jit) and
+    inverse (padded to 16); at DILITHIUM_256 (1, 1) also against JAX's
+    ``MxuPlan.nwc_matvec_cached`` in interpret mode, its blocks through
+    ``matvec_spectra_from_jax``."""
+    plan, _ = plans(n, q)
+    batch = 1 if n == 16384 else 3
+    nwc_fwd, nwc_inv, _, _ = jax_transforms(n, q)
+    qq = np.uint64(q)
+
+    def padded(f, x, rows):
+        return np.asarray(f(np.concatenate([x, np.zeros((rows - len(x), n), np.uint32)])))[
+            :len(x)].astype(np.uint64)
+
+    for k, l in ((1, 1), (4, 4), (3, 5)):
+        s_np = operands(q, (l, batch, n), seed=n + k)
+        a_np = operands(q, (k, l, n), seed=n + l)
+        a_np[0, 0] = q - 1
+        s, A = uint32_to_int32(s_np), uint32_to_int32(a_np)
+        spectra = plan.nwc_matvec_spectra_plain(A)
+        fs = plan.nwc_ntt_fwd_plain(s.reshape(-1, n)).reshape(s.shape)
+        got = matvec_model(plan, fs, spectra)
+        assert torch.equal(got, plan.nwc_matvec_cached_plain(s, spectra)), (k, l)
+        f = padded(nwc_fwd, np.concatenate([s_np.reshape(-1, n), a_np.reshape(-1, n)]), 32)
+        fs_j, fa_j = f[:l * batch].reshape(l, batch, n), f[l * batch:].reshape(k, l, n)
+        acc = (fa_j[:, :, None] * fs_j[None] % qq).sum(axis=1) % qq  # (k, B, n)
+        want = padded(nwc_inv, acc.reshape(-1, n).astype(np.uint32), 16)
+        assert np.array_equal(int32_to_uint32(got).reshape(-1, n), want), (k, l)
+        if n == 256 and (k, l) == (1, 1):
+            jm = jax_mxu()
+            blocks = jm.nwc_matvec_spectra(a_np, interpret=True)
+            assert torch.equal(matvec_spectra_from_jax(blocks, n), spectra)
+            assert np.array_equal(int32_to_uint32(got), np.asarray(
+                jm.nwc_matvec_cached(s_np, blocks, interpret=True)))
+
+
 # ---------------------------------------------------------------------------
 # The launch path, faked on the CPU
 # ---------------------------------------------------------------------------
@@ -610,7 +716,7 @@ def test_forward_launches_with_per_pass_tables(monkeypatch):
     one on the cyclic tables), nwc32_cached and nwc32_dot (fresh and
     cached) both tables, forward and inverse; nwc32_inverse the inverse's
     (ntt_inv the cyclic, nwc_ntt_inv the merged), with n^-1; nwc32_matvec
-    alone gets the flat tables."""
+    the merged inverse's, with k, l, B and n^-1."""
     plan = MxuPlan(DILITHIUM_256, "cpu")
     calls = []
     monkeypatch.setattr(plan, "_runs_plain", lambda x: False)
@@ -628,7 +734,7 @@ def test_forward_launches_with_per_pass_tables(monkeypatch):
             (plan.nwc_spectrum, (a,), [("forward", pm)]),
             (plan.nwc_matvec_spectra, (a3,), [("forward", pm)]),
             (plan.nwc_matvec_cached, (a3, a3.reshape(1, 2, 256)), [("forward", pm),
-                                                                   ("matvec", imerged)]),
+                                                                   ("matvec", pim)]),
             (plan.nwc_poly_mult, (a, a), [("product", pm + pim)]),
             (plan.cyclic_poly_mult, (a, a), [("product", pc + pic)]),
             (plan.nwc_poly_mult_cached, (a, a), [("cached", pm + pim)]),
@@ -651,6 +757,9 @@ def test_forward_launches_with_per_pass_tables(monkeypatch):
                 assert got[at + 5:at + 7] == plan._scale_cached  # n^-1 and its companion
             if entry == "dot":
                 assert got[at + 4:at + 7] == (2, 1, 8) and got[-1] == (fn == plan.nwc_dot_cached)
+            if entry == "matvec":  # k, l, B, log n, q, q', n^-1 and its companion
+                assert got[at + 2:at + 6] == (1, 2, 1, 8)
+                assert got[at + 8:at + 10] == plan._scale_cached
 
 
 # ---------------------------------------------------------------------------

@@ -878,13 +878,16 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
     tables (the shared ``ScaledKernelPlan.ntt_inv_scaled``,
     ``ScaledKernelPlan.matvec_scaled`` and ``KernelPlan._matvec`` route by
     ``pass_entries``); nwc64_matvec_scaled on nwc64.cu's first core the flat
-    cyclic inverse table, and gl64_matvec and nwc32_matvec, on their files'
-    first cores, the flat merged inverse tables."""
+    cyclic inverse table, gl64_matvec on gl64.cu's first core the flat
+    merged inverse table, and nwc32_matvec, on nwc32.cu's radix-16 core,
+    the merged inverse table in its per-pass layout (four stages a
+    pass)."""
     assert {"cyclic_scaled", "cached_scaled", "dot_scaled", "forward_scaled", "inverse_scaled",
             "dot", "matvec"} <= MxuPlan64.pass_entries
     assert {"forward_scaled", "dot", "dot_scaled", "inverse_scaled", "matvec_scaled"} <= \
         GoldilocksPlan64.pass_entries
-    assert "matvec" not in GoldilocksPlan64.pass_entries | MxuPlan.pass_entries
+    assert "matvec" not in GoldilocksPlan64.pass_entries
+    assert "matvec" in MxuPlan.pass_entries
     assert "matvec_scaled" not in MxuPlan64.pass_entries
     for cls, gl_cls, n in ((SubPlan64, GoldilocksSubPlan64, 128),
                            (MxuPlan64, GoldilocksPlan64, 256)):
@@ -955,7 +958,9 @@ def test_row_passes_launch_with_per_pass_tables(monkeypatch):
     s24 = torch.ones((2, 2, 256), dtype=torch.int32)
     plan24.nwc_matvec_cached(s24, s24[:1])
     assert all(x is y for x, y in zip(calls["matvec"][3:5],
-                                      _plan._table(plan24.plan.merged_inv_flat)))
+                                      plan24._transform_table(plan24.plan.merged_inv_flat)))
+    assert all(torch.equal(x, y) for x, y in zip(
+        calls["matvec"][3:5], kmxu64.pass_table(plan24.plan.merged_inv_flat, 4)))
 
 
 # ---------------------------------------------------------------------------

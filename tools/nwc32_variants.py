@@ -13,14 +13,16 @@ then ``nwc32_forward`` on merged tables at P24_4096, B = 2048 (scale 1 and
 the same four shapes; the fused ``nwc32_product`` and ``nwc32_cached``
 at the same four shapes (DILITHIUM_256 at B = 8192); and the fused
 ``nwc32_dot`` at K = 4, fresh and cached, at P24_4096 (B = 512),
-DILITHIUM_256 (B = 2048) and n = 16384 (B = 128), run under every variant
-in turns, each timed by CUDA events: the best of three runs of 50
+DILITHIUM_256 (B = 2048) and n = 16384 (B = 128), and the matvec's
+accumulate-and-inverse ``nwc32_matvec`` at 4 x 4 on the spectra of s at
+DILITHIUM_256 (B = 8192, the main path's), P24_4096 (B = 256) and
+n = 16384 (B = 64), run under every variant in turns, each timed by CUDA events: the best of three runs of 50
 launches, over two rounds.  A variant marked wrong computes other
 integers: its time says what the work it drops costs, nothing else; every
 other variant must give the base's integers.  ``--against`` builds an
 earlier nwc32.cu beside them (its entry points of ``AGAINST_FLAT`` reading
 the flat tables: the first core's), times it in the same turns, holds it
-to the base's integers and counts the instructions its first-core inverse
+to the base's integers and counts the instructions its first-core matvec
 issues after its first barrier at n = 256, 4096 and 16384.
 ``--build-only`` and ``--only`` as there.  Needs a CUDA device and nvcc;
 prints the card's name and power limit.
@@ -85,6 +87,58 @@ B_IN_OUTPUT_ROW = [
      B_STORE.replace("spectrum[own<kLogN>(r)] =", "x[r] =")
      + "    store_words(x, out, at, t, live);  // words 16t ... 16t + 15\n    __syncthreads();"),
     (B_READ, "    spectrum_words<kLogN, true>(y, kCached ? b : out, spectrum, ai, ti, m, live);\n")]
+# the matvec's first version in this core: a REDC and a compare a word and
+# term, the 32-bit sum below 2q in a private tile (word w of thread i at
+# w * threads + i, the launch's second tile), all sixteen words a step
+MATVEC_LOOP = (
+    '  uint32_t x[kWords];\n'
+    '#pragma unroll\n'
+    '  for (int h = 0; h < 2; ++h) {  // words 16t + 8h ... 16t + 8h + 7\n'
+    '    uint64_t sum[kHalf];\n'
+    '#pragma unroll\n'
+    '    for (int w = 0; w < kHalf; ++w) {\n'
+    '      sum[w] = 0;\n'
+    '    }\n'
+    '#pragma unroll 1\n'
+    '    for (int j = 0; j < cols; ++j) {\n'
+    '      const uint4* s = reinterpret_cast<const uint4*>(\n'
+    '          spectra + (static_cast<size_t>(j) * batch + r) * kN + kWords * t + kHalf * h);\n'
+    '      const uint4* a = reinterpret_cast<const uint4*>(\n'
+    '          mat + (static_cast<size_t>(i) * cols + j) * kN + kWords * t + kHalf * h);\n'
+    '#pragma unroll\n'
+    '      for (int m = 0; m < 2; ++m) {\n'
+    '        const uint4 sv = live ? s[m] : make_uint4(0, 0, 0, 0);  // [0, q)\n'
+    '        const uint4 av = live ? a[m] : make_uint4(0, 0, 0, 0);  // [0, q), times 2^32\n'
+    '        uint64_t* const z = sum + 4 * m;  // below 8 q^2 < 2^63 after eight terms\n'
+    '        z[0] += static_cast<uint64_t>(sv.x) * av.x;\n'
+    '        z[1] += static_cast<uint64_t>(sv.y) * av.y;\n'
+    '        z[2] += static_cast<uint64_t>(sv.z) * av.z;\n'
+    '        z[3] += static_cast<uint64_t>(sv.w) * av.w;\n'
+    '      }\n'
+    '    }\n'
+    '#pragma unroll\n'
+    '    for (int w = 0; w < kHalf; ++w) {  // below 3q -> [0, 2q)\n'
+    '      x[kHalf * h + w] = shoup_lazy(redc64(sum[w], q, q_prime), scale, scale_shoup, q);\n'
+    '    }\n'
+    '  }\n')
+MATVEC_MONTGOMERY = [
+    (MATVEC_LOOP,
+     "  uint32_t* const sum = smem + kTile * kN;\n#pragma unroll\n"
+     "  for (int w = 0; w < kWords; ++w) {\n    sum[own<kLogN>(w)] = 0;\n  }\n"
+     "#pragma unroll 1\n  for (int j = 0; j < cols; ++j) {\n"
+     "    uint32_t s[kWords], a[kWords];\n"
+     "    load_words(s, spectra, (static_cast<size_t>(j) * batch + r) * kN, t, live);\n"
+     "    load_words(a, mat, (static_cast<size_t>(i) * cols + j) * kN, t, live);\n"
+     "#pragma unroll\n    for (int w = 0; w < kWords; ++w) {\n"
+     "      const int e = own<kLogN>(w);\n"
+     "      sum[e] = csub(sum[e] + mont_lazy(s[w], a[w], q, q_prime), 2 * q);\n    }\n  }\n"
+     "  uint32_t x[kWords];\n#pragma unroll\n  for (int w = 0; w < kWords; ++w) {\n"
+     "    x[w] = shoup_lazy(sum[own<kLogN>(w)], scale, scale_shoup, q);\n  }\n"),
+    ("    return launch_rows<L>(radix_matvec_kernel<L>, 1, rows * batch,",
+     "    return launch_rows<L>(radix_matvec_kernel<L>, 2, rows * batch,")]
+MATVEC_BOUNDS = ("__launch_bounds__(block_threads(kLogN), fused_blocks(kLogN))\n"
+                 "    radix_matvec_kernel(")
+MATVEC_ROWS = "  const int r = live ? o / rows : 0, i = live ? o % rows : 0;  // batch row, row of A"
 # the dot's sum in sixteen registers, not in its private tile
 SUM_IN_REGISTERS = [
     ("  uint32_t x[kWords];\n#pragma unroll\n  for (int r = 0; r < kWords; ++r) {\n"
@@ -114,6 +168,21 @@ VARIANTS = {
     "sum in registers at 512": (
         "the same, the dot at 512 threads an SM", SUM_IN_REGISTERS + [
             (DOT_BOUNDS, DOT_BOUNDS.replace("fused_blocks(kLogN)", HALF_BLOCKS))], True),
+    "matvec Montgomery": ("the matvec's first version: a REDC and a compare a word and term, "
+                          "the sum below 2q in a private tile, not 64-bit sums of plain "
+                          "products in two halves", MATVEC_MONTGOMERY, True),
+    "matvec steps unrolled": ("the matvec's loop over j unrolled twice (two terms' loads in "
+                              "flight)", [("#pragma unroll 1\n    for (int j = 0; j < cols; ++j) {",
+                                           "#pragma unroll 2\n    for (int j = 0; j < cols; ++j) {")],
+                              True),
+    "matvec at 512": ("the matvec at 512 threads an SM (1024 at n = 16384; 128 registers a "
+                      "thread), not 1024",
+                      [(MATVEC_BOUNDS, MATVEC_BOUNDS.replace("fused_blocks(kLogN)", HALF_BLOCKS))],
+                      True),
+    "matvec batch row fastest": (
+        "the matvec's output row o = i * B + r (the batch row fastest), not r * k + i (the k "
+        "rows of a batch row adjacent)",
+        [(MATVEC_ROWS, "  const int r = live ? o % batch : 0, i = live ? o / batch : 0;")], True),
     "no opaque": ("no fused kernel's phase takes its thread indices and row anew",
                   [(OPAQUE, "  return false;")], True),
     "opaque everywhere": ("every fused kernel's phases take their thread indices and row anew",
@@ -145,17 +214,18 @@ VARIANTS = {
                       "  const bool live = row < rows && rows < 0;\n  const size_t at")], False),
 }
 #: the entry points an --against source runs on the first core's flat tables
-AGAINST_FLAT = ("inverse",)
+AGAINST_FLAT = ("matvec",)
 KERNELS = ("radix_forward_kernelILi12EE", "radix_inverse_kernelILi12EE",
            "product_kernelILi12ELb0EE", "product_kernelILi12ELb1EE", "dot_kernelILi12ELb0EE",
-           "dot_kernelILi12ELb1EE")
+           "dot_kernelILi12ELb1EE", "radix_matvec_kernelILi8EE")
 FUSED = ("radix_forward_kernelILi", "radix_inverse_kernelILi", "product_kernelILi",
-         "dot_kernelILi")
+         "dot_kernelILi", "radix_matvec_kernelILi")
 ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 PRODUCT_TYPES = [ptr] * 7 + [i32] * 2 + [u32] * 4 + [ptr]
 ARGTYPES = {"forward": [ptr] * 4 + [i32] * 2 + [u32] * 3 + [ptr],
             "inverse": [ptr] * 4 + [i32] * 2 + [u32] * 3 + [ptr], "product": PRODUCT_TYPES,
-            "cached": PRODUCT_TYPES, "dot": [ptr] * 7 + [i32] * 3 + [u32] * 4 + [i32, ptr]}
+            "cached": PRODUCT_TYPES, "dot": [ptr] * 7 + [i32] * 3 + [u32] * 4 + [i32, ptr],
+            "matvec": [ptr] * 5 + [i32] * 4 + [u32] * 4 + [ptr]}
 
 
 def main() -> int:
@@ -176,12 +246,13 @@ def main() -> int:
         if opts.against:
             path = Path(tmp) / "libagainst.so"
             libs["against"] = build(opts.against.read_text(), path, "nwc32", ARGTYPES, (), FUSED)
-            # the first core's inverse: n / 4 threads a row (at most 1024), its
+            # the first core's matvec: n / 4 threads a row (at most 1024),
+            # after its accumulation (its first barrier) the inverse's
             # butterfly and stage loops, then its store loop
             def threads(log_n):
                 return min(1 << (log_n - 2), 1024)
 
-            count_against(path, {"inverse_kernel": {
+            count_against(path, {"matvec_kernel": {
                 l: ((1 << l) // 2 // threads(l), l, (1 << l) // threads(l)) for l in (8, 12, 14)}},
                 threads)
         device = torch.device("cuda", 0)
@@ -242,6 +313,21 @@ def main() -> int:
                 cases.append((f"nwc32_dot {p.name} K=4 B={dot_rows}"
                               + (" cached" if cached else ""), "dot", out, *call,
                               (a4, z, tables, flats)))
+        # the matvec's accumulate-and-inverse at 4 x 4 on the spectra of s
+        for p, batch in ((DILITHIUM_256, 8192), (P24_4096, 256),
+                         (make_params(16384, 16580609), 64)):
+            plan = MxuPlan(p, device)
+            s_mv, mat = residues(p, (4, batch, p.n)), residues(p, (4, 4, p.n))
+            fs = plan.nwc_ntt_fwd(s_mv.reshape(-1, p.n)).reshape(s_mv.shape)
+            spectra = plan.nwc_matvec_spectra(mat)
+            iflat = plan.plan.merged_inv_flat  # what --against reads
+            itw = plan._transform_table(iflat)
+            out = torch.empty((4, batch, p.n), dtype=torch.int32, device=device)
+            call = [(fs.data_ptr(), spectra.data_ptr(), out.data_ptr(),
+                     *(w.data_ptr() for w in tt), 4, 4, batch, p.log_n, *plan._q_args(True),
+                     *plan._scale_cached, stream) for tt in (itw, iflat)]
+            cases.append((f"nwc32_matvec {p.name} 4x4 B={batch}", "matvec", out, *call,
+                          (fs, spectra, itw, iflat)))
         times, want = {}, {}
         for _ in range(2):
             for label, entry, out, call, flat_call, _keep in cases:

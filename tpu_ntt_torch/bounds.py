@@ -141,8 +141,8 @@ KYBER_K = 3  # ML-KEM-768, FIPS 203's recommended set
 def kyber_work(entry: str, batch: int, terms: int = KYBER_K) -> tuple[int, int]:
     """(bytes, 32-bit multiplies) of one call of a ``csrc/kyber.cu`` entry
     (``forward`` at scale 1, as ``ntt`` calls it, ``inverse``, ``product``,
-    ``cached``, ``dot`` fresh, ``matvec``) on ``batch`` output rows of 256
-    int32 residues: 7 stages of 128 Shoup butterflies a transform, five
+    ``cached``, ``dot`` fresh, ``dot_cached``, ``matvec``) on ``batch``
+    output rows of 256 int32 residues: 7 stages of 128 Shoup butterflies a transform, five
     Montgomery products a slot of the base case, 256 Shoup scales before
     each inverse.  ``terms`` is the K of the dot and both k and l of the
     matvec, whose count is the whole op: the forwards of s, the base cases
@@ -160,9 +160,10 @@ def kyber_work(entry: str, batch: int, terms: int = KYBER_K) -> tuple[int, int]:
         return 3 * rows, batch * (2 * t * shoup + base + inv)
     if entry == "cached":
         return 3 * rows, batch * (t * shoup + base + inv)
-    if entry == "dot":
+    if entry in ("dot", "dot_cached"):
+        fresh = 2 if entry == "dot" else 1  # operands transformed
         return ((2 * terms + 1) * rows,
-                batch * (2 * terms * t * shoup + terms * base + inv))
+                batch * (fresh * terms * t * shoup + terms * base + inv))
     assert entry == "matvec", entry
     return (2 * terms * rows + terms * terms * n * 4,
             batch * (terms * t * shoup + terms * (terms * base + inv)))

@@ -21,32 +21,21 @@
 // (mxu.py:10-35); none of them is carried over.  Correct for any odd
 // q < 2^30 and 256 <= n <= 16384.
 //
-// Two cores.  nwc32_forward, nwc32_inverse, nwc32_product, nwc32_cached
-// and nwc32_dot run the radix-16 core ("The radix-16 core" below):
-// nwc64.cu's radix-8 schedule on 32-bit lanes, four stages a pass, the
-// products and the dot fused on it.  nwc32_matvec runs the first core,
-// correct first and simple (the shape of nwc64.cu's), until it moves onto
-// the radix-16 one; it reads the spectra in the bit-reversed order the
-// forward writes:
-// * One thread block per output row, the row in dynamic shared memory: 4n
-//   bytes, 64 KiB at n = 16384, so device memory sees each operand and
-//   each result once.  n / 4 threads (at most 1024) run two butterflies
-//   each up to n = 4096.
-// * A Gentleman-Sande inverse (bit-reversed in, natural out), __syncthreads
-//   between stages.  The stage with m groups reads entry m + g of a flat
-//   length-n table for group g, beside its Shoup companion
-//   w' = floor(w * 2^32 / q); a constant multiply is Shoup with __umulhi.
-//   The cyclic ops take the tables with omega powers (ntt.py, "bitrev").
-// * The slot product is Montgomery-32 (one REDC): a*b*2^-32.  Its 2^-32 and
-//   the inverse's n^-1 are cancelled by one Shoup multiply with the scale the
-//   wrapper passes (n^-1 against a cached spectrum, which holds its 2^32).
-// * Every value stays canonical in [0, q), also through the matvec's
-//   accumulation (one conditional subtract after each add).
-// * The matvec keeps the l + k transforms of mxu.py:544-551 without holding
-//   l + 1 rows in shared memory (576 KiB at n = 16384, l = 8): the wrapper
-//   transforms the l * B rows of s with nwc32_forward (the radix-16 core)
-//   into a scratch tensor, and nwc32_matvec accumulates sum_j REDC(S_j *
-//   A_ij) from device memory and runs one inverse per output row.
+// One core, the radix-16 one ("The radix-16 core" below): nwc64.cu's
+// radix-8 schedule on 32-bit lanes, four stages a pass in registers.
+// nwc32_forward and nwc32_inverse run it alone; nwc32_product, nwc32_cached
+// and nwc32_dot fuse their forwards, the slot products and the inverse on
+// it; nwc32_matvec is the matvec's accumulate-and-inverse on it.  Spectra
+// are in the bit-reversed order the forward writes; the cyclic ops take the
+// tables with omega powers (ntt.py, "bitrev").  The slot product is
+// Montgomery-32 (one REDC): a*b*2^-32.  Its 2^-32 and the inverse's n^-1
+// are cancelled by one Shoup multiply with the scale the wrapper passes
+// (n^-1 against a cached spectrum, which holds its 2^32).  The matvec keeps
+// the l + k transforms of mxu.py:544-551 without holding l + 1 rows in
+// shared memory (576 KiB at n = 16384, l = 8): the wrapper transforms the
+// l * B rows of s with nwc32_forward into a scratch tensor, and
+// nwc32_matvec sums S_j * A_ij from device memory, one REDC of the sum a
+// word, and runs one inverse per output row.
 //
 // What bounds it on this card.  Per transform of one row, n/2 log2 n
 // butterflies, each one Shoup multiply: a*w and hi(a*w'), two 32-bit
@@ -54,13 +43,14 @@
 // and adds.  At P24_4096, B = 2048, the product's 3 transforms and slot pass
 // need 3.4e8 IMADs, 0.021 ms at 132 SMs x 64 IMADs a clock x 1.98 GHz,
 // against 101 MB of operands and result, 0.030 ms at 3.35 TB/s: device
-// memory bounds it, and the fused kernels move nothing twice.  What holds
-// the first core back is neither: a butterfly is about 30 instructions
-// (index arithmetic, shared loads and stores, twiddle loads, conditional
-// subtracts) between 12 barriers a transform, and on an H100 SXM at 700 W
-// its inverse took about 5.5x its bound (PERF.md).  The radix-16 core's
-// header says what it does about each; a forward alone moves 67 MB at
-// P24_4096, B = 2048 (0.020 ms) and needs 1.0e8 IMADs (0.006 ms).
+// memory bounds it, and the fused kernels move nothing twice.  A forward
+// alone moves 67 MB at P24_4096, B = 2048 (0.020 ms) and needs 1.0e8 IMADs
+// (0.006 ms).  A core of one butterfly a thread between barriers, a
+// butterfly of about 30 instructions (index arithmetic, shared loads and
+// stores, twiddle loads, conditional subtracts) between 12 barriers a
+// transform, took about 5.5x the bound for its inverse on an H100 SXM at
+// 700 W (PERF.md); the radix-16 core's header says what it does about
+// each.
 
 #include <cstdint>
 #include <initializer_list>
@@ -69,90 +59,16 @@
 
 namespace {
 
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t q) {
-  const uint32_t s = a + b;  // a, b < q < 2^31: no wrap
-  return s >= q ? s - q : s;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t q) {
-  return a >= b ? a - b : a + q - b;
-}
-
-// a * w mod q for a constant w with w_shoup = floor(w * 2^32 / q).
-__device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
-                                              uint32_t w_shoup, uint32_t q) {
-  const uint32_t r = a * w - __umulhi(a, w_shoup) * q;  // in [0, 2q)
-  return r >= q ? r - q : r;
-}
-
-// REDC(a * b) = a * b * 2^-32 mod q, with q_prime = -q^-1 mod 2^32.
-__device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b, uint32_t q,
-                                             uint32_t q_prime) {
-  const uint64_t t = static_cast<uint64_t>(a) * b;
-  const uint32_t m = static_cast<uint32_t>(t) * q_prime;
-  // t + m*q < 2^62 + 2^63 and is 0 mod 2^32; the quotient is below 2q.
-  const uint32_t r =
-      static_cast<uint32_t>((t + static_cast<uint64_t>(m) * q) >> 32);
-  return r >= q ? r - q : r;
-}
-
 struct Table {
   const uint32_t* w;
   const uint32_t* w_shoup;
 };
 
-// Gentleman-Sande inverse of one row, in place: the forward's stages in
-// reverse order.  No n^-1: the caller's scale carries it.
-__device__ void inverse(uint32_t* x, int log_n, Table itw, uint32_t q) {
-  const int n = 1 << log_n;
-  for (int s = log_n - 1; s >= 0; --s) {
-    const int lt = log_n - 1 - s;
-    for (int j = threadIdx.x; j < n / 2; j += blockDim.x) {
-      const int g = j >> lt;
-      const int u = (g << (lt + 1)) | (j & ((1 << lt) - 1));
-      const int v = u + (1 << lt);
-      const uint32_t w = __ldg(itw.w + (1 << s) + g);
-      const uint32_t ws = __ldg(itw.w_shoup + (1 << s) + g);
-      const uint32_t xu = x[u], xv = x[v];
-      x[u] = add_mod(xu, xv, q);
-      x[v] = shoup_mul(sub_mod(xu, xv, q), w, ws, q);
-    }
-    __syncthreads();
-  }
-}
-
-// out[i, r] = INTT(sum_j S[j, r] . A[i, j]) for block (r, i): S is the
-// (cols, batch, n) stack of plain spectra of s, A the (rows, cols, n) cached
-// spectra (times 2^32), so each REDC gives the plain product.
-__global__ void matvec_kernel(const uint32_t* __restrict__ spectra,
-                              const uint32_t* __restrict__ mat,
-                              uint32_t* __restrict__ out, Table itw, int cols,
-                              int batch, int log_n, uint32_t q, uint32_t q_prime,
-                              uint32_t scale, uint32_t scale_shoup) {
-  extern __shared__ uint32_t x[];
-  const int n = 1 << log_n;
-  const size_t r = blockIdx.x, i = blockIdx.y;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    uint32_t acc = 0;
-    for (int j = 0; j < cols; ++j) {
-      const uint32_t s = spectra[(j * batch + r) * n + e];
-      const uint32_t m = __ldg(mat + (i * cols + j) * n + e);
-      acc = add_mod(acc, mont_mul(s, m, q, q_prime), q);
-    }
-    x[e] = shoup_mul(acc, scale, scale_shoup, q);
-  }
-  __syncthreads();
-  inverse(x, log_n, itw, q);
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    out[(i * batch + r) * n + e] = x[e];
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The radix-16 core: nwc32_forward, nwc32_inverse, and fused on it
-// nwc32_product, nwc32_cached and nwc32_dot.  The schedule of nwc64.cu's
-// radix-8 core on 32-bit lanes, the same integers as the first core (a
-// canonical result is unique) in the same orders, by another schedule:
+// nwc32_product, nwc32_cached, nwc32_dot and nwc32_matvec.  The schedule of
+// nwc64.cu's radix-8 core on 32-bit lanes; a canonical result is unique, so
+// it computes the integers of the plain versions in their orders:
 // * Passes in registers.  A thread holds kWords = 16 words, 16 registers as
 //   nwc64.cu's eight 64-bit ones, and a pass runs four stages on them with
 //   no barrier between them: stage s + d of a radix-16 group pairs its
@@ -162,9 +78,10 @@ __global__ void matvec_kernel(const uint32_t* __restrict__ spectra,
 //   it is the pass at stage 0, where every group has the same twiddles.
 //   The inverse runs the passes in reverse order, each pass's stages
 //   reversed.  Shapes, pass stages and table offsets are template constants
-//   (kLogN): one kernel a log n from 8 to 14, every loop but the dot's
-//   unrolled.  Sixteen words a thread keep n = 16384 at 1024 threads a row,
-//   where eight would need 2048: every n of the window runs the same core.
+//   (kLogN): one kernel a log n from 8 to 14, every loop but the dot's and
+//   the matvec's (over their terms) unrolled.  Sixteen words a thread keep
+//   n = 16384 at 1024 threads a row, where eight would need 2048: every n
+//   of the window runs the same core.
 // * Device memory once.  A forward's first pass loads straight from device
 //   memory (register k of group j is element k * n / 2^stages + j: a warp's
 //   4-byte loads cover 128 contiguous bytes of a row), and the inverse's
@@ -707,9 +624,86 @@ __global__ void __launch_bounds__(block_threads(kLogN), fused_blocks(kLogN))
   inverse_row<kLogN>(x, out, at, smem, itw, opaque<kOpaque>(g), opaque<kOpaque>(t), live, q);
 }
 
-int threads_for(int log_n) {
-  const int quarter = 1 << (log_n - 2);
-  return quarter < 1024 ? quarter : 1024;
+// REDC of a 64-bit sum: (t + m q) / 2^32 with m = lo(t) q' mod 2^32, for
+// t < 2^63 (no wrap: m q < 2^62); congruent to t 2^-32 and below
+// t / 2^32 + q.
+__device__ __forceinline__ uint32_t redc64(uint64_t t, uint32_t q, uint32_t q_prime) {
+  const uint32_t m = static_cast<uint32_t>(t) * q_prime;
+  return static_cast<uint32_t>((t + static_cast<uint64_t>(m) * q) >> 32);
+}
+
+// The matvec's accumulate-and-inverse (nwc32_matvec, K3c): out[i, r] =
+// INTT(sum_j S[j, r] o A[i, j]) * scale for the (cols, batch, n) plain
+// spectra S of s (the wrapper's nwc32_forward) and the (rows, cols, n)
+// cached spectra A (times 2^32, so one REDC of the sum gives the plain
+// products' sum), on the merged inverse's per-pass tables.  nwc64.cu's
+// matvec schedule (nwc64_matvec) on this core: thread t of output row (i, r) sums
+// words 16t ... 16t + 15 of S[j, r] o A[i, j] over j; both are canonical
+// bit-reversed spectra, and those are the words the inverse's first pass
+// starts from, so no exchange comes before it.  Then `scale` one lazy
+// Shoup product and inverse_row: the passes, one compare, the
+// natural-order store.  The k output rows of one batch row r are adjacent
+// (output row o = r * rows + i, rows tiling a block as in the transforms),
+// so the words of S a block reads come from device memory once and from L1
+// or L2 k - 1 times; A (k l n words, 16 KiB at DILITHIUM_256 4 x 4) stays
+// in L1 and L2.
+// * The sum in plain products: s a < q^2 < 2^60, so the sum of l <= 8
+//   terms stays below 8 q^2 < 2^63 in 64 bits, one multiply-add a word and
+//   term (IMAD.WIDE) with no reduction, and one REDC of it after the loop
+//   (below 8 q^2 / 2^32 + q < 3q for q < 2^30; the scale's lazy Shoup
+//   product takes any word to [0, 2q)), where a REDC and a compare a term
+//   were.
+// * In two halves: eight 64-bit sums and a term's two 16-byte vectors of S
+//   and of A fit 64 registers a thread beside the first half's results, so
+//   the loop over j runs for words 16t ... 16t + 7, then for 16t + 8 ...
+//   16t + 15 (each half a whole 32-byte sector of each row).  Sixteen
+//   32-bit sums with one REDC and a compare a term, in registers beside a
+//   term's 32 words, spilled 4 bytes at every log n at 64 registers a
+//   thread (1024 threads an SM); tools/nwc32_variants.py times 512 threads
+//   an SM and the batch row fastest beside this (PERF.md).
+template <int kLogN>
+__global__ void __launch_bounds__(block_threads(kLogN), fused_blocks(kLogN))
+    radix_matvec_kernel(const uint32_t* __restrict__ spectra, const uint32_t* __restrict__ mat,
+                        uint32_t* __restrict__ out, Table itw, int rows, int cols, int batch,
+                        uint32_t q, uint32_t q_prime, uint32_t scale, uint32_t scale_shoup) {
+  extern __shared__ uint32_t smem[];
+  constexpr int kN = 1 << kLogN, kPer = kN / kWords, kTile = tile(kLogN), kHalf = kWords / 2;
+  const int g = threadIdx.x / kPer, t = threadIdx.x % kPer;
+  const int o = blockIdx.x * kTile + g;
+  const bool live = o < rows * batch;
+  const int r = live ? o / rows : 0, i = live ? o % rows : 0;  // batch row, row of A
+  uint32_t x[kWords];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // words 16t + 8h ... 16t + 8h + 7
+    uint64_t sum[kHalf];
+#pragma unroll
+    for (int w = 0; w < kHalf; ++w) {
+      sum[w] = 0;
+    }
+#pragma unroll 1
+    for (int j = 0; j < cols; ++j) {
+      const uint4* s = reinterpret_cast<const uint4*>(
+          spectra + (static_cast<size_t>(j) * batch + r) * kN + kWords * t + kHalf * h);
+      const uint4* a = reinterpret_cast<const uint4*>(
+          mat + (static_cast<size_t>(i) * cols + j) * kN + kWords * t + kHalf * h);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint4 sv = live ? s[m] : make_uint4(0, 0, 0, 0);  // [0, q)
+        const uint4 av = live ? a[m] : make_uint4(0, 0, 0, 0);  // [0, q), times 2^32
+        uint64_t* const z = sum + 4 * m;  // below 8 q^2 < 2^63 after eight terms
+        z[0] += static_cast<uint64_t>(sv.x) * av.x;
+        z[1] += static_cast<uint64_t>(sv.y) * av.y;
+        z[2] += static_cast<uint64_t>(sv.z) * av.z;
+        z[3] += static_cast<uint64_t>(sv.w) * av.w;
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kHalf; ++w) {  // below 3q -> [0, 2q)
+      x[kHalf * h + w] = shoup_lazy(redc64(sum[w], q, q_prime), scale, scale_shoup, q);
+    }
+  }
+  const size_t at = live ? (static_cast<size_t>(i) * batch + r) * kN : 0;
+  inverse_row<kLogN>(x, out, at, smem, itw, g, t, live, q);
 }
 
 bool bad_shape(int batch, int log_n) {
@@ -820,10 +814,9 @@ int launch_dot(const void* a, const void* b, void* out, const void* tw, const vo
 // Every entry point launches on `stream`, which must belong to the current
 // device, and returns the CUDA error code (0 on success).  A launch the
 // device refuses (too much shared memory, a bad shape, a misaligned
-// pointer) never runs, so the caller must check the code.  The radix-16
-// entry points (product, cached, forward, inverse, dot) read their tables
-// (w, w') in the per-pass layout of mxu64.pass_table at four stages a pass;
-// the first core's (matvec) the flat tables.
+// pointer) never runs, so the caller must check the code.  Every entry
+// point reads its tables (w, w') in the per-pass layout of mxu64.pass_table
+// at four stages a pass.
 
 // out = INTT(NTT(a) o NTT(b)) * scale on (batch, n) rows, fused on the
 // radix-16 core; rows 16-byte aligned, tables 8-byte aligned.
@@ -916,25 +909,37 @@ extern "C" int nwc32_dot(const void* a, const void* b, void* out,
                                                          scale_shoup, stream);
 }
 
+// The matvec's accumulate-and-inverse: the (cols, batch, n) plain spectra
+// of s against the (rows, cols, n) cached spectra of A, 1 <= rows, cols <=
+// 8; (rows, batch, n) out, on the radix-16 core with the merged inverse's
+// per-pass tables; rows 16-byte aligned, tables 8-byte aligned.
 extern "C" int nwc32_matvec(const void* spectra, const void* mat, void* out,
                             const void* itw, const void* itw_shoup, int rows,
                             int cols, int batch, int log_n, uint32_t q,
                             uint32_t q_prime, uint32_t scale,
                             uint32_t scale_shoup, void* stream) {
-  if (bad_shape(batch, log_n) || rows < 1 || rows > 8 || cols < 1 || cols > 8) {
+  if (bad_shape(batch, log_n) || rows < 1 || rows > 8 || cols < 1 || cols > 8 ||
+      batch > 0x7fffffff / rows) {
     return cudaErrorInvalidValue;
   }
-  const int n = 1 << log_n;
-  cudaError_t err = allow_smem(matvec_kernel, n);
-  if (err != cudaSuccess) {
-    return err;
+  if (misaligned({spectra, mat, out}, {itw, itw_shoup})) {
+    return cudaErrorMisalignedAddress;
   }
-  matvec_kernel<<<dim3(batch, rows), threads_for(log_n), n * sizeof(uint32_t),
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(spectra), static_cast<const uint32_t*>(mat),
-      static_cast<uint32_t*>(out), table(itw, itw_shoup), cols, batch, log_n, q,
-      q_prime, scale, scale_shoup);
-  return cudaGetLastError();
+  const uint32_t* ps = static_cast<const uint32_t*>(spectra);
+  const uint32_t* pm = static_cast<const uint32_t*>(mat);
+  uint32_t* po = static_cast<uint32_t*>(out);
+  const Table pitw = table(itw, itw_shoup);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (log_n) {
+#define NWC32_LOG_N(L)                                                                      \
+  case L:                                                                                   \
+    return launch_rows<L>(radix_matvec_kernel<L>, 1, rows * batch, s, ps, pm, po, pitw, rows, \
+                          cols, batch, q, q_prime, scale, scale_shoup);
+    NWC32_LOG_N(8) NWC32_LOG_N(9) NWC32_LOG_N(10) NWC32_LOG_N(11) NWC32_LOG_N(12)
+    NWC32_LOG_N(13) NWC32_LOG_N(14)
+#undef NWC32_LOG_N
+  }
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* nwc32_error_string(int err) {

@@ -62,8 +62,8 @@
 // scales, on the negacyclic tables) and the matvec's accumulate-and-inverse
 // nwc64_matvec (the row inverse with an l-term sum of slot products in
 // place of its one load).  The other one, nwc64_matvec_scaled, runs the
-// first core, correct first and simple (the design of nwc32.cu on 64-bit
-// words), until it moves onto the radix-8 one:
+// first core, correct first and simple (the design of nwc32.cu's first
+// kernels on 64-bit words), until it moves onto the radix-8 one:
 // * One thread block per output row, the row in dynamic shared memory, 8n
 //   bytes, so device memory sees each operand and each result once.  n / 8
 //   threads (at most 1024) run four butterflies each up to n = 8192 (below

@@ -16,7 +16,10 @@ of a row transform as two 128-point negacyclic rows with psi = zeta
 (``HALF_PARAMS``), through ``ntt.nwc_fwd_merged``/``nwc_inv_merged``, whose
 bit-reversed order is the FIPS order; the base case is ``Ring32`` products.
 ``basemul`` and ``ntt_domain_blocks`` are elementwise and stay plain torch
-ops on both devices, as JAX computes them outside any kernel.
+ops on both devices, as JAX computes them outside any kernel.  ``kyber_dot``
+runs a radix-16 core of its own (two passes of Algorithm 9's seven stages,
+``PASSES``) and reads the merged tables in that core's per-pass layout
+(``mxu64.pass_table``); the other five read the flat tables.
 
 The cacheable spectrum (``spectrum``, the blocks of ``matvec_spectra`` and
 ``ntt_domain_blocks``) is the FIPS-order spectrum times 2^32 mod q: JAX's
@@ -38,12 +41,17 @@ from .. import ntt
 from ..params import NttParams, Reduction
 from ..reference import KYBER_N, KYBER_Q, KYBER_ZETA, _br7
 from . import _plan
+from .mxu64 import pass_table
 
 #: the ring each parity class of a row transforms in: 256 | q - 1 and
 #: zeta = 17 is a primitive 256th root, so this is a negacyclic parameter
 #: set at n = 128 (tpu_ntt/kyber.py:55-58)
 HALF_PARAMS = NttParams(n=128, q=KYBER_Q, psi=KYBER_ZETA, name="mlkem_half")
 MAX_TERMS = _plan.MAX_TERMS  # K of the dot, k and l of the matvec (kyber.py:603, :743)
+#: the passes of ``kyber_dot``'s radix-16 core, (first stage, stages) in
+#: forward order: stages 0-3 from device memory, then 4-6 on each thread's
+#: words 16t ... 16t + 15 (csrc/kyber.cu); its tables' per-pass layout
+PASSES = ((0, 4), (4, 3))
 
 #: the C entry points of csrc/kyber.cu, each with its own launch count
 KERNELS = ("kyber_product", "kyber_cached", "kyber_forward", "kyber_inverse",
@@ -109,6 +117,15 @@ class KyberPlan:
         self._scale_cached = self._shoup_pair(half_inv)
         self._scale_spectrum = self._shoup_pair(r)
         self._scale_one = self._shoup_pair(1)
+        # kyber_dot's tables: the forward and inverse ones in the per-pass
+        # layout of its radix-16 core, and gamma_i * 2^32; its scales: its
+        # base case sums plain products, so 128^-1 after two fresh spectra,
+        # 128^-1 2^-32 against a cached one
+        self._dot_tables = (*pass_table(self.plan.merged_flat, schedule=PASSES),
+                            *pass_table(self.plan.merged_inv_flat, schedule=PASSES),
+                            self._gamma_mont)
+        self._dot_scales = (self._shoup_pair(half_inv),
+                            self._shoup_pair(half_inv * pow(r, -1, q) % q))
 
     @staticmethod
     def _shoup_pair(w: int) -> tuple[int, int]:
@@ -292,9 +309,8 @@ class KyberPlan:
         out = a.new_empty((batch, KYBER_N))
         if batch == 0:
             return out
-        scale = self._scale_cached if cached else self._scale_fresh
-        return self._launch("dot", out, a, b, out, *self._tables(), terms, batch,
-                            KYBER_Q, self._q_prime, *scale, int(cached))
+        return self._launch("dot", out, a, b, out, *self._dot_tables, terms, batch,
+                            KYBER_Q, self._q_prime, *self._dot_scales[cached], int(cached))
 
     def _check(self, t: torch.Tensor, name: str, dims: int) -> None:
         _plan.check(t, name, dims, self.dtype, KYBER_N, self.device)
@@ -306,7 +322,8 @@ class KyberPlan:
             raise ValueError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
 
     def _tables(self):
-        """The forward, inverse and gamma tables, in the kernels' order."""
+        """The flat forward, inverse and gamma tables, in the kernels' order
+        (every entry point but the dot's)."""
         return (*self.plan.merged_flat, *self.plan.merged_inv_flat, self._gamma_mont)
 
     def _product(self, entry, a, b, scale):

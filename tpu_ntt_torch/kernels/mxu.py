@@ -14,10 +14,10 @@ The ops, their plain versions, the launch counts and the spectrum layout
 ``nwc32_forward`` (the forwards, the spectrum, and the matvec's transform
 of s) and ``nwc32_inverse`` (both inverses) run that file's radix-16 core,
 passes of four stages in registers, and ``nwc32_product`` (the negacyclic
-and cyclic products), ``nwc32_cached`` and ``nwc32_dot`` (fresh and
-cached) are fused on it: all five read the per-pass layout of
-``mxu64.pass_table`` with ``RADIX`` stages a pass (``MxuPlan.pass_entries``);
-``nwc32_matvec`` reads the flat tables.
+and cyclic products), ``nwc32_cached``, ``nwc32_dot`` (fresh and cached)
+and ``nwc32_matvec`` (the matvec's accumulate-and-inverse) are fused on it:
+all six read the per-pass layout of ``mxu64.pass_table`` with ``RADIX``
+stages a pass (``MxuPlan.pass_entries``).
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ class MxuPlan(KernelPlan):
             return f"MxuPlan requires width <= 24, q < 2^24 (got {p.width}-bit q)"
         return f"n={p.n} must be a multiple of 128 in [256, 16384]"
 
-    pass_entries = frozenset({"forward", "inverse", "product", "cached", "dot"})
+    pass_entries = frozenset({"forward", "inverse", "product", "cached", "dot", "matvec"})
 
     def _transform_table(self, flat: tuple) -> tuple:
         """The per-pass layout of the flat table (w, w') for the radix-16

@@ -75,16 +75,23 @@ def passes(log_n: int, radix: int = 3) -> list[tuple[int, int]]:
     return [(0, first)] + [(s, radix) for s in range(first, log_n, radix)]
 
 
-@functools.lru_cache(maxsize=None)
 def pass_indices(log_n: int, radix: int = 3) -> np.ndarray:
-    """The flat-table index of each word of ``pass_table``.  Pass (s, r)
+    """The flat-table index of each word of ``pass_table`` for the passes
+    of ``passes(log_n, radix)``."""
+    return schedule_indices(tuple(passes(log_n, radix)))
+
+
+@functools.lru_cache(maxsize=None)
+def schedule_indices(schedule: tuple) -> np.ndarray:
+    """The flat-table index of each word of the per-pass layout of the
+    passes ``schedule``, ((first stage, stages), ...) in forward order.  Pass (s, r)
     holds 2^(r - 1) columns of 2^s pairs, the pair of column c and group
     hi at words 2 * (c * 2^s + hi) and + 1 after the earlier passes' words:
     word 2c + h of a group is stage s's twiddle for h = c = 0 (then a pad,
     entry 0, never read), else stage s + d's u-th twiddle of the group,
     flat entry 2^(s + d) + hi * 2^d + u, with 2c + h = 2^d + u."""
     idx = []
-    for s, r in passes(log_n, radix):
+    for s, r in schedule:
         col, hi, half = np.meshgrid(np.arange(1 << (r - 1)), np.arange(1 << s),
                                     np.arange(2), indexing="ij")
         word = 2 * col + half
@@ -96,16 +103,19 @@ def pass_indices(log_n: int, radix: int = 3) -> np.ndarray:
     return np.concatenate(idx)
 
 
-def pass_table(flat, radix: int = 3) -> tuple:
+def pass_table(flat, radix: int = 3, schedule: tuple | None = None) -> tuple:
     """The flat twiddle table of a transform of n points (stage s's group g
     at entry 2^s + g), a Shoup pair (w, w') or the plain w of Goldilocks,
-    in a radix core's per-pass layout (``radix`` stages a pass): a tuple of
+    in a radix core's per-pass layout (``radix`` stages a pass, or the
+    passes ``schedule``, as ``schedule_indices`` takes them): a tuple of
     contiguous tensors on its device, each stage's twiddles of a group in
     pairs (16 bytes of 64-bit words, 8 of 32-bit ones), a warp's loads
-    contiguous (csrc/nwc64.cu, csrc/gl64.cu, csrc/nwc32.cu)."""
+    contiguous (csrc/nwc64.cu, csrc/gl64.cu, csrc/nwc32.cu, kyber.cu's
+    dot)."""
     flat = flat if isinstance(flat, tuple) else (flat,)
     log_n = flat[0].shape[0].bit_length() - 1
-    idx = torch.from_numpy(pass_indices(log_n, radix)).to(flat[0].device)
+    idx = schedule_indices(schedule) if schedule else pass_indices(log_n, radix)
+    idx = torch.from_numpy(idx).to(flat[0].device)
     return tuple(t[idx].contiguous() for t in flat)
 
 
